@@ -1,0 +1,26 @@
+"""Sequence pooling over the step/node axis (counterpart of `trafficbotsv15_tpu/ops/pooling.py`)."""
+
+from __future__ import annotations
+
+import torch
+
+_NEG = -1e9  # large-negative fill; keeps -inf out of the max of all-invalid rows
+
+
+def seq_pooling(x: torch.Tensor, invalid: torch.Tensor, mode: str) -> torch.Tensor:
+    """Pool [n_sc, n, n_step, d] -> [n_sc, n, d] along axis 2; all-invalid rows are zeroed.
+
+    mode: max_valid | last_valid (the modes the slice uses).
+    """
+    if mode == "max_valid":
+        pooled = torch.where(invalid[..., None], _NEG, x).amax(dim=2)
+    elif mode == "last_valid":
+        n_step = invalid.shape[2]
+        # first valid step of the reversed sequence == last valid step
+        rev_first = torch.argmax((~invalid).flip(2).to(torch.uint8), dim=2)
+        idx_last = n_step - 1 - rev_first
+        pooled = torch.gather(x, 2, idx_last[:, :, None, None].expand(-1, -1, 1, x.shape[-1]))[:, :, 0]
+    else:
+        raise NotImplementedError(f"seq_pooling mode {mode!r} is not on the joint-future path")
+    all_invalid = invalid.all(dim=-1, keepdim=True)
+    return torch.where(all_invalid, 0.0, pooled)

@@ -1,0 +1,69 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each kernel source under `csrc/` is compiled on first use into
+`trafficbotsv15_tpu_torch/build/lib<name>-<hash>.so` (a directory git
+ignores). The hash covers the source and every nvcc flag, so a change to
+either gives a fresh build and a stale library is never loaded. The sources expose a
+plain C interface, so no PyTorch header is compiled and a build takes
+seconds. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def library_path(name: str, source: str, extra_flags: Sequence[str] = ()) -> Path:
+    """build/lib<name>-<hash>.so, the hash taken over the source and the nvcc flags."""
+    flags = (*ARCH_FLAGS, *BASE_FLAGS, *extra_flags)
+    digest = hashlib.sha256((CSRC_DIR / source).read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str, source: str, extra_flags: Sequence[str] = ()) -> Path:
+    """Compile csrc/<source> into library_path(...) unless that file exists."""
+    src = CSRC_DIR / source
+    out = library_path(name, source, extra_flags)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".so.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *ARCH_FLAGS, *BASE_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name} (rc {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str, source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build if needed and load the library once per process."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name, source, extra_flags)))
+        _LOADED[name] = lib
+    return lib

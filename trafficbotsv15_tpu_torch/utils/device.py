@@ -1,0 +1,23 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the CUDA device unless the caller asks for the CPU
+explicitly; without a GPU and without that request they raise rather than
+carry on on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    if device is None:
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU; pass device='cpu' to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device

@@ -1,0 +1,97 @@
+"""Where the time of the full-width joint-future call goes, on one GPU.
+
+    python -m trafficbotsv15_tpu_torch.utils.profile_slice [--out DIR]
+
+Runs `joint_future_pred` on `leaderboard_config()` (bf16 compute, seeded
+random weights, 4 synthetic scenarios x K=32 futures, check_level=0) once
+to warm up, then:
+  - times the phases (scene preparation incl. the TL pre-pass, and the
+    K-replicated rollout) with host clocks around synchronised work;
+  - traces one whole call with torch.profiler and prints the top device
+    kernels by total time, the device busy time (sum of kernel times; one
+    stream) against the wall time, and hence the device's idle share;
+  - writes the Chrome trace to DIR when given.
+Needs a CUDA device; prints the card's name and power limit with the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from trafficbotsv15_tpu_torch.config import leaderboard_config
+from trafficbotsv15_tpu_torch.data.synthetic import make_batch
+from trafficbotsv15_tpu_torch.train import evaluation as ev
+from trafficbotsv15_tpu_torch.train.pipeline import build_model
+
+
+def _timed(fn, repeats: int = 1):
+    """(last result, median seconds) of fn over synchronised repeats."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, sorted(times)[len(times) // 2]
+
+
+@torch.no_grad()  # as inside joint_future_pred; tl_rollout_scan is called bare below
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", type=Path, default=None, help="directory for the Chrome trace")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = leaderboard_config()
+    n_sc, k = 4, cfg.n_joint_future_wosac
+    model = build_model(cfg, seed=0, device="cuda")
+    batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
+    gen = torch.Generator().manual_seed(0)
+
+    def call():
+        return ev.joint_future_pred(cfg, model, batch, generator=gen, n_joint_future=k)
+
+    _timed(call)  # warm-up
+    dev_batch = ev.batch_to_device(batch, torch.device("cuda"))
+    scene, t_prep = _timed(lambda: ev.prepare_joint_future(cfg, model, dev_batch), 3)
+    _, t_tl = _timed(lambda: ev.tl_prepass.tl_rollout_scan(
+        model, scene.tl_tokens, scene.pp.tl_state.float(),
+        torch.ones(scene.pp.tl_state.shape[:3], dtype=torch.bool, device="cuda"),
+        cfg.time_step_end, cfg.model.temp_window_size), 3)
+    samples = ev.sample_joint_futures(cfg, scene, k, gen)
+    samples.pop("latent_log_prob")
+    _, t_roll = _timed(lambda: ev.rollout_joint_futures(cfg, model, dev_batch, scene, k, **samples), 3)
+    _, t_call = _timed(call, 3)
+    n_step = cfg.time_step_end
+    print(f"card: {card}")
+    print(f"medians of 3: whole call {t_call:.4f} s | scene preparation {t_prep:.4f} s (of which TL pre-pass {t_tl:.4f} s) | "
+          f"rollout {t_roll:.4f} s = {1e3 * t_roll / n_step:.3f} ms per step")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, t_prof = _timed(call)
+    events = prof.key_averages()
+    # device-side rows only (kernels, memcpy/memset): the operator rows repeat their time
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    n_launch = sum(e.count for e in kernels)
+    print(f"traced call {t_prof:.4f} s wall (profiler on); device busy {busy:.4f} s in {n_launch} device ops "
+          f"({n_launch / n_step:.0f} per rollout step); idle share of the untraced call "
+          f"{1 - busy / t_call:.3f}")
+    print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(args.out / "joint_future_pred_trace.json"))
+
+
+if __name__ == "__main__":
+    main()
