@@ -38,6 +38,16 @@ def test_config_mirror_field_by_field(preset):
     assert ours == ref
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_with_pallas_sets_only_the_flag(use_pallas):
+    cfg = port_config.with_pallas(port_config.leaderboard_config(), use_pallas)
+    assert cfg.model.tf_cfg.use_pallas is use_pallas
+    ours = dataclasses.asdict(cfg)
+    ref = dataclasses.asdict(port_config.leaderboard_config())
+    ref["model"]["tf_cfg"]["use_pallas"] = use_pallas
+    assert ours == ref
+
+
 def test_ops_cfg_mirror():
     assert dataclasses.asdict(OpsCfg()) == dataclasses.asdict(JaxOpsCfg())
 
@@ -50,7 +60,8 @@ def test_ops_cfg_unsupported_selections_raise():
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """The port's modules, chip_smoke.py and the card-only tests (run without JAX via --noconftest)."""
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted((REPO / "tests").glob("test_torch_*_cuda.py"))
 
 
 def test_source_scan_no_jax_imports():
@@ -62,7 +73,11 @@ def test_source_scan_no_jax_imports():
         if pat.search(text) or dyn.search(text):
             offenders.append(str(path.relative_to(REPO)))
     assert not offenders, offenders
-    assert len(_port_sources()) > 20  # the scan actually saw the package
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    assert len(scanned) > 20  # the scan actually saw the package
+    assert scanned >= {"trafficbotsv15_tpu_torch/ops/knarpe.py", "trafficbotsv15_tpu_torch/sim/wosac_collision.py",
+                       "trafficbotsv15_tpu_torch/sim/rule_checker.py", "tests/test_torch_knarpe_cuda.py",
+                       "tests/test_torch_knn_cuda.py"}
 
 
 def test_importing_the_port_loads_no_jax():

@@ -1,0 +1,144 @@
+"""PyTorch port: the KNARPE attention kernels' plain versions against the TPU kernels.
+
+The port's `ops/knarpe.py` plain versions of B4 (`knarpe_attention`), B2
+(`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`) are held
+against `trafficbotsv15_tpu/ops/pallas_knarpe.py`: the Pallas kernels in
+interpret mode (as `tests/test_pallas_knarpe.py` runs them) and the JAX
+`*_reference` functions. Inputs come from a numpy seed; sizes are small
+(B=2, S in {7, 8, 33}, K in {4, 5, 89}, H=2, d_head=8, R=16); every case
+has a source whose targets are all invalid and partly invalid sources, and
+B*S=66 is not a multiple of the Pallas source tile.
+
+Outputs are of size up to ~6. Tolerances:
+  - float32, plain version vs the JAX reference (same ops in the same
+    order): 5e-6, float32 rounding of another library only (measured
+    <= 1.7e-6);
+  - float32, vs the interpret-mode kernels (per-head sums as segment
+    matmuls): 1e-5, reduction order only (measured <= 2.7e-6);
+  - bfloat16, B2/B4 vs the interpret-mode kernels, which compute in float32
+    inside while the plain versions round every op to bf16: 6e-2, two bf16
+    ulps at |out| < 8 (measured <= 3.9e-2);
+  - bfloat16, B3 vs the interpret-mode v3 kernel, whose roundings the plain
+    version repeats: 3.2e-2, one ulp, for a rounding of kk or q*k that a
+    different f32 summation order flips (measured 0).
+The output of an all-invalid source is exactly zero.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from test_torch_helpers import set_threads, t2n
+from trafficbotsv15_tpu.ops import pallas_knarpe as jk
+from trafficbotsv15_tpu_torch.ops import knarpe
+
+set_threads()
+N_HEAD, D_HEAD, R = 2, 8, 16
+D = N_HEAD * D_HEAD
+F32_REF_ATOL, F32_KERNEL_ATOL, BF16_ATOL, BF16_V3_ATOL = 5e-6, 1e-5, 6e-2, 3.2e-2
+SHAPES = [(2, 7, 4), (2, 8, 5), (2, 33, 89)]
+
+
+def _inputs(n_b, n_s, n_knn, seed, cross):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    inv = rng.uniform(size=(n_b, n_s, n_knn)) < 0.3
+    inv[0, 1] = True  # a source with no valid target
+    inv[1, 0, :-1] = True  # a source with one valid target
+    if cross:
+        return dict(q=f(n_b, n_s, D), tgt=f(n_b, n_s, n_knn, D), rpe=f(n_b, n_s, n_knn, R), invalid=inv,
+                    w_kv=0.3 * f(D, 2 * D), w_rpe=0.3 * f(R, 2 * D), b=0.1 * f(2 * D))
+    return dict(q=f(n_b, n_s, D), k=f(n_b, n_s, n_knn, D), v=f(n_b, n_s, n_knn, D), rpe=f(n_b, n_s, n_knn, R),
+                invalid=inv, w_rpe=0.3 * f(R, 2 * D), b_rpe=0.1 * f(2 * D))
+
+
+def _cast(args, jdt, tdt):
+    j = {k: jnp.asarray(v) if v.dtype == bool else jnp.asarray(v).astype(jdt) for k, v in args.items()}
+    t = {k: torch.from_numpy(v) if v.dtype == bool else torch.from_numpy(v).to(tdt) for k, v in args.items()}
+    return j, t
+
+
+KERNELS = {  # name -> (cross?, JAX kernel, JAX reference, port plain version)
+    "knarpe_attention": (False, jk.knarpe_attention, jk.knarpe_attention_reference,
+                         knarpe.knarpe_attention_reference),
+    "knarpe_cross_attention": (True, jk.knarpe_cross_attention, jk.knarpe_cross_attention_reference,
+                               knarpe.knarpe_cross_attention_reference),
+    "knarpe_cross_attention_v3": (True, jk.knarpe_cross_attention_v3, jk.knarpe_cross_attention_reference,
+                                  knarpe.knarpe_cross_attention_v3_reference),
+}
+
+
+def _jax_out(fn, j, n_b, n_s, **kw):
+    return np.asarray(fn(*j.values(), N_HEAD, **kw), dtype=np.float32).reshape(n_b, n_s, D)
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+@pytest.mark.parametrize("n_b,n_s,n_knn", SHAPES)
+def test_plain_version_matches_tpu_kernel_f32(name, n_b, n_s, n_knn):
+    cross, jkern, jref, plain = KERNELS[name]
+    args = _inputs(n_b, n_s, n_knn, seed=n_s * 100 + n_knn, cross=cross)
+    j, t = _cast(args, jnp.float32, torch.float32)
+    got = t2n(plain(*t.values(), N_HEAD))
+    assert got.shape == (n_b, n_s, D)
+    np.testing.assert_allclose(got, _jax_out(jref, j, n_b, n_s), rtol=0, atol=F32_REF_ATOL)
+    np.testing.assert_allclose(got, _jax_out(jkern, j, n_b, n_s, interpret=True), rtol=0, atol=F32_KERNEL_ATOL)
+    np.testing.assert_array_equal(got[0, 1], 0.0)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+@pytest.mark.parametrize("n_b,n_s,n_knn", SHAPES[1:])
+def test_plain_version_matches_tpu_kernel_bf16(name, n_b, n_s, n_knn):
+    cross, jkern, _, plain = KERNELS[name]
+    args = _inputs(n_b, n_s, n_knn, seed=n_s * 100 + n_knn + 1, cross=cross)
+    j, t = _cast(args, jnp.bfloat16, torch.bfloat16)
+    out = plain(*t.values(), N_HEAD)
+    assert out.dtype == torch.bfloat16
+    got = t2n(out)
+    want = _jax_out(jkern, j, n_b, n_s, interpret=True)
+    atol = BF16_V3_ATOL if name.endswith("_v3") else BF16_ATOL
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    np.testing.assert_array_equal(got[0, 1], 0.0)
+
+
+def test_v3_rounds_where_the_tpu_kernel_rounds():
+    """In bf16 the v3 plain version is closer to the v3 kernel than B2's plain
+    version is: it repeats the kernel's roundings and nothing else."""
+    args = _inputs(2, 33, 89, seed=5, cross=True)
+    j, t = _cast(args, jnp.bfloat16, torch.bfloat16)
+    want = _jax_out(jk.knarpe_cross_attention_v3, j, 2, 33, interpret=True)
+    err_v3 = np.abs(t2n(knarpe.knarpe_cross_attention_v3_reference(*t.values(), N_HEAD)) - want).max()
+    err_v2 = np.abs(t2n(knarpe.knarpe_cross_attention_reference(*t.values(), N_HEAD)) - want).max()
+    assert err_v3 < err_v2
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing(name):
+    cross, _, _, plain = KERNELS[name]
+    _, t = _cast(_inputs(2, 8, 5, seed=3, cross=cross), jnp.float32, torch.float32)
+    before = dict(knarpe.LAUNCHES)
+    out = getattr(knarpe, name)(*t.values(), N_HEAD)
+    assert knarpe.LAUNCHES == before
+    assert torch.equal(out, plain(*t.values(), N_HEAD))
+
+
+def test_attention_takes_the_halves_of_one_projection():
+    """The map encoder hands B4 the k and v halves of one gathered [.., 2D] tensor."""
+    args = _inputs(2, 8, 5, seed=4, cross=False)
+    _, t = _cast(args, jnp.float32, torch.float32)
+    kv = torch.cat([t["k"], t["v"]], -1)
+    k, v = kv.chunk(2, -1)
+    assert not k.is_contiguous()
+    out = knarpe.knarpe_attention(t["q"], k, v, t["rpe"], t["invalid"], t["w_rpe"], t["b_rpe"], N_HEAD)
+    assert torch.equal(out, knarpe.knarpe_attention_reference(*t.values(), N_HEAD))
+    assert knarpe._row_stride("knarpe_attention", "k", k, k.shape, k.dtype, k.device) == 2 * D
+
+
+def test_wrappers_raise_off_cpu_without_kernel():
+    _, t = _cast(_inputs(2, 2, 3, seed=0, cross=True), jnp.float32, torch.float32)
+    meta = {k: v.to("meta") for k, v in t.items()}
+    for name in ("knarpe_cross_attention", "knarpe_cross_attention_v3"):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            getattr(knarpe, name)(*meta.values(), N_HEAD)

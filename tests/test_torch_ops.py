@@ -195,20 +195,20 @@ def test_preprocessing_and_forcing_and_rules():
                                     ag_type=jp.ag_type, ag_size=jp.ag_size, tl_valid=jp.tl_valid, tl_pose=jp.tl_pose,
                                     ag_goal=J(nb["agent/goal"]), ag_dest=J(dest))
     ps, pst = prc.init_rule_checker(**{k: T(nb[v]) for k, v in kw.items()}, mp_type=T(nb["map/type"]),
-                                    ag_type=pp.ag_type, ag_size=pp.ag_size, ag_goal=T(nb["agent/goal"]), ag_dest=T(dest))
-    # poses near the goals and destinations, so the reached checks fire
+                                    ag_type=pp.ag_type, ag_size=pp.ag_size, tl_valid=pp.tl_valid, tl_pose=pp.tl_pose,
+                                    ag_goal=T(nb["agent/goal"]), ag_dest=T(dest))
+    # poses near the goals and destinations, so the reached checks fire; levels 0 and 1 in turn
     goal = nb["agent/goal"]
-    for step in range(3):
+    for step in range(4):
         pose = np.concatenate([goal[..., :2] + _f32(2, cfg.data.n_ag, 2, lo=-30, hi=30) * step,
                                goal[..., 2:3] + _f32(2, cfg.data.n_ag, 1, lo=-0.5, hi=0.5)], -1).astype(np.float32)
         valid = RNG.uniform(size=(2, cfg.data.n_ag)) < 0.8
         motion = _f32(2, cfg.data.n_ag, 3)
         tl = np.zeros((2, cfg.data.n_tl_lane, 5), np.float32)
-        jst, jv = jrc.check_rules(js, jst, J(valid), J(pose), J(motion), J(tl), 0)
-        pst, pv = prc.check_rules(ps, pst, T(valid), T(pose), T(motion), T(tl), 0)
+        jst, jv = jrc.check_rules(js, jst, J(valid), J(pose), J(motion), J(tl), step % 2)
+        pst, pv = prc.check_rules(ps, pst, T(valid), T(pose), T(motion), T(tl), step % 2)
         assert set(pv) == set(jv)
         for key in jv:
             np.testing.assert_array_equal(pv[key].numpy(), np.asarray(jv[key]), err_msg=key)
     assert np.asarray(jst.goal_reached).any()
-    with pytest.raises(NotImplementedError):
-        prc.check_rules(ps, pst, T(valid), T(pose), T(motion), T(tl), 1)
+    np.testing.assert_array_equal(pst.passive_counter.numpy(), np.asarray(jst.passive_counter))

@@ -406,3 +406,9 @@ def scaled_config() -> ExperimentCfg:
         ),
         batch_size_train=1,
     )
+
+
+def with_pallas(cfg: ExperimentCfg, use_pallas: bool) -> ExperimentCfg:
+    """cfg with `TransformerCfg.use_pallas` set (True runs the KNARPE attention kernels)."""
+    tf = dataclasses.replace(cfg.model.tf_cfg, use_pallas=use_pallas)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, tf_cfg=tf))

@@ -10,6 +10,8 @@ rollout's carry.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
@@ -36,7 +38,10 @@ class TrafficBots(nn.Module):
             raise NotImplementedError("the scene-centric (pairwise_relative=False) model is not on the path")
         check_supported(ops)
         self.cfg, self.dtype = cfg, dtype
-        c = cfg
+        # the kill switch turns the attention kernels off as in the JAX package (pallas_knarpe.py:53-59),
+        # where use_pallas=True then takes the use_pallas=False branches
+        c = dataclasses.replace(cfg, tf_cfg=dataclasses.replace(
+            cfg.tf_cfg, use_pallas=cfg.tf_cfg.use_pallas and ops.use_pallas_attention))
         h = c.hidden_dim
         pose_rpe = PoseEmbConfig(mode=c.pose_rpe.mode, pe_dim=h, theta_xy=c.pose_rpe.theta_xy,
                                  theta_cs=c.pose_rpe.theta_cs)

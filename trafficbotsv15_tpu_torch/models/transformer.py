@@ -10,10 +10,14 @@
     the target LayerNorm folded into the K/V projection (agent->map⊕TL);
   - precomputed static K/V (TL->map, hoisted out of the rollout);
   - plain dense attention.
-The KNARPE attention kernels (`TransformerCfg.use_pallas=True` in the JAX
-package) come with a later slice and raise here. The heads' layout never
-changes the math, so `seg_attn` selects nothing in the port: K/V stay
-full width and heads are split where a reduction needs them.
+With `TransformerCfg.use_pallas=True` (and the `OpsCfg.use_pallas_attention`
+kill switch on, folded in by `TrafficBots`) two branches run the KNARPE
+attention kernels of `ops/knarpe.py`, behind the JAX package's gates
+(`trafficbotsv15_tpu/models/transformer.py:346-396`): project-then-gather
+with a raw rpe runs B4 (`knarpe_attention`), fused K/V + RPE runs B2
+(`knarpe_cross_attention`). The heads' layout never changes the math, so
+`seg_attn` selects nothing in the port: K/V stay full width and heads are
+split where a reduction needs them.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from torch import nn
 
 from trafficbotsv15_tpu_torch.config import TransformerCfg
 from trafficbotsv15_tpu_torch.models.mlp import Dense, LayerNorm
+from trafficbotsv15_tpu_torch.ops import knarpe
 from trafficbotsv15_tpu_torch.ops.attention import _masked_softmax, dense_attention, knn_attention, knn_attention_fullwidth
 from trafficbotsv15_tpu_torch.ops.rpe import gather_tgt
 
@@ -39,8 +44,6 @@ def standardize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def check_transformer_cfg(tf_cfg: TransformerCfg) -> None:
-    if tf_cfg.use_pallas:
-        raise NotImplementedError("use_pallas=True runs the KNARPE attention kernels, which come with the next slice")
     if tf_cfg.apply_q_rpe:
         raise NotImplementedError("apply_q_rpe is not on the joint-future path")
     if tf_cfg.activation != "relu":
@@ -51,10 +54,11 @@ class AttentionRPE(nn.Module):
     """Multi-head attention with relative-pose biases on K and V."""
 
     def __init__(self, d_model: int, n_head: int, d_rpe: int = -1, bias: bool = True,
-                 dense_knn_max: int = 128, dtype=torch.float32):
+                 dense_knn_max: int = 128, use_pallas: bool = False, dtype=torch.float32):
         super().__init__()
         self.d_model, self.n_head, self.d_rpe = d_model, n_head, d_rpe
         self.dense_knn_max = dense_knn_max
+        self.use_pallas = use_pallas  # the KNARPE attention kernels (B4, B2)
         self.dtype = dtype
         self.q_proj = Dense(d_model, d_model, bias=bias, dtype=dtype)
         self.out_proj = Dense(d_model, d_model, bias=bias, dtype=dtype)
@@ -163,18 +167,33 @@ class AttentionRPE(nn.Module):
             # project the n_src tokens once, then gather (row-wise ops commute with the gather)
             kv = gather_tgt(self._project_kv(src), tgt_idx)
             n_knn = tgt_idx.shape[-1]
-            k, v = (t.reshape(n_b, n_src, n_knn, n_head, d_head) for t in kv.chunk(2, -1))
-            rpe_k = rpe_v = None
-            if rpe_kv_static is not None or rpe is not None:
-                rk, rv = rpe_kv_static if rpe_kv_static is not None else self._rpe_kv(rpe)
-                rpe_k = rk.reshape(n_b, n_src, n_knn, n_head, d_head)
-                rpe_v = rv.reshape(n_b, n_src, n_knn, n_head, d_head)
-            out = knn_attention(q.reshape(n_b, n_src, n_head, d_head), k, v, tgt_padding_mask, rpe_k, rpe_v)
+            if rpe is not None and self.use_pallas:
+                # kernel B4 fuses the rpe projection into the attention (JAX transformer.py:346-366)
+                dt = self.dtype
+                out = knarpe.knarpe_attention(q, *kv.chunk(2, -1), rpe.to(dt), self._invalid(tgt_padding_mask, kv),
+                                              self.rpe_proj_w.to(dt), self.rpe_proj_b.to(dt), n_head)
+            else:
+                k, v = (t.reshape(n_b, n_src, n_knn, n_head, d_head) for t in kv.chunk(2, -1))
+                rpe_k = rpe_v = None
+                if rpe_kv_static is not None or rpe is not None:
+                    rk, rv = rpe_kv_static if rpe_kv_static is not None else self._rpe_kv(rpe)
+                    rpe_k = rk.reshape(n_b, n_src, n_knn, n_head, d_head)
+                    rpe_v = rv.reshape(n_b, n_src, n_knn, n_head, d_head)
+                out = knn_attention(q.reshape(n_b, n_src, n_head, d_head), k, v, tgt_padding_mask, rpe_k, rpe_v)
         elif tgt is not None and tgt.ndim == 4:
             if rpe is None:
                 raise NotImplementedError("KNN cross-attention without RPE is not on the joint-future path")
-            kf, vf = self._project_kv_plus_rpe(tgt, rpe, ln=tgt_ln)
-            out = knn_attention_fullwidth(q, kf, vf, tgt_padding_mask, n_head)
+            if self.use_pallas:
+                # kernel B2 fuses both projections into the attention (JAX transformer.py:367-396);
+                # the target LayerNorm folds into W_kv and b in float32 before the cast
+                dt = self.dtype
+                wk, bk = self._kv_wb(tgt_ln)
+                b_all = self.rpe_proj_b if bk is None else bk + self.rpe_proj_b
+                out = knarpe.knarpe_cross_attention(q, tgt.to(dt), rpe.to(dt), self._invalid(tgt_padding_mask, tgt),
+                                                    wk.to(dt), self.rpe_proj_w.to(dt), b_all.to(dt), n_head)
+            else:
+                kf, vf = self._project_kv_plus_rpe(tgt, rpe, ln=tgt_ln)
+                out = knn_attention_fullwidth(q, kf, vf, tgt_padding_mask, n_head)
         else:
             n_tgt = n_src if tgt is None else tgt.shape[1]
             kv = self._project_kv(src if tgt is None else tgt, ln=tgt_ln if tgt is not None else None)
@@ -192,6 +211,13 @@ class AttentionRPE(nn.Module):
             out = torch.where(no_valid[..., None], 0.0, out)
         return out
 
+    @staticmethod
+    def _invalid(tgt_padding_mask, per_src_kv: torch.Tensor) -> torch.Tensor:
+        """The kernels' [b, s, K] invalid mask (all valid when none is given)."""
+        if tgt_padding_mask is None:
+            return torch.zeros(per_src_kv.shape[:3], dtype=torch.bool, device=per_src_kv.device)
+        return tgt_padding_mask.contiguous()
+
 
 class TransformerLayer(nn.Module):
     """Pre-LN residual layer: (decoder KNN self-attention) + attention + FFN."""
@@ -201,7 +227,8 @@ class TransformerLayer(nn.Module):
         d = tf_cfg.d_model
         self.mode = mode
         attn_kw = dict(d_model=d, n_head=tf_cfg.n_head, d_rpe=d_rpe, bias=tf_cfg.bias,
-                       dense_knn_max=tf_cfg.dense_knn_max, dtype=dtype)
+                       dense_knn_max=tf_cfg.dense_knn_max,
+                       use_pallas=tf_cfg.use_pallas and not tf_cfg.attn_dropout_weights, dtype=dtype)
         if mode == "dec_cross_attn":
             self.norm_src = LayerNorm(d, dtype=dtype)
             self.attn_src = AttentionRPE(**attn_kw)

@@ -16,7 +16,11 @@ and acts on them as follows:
 | pose_emb_flat        | ignored: a bit-identical TPU layout of the same embedding  |
 | narrow_gather_native | ignored: gathers are plain index gathers                   |
 | onehot_gather        | ignored: same                                              |
-| use_pallas_attention | ignored: the attention kernels come with a later slice     |
+| use_pallas_attention | kill switch of the KNARPE attention kernels              |
+|                      | (`ops/knarpe.py`): they run where TransformerCfg.use_pallas |
+|                      | is True and this is True; with it False, use_pallas=True  |
+|                      | takes the use_pallas=False branches, as in the JAX package |
+|                      | (`pallas_knarpe.py::pallas_available`)                     |
 """
 
 from __future__ import annotations

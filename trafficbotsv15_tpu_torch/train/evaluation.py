@@ -103,9 +103,10 @@ def sample_joint_futures(cfg: ExperimentCfg, scene: JointFutureScene, k: int, ge
 @torch.no_grad()
 def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, torch.Tensor],
                           scene: JointFutureScene, k: int, *, ag_latent, ag_latent_valid, ag_navi, ag_navi_valid,
-                          ag_navi_log_prob, check_level: int = 0) -> rollout_lib.RolloutBuffer:
+                          ag_navi_log_prob, check_level: int = 1) -> rollout_lib.RolloutBuffer:
     """The K-replicated closed-loop rollout for given latent / navi samples [n_sc * k, ...]."""
     pp = scene.pp
+    tl_tokens = scene.tl_tokens.repeat_for_rollout(k)
 
     def rep(x):
         return _repeat(x, k)
@@ -119,7 +120,8 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
     statics, state0 = init_rule_checker(
         mp_boundary=rep(batch["map/boundary"]), mp_valid=rep(batch["map/valid"]),
         mp_type=rep(batch["map/type"]).bool(), mp_pos=rep(batch["map/pos"]), mp_dir=rep(batch["map/dir"]),
-        ag_type=rep(pp.ag_type), ag_size=rep(pp.ag_size), ag_goal=ag_goal, ag_dest=ag_dest,
+        ag_type=rep(pp.ag_type), ag_size=rep(pp.ag_size), tl_valid=tl_tokens.valid, tl_pose=tl_tokens.pose,
+        ag_goal=ag_goal, ag_dest=ag_dest,
     )
     # joint future: GT = history only (spawn / warm start up to step 10)
     gt_valid, gt_pose, gt_motion = rep(pp.ag_valid), rep(pp.ag_pose), rep(pp.ag_motion)
@@ -127,7 +129,7 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
     ag_forcing, _ = build_forcing_masks(cfg.teacher_forcing_joint_future_pred, gt_valid,
                                         torch.ones(gt_tl_state.shape[:3], dtype=torch.bool, device=gt_valid.device))
     return rollout_lib.rollout(
-        model, cfg, scene.mp_tokens.repeat(k), scene.tl_tokens.repeat_for_rollout(k),
+        model, cfg, scene.mp_tokens.repeat(k), tl_tokens,
         ag_attr=rep(pp.ag_attr), ag_type=rep(pp.ag_type), ag_size=rep(pp.ag_size),
         ag_latent=ag_latent, ag_latent_valid=ag_latent_valid,
         ag_navi=ag_navi, ag_navi_valid=ag_navi_valid, ag_navi_log_prob=ag_navi_log_prob,
@@ -139,11 +141,13 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
 
 @torch.no_grad()
 def joint_future_pred(cfg: ExperimentCfg, model: TrafficBots, batch, *, generator: torch.Generator,
-                      n_joint_future: Optional[int] = None, check_level: int = 0, device=None):
+                      n_joint_future: Optional[int] = None, check_level: int = 1, device=None):
     """Sample K joint futures per scenario: prior latent + predicted destination per future.
 
     batch: h5-schema dict of numpy arrays or tensors. Runs on `device` (CUDA
-    unless device="cpu"), where the model must already be.
+    unless device="cpu"), where the model must already be. check_level 1
+    (the JAX package's default) runs every rule check, 0 only those that
+    feed back into the rollout.
     Returns (pp, buffer) with every buffer tensor shaped [n_sc, K, ...].
     """
     device = resolve_device(device)

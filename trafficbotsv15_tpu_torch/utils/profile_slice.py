@@ -1,16 +1,22 @@
 """Where the time of the full-width joint-future call goes, on one GPU.
 
-    python -m trafficbotsv15_tpu_torch.utils.profile_slice [--out DIR]
+    python -m trafficbotsv15_tpu_torch.utils.profile_slice [--use-pallas] [--out DIR] [--ab ROUNDS]
 
 Runs `joint_future_pred` on `leaderboard_config()` (bf16 compute, seeded
-random weights, 4 synthetic scenarios x K=32 futures, check_level=0) once
-to warm up, then:
+random weights, 4 synthetic scenarios x K=32 futures, check_level=1; with
+`--use-pallas`, `TransformerCfg.use_pallas=True`, so the map encoder and the
+agent decoder run the KNARPE attention kernels) once to warm up, then:
   - times the phases (scene preparation incl. the TL pre-pass, and the
     K-replicated rollout) with host clocks around synchronised work;
   - traces one whole call with torch.profiler and prints the top device
     kernels by total time, the device busy time (sum of kernel times; one
     stream) against the wall time, and hence the device's idle share;
   - writes the Chrome trace to DIR when given.
+With `--ab ROUNDS` it instead times whole calls of three arms in turns,
+ROUNDS times in the order A B C C B A: use_pallas=False and True at
+check_level=1, and use_pallas=False at check_level=0 (so the first and the
+last arm differ by the level-1 rule checks alone); it prints each arm's
+seconds per call (median, quartiles) and agent-steps/s.
 Needs a CUDA device; prints the card's name and power limit with the numbers.
 """
 
@@ -23,10 +29,41 @@ from pathlib import Path
 
 import torch
 
-from trafficbotsv15_tpu_torch.config import leaderboard_config
+from trafficbotsv15_tpu_torch.config import leaderboard_config, with_pallas
 from trafficbotsv15_tpu_torch.data.synthetic import make_batch
 from trafficbotsv15_tpu_torch.train import evaluation as ev
 from trafficbotsv15_tpu_torch.train.pipeline import build_model
+
+
+def compare_arms(card: str, rounds: int) -> None:
+    """Whole-call seconds of three arms, timed in turns (A B C C B A per round)."""
+    base = leaderboard_config()
+    n_sc, k = 4, base.n_joint_future_wosac
+    batch = make_batch(base.data, n_sc=n_sc, seed=0)
+    arms = {"use_pallas=False check_level=1": (False, 1), "use_pallas=True check_level=1": (True, 1),
+            "use_pallas=False check_level=0": (False, 0)}
+    runs = {}
+    for name, (use_pallas, level) in arms.items():
+        cfg = with_pallas(base, use_pallas)
+        model = build_model(cfg, seed=0, device="cuda")
+        gen = torch.Generator().manual_seed(0)
+
+        def call(cfg=cfg, model=model, gen=gen, level=level):
+            return ev.joint_future_pred(cfg, model, batch, generator=gen, check_level=level)
+
+        _timed(call)  # warm-up
+        runs[name] = call
+    times = {name: [] for name in arms}
+    order = list(arms) + list(arms)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(_timed(runs[name])[1])
+    agent_steps = n_sc * k * base.data.n_ag * (base.time_step_end - base.time_step_current)
+    print(f"card: {card}; {rounds} rounds of A B C C B A, {2 * rounds} calls per arm")
+    for name, ts in times.items():
+        q1, med, q3 = (float(x) for x in torch.tensor(ts).quantile(torch.tensor([0.25, 0.5, 0.75])))
+        print(f"{name}: median {med:.4f} s per call (quartiles {q1:.4f}-{q3:.4f}, min {min(ts):.4f}, "
+              f"max {max(ts):.4f}), {agent_steps / med:.1f} agent-steps/s; all {[round(t, 4) for t in ts]}")
 
 
 def _timed(fn, repeats: int = 1):
@@ -45,13 +82,17 @@ def _timed(fn, repeats: int = 1):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path, default=None, help="directory for the Chrome trace")
+    ap.add_argument("--use-pallas", action="store_true", help="run the KNARPE attention kernels (B4, B2)")
+    ap.add_argument("--ab", type=int, default=0, metavar="ROUNDS", help="time the three arms in turns instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = leaderboard_config()
+    if args.ab:
+        return compare_arms(card, args.ab)
+    cfg = with_pallas(leaderboard_config(), args.use_pallas)
     n_sc, k = 4, cfg.n_joint_future_wosac
     model = build_model(cfg, seed=0, device="cuda")
     batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
@@ -72,7 +113,7 @@ def main() -> None:
     _, t_roll = _timed(lambda: ev.rollout_joint_futures(cfg, model, dev_batch, scene, k, **samples), 3)
     _, t_call = _timed(call, 3)
     n_step = cfg.time_step_end
-    print(f"card: {card}")
+    print(f"card: {card}; use_pallas={args.use_pallas}, check_level=1")
     print(f"medians of 3: whole call {t_call:.4f} s | scene preparation {t_prep:.4f} s (of which TL pre-pass {t_tl:.4f} s) | "
           f"rollout {t_roll:.4f} s = {1e3 * t_roll / n_step:.3f} ms per step")
 
@@ -90,7 +131,8 @@ def main() -> None:
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(args.out / "joint_future_pred_trace.json"))
+        tag = "use_pallas" if args.use_pallas else "plain"
+        prof.export_chrome_trace(str(args.out / f"joint_future_pred_trace_{tag}.json"))
 
 
 if __name__ == "__main__":
