@@ -1,4 +1,4 @@
-"""PyTorch port: the CUDA KNARPE attention kernels (B4, B2, B3) against their plain versions, on the card.
+"""PyTorch port: the CUDA KNARPE attention kernels (B4, B2, B3) and their backwards against their plain versions, on the card.
 
 Skips without an NVIDIA GPU: the kernels have no CPU mode (their CPU-side
 contract is held against the TPU kernels in test_torch_knarpe.py). Imports
@@ -24,6 +24,14 @@ source counts that are no multiple of the kernel's grid. Tolerances:
     unrounded (float32) result, so the roundings are really there;
   - bfloat16 kernel vs the bfloat16 plain version (which rounds each op to
     bf16, as XLA does): 2^-4 relative to the output's largest magnitude.
+Backward kernels (B4-bwd, B2-bwd, and B3's, which is B2's) against autograd
+of the plain forwards, each gradient against its own largest magnitude M:
+  - float32: 1e-4 M (summation order; dW and db sum over every source);
+  - bfloat16 against the float32 plain backward on the same bf16-valued
+    inputs: the kernel sums in float32 and rounds once, so 2^-8 of each
+    value plus 1e-4 M.
+A kernel output made from inputs that require grad has a `grad_fn`, and its
+backward launches the backward kernel once.
 """
 
 import numpy as np
@@ -101,3 +109,77 @@ def test_kernel_matches_plain_version_on_card(name, shape):
         torch.testing.assert_close(out16.float(), ref32, rtol=2.0 ** -8, atol=F32_ATOL)
         ref16 = plain(*a16, n_head).float()
         assert (out16.float() - ref16).abs().max() <= BF16_REL * ref16.abs().max()
+
+
+def _grad_case(name, shape, dtype):
+    args = _cast(_inputs(shape, name != "knarpe_attention", seed=sum(shape) + 1), dtype)
+    g = torch.from_numpy(np.random.default_rng(sum(shape)).normal(size=args[0].shape).astype(np.float32)).cuda()
+    return args, g.to(dtype)
+
+
+def _kernel_grads(name, args, g, n_head):
+    leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in args]
+    out = getattr(knarpe, name)(*leaves, n_head)
+    assert out.grad_fn is not None and out.requires_grad
+    bwd = "knarpe_attention_bwd" if name == "knarpe_attention" else "knarpe_cross_attention_bwd"
+    before = knarpe.LAUNCHES[bwd]
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert knarpe.LAUNCHES[bwd] == before + 1
+    return [a.grad for a in leaves if a.requires_grad]
+
+
+def _plain_grads(name, args, g, n_head):
+    if name == "knarpe_attention":
+        return list(knarpe.knarpe_attention_bwd_reference(*args, g, n_head))
+    return list(knarpe.knarpe_cross_attention_bwd_reference(*args, g, n_head))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", CASES)
+def test_backward_kernel_matches_plain_autograd_on_card(name, shape):
+    _need_card()
+    n_head = shape[-1]
+    args, g = _grad_case(name, shape, torch.float32)
+    got = _kernel_grads(name, args, g, n_head)
+    want = _plain_grads(name, args, g, n_head)
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+    assert torch.all(got[0][0, 0] == 0) and torch.all(got[1][0, 0] == 0)  # the all-invalid source
+
+    a16, g16 = _grad_case(name, shape, torch.bfloat16)
+    got16 = _kernel_grads(name, a16, g16, n_head)
+    want32 = _plain_grads(name, _cast(a16, torch.float32), g16.float(), n_head)
+    for a, b in zip(got16, want32):
+        assert a.dtype == torch.bfloat16
+        tol = 2.0 ** -8 * b.abs() + 1e-4 * float(b.abs().max())
+        assert bool(((a.float() - b).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_kernel_output_carries_gradients():
+    """The wrapper once returned a bare tensor on the card: no grad_fn, so every parameter
+    upstream of B2 and B4 silently stopped learning. It must carry a grad_fn now."""
+    _need_card()
+    for name, shape in (("knarpe_cross_attention", CROSS_SHAPES[1]), ("knarpe_attention", ATTN_SHAPES[1])):
+        args = _inputs(shape, name != "knarpe_attention", seed=3)
+        w = args[-2].clone().requires_grad_(True)
+        out = getattr(knarpe, name)(*args[:-2], w, args[-1], shape[-1])
+        assert out.requires_grad and out.grad_fn is not None
+        (grad,) = torch.autograd.grad(out.square().sum(), w)
+        assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_shapes_planned_later_do_not_break_earlier_ones():
+    """A kernel's shared-memory limit is one attribute of the kernel function: planning a shape that
+    needs less after one that needs more once lowered it, and the larger shape's next launch failed
+    (cudaErrorInvalidValue). Large, small, large again, forward and backward."""
+    _need_card()
+    large, small = (2, 9, 71, 64, 64, 2), (2, 9, 3, 64, 64, 2)
+    for shape in (large, small, large):
+        args, g = _grad_case("knarpe_cross_attention", shape, torch.float32)
+        grads = _kernel_grads("knarpe_cross_attention", args, g, shape[-1])
+        assert all(torch.isfinite(x).all() for x in grads)

@@ -53,9 +53,7 @@ def _carry(jax_module, init_fn, port_module, seed=1):
     """Random flax params for jax_module (through init_fn) loaded into port_module."""
     shapes = jax.eval_shape(lambda: jax_module.init(jax.random.PRNGKey(0), method=init_fn))
     tree = random_tree(shapes, seed)["params"]
-    state, skipped = params_from_jax(tree)
-    assert not skipped
-    port_module.load_state_dict(state, strict=True)
+    port_module.load_state_dict(params_from_jax(tree), strict=True)
     return {"params": to_jnp(tree)}
 
 
@@ -163,8 +161,7 @@ def test_transformer_block(mode, dense_knn_max, static):
 def tiny():
     cfg = tiny_config()
     jmodel, tree = jax_model_params(cfg, seed=0)
-    pmodel, skipped = port_model(cfg, tree)
-    assert skipped and all(p.startswith("latent_encoder.") for p in skipped)
+    pmodel = port_model(cfg, tree)  # raises unless every leaf, the posterior encoders' too, fills a parameter
     return cfg, jmodel, to_jnp(tree), pmodel
 
 
@@ -227,19 +224,19 @@ def test_traffic_bots_methods(tiny, n_mp):
 
 def test_flagship_weight_carry_round_trip():
     """Every port parameter of the flagship model is filled from the flax tree
-    with its shape, and every skipped flax leaf belongs to a module outside the
-    slice (the posterior latent encoders)."""
+    with its shape, and every flax leaf fills one (the posterior latent encoders
+    included); a leaf with no parameter raises."""
     cfg = leaderboard_config()
     _, tree = jax_model_params(cfg, seed=0)
     model = build_model(port_cfg(cfg), device="cpu")
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    skipped = load_jax_params(model, tree)
-    state, _ = params_from_jax(tree)
+    load_jax_params(model, tree)
+    state = params_from_jax(tree)
     assert set(state) == set(before)
     for k, v in model.state_dict().items():
         assert v.shape == before[k].shape == state[k].shape, k
         assert torch.equal(v, state[k]), k
-    assert skipped and all(p.startswith("latent_encoder.") for p in skipped)
-    n_leaves = len(jax.tree_util.tree_leaves(tree))
-    assert len(state) + len(skipped) == n_leaves
+    assert len(state) == len(jax.tree_util.tree_leaves(tree))
+    with pytest.raises(KeyError, match="unexpected"):
+        load_jax_params(model, {**tree, "no_such_module": {"kernel": np.zeros((2, 2), np.float32)}})
     assert sum(v.numel() for v in state.values()) > 5_000_000  # the flagship's ~10M-parameter policy

@@ -160,7 +160,7 @@ def test_default_joint_future_pred_flags_match_jax():
                                              n_joint_future=2)
     jflags = {k: np.asarray(v)[:, 0] for k, v in jbuf.violation.items()}
     assert all(jflags[k].any() for k in ("collided", "collided_wosac", "run_road_edge"))
-    pmodel, _ = port_model(cfg, tree)
+    pmodel = port_model(cfg, tree)
 
     def port_flags(**kw):
         _, pbuf = port_eval.joint_future_pred(port_cfg(cfg), pmodel, batch, n_joint_future=2, device="cpu",

@@ -69,7 +69,7 @@ def _run_both(cfg, check_level):
         mp.setattr(jax_rollout_lib, "rollout", capture)
         _, jbuf = jax_eval.joint_future_pred(cfg, jmodel, to_jnp(tree), {k: jnp.asarray(v) for k, v in batch.items()},
                                              jax.random.PRNGKey(0), n_joint_future=K, check_level=check_level)
-    pmodel, _ = port_model(cfg, tree)
+    pmodel = port_model(cfg, tree)
     pcfg = port_cfg(cfg)
     _, pbuf = port_eval.joint_future_pred(pcfg, pmodel, batch, generator=torch.Generator().manual_seed(0),
                                           n_joint_future=K, check_level=check_level, device="cpu")
@@ -244,7 +244,7 @@ def test_damped_random_policy_is_not_chaotic():
         _, tree = jax_model_params(cfg, seed=0, gain=gain)
         out = []
         for rel_change in (0.0, 1e-7):
-            model, _ = port_model(cfg, tree)
+            model = port_model(cfg, tree)
             with torch.no_grad():
                 for p in model.parameters():
                     p.mul_(1.0 + rel_change)

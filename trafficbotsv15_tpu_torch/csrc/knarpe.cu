@@ -410,7 +410,9 @@ int make_plan(Plan& pl) {
   }
   if (pl.L.total > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = knarpe_kernel<T, MODE, H>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(pl.L.total));
+  // the attribute belongs to the kernel function, not to this plan: set it to the device's
+  // limit, so that a later plan needing less never lowers it under an earlier one needing more
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, pl.L.total);

@@ -1,8 +1,10 @@
 """Scene-centric pre-processing: batch dict -> model inputs (counterpart of
 `trafficbotsv15_tpu/data/preprocessing.py`).
 
-History-dropout augmentation is training-only and comes with the training
-slice.
+Training adds history dropout: each map node but the first and each agent
+history step but the last is dropped with probability `dropout_p_history`,
+from uniform draws the caller makes (`train/pipeline.py` draws them from
+its generator; the JAX package from its `k_pre` key).
 """
 
 from __future__ import annotations
@@ -54,8 +56,13 @@ def _atan2_dir(d: torch.Tensor) -> torch.Tensor:
 
 
 def pre_processing(batch: Dict[str, torch.Tensor], tl_mode: str = "lane", navi_mode: str = "dest",
-                   n_step_hist: int = 11, training: bool = True) -> PreProcessedBatch:
-    """batch keys follow the h5 schema; at test time history tensors carry the 'history/' prefix."""
+                   n_step_hist: int = 11, training: bool = True, dropout_p_history: float = -1.0,
+                   u_mp: Optional[torch.Tensor] = None, u_ag: Optional[torch.Tensor] = None) -> PreProcessedBatch:
+    """batch keys follow the h5 schema; at test time history tensors carry the 'history/' prefix.
+
+    With training, 0 < dropout_p_history <= 1 and the uniform draws u_mp [n_sc, n_mp, n_node - 1]
+    and u_ag [n_sc, n_ag, n_step_hist - 1], a node or step is kept where its draw is below
+    1 - dropout_p_history (jax.random.bernoulli's rule)."""
     if tl_mode != "lane":
         raise NotImplementedError(f"tl_mode {tl_mode!r}: only the lane mode is on the joint-future path")
     prefix = "" if (training or "agent/valid" in batch) else "history/"
@@ -72,6 +79,13 @@ def pre_processing(batch: Dict[str, torch.Tensor], tl_mode: str = "lane", navi_m
     ag_pose = torch.cat([batch[f"{prefix}agent/pos"][:, :, :n_step_hist, :2],
                          batch[f"{prefix}agent/yaw_bbox"][:, :, :n_step_hist]], -1)
 
+    mp_valid = batch["map/valid"]
+    ag_valid = batch[f"{prefix}agent/valid"][:, :, :n_step_hist]
+    if training and 0 < dropout_p_history <= 1.0 and u_mp is not None:
+        keep = 1.0 - dropout_p_history
+        mp_valid = torch.cat([mp_valid[:, :, :1], mp_valid[:, :, 1:] & (u_mp < keep)], 2)
+        ag_valid = torch.cat([ag_valid[..., :-1] & (u_ag < keep), ag_valid[..., -1:]], -1)
+
     gt = dict(gt_valid=None, gt_motion=None, gt_pose=None, gt_navi=None, gt_tl_valid=None, gt_tl_state=None)
     if "agent/valid" in batch:
         gt_tl_valid, gt_tl_state = merge_invalid_tl_into_state(batch["tl_lane/valid"], batch["tl_lane/state"])
@@ -83,7 +97,7 @@ def pre_processing(batch: Dict[str, torch.Tensor], tl_mode: str = "lane", navi_m
             gt_tl_valid=gt_tl_valid, gt_tl_state=gt_tl_state,
         )
     return PreProcessedBatch(
-        mp_valid=batch["map/valid"],
+        mp_valid=mp_valid,
         mp_attr=batch["map/type"].float(),
         mp_pose=mp_pose,
         mp_type=batch["map/type"].bool(),
@@ -91,7 +105,7 @@ def pre_processing(batch: Dict[str, torch.Tensor], tl_mode: str = "lane", navi_m
         tl_attr=tl_attr,
         tl_state=tl_state,
         tl_pose=tl_pose,
-        ag_valid=batch[f"{prefix}agent/valid"][:, :, :n_step_hist],
+        ag_valid=ag_valid,
         ag_attr=torch.cat([size, batch[f"{prefix}agent/type"].to(size.dtype)], -1),
         ag_motion=ag_motion,
         ag_pose=ag_pose,

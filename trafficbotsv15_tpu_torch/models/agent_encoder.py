@@ -26,7 +26,7 @@ class AgentEncoder(nn.Module):
     def __init__(self, cfg: AgEncoderCfg, tf_cfg: TransformerCfg, hidden_dim: int, temp_window_size: int,
                  n_tgt_knn: int, dist_limit: float, pose_rpe: PoseEmbConfig, attr_dim: int,
                  temp_encoder_n_layer: int = 3, temp_encoder_pooling: str = "max_valid",
-                 knn_kernel_on: bool = True, dtype=torch.float32):
+                 temp_encoder_dropout_p: float = 0.1, knn_kernel_on: bool = True, dtype=torch.float32):
         super().__init__()
         if temp_window_size <= 0:
             raise NotImplementedError("the RNN agent encoder comes with the RNN slice")
@@ -43,8 +43,10 @@ class AgentEncoder(nn.Module):
         # per temporal token: ag_attr ++ motion (3) ++ one-hot window slot
         self.input_encoder = InputEncoder(attr_dim + 3 + temp_window_size, hidden_dim,
                                           pose_emb_out_dim(self.pe_cfg), cfg.input_encoder.n_layer,
-                                          cfg.input_encoder.mode, cfg.input_encoder.mlp_use_layernorm, dtype=dtype)
-        self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling, dtype=dtype)
+                                          cfg.input_encoder.mode, cfg.input_encoder.mlp_use_layernorm,
+                                          cfg.input_encoder.mlp_dropout_p, dtype=dtype)
+        self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling,
+                                            mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
         self.tf_ag2agmptl = TransformerBlock(tf_cfg, cfg.n_layer_tf, "dec_cross_attn",
                                              d_rpe=pose_emb_out_dim(pose_rpe), dtype=dtype)
 

@@ -49,8 +49,9 @@ class AddNaviLatent(nn.Module):
         if cfg.mode != "cat":
             raise NotImplementedError(f"AddNaviLatent mode {cfg.mode!r} is not on the joint-future path")
         dims = [hidden_dim] * cfg.n_layer
-        self.mlp_in = MLP(z_dim, dims, use_layernorm=cfg.mlp_use_layernorm, dtype=dtype)
-        self.mlp = MLP(2 * hidden_dim, dims, use_layernorm=cfg.mlp_use_layernorm, dtype=dtype)
+        self.mlp_in = MLP(z_dim, dims, use_layernorm=cfg.mlp_use_layernorm, dropout_p=cfg.mlp_dropout_p, dtype=dtype)
+        self.mlp = MLP(2 * hidden_dim, dims, use_layernorm=cfg.mlp_use_layernorm, dropout_p=cfg.mlp_dropout_p,
+                       dtype=dtype)
 
     def forward(self, x, z, z_valid: Optional[torch.Tensor] = None):
         if self.dummy or z is None:

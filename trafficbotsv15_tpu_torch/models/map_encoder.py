@@ -32,9 +32,10 @@ class MapEncoder(nn.Module):
         )
         self.input_encoder = InputEncoder(attr_dim, hidden_dim, pose_emb_out_dim(self.pe_cfg),
                                           cfg.input_encoder.n_layer, cfg.input_encoder.mode,
-                                          cfg.input_encoder.mlp_use_layernorm, dtype=dtype)
+                                          cfg.input_encoder.mlp_use_layernorm, cfg.input_encoder.mlp_dropout_p,
+                                          dtype=dtype)
         self.pl_encoder = PolylineEncoder(hidden_dim, cfg.pl_encoder.n_layer, cfg.pl_encoder.pooling_mode,
-                                          cfg.pl_encoder.mlp_use_layernorm, dtype=dtype)
+                                          cfg.pl_encoder.mlp_use_layernorm, cfg.pl_encoder.mlp_dropout_p, dtype=dtype)
         self.tf_mp2mp = TransformerBlock(tf_cfg, cfg.n_layer_tf, "enc_self_attn",
                                          d_rpe=pose_emb_out_dim(pose_rpe), dtype=dtype)
 

@@ -3,8 +3,9 @@
 Parameters stay float32; each layer computes in its module's `dtype`
 (bfloat16 for the flagship), as flax's `nn.Dense(dtype=...)` does.
 Parameter names follow the flax tree (`fc0`, `ln0`, `pointnet0`, ...), so
-`utils/jax_import.py` carries JAX weights over by path. The slice is
-inference only: the JAX modules' dropout has no counterpart here yet.
+`utils/jax_import.py` carries JAX weights over by path. Dropout sits where
+the JAX modules put it and draws its masks only inside a training
+`ops/dropout.py::dropout_scope`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from trafficbotsv15_tpu_torch.ops.dropout import dropout
 
 _NEG = -1e9
 
@@ -48,12 +51,14 @@ class LayerNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    """Dense stack with ReLU (and optional LayerNorm before it); invalid rows filled at the end."""
+    """Dense stack with ReLU (and optional LayerNorm before it) and dropout after each layer;
+    invalid rows filled at the end."""
 
     def __init__(self, in_dim: int, fc_dims: Sequence[int], end_layer_activation: bool = True,
-                 use_layernorm: bool = False, dtype=torch.float32):
+                 use_layernorm: bool = False, dropout_p: float = -1.0, dtype=torch.float32):
         super().__init__()
         self.n = len(fc_dims)
+        self.dropout_p = dropout_p
         self.end_layer_activation = end_layer_activation
         self.use_layernorm = use_layernorm
         for i, dim in enumerate(fc_dims):
@@ -69,6 +74,7 @@ class MLP(nn.Module):
                 if self.use_layernorm:
                     x = getattr(self, f"ln{i}")(x)
                 x = torch.relu(x)
+            x = dropout(x, self.dropout_p)
         if invalid is not None:
             x = torch.where(invalid[..., None], fill_invalid, x)
         return x
@@ -78,7 +84,7 @@ class InputEncoder(nn.Module):
     """Fuse attributes with a pose embedding: "cat" (MLP output ++ pe) or "add" (MLP output + pe)."""
 
     def __init__(self, in_dim: int, hidden_dim: int, pe_dim: int, n_layer: int, mode: str,
-                 mlp_use_layernorm: bool = False, dtype=torch.float32):
+                 mlp_use_layernorm: bool = False, mlp_dropout_p: float = 0.0, dtype=torch.float32):
         super().__init__()
         if mode == "cat":
             out_dim = hidden_dim - pe_dim
@@ -91,7 +97,7 @@ class InputEncoder(nn.Module):
         self.mode = mode
         self.dtype = dtype
         self.mlp = MLP(in_dim, [out_dim] * n_layer, end_layer_activation=False,
-                       use_layernorm=mlp_use_layernorm, dtype=dtype)
+                       use_layernorm=mlp_use_layernorm, dropout_p=mlp_dropout_p, dtype=dtype)
 
     def forward(self, attr, pe):
         if pe is None:
@@ -105,13 +111,14 @@ class PolylineEncoder(nn.Module):
     """VectorNet PointNet: n_layer x [Dense -> half width, concat the masked max], then pooling."""
 
     def __init__(self, hidden_dim: int, n_layer: int, pooling_mode: str = "max_valid",
-                 mlp_use_layernorm: bool = False, dtype=torch.float32):
+                 mlp_use_layernorm: bool = False, mlp_dropout_p: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.n_layer = n_layer
         self.pooling_mode = pooling_mode
         for i in range(n_layer):
             self.add_module(f"pointnet{i}", MLP(hidden_dim, [hidden_dim // 2],
-                                                use_layernorm=mlp_use_layernorm, dtype=dtype))
+                                                use_layernorm=mlp_use_layernorm, dropout_p=mlp_dropout_p,
+                                                dtype=dtype))
 
     def forward(self, x, invalid):
         """x [n_sc, n, n_node, hidden], invalid [n_sc, n, n_node] -> [n_sc, n, hidden]."""

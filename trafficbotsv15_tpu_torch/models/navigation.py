@@ -8,6 +8,8 @@ goal, cmd and RNN variants come with later slices.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
@@ -36,12 +38,13 @@ class NaviEncoder(nn.Module):
         super().__init__()
         _check_dest(navi_mode)
         self.pose_rpe = pose_rpe
+        self.detach_mp_feature = cfg.dest_detach_mp_feature
         self.mlp_mp = MLP(hidden_dim, [hidden_dim], end_layer_activation=False, dtype=dtype)
         self.mlp_pe = MLP(pose_emb_out_dim(pose_rpe), [hidden_dim], end_layer_activation=False, dtype=dtype)
 
     def forward(self, ag_navi, ag_pose, mp_tokens: MapTokens):
         """ag_navi [n_sc, n_ag] polyline index, ag_pose [n_sc, n_ag, 3] -> [n_sc, n_ag, hidden]."""
-        mp_feat = mp_tokens.feature
+        mp_feat = mp_tokens.feature.detach() if self.detach_mp_feature else mp_tokens.feature
         idx = torch.clamp(ag_navi, 0, mp_feat.shape[1] - 1).long()
         feat = self.mlp_mp(torch.gather(mp_feat, 1, idx[..., None].expand(-1, -1, mp_feat.shape[-1])))
         dest_pose = torch.gather(mp_tokens.pose, 1, idx[..., None].expand(-1, -1, 3))
@@ -55,12 +58,14 @@ class NaviPredictor(nn.Module):
 
     def __init__(self, cfg: NaviPredictorCfg, ag_encoder_cfg: AgEncoderCfg, hidden_dim: int, navi_mode: str,
                  temp_window_size: int, pose_rpe: PoseEmbConfig, attr_dim: int,
-                 temp_encoder_n_layer: int = 3, temp_encoder_pooling: str = "max_valid", dtype=torch.float32):
+                 temp_encoder_n_layer: int = 3, temp_encoder_pooling: str = "max_valid",
+                 temp_encoder_dropout_p: float = 0.1, dtype=torch.float32):
         super().__init__()
         _check_dest(navi_mode)
         if temp_window_size <= 0:
             raise NotImplementedError("the GRU navi predictor comes with the RNN slice")
         self.pose_rpe, self.temp_window_size, self.hidden_dim = pose_rpe, temp_window_size, hidden_dim
+        self.detach_input = cfg.detach_input
         ie = ag_encoder_cfg.input_encoder
         pe_dim = hidden_dim if ie.mode == "add" else hidden_dim // 2
         self.pe_cfg = PoseEmbConfig(mode=ag_encoder_cfg.pose_emb.mode, pe_dim=pe_dim,
@@ -68,13 +73,17 @@ class NaviPredictor(nn.Module):
                                     theta_cs=ag_encoder_cfg.pose_emb.theta_cs)
         self.input_encoder = InputEncoder(attr_dim + 3 + temp_window_size, hidden_dim,
                                           pose_emb_out_dim(self.pe_cfg), ie.n_layer, ie.mode,
-                                          ie.mlp_use_layernorm, dtype=dtype)
-        self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling, dtype=dtype)
+                                          ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
+        self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling,
+                                            mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
         self.mlp = MLP(2 * hidden_dim + pose_emb_out_dim(pose_rpe), [hidden_dim] * (cfg.n_layer_mlp - 1) + [1],
                        end_layer_activation=False, use_layernorm=cfg.mlp_use_layernorm, dtype=dtype)
         self.dtype = dtype
 
     def forward(self, ag_valid, ag_attr, ag_motion, ag_pose, ag_type, mp_tokens: MapTokens) -> DestCategorical:
+        if self.detach_input:
+            ag_motion, ag_pose = ag_motion.detach(), ag_pose.detach()
+            mp_tokens = dataclasses.replace(mp_tokens, feature=mp_tokens.feature.detach())
         n_sc, n_ag, n_step = ag_valid.shape
         ag_token_valid = ag_valid.any(-1)
         ag_invalid, ag_token_invalid = ~ag_valid, ~ag_token_valid

@@ -1,7 +1,8 @@
 """TrafficBots policy (counterpart of `trafficbotsv15_tpu/models/traffic_bots.py`).
 
-Wires the map / traffic-light / agent encoders, the prior latent, the
-navigation predictor and encoder, the fusion heads and the action head.
+Wires the map / traffic-light / agent encoders, the CVAE latent encoder
+(posterior and prior), the navigation predictor and encoder, the fusion
+heads and the action head.
 Submodule names follow the flax tree, so `utils/jax_import.py` maps a JAX
 param tree onto `state_dict()` by path. Methods are the per-phase entry
 points the joint-future path calls; the history window lives in the
@@ -32,7 +33,7 @@ TL_STATE_DIM = 5
 
 class TrafficBots(nn.Module):
     def __init__(self, cfg: ModelCfg, data: DataCfg, ops: OpsCfg = OpsCfg(), action_dim: int = 2,
-                 dtype=torch.float32):
+                 time_step_gt: int = 90, dtype=torch.float32):
         super().__init__()
         if not cfg.pairwise_relative:
             raise NotImplementedError("the scene-centric (pairwise_relative=False) model is not on the path")
@@ -47,7 +48,8 @@ class TrafficBots(nn.Module):
                                  theta_cs=c.pose_rpe.theta_cs)
         ag_attr_dim = 3 + data.n_ag_type  # size ++ type one-hot
         temp = dict(temp_encoder_n_layer=c.mp_encoder.pl_encoder.n_layer,
-                    temp_encoder_pooling=c.mp_encoder.pl_encoder.pooling_mode)
+                    temp_encoder_pooling=c.mp_encoder.pl_encoder.pooling_mode,
+                    temp_encoder_dropout_p=c.mp_encoder.pl_encoder.mlp_dropout_p)
         self.mp_encoder = MapEncoder(c.mp_encoder, c.tf_cfg, h, c.n_tgt_knn, c.dist_limit, pose_rpe,
                                      attr_dim=data.n_mp_type + data.n_mp_pl_node, mp2mp_lazy=ops.mp2mp_lazy,
                                      knn_kernel_on=ops.knn_pallas, dtype=dtype)
@@ -59,7 +61,11 @@ class TrafficBots(nn.Module):
         self.ag_encoder = AgentEncoder(c.ag_encoder, c.tf_cfg, h, c.temp_window_size, c.n_tgt_knn,
                                        c.dist_limit, pose_rpe, ag_attr_dim, knn_kernel_on=ops.knn_pallas,
                                        dtype=dtype, **temp)
-        self.latent_encoder = LatentEncoder(c.latent_encoder, dtype=dtype)
+        self.latent_encoder = LatentEncoder(
+            c.latent_encoder, c.tl_encoder, c.ag_encoder, c.tf_cfg, h, c.temp_window_size, time_step_gt,
+            enc_kw=dict(n_tgt_knn=c.n_tgt_knn, dist_limit=c.dist_limit, pose_rpe=pose_rpe, **temp),
+            tl_kw=dict(tl_state_dim=TL_STATE_DIM, tl_mode=c.tl_mode),
+            ag_kw=dict(attr_dim=ag_attr_dim, knn_kernel_on=ops.knn_pallas), dtype=dtype)
         self.navi_encoder = NaviEncoder(c.navi_encoder, h, c.navi_mode, pose_rpe, dtype=dtype)
         self.navi_predictor = NaviPredictor(c.navi_predictor, c.ag_encoder, h, c.navi_mode, c.temp_window_size,
                                             pose_rpe, ag_attr_dim, dtype=dtype, **temp)
@@ -75,8 +81,10 @@ class TrafficBots(nn.Module):
     def precompute_tl(self, tl_valid, tl_attr, tl_pose, mp_tokens: MapTokens) -> TlTokens:
         return self.tl_encoder.precompute(tl_valid, tl_attr, tl_pose, mp_tokens)
 
-    def encode_latent(self, ag_valid, posterior: bool):
-        return self.latent_encoder(ag_valid, posterior=posterior)
+    def encode_latent(self, ag_valid, ag_attr, ag_motion, ag_pose, ag_type, tl_state, mp_tokens: MapTokens,
+                      tl_tokens: TlTokens, posterior: bool):
+        return self.latent_encoder(ag_valid, ag_attr, ag_motion, ag_pose, ag_type, tl_state, mp_tokens, tl_tokens,
+                                   posterior=posterior)
 
     def predict_navi(self, ag_valid, ag_attr, ag_motion, ag_pose, ag_type, mp_tokens: MapTokens):
         return self.navi_predictor(ag_valid, ag_attr, ag_motion, ag_pose, ag_type, mp_tokens)

@@ -18,6 +18,11 @@ with a raw rpe runs B4 (`knarpe_attention`), fused K/V + RPE runs B2
 (`knarpe_cross_attention`). The heads' layout never changes the math, so
 `seg_attn` selects nothing in the port: K/V stay full width and heads are
 split where a reduction needs them.
+
+Dropout (`TransformerCfg.dropout_p`) sits where the JAX package puts it with
+`attn_dropout_weights=False`: on the attention's output-projection input and
+on each sub-layer's output (`drop_src`, `drop1`, `drop_ffn`, `drop2`); it
+draws masks only inside a training `ops/dropout.py::dropout_scope`.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from torch import nn
 
 from trafficbotsv15_tpu_torch.config import TransformerCfg
 from trafficbotsv15_tpu_torch.models.mlp import Dense, LayerNorm
+from trafficbotsv15_tpu_torch.ops import dropout as drop
 from trafficbotsv15_tpu_torch.ops import knarpe
 from trafficbotsv15_tpu_torch.ops.attention import _masked_softmax, dense_attention, knn_attention, knn_attention_fullwidth
 from trafficbotsv15_tpu_torch.ops.rpe import gather_tgt
@@ -54,8 +60,10 @@ class AttentionRPE(nn.Module):
     """Multi-head attention with relative-pose biases on K and V."""
 
     def __init__(self, d_model: int, n_head: int, d_rpe: int = -1, bias: bool = True,
-                 dense_knn_max: int = 128, use_pallas: bool = False, dtype=torch.float32):
+                 dense_knn_max: int = 128, use_pallas: bool = False, dropout_p: float = 0.0,
+                 attn_dropout_weights: bool = False, dtype=torch.float32):
         super().__init__()
+        self.dropout_p, self.attn_dropout_weights = dropout_p, attn_dropout_weights
         self.d_model, self.n_head, self.d_rpe = d_model, n_head, d_rpe
         self.dense_knn_max = dense_knn_max
         self.use_pallas = use_pallas  # the KNARPE attention kernels (B4, B2)
@@ -203,7 +211,9 @@ class AttentionRPE(nn.Module):
                 invalid = invalid[:, None, :].expand(n_b, n_src, n_tgt)
             out = dense_attention(q.reshape(n_b, n_src, n_head, d_head), k, v, invalid)
 
-        out = self.out_proj(out)
+        if self.attn_dropout_weights and self.dropout_p > 0 and drop.active():
+            raise NotImplementedError("dropout on the attention weights (attn_dropout_weights=True) is not ported")
+        out = self.out_proj(drop.dropout(out, self.dropout_p))
         if tgt_padding_mask is not None:
             no_valid = tgt_padding_mask.all(-1)
             if no_valid.ndim == 1:  # dense 2D padding mask: per batch
@@ -226,9 +236,11 @@ class TransformerLayer(nn.Module):
         super().__init__()
         d = tf_cfg.d_model
         self.mode = mode
+        self.dropout_p = tf_cfg.dropout_p
         attn_kw = dict(d_model=d, n_head=tf_cfg.n_head, d_rpe=d_rpe, bias=tf_cfg.bias,
                        dense_knn_max=tf_cfg.dense_knn_max,
-                       use_pallas=tf_cfg.use_pallas and not tf_cfg.attn_dropout_weights, dtype=dtype)
+                       use_pallas=tf_cfg.use_pallas and not tf_cfg.attn_dropout_weights,
+                       dropout_p=tf_cfg.dropout_p, attn_dropout_weights=tf_cfg.attn_dropout_weights, dtype=dtype)
         if mode == "dec_cross_attn":
             self.norm_src = LayerNorm(d, dtype=dtype)
             self.attn_src = AttentionRPE(**attn_kw)
@@ -260,7 +272,7 @@ class TransformerLayer(nn.Module):
                 raise NotImplementedError("a decoder self-attention without KNN indices is not on the joint-future path")
             s = self.attn_src(self.norm_src(src), None, tgt_padding_mask=decoder_tgt_padding_mask,
                               rpe=decoder_rpe, rpe_kv_static=decoder_rpe_kv_static, tgt_idx=decoder_tgt_idx)
-            src = src + s
+            src = src + drop.dropout(s, self.dropout_p)
 
         src2 = self.norm1(src)
         t, t_ln = tgt, None
@@ -276,8 +288,9 @@ class TransformerLayer(nn.Module):
             t_ln = (self.norm_tgt_scale, self.norm_tgt_bias)
         src2 = self.attn(src2, t, tgt_padding_mask=tgt_padding_mask, rpe=rpe, kv_static=cross_kv_static,
                          tgt_idx=tgt_idx, tgt_ln=t_ln)
-        src = src + src2
-        src = src + self.ffn2(torch.relu(self.ffn1(self.norm2(src))))
+        src = src + drop.dropout(src2, self.dropout_p)
+        ffn = drop.dropout(torch.relu(self.ffn1(self.norm2(src))), self.dropout_p)
+        src = src + drop.dropout(self.ffn2(ffn), self.dropout_p)
         if src_padding_mask is not None:
             src = torch.where(src_padding_mask[..., None], 0.0, src)
         return src

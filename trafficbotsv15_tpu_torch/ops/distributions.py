@@ -1,4 +1,4 @@
-"""Distributions for the joint-future path (counterpart of `trafficbotsv15_tpu/ops/distributions.py`).
+"""Distributions and the balanced KL (counterpart of `trafficbotsv15_tpu/ops/distributions.py`).
 
 Sampling takes an explicit `torch.Generator`; draws are made on the
 generator's device and moved to the distribution's, so one seed gives the
@@ -47,7 +47,14 @@ class DiagGaussian:
             return self.mean
         eps = torch.randn(self.mean.shape, generator=generator, dtype=torch.float32,
                           device=generator.device).to(self.mean.device, self.mean.dtype)
-        return torch.where(det[..., None], self.mean, self.mean + self.std * eps)
+        return torch.where(det[..., None], self.mean, self.rsample(eps))
+
+    def rsample(self, eps: torch.Tensor) -> torch.Tensor:
+        """Reparameterised draw for given standard-normal noise: gradients reach mean and std."""
+        return self.mean + self.std * eps.to(self.mean.dtype)
+
+    def detach(self) -> "DiagGaussian":
+        return DiagGaussian(self.mean.detach(), self.std.detach(), self.valid)
 
     def repeat(self, repeats: int, dim: int) -> "DiagGaussian":
         return DiagGaussian(_repeat(self.mean, repeats, dim), _repeat(self.std, repeats, dim),
@@ -81,3 +88,25 @@ class DestCategorical:
 
     def repeat(self, repeats: int, dim: int) -> "DestCategorical":
         return DestCategorical(_repeat(self.logits, repeats, dim), _repeat(self.valid, repeats, dim))
+
+
+def kl_diag_gaussian(p: DiagGaussian, q: DiagGaussian) -> torch.Tensor:
+    """KL(p || q), summed over the event axis."""
+    var_ratio = (p.std / q.std) ** 2
+    t1 = ((p.mean - q.mean) / q.std) ** 2
+    return 0.5 * torch.sum(var_ratio + t1 - 1.0 - torch.log(var_ratio), -1)
+
+
+def balanced_kl(posterior: DiagGaussian, prior: DiagGaussian, alpha: float, free_nats: float) -> torch.Tensor:
+    """DreamerV2-style balanced KL with free nats:
+    max(KL(sg(post) || prior), free) + alpha * max(KL(post || sg(prior)), free)."""
+    if not isinstance(posterior, DiagGaussian):
+        raise NotImplementedError(f"balanced_kl of {type(posterior).__name__} is not ported (diag_gaus only)")
+    if alpha > 0:
+        e0 = kl_diag_gaussian(posterior.detach(), prior)
+        e1 = kl_diag_gaussian(posterior, prior.detach())
+        if free_nats > 0:
+            e0, e1 = e0.clamp_min(free_nats), e1.clamp_min(free_nats)
+        return e0 + alpha * e1
+    err = kl_diag_gaussian(posterior, prior)
+    return err.clamp_min(free_nats) if free_nats > 0 else err

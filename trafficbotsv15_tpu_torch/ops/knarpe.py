@@ -22,9 +22,14 @@ What bounds them on the card is the bytes: at the rollout's shapes B2 reads
 [K, 2D] projection output, which an unfused path writes and reads back, is
 what the kernels keep out of device memory (`csrc/knarpe.cu` says how).
 
-Each wrapper takes the plain version for tensors on the CPU and launches its
-kernel for CUDA tensors, or raises; it never falls back. `LAUNCHES` counts
-kernel launches per kernel (never plain-version calls).
+Each wrapper is a `torch.autograd.Function`: its forward launches the
+forward kernel and its backward the backward kernel of `csrc/knarpe_bwd.cu`,
+which replaces `_bwd_kernel` (B4-bwd) and `_x_bwd_kernel` (B2-bwd; B3's
+backward is B2's, as `pallas_knarpe.py:778-783` has it). For tensors on the
+CPU both directions take the plain versions (the `*_reference` forwards and
+autograd through them, `*_bwd_reference`); for CUDA tensors they launch the
+kernels or raise; they never fall back. `LAUNCHES` counts kernel launches
+per kernel, backward ones under `*_bwd` (never plain-version calls).
 """
 
 from __future__ import annotations
@@ -38,12 +43,14 @@ from trafficbotsv15_tpu_torch.ops.attention import _masked_softmax, knn_attentio
 from trafficbotsv15_tpu_torch.utils import build
 
 # kernel launches since the last reset, one plain int per kernel (read by chip_smoke.py)
-LAUNCHES = {"knarpe_attention": 0, "knarpe_cross_attention": 0, "knarpe_cross_attention_v3": 0}
+LAUNCHES = {"knarpe_attention": 0, "knarpe_cross_attention": 0, "knarpe_cross_attention_v3": 0,
+            "knarpe_attention_bwd": 0, "knarpe_cross_attention_bwd": 0}
 
 _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_attention_v3": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_LAUNCH_FN = None  # the bound C entry point, set once by load_library
+_LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
+_BWD_FN = None
 
 
 # -- plain versions ----------------------------------------------------------
@@ -89,6 +96,32 @@ def knarpe_cross_attention_v3_reference(q, tgt, rpe, invalid, w_kv, w_rpe, b, n_
     return out.reshape(n_b, n_s, d_model).to(q.dtype)
 
 
+def _plain_grads(fn, inputs, g):
+    """Gradients of <fn(*inputs), g> with respect to the float inputs (None for the mask)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+        out = fn(*leaves)
+        want = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, want, g))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+def knarpe_attention_bwd_reference(q, k, v, rpe, invalid, w_rpe, b_rpe, g, n_head: int):
+    """Plain B4-bwd: autograd through `knarpe_attention_reference`.
+    -> (dq, dk, dv, drpe, dw_rpe, db_rpe), the contract of `_knarpe_bwd_pallas`."""
+    dq, dk, dv, drpe, _, dw, db = _plain_grads(
+        lambda *a: knarpe_attention_reference(*a, n_head), (q, k, v, rpe, invalid, w_rpe, b_rpe), g)
+    return dq, dk, dv, drpe, dw, db
+
+
+def knarpe_cross_attention_bwd_reference(q, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head: int):
+    """Plain B2-bwd (and B3's): autograd through `knarpe_cross_attention_reference`.
+    -> (dq, dtgt, drpe, dw_kv, dw_rpe, db), the contract of `_knarpe_x_bwd_pallas`."""
+    dq, dtgt, drpe, _, dwk, dwr, db = _plain_grads(
+        lambda *a: knarpe_cross_attention_reference(*a, n_head), (q, tgt, rpe, invalid, w_kv, w_rpe, b), g)
+    return dq, dtgt, drpe, dwk, dwr, db
+
+
 # -- kernels -----------------------------------------------------------------
 def load_library():
     """Build csrc/knarpe.cu and bind its C entry point, once per process."""
@@ -101,6 +134,19 @@ def load_library():
         fn.restype = ctypes.c_int
         _LAUNCH_FN = fn
     return _LAUNCH_FN
+
+
+def load_bwd_library():
+    """Build csrc/knarpe_bwd.cu and bind its C entry point, once per process."""
+    global _BWD_FN
+    if _BWD_FN is None:
+        fn = build.load("knarpe_bwd", "knarpe_bwd.cu").knarpe_bwd_launch
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BWD_FN = fn
+    return _BWD_FN
 
 
 def _check(kernel: str, name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -124,7 +170,8 @@ def _row_stride(kernel: str, name: str, t: torch.Tensor, shape, dtype, device) -
     return ld
 
 
-def _launch(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int) -> torch.Tensor:
+def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int):
+    """Check the operands against the kernels' contract; -> (n_b, n_s, K, D, R, d_tgt, ld_kv)."""
     device = q.device
     dtype = q.dtype
     if dtype not in _DTYPES:
@@ -149,25 +196,79 @@ def _launch(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int
         _check(kernel, "tgt", tgt, (n_b, n_s, n_knn, d_model), dtype, device)
         _check(kernel, "w_kv", w_kv, (d_model, 2 * d_model), dtype, device)
     _check(kernel, "w_rpe", w_rpe, (d_rpe, 2 * d_model), dtype, device)
-    out = torch.empty((n_b, n_s, d_model), dtype=dtype, device=device)
+    return n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int) -> torch.Tensor:
+    n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv = _validate(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b,
+                                                              n_head)
+    out = torch.empty((n_b, n_s, d_model), dtype=q.dtype, device=q.device)
     n_src = n_b * n_s
     if n_src == 0:
         return out
     launch = load_library()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(device):
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(_MODES[kernel], _DTYPES[dtype], ptr(q), ptr(k), ptr(v), ld_kv, ptr(tgt), ptr(rpe),
-                    ptr(invalid), ptr(w_kv), ptr(w_rpe), ptr(b), ptr(out),
+        rc = launch(_MODES[kernel], _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), ld_kv, _ptr(tgt), _ptr(rpe),
+                    _ptr(invalid), _ptr(w_kv), _ptr(w_rpe), _ptr(b), _ptr(out),
                     n_src, n_knn, d_model, d_tgt, d_rpe, n_head, 1.0 / math.sqrt(d_model // n_head),
                     torch.cuda.current_device(), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     LAUNCHES[kernel] += 1
     return out
+
+
+def bwd_chunks(n_src: int, x1: int, d_model: int, n_head: int) -> int:
+    """Source chunks of the weight-gradient reduction: about four blocks per SM of an H100
+    in its first pass, at least 64 sources per chunk. Fixed by the shapes, so the sums are
+    taken in the same order on every call."""
+    d_head = d_model // n_head
+    blocks = -(-x1 // 64) * 2 * n_head * -(-d_head // 32)
+    return max(1, min(-(-n_src // 64), 528 // blocks))
+
+
+def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head: int):
+    """The backward kernel of B4 (k/v given) or B2 (tgt given): (dq, dk, dv, dtgt, drpe, dw_kv, dw_rpe, db),
+    None where the kernel has no such input."""
+    n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv = _validate(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b,
+                                                              n_head)
+    dtype, device = q.dtype, q.device
+    _check(kernel, "g", g, (n_b, n_s, d_model), dtype, device)
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    attn = k is not None
+    dq = empty(n_b, n_s, d_model)
+    dk, dv = (empty(n_b, n_s, n_knn, d_model), empty(n_b, n_s, n_knn, d_model)) if attn else (None, None)
+    dtgt = None if attn else empty(n_b, n_s, n_knn, d_model)
+    drpe = empty(n_b, n_s, n_knn, d_rpe)
+    dw_kv = None if attn else empty(d_model, 2 * d_model)
+    dw_rpe, db = empty(d_rpe, 2 * d_model), empty(2 * d_model)
+    n_src = n_b * n_s
+    if n_src == 0:
+        return (dq, dk, dv, dtgt, drpe) + tuple(None if t is None else t.zero_() for t in (dw_kv, dw_rpe, db))
+    x1 = d_tgt + d_rpe + 1
+    n_chunks = bwd_chunks(n_src, x1, d_model, n_head)
+    pbuf = empty(n_src * 2 * n_head * x1, dt=torch.float32)
+    partial = empty(n_chunks * x1 * 2 * d_model, dt=torch.float32)
+    launch = load_bwd_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(1 if tgt is not None else 0, _DTYPES[dtype], _ptr(q), _ptr(k), _ptr(v), ld_kv, _ptr(tgt), _ptr(rpe),
+                    _ptr(invalid), _ptr(w_kv), _ptr(w_rpe), _ptr(b), _ptr(g), _ptr(dq), _ptr(dk), _ptr(dv),
+                    _ptr(dtgt), _ptr(drpe), _ptr(dw_kv), _ptr(dw_rpe), _ptr(db), _ptr(pbuf), _ptr(partial),
+                    n_src, n_knn, d_model, d_tgt, d_rpe, n_head, 1.0 / math.sqrt(d_model // n_head), n_chunks,
+                    torch.cuda.current_device(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} backward kernel launch failed: cudaError {rc}")
+    LAUNCHES["knarpe_attention_bwd" if attn else "knarpe_cross_attention_bwd"] += 1
+    return dq, dk, dv, dtgt, drpe, dw_kv, dw_rpe, db
 
 
 def _on_cpu(kernel: str, q: torch.Tensor) -> bool:
@@ -178,22 +279,59 @@ def _on_cpu(kernel: str, q: torch.Tensor) -> bool:
     return False
 
 
+_PLAIN = {"knarpe_attention": knarpe_attention_reference,
+          "knarpe_cross_attention": knarpe_cross_attention_reference,
+          "knarpe_cross_attention_v3": knarpe_cross_attention_v3_reference}
+
+
+class _KnarpeFn(torch.autograd.Function):
+    """One KNARPE kernel with its backward. tensors: (q, k, v, rpe, invalid, w_rpe, b_rpe) for B4,
+    (q, tgt, rpe, invalid, w_kv, w_rpe, b) for B2 and B3; B3's backward is B2's."""
+
+    @staticmethod
+    def forward(ctx, kernel: str, n_head: int, *tensors):
+        ctx.kernel, ctx.n_head = kernel, n_head
+        ctx.save_for_backward(*tensors)
+        if _on_cpu(kernel, tensors[0]):
+            return _PLAIN[kernel](*tensors, n_head)
+        if kernel == "knarpe_attention":
+            q, k, v, rpe, invalid, w_rpe, b = tensors
+            return _launch(kernel, q, k, v, None, rpe, invalid, None, w_rpe, b, n_head)
+        q, tgt, rpe, invalid, w_kv, w_rpe, b = tensors
+        return _launch(kernel, q, None, None, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
+
+    @staticmethod
+    def backward(ctx, g):
+        tensors, n_head = ctx.saved_tensors, ctx.n_head
+        g = g.contiguous()
+        cpu = tensors[0].device.type == "cpu"
+        if ctx.kernel == "knarpe_attention":
+            q, k, v, rpe, invalid, w_rpe, b = tensors
+            if cpu:
+                dq, dk, dv, drpe, dw, db = knarpe_attention_bwd_reference(*tensors, g, n_head)
+            else:
+                dq, dk, dv, _, drpe, _, dw, db = _launch_bwd(ctx.kernel, q, k, v, None, rpe, invalid, None, w_rpe,
+                                                             b, g, n_head)
+            return None, None, dq, dk, dv, drpe, None, dw, db
+        q, tgt, rpe, invalid, w_kv, w_rpe, b = tensors
+        if cpu:
+            dq, dtgt, drpe, dwk, dwr, db = knarpe_cross_attention_bwd_reference(*tensors, g, n_head)
+        else:
+            dq, _, _, dtgt, drpe, dwk, dwr, db = _launch_bwd("knarpe_cross_attention", q, None, None, tgt, rpe,
+                                                             invalid, w_kv, w_rpe, b, g, n_head)
+        return None, None, dq, dtgt, drpe, None, dwk, dwr, db
+
+
 def knarpe_attention(q, k, v, rpe, invalid, w_rpe, b_rpe, n_head: int) -> torch.Tensor:
-    """B4; see the module docstring. k/v may be the halves of one [.., 2D] tensor."""
-    if _on_cpu("knarpe_attention", q):
-        return knarpe_attention_reference(q, k, v, rpe, invalid, w_rpe, b_rpe, n_head)
-    return _launch("knarpe_attention", q, k, v, None, rpe, invalid, None, w_rpe, b_rpe, n_head)
+    """B4 with its backward; see the module docstring. k/v may be the halves of one [.., 2D] tensor."""
+    return _KnarpeFn.apply("knarpe_attention", n_head, q, k, v, rpe, invalid, w_rpe, b_rpe)
 
 
 def knarpe_cross_attention(q, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int) -> torch.Tensor:
-    """B2; see the module docstring. The target LayerNorm is folded into w_kv / b by the caller."""
-    if _on_cpu("knarpe_cross_attention", q):
-        return knarpe_cross_attention_reference(q, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
-    return _launch("knarpe_cross_attention", q, None, None, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
+    """B2 with its backward; see the module docstring. The target LayerNorm is folded into w_kv / b by the caller."""
+    return _KnarpeFn.apply("knarpe_cross_attention", n_head, q, tgt, rpe, invalid, w_kv, w_rpe, b)
 
 
 def knarpe_cross_attention_v3(q, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int) -> torch.Tensor:
-    """B3; B2's contract with `_x3_fwd_kernel`'s roundings."""
-    if _on_cpu("knarpe_cross_attention_v3", q):
-        return knarpe_cross_attention_v3_reference(q, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
-    return _launch("knarpe_cross_attention_v3", q, None, None, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
+    """B3; B2's contract with `_x3_fwd_kernel`'s roundings, and B2's backward."""
+    return _KnarpeFn.apply("knarpe_cross_attention_v3", n_head, q, tgt, rpe, invalid, w_kv, w_rpe, b)

@@ -4,7 +4,7 @@ All selections are the stable sort's: ascending distance, ties by ascending
 target index, +inf for invalid pairs. `get_tgt_knn_lazy` routes the wide
 agent->map relation through the CUDA kernel of `ops/knn.py` under the JAX
 package's gate; every other relation sorts in plain PyTorch. Everything
-here is stop-gradient (the callers run under no_grad).
+here is stop-gradient, as in the JAX package: the poses are detached first.
 """
 
 from __future__ import annotations
@@ -35,8 +35,10 @@ def get_rel_pose(pose, invalid, pose2=None, invalid2=None):
     pose [n_sc, n_src, 3], invalid [n_sc, n_src] (targets default to the sources)
     -> rel_pose [n_sc, n_src, n_tgt, 3], rel_dist [n_sc, n_src, n_tgt] (+inf where invalid).
     """
-    if pose2 is None:
-        pose2, invalid2 = pose, invalid
+    pose = pose.detach()
+    pose2 = pose if pose2 is None else pose2.detach()
+    if invalid2 is None:
+        invalid2 = invalid
     xy, yaw = pose[..., :2], pose[..., 2]
     xy2, yaw2 = pose2[..., :2], pose2[..., 2]
     local_xy = pos2local(xy2[:, None, :, :], xy[:, :, None, :], rad2rot(yaw))
@@ -71,6 +73,7 @@ def get_tgt_knn_lazy(src_pose, src_invalid, tgt_pose, tgt_invalid, n_tgt_knn: in
     which launches the CUDA kernel for CUDA tensors.
     Returns (idx [n_sc, n_src, K] int64, invalid [n_sc, n_src, K], rpe [n_sc, n_src, K, 3]).
     """
+    src_pose, tgt_pose = src_pose.detach(), tgt_pose.detach()
     src_xy, src_yaw = src_pose[..., :2], src_pose[..., 2]
     tgt_xy = tgt_pose[..., :2]
     if knn.knn_wanted(src_xy.shape[1], tgt_xy.shape[1], knn_kernel_on):

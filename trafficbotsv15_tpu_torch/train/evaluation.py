@@ -70,7 +70,8 @@ def prepare_joint_future(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str
     pp = pre_processing(batch, tl_mode=cfg.model.tl_mode, navi_mode=cfg.model.navi_mode,
                         n_step_hist=cfg.n_step_hist, training="agent/valid" in batch)
     mp_tokens, tl_tokens = encode_scene(cfg, model, pp)
-    latent_prior = model.encode_latent(pp.ag_valid, posterior=False)
+    latent_prior = model.encode_latent(pp.ag_valid, pp.ag_attr, pp.ag_motion, pp.ag_pose, pp.ag_type,
+                                       pp.tl_state.float(), mp_tokens, tl_tokens, posterior=False)
     navi_dist = model.predict_navi(pp.ag_valid, pp.ag_attr, pp.ag_motion, pp.ag_pose, pp.ag_type, mp_tokens)
     tl_state = pp.tl_state.float()
     tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, tl_state, torch.ones(tl_state.shape[:3], dtype=torch.bool,

@@ -9,19 +9,17 @@ plus these layout rules:
   - `LayerNorm/scale` -> `weight`;
   - raw params (`kv_w`, `rpe_proj_w` [in, out], `kv_b`, `rpe_proj_b`,
     `norm_tgt_scale`, `norm_tgt_bias`, `log_std{i}`) keep name and layout.
-Leaves under modules outside the slice (the posterior latent encoders) are
-returned as skipped, never dropped silently.
+Every flax leaf maps to one port parameter, the posterior latent encoders'
+included; `load_jax_params` raises on a leaf with no parameter and on a
+parameter with no leaf.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
-
-# flax subtrees the slice never reads: training-only posterior encoders
-SKIPPED_PREFIXES = ("latent_encoder.",)
 
 
 def _walk(tree: Mapping, prefix: str = ""):
@@ -33,14 +31,10 @@ def _walk(tree: Mapping, prefix: str = ""):
             yield path, np.asarray(val)
 
 
-def params_from_jax(tree: Mapping) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """(state_dict, skipped flax paths). Every other flax leaf maps to one port parameter."""
+def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The state_dict of the port's model: one entry per flax leaf."""
     state: Dict[str, torch.Tensor] = {}
-    skipped: List[str] = []
     for path, arr in _walk(tree):
-        if path.startswith(SKIPPED_PREFIXES):
-            skipped.append(path)
-            continue
         head, _, leaf = path.rpartition(".")
         if leaf == "kernel":
             key, arr = f"{head}.weight", arr.T
@@ -49,13 +43,11 @@ def params_from_jax(tree: Mapping) -> Tuple[Dict[str, torch.Tensor], List[str]]:
         else:
             key = path
         state[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-    return state, skipped
+    return state
 
 
-def load_jax_params(model: torch.nn.Module, tree: Mapping) -> List[str]:
-    """Load a flax tree into `model`; every port parameter must be filled. Returns the skipped paths."""
-    state, skipped = params_from_jax(tree)
-    missing, unexpected = model.load_state_dict(state, strict=False)
+def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:
+    """Load a flax tree into `model`: every flax leaf fills one port parameter and every port parameter is filled."""
+    missing, unexpected = model.load_state_dict(params_from_jax(tree), strict=False)
     if missing or unexpected:
         raise KeyError(f"param carry mismatch: missing {missing[:8]}..., unexpected {unexpected[:8]}...")
-    return skipped
