@@ -13,6 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      the nearest PyTorch call or composition of calls (`library_ms`):
      B1 (`knn_xy`), B4 (`knarpe_attention`), B2 (`knarpe_cross_attention`)
      and B3 (`knarpe_cross_attention_v3`, which only this phase launches);
+     B2 and B3 also at the training path's shapes (the agent decoder and
+     posterior agent encoder, the posterior TL encoder at K=24) and timed at
+     the first of them; in bf16 they run on the staged kernel of
+     csrc/knarpe_staged.cuh, their only bf16 kernel (the wrapper raises for
+     a shape it refuses), and must give the same bits on a second launch;
      then the backward kernels B4-bwd and B2-bwd (B3's backward is B2's)
      through the wrappers' autograd: the card's output has a grad_fn, and its
      gradients match autograd of the plain versions in float32 and bf16;
@@ -26,7 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      compute), 4 synthetic scenarios x K=32 futures, 64 agents, 1024
      polylines, 90 steps, check_level=1: finite poses of the documented
      shapes, 90 KNN launches and no attention-kernel launch per call, seconds
-     per call, peak memory and agent-steps/s;
+     per call, peak memory and agent-steps/s; phases 6 and 8 record the
+     shapes at which the paths launch B2 and fail on one phase 3 did not check;
   6. slice at full width, use_pallas=True (the eval main path): the same
      call with the KNARPE attention kernels; B1, B2 and B4 launches per call
      asserted (90, 4 layers x 90 steps, 8 map layers); then one more call
@@ -50,6 +56,7 @@ backward ones from phase 8), the card line, and last
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -69,6 +76,7 @@ from trafficbotsv15_tpu_torch.train import pipeline as train_lib
 from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model
+from trafficbotsv15_tpu_torch.utils.timing import cuda_ms, graph_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet, 700 W)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -83,6 +91,9 @@ ATTN_PATH = (4, 1024, 32, 128, 128, 4)
 # backward at 8 x 64 sources, the map encoder's B4 and its backward at 8 x 1024
 TRAIN_X_PATH = (8, 64, 89, 128, 128, 4)
 TRAIN_ATTN_PATH = (8, 1024, 32, 128, 128, 4)
+# the training path's posterior encoders: the agent encoder's B2 at TRAIN_X_PATH, the TL encoder's
+# at 8 x 128 TL lanes over K=24 map targets (0.75 x 32)
+POST_TL_X_PATH = (8, 128, 24, 128, 128, 4)
 # edge cases: an all-invalid and a one-target source in each; source counts that are
 # no multiple of any tile; odd K; one and eight heads
 X_EDGE = [(3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
@@ -119,19 +130,6 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def knn_case(gen, n_rows, n_src, n_tgt, grid=False, p_src=0.2, p_tgt=0.2):
@@ -285,38 +283,90 @@ def check_one_knarpe(name: str, shape, seed: int) -> float:
     excess = float(((out16 - ref16).abs() - (rtol * ref16.abs() + atol)).max())
     if not (torch.isfinite(out16).all() and excess <= 0 and torch.all(out16[0, 0] == 0)):
         raise AssertionError(f"{name} {shape} bf16: |err| exceeds {rtol} relative + {atol} by {excess}")
+    if cross:  # bf16 B2/B3 run on the staged kernel only; no atomics
+        if not torch.equal(kernel(*a16, n_head).float(), out16):
+            raise AssertionError(f"{name} {shape} bf16: two launches on the same inputs differ")
+        note += "; staged kernel, two launches bit-identical"
     log(f"  {name} {list(shape)} (n_b, n_s, K, D, R, H): float32 max |err| {err:.3e} (tolerance "
         f"{KNARPE_F32_ATOL}); bf16 within {rtol:g} relative + {atol:.3g} absolute{note}; all-invalid source zero")
     return err
 
 
+def time_knarpe(name: str, shape) -> dict:
+    """Kernel, plain version and library composition at one shape (bf16), with the bound. The kernel's
+    eager time includes the host's launch cost where that is longer (the training path's small
+    launches), so its device time from a CUDA graph of 50 launches is logged beside it."""
+    kernel, plain = getattr(knarpe, name), getattr(knarpe, f"{name}_reference")
+    n_head = shape[-1]
+    args = knarpe_inputs(shape, name != "knarpe_attention", seed=1, dtype=torch.bfloat16)
+    ms = cuda_ms(lambda: kernel(*args, n_head), 50)
+    device_ms = graph_ms(lambda: kernel(*args, n_head))
+    plain_ms = cuda_ms(lambda: plain(*args, n_head), 10)
+    library_ms = cuda_ms(lambda: knarpe_library_call(name, args, n_head), 20)
+    nbytes, ops = knarpe_bound(name, args, n_head)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    log(f"  {name} timing at {list(shape)} bf16: kernel {ms:.4f} ms ({device_ms:.4f} ms of device time, launched "
+        f"from a CUDA graph), plain {plain_ms:.4f} ms, "
+        f"matmul + scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), kernel at {100 * bound_ms / ms:.2f}% of the bound")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+
+
+# bf16 B2/B3 shapes that phase 3 holds against the plain versions; phases 6 and 8 check that the
+# paths launch no other
+CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE)}
+
+
 def check_knarpe_kernels() -> list:
-    """Kernels B4, B2, B3 vs their plain versions at the path's and edge shapes; times at the path's shapes (bf16)."""
+    """Kernels B4, B2, B3 vs their plain versions at the paths' and edge shapes; times at the eval
+    path's shapes (the row) and, for B2 and B3, at the training path's (logged) (bf16)."""
     rows = []
-    for name, path, edges, replaces in (
-            ("knarpe_attention", ATTN_PATH, ATTN_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:243"),
-            ("knarpe_cross_attention", X_PATH, X_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:443"),
-            ("knarpe_cross_attention_v3", X_PATH, X_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:742")):
+    for name, path, edges, replaces, source in (
+            ("knarpe_attention", ATTN_PATH, ATTN_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:243",
+             "trafficbotsv15_tpu_torch/csrc/knarpe.cu"),
+            ("knarpe_cross_attention", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH],
+             "trafficbotsv15_tpu/ops/pallas_knarpe.py:443", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh"),
+            ("knarpe_cross_attention_v3", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH],
+             "trafficbotsv15_tpu/ops/pallas_knarpe.py:742", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh")):
         max_err = check_one_knarpe(name, path, seed=1)
         for i, shape in enumerate(edges):
             check_one_knarpe(name, shape, seed=2 + i)
-        kernel, plain = getattr(knarpe, name), getattr(knarpe, f"{name}_reference")
-        n_head = path[-1]
-        args = knarpe_inputs(path, name != "knarpe_attention", seed=1, dtype=torch.bfloat16)
-        ms = cuda_ms(lambda: kernel(*args, n_head), 50)
-        plain_ms = cuda_ms(lambda: plain(*args, n_head), 10)
-        library_ms = cuda_ms(lambda: knarpe_library_call(name, args, n_head), 20)
-        nbytes, ops = knarpe_bound(name, args, n_head)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        log(f"  {name} timing at {list(path)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"matmul + scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), kernel at {100 * bound_ms / ms:.2f}% of the bound")
-        rows.append({"name": name, "route": "cuda", "source": "trafficbotsv15_tpu_torch/csrc/knarpe.cu",
-                     "replaces": replaces, "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "library_ms": library_ms})
+        row = time_knarpe(name, path)
+        if name != "knarpe_attention":
+            time_knarpe(name, TRAIN_X_PATH)
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
+                     "max_abs_err": max_err, **row})
     return rows
+
+
+@contextlib.contextmanager
+def recorded_cross_shapes():
+    """The (kernel, dtype, K, D, R, H) of every B2/B3 forward launch inside the block."""
+    real, seen = knarpe._launch, set()
+
+    def recorder(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head):
+        if tgt is not None:
+            seen.add((kernel, q.dtype, tgt.shape[2], tgt.shape[3], rpe.shape[3], n_head))
+        return real(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
+
+    knarpe._launch = recorder
+    try:
+        yield seen
+    finally:
+        knarpe._launch = real
+
+
+def check_path_cross_shapes(where: str, seen: set) -> None:
+    """Every B2 launch of a path was in bf16 at a shape phase 3 checked, so on the staged kernel
+    (the only bf16 B2 kernel; the wrapper raises for a shape it refuses)."""
+    for kernel, dtype, *k_d_r_h in sorted(seen, key=str):
+        if dtype != torch.bfloat16 or tuple(k_d_r_h) not in CHECKED_X:
+            raise AssertionError(f"{where}: {kernel} launched in {dtype} at (K, D, R, H)={tuple(k_d_r_h)}, "
+                                 f"which phase 3 did not check")
+    log(f"  {where}: B2 launched at (K, D, R, H) {sorted(tuple(s[2:]) for s in seen)}, each checked in "
+        f"phase 3, each on the staged kernel")
 
 
 def knarpe_bwd_bound(name: str, args, g, n_head: int) -> tuple:
@@ -549,9 +599,12 @@ def run_full_width(card: str, use_pallas: bool, n_timed: int = 3, replay_rules: 
     gen = torch.Generator().manual_seed(0)
     n_params = sum(p.numel() for p in model.parameters())
     t0 = time.perf_counter()
-    joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
+    with recorded_cross_shapes() as seen:
+        joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
     torch.cuda.synchronize()
     log(f"  warm-up call {time.perf_counter() - t0:.3f} s ({n_params} parameters, bf16 compute)")
+    if use_pallas:
+        check_path_cross_shapes("eval call", seen)
     torch.cuda.reset_peak_memory_stats()
     times, per_call = [], []
     for _ in range(n_timed):
@@ -651,9 +704,11 @@ def run_train_full_width(card: str, n_timed: int = 3) -> dict:
     gen = torch.Generator().manual_seed(0)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     t0 = time.perf_counter()
-    step(batch, gen)
+    with recorded_cross_shapes() as seen:
+        step(batch, gen)
     torch.cuda.synchronize()
     log(f"  warm-up step {time.perf_counter() - t0:.3f} s")
+    check_path_cross_shapes("training step", seen)
     torch.cuda.reset_peak_memory_stats()
     times, per_step, metrics = [], [], []
     for _ in range(n_timed):

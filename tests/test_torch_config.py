@@ -137,6 +137,26 @@ def test_library_name_follows_source_and_flags(monkeypatch, tmp_path):
     assert base != build.library_path("k", "k.cu", ("--fmad=false",))
 
 
+def test_library_name_follows_included_headers(monkeypatch, tmp_path):
+    """A header under csrc/ that the source includes, directly or through another header, is part
+    of the hash: an edit to it once loaded the library built from the old header."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b v1")
+    (tmp_path / "unused.cuh").write_text("// u v1")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert build.source_files("k.cu") == [tmp_path / n for n in ("k.cu", "a.cuh", "b.cuh")]
+    base = build.library_path("k", "k.cu")
+    (tmp_path / "unused.cuh").write_text("// u v2")
+    assert base == build.library_path("k", "k.cu")
+    (tmp_path / "b.cuh").write_text("// b v2")
+    assert base != build.library_path("k", "k.cu")
+
+
+def test_knarpe_library_hash_covers_its_staged_header():
+    assert build.CSRC_DIR / "knarpe_staged.cuh" in build.source_files("knarpe.cu")
+
+
 def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     rng = np.random.default_rng(0)
     src = torch.from_numpy(rng.uniform(-50, 50, (2, 8, 2)).astype(np.float32))

@@ -24,6 +24,8 @@ Outputs are of size up to ~6. Tolerances:
 The output of an all-invalid source is exactly zero.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -142,3 +144,66 @@ def test_wrappers_raise_off_cpu_without_kernel():
     for name in ("knarpe_cross_attention", "knarpe_cross_attention_v3"):
         with pytest.raises(ValueError, match="no kernel for device"):
             getattr(knarpe, name)(*meta.values(), N_HEAD)
+
+
+def _bf16_cross(n_knn, d, r, misalign=False):
+    t = _cast(_inputs(2, 3, n_knn, seed=0, cross=True), jnp.float32, torch.float32)[1]
+    if d != D or r != R:
+        rng = np.random.default_rng(1)
+        f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+        t = dict(q=f(2, 3, d), tgt=f(2, 3, n_knn, d), rpe=f(2, 3, n_knn, r), invalid=t["invalid"],
+                 w_kv=f(d, 2 * d), w_rpe=f(r, 2 * d), b=f(2 * d))
+    t = {k: v if v.dtype == torch.bool else v.to(torch.bfloat16) for k, v in t.items()}
+    if misalign:  # the same values one element into a buffer: contiguous, 2 bytes off a 16-byte boundary
+        buf = torch.zeros(t["tgt"].numel() + 1, dtype=torch.bfloat16)
+        buf[1:] = t["tgt"].reshape(-1)
+        t["tgt"] = buf[1:].view(t["tgt"].shape)
+    return t
+
+
+def _validate(name, t, n_head):
+    return knarpe._validate(name, t["q"], None, None, t["tgt"], t["rpe"], t["invalid"], t["w_kv"], t["w_rpe"],
+                            t["b"], n_head)
+
+
+CROSS_KERNELS = ["knarpe_cross_attention", "knarpe_cross_attention_v3"]
+
+
+@pytest.mark.parametrize("name", CROSS_KERNELS)
+def test_validate_raises_for_shapes_the_staged_kernel_refuses(name, monkeypatch):
+    """bf16 B2 and B3 run only on the staged kernel, so a shape whose code the built library returns
+    raises before any launch, with that code's reason; float32 and the backward do not ask."""
+    asked, answer = [], [0]
+
+    def route(kernel, n_knn, d_model, d_rpe, n_head, device_index):
+        asked.append((kernel, n_knn, d_model, d_rpe, n_head, device_index))
+        return answer[0]
+
+    monkeypatch.setattr(knarpe, "staged_refusal", route)
+    t = _bf16_cross(5, 32, 16)
+    assert _validate(name, t, 2)[:5] == (2, 3, 5, 32, 16) and asked == [(name, 5, 32, 16, 2, 0)]
+    for code, why in knarpe.STAGED_REFUSALS.items():
+        answer[0] = code
+        with pytest.raises(ValueError, match=re.escape(f"refuses K=5, d_model=32, d_rpe=16, n_head=2: {why}")):
+            _validate(name, t, 2)
+    asked.clear()
+    t32 = {k: v if v.dtype == torch.bool else v.float() for k, v in t.items()}
+    assert _validate(name, t32, 2)[:5] == (2, 3, 5, 32, 16)
+    assert knarpe._validate(name, t["q"], None, None, t["tgt"], t["rpe"], t["invalid"], t["w_kv"], t["w_rpe"],
+                            t["b"], 2, forward=False)[:5] == (2, 3, 5, 32, 16)
+    assert asked == []
+
+
+@pytest.mark.parametrize("name", CROSS_KERNELS)
+def test_validate_raises_for_misaligned_bf16_operands(name, monkeypatch):
+    """The staged kernel copies 16-byte chunks: a bf16 operand 2 bytes off a 16-byte boundary
+    raises (there is no other bf16 B2/B3 kernel to take it); float32 runs on the general kernel."""
+    monkeypatch.setattr(knarpe, "staged_refusal", lambda *a: 0)
+    misaligned = _bf16_cross(5, D, R, misalign=True)
+    assert misaligned["tgt"].is_contiguous() and misaligned["tgt"].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _validate(name, misaligned, N_HEAD)
+    t32 = {k: v if v.dtype == torch.bool else v.float() for k, v in misaligned.items()}
+    t32["tgt"] = torch.zeros(t32["tgt"].numel() + 1)[1:].view(t32["tgt"].shape)
+    assert t32["tgt"].data_ptr() % 16
+    assert _validate(name, t32, N_HEAD)[:4] == (2, 3, 5, D)

@@ -8,7 +8,12 @@ nothing of JAX, so it runs on a machine with the card and without JAX:
 
 Inputs come from a numpy seed, at the rollout's shapes and at small ones,
 with an all-invalid source, a source with one valid target, odd K=89 and
-source counts that are no multiple of the kernel's grid. Tolerances:
+source counts that are no multiple of the kernel's grid. bf16 B2 and B3 run on
+the staged kernel (csrc/knarpe_staged.cuh), held at the training path's shapes,
+K below 16 and no multiple of 16, fewer sources than SMs, an odd count and a
+single source; the library takes each of those shapes, two launches give the
+same bits, and a bf16 B2 or B3 at a shape the staged kernel refuses, or with an
+operand off a 16-byte boundary, raises: it has no other kernel. Tolerances:
   - float32 kernel vs float32 plain version: 1e-4 on outputs of size ~1-5;
     the kernel reassociates the projections with the attention
     (csrc/knarpe.cu), so the two differ by float32 summation order only;
@@ -46,6 +51,11 @@ BF16_REL = 2.0 ** -4
 # (n_b, n_s, K, D, R, H): the rollout's B2/B3 and map encoder's B4 shapes, then small ones
 CROSS_SHAPES = [(128, 64, 89, 128, 128, 4), (3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
 ATTN_SHAPES = [(4, 1024, 32, 128, 128, 4), (3, 7, 5, 16, 16, 2), (2, 17, 89, 64, 32, 1)]
+# the staged bf16 B2/B3 kernel (csrc/knarpe_staged.cuh): the training path's agent decoder and
+# posterior agent encoder, the posterior TL encoder (K=24); K below 16 and no multiple of 16;
+# source counts under the 132 SMs, odd (no multiple of the two-stage ring) and a single source
+STAGED_SHAPES = [(8, 64, 89, 128, 128, 4), (8, 128, 24, 128, 128, 4), (1, 1, 3, 128, 128, 4),
+                 (1, 97, 11, 64, 64, 2), (3, 15, 24, 32, 32, 8), (1, 131, 89, 128, 128, 4), (2, 5, 89, 32, 32, 1)]
 
 
 def _need_card():
@@ -75,10 +85,12 @@ def _cast(args, dtype):
 
 CASES = [(name, shape) for name in ("knarpe_cross_attention", "knarpe_cross_attention_v3") for shape in CROSS_SHAPES]
 CASES += [("knarpe_attention", shape) for shape in ATTN_SHAPES]
+STAGED_CASES = [(name, shape) for name in ("knarpe_cross_attention", "knarpe_cross_attention_v3")
+                for shape in STAGED_SHAPES]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,shape", CASES)
+@pytest.mark.parametrize("name,shape", CASES + STAGED_CASES)
 def test_kernel_matches_plain_version_on_card(name, shape):
     _need_card()
     kernel, plain = getattr(knarpe, name), getattr(knarpe, f"{name}_reference")
@@ -183,3 +195,45 @@ def test_shapes_planned_later_do_not_break_earlier_ones():
         args, g = _grad_case("knarpe_cross_attention", shape, torch.float32)
         grads = _kernel_grads("knarpe_cross_attention", args, g, shape[-1])
         assert all(torch.isfinite(x).all() for x in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
+def test_bf16_shapes_the_staged_kernel_refuses_raise(name):
+    """Every bf16 B2/B3 shape here takes the staged kernel on the card; a shape it refuses (two
+    stages of K=120 overflow the shared memory; D=24 is no multiple of 16; for B3 a d_head of 64
+    spans two warps' column blocks) or an operand off a 16-byte boundary raises in the wrapper."""
+    _need_card()
+    dev = torch.cuda.current_device()
+    for shape in STAGED_SHAPES + CROSS_SHAPES:
+        assert knarpe.staged_refusal(name, *shape[2:], dev) == 0
+    refused = [((1, 3, 120, 128, 128, 4), 5), ((1, 3, 5, 24, 16, 2), 2)]
+    if name.endswith("_v3"):
+        refused.append(((1, 3, 5, 128, 128, 2), 4))
+    for shape, code in refused:
+        assert knarpe.staged_refusal(name, *shape[2:], dev) == code
+        args = _cast(_inputs(shape, True, seed=9), torch.bfloat16)
+        before = knarpe.LAUNCHES[name]
+        with pytest.raises(ValueError, match="refuses"):
+            getattr(knarpe, name)(*args, shape[-1])
+        assert knarpe.LAUNCHES[name] == before
+    args = _cast(_inputs(CROSS_SHAPES[1], True, seed=9), torch.bfloat16)
+    buf = torch.empty(args[1].numel() + 1, dtype=torch.bfloat16, device="cuda")
+    buf[1:] = args[1].reshape(-1)
+    args[1] = buf[1:].view(args[1].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        getattr(knarpe, name)(*args, CROSS_SHAPES[1][-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
+@pytest.mark.parametrize("shape", [CROSS_SHAPES[0], STAGED_SHAPES[0], STAGED_SHAPES[4]])
+def test_two_launches_give_the_same_bits(name, shape):
+    """No atomics: every sum of the staged kernel has a fixed order."""
+    _need_card()
+    args = _cast(_inputs(shape, True, seed=7), torch.bfloat16)
+    kernel = getattr(knarpe, name)
+    first = kernel(*args, shape[-1])
+    second = kernel(*args, shape[-1])
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -25,20 +25,28 @@
 // sum a v terms). That fits the CUDA cores with room to spare, so the kernel
 // can stay a plain float32 FMA loop and still be limited by its loads:
 //   - one persistent block per SM slot walks over sources; the weights
-//     [W_kv; W_rpe] are staged once per block in shared memory (bf16 B2:
-//     132 KB, rows padded to an odd word count so that a warp reading a
-//     column is free of bank conflicts); when they do not fit (float32 B2)
-//     they are read through L1/L2 instead;
+//     [W_kv; W_rpe] are staged once per block in shared memory (rows padded
+//     to an odd word count so that a warp reading a column is free of bank
+//     conflicts); when they do not fit (float32 B2) they are read through
+//     L1/L2 instead;
 //   - x_j is read straight from device memory twice per source (logits, then
 //     y); while a source is computed, the block prefetches its next source's
 //     inputs into L2, so the second read and the next source's first read
 //     hit L2.
 // B3 keeps the explicit k half (its roundings need kk itself): K x D dot
-// products of length X per source on the CUDA cores, ~2.9 M multiply-adds
-// per source, so it is bound by operations, not bytes. The block stages the
-// source's [K, X] inputs in shared memory and each thread accumulates a 4 x 4
-// tile of kk (4 targets x 4 columns of one head) in registers, 16 FMAs for 8
-// shared-memory loads. Only a script reaches B3 in the JAX package.
+// products of length X per source, ~2.9 M multiply-adds per source. Only a
+// script reaches B3 in the JAX package.
+//
+// Routes. bf16 B2 and B3 run only on the staged kernel of knarpe_staged.cuh
+// (each source's targets copied into shared memory while the previous one is
+// computed; every product on the tensor cores), whose header says how; a shape
+// or an operand address it refuses is an error (knarpe_staged_route says which,
+// and the wrapper raises first). The kernel below serves B4 and float32 B2 and
+// B3. Its float32 B3 accumulates 4 x 4 tiles of kk (4 targets x 4 columns of
+// one head) in registers from the source's [K, X] inputs staged in shared
+// memory: tensor cores would compute in TF32, outside float32's tolerance.
+
+#include "knarpe_staged.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +60,10 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr float kMask = -1e9f;
+using staged::a16;
+using staged::kMask;
+using staged::warp_max;
+using staged::warp_sum;
 enum Mode { kAttn = 0, kCross = 1, kCrossV3 = 2 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -64,24 +75,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 template <typename T> __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 __device__ __forceinline__ void prefetch_l2(const void* ptr, size_t bytes, int tid) {
   const char* c = static_cast<const char*>(ptr);
   for (size_t off = static_cast<size_t>(tid) * 128; off < bytes; off += static_cast<size_t>(kThreads) * 128)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(c + off));
 }
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
 // Byte offsets into the dynamic shared memory of one block.
 struct Layout {
@@ -93,22 +91,22 @@ Layout make_layout(int mode, size_t elem, int K, int D, int X, int H, int reside
   Layout L{};
   size_t off = 0;
   L.w = off;
-  off += resident ? align16(static_cast<size_t>(X) * ldw * elem) : 0;
-  L.qs = off;   off += align16(static_cast<size_t>(D) * 4);
-  L.inv = off;  off += align16(static_cast<size_t>(K));
-  L.u = off;    off += align16(static_cast<size_t>(H) * X * 4);
-  L.c = off;    off += align16(static_cast<size_t>(H) * 4);
-  L.asum = off; off += align16(static_cast<size_t>(H) * 4);
-  L.nv = off;   off += align16(static_cast<size_t>(H) * 4);
-  L.lg = off;   off += align16(static_cast<size_t>(H) * K * 4);
+  off += resident ? a16(static_cast<size_t>(X) * ldw * elem) : 0;
+  L.qs = off;   off += a16(static_cast<size_t>(D) * 4);
+  L.inv = off;  off += a16(static_cast<size_t>(K));
+  L.u = off;    off += a16(static_cast<size_t>(H) * X * 4);
+  L.c = off;    off += a16(static_cast<size_t>(H) * 4);
+  L.asum = off; off += a16(static_cast<size_t>(H) * 4);
+  L.nv = off;   off += a16(static_cast<size_t>(H) * 4);
+  L.lg = off;   off += a16(static_cast<size_t>(H) * K * 4);
   L.py = X < kThreads ? kThreads / X : 1;
-  L.ypart = off; off += align16(static_cast<size_t>(L.py) * H * X * 4);
+  L.ypart = off; off += a16(static_cast<size_t>(L.py) * H * X * 4);
   L.po = D < kThreads ? kThreads / D : 1;
-  L.opart = off; off += align16(static_cast<size_t>(L.po) * D * 4);
+  L.opart = off; off += a16(static_cast<size_t>(L.po) * D * 4);
   L.xs = off;  // B3: the source's inputs [K, X], then per-tile partial logits [K, D / 4]
-  if (mode == kCrossV3) off += align16(static_cast<size_t>(K) * X * elem);
+  if (mode == kCrossV3) off += a16(static_cast<size_t>(K) * X * elem);
   L.kpart = off;
-  if (mode == kCrossV3) off += align16(static_cast<size_t>(K) * (D / 4) * 4);
+  if (mode == kCrossV3) off += a16(static_cast<size_t>(K) * (D / 4) * 4);
   L.total = off;
   return L;
 }
@@ -463,14 +461,116 @@ int by_heads(const Params& p, int n_head, int dev, cudaStream_t stream) {
   }
 }
 
-template <typename T>
-int by_mode(const Params& p, int mode, int n_head, int dev, cudaStream_t stream) {
-  switch (mode) {
-    case kAttn: return by_heads<T, kAttn>(p, n_head, dev, stream);
-    case kCross: return by_heads<T, kCross>(p, n_head, dev, stream);
-    case kCrossV3: return by_heads<T, kCrossV3>(p, n_head, dev, stream);
+// The staged kernel's plan per (device, K, D, R) and instantiation: its refusal code
+// (staged::refusal; 0 = taken), layout and resident blocks on the device.
+struct StagedPlan {
+  int dev, n_knn, d_model, d_rpe, refused;
+  staged::Layout L;
+  long long slots;
+};
+
+template <int MODE, int H>
+int make_staged_plan(StagedPlan& pl) {
+  int max_smem = 0, n_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.refused = staged::refusal(MODE, pl.n_knn, pl.d_model, pl.d_rpe, H, static_cast<size_t>(max_smem));
+  if (pl.refused) return 0;
+  pl.L = staged::make_layout(pl.n_knn, pl.d_model, pl.d_rpe, H);
+  auto kern = staged::knarpe_x_staged_kernel<MODE, H>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, staged::kThreads, pl.L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) pl.refused = 6;
+  pl.slots = static_cast<long long>(per_sm) * n_sm;
+  return 0;
+}
+
+template <int MODE, int H>
+int staged_plan(int dev, int K, int D, int R, StagedPlan* out) {
+  static std::mutex mu;
+  static std::vector<StagedPlan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const StagedPlan& c : plans) {
+    if (c.dev == dev && c.n_knn == K && c.d_model == D && c.d_rpe == R) {
+      *out = c;
+      return 0;
+    }
+  }
+  StagedPlan pl{};
+  pl.dev = dev; pl.n_knn = K; pl.d_model = D; pl.d_rpe = R;
+  const int rc = make_staged_plan<MODE, H>(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
+// Launches the staged kernel; a shape it refuses, or an operand that is not 16-byte aligned (the
+// copies move 16-byte chunks), is cudaErrorInvalidValue.
+template <int MODE, int H>
+int staged_launch(const Params& g, int dev, cudaStream_t stream) {
+  StagedPlan pl{};
+  const int rc = staged_plan<MODE, H>(dev, g.n_knn, g.d_model, g.d_rpe, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused || !(aligned16(g.q) && aligned16(g.tgt) && aligned16(g.rpe) && aligned16(g.w_kv) &&
+                      aligned16(g.w_rpe) && aligned16(g.bias)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  staged::Params p{};
+  p.q = static_cast<const __nv_bfloat16*>(g.q);
+  p.tgt = static_cast<const __nv_bfloat16*>(g.tgt);
+  p.rpe = static_cast<const __nv_bfloat16*>(g.rpe);
+  p.w_kv = static_cast<const __nv_bfloat16*>(g.w_kv);
+  p.w_rpe = static_cast<const __nv_bfloat16*>(g.w_rpe);
+  p.bias = static_cast<const __nv_bfloat16*>(g.bias);
+  p.invalid = g.invalid;
+  p.out = static_cast<__nv_bfloat16*>(g.out);
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.d_model = g.d_model; p.d_rpe = g.d_rpe; p.scale = g.scale;
+  p.mt = staged::swizzle_mask(g.d_model / 8);
+  p.mr = staged::swizzle_mask(g.d_rpe / 8);
+  p.mw = staged::swizzle_mask(g.d_model / 4);
+  p.L = pl.L;
+  const int grid = static_cast<int>(g.n_src < pl.slots ? g.n_src : pl.slots);
+  staged::knarpe_x_staged_kernel<MODE, H><<<grid, staged::kThreads, p.L.total, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int staged_by_heads(const Params& p, int n_head, int dev, cudaStream_t stream) {
+  switch (n_head) {
+    case 1: return staged_launch<MODE, 1>(p, dev, stream);
+    case 2: return staged_launch<MODE, 2>(p, dev, stream);
+    case 4: return staged_launch<MODE, 4>(p, dev, stream);
+    case 8: return staged_launch<MODE, 8>(p, dev, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// float32 runs every mode on the general kernel; bf16 runs B4 there and B2 and B3 on the staged one.
+int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStream_t stream) {
+  if (dtype == 0) {
+    switch (mode) {
+      case kAttn: return by_heads<float, kAttn>(p, n_head, dev, stream);
+      case kCross: return by_heads<float, kCross>(p, n_head, dev, stream);
+      case kCrossV3: return by_heads<float, kCrossV3>(p, n_head, dev, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype == 1) {
+    switch (mode) {
+      case kAttn: return by_heads<__nv_bfloat16, kAttn>(p, n_head, dev, stream);
+      case kCross: return staged_by_heads<kCross>(p, n_head, dev, stream);
+      case kCrossV3: return staged_by_heads<kCrossV3>(p, n_head, dev, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -479,9 +579,11 @@ int by_mode(const Params& p, int mode, int n_head, int dev, cudaStream_t stream)
 // 1 = bf16 for every operand and the output. B4 (mode 0) reads k/v rows of D
 // elements at stride ld_kv and no tgt / w_kv (d_tgt = 0); B2/B3 read tgt and
 // w_kv (d_tgt = d_model) and no k/v. n_head in {1, 2, 4, 8}, d_model even and
-// divisible by n_head, and for B3 d_model / n_head a multiple of 4 (checked by
-// the Python wrapper). dev is the current device, which owns the tensors and
-// the stream. Returns cudaGetLastError().
+// divisible by n_head, for B3 d_model / n_head a multiple of 4, and for bf16
+// B2/B3 a shape knarpe_staged_route takes with 16-byte aligned operands
+// (checked by the Python wrapper). dev is the current device, which owns the
+// tensors and the stream. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a launch no kernel takes.
 extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
                              const void* tgt, const void* rpe, const void* invalid, const void* w_kv,
                              const void* w_rpe, const void* bias, void* out, int n_src, int n_knn, int d_model,
@@ -491,8 +593,27 @@ extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, 
   p.invalid = static_cast<const uint8_t*>(invalid);
   p.w_kv = w_kv; p.w_rpe = w_rpe; p.bias = bias; p.out = out;
   p.n_src = n_src; p.n_knn = n_knn; p.d_model = d_model; p.d_tgt = d_tgt; p.d_rpe = d_rpe; p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return by_mode<float>(p, mode, n_head, dev, st);
-  if (dtype == 1) return by_mode<__nv_bfloat16>(p, mode, n_head, dev, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_mode(p, mode, dtype, n_head, dev, static_cast<cudaStream_t>(stream));
+}
+
+// Whether the staged kernel takes a bf16 B2 (mode 1) or B3 (mode 2) launch at this shape on
+// device dev, given 16-byte aligned operands: 0 if it does, else staged::refusal's code (6: no
+// block fits an SM), or minus a CUDA error; -1 for any other mode or dtype. The wrapper asks
+// it before a bf16 B2 or B3 launch and raises for a refusal.
+extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  if (dtype != 1 || (mode != kCross && mode != kCrossV3)) return -1;
+  StagedPlan pl{};
+  int rc = 0;
+  switch (mode * 16 + n_head) {
+    case kCross * 16 + 1: rc = staged_plan<kCross, 1>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case kCross * 16 + 2: rc = staged_plan<kCross, 2>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case kCross * 16 + 4: rc = staged_plan<kCross, 4>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case kCross * 16 + 8: rc = staged_plan<kCross, 8>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case kCrossV3 * 16 + 1: rc = staged_plan<kCrossV3, 1>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case kCrossV3 * 16 + 2: rc = staged_plan<kCrossV3, 2>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case kCrossV3 * 16 + 4: rc = staged_plan<kCrossV3, 4>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case kCrossV3 * 16 + 8: rc = staged_plan<kCrossV3, 8>(dev, n_knn, d_model, d_rpe, &pl); break;
+    default: return -1;
+  }
+  return rc != 0 ? -rc : pl.refused;
 }

@@ -20,7 +20,11 @@ dtype. Every operand has one dtype, float32 or bfloat16.
 What bounds them on the card is the bytes: at the rollout's shapes B2 reads
 ~373 MB of targets and relative poses per launch and writes 2 MB, and the
 [K, 2D] projection output, which an unfused path writes and reads back, is
-what the kernels keep out of device memory (`csrc/knarpe.cu` says how).
+what the kernels keep out of device memory (`csrc/knarpe.cu` says how). bf16
+B2 and B3 run only on a kernel that stages each source's targets in shared
+memory while the previous source computes, every product on the tensor cores
+(`csrc/knarpe_staged.cuh`); for a shape it refuses (the built library says
+which) or an operand not at a 16-byte aligned address, the wrapper raises.
 
 Each wrapper is a `torch.autograd.Function`: its forward launches the
 forward kernel and its backward the backward kernel of `csrc/knarpe_bwd.cu`,
@@ -35,6 +39,7 @@ per kernel, backward ones under `*_bwd` (never plain-version calls).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -51,6 +56,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
 _BWD_FN = None
+
+# why the staged bf16 B2/B3 kernel (csrc/knarpe_staged.cuh) refuses a shape, by the code of
+# `knarpe_staged_route` (`staged::refusal`)
+STAGED_REFUSALS = {
+    1: "K must be in [1, 512], one thread per target",
+    2: "d_model and d_rpe must be multiples of 16 (the tensor cores' k steps)",
+    3: "d_model must be a multiple of the 8-column tiles a warp takes",
+    4: "d_head must be 4, or a multiple of 8 that divides the warp's column block",
+    5: "the weights and two source stages exceed the device's shared memory per block",
+    6: "no block fits a multiprocessor",
+}
 
 
 # -- plain versions ----------------------------------------------------------
@@ -124,16 +140,36 @@ def knarpe_cross_attention_bwd_reference(q, tgt, rpe, invalid, w_kv, w_rpe, b, g
 
 # -- kernels -----------------------------------------------------------------
 def load_library():
-    """Build csrc/knarpe.cu and bind its C entry point, once per process."""
+    """Build csrc/knarpe.cu and bind its C entry points, once per process."""
     global _LAUNCH_FN
     if _LAUNCH_FN is None:
-        fn = build.load("knarpe", "knarpe.cu").knarpe_launch
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LAUNCH_FN = fn
+        lib = build.load("knarpe", "knarpe.cu")
+        lib.knarpe_staged_route.argtypes = [ctypes.c_int] * 7
+        lib.knarpe_staged_route.restype = ctypes.c_int
+        _LAUNCH_FN = bind_launch(lib)
     return _LAUNCH_FN
+
+
+def bind_launch(lib: ctypes.CDLL):
+    """The `knarpe_launch` C entry point of a built csrc/knarpe.cu, with its argument types."""
+    fn = lib.knarpe_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def staged_refusal(kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the staged kernel takes a bf16 launch of B2 or B3 at this shape on the card, else the
+    built library's refusal code (`STAGED_REFUSALS` says why)."""
+    load_library()
+    code = build.load("knarpe", "knarpe.cu").knarpe_staged_route(
+        _MODES[kernel], _DTYPES[torch.bfloat16], n_knn, d_model, d_rpe, n_head, device_index)
+    if code < 0:
+        raise RuntimeError(f"{kernel}: planning the staged kernel failed: cudaError {-code}")
+    return code
 
 
 def load_bwd_library():
@@ -170,8 +206,9 @@ def _row_stride(kernel: str, name: str, t: torch.Tensor, shape, dtype, device) -
     return ld
 
 
-def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int):
-    """Check the operands against the kernels' contract; -> (n_b, n_s, K, D, R, d_tgt, ld_kv)."""
+def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int, forward: bool = True):
+    """Check the operands against the forward (or, with forward=False, the backward) kernel's
+    contract; -> (n_b, n_s, K, D, R, d_tgt, ld_kv)."""
     device = q.device
     dtype = q.dtype
     if dtype not in _DTYPES:
@@ -196,6 +233,15 @@ def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: i
         _check(kernel, "tgt", tgt, (n_b, n_s, n_knn, d_model), dtype, device)
         _check(kernel, "w_kv", w_kv, (d_model, 2 * d_model), dtype, device)
     _check(kernel, "w_rpe", w_rpe, (d_rpe, 2 * d_model), dtype, device)
+    if forward and tgt is not None and dtype == torch.bfloat16:
+        # bf16 B2 and B3 run only on the staged kernel (csrc/knarpe.cu, "Routes")
+        code = staged_refusal(kernel, n_knn, d_model, d_rpe, n_head, device.index or 0)
+        if code:
+            raise ValueError(f"{kernel}: the bf16 kernel refuses K={n_knn}, d_model={d_model}, d_rpe={d_rpe}, "
+                             f"n_head={n_head}: {STAGED_REFUSALS[code]}")
+        if any(t.data_ptr() % 16 for t in (q, tgt, rpe, w_kv, w_rpe, b)):
+            raise ValueError(f"{kernel}: the bf16 kernel copies 16-byte chunks; q, tgt, rpe, w_kv, w_rpe and b "
+                             f"must start at 16-byte aligned addresses")
     return n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv
 
 
@@ -236,7 +282,7 @@ def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_he
     """The backward kernel of B4 (k/v given) or B2 (tgt given): (dq, dk, dv, dtgt, drpe, dw_kv, dw_rpe, db),
     None where the kernel has no such input."""
     n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv = _validate(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b,
-                                                              n_head)
+                                                              n_head, forward=False)
     dtype, device = q.dtype, q.device
     _check(kernel, "g", g, (n_b, n_s, d_model), dtype, device)
 

@@ -2,8 +2,9 @@
 
 Each kernel source under `csrc/` is compiled on first use into
 `trafficbotsv15_tpu_torch/build/lib<name>-<hash>.so` (a directory git
-ignores). The hash covers the source and every nvcc flag, so a change to
-either gives a fresh build and a stale library is never loaded. The sources expose a
+ignores). The hash covers the source, the `csrc/` headers it includes and
+every nvcc flag, so a change to any of them gives a fresh build and a stale
+library is never loaded. The sources expose a
 plain C interface, so no PyTorch header is compiled and a build takes
 seconds. Nothing here runs at import time.
 """
@@ -13,16 +14,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -37,10 +40,23 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+def source_files(source: str) -> List[Path]:
+    """csrc/<source> and every csrc/ header it includes with `#include "..."`, directly or
+    through another header, in the order first met."""
+    found, todo = [], [CSRC_DIR / source]
+    while todo:
+        path = todo.pop(0)
+        if path not in found:
+            found.append(path)
+            todo += [CSRC_DIR / n for n in _LOCAL_INCLUDE.findall(path.read_text()) if (CSRC_DIR / n).is_file()]
+    return found
+
+
 def library_path(name: str, source: str, extra_flags: Sequence[str] = ()) -> Path:
-    """build/lib<name>-<hash>.so, the hash taken over the source and the nvcc flags."""
+    """build/lib<name>-<hash>.so, the hash taken over the source, the headers it includes and the nvcc flags."""
     flags = (*ARCH_FLAGS, *BASE_FLAGS, *extra_flags)
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in source_files(source))
+    digest = hashlib.sha256(text + "\0".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
