@@ -11,14 +11,18 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and at edge cases; times kernel, plain version and
      the nearest PyTorch call or composition of calls (`library_ms`):
-     B1 (`knn_xy`), B4 (`knarpe_attention`), B2 (`knarpe_cross_attention`)
-     and B3 (`knarpe_cross_attention_v3`, which only this phase launches);
-     B2 and B3 also at the training path's shapes (the agent decoder and
-     posterior agent encoder, the posterior TL encoder at K=24) and timed at
-     the first of them; in bf16 they run on the staged kernel of
-     csrc/knarpe_staged.cuh, their only bf16 kernel (the wrapper raises for
-     a shape it refuses), and must give the same bits on a second launch;
-     then the backward kernels B4-bwd and B2-bwd (B3's backward is B2's)
+     B1 (`knn_xy`; also at the training path's [8, 64, 1024], all distances
+     tied, k=1, k = n_tgt, n_tgt 1000 and 2048, every source invalid; timed
+     at the eval and training shapes), B4 (`knarpe_attention`), B2
+     (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`, which
+     only this phase launches); B2 and B3 also at the training path's shapes
+     (the agent decoder and posterior agent encoder, the posterior TL encoder
+     at K=24) and timed at the first of them; in bf16 these run on the staged
+     kernel of csrc/knarpe_staged.cuh (the route asserted); the shapes it
+     refuses, the scaled preset's D=R=256 with 8 heads and K=90 and K=128 at
+     D=R=128, run on the general route (csrc/knarpe.cu, asserted), timed at
+     the scaled preset's eval shape; every bf16 B2/B3 must give the same bits
+     on a second launch; then the backward kernels B4-bwd and B2-bwd (B3's backward is B2's)
      through the wrappers' autograd: the card's output has a grad_fn, and its
      gradients match autograd of the plain versions in float32 and bf16;
      timed against the plain backward and the library composition's backward;
@@ -32,7 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      polylines, 90 steps, check_level=1: finite poses of the documented
      shapes, 90 KNN launches and no attention-kernel launch per call, seconds
      per call, peak memory and agent-steps/s; phases 6 and 8 record the
-     shapes at which the paths launch B2 and fail on one phase 3 did not check;
+     shapes at which the paths launch B2 and fail on one phase 3 did not check,
+     and on any B2 launch that did not take the staged route;
   6. slice at full width, use_pallas=True (the eval main path): the same
      call with the KNARPE attention kernels; B1, B2 and B4 launches per call
      asserted (90, 4 layers x 90 steps, 8 map layers); then one more call
@@ -82,6 +87,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet, 700 W)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 KNN_ROWS, KNN_SRC, KNN_TGT, KNN_K = 128, 64, 1024, 64  # 4 scenarios x 32 futures, agents, polylines, 2.0 * 32
+KNN_TRAIN_ROWS = 8  # the training path's agent->map launch: 8 scenarios, no K-fold replication
 SLICE_POSE_ATOL = 1e-3  # m; float32 on card vs CPU, reduction order only
 # KNARPE shapes (n_b, n_s, K, D, R, H) on the full-width path: the agent decoder's
 # cross-attention (128 rollouts x 64 agents, 64 map + 25 TL targets) and the map encoder
@@ -142,18 +148,51 @@ def knn_case(gen, n_rows, n_src, n_tgt, grid=False, p_src=0.2, p_tgt=0.2):
     return [t.cuda().contiguous() for t in (src, src_inv, tgt, tgt_inv)]
 
 
+def time_knn(args, k: int) -> dict:
+    """Kernel B1 (eager, and device time from a CUDA graph), its plain version and torch.topk on the
+    materialised distances at one shape, with the bound."""
+    ms = cuda_ms(lambda: knn.knn_xy(*args, k), 200)
+    device_ms = graph_ms(lambda: knn.knn_xy(*args, k))
+    plain_ms = cuda_ms(lambda: knn.knn_xy_reference(*args, k), 20)
+    src, src_inv, tgt, tgt_inv = args
+    dist = torch.cdist(src, tgt)
+    dist = torch.where(src_inv[:, :, None] | tgt_inv[:, None, :], float("inf"), dist)
+    library_ms = cuda_ms(lambda: torch.topk(dist, k, dim=-1, largest=False), 100)  # timing yardstick only
+    n_rows, n_src, n_tgt = src.shape[0], src.shape[1], tgt.shape[1]
+    bytes_moved = (src.numel() * 4 + src_inv.numel() + tgt.numel() * 4 + tgt_inv.numel()
+                   + n_rows * n_src * k * (4 + 4))
+    ops = n_rows * n_src * n_tgt * 7  # 2 sub, 2 mul, add, sqrt, one compare per pair
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    log(f"  knn_xy timing at [{n_rows},{n_src},{n_tgt}] k={k}: kernel {ms:.4f} ms ({device_ms:.4f} ms of device "
+        f"time, launched from a CUDA graph), plain {plain_ms:.4f} ms, torch.topk on materialised distances "
+        f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bytes_moved / 1e6:.2f} MB), kernel at "
+        f"{100 * bound_ms / ms:.2f}% of the bound")
+    return {"shape": [n_rows, n_src, n_tgt, k], "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+
+
 def check_knn_kernel() -> dict:
-    """Kernel B1 vs its plain version: identical indices, bit-equal distances."""
+    """Kernel B1 vs its plain version: identical indices, bit-equal distances; timed at the eval and
+    the training path's shapes."""
     gen = torch.Generator().manual_seed(0)
     cases = {
         "main_path_float": (knn_case(gen, KNN_ROWS, KNN_SRC, KNN_TGT), KNN_K),
         "integer_grid_ties": (knn_case(gen, KNN_ROWS, KNN_SRC, KNN_TGT, grid=True), KNN_K),
         "invalid_rows_and_targets": (knn_case(gen, 8, 64, 1024, grid=True, p_src=0.3, p_tgt=0.97), KNN_K),
         "k_equals_n_tgt": (knn_case(gen, 2, 8, 128), 128),
+        "training_shape": (knn_case(gen, KNN_TRAIN_ROWS, KNN_SRC, KNN_TGT), KNN_K),
+        "all_targets_at_one_point": (knn_case(gen, 4, 64, 1024, p_tgt=0.0), KNN_K),
+        "k_1": (knn_case(gen, 16, 64, 1024, grid=True), 1),
+        "k_equals_n_tgt_1024": (knn_case(gen, 4, 16, 1024, grid=True), 1024),
+        "n_tgt_1000": (knn_case(gen, 8, 64, 1000), KNN_K),
+        "n_tgt_2048": (knn_case(gen, 4, 64, 2048, grid=True), KNN_K),
+        "every_source_invalid": (knn_case(gen, 4, 64, 1024, p_src=1.0), KNN_K),
     }
     src_inv, tgt_inv = cases["invalid_rows_and_targets"][0][1::2]
     tgt_inv[0] = True  # a row with no valid target: every source emits its +inf tail
     src_inv[1, 5] = True  # an invalid source in another row
+    cases["all_targets_at_one_point"][0][2][:] = torch.tensor([3.0, -7.0], device="cuda")  # every distance tied
     max_err = 0.0
     for name, (args, k) in cases.items():
         d, i = knn.knn_xy(*args, k)
@@ -168,26 +207,12 @@ def check_knn_kernel() -> dict:
         log(f"  knn_xy {name}: shape {list(d.shape)} indices identical, distances bit-equal "
             f"(+inf entries {int((~fin).sum())})")
 
-    args, k = cases["main_path_float"]
-    ms = cuda_ms(lambda: knn.knn_xy(*args, k), 200)
-    plain_ms = cuda_ms(lambda: knn.knn_xy_reference(*args, k), 20)
-    src, src_inv, tgt, tgt_inv = args
-    dist = torch.cdist(src, tgt)
-    dist = torch.where(src_inv[:, :, None] | tgt_inv[:, None, :], float("inf"), dist)
-    library_ms = cuda_ms(lambda: torch.topk(dist, k, dim=-1, largest=False), 100)  # timing yardstick only
-    n_rows, n_src, n_tgt = src.shape[0], src.shape[1], tgt.shape[1]
-    bytes_moved = (src.numel() * 4 + src_inv.numel() + tgt.numel() * 4 + tgt_inv.numel()
-                   + n_rows * n_src * k * (4 + 4))
-    ops = n_rows * n_src * n_tgt * 7  # 2 sub, 2 mul, add, sqrt, one compare per pair
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log(f"  knn_xy timing at [{n_rows},{n_src},{n_tgt}] k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.topk on materialised distances {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
-        f"({bytes_moved / 1e6:.2f} MB), kernel at {100 * bound_ms / ms:.2f}% of the bound")
+    row = time_knn(*cases["main_path_float"])
+    train = time_knn(*cases["training_shape"])
+    row.pop("shape")
     return {"name": "knn_xy", "route": "cuda", "source": "trafficbotsv15_tpu_torch/csrc/knn.cu",
             "replaces": "trafficbotsv15_tpu/ops/pallas_knn.py:143", "launches": None, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+            **row, "training_shape": train}
 
 
 def knarpe_inputs(shape, cross: bool, seed: int, dtype=torch.float32):
@@ -254,8 +279,9 @@ def knarpe_bound(name: str, args, n_head: int) -> tuple:
     return nbytes, 2 * n_src * macs
 
 
-def check_one_knarpe(name: str, shape, seed: int) -> float:
-    """Kernel vs plain version in float32 and bfloat16; returns the float32 max |err|."""
+def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged") -> float:
+    """Kernel vs plain version in float32 and bfloat16, bf16 B2/B3 on want_route; returns the float32
+    max |err|."""
     kernel, plain = getattr(knarpe, name), getattr(knarpe, f"{name}_reference")
     cross, n_head = name != "knarpe_attention", shape[-1]
     args = knarpe_inputs(shape, cross, seed)
@@ -267,8 +293,12 @@ def check_one_knarpe(name: str, shape, seed: int) -> float:
         raise AssertionError(f"{name} {shape} float32: max |err| {err} (tolerance {KNARPE_F32_ATOL}), "
                              f"all-invalid source zero: {bool(torch.all(out[0, 0] == 0))}")
     a16 = [a if a.dtype == torch.bool else a.to(torch.bfloat16) for a in args]
+    before = dict(knarpe.ROUTE_LAUNCHES)
     out16 = kernel(*a16, n_head).float()
     torch.cuda.synchronize()
+    took = [key.split("/")[1] for key, n in knarpe.ROUTE_LAUNCHES.items() if n != before[key]]
+    if cross and took != [want_route]:
+        raise AssertionError(f"{name} {shape} bf16: launched on the {took} route, expected {want_route}")
     ref32 = plain(*[a if a.dtype == torch.bool else a.float() for a in a16], n_head)
     note = ""
     if name.endswith("_v3"):  # B3's roundings are in its plain version, in bf16
@@ -283,10 +313,10 @@ def check_one_knarpe(name: str, shape, seed: int) -> float:
     excess = float(((out16 - ref16).abs() - (rtol * ref16.abs() + atol)).max())
     if not (torch.isfinite(out16).all() and excess <= 0 and torch.all(out16[0, 0] == 0)):
         raise AssertionError(f"{name} {shape} bf16: |err| exceeds {rtol} relative + {atol} by {excess}")
-    if cross:  # bf16 B2/B3 run on the staged kernel only; no atomics
+    if cross:  # neither bf16 B2/B3 kernel has atomics
         if not torch.equal(kernel(*a16, n_head).float(), out16):
             raise AssertionError(f"{name} {shape} bf16: two launches on the same inputs differ")
-        note += "; staged kernel, two launches bit-identical"
+        note += f"; {want_route} route, two launches bit-identical"
     log(f"  {name} {list(shape)} (n_b, n_s, K, D, R, H): float32 max |err| {err:.3e} (tolerance "
         f"{KNARPE_F32_ATOL}); bf16 within {rtol:g} relative + {atol:.3g} absolute{note}; all-invalid source zero")
     return err
@@ -310,13 +340,18 @@ def time_knarpe(name: str, shape) -> dict:
         f"from a CUDA graph), plain {plain_ms:.4f} ms, "
         f"matmul + scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), kernel at {100 * bound_ms / ms:.2f}% of the bound")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
-# bf16 B2/B3 shapes that phase 3 holds against the plain versions; phases 6 and 8 check that the
-# paths launch no other
+# bf16 B2/B3 shapes that phase 3 holds against the plain versions on the staged route; phases 6 and 8
+# check that the paths launch no other
 CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE)}
+# bf16 B2/B3 shapes the staged kernel refuses, which take the general route: the scaled preset's
+# widths (D=R=256, 8 heads) and K=90 and K=128 at the flagship's D=R=128, H=4; timed at the scaled
+# preset's eval shape (4 scenarios x 32 futures x 64 agents, K=89)
+GENERAL_X = [(2, 64, 89, 256, 256, 8), (2, 64, 90, 128, 128, 4), (2, 64, 128, 128, 128, 4)]
+SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
 
 
 def check_knarpe_kernels() -> list:
@@ -336,6 +371,10 @@ def check_knarpe_kernels() -> list:
         row = time_knarpe(name, path)
         if name != "knarpe_attention":
             time_knarpe(name, TRAIN_X_PATH)
+            for i, shape in enumerate(GENERAL_X):
+                check_one_knarpe(name, shape, seed=20 + i, want_route="general")
+            row["general_route"] = {"source": "trafficbotsv15_tpu_torch/csrc/knarpe.cu", "shape": list(SCALED_X_PATH),
+                                    **time_knarpe(name, SCALED_X_PATH)}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, **row})
     return rows
@@ -359,14 +398,23 @@ def recorded_cross_shapes():
 
 
 def check_path_cross_shapes(where: str, seen: set) -> None:
-    """Every B2 launch of a path was in bf16 at a shape phase 3 checked, so on the staged kernel
-    (the only bf16 B2 kernel; the wrapper raises for a shape it refuses)."""
+    """Every B2 launch of a path was in bf16 at a shape phase 3 checked on the staged route."""
     for kernel, dtype, *k_d_r_h in sorted(seen, key=str):
         if dtype != torch.bfloat16 or tuple(k_d_r_h) not in CHECKED_X:
             raise AssertionError(f"{where}: {kernel} launched in {dtype} at (K, D, R, H)={tuple(k_d_r_h)}, "
                                  f"which phase 3 did not check")
     log(f"  {where}: B2 launched at (K, D, R, H) {sorted(tuple(s[2:]) for s in seen)}, each checked in "
-        f"phase 3, each on the staged kernel")
+        f"phase 3 on the staged route")
+
+
+def check_staged_route(where: str) -> None:
+    """Every bf16 B2/B3 forward launch since the last reset took the staged route: the flagship must not
+    slide onto the slower general kernel unseen."""
+    n = knarpe.LAUNCHES["knarpe_cross_attention"] + knarpe.LAUNCHES["knarpe_cross_attention_v3"]
+    routes = dict(knarpe.ROUTE_LAUNCHES)
+    staged = routes["knarpe_cross_attention/staged"] + routes["knarpe_cross_attention_v3/staged"]
+    if staged != n or any(v for key, v in routes.items() if key.endswith("/general")):
+        raise AssertionError(f"{where}: B2/B3 launches by route {routes}, expected all {n} on the staged route")
 
 
 def knarpe_bwd_bound(name: str, args, g, n_head: int) -> tuple:
@@ -480,8 +528,9 @@ def check_knarpe_bwd_kernels() -> list:
 
 def reset_launches() -> None:
     knn.LAUNCHES = 0
-    for name in knarpe.LAUNCHES:
-        knarpe.LAUNCHES[name] = 0
+    for counts in (knarpe.LAUNCHES, knarpe.ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launches() -> dict:
@@ -614,6 +663,7 @@ def run_full_width(card: str, use_pallas: bool, n_timed: int = 3, replay_rules: 
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         per_call.append(launches())
+        check_staged_route("eval call")
     n_ag, n_step, n_tl = cfg.data.n_ag, cfg.time_step_end, cfg.data.n_tl_lane
     shapes = {"pred_pose": (n_sc, k, n_ag, n_step, 3), "pred_valid": (n_sc, k, n_ag, n_step),
               "pred_action": (n_sc, k, n_ag, n_step, 2), "tl_state": (n_sc, k, n_tl, n_step, 5),
@@ -634,7 +684,7 @@ def run_full_width(card: str, use_pallas: bool, n_timed: int = 3, replay_rules: 
         f"{n_ag} agents, {cfg.data.n_mp} polylines, {n_step} steps: seconds per call {[round(t, 4) for t in times]} "
         f"(median {sec:.4f} s), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"{agent_steps / sec:.1f} agent-steps/s, kernel launches per call {per_call[-1]}, "
-        f"agent-steps flagged {flags} [{card}]")
+        f"agent-steps flagged {flags}, B2 launches by route {knarpe.ROUTE_LAUNCHES} [{card}]")
     if replay_rules:
         replay_rule_checks_on_cpu(cfg, model, batch, gen)
     return per_call[-1]
@@ -718,6 +768,7 @@ def run_train_full_width(card: str, n_timed: int = 3) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         per_step.append(launches())
+        check_staged_route("training step")
         metrics.append({k: float(v) for k, v in m.items()})
     want = expected_train_launches(cfg)
     if any(c != want for c in per_step):
@@ -735,7 +786,7 @@ def run_train_full_width(card: str, n_timed: int = 3) -> dict:
         f"(median {sec:.4f} s), {n_sc / sec:.3f} train samples/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {[round(m['training/loss'], 4) for m in metrics]}, "
         f"grad_norm {[round(m['grad_norm'], 4) for m in metrics]}, {changed} of {len(before)} parameters changed, "
-        f"kernel launches per step {per_step[-1]} [{card}]")
+        f"kernel launches per step {per_step[-1]}, B2 launches by route {knarpe.ROUTE_LAUNCHES} [{card}]")
     return per_step[-1]
 
 
@@ -781,6 +832,7 @@ def main() -> int:
     train_counts = run_train_full_width(card)
     for row in rows:
         row["launches"] = counts[row["name"]]
+    rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     for row in bwd_rows:
         row["launches"] = train_counts[row["name"]]
     rows += bwd_rows

@@ -5,7 +5,10 @@ The port's `ops/knarpe.py` plain versions of B4 (`knarpe_attention`), B2
 against `trafficbotsv15_tpu/ops/pallas_knarpe.py`: the Pallas kernels in
 interpret mode (as `tests/test_pallas_knarpe.py` runs them) and the JAX
 `*_reference` functions. Inputs come from a numpy seed; sizes are small
-(B=2, S in {7, 8, 33}, K in {4, 5, 89}, H=2, d_head=8, R=16); every case
+(B=2, S in {7, 8, 33}, K in {4, 5, 89}, H=2, d_head=8, R=16), and two wider
+cases take the shapes the card runs on the general bf16 route (H=8 with
+d_head=32 and D=R=256 at K=89; K=90 at D=R=128, H=4; measured within 1.2e-6
+in float32 and 3.2e-2 in bfloat16, under the tolerances below); every case
 has a source whose targets are all invalid and partly invalid sources, and
 B*S=66 is not a multiple of the Pallas source tile.
 
@@ -105,6 +108,49 @@ def test_plain_version_matches_tpu_kernel_bf16(name, n_b, n_s, n_knn):
     np.testing.assert_array_equal(got[0, 1], 0.0)
 
 
+# Wider than the cases above: the scaled preset's heads (H=8, d_head=32, D=R=256) and K=90 at the
+# flagship's D=R=128, H=4, two shapes the staged bf16 kernel refuses (they take its general route on
+# the card). (n_head, d_head, R, n_b, n_s, K); weights scaled by 1/sqrt(fan-in), outputs of size ~1-3.
+WIDE = [(8, 32, 256, 1, 9, 89), (4, 32, 128, 2, 5, 90)]
+
+
+def _wide_inputs(n_head, d_head, r, n_b, n_s, n_knn, seed, cross):
+    d = n_head * d_head
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: (scale * rng.normal(size=s)).astype(np.float32)
+    inv = rng.uniform(size=(n_b, n_s, n_knn)) < 0.3
+    inv[0, 1] = True  # a source with no valid target
+    inv[-1, 0, :-1] = True  # a source with one valid target
+    w_rpe, b = f(r, 2 * d, scale=r ** -0.5), f(2 * d, scale=0.1)
+    if cross:
+        return dict(q=f(n_b, n_s, d), tgt=f(n_b, n_s, n_knn, d), rpe=f(n_b, n_s, n_knn, r), invalid=inv,
+                    w_kv=f(d, 2 * d, scale=d ** -0.5), w_rpe=w_rpe, b=b)
+    return dict(q=f(n_b, n_s, d), k=f(n_b, n_s, n_knn, d), v=f(n_b, n_s, n_knn, d), rpe=f(n_b, n_s, n_knn, r),
+                invalid=inv, w_rpe=w_rpe, b_rpe=b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(KERNELS))
+@pytest.mark.parametrize("n_head,d_head,r,n_b,n_s,n_knn", WIDE)
+def test_plain_version_matches_tpu_kernel_at_wider_shapes(name, n_head, d_head, r, n_b, n_s, n_knn, dtype):
+    cross, jkern, jref, plain = KERNELS[name]
+    d = n_head * d_head
+    args = _wide_inputs(n_head, d_head, r, n_b, n_s, n_knn, seed=d + n_knn, cross=cross)
+    j, t = _cast(args, getattr(jnp, dtype), getattr(torch, dtype))
+    out = plain(*t.values(), n_head)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (n_b, n_s, d)
+    got = t2n(out)
+    want = np.asarray(jkern(*j.values(), n_head, interpret=True), dtype=np.float32).reshape(n_b, n_s, d)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=F32_KERNEL_ATOL)
+        ref = np.asarray(jref(*j.values(), n_head), dtype=np.float32).reshape(n_b, n_s, d)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=F32_REF_ATOL)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=BF16_V3_ATOL if name.endswith("_v3") else BF16_ATOL)
+    np.testing.assert_array_equal(got[0, 1], 0.0)
+    assert np.isfinite(got).all()
+
+
 def test_v3_rounds_where_the_tpu_kernel_rounds():
     """In bf16 the v3 plain version is closer to the v3 kernel than B2's plain
     version is: it repeats the kernel's roundings and nothing else."""
@@ -169,36 +215,67 @@ def _validate(name, t, n_head):
 CROSS_KERNELS = ["knarpe_cross_attention", "knarpe_cross_attention_v3"]
 
 
+def _fake_routes(monkeypatch, staged, general):
+    """Fake the built library's answers (`staged_refusal`, `general_refusal`); -> the calls, in order."""
+    asked = []
+
+    def answer(which, codes):
+        def fn(kernel, n_knn, d_model, d_rpe, n_head, device_index):
+            asked.append((which, kernel, n_knn, d_model, d_rpe, n_head, device_index))
+            return codes[0]
+        return fn
+
+    monkeypatch.setattr(knarpe, "staged_refusal", answer("staged", staged))
+    monkeypatch.setattr(knarpe, "general_refusal", answer("general", general))
+    return asked
+
+
+@pytest.mark.parametrize("name", CROSS_KERNELS)
+def test_validate_routes_each_staged_refusal_to_the_general_kernel(name, monkeypatch):
+    """bf16 B2 and B3 take the staged kernel where it takes the shape, and the general kernel for
+    every shape it refuses, whatever the reason: the route follows from the shape, asked of the built
+    library before any launch, and `_validate` names it. The general route needs no 16-byte alignment."""
+    staged, general = [0], [0]
+    asked = _fake_routes(monkeypatch, staged, general)
+    t = _bf16_cross(5, 32, 16)
+    assert _validate(name, t, 2) == (2, 3, 5, 32, 16, 32, 0, "staged")
+    assert asked == [("staged", name, 5, 32, 16, 2, 0)]
+    for code in knarpe.STAGED_REFUSALS:
+        staged[0] = code
+        asked.clear()
+        assert _validate(name, t, 2)[-1] == "general"
+        assert asked == [("staged", name, 5, 32, 16, 2, 0), ("general", name, 5, 32, 16, 2, 0)]
+    misaligned = _bf16_cross(5, 32, 16, misalign=True)
+    assert misaligned["tgt"].data_ptr() % 16 and _validate(name, misaligned, 2)[-1] == "general"
+
+
 @pytest.mark.parametrize("name", CROSS_KERNELS)
 def test_validate_raises_for_shapes_the_staged_kernel_refuses(name, monkeypatch):
-    """bf16 B2 and B3 run only on the staged kernel, so a shape whose code the built library returns
-    raises before any launch, with that code's reason; float32 and the backward do not ask."""
-    asked, answer = [], [0]
-
-    def route(kernel, n_knn, d_model, d_rpe, n_head, device_index):
-        asked.append((kernel, n_knn, d_model, d_rpe, n_head, device_index))
-        return answer[0]
-
-    monkeypatch.setattr(knarpe, "staged_refusal", route)
+    """A bf16 B2/B3 shape that the staged kernel refuses raises when the general kernel refuses it too,
+    naming both reasons; float32 (always the general kernel) and the backward do not ask either."""
+    asked = _fake_routes(monkeypatch, [0], [1])
     t = _bf16_cross(5, 32, 16)
-    assert _validate(name, t, 2)[:5] == (2, 3, 5, 32, 16) and asked == [(name, 5, 32, 16, 2, 0)]
+    assert _validate(name, t, 2)[:5] == (2, 3, 5, 32, 16) and asked == [("staged", name, 5, 32, 16, 2, 0)]
     for code, why in knarpe.STAGED_REFUSALS.items():
-        answer[0] = code
-        with pytest.raises(ValueError, match=re.escape(f"refuses K=5, d_model=32, d_rpe=16, n_head=2: {why}")):
+        _fake_routes(monkeypatch, [code], [1])
+        want = (f"no bf16 kernel takes K=5, d_model=32, d_rpe=16, n_head=2: the staged kernel refuses it ({why}), "
+                f"and the general kernel too ({knarpe.GENERAL_REFUSALS[1]})")
+        with pytest.raises(ValueError, match=re.escape(want)):
             _validate(name, t, 2)
-    asked.clear()
+    asked = _fake_routes(monkeypatch, [5], [1])
     t32 = {k: v if v.dtype == torch.bool else v.float() for k, v in t.items()}
-    assert _validate(name, t32, 2)[:5] == (2, 3, 5, 32, 16)
+    assert _validate(name, t32, 2) == (2, 3, 5, 32, 16, 32, 0, "general")
     assert knarpe._validate(name, t["q"], None, None, t["tgt"], t["rpe"], t["invalid"], t["w_kv"], t["w_rpe"],
-                            t["b"], 2, forward=False)[:5] == (2, 3, 5, 32, 16)
+                            t["b"], 2, forward=False)[-1] is None
     assert asked == []
 
 
 @pytest.mark.parametrize("name", CROSS_KERNELS)
 def test_validate_raises_for_misaligned_bf16_operands(name, monkeypatch):
-    """The staged kernel copies 16-byte chunks: a bf16 operand 2 bytes off a 16-byte boundary
-    raises (there is no other bf16 B2/B3 kernel to take it); float32 runs on the general kernel."""
-    monkeypatch.setattr(knarpe, "staged_refusal", lambda *a: 0)
+    """The staged kernel copies 16-byte chunks: a bf16 operand 2 bytes off a 16-byte boundary at a
+    shape the staged kernel takes raises (the route follows from the shape, not from the addresses);
+    float32 runs on the general kernel."""
+    _fake_routes(monkeypatch, [0], [0])
     misaligned = _bf16_cross(5, D, R, misalign=True)
     assert misaligned["tgt"].is_contiguous() and misaligned["tgt"].data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte aligned"):

@@ -9,11 +9,13 @@ nothing of JAX, so it runs on a machine with the card and without JAX:
 Inputs come from a numpy seed, at the rollout's shapes and at small ones,
 with an all-invalid source, a source with one valid target, odd K=89 and
 source counts that are no multiple of the kernel's grid. bf16 B2 and B3 run on
-the staged kernel (csrc/knarpe_staged.cuh), held at the training path's shapes,
-K below 16 and no multiple of 16, fewer sources than SMs, an odd count and a
-single source; the library takes each of those shapes, two launches give the
-same bits, and a bf16 B2 or B3 at a shape the staged kernel refuses, or with an
-operand off a 16-byte boundary, raises: it has no other kernel. Tolerances:
+the staged kernel (csrc/knarpe_staged.cuh) where it takes the shape, held at the
+training path's shapes, K below 16 and no multiple of 16, fewer sources than
+SMs, an odd count and a single source; the library takes each of those shapes,
+two launches give the same bits, and an operand off a 16-byte boundary raises.
+The shapes it refuses take the general kernel (csrc/knarpe.cu), the route named
+and counted: the scaled preset's D=R=256 with H=8, K=90 and K=128 at D=R=128,
+and refusals of every other kind. Tolerances:
   - float32 kernel vs float32 plain version: 1e-4 on outputs of size ~1-5;
     the kernel reassociates the projections with the attention
     (csrc/knarpe.cu), so the two differ by float32 summation order only;
@@ -147,8 +149,13 @@ def _plain_grads(name, args, g, n_head):
     return list(knarpe.knarpe_cross_attention_bwd_reference(*args, g, n_head))
 
 
+# B2-bwd (B3's backward too) at shapes whose forward takes the general bf16 route: the scaled preset's
+# D=R=256 with 8 heads, and K=128 at D=R=128
+WIDE_BWD_CASES = [("knarpe_cross_attention", (2, 16, 89, 256, 256, 8)), ("knarpe_cross_attention", (2, 16, 128, 128, 128, 4))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,shape", CASES)
+@pytest.mark.parametrize("name,shape", CASES + WIDE_BWD_CASES)
 def test_backward_kernel_matches_plain_autograd_on_card(name, shape):
     _need_card()
     n_head = shape[-1]
@@ -197,32 +204,82 @@ def test_shapes_planned_later_do_not_break_earlier_ones():
         assert all(torch.isfinite(x).all() for x in grads)
 
 
+def _launch_counts(name):
+    return knarpe.LAUNCHES[name], knarpe.ROUTE_LAUNCHES[f"{name}/staged"], knarpe.ROUTE_LAUNCHES[f"{name}/general"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
-def test_bf16_shapes_the_staged_kernel_refuses_raise(name):
-    """Every bf16 B2/B3 shape here takes the staged kernel on the card; a shape it refuses (two
-    stages of K=120 overflow the shared memory; D=24 is no multiple of 16; for B3 a d_head of 64
-    spans two warps' column blocks) or an operand off a 16-byte boundary raises in the wrapper."""
+def test_bf16_shapes_the_staged_kernel_refuses_take_the_general_route(name):
+    """Every bf16 B2/B3 shape above takes the staged kernel on the card; a shape it refuses (two
+    stages of K=120 overflow the shared memory; D=24 is no multiple of 16; for B3 a d_head of 64 spans
+    two warps' column blocks) takes the general kernel, named by `route` and counted under it, and
+    matches the plain version; an operand off a 16-byte boundary at a staged shape raises."""
     _need_card()
     dev = torch.cuda.current_device()
     for shape in STAGED_SHAPES + CROSS_SHAPES:
         assert knarpe.staged_refusal(name, *shape[2:], dev) == 0
+        assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "staged"
     refused = [((1, 3, 120, 128, 128, 4), 5), ((1, 3, 5, 24, 16, 2), 2)]
     if name.endswith("_v3"):
         refused.append(((1, 3, 5, 128, 128, 2), 4))
     for shape, code in refused:
         assert knarpe.staged_refusal(name, *shape[2:], dev) == code
+        assert knarpe.general_refusal(name, *shape[2:], dev) == 0
+        assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "general"
         args = _cast(_inputs(shape, True, seed=9), torch.bfloat16)
-        before = knarpe.LAUNCHES[name]
-        with pytest.raises(ValueError, match="refuses"):
-            getattr(knarpe, name)(*args, shape[-1])
-        assert knarpe.LAUNCHES[name] == before
+        n, staged, general = _launch_counts(name)
+        out16 = getattr(knarpe, name)(*args, shape[-1])
+        torch.cuda.synchronize()
+        assert _launch_counts(name) == (n + 1, staged, general + 1)
+        _check_bf16(name, out16, args, shape[-1])
     args = _cast(_inputs(CROSS_SHAPES[1], True, seed=9), torch.bfloat16)
     buf = torch.empty(args[1].numel() + 1, dtype=torch.bfloat16, device="cuda")
     buf[1:] = args[1].reshape(-1)
     args[1] = buf[1:].view(args[1].shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         getattr(knarpe, name)(*args, CROSS_SHAPES[1][-1])
+
+
+# bf16 B2/B3 shapes the staged kernel refuses (C1): the scaled preset's D=R=256 with 8 heads, and
+# K=90 and K=128 at the flagship's D=R=128, H=4
+GENERAL_SHAPES = [(2, 64, 89, 256, 256, 8), (2, 64, 90, 128, 128, 4), (2, 64, 128, 128, 128, 4)]
+
+
+def _check_bf16(name, out16, a16, n_head):
+    """bf16 kernel output against the plain versions, at this file's bf16 tolerances."""
+    assert out16.dtype == torch.bfloat16 and torch.all(out16[0, 0] == 0)
+    out16 = out16.float()
+    plain = getattr(knarpe, f"{name}_reference")
+    ref32, ref16 = plain(*_cast(a16, torch.float32), n_head), plain(*a16, n_head).float()
+    if name.endswith("_v3"):
+        torch.testing.assert_close(out16, ref16, rtol=2.0 ** -7, atol=2.0 ** -8 * float(ref16.abs().max()))
+        assert (out16 - ref16).abs().mean() <= 0.25 * (ref32 - ref16).abs().mean()
+    else:
+        torch.testing.assert_close(out16, ref32, rtol=2.0 ** -8, atol=F32_ATOL)
+        assert (out16 - ref16).abs().max() <= BF16_REL * ref16.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
+@pytest.mark.parametrize("shape", GENERAL_SHAPES)
+def test_general_bf16_route_matches_plain_version(name, shape):
+    """bf16 on the general route, and float32 at the same shapes (the general kernel reads B3's
+    inputs from device memory where they do not fit in shared memory: float32 at D=R=256)."""
+    _need_card()
+    dev, n_head = torch.cuda.current_device(), shape[-1]
+    assert knarpe.staged_refusal(name, *shape[2:], dev) == 5
+    assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "general"
+    args = _inputs(shape, True, seed=sum(shape))
+    out = getattr(knarpe, name)(*args, n_head)
+    torch.testing.assert_close(out, getattr(knarpe, f"{name}_reference")(*args, n_head), rtol=0, atol=F32_ATOL)
+    a16 = _cast(args, torch.bfloat16)
+    n, staged, general = _launch_counts(name)
+    out16 = getattr(knarpe, name)(*a16, n_head)
+    torch.cuda.synchronize()
+    assert _launch_counts(name) == (n + 1, staged, general + 1)
+    _check_bf16(name, out16, a16, n_head)
+    assert torch.equal(getattr(knarpe, name)(*a16, n_head), out16)  # no atomics
 
 
 @pytest.mark.cuda

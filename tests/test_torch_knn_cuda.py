@@ -7,7 +7,10 @@ nothing of JAX, so it runs on a machine with the card and without JAX:
     python -m pytest --noconftest tests/test_torch_knn_cuda.py -m cuda -q
 
 Indices must be identical and distances bit-equal (the kernel rounds each
-operation on its own, as the plain version does).
+operation on its own, as the plain version does), at the rollout's shape, the
+training path's [8, 64, 1024] and the edges of the threshold select: all
+distances tied, k=1, k = n_tgt, n_tgt of 1000 and 2048, fewer valid targets
+than k, every source invalid.
 """
 
 import numpy as np
@@ -42,6 +45,48 @@ def test_cuda_kernel_matches_plain_version_on_card(n_rows, n_src, n_tgt, k):
         dr, ir = knn.knn_xy_reference(*args, k)
         assert knn.LAUNCHES == before + 1
         assert torch.equal(i, ir) and torch.equal(d, dr)
+
+
+def _edge_case(name):
+    """(arrays, k) of one edge case of the threshold select (csrc/knn.cu)."""
+    if name == "all_targets_at_one_point":  # every distance tied: the first k targets in index order
+        src, src_inv, tgt, tgt_inv = _case(11, 4, 64, 1024, integer_grid=False, p_invalid=0.0)
+        tgt[:] = np.float32([3.0, -7.0])
+        return (src, src_inv, tgt, tgt_inv), 64
+    if name == "k_1":
+        return _case(12, 16, 64, 1024, integer_grid=True), 1
+    if name == "k_equals_n_tgt":
+        return _case(13, 4, 16, 1024, integer_grid=True), 1024
+    if name == "n_tgt_1000":
+        return _case(14, 8, 64, 1000, integer_grid=False), 64
+    if name == "n_tgt_2048":
+        return _case(15, 4, 64, 2048, integer_grid=True), 64
+    if name == "fewer_valid_than_k":  # ~10 valid targets per row: each source emits its +inf tail
+        return _case(16, 8, 64, 1024, integer_grid=True, p_invalid=0.99), 64
+    if name == "every_source_invalid":
+        src, src_inv, tgt, tgt_inv = _case(17, 4, 64, 1024, integer_grid=False)
+        src_inv[:] = True
+        return (src, src_inv, tgt, tgt_inv), 64
+    assert name == "training_shape"  # the training path's agent->map launch: 512 sources
+    return _case(18, 8, 64, 1024, integer_grid=False), 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["all_targets_at_one_point", "k_1", "k_equals_n_tgt", "n_tgt_1000", "n_tgt_2048",
+                                  "fewer_valid_than_k", "every_source_invalid", "training_shape"])
+def test_cuda_kernel_edge_cases_match_plain_version(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    arrays, k = _edge_case(name)
+    args = [torch.from_numpy(a).cuda() for a in arrays]
+    d, i = knn.knn_xy(*args, k)
+    torch.cuda.synchronize()
+    dr, ir = knn.knn_xy_reference(*args, k)
+    assert torch.equal(i, ir) and torch.equal(d, dr)
+    if name in ("all_targets_at_one_point", "every_source_invalid"):  # ties in target order
+        assert torch.equal(i, torch.arange(k, dtype=torch.int32, device="cuda").expand_as(i))
+    if name == "fewer_valid_than_k":
+        assert bool(torch.isinf(d[:, :, -1]).all())
 
 
 @pytest.mark.cuda

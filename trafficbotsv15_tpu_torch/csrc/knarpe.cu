@@ -27,8 +27,8 @@
 //   - one persistent block per SM slot walks over sources; the weights
 //     [W_kv; W_rpe] are staged once per block in shared memory (rows padded
 //     to an odd word count so that a warp reading a column is free of bank
-//     conflicts); when they do not fit (float32 B2) they are read through
-//     L1/L2 instead;
+//     conflicts); when they do not fit (float32 B2, bf16 B2/B3 at
+//     D = R = 256) they are read through L1/L2 instead;
 //   - x_j is read straight from device memory twice per source (logits, then
 //     y); while a source is computed, the block prefetches its next source's
 //     inputs into L2, so the second read and the next source's first read
@@ -37,14 +37,19 @@
 // products of length X per source, ~2.9 M multiply-adds per source. Only a
 // script reaches B3 in the JAX package.
 //
-// Routes. bf16 B2 and B3 run only on the staged kernel of knarpe_staged.cuh
-// (each source's targets copied into shared memory while the previous one is
-// computed; every product on the tensor cores), whose header says how; a shape
-// or an operand address it refuses is an error (knarpe_staged_route says which,
-// and the wrapper raises first). The kernel below serves B4 and float32 B2 and
-// B3. Its float32 B3 accumulates 4 x 4 tiles of kk (4 targets x 4 columns of
-// one head) in registers from the source's [K, X] inputs staged in shared
-// memory: tensor cores would compute in TF32, outside float32's tolerance.
+// Routes. bf16 B2 and B3 run on the staged kernel of knarpe_staged.cuh (each
+// source's targets copied into shared memory while the previous one is
+// computed; every product on the tensor cores), whose header says how, for
+// every shape it takes (knarpe_staged_route's code 0). It keeps the whole bf16
+// [W_kv; W_rpe] resident, so it refuses D = R = 256 (the scaled preset) and, at
+// D = R = 128, K >= 90; those shapes run on the kernel below, instantiated for
+// bf16 too (the general route; knarpe_general_route says whether it takes a
+// shape). The route follows from the shape alone. The kernel below serves B4,
+// float32 B2 and B3, and the general route. Its B3 accumulates 4 x 4 tiles of
+// kk (4 targets x 4 columns of one head) in registers from the source's [K, X]
+// inputs, staged in shared memory where they fit (float32 at D = R = 256, K = 89
+// does not: then they are read from device memory): tensor cores would compute
+// float32 in TF32, outside float32's tolerance.
 
 #include "knarpe_staged.cuh"
 
@@ -87,7 +92,7 @@ struct Layout {
   int py, po;  // partial sums per output element in the y and out steps
 };
 
-Layout make_layout(int mode, size_t elem, int K, int D, int X, int H, int resident, int ldw) {
+Layout make_layout(int mode, size_t elem, int K, int D, int X, int H, int resident, int ldw, int stage_x) {
   Layout L{};
   size_t off = 0;
   L.w = off;
@@ -103,8 +108,8 @@ Layout make_layout(int mode, size_t elem, int K, int D, int X, int H, int reside
   L.ypart = off; off += a16(static_cast<size_t>(L.py) * H * X * 4);
   L.po = D < kThreads ? kThreads / D : 1;
   L.opart = off; off += a16(static_cast<size_t>(L.po) * D * 4);
-  L.xs = off;  // B3: the source's inputs [K, X], then per-tile partial logits [K, D / 4]
-  if (mode == kCrossV3) off += a16(static_cast<size_t>(K) * X * elem);
+  L.xs = off;  // B3: the source's inputs [K, X] (when staged), then per-tile partial logits [K, D / 4]
+  if (mode == kCrossV3 && stage_x) off += a16(static_cast<size_t>(K) * X * elem);
   L.kpart = off;
   if (mode == kCrossV3) off += a16(static_cast<size_t>(K) * (D / 4) * 4);
   L.total = off;
@@ -127,6 +132,7 @@ struct Params {
   float scale;
   int resident;  // weights staged in shared memory (rows of ldw elements)
   int ldw;
+  int stage_x;  // B3: the source's inputs staged in shared memory, else read from device memory
   Layout L;
 };
 
@@ -248,33 +254,41 @@ __global__ void __launch_bounds__(kThreads) knarpe_kernel(const Params p) {
       }
     } else {
       // B3: kk[j][d] rounded to T, then q*kk rounded to T, summed per head in float32
-      for (int e = tid; e < K * X; e += kThreads) {
-        const int j = e / X, i = e - j * X;
-        xs[e] = i < Xt ? xt[static_cast<size_t>(j) * Xt + i] : xr[static_cast<size_t>(j) * R + (i - Xt)];
+      if (p.stage_x) {
+        for (int e = tid; e < K * X; e += kThreads) {
+          const int j = e / X, i = e - j * X;
+          xs[e] = i < Xt ? xt[static_cast<size_t>(j) * Xt + i] : xr[static_cast<size_t>(j) * R + (i - Xt)];
+        }
       }
       __syncthreads();
       const int n_dt = D / 4, n_jt = (K + 3) / 4;  // 4 x 4 tiles; dh % 4 == 0, so a tile stays in one head
       for (int t = tid; t < n_jt * n_dt; t += kThreads) {
         const int jt = t / n_dt, dt = t - jt * n_dt, d0 = 4 * dt;
-        int rows[4];
+        // the tile's 4 targets (the last one repeated past K): their tgt and rpe rows, staged or not
+        const T* bt[4];
+        const T* br[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) rows[r] = min(4 * jt + r, K - 1) * X;
+        for (int r = 0; r < 4; ++r) {
+          const size_t j = static_cast<size_t>(min(4 * jt + r, K - 1));
+          bt[r] = p.stage_x ? xs + j * X : xt + j * Xt;
+          br[r] = p.stage_x ? xs + j * X + Xt : xr + j * R;
+        }
         // tgt @ W_kv and rpe @ W_rpe summed apart, then added, in _x3_fwd_kernel's order
         float acc_t[4][4] = {}, acc[4][4] = {};
-        auto mac = [&](int i, float (&a)[4][4]) {
-          const T* wr = wrow(i) + d0;
+        auto mac = [&](const T* const* base, int i, int wi, float (&a)[4][4]) {
+          const T* wr = wrow(wi) + d0;
           float w[4], x[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) w[c] = to_f(wr[c]);
 #pragma unroll
-          for (int r = 0; r < 4; ++r) x[r] = to_f(xs[rows[r] + i]);
+          for (int r = 0; r < 4; ++r) x[r] = to_f(base[r][i]);
 #pragma unroll
           for (int r = 0; r < 4; ++r)
 #pragma unroll
             for (int c = 0; c < 4; ++c) a[r][c] += x[r] * w[c];
         };
-        for (int i = 0; i < Xt; ++i) mac(i, acc_t);
-        for (int i = Xt; i < X; ++i) mac(i, acc);
+        for (int i = 0; i < Xt; ++i) mac(bt, i, i, acc_t);
+        for (int i = 0; i < R; ++i) mac(br, i, Xt + i, acc);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int j = 4 * jt + r;
@@ -385,7 +399,8 @@ __global__ void __launch_bounds__(kThreads) knarpe_kernel(const Params p) {
 // shape, and the attribute and occupancy queries would cost host time on each.
 struct Plan {
   int dev, n_knn, d_model, x;
-  int ldw, resident;
+  int refused;  // 1: the layout exceeds the block's shared memory even with the weights read through L1/L2
+  int ldw, resident, stage_x;
   Layout L;
   long long slots;  // resident blocks on the whole device
 };
@@ -400,13 +415,20 @@ int make_plan(Plan& pl) {
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, pl.dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pl.resident = 1;
-  pl.L = make_layout(MODE, sizeof(T), pl.n_knn, pl.d_model, pl.x, H, 1, pl.ldw);
-  if (pl.L.total > static_cast<size_t>(max_smem)) {
-    pl.resident = 0;
-    pl.L = make_layout(MODE, sizeof(T), pl.n_knn, pl.d_model, pl.x, H, 0, pl.ldw);
+  // the first layout that fits: weights resident, then the weights read through L1/L2, then (B3)
+  // the source's inputs read from device memory too
+  const int tries[3][2] = {{1, 1}, {0, 1}, {0, 0}};  // {resident, stage_x}
+  pl.refused = 1;
+  for (const auto& t : tries) {
+    pl.resident = t[0];
+    pl.stage_x = t[1];
+    pl.L = make_layout(MODE, sizeof(T), pl.n_knn, pl.d_model, pl.x, H, pl.resident, pl.ldw, pl.stage_x);
+    if (pl.L.total <= static_cast<size_t>(max_smem)) {
+      pl.refused = 0;
+      break;
+    }
   }
-  if (pl.L.total > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
+  if (pl.refused) return 0;
   auto kern = knarpe_kernel<T, MODE, H>;
   // the attribute belongs to the kernel function, not to this plan: set it to the device's
   // limit, so that a later plan needing less never lowers it under an earlier one needing more
@@ -420,34 +442,54 @@ int make_plan(Plan& pl) {
 }
 
 template <typename T, int MODE, int H>
-int launch_t(Params p, int dev, cudaStream_t stream) {
+int general_plan(int dev, int K, int D, int X, Plan* out) {
   static std::mutex mu;
   static std::vector<Plan> plans;
-  const int X = p.d_tgt + p.d_rpe;
-  Plan pl{};
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    bool found = false;
-    for (const Plan& c : plans) {
-      if (c.dev == dev && c.n_knn == p.n_knn && c.d_model == p.d_model && c.x == X) {
-        pl = c;
-        found = true;
-        break;
-      }
-    }
-    if (!found) {
-      pl.dev = dev; pl.n_knn = p.n_knn; pl.d_model = p.d_model; pl.x = X;
-      const int rc = make_plan<T, MODE, H>(pl);
-      if (rc != 0) return rc;
-      plans.push_back(pl);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Plan& c : plans) {
+    if (c.dev == dev && c.n_knn == K && c.d_model == D && c.x == X) {
+      *out = c;
+      return 0;
     }
   }
+  Plan pl{};
+  pl.dev = dev; pl.n_knn = K; pl.d_model = D; pl.x = X;
+  const int rc = make_plan<T, MODE, H>(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+template <typename T, int MODE, int H>
+int launch_t(Params p, int dev, cudaStream_t stream) {
+  Plan pl{};
+  const int rc = general_plan<T, MODE, H>(dev, p.n_knn, p.d_model, p.d_tgt + p.d_rpe, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused) return static_cast<int>(cudaErrorInvalidValue);
   p.ldw = pl.ldw;
   p.resident = pl.resident;
+  p.stage_x = pl.stage_x;
   p.L = pl.L;
   const int grid = static_cast<int>(p.n_src < pl.slots ? p.n_src : pl.slots);
   knarpe_kernel<T, MODE, H><<<grid, kThreads, p.L.total, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 0 if the general kernel takes the shape, 1 if even its smallest layout does not fit, or minus a CUDA error
+// (-1 also for a head count it has no instantiation for).
+template <typename T, int MODE>
+int general_refusal(int K, int D, int X, int n_head, int dev) {
+  Plan pl{};
+  int rc = 0;
+  switch (n_head) {
+    case 1: rc = general_plan<T, MODE, 1>(dev, K, D, X, &pl); break;
+    case 2: rc = general_plan<T, MODE, 2>(dev, K, D, X, &pl); break;
+    case 4: rc = general_plan<T, MODE, 4>(dev, K, D, X, &pl); break;
+    case 8: rc = general_plan<T, MODE, 8>(dev, K, D, X, &pl); break;
+    default: return -1;
+  }
+  return rc != 0 ? -rc : pl.refused;
 }
 
 template <typename T, int MODE>
@@ -552,56 +594,9 @@ int staged_by_heads(const Params& p, int n_head, int dev, cudaStream_t stream) {
   }
 }
 
-// float32 runs every mode on the general kernel; bf16 runs B4 there and B2 and B3 on the staged one.
-int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStream_t stream) {
-  if (dtype == 0) {
-    switch (mode) {
-      case kAttn: return by_heads<float, kAttn>(p, n_head, dev, stream);
-      case kCross: return by_heads<float, kCross>(p, n_head, dev, stream);
-      case kCrossV3: return by_heads<float, kCrossV3>(p, n_head, dev, stream);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (dtype == 1) {
-    switch (mode) {
-      case kAttn: return by_heads<__nv_bfloat16, kAttn>(p, n_head, dev, stream);
-      case kCross: return staged_by_heads<kCross>(p, n_head, dev, stream);
-      case kCrossV3: return staged_by_heads<kCrossV3>(p, n_head, dev, stream);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
-
-// Device pointers of tensors laid out as in ops/knarpe.py; dtype 0 = float32,
-// 1 = bf16 for every operand and the output. B4 (mode 0) reads k/v rows of D
-// elements at stride ld_kv and no tgt / w_kv (d_tgt = 0); B2/B3 read tgt and
-// w_kv (d_tgt = d_model) and no k/v. n_head in {1, 2, 4, 8}, d_model even and
-// divisible by n_head, for B3 d_model / n_head a multiple of 4, and for bf16
-// B2/B3 a shape knarpe_staged_route takes with 16-byte aligned operands
-// (checked by the Python wrapper). dev is the current device, which owns the
-// tensors and the stream. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a launch no kernel takes.
-extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
-                             const void* tgt, const void* rpe, const void* invalid, const void* w_kv,
-                             const void* w_rpe, const void* bias, void* out, int n_src, int n_knn, int d_model,
-                             int d_tgt, int d_rpe, int n_head, float scale, int dev, void* stream) {
-  Params p{};
-  p.q = q; p.k = k; p.v = v; p.ld_kv = ld_kv; p.tgt = tgt; p.rpe = rpe;
-  p.invalid = static_cast<const uint8_t*>(invalid);
-  p.w_kv = w_kv; p.w_rpe = w_rpe; p.bias = bias; p.out = out;
-  p.n_src = n_src; p.n_knn = n_knn; p.d_model = d_model; p.d_tgt = d_tgt; p.d_rpe = d_rpe; p.scale = scale;
-  return by_mode(p, mode, dtype, n_head, dev, static_cast<cudaStream_t>(stream));
-}
-
-// Whether the staged kernel takes a bf16 B2 (mode 1) or B3 (mode 2) launch at this shape on
-// device dev, given 16-byte aligned operands: 0 if it does, else staged::refusal's code (6: no
-// block fits an SM), or minus a CUDA error; -1 for any other mode or dtype. The wrapper asks
-// it before a bf16 B2 or B3 launch and raises for a refusal.
-extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
-  if (dtype != 1 || (mode != kCross && mode != kCrossV3)) return -1;
+// The staged kernel's code for a bf16 B2 (mode 1) or B3 (mode 2) shape: 0 if it takes the shape,
+// else staged::refusal's code (6: no block fits an SM), or minus a CUDA error; -1 for another mode.
+int staged_code(int mode, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
   StagedPlan pl{};
   int rc = 0;
   switch (mode * 16 + n_head) {
@@ -616,4 +611,79 @@ extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, 
     default: return -1;
   }
   return rc != 0 ? -rc : pl.refused;
+}
+
+// bf16 B2 or B3: the staged kernel where it takes the shape, else the general kernel.
+template <int MODE>
+int bf16_cross(const Params& p, int n_head, int dev, cudaStream_t stream) {
+  const int code = staged_code(MODE, p.n_knn, p.d_model, p.d_rpe, n_head, dev);
+  if (code < 0) return code == -1 ? static_cast<int>(cudaErrorInvalidValue) : -code;
+  if (code == 0) return staged_by_heads<MODE>(p, n_head, dev, stream);
+  return by_heads<__nv_bfloat16, MODE>(p, n_head, dev, stream);
+}
+
+// float32 runs every mode on the general kernel; bf16 runs B4 there, and B2 and B3 by bf16_cross.
+int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStream_t stream) {
+  if (dtype == 0) {
+    switch (mode) {
+      case kAttn: return by_heads<float, kAttn>(p, n_head, dev, stream);
+      case kCross: return by_heads<float, kCross>(p, n_head, dev, stream);
+      case kCrossV3: return by_heads<float, kCrossV3>(p, n_head, dev, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype == 1) {
+    switch (mode) {
+      case kAttn: return by_heads<__nv_bfloat16, kAttn>(p, n_head, dev, stream);
+      case kCross: return bf16_cross<kCross>(p, n_head, dev, stream);
+      case kCrossV3: return bf16_cross<kCrossV3>(p, n_head, dev, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Device pointers of tensors laid out as in ops/knarpe.py; dtype 0 = float32,
+// 1 = bf16 for every operand and the output. B4 (mode 0) reads k/v rows of D
+// elements at stride ld_kv and no tgt / w_kv (d_tgt = 0); B2/B3 read tgt and
+// w_kv (d_tgt = d_model) and no k/v. n_head in {1, 2, 4, 8}, d_model even and
+// divisible by n_head, for B3 d_model / n_head a multiple of 4; a bf16 B2/B3
+// shape on the staged route needs 16-byte aligned operands (checked by the
+// Python wrapper, which also names the route: knarpe_staged_route, then
+// knarpe_general_route). dev is the current device, which owns the tensors and
+// the stream. Returns cudaGetLastError(), or cudaErrorInvalidValue for a launch
+// no kernel takes.
+extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
+                             const void* tgt, const void* rpe, const void* invalid, const void* w_kv,
+                             const void* w_rpe, const void* bias, void* out, int n_src, int n_knn, int d_model,
+                             int d_tgt, int d_rpe, int n_head, float scale, int dev, void* stream) {
+  Params p{};
+  p.q = q; p.k = k; p.v = v; p.ld_kv = ld_kv; p.tgt = tgt; p.rpe = rpe;
+  p.invalid = static_cast<const uint8_t*>(invalid);
+  p.w_kv = w_kv; p.w_rpe = w_rpe; p.bias = bias; p.out = out;
+  p.n_src = n_src; p.n_knn = n_knn; p.d_model = d_model; p.d_tgt = d_tgt; p.d_rpe = d_rpe; p.scale = scale;
+  return by_mode(p, mode, dtype, n_head, dev, static_cast<cudaStream_t>(stream));
+}
+
+// Whether the staged kernel takes a bf16 B2 (mode 1) or B3 (mode 2) launch at this shape on
+// device dev, given 16-byte aligned operands: 0 if it does, else staged::refusal's code (6: no
+// block fits an SM), or minus a CUDA error; -1 for any other mode or dtype. knarpe_launch runs
+// bf16 B2/B3 on the staged kernel where this is 0 and on the general kernel otherwise.
+extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  if (dtype != 1 || (mode != kCross && mode != kCrossV3)) return -1;
+  return staged_code(mode, n_knn, d_model, d_rpe, n_head, dev);
+}
+
+// Whether the general kernel takes a bf16 B2 (mode 1) or B3 (mode 2) launch at this shape on device
+// dev: 0 if it does, 1 if its layout exceeds the block's shared memory even with the weights (and
+// B3's inputs) read through L1/L2, or minus a CUDA error; -1 for any other mode or dtype. The wrapper
+// asks it for the shapes knarpe_staged_route refuses, and raises when this refuses too.
+extern "C" int knarpe_general_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  if (dtype != 1) return -1;
+  const int X = d_model + d_rpe;
+  if (mode == kCross) return general_refusal<__nv_bfloat16, kCross>(n_knn, d_model, X, n_head, dev);
+  if (mode == kCrossV3) return general_refusal<__nv_bfloat16, kCrossV3>(n_knn, d_model, X, n_head, dev);
+  return -1;
 }

@@ -20,11 +20,16 @@ dtype. Every operand has one dtype, float32 or bfloat16.
 What bounds them on the card is the bytes: at the rollout's shapes B2 reads
 ~373 MB of targets and relative poses per launch and writes 2 MB, and the
 [K, 2D] projection output, which an unfused path writes and reads back, is
-what the kernels keep out of device memory (`csrc/knarpe.cu` says how). bf16
-B2 and B3 run only on a kernel that stages each source's targets in shared
-memory while the previous source computes, every product on the tensor cores
-(`csrc/knarpe_staged.cuh`); for a shape it refuses (the built library says
-which) or an operand not at a 16-byte aligned address, the wrapper raises.
+what the kernels keep out of device memory (`csrc/knarpe.cu` says how). A
+launch takes one of two routes, named by `route` from the shape alone:
+"staged", the kernel that stages each source's targets in shared memory while
+the previous source computes, every product on the tensor cores
+(`csrc/knarpe_staged.cuh`), for bf16 B2 and B3 at every shape it takes; and
+"general", the kernel of `csrc/knarpe.cu`, for B4, float32 B2 and B3, and the
+bf16 B2 and B3 shapes the staged kernel refuses (the scaled preset's
+D = R = 256, K >= 90 at D = R = 128). A shape both refuse, or an operand of a
+staged launch not at a 16-byte aligned address, raises. `ROUTE_LAUNCHES`
+counts B2 and B3 forward launches by route.
 
 Each wrapper is a `torch.autograd.Function`: its forward launches the
 forward kernel and its backward the backward kernel of `csrc/knarpe_bwd.cu`,
@@ -54,6 +59,10 @@ LAUNCHES = {"knarpe_attention": 0, "knarpe_cross_attention": 0, "knarpe_cross_at
 _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_attention_v3": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# B2 and B3 forward launches by route since the last reset (read by chip_smoke.py)
+ROUTE_LAUNCHES = {f"{kernel}/{route}": 0 for kernel in ("knarpe_cross_attention", "knarpe_cross_attention_v3")
+                  for route in ("staged", "general")}
+
 _LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
 _BWD_FN = None
 
@@ -66,6 +75,11 @@ STAGED_REFUSALS = {
     4: "d_head must be 4, or a multiple of 8 that divides the warp's column block",
     5: "the weights and two source stages exceed the device's shared memory per block",
     6: "no block fits a multiprocessor",
+}
+# why the general kernel (csrc/knarpe.cu) refuses a shape, by the code of `knarpe_general_route`
+GENERAL_REFUSALS = {
+    1: "its smallest layout (the weights and B3's inputs read through L1/L2) exceeds the device's shared memory "
+       "per block",
 }
 
 
@@ -144,8 +158,9 @@ def load_library():
     global _LAUNCH_FN
     if _LAUNCH_FN is None:
         lib = build.load("knarpe", "knarpe.cu")
-        lib.knarpe_staged_route.argtypes = [ctypes.c_int] * 7
-        lib.knarpe_staged_route.restype = ctypes.c_int
+        for fn in (lib.knarpe_staged_route, lib.knarpe_general_route):
+            fn.argtypes = [ctypes.c_int] * 7
+            fn.restype = ctypes.c_int
         _LAUNCH_FN = bind_launch(lib)
     return _LAUNCH_FN
 
@@ -160,16 +175,44 @@ def bind_launch(lib: ctypes.CDLL):
     return fn
 
 
+def _route_code(entry: str, kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """The built library's answer (`knarpe_staged_route` or `knarpe_general_route`) for a bf16 launch."""
+    load_library()
+    code = getattr(build.load("knarpe", "knarpe.cu"), entry)(
+        _MODES[kernel], _DTYPES[torch.bfloat16], n_knn, d_model, d_rpe, n_head, device_index)
+    if code < 0:
+        raise RuntimeError(f"{kernel}: planning a launch ({entry}) failed: code {code}")
+    return code
+
+
 @functools.lru_cache(maxsize=None)
 def staged_refusal(kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
     """0 if the staged kernel takes a bf16 launch of B2 or B3 at this shape on the card, else the
     built library's refusal code (`STAGED_REFUSALS` says why)."""
-    load_library()
-    code = build.load("knarpe", "knarpe.cu").knarpe_staged_route(
-        _MODES[kernel], _DTYPES[torch.bfloat16], n_knn, d_model, d_rpe, n_head, device_index)
-    if code < 0:
-        raise RuntimeError(f"{kernel}: planning the staged kernel failed: cudaError {-code}")
-    return code
+    return _route_code("knarpe_staged_route", kernel, n_knn, d_model, d_rpe, n_head, device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def general_refusal(kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the general kernel takes a bf16 launch at this shape on the card, else the built
+    library's refusal code (`GENERAL_REFUSALS` says why)."""
+    return _route_code("knarpe_general_route", kernel, n_knn, d_model, d_rpe, n_head, device_index)
+
+
+def route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
+    """The kernel a forward launch takes, from its shape alone: "staged" for bf16 B2 and B3 where the
+    staged kernel takes the shape, else "general"; raises when neither bf16 kernel takes it."""
+    if kernel == "knarpe_attention" or dtype != torch.bfloat16:
+        return "general"
+    code = staged_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
+    if code == 0:
+        return "staged"
+    general = general_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
+    if general == 0:
+        return "general"
+    raise ValueError(f"{kernel}: no bf16 kernel takes K={n_knn}, d_model={d_model}, d_rpe={d_rpe}, "
+                     f"n_head={n_head}: the staged kernel refuses it ({STAGED_REFUSALS[code]}), and the general "
+                     f"kernel too ({GENERAL_REFUSALS[general]})")
 
 
 def load_bwd_library():
@@ -208,7 +251,7 @@ def _row_stride(kernel: str, name: str, t: torch.Tensor, shape, dtype, device) -
 
 def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int, forward: bool = True):
     """Check the operands against the forward (or, with forward=False, the backward) kernel's
-    contract; -> (n_b, n_s, K, D, R, d_tgt, ld_kv)."""
+    contract; -> (n_b, n_s, K, D, R, d_tgt, ld_kv, route), route None for the backward."""
     device = q.device
     dtype = q.dtype
     if dtype not in _DTYPES:
@@ -233,16 +276,11 @@ def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: i
         _check(kernel, "tgt", tgt, (n_b, n_s, n_knn, d_model), dtype, device)
         _check(kernel, "w_kv", w_kv, (d_model, 2 * d_model), dtype, device)
     _check(kernel, "w_rpe", w_rpe, (d_rpe, 2 * d_model), dtype, device)
-    if forward and tgt is not None and dtype == torch.bfloat16:
-        # bf16 B2 and B3 run only on the staged kernel (csrc/knarpe.cu, "Routes")
-        code = staged_refusal(kernel, n_knn, d_model, d_rpe, n_head, device.index or 0)
-        if code:
-            raise ValueError(f"{kernel}: the bf16 kernel refuses K={n_knn}, d_model={d_model}, d_rpe={d_rpe}, "
-                             f"n_head={n_head}: {STAGED_REFUSALS[code]}")
-        if any(t.data_ptr() % 16 for t in (q, tgt, rpe, w_kv, w_rpe, b)):
-            raise ValueError(f"{kernel}: the bf16 kernel copies 16-byte chunks; q, tgt, rpe, w_kv, w_rpe and b "
-                             f"must start at 16-byte aligned addresses")
-    return n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv
+    way = route(kernel, dtype, n_knn, d_model, d_rpe, n_head, device.index or 0) if forward else None
+    if way == "staged" and any(t.data_ptr() % 16 for t in (q, tgt, rpe, w_kv, w_rpe, b)):
+        raise ValueError(f"{kernel}: the staged bf16 kernel copies 16-byte chunks; q, tgt, rpe, w_kv, w_rpe and b "
+                         f"must start at 16-byte aligned addresses")
+    return n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv, way
 
 
 def _ptr(t):
@@ -250,8 +288,8 @@ def _ptr(t):
 
 
 def _launch(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int) -> torch.Tensor:
-    n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv = _validate(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b,
-                                                              n_head)
+    n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv, way = _validate(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe,
+                                                                   b, n_head)
     out = torch.empty((n_b, n_s, d_model), dtype=q.dtype, device=q.device)
     n_src = n_b * n_s
     if n_src == 0:
@@ -264,8 +302,10 @@ def _launch(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int
                     n_src, n_knn, d_model, d_tgt, d_rpe, n_head, 1.0 / math.sqrt(d_model // n_head),
                     torch.cuda.current_device(), stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{kernel} kernel launch failed ({way} route): cudaError {rc}")
     LAUNCHES[kernel] += 1
+    if tgt is not None:
+        ROUTE_LAUNCHES[f"{kernel}/{way}"] += 1
     return out
 
 
@@ -281,8 +321,8 @@ def bwd_chunks(n_src: int, x1: int, d_model: int, n_head: int) -> int:
 def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head: int):
     """The backward kernel of B4 (k/v given) or B2 (tgt given): (dq, dk, dv, dtgt, drpe, dw_kv, dw_rpe, db),
     None where the kernel has no such input."""
-    n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv = _validate(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b,
-                                                              n_head, forward=False)
+    n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv, _ = _validate(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe,
+                                                                 b, n_head, forward=False)
     dtype, device = q.dtype, q.device
     _check(kernel, "g", g, (n_b, n_s, d_model), dtype, device)
 

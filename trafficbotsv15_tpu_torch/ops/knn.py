@@ -4,12 +4,14 @@ Replaces `trafficbotsv15_tpu/ops/pallas_knn.py::knn_xy_pallas`, the TPU
 kernel on the rollout's agent->map relation (one launch per rollout step,
 `[n_rows=128, n_src=64, n_tgt=1024]`, k=64 at the flagship).
 
-What bounds it on the card is the bytes it must move: ~1.2 MB of
-coordinates and masks in, ~4.2 MB of distances and indices out at the
-flagship shape; the distance arithmetic is negligible. The kernel
-(`csrc/knn.cu`) therefore never writes the [n_src, n_tgt] distance tile to
-device memory: a warp per source keeps its packed (distance, index) keys in
-registers and pulls out the k smallest with warp-wide min reductions.
+By the bound it is the bytes (~1.2 MB of coordinates and masks in, ~4.2 MB
+of distances and indices out at the flagship shape); what bounds the kernel
+(`csrc/knn.cu`) is the instructions of the selection, so it selects by
+threshold rather than by k extractions: a block stages its row's targets in
+shared memory, a warp per source keeps its distance keys in registers, finds
+the k-th smallest by a radix select on the distance bits, compacts the k
+selected keys in target order and sorts them with a bitonic network; the
+[n_src, n_tgt] distance tile never reaches device memory.
 
 The wrapper `knn_xy` takes the plain version for a tensor on the CPU and
 launches the kernel for a CUDA tensor, or raises; it never falls back.
@@ -57,15 +59,23 @@ def knn_xy_reference(src_xy, src_invalid, tgt_xy, tgt_invalid, k: int) -> Tuple[
     return d[..., :k].contiguous(), i[..., :k].to(torch.int32).contiguous()
 
 
+NVCC_FLAGS = ("--fmad=false",)  # every multiply and add rounded on its own, as the plain version
+
+
 def load_library():
     """Build csrc/knn.cu and bind its C entry point, once per process."""
     global _LAUNCH_FN
     if _LAUNCH_FN is None:
-        fn = build.load("knn", "knn.cu", extra_flags=("--fmad=false",)).knn_xy_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LAUNCH_FN = fn
+        _LAUNCH_FN = bind_launch(build.load("knn", "knn.cu", extra_flags=NVCC_FLAGS))
     return _LAUNCH_FN
+
+
+def bind_launch(lib: ctypes.CDLL):
+    """The `knn_xy_launch` C entry point of a built csrc/knn.cu, with its argument types."""
+    fn = lib.knn_xy_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype) -> None:

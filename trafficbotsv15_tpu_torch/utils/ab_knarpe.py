@@ -1,26 +1,31 @@
-"""Time the KNARPE forward kernels of this tree against another tree's csrc/knarpe.cu, in turns, on one GPU.
+"""Time this tree's forward kernels against another tree's sources, in turns, on one GPU.
 
-    python -m trafficbotsv15_tpu_torch.utils.ab_knarpe --other PATH/TO/csrc/knarpe.cu [--rounds 3]
-        [--calls ROUNDS] [--steps ROUNDS]
+    python -m trafficbotsv15_tpu_torch.utils.ab_knarpe [--other PATH/TO/csrc/knarpe.cu]
+        [--other-knn PATH/TO/csrc/knn.cu] [--rounds 3] [--calls ROUNDS] [--steps ROUNDS]
 
-Builds the other source with the nvcc flags of `utils/build.py` into `build/`
-and binds its `knarpe_launch`, whose C interface both trees share; the
-wrappers then launch through one library or the other. On the same bf16
-inputs (numpy seed 1; 30 % of targets invalid), for B2
+Builds the other sources with the nvcc flags of `utils/build.py` (and
+`ops/knn.py::NVCC_FLAGS` for knn.cu) into `build/` and binds their
+`knarpe_launch` / `knn_xy_launch`, whose C interfaces both trees share; the
+wrappers then launch through one library or the other. With `--other`, on
+the same bf16 inputs (numpy seed 1; 30 % of targets invalid), for B2
 (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`) at the eval
 path's shape [128·64 sources, K=89, D=R=128, H=4] and the training path's
-[8·64, K=89], and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32],
-it times the other library and this one ROUNDS times in the order other,
-this, this, other, each time as the device time of 50 launches captured in a
-CUDA graph (no host launch cost; at the training shape eager launches are
-bound by the host) and as the CUDA-event time of 50 eager launches; it prints
-each side's medians, their ratio, and each output's largest distance from the
-float32 plain version. With `--calls`, it also times the full-width
-`joint_future_pred` (`leaderboard_config()`, `use_pallas=True`, 4 scenarios
-x K=32, check_level=1) and with `--steps` the full-width training step (8
-scenarios), whole calls in the same turns, one library against the other.
-Needs a CUDA device; prints the card's name and power limit, and one JSON
-line last.
+[8·64, K=89], and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32].
+With `--other-knn`, B1 (`knn_xy`) at the eval path's [128, 64, 1024] and the
+training path's [8, 64, 1024], k=64 (numpy seed 1; coordinates uniform in
+±100 m, 20 % of sources and targets invalid). Each case times the other
+library and this one ROUNDS times in the order other, this, this, other, each
+time as the device time of 50 launches captured in a CUDA graph (no host
+launch cost; at the training shapes eager launches are bound by the host)
+and as the CUDA-event time of 50 eager launches; it prints each side's
+medians and their ratio, and each output's largest distance from the float32
+plain version (B1: whether indices and distances equal the plain version's
+exactly). With `--calls`, it also times the full-width `joint_future_pred`
+(`leaderboard_config()`, `use_pallas=True`, 4 scenarios x K=32,
+check_level=1) and with `--steps` the full-width training step (8
+scenarios), whole calls in the same turns, one set of libraries against the
+other. Needs a CUDA device; prints the card's name and power limit, and one
+JSON line last.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 
 from trafficbotsv15_tpu_torch.config import leaderboard_config, with_pallas
 from trafficbotsv15_tpu_torch.data.synthetic import make_batch
-from trafficbotsv15_tpu_torch.ops import knarpe
+from trafficbotsv15_tpu_torch.ops import knarpe, knn
 from trafficbotsv15_tpu_torch.train import pipeline as train_lib
 from trafficbotsv15_tpu_torch.train.evaluation import batch_to_device, joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
@@ -52,31 +57,35 @@ CASES = [("knarpe_cross_attention", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention_v3", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention_v3", "train", (8, 64, 89, 128, 128, 4)),
          ("knarpe_attention", "eval", (4, 1024, 32, 128, 128, 4))]
+# (label, (n_rows, n_src, n_tgt, k))
+KNN_CASES = [("eval", (128, 64, 1024, 64)), ("train", (8, 64, 1024, 64))]
 ORDER = ("other", "this", "this", "other")
 
 
-def build_other(src: Path):
-    """Compile another tree's knarpe.cu (its own includes resolve beside it) and bind its launch."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = build.BUILD_DIR / f"libknarpe-other-{digest}.so"
+def build_other(src: Path, name: str, extra_flags=()) -> ctypes.CDLL:
+    """Compile another tree's source (its own includes resolve beside it) and load it."""
+    digest = hashlib.sha256(src.read_bytes() + "\0".join(extra_flags).encode()).hexdigest()[:16]
+    out = build.BUILD_DIR / f"lib{name}-other-{digest}.so"
     if not out.exists():
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cmd = [build.nvcc_path(), *build.ARCH_FLAGS, *build.BASE_FLAGS, "-o", str(out), str(src)]
+        cmd = [build.nvcc_path(), *build.ARCH_FLAGS, *build.BASE_FLAGS, *extra_flags, "-o", str(out), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src} (rc {proc.returncode}):\n{proc.stderr}")
-    return knarpe.bind_launch(ctypes.CDLL(str(out)))
+    return ctypes.CDLL(str(out))
 
 
 @contextlib.contextmanager
-def launching_with(fn):
-    """The wrappers launch through fn (a bound knarpe_launch) inside the block."""
-    real = knarpe.load_library()
-    knarpe._LAUNCH_FN = fn
+def launching_with(fns: dict):
+    """The wrappers launch through fns[module] (a bound C entry point) inside the block."""
+    real = {module: module._LAUNCH_FN for module in fns}
+    for module, fn in fns.items():
+        module._LAUNCH_FN = fn
     try:
         yield
     finally:
-        knarpe._LAUNCH_FN = real
+        for module, fn in real.items():
+            module._LAUNCH_FN = fn
 
 
 def inputs(kernel: str, shape):
@@ -94,8 +103,16 @@ def inputs(kernel: str, shape):
     return [f(n_b, n_s, d), f(n_b, n_s, n_knn, d), f(n_b, n_s, n_knn, r), inv, f(d, 2 * d, scale=d ** -0.5), w_rpe, b]
 
 
+def knn_inputs(shape):
+    n_rows, n_src, n_tgt, _ = shape
+    rng = np.random.default_rng(1)
+    arrays = [rng.uniform(-100, 100, (n_rows, n_src, 2)), rng.uniform(size=(n_rows, n_src)) < 0.2,
+              rng.uniform(-100, 100, (n_rows, n_tgt, 2)), rng.uniform(size=(n_rows, n_tgt)) < 0.2]
+    return [torch.from_numpy(a.astype(np.float32) if a.dtype == np.float64 else a).cuda() for a in arrays]
+
+
 def in_turns(fns: dict, rounds: int, timer) -> dict:
-    """{side: [timer(fn) per turn]} over rounds of ORDER, each side launching through its library."""
+    """{side: [timer(fn) per turn]} over rounds of ORDER, each side launching through its libraries."""
     times = {side: [] for side in fns}
     for _ in range(rounds):
         for side in ORDER:
@@ -118,43 +135,69 @@ def summary(times: list) -> dict:
     return {"median": med, "q1": q1, "q3": q3, "all": times}
 
 
+def time_case(libs: dict, call, rounds: int, what: str, card: str) -> dict:
+    """Device (graph) and eager times of call() through each side's libraries, in turns."""
+    fns = {side: (libs[side], call) for side in libs}
+    device = in_turns(fns, rounds, graph_ms)
+    eager = in_turns(fns, rounds, cuda_ms)
+    row = {**{f"{side}_device_ms": summary(device[side]) for side in libs},
+           **{f"{side}_eager_ms": summary(eager[side]) for side in libs}}
+    dev = {side: row[f"{side}_device_ms"]["median"] for side in libs}
+    eag = {side: row[f"{side}_eager_ms"]["median"] for side in libs}
+    print(f"{what}: device (graph) other {dev['other']:.4f} ms, this {dev['this']:.4f} ms "
+          f"({dev['other'] / dev['this']:.2f}x); eager other {eag['other']:.4f} ms, this {eag['this']:.4f} ms "
+          f"({eag['other'] / eag['this']:.2f}x) [{card}]", flush=True)
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", type=Path, required=True, help="the other tree's csrc/knarpe.cu")
+    ap.add_argument("--other", type=Path, help="the other tree's csrc/knarpe.cu (B2, B3, B4)")
+    ap.add_argument("--other-knn", type=Path, help="the other tree's csrc/knn.cu (B1)")
     ap.add_argument("--rounds", type=int, default=3, help="rounds of other, this, this, other per kernel case")
     ap.add_argument("--calls", type=int, default=0, help="rounds of full-width joint_future_pred calls")
     ap.add_argument("--steps", type=int, default=0, help="rounds of full-width training steps")
     args = ap.parse_args()
+    if args.other is None and args.other_knn is None:
+        ap.error("give --other, --other-knn or both")
     if not torch.cuda.is_available():
         raise SystemExit("ab_knarpe: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    libs = {"this": knarpe.load_library(), "other": build_other(args.other.resolve())}
+    libs = {"this": {}, "other": {}}  # side -> {module: bound launch}
+    if args.other is not None:
+        libs["this"][knarpe] = knarpe.load_library()
+        libs["other"][knarpe] = knarpe.bind_launch(build_other(args.other.resolve(), "knarpe"))
+    if args.other_knn is not None:
+        libs["this"][knn] = knn.load_library()
+        libs["other"][knn] = knn.bind_launch(build_other(args.other_knn.resolve(), "knn", knn.NVCC_FLAGS))
     results = {"card": card, "kernels": [], "calls": None, "steps": None}
-    for kernel, label, shape in CASES:
+    for kernel, label, shape in CASES if args.other is not None else []:
         ops = inputs(kernel, shape)
         n_head = shape[-1]
         call = getattr(knarpe, kernel)
         plain = getattr(knarpe, f"{kernel}_reference")(*[a if a.dtype == torch.bool else a.float() for a in ops],
                                                        n_head)
-        fns = {side: (libs[side], lambda: call(*ops, n_head)) for side in libs}
-        device = in_turns(fns, args.rounds, graph_ms)
-        eager = in_turns(fns, args.rounds, cuda_ms)
-        errs = {}
+        row = {"kernel": kernel, "shape": label, "dims": list(shape),
+               **time_case(libs, lambda: call(*ops, n_head), args.rounds, f"{kernel} {label} {list(shape)}", card)}
         for side in libs:
             with launching_with(libs[side]):
-                errs[side] = float((call(*ops, n_head).float() - plain).abs().max())
-        row = {"kernel": kernel, "shape": label, "dims": list(shape),
-               **{f"{side}_device_ms": summary(device[side]) for side in libs},
-               **{f"{side}_eager_ms": summary(eager[side]) for side in libs},
-               **{f"{side}_max_err_vs_f32_plain": errs[side] for side in libs}}
+                row[f"{side}_max_err_vs_f32_plain"] = float((call(*ops, n_head).float() - plain).abs().max())
+        print(f"  max |out - f32 plain| other {row['other_max_err_vs_f32_plain']:.3e}, this "
+              f"{row['this_max_err_vs_f32_plain']:.3e}", flush=True)
         results["kernels"].append(row)
-        dev = {side: row[f"{side}_device_ms"]["median"] for side in libs}
-        eag = {side: row[f"{side}_eager_ms"]["median"] for side in libs}
-        print(f"{kernel} {label} {list(shape)}: device (graph) other {dev['other']:.4f} ms, this {dev['this']:.4f} ms "
-              f"({dev['other'] / dev['this']:.2f}x); eager other {eag['other']:.4f} ms, this {eag['this']:.4f} ms "
-              f"({eag['other'] / eag['this']:.2f}x); max |out - f32 plain| other {errs['other']:.3e}, this "
-              f"{errs['this']:.3e} [{card}]", flush=True)
+    for label, shape in KNN_CASES if args.other_knn is not None else []:
+        ops, k = knn_inputs(shape), shape[-1]
+        row = {"kernel": "knn_xy", "shape": label, "dims": list(shape),
+               **time_case(libs, lambda: knn.knn_xy(*ops, k), args.rounds, f"knn_xy {label} {list(shape)}", card)}
+        d_ref, i_ref = knn.knn_xy_reference(*ops, k)
+        for side in libs:
+            with launching_with(libs[side]):
+                d, i = knn.knn_xy(*ops, k)
+            row[f"{side}_equals_plain"] = bool(torch.equal(d, d_ref) and torch.equal(i, i_ref))
+        print(f"  indices and distances equal to the plain version: other {row['other_equals_plain']}, "
+              f"this {row['this_equals_plain']}", flush=True)
+        results["kernels"].append(row)
 
     if args.calls:
         cfg = with_pallas(leaderboard_config(), True)
