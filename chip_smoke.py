@@ -24,8 +24,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      the scaled preset's eval shape; every bf16 B2/B3 must give the same bits
      on a second launch; then the backward kernels B4-bwd and B2-bwd (B3's backward is B2's)
      through the wrappers' autograd: the card's output has a grad_fn, and its
-     gradients match autograd of the plain versions in float32 and bf16;
-     timed against the plain backward and the library composition's backward;
+     gradients match autograd of the plain versions in float32 and bf16, the
+     same bits on a second launch; bf16 B2-bwd and B3's backward run on the
+     staged kernel of csrc/knarpe_bwd_staged.cuh (the route asserted) at both
+     training shapes, K=5 at 21 sources and 200 sources, the eight-head edge
+     shape on the general route (csrc/knarpe_bwd.cu); timed (eager, and device
+     time from a CUDA graph) against the plain backward and the library
+     composition's backward, B2-bwd at both training shapes;
   4. slice checked: a reduced-depth float32 config whose map has 512
      polylines runs `joint_future_pred` (check_level=1) on the card and on
      the CPU with the same weights, once with use_pallas=False and once with
@@ -53,14 +58,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      with use_pallas=True, 8 synthetic scenarios per step, bf16 compute with
      f32 parameters: one warm-up step, then 3 timed steps; seconds per step,
      train samples/s, peak memory, forward and backward launches per step
-     (asserted); loss and grad_norm finite and non-zero, parameters changed.
+     (asserted), every bf16 B2 forward and backward launch on the staged route
+     at a shape phase 3 checked; loss and grad_norm finite and non-zero,
+     parameters changed.
 Then it prints the `kernels` JSON line (forward launches from phase 6,
-backward ones from phase 8), the card line, and last
+backward ones from phase 8, by route), the card line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -104,6 +112,12 @@ POST_TL_X_PATH = (8, 128, 24, 128, 128, 4)
 # no multiple of any tile; odd K; one and eight heads
 X_EDGE = [(3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
 ATTN_EDGE = [(3, 7, 5, 16, 16, 2), (2, 17, 89, 64, 32, 1)]
+# bf16 B2 backward shapes phase 3 holds on the staged route (csrc/knarpe_bwd_staged.cuh) besides the
+# training path's: K not a multiple of 16 with an all-invalid source at 21 sources (under the 132-block
+# grid), and 200 sources (no multiple of the grid); and the eight-head edge shape the staged backward
+# refuses, which takes the general route (csrc/knarpe_bwd.cu)
+X_BWD_EDGE = [(3, 7, 5, 16, 16, 2), (2, 100, 40, 128, 128, 4)]
+X_BWD_GENERAL = [X_EDGE[1]]
 # kernel vs plain version: float32 differs by summation order only (the kernel
 # reassociates the projections with the attention, csrc/knarpe.cu); bf16 rounds
 # once at the output, so half a bf16 ulp (<= 2^-8 of the value) on top. B3 rounds
@@ -407,14 +421,50 @@ def check_path_cross_shapes(where: str, seen: set) -> None:
         f"phase 3 on the staged route")
 
 
+# bf16 B2 backward shapes that phase 3 holds against autograd of the plain version on the staged route;
+# phase 8 checks that the training step launches no other
+CHECKED_X_BWD = {s[2:] for s in (TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE)}
+
+
+@contextlib.contextmanager
+def recorded_bwd_shapes():
+    """Counts of the B2 backward launches inside the block by (K, D, R, H); a bf16 launch only."""
+    real, seen = knarpe._launch_bwd, collections.Counter()
+
+    def recorder(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head):
+        if tgt is not None:
+            if q.dtype != torch.bfloat16:
+                raise AssertionError(f"B2 backward launched in {q.dtype}, expected bf16")
+            seen[(tgt.shape[2], tgt.shape[3], rpe.shape[3], n_head)] += 1
+        return real(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head)
+
+    knarpe._launch_bwd = recorder
+    try:
+        yield seen
+    finally:
+        knarpe._launch_bwd = real
+
+
+def check_path_bwd_shapes(where: str, seen) -> None:
+    """Every B2 backward launch of a path was at a shape phase 3 checked on the staged route."""
+    if not set(seen) <= CHECKED_X_BWD:
+        raise AssertionError(f"{where}: B2 backward launched at (K, D, R, H) {sorted(set(seen) - CHECKED_X_BWD)}, "
+                             f"which phase 3 did not check")
+    log(f"  {where}: B2 backward launches by (K, D, R, H) {dict(seen)}, each shape checked in phase 3 on the "
+        f"staged route")
+
+
 def check_staged_route(where: str) -> None:
-    """Every bf16 B2/B3 forward launch since the last reset took the staged route: the flagship must not
-    slide onto the slower general kernel unseen."""
+    """Every bf16 B2/B3 forward launch and every bf16 B2 backward launch since the last reset took the
+    staged route: the flagship must not slide onto the slower general kernels unseen."""
     n = knarpe.LAUNCHES["knarpe_cross_attention"] + knarpe.LAUNCHES["knarpe_cross_attention_v3"]
+    n_bwd = knarpe.LAUNCHES["knarpe_cross_attention_bwd"]
     routes = dict(knarpe.ROUTE_LAUNCHES)
     staged = routes["knarpe_cross_attention/staged"] + routes["knarpe_cross_attention_v3/staged"]
-    if staged != n or any(v for key, v in routes.items() if key.endswith("/general")):
-        raise AssertionError(f"{where}: B2/B3 launches by route {routes}, expected all {n} on the staged route")
+    if (staged != n or routes["knarpe_cross_attention_bwd/staged"] != n_bwd
+            or any(v for key, v in routes.items() if key.endswith("/general"))):
+        raise AssertionError(f"{where}: B2/B3 launches by route {routes}, expected all {n} forward and {n_bwd} "
+                             f"backward launches on the staged route")
 
 
 def knarpe_bwd_bound(name: str, args, g, n_head: int) -> tuple:
@@ -457,8 +507,9 @@ def _kernel_bwd(name: str, args, g, n_head: int):
     return [a.grad for a in leaves if a.requires_grad]
 
 
-def check_one_knarpe_bwd(name: str, shape, seed: int) -> float:
-    """Backward kernel vs autograd of the plain version, float32 and bf16; returns the float32 max |err|."""
+def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "general") -> float:
+    """Backward kernel vs autograd of the plain version, float32 and bf16, the bf16 B2/B3 backward on
+    want_route and bit-identical on a second launch; returns the float32 max |err|."""
     n_head = shape[-1]
     args = knarpe_inputs(shape, name != "knarpe_attention", seed)
     g = torch.from_numpy(np.random.default_rng(seed + 100).normal(size=args[0].shape).astype(np.float32)).cuda()
@@ -471,58 +522,86 @@ def check_one_knarpe_bwd(name: str, shape, seed: int) -> float:
         raise AssertionError(f"{name} backward {shape} float32: max |err| / max |grad| {worst} "
                              f"(tolerance {KNARPE_BWD_F32_REL}), all-invalid source zero: {bool(torch.all(got[0][0, 0] == 0))}")
     a16 = [a if a.dtype == torch.bool else a.to(torch.bfloat16) for a in args]
+    before = dict(knarpe.ROUTE_LAUNCHES)
     got16 = _kernel_bwd(name, a16, g.to(torch.bfloat16), n_head)
+    took = [key.split("/")[1] for key, n in knarpe.ROUTE_LAUNCHES.items()
+            if key.startswith("knarpe_cross_attention_bwd/") and n != before[key]]
+    if name != "knarpe_attention" and took != [want_route]:
+        raise AssertionError(f"{name} backward {shape} bf16: launched on the {took} route, expected {want_route}")
     want32 = _plain_bwd(name, [a if a.dtype == torch.bool else a.float() for a in a16], g.bfloat16().float(), n_head)
     for a, b in zip(got16, want32):
         tol = BF16_HALF_ULP * b.abs() + KNARPE_BWD_F32_REL * float(b.abs().max())
         if not (a.dtype == torch.bfloat16 and bool(((a.float() - b).abs() <= tol).all())):
             raise AssertionError(f"{name} backward {shape} bf16: |err| above 2^-8 relative + 1e-4 of the max")
+    if not all(torch.all(x[0, 0] == 0) for x in got16[:2]):
+        raise AssertionError(f"{name} backward {shape} bf16: the all-invalid source has non-zero gradients")
+    if not all(torch.equal(a, b) for a, b in zip(_kernel_bwd(name, a16, g.to(torch.bfloat16), n_head), got16)):
+        raise AssertionError(f"{name} backward {shape} bf16: two launches on the same inputs differ")
     log(f"  {name} backward {list(shape)}: output has a grad_fn; float32 max |err| {max_err:.3e}, "
         f"{worst:.2e} of the largest gradient (tolerance {KNARPE_BWD_F32_REL:g}); bf16 within 2^-8 relative + "
-        f"1e-4 of the largest; all-invalid source zero")
+        f"1e-4 of the largest{'' if name == 'knarpe_attention' else ', ' + want_route + ' route'}, two launches "
+        f"bit-identical; all-invalid source zero")
     return max_err
+
+
+def time_knarpe_bwd(name: str, shape) -> dict:
+    """A backward launch (`_launch_bwd`, bf16) eager and as device time from a CUDA graph, its plain
+    version and the library composition's backward, with the bound, at one shape."""
+    n_head = shape[-1]
+    args = knarpe_inputs(shape, name != "knarpe_attention", seed=11, dtype=torch.bfloat16)
+    g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(3)).to("cuda", torch.bfloat16)
+    if name == "knarpe_attention":
+        q, k, v, rpe, inv, w, b = args
+        kernel = lambda: knarpe._launch_bwd(name, q, k, v, None, rpe, inv, None, w, b, g, n_head)
+        way = "general"
+    else:
+        q, tgt, rpe, inv, w_kv, w_rpe, b = args
+        kernel = lambda: knarpe._launch_bwd(name, q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, n_head)
+        way = knarpe.bwd_route(name, torch.bfloat16, *shape[2:], torch.cuda.current_device())
+    ms = cuda_ms(kernel, 20)
+    device_ms = graph_ms(kernel)
+    plain_ms = cuda_ms(lambda: _plain_bwd(name, args, g, n_head), 5)
+    leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in args]
+    lib_out = knarpe_library_call(name, leaves, n_head)
+    want = [a for a in leaves if a.requires_grad]
+    library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, want, g, retain_graph=True), 10)
+    nbytes, ops = knarpe_bwd_bound(name, args, g, n_head)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    log(f"  {name} backward timing at {list(shape)} bf16, {way} route: kernel {ms:.4f} ms ({device_ms:.4f} ms of "
+        f"device time, launched from a CUDA graph), plain (autograd through the plain forward) {plain_ms:.4f} ms, "
+        f"backward of matmul + scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), kernel at {100 * bound_ms / ms:.2f}% of the bound "
+        f"({100 * bound_ms / device_ms:.2f}% by device time)")
+    return {"kernel_route": way, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
 def check_knarpe_bwd_kernels() -> list:
     """B4-bwd, B2-bwd and B3's backward (B2-bwd through B3's Function) vs autograd of the plain
-    versions at the training path's and edge shapes; B4-bwd and B2-bwd timed at the training
-    path's shapes (bf16)."""
+    versions at the training path's and edge shapes, bf16 B2/B3 on the staged route where it takes
+    the shape; B4-bwd timed at the training path's shape, B2-bwd at both of its training shapes (bf16)."""
     rows = []
     for name, path, edges, replaces in (
             ("knarpe_attention", TRAIN_ATTN_PATH, ATTN_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:293"),
-            ("knarpe_cross_attention", TRAIN_X_PATH, X_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:579")):
-        max_err = check_one_knarpe_bwd(name, path, seed=11)
+            ("knarpe_cross_attention", TRAIN_X_PATH, X_BWD_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:579")):
+        cross = name != "knarpe_attention"
+        max_err = check_one_knarpe_bwd(name, path, seed=11, want_route="staged" if cross else "general")
         for i, shape in enumerate(edges):
-            check_one_knarpe_bwd(name, shape, seed=12 + i)
-        if name == "knarpe_cross_attention":
-            check_one_knarpe_bwd("knarpe_cross_attention_v3", path, seed=15)
-            check_one_knarpe_bwd("knarpe_cross_attention_v3", X_EDGE[1], seed=16)
-        n_head = path[-1]
-        args = knarpe_inputs(path, name != "knarpe_attention", seed=11, dtype=torch.bfloat16)
-        g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(3)).to("cuda", torch.bfloat16)
-        if name == "knarpe_attention":
-            q, k, v, rpe, inv, w, b = args
-            kernel = lambda: knarpe._launch_bwd(name, q, k, v, None, rpe, inv, None, w, b, g, n_head)
-        else:
-            q, tgt, rpe, inv, w_kv, w_rpe, b = args
-            kernel = lambda: knarpe._launch_bwd(name, q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, n_head)
-        ms = cuda_ms(kernel, 20)
-        plain_ms = cuda_ms(lambda: _plain_bwd(name, args, g, n_head), 5)
-        leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in args]
-        lib_out = knarpe_library_call(name, leaves, n_head)
-        want = [a for a in leaves if a.requires_grad]
-        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, want, g, retain_graph=True), 10)
-        nbytes, ops = knarpe_bwd_bound(name, args, g, n_head)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        log(f"  {name} backward timing at the training path's {list(path)} bf16: kernel {ms:.4f} ms, plain (autograd through the plain "
-            f"forward) {plain_ms:.4f} ms, backward of matmul + scaled_dot_product_attention {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), kernel at "
-            f"{100 * bound_ms / ms:.2f}% of the bound")
-        rows.append({"name": f"{name}_bwd", "route": "cuda", "source": "trafficbotsv15_tpu_torch/csrc/knarpe_bwd.cu",
-                     "replaces": replaces, "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "library_ms": library_ms})
+            check_one_knarpe_bwd(name, shape, seed=12 + i, want_route="staged" if cross else "general")
+        if cross:
+            check_one_knarpe_bwd(name, POST_TL_X_PATH, seed=14, want_route="staged")
+            for i, shape in enumerate(X_BWD_GENERAL):
+                check_one_knarpe_bwd(name, shape, seed=17 + i, want_route="general")
+            for i, shape in enumerate([path, POST_TL_X_PATH, *X_BWD_EDGE]):
+                check_one_knarpe_bwd("knarpe_cross_attention_v3", shape, seed=20 + i, want_route="staged")
+        row = time_knarpe_bwd(name, path)
+        source = "trafficbotsv15_tpu_torch/csrc/knarpe_bwd_staged.cuh" if cross else \
+            "trafficbotsv15_tpu_torch/csrc/knarpe_bwd.cu"
+        rows.append({"name": f"{name}_bwd", "route": "cuda", "source": source, "replaces": replaces, "launches": None,
+                     "max_abs_err": max_err, **row})
+        if cross:
+            rows[-1]["post_tl_shape"] = {"shape": list(POST_TL_X_PATH), **time_knarpe_bwd(name, POST_TL_X_PATH)}
     return rows
 
 
@@ -754,11 +833,12 @@ def run_train_full_width(card: str, n_timed: int = 3) -> dict:
     gen = torch.Generator().manual_seed(0)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     t0 = time.perf_counter()
-    with recorded_cross_shapes() as seen:
+    with recorded_cross_shapes() as seen, recorded_bwd_shapes() as seen_bwd:
         step(batch, gen)
     torch.cuda.synchronize()
     log(f"  warm-up step {time.perf_counter() - t0:.3f} s")
     check_path_cross_shapes("training step", seen)
+    check_path_bwd_shapes("training step", seen_bwd)
     torch.cuda.reset_peak_memory_stats()
     times, per_step, metrics = [], [], []
     for _ in range(n_timed):
@@ -787,7 +867,7 @@ def run_train_full_width(card: str, n_timed: int = 3) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {[round(m['training/loss'], 4) for m in metrics]}, "
         f"grad_norm {[round(m['grad_norm'], 4) for m in metrics]}, {changed} of {len(before)} parameters changed, "
         f"kernel launches per step {per_step[-1]}, B2 launches by route {knarpe.ROUTE_LAUNCHES} [{card}]")
-    return per_step[-1]
+    return per_step[-1], dict(knarpe.ROUTE_LAUNCHES), seen_bwd
 
 
 def main() -> int:
@@ -829,12 +909,18 @@ def main() -> int:
     check_train_step_card_vs_cpu(use_pallas=True)
 
     log("[8/8] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
-    train_counts = run_train_full_width(card)
+    train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
     for row in rows:
         row["launches"] = counts[row["name"]]
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     for row in bwd_rows:
         row["launches"] = train_counts[row["name"]]
+        if row["name"] == "knarpe_attention_bwd":
+            row["launches_by_route"] = {"general": row["launches"]}
+        else:
+            row["launches_by_route"] = {way: train_routes[f"knarpe_cross_attention_bwd/{way}"]
+                                        for way in ("staged", "general")}
+            row["post_tl_shape"]["launches"] = train_bwd_shapes[POST_TL_X_PATH[2:]]  # of the 368, per step
     rows += bwd_rows
     for row in rows:
         for key, val in row.items():

@@ -38,7 +38,12 @@ of the plain forwards, each gradient against its own largest magnitude M:
     inputs: the kernel sums in float32 and rounds once, so 2^-8 of each
     value plus 1e-4 M.
 A kernel output made from inputs that require grad has a `grad_fn`, and its
-backward launches the backward kernel once.
+backward launches the backward kernel once. The bf16 B2 backward runs on the
+staged kernel (csrc/knarpe_bwd_staged.cuh) where it takes the shape: at the
+training path's shapes, K below 16 and no multiple of 16, source counts under
+and over the 132-block grid, one head, a single source and K=128; the shapes
+it refuses (eight heads, K=200) take the general kernel, named and counted;
+two launches give the same bits, and an operand off a 16-byte boundary raises.
 """
 
 import numpy as np
@@ -286,7 +291,8 @@ def test_general_bf16_route_matches_plain_version(name, shape):
 @pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
 @pytest.mark.parametrize("shape", [CROSS_SHAPES[0], STAGED_SHAPES[0], STAGED_SHAPES[4]])
 def test_two_launches_give_the_same_bits(name, shape):
-    """No atomics: every sum of the staged kernel has a fixed order."""
+    """No atomics: every sum of the staged kernels, forward and backward (and of the general backward,
+    which takes the eight-head shape), has a fixed order."""
     _need_card()
     args = _cast(_inputs(shape, True, seed=7), torch.bfloat16)
     kernel = getattr(knarpe, name)
@@ -294,3 +300,81 @@ def test_two_launches_give_the_same_bits(name, shape):
     second = kernel(*args, shape[-1])
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+    g = _grad_case(name, shape, torch.bfloat16)[1]
+    grads = [_kernel_grads(name, args, g, shape[-1]) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# the staged bf16 B2 backward (csrc/knarpe_bwd_staged.cuh; B3's backward is B2's): the training path's
+# agent decoder and posterior agent encoder, the posterior TL encoder (K=24); K below 16 and no multiple
+# of 16 with fewer sources than SMs; 131 sources; 200 sources (no multiple of the 132-block grid); one
+# head; a single source; K=128, which one stage still holds
+BWD_STAGED_SHAPES = [(8, 64, 89, 128, 128, 4), (8, 128, 24, 128, 128, 4), (1, 97, 11, 64, 64, 2),
+                     (1, 131, 89, 128, 128, 4), (2, 100, 40, 128, 128, 4), (2, 5, 89, 32, 32, 1),
+                     (1, 1, 3, 128, 128, 4), (2, 16, 128, 128, 128, 4)]
+# bf16 B2 backward shapes the staged kernel refuses, with the code: K=200 (over the softmax's 128), eight
+# heads (the scaled preset's D=R=256, and D=32, R=16), and D=R=256 with four heads, whose weights alone
+# overflow the shared memory
+BWD_GENERAL_SHAPES = [((1, 9, 200, 128, 128, 4), 1), ((2, 16, 89, 256, 256, 8), 3), ((1, 33, 89, 32, 16, 8), 3),
+                      ((1, 9, 16, 256, 256, 4), 4)]
+
+
+def _bwd_route_counts():
+    return (knarpe.ROUTE_LAUNCHES["knarpe_cross_attention_bwd/staged"],
+            knarpe.ROUTE_LAUNCHES["knarpe_cross_attention_bwd/general"])
+
+
+def _check_bf16_grads(name, shape, want_route):
+    """bf16 gradients through the wrapper's Function on want_route against the float32 plain backward on
+    the same bf16-valued inputs: 2^-8 of each value plus 1e-4 of each gradient's largest magnitude."""
+    n_head = shape[-1]
+    a16, g16 = _grad_case(name, shape, torch.bfloat16)
+    staged, general = _bwd_route_counts()
+    got16 = _kernel_grads(name, a16, g16, n_head)
+    assert _bwd_route_counts() == ((staged + 1, general) if want_route == "staged" else (staged, general + 1))
+    want32 = _plain_grads(name, _cast(a16, torch.float32), g16.float(), n_head)
+    for a, b in zip(got16, want32):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        tol = 2.0 ** -8 * b.abs() + 1e-4 * float(b.abs().max())
+        assert bool(((a.float() - b).abs() <= tol).all())
+    assert all(torch.all(x[0, 0] == 0) for x in got16[:3])  # dq, dtgt, drpe of the all-invalid source
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
+@pytest.mark.parametrize("shape", BWD_STAGED_SHAPES)
+def test_staged_backward_matches_plain_autograd_on_card(name, shape):
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert knarpe.bwd_staged_refusal(*shape[2:], dev) == 0
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, *shape[2:], dev) == "staged"
+    _check_bf16_grads(name, shape, "staged")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,code", BWD_GENERAL_SHAPES)
+def test_bf16_backward_shapes_the_staged_kernel_refuses_take_the_general_route(shape, code):
+    """Among them `WIDE_BWD_CASES`' D=R=256 with 8 heads; its K=128 at D=R=128 fits one stage and
+    takes the staged route (`BWD_STAGED_SHAPES`)."""
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert knarpe.bwd_staged_refusal(*shape[2:], dev) == code
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, *shape[2:], dev) == "general"
+    _check_bf16_grads("knarpe_cross_attention", shape, "general")
+    assert [knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, *s[2:], dev) for _, s in WIDE_BWD_CASES] == [
+        "general", "staged"]
+
+
+@pytest.mark.cuda
+def test_staged_backward_raises_for_misaligned_operands():
+    """An operand off a 16-byte boundary at a staged shape raises; it does not slide onto the general kernel."""
+    _need_card()
+    shape = BWD_STAGED_SHAPES[2]
+    (q, tgt, rpe, inv, w_kv, w_rpe, b), g = _grad_case("knarpe_cross_attention", shape, torch.bfloat16)
+    buf = torch.empty(tgt.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    buf[1:] = tgt.reshape(-1)
+    tgt = buf[1:].view(tgt.shape)
+    counts = _bwd_route_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        knarpe._launch_bwd("knarpe_cross_attention", q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, shape[-1])
+    assert _bwd_route_counts() == counts

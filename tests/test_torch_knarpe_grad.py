@@ -120,3 +120,76 @@ def test_bwd_chunks_fixed_by_shape():
     assert knarpe.bwd_chunks(8192, 257, 128, 4) == knarpe.bwd_chunks(8192, 257, 128, 4) == 13
     assert knarpe.bwd_chunks(5, 33, 16, 2) == 1
     assert all(knarpe.bwd_chunks(n, 129, 128, 4) >= 1 for n in (1, 63, 64, 4096))
+
+
+def _fake_bwd_route(monkeypatch, codes):
+    """Fake the built library's answer (`bwd_staged_refusal`); -> the calls, in order."""
+    asked = []
+
+    def answer(n_knn, d_model, d_rpe, n_head, device_index):
+        asked.append((n_knn, d_model, d_rpe, n_head, device_index))
+        return codes[0]
+
+    monkeypatch.setattr(knarpe, "bwd_staged_refusal", answer)
+    return asked
+
+
+def test_bwd_route_sends_bf16_b2_to_the_staged_kernel(monkeypatch):
+    """bf16 B2-bwd (B3's backward too) takes the staged kernel where the library's answer is 0, asked
+    from the shape alone."""
+    asked = _fake_bwd_route(monkeypatch, [0])
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 89, 128, 128, 4, 0) == "staged"
+    assert asked == [(89, 128, 128, 4, 0)]
+
+
+@pytest.mark.parametrize("code", sorted(knarpe.BWD_STAGED_REFUSALS))
+def test_bwd_route_sends_each_refusal_to_the_general_kernel(code, monkeypatch):
+    """Every refusal code of the staged backward sends bf16 B2-bwd to the general kernel; float32 and
+    B4-bwd take the general kernel without asking the library."""
+    asked = _fake_bwd_route(monkeypatch, [code])
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 24, 128, 128, 4, 0) == "general"
+    assert asked == [(24, 128, 128, 4, 0)]
+    asked.clear()
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.float32, 24, 128, 128, 4, 0) == "general"
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 24, 128, 128, 4, 0) == "general"
+    assert asked == []
+
+
+def test_bwd_refusals_name_each_code():
+    """One text per refusal code of `staged_bwd::refusal` (1-4) and the plan's no-fit (5), each its own."""
+    texts = knarpe.BWD_STAGED_REFUSALS
+    assert sorted(texts) == [1, 2, 3, 4, 5]
+    assert len(set(texts.values())) == len(texts) and all(texts.values())
+    assert "n_head" in texts[3] and "shared memory" in texts[4]
+
+
+def _bf16_bwd_operands(misalign):
+    args, g = _inputs(2, 3, 5, seed=4, cross=True)
+    t = {k: torch.from_numpy(v) if v.dtype == bool else torch.from_numpy(v).to(torch.bfloat16) for k, v in args.items()}
+    if misalign:  # the same values one element into a buffer: contiguous, 2 bytes off a 16-byte boundary
+        buf = torch.zeros(t["rpe"].numel() + 1, dtype=torch.bfloat16)
+        buf[1:] = t["rpe"].reshape(-1)
+        t["rpe"] = buf[1:].view(t["rpe"].shape)
+    return t, torch.from_numpy(g).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("route_code", [0, 3])
+def test_launch_bwd_raises_for_misaligned_bf16_operands_on_the_staged_route(route_code, monkeypatch):
+    """The staged backward copies 16-byte chunks: a bf16 operand 2 bytes off a 16-byte boundary at a shape
+    it takes raises before any launch (the route follows from the shape, not from the addresses). On the
+    general route the check does not apply, and the launch itself needs the card."""
+    _fake_bwd_route(monkeypatch, [route_code])
+    t, g = _bf16_bwd_operands(misalign=True)
+    assert t["rpe"].is_contiguous() and t["rpe"].data_ptr() % 16
+    call = lambda: knarpe._launch_bwd("knarpe_cross_attention", t["q"], None, None, t["tgt"], t["rpe"], t["invalid"],
+                                      t["w_kv"], t["w_rpe"], t["b"], g, N_HEAD)
+    if route_code == 0:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
+    else:
+        def no_card():
+            raise RuntimeError("no card")
+
+        monkeypatch.setattr(knarpe, "load_bwd_library", no_card)
+        with pytest.raises(RuntimeError, match="no card"):
+            call()

@@ -203,17 +203,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 
 // where chunk c of a row of n_c chunks, rotated by rot, lies
 __device__ __forceinline__ int rotated(int c, int rot, int n_c) { return c + rot < n_c ? c + rot : c + rot - n_c; }
-// 16-byte chunk c (of X / 8) of target row j in a stage slot
-__device__ __forceinline__ const uint4* x_chunk(const Params& p, const unsigned char* slot, int j, int c) {
+// 16-byte chunk c (of X / 8) of target row j in a stage slot (of the forward's or the backward's Params)
+template <class P>
+__device__ __forceinline__ const uint4* x_chunk(const P& p, const unsigned char* slot, int j, int c) {
   const int ct = p.d_model >> 3;
   if (c < ct) return reinterpret_cast<const uint4*>(slot + p.L.xt) + j * ct + rotated(c, j & p.mt, ct);
   const int cr = p.d_rpe >> 3;
   return reinterpret_cast<const uint4*>(slot + p.L.xr) + j * cr + rotated(c - ct, j & p.mr, cr);
 }
 // 16-byte chunk c (of 2D / 8) of weight row i
-__device__ __forceinline__ const uint4* w_chunk(const Params& p, const unsigned char* smem, int i, int c) {
+template <class P>
+__device__ __forceinline__ const uint4* w_chunk(const P& p, const unsigned char* smem, int i, int c) {
   const int cw = p.d_model >> 2;
   return reinterpret_cast<const uint4*>(smem + p.L.w) + i * cw + (c ^ (i & p.mw));
+}
+
+// cp.async of the resident [W_kv; W_rpe] (rows XOR-swizzled by p.mw) and the bias into shared memory;
+// the caller waits (cp_wait_all) and synchronises
+template <class P>
+__device__ __forceinline__ void load_weights(const P& p, unsigned char* smem, int tid) {
+  const int D = p.d_model, X = D + p.d_rpe, cw = D >> 2;
+  const uint32_t ws = smem_u32(smem + p.L.w);
+  for (int e = tid; e < X * cw; e += kThreads) {
+    const int i = e / cw, c = e - i * cw;
+    const __nv_bfloat16* row = i < D ? p.w_kv + static_cast<size_t>(i) * 2 * D : p.w_rpe + static_cast<size_t>(i - D) * 2 * D;
+    cp_async16(ws + (i * cw + (c ^ (i & p.mw))) * 16, row + c * 8);
+  }
+  for (int c = tid; c < cw; c += kThreads) cp_async16(smem_u32(smem + p.L.bias) + c * 16, p.bias + c * 8);
 }
 
 // Pieces [e0, e1) of source s into a stage slot by bulk copies: pieces 2j, 2j + 1 are tgt row
@@ -271,17 +287,7 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
   unsigned char* slot0 = smem + p.L.slot;
   const uint32_t bar0 = smem_u32(smem + p.L.bar);
 
-  // resident [W_kv; W_rpe] (swizzled) and bias
-  {
-    const int cw = D >> 2;
-    const uint32_t ws = smem_u32(smem + p.L.w);
-    for (int e = tid; e < X * cw; e += kThreads) {
-      const int i = e / cw, c = e - i * cw;
-      const __nv_bfloat16* row = i < D ? p.w_kv + static_cast<size_t>(i) * 2 * D : p.w_rpe + static_cast<size_t>(i - D) * 2 * D;
-      cp_async16(ws + (i * cw + (c ^ (i & p.mw))) * 16, row + c * 8);
-    }
-    for (int c = tid; c < cw; c += kThreads) cp_async16(smem_u32(smem + p.L.bias) + c * 16, p.bias + c * 8);
-  }
+  load_weights(p, smem, tid);  // resident [W_kv; W_rpe] (swizzled) and bias
   // rows 2H.. of [A_hi; A_lo] and its columns K.. stay zero: the softmax writes only the rest
   for (int e = tid; e < 16 * lda; e += kThreads) ab[e] = __float2bfloat16_rn(0.f);
   if (tid == 0) {

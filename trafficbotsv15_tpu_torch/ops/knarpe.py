@@ -28,17 +28,24 @@ the previous source computes, every product on the tensor cores
 "general", the kernel of `csrc/knarpe.cu`, for B4, float32 B2 and B3, and the
 bf16 B2 and B3 shapes the staged kernel refuses (the scaled preset's
 D = R = 256, K >= 90 at D = R = 128). A shape both refuse, or an operand of a
-staged launch not at a 16-byte aligned address, raises. `ROUTE_LAUNCHES`
-counts B2 and B3 forward launches by route.
+staged launch not at a 16-byte aligned address, raises.
 
 Each wrapper is a `torch.autograd.Function`: its forward launches the
 forward kernel and its backward the backward kernel of `csrc/knarpe_bwd.cu`,
 which replaces `_bwd_kernel` (B4-bwd) and `_x_bwd_kernel` (B2-bwd; B3's
-backward is B2's, as `pallas_knarpe.py:778-783` has it). For tensors on the
-CPU both directions take the plain versions (the `*_reference` forwards and
-autograd through them, `*_bwd_reference`); for CUDA tensors they launch the
-kernels or raise; they never fall back. `LAUNCHES` counts kernel launches
-per kernel, backward ones under `*_bwd` (never plain-version calls).
+backward is B2's, as `pallas_knarpe.py:778-783` has it). The B2 backward also
+takes one of two routes, named by `bwd_route` from the shape alone: "staged"
+(`csrc/knarpe_bwd_staged.cuh`: each source staged in shared memory by bulk
+copies, every product on the tensor cores) for bf16 wherever it takes the
+shape, and "general" (the kernel of `csrc/knarpe_bwd.cu`) for float32, B4-bwd
+and the bf16 shapes it refuses (more than 4 heads, or a layout beyond the
+block's shared memory); an operand of a staged launch off a 16-byte boundary
+raises. For tensors on the CPU both directions take the plain versions (the
+`*_reference` forwards and autograd through them, `*_bwd_reference`); for
+CUDA tensors they launch the kernels or raise; they never fall back.
+`LAUNCHES` counts kernel launches per kernel, backward ones under `*_bwd`
+(never plain-version calls), and `ROUTE_LAUNCHES` the B2 and B3 forwards and
+the B2 backward by route.
 """
 
 from __future__ import annotations
@@ -59,8 +66,10 @@ LAUNCHES = {"knarpe_attention": 0, "knarpe_cross_attention": 0, "knarpe_cross_at
 _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_attention_v3": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# B2 and B3 forward launches by route since the last reset (read by chip_smoke.py)
-ROUTE_LAUNCHES = {f"{kernel}/{route}": 0 for kernel in ("knarpe_cross_attention", "knarpe_cross_attention_v3")
+# B2 and B3 forward launches and B2 backward launches (B3's backward is B2's) by route since the last
+# reset (read by chip_smoke.py)
+ROUTE_LAUNCHES = {f"{kernel}/{route}": 0 for kernel in ("knarpe_cross_attention", "knarpe_cross_attention_v3",
+                                                        "knarpe_cross_attention_bwd")
                   for route in ("staged", "general")}
 
 _LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
@@ -75,6 +84,15 @@ STAGED_REFUSALS = {
     4: "d_head must be 4, or a multiple of 8 that divides the warp's column block",
     5: "the weights and two source stages exceed the device's shared memory per block",
     6: "no block fits a multiprocessor",
+}
+# why the staged bf16 B2 backward (csrc/knarpe_bwd_staged.cuh) refuses a shape, by the code of
+# `knarpe_bwd_staged_route` (`staged_bwd::refusal`); such a shape takes the general backward kernel
+BWD_STAGED_REFUSALS = {
+    1: "K must be in [1, 128]: the softmax keeps each head's K / 32 targets per lane in registers",
+    2: "d_model and d_rpe must be multiples of 16 (the tensor cores' k steps)",
+    3: "n_head must be at most 4: [U | W] hi and lo share one 16-column tile",
+    4: "the weights and one source stage exceed the device's shared memory per block",
+    5: "no block fits a multiprocessor",
 }
 # why the general kernel (csrc/knarpe.cu) refuses a shape, by the code of `knarpe_general_route`
 GENERAL_REFUSALS = {
@@ -219,13 +237,42 @@ def load_bwd_library():
     """Build csrc/knarpe_bwd.cu and bind its C entry point, once per process."""
     global _BWD_FN
     if _BWD_FN is None:
-        fn = build.load("knarpe_bwd", "knarpe_bwd.cu").knarpe_bwd_launch
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _BWD_FN = fn
+        lib = build.load("knarpe_bwd", "knarpe_bwd.cu")
+        lib.knarpe_bwd_staged_route.argtypes = [ctypes.c_int] * 7
+        lib.knarpe_bwd_staged_route.restype = ctypes.c_int
+        _BWD_FN = bind_bwd_launch(lib)
     return _BWD_FN
+
+
+def bind_bwd_launch(lib: ctypes.CDLL):
+    """The `knarpe_bwd_launch` C entry point of a built csrc/knarpe_bwd.cu, with its argument types."""
+    fn = lib.knarpe_bwd_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_staged_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the staged backward takes a bf16 B2 (or B3) backward at this shape on the card, else the
+    built library's refusal code (`BWD_STAGED_REFUSALS` says why)."""
+    load_bwd_library()
+    code = build.load("knarpe_bwd", "knarpe_bwd.cu").knarpe_bwd_staged_route(
+        _MODES["knarpe_cross_attention"], _DTYPES[torch.bfloat16], n_knn, d_model, d_rpe, n_head, device_index)
+    if code < 0:
+        raise RuntimeError(f"knarpe_cross_attention backward: planning a launch (knarpe_bwd_staged_route) failed: "
+                           f"code {code}")
+    return code
+
+
+def bwd_route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
+    """The kernel a backward launch takes, from its shape alone: "staged" for bf16 B2 and B3 where the
+    staged backward takes the shape, else "general" (B4-bwd, float32, and the bf16 shapes it refuses)."""
+    if kernel == "knarpe_attention" or dtype != torch.bfloat16:
+        return "general"
+    return "staged" if bwd_staged_refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0 else "general"
 
 
 def _check(kernel: str, name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -325,6 +372,10 @@ def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_he
                                                                  b, n_head, forward=False)
     dtype, device = q.dtype, q.device
     _check(kernel, "g", g, (n_b, n_s, d_model), dtype, device)
+    way = bwd_route(kernel, dtype, n_knn, d_model, d_rpe, n_head, device.index or 0)
+    if way == "staged" and any(t.data_ptr() % 16 for t in (q, tgt, rpe, w_kv, w_rpe, b, g)):
+        raise ValueError(f"{kernel} backward: the staged bf16 kernel copies 16-byte chunks; q, tgt, rpe, w_kv, w_rpe, "
+                         f"b and g must start at 16-byte aligned addresses")
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=device)
@@ -352,8 +403,10 @@ def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_he
                     n_src, n_knn, d_model, d_tgt, d_rpe, n_head, 1.0 / math.sqrt(d_model // n_head), n_chunks,
                     torch.cuda.current_device(), stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel} backward kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{kernel} backward kernel launch failed ({way} route): cudaError {rc}")
     LAUNCHES["knarpe_attention_bwd" if attn else "knarpe_cross_attention_bwd"] += 1
+    if not attn:
+        ROUTE_LAUNCHES[f"knarpe_cross_attention_bwd/{way}"] += 1
     return dq, dk, dv, dtgt, drpe, dw_kv, dw_rpe, db
 
 

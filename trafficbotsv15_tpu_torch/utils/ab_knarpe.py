@@ -1,12 +1,14 @@
-"""Time this tree's forward kernels against another tree's sources, in turns, on one GPU.
+"""Time this tree's kernels against another tree's sources, in turns, on one GPU.
 
     python -m trafficbotsv15_tpu_torch.utils.ab_knarpe [--other PATH/TO/csrc/knarpe.cu]
-        [--other-knn PATH/TO/csrc/knn.cu] [--rounds 3] [--calls ROUNDS] [--steps ROUNDS]
+        [--other-knn PATH/TO/csrc/knn.cu] [--other-bwd PATH/TO/csrc/knarpe_bwd.cu] [--split]
+        [--rounds 3] [--calls ROUNDS] [--steps ROUNDS]
 
 Builds the other sources with the nvcc flags of `utils/build.py` (and
 `ops/knn.py::NVCC_FLAGS` for knn.cu) into `build/` and binds their
-`knarpe_launch` / `knn_xy_launch`, whose C interfaces both trees share; the
-wrappers then launch through one library or the other. With `--other`, on
+`knarpe_launch` / `knn_xy_launch` / `knarpe_bwd_launch`, whose C interfaces
+both trees share; the wrappers then launch through one library or the other.
+With `--other`, on
 the same bf16 inputs (numpy seed 1; 30 % of targets invalid), for B2
 (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`) at the eval
 path's shape [128·64 sources, K=89, D=R=128, H=4] and the training path's
@@ -20,12 +22,22 @@ launch cost; at the training shapes eager launches are bound by the host)
 and as the CUDA-event time of 50 eager launches; it prints each side's
 medians and their ratio, and each output's largest distance from the float32
 plain version (B1: whether indices and distances equal the plain version's
-exactly). With `--calls`, it also times the full-width `joint_future_pred`
+exactly). With `--other-bwd`, the B2 backward (`ops/knarpe.py::_launch_bwd`,
+which B3's backward is too) at the training path's two bf16 shapes, the agent
+decoder's [8·64 sources, K=89, D=R=128, H=4] and the posterior TL encoder's
+[8·128, K=24], and B3's forward and backward through `knarpe_cross_attention_v3`'s
+autograd Function at the same shapes (only the backward library differs between
+the sides; numpy seed 1, 30 % of targets invalid, one source with none); each
+side's gradients against the float32 plain backward (`*_bwd_reference`), as the
+largest |error| over all six gradients relative to that gradient's largest
+magnitude. With `--split`, each backward case is also traced by `torch.profiler`
+through each side's library: its device time per kernel, averaged over 20
+launches. With `--calls`, it also times the full-width `joint_future_pred`
 (`leaderboard_config()`, `use_pallas=True`, 4 scenarios x K=32,
 check_level=1) and with `--steps` the full-width training step (8
 scenarios), whole calls in the same turns, one set of libraries against the
-other. Needs a CUDA device; prints the card's name and power limit, and one
-JSON line last.
+other (through every library given, the backward's included). Needs a CUDA
+device; prints the card's name and power limit, and one JSON line last.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import contextlib
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -59,6 +72,8 @@ CASES = [("knarpe_cross_attention", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_attention", "eval", (4, 1024, 32, 128, 128, 4))]
 # (label, (n_rows, n_src, n_tgt, k))
 KNN_CASES = [("eval", (128, 64, 1024, 64)), ("train", (8, 64, 1024, 64))]
+# (label, (n_b, n_s, K, D, R, H)) of the training path's bf16 B2 backward launches
+BWD_CASES = [("train", (8, 64, 89, 128, 128, 4)), ("post_tl", (8, 128, 24, 128, 128, 4))]
 ORDER = ("other", "this", "this", "other")
 
 
@@ -77,15 +92,15 @@ def build_other(src: Path, name: str, extra_flags=()) -> ctypes.CDLL:
 
 @contextlib.contextmanager
 def launching_with(fns: dict):
-    """The wrappers launch through fns[module] (a bound C entry point) inside the block."""
-    real = {module: module._LAUNCH_FN for module in fns}
-    for module, fn in fns.items():
-        module._LAUNCH_FN = fn
+    """The wrappers launch through fns[(module, attribute)] (a bound C entry point) inside the block."""
+    real = {key: getattr(*key) for key in fns}
+    for (module, attr), fn in fns.items():
+        setattr(module, attr, fn)
     try:
         yield
     finally:
-        for module, fn in real.items():
-            module._LAUNCH_FN = fn
+        for (module, attr), fn in real.items():
+            setattr(module, attr, fn)
 
 
 def inputs(kernel: str, shape):
@@ -101,6 +116,42 @@ def inputs(kernel: str, shape):
         kv = f(n_b, n_s, n_knn, 2 * d)
         return [f(n_b, n_s, d), *kv.chunk(2, -1), f(n_b, n_s, n_knn, r), inv, w_rpe, b]
     return [f(n_b, n_s, d), f(n_b, n_s, n_knn, d), f(n_b, n_s, n_knn, r), inv, f(d, 2 * d, scale=d ** -0.5), w_rpe, b]
+
+
+def bwd_inputs(shape):
+    """bf16 operands of B2 and its incoming gradient g; source 0 has no valid target."""
+    ops = inputs("knarpe_cross_attention", shape)
+    ops[3][0, 0] = True
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.normal(size=tuple(ops[0].shape)).astype(np.float32)).to("cuda", torch.bfloat16)
+    return ops, g
+
+
+def bwd_worst_err(grads, ops, g, n_head: int) -> float:
+    """Largest |error| of the bf16 gradients against the float32 plain backward on the same bf16-valued
+    inputs, each relative to its own gradient's largest magnitude."""
+    want = knarpe.knarpe_cross_attention_bwd_reference(*[a if a.dtype == torch.bool else a.float() for a in ops],
+                                                       g.float(), n_head)
+    return max(float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(grads, want))
+
+
+def kernel_split(fn, n: int = 20) -> dict:
+    """Device time per kernel (ms per call of fn) from a torch.profiler trace of n calls after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        if us > 0:
+            name = re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
+            split[name] = split.get(name, 0.0) + us / 1e3 / n
+    return split
 
 
 def knn_inputs(shape):
@@ -154,24 +205,31 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other tree's csrc/knarpe.cu (B2, B3, B4)")
     ap.add_argument("--other-knn", type=Path, help="the other tree's csrc/knn.cu (B1)")
+    ap.add_argument("--other-bwd", type=Path, help="the other tree's csrc/knarpe_bwd.cu (B2/B3-bwd)")
+    ap.add_argument("--split", action="store_true", help="each backward case's device time per kernel, per side")
     ap.add_argument("--rounds", type=int, default=3, help="rounds of other, this, this, other per kernel case")
     ap.add_argument("--calls", type=int, default=0, help="rounds of full-width joint_future_pred calls")
     ap.add_argument("--steps", type=int, default=0, help="rounds of full-width training steps")
     args = ap.parse_args()
-    if args.other is None and args.other_knn is None:
-        ap.error("give --other, --other-knn or both")
+    if args.other is None and args.other_knn is None and args.other_bwd is None:
+        ap.error("give --other, --other-knn, --other-bwd or several")
     if not torch.cuda.is_available():
         raise SystemExit("ab_knarpe: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    libs = {"this": {}, "other": {}}  # side -> {module: bound launch}
+    libs = {"this": {}, "other": {}}  # side -> {(module, attribute): bound launch}
     if args.other is not None:
-        libs["this"][knarpe] = knarpe.load_library()
-        libs["other"][knarpe] = knarpe.bind_launch(build_other(args.other.resolve(), "knarpe"))
+        libs["this"][knarpe, "_LAUNCH_FN"] = knarpe.load_library()
+        libs["other"][knarpe, "_LAUNCH_FN"] = knarpe.bind_launch(build_other(args.other.resolve(), "knarpe"))
     if args.other_knn is not None:
-        libs["this"][knn] = knn.load_library()
-        libs["other"][knn] = knn.bind_launch(build_other(args.other_knn.resolve(), "knn", knn.NVCC_FLAGS))
-    results = {"card": card, "kernels": [], "calls": None, "steps": None}
+        libs["this"][knn, "_LAUNCH_FN"] = knn.load_library()
+        libs["other"][knn, "_LAUNCH_FN"] = knn.bind_launch(build_other(args.other_knn.resolve(), "knn",
+                                                                       knn.NVCC_FLAGS))
+    if args.other_bwd is not None:
+        libs["this"][knarpe, "_BWD_FN"] = knarpe.load_bwd_library()
+        libs["other"][knarpe, "_BWD_FN"] = knarpe.bind_bwd_launch(build_other(args.other_bwd.resolve(),
+                                                                              "knarpe_bwd"))
+    results = {"card": card, "kernels": [], "backward": [], "calls": None, "steps": None}
     for kernel, label, shape in CASES if args.other is not None else []:
         ops = inputs(kernel, shape)
         n_head = shape[-1]
@@ -198,6 +256,8 @@ def main() -> None:
         print(f"  indices and distances equal to the plain version: other {row['other_equals_plain']}, "
               f"this {row['this_equals_plain']}", flush=True)
         results["kernels"].append(row)
+    for label, shape in BWD_CASES if args.other_bwd is not None else []:
+        results["backward"] += time_bwd(libs, label, shape, args.rounds, args.split, card)
 
     if args.calls:
         cfg = with_pallas(leaderboard_config(), True)
@@ -214,6 +274,37 @@ def main() -> None:
         gen = torch.Generator().manual_seed(0)
         results["steps"] = whole(libs, lambda: step(batch, gen), args.steps, "training step, use_pallas=True", card)
     print(json.dumps(results))
+
+
+def time_bwd(libs: dict, label: str, shape, rounds: int, split: bool, card: str) -> list:
+    """B2's backward launch alone, and B3's forward and backward through its autograd Function, through
+    each side's backward library, in turns; each side's error against the float32 plain backward."""
+    n_head = shape[-1]
+    ops, g = bwd_inputs(shape)
+    q, tgt, rpe, inv, w_kv, w_rpe, b = ops
+    b2 = lambda: knarpe._launch_bwd("knarpe_cross_attention", q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g,
+                                    n_head)
+    leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in ops]
+    want = [a for a in leaves if a.requires_grad]
+    b3 = lambda: torch.autograd.grad(knarpe.knarpe_cross_attention_v3(*leaves, n_head), want, g)
+    rows = []
+    for kernel, what, call, grads in (
+            ("knarpe_cross_attention_bwd", "backward launch", b2, lambda: [t for t in b2() if t is not None]),
+            ("knarpe_cross_attention_v3", "forward + backward through the Function", b3, b3)):
+        row = {"kernel": kernel, "what": what, "shape": label, "dims": list(shape),
+               **time_case(libs, call, rounds, f"{kernel} {what} {label} {list(shape)}", card)}
+        for side in libs:
+            with launching_with(libs[side]):
+                row[f"{side}_worst_rel_err_vs_f32_plain"] = bwd_worst_err(grads(), ops, g, n_head)
+                if split and kernel == "knarpe_cross_attention_bwd":
+                    row[f"{side}_split_ms"] = kernel_split(call)
+        print(f"  max |grad - f32 plain| / max |grad|: other {row['other_worst_rel_err_vs_f32_plain']:.3e}, this "
+              f"{row['this_worst_rel_err_vs_f32_plain']:.3e}", flush=True)
+        for side in libs if split and kernel == "knarpe_cross_attention_bwd" else []:
+            print(f"  {side}'s device time per kernel (torch.profiler, ms per launch): "
+                  f"{ {k: round(v, 5) for k, v in row[f'{side}_split_ms'].items()} } [{card}]", flush=True)
+        rows.append(row)
+    return rows
 
 
 def whole(libs: dict, fn, rounds: int, what: str, card: str) -> dict:

@@ -7,6 +7,12 @@ every nvcc flag, so a change to any of them gives a fresh build and a stale
 library is never loaded. The sources expose a
 plain C interface, so no PyTorch header is compiled and a build takes
 seconds. Nothing here runs at import time.
+
+    python -m trafficbotsv15_tpu_torch.utils.build knarpe_bwd.cu [knn.cu ...]
+
+compiles each named source once more with `-Xptxas -v` (into a scratch file
+under `build/`) and prints what ptxas reports for each kernel: registers,
+shared memory, spills.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -83,3 +90,20 @@ def load(name: str, source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL
         lib = ctypes.CDLL(str(build(name, source, extra_flags)))
         _LOADED[name] = lib
     return lib
+
+
+def ptxas_report(source: str, extra_flags: Sequence[str] = ()) -> str:
+    """What `nvcc -Xptxas -v` says for csrc/<source>, built with the library's flags."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"ptxas-{os.getpid()}.so"
+    cmd = [nvcc_path(), *ARCH_FLAGS, *BASE_FLAGS, *extra_flags, "-Xptxas", "-v", "-o", str(out), str(CSRC_DIR / source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source} (rc {proc.returncode}):\n{proc.stderr}")
+    return proc.stderr
+
+
+if __name__ == "__main__":
+    for name in sys.argv[1:]:
+        print(f"== {name}\n{ptxas_report(name)}", flush=True)
