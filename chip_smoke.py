@@ -13,7 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      the nearest PyTorch call or composition of calls (`library_ms`):
      B1 (`knn_xy`; also at the training path's [8, 64, 1024], all distances
      tied, k=1, k = n_tgt, n_tgt 1000 and 2048, every source invalid; timed
-     at the eval and training shapes), B4 (`knarpe_attention`), B2
+     at the eval and training shapes), B4 (`knarpe_attention`; in bf16 on
+     the staged kernel of csrc/knarpe_attn_staged.cuh, the route asserted,
+     at both paths' shapes, K=5, K=24, 1, 97 and 8 x 1024 + 7 sources and
+     the edge shapes, an eight-head shape on the general route; timed at
+     both paths' shapes), B2
      (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`, which
      only this phase launches); B2 and B3 also at the training path's shapes
      (the agent decoder and posterior agent encoder, the posterior TL encoder
@@ -28,7 +32,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      same bits on a second launch; bf16 B2-bwd and B3's backward run on the
      staged kernel of csrc/knarpe_bwd_staged.cuh (the route asserted) at both
      training shapes, K=5 at 21 sources and 200 sources, the eight-head edge
-     shape on the general route (csrc/knarpe_bwd.cu); timed (eager, and device
+     shape on the general route (csrc/knarpe_bwd.cu); bf16 B4-bwd on the
+     staged kernel of csrc/knarpe_attn_bwd_staged.cuh at B4's shapes above,
+     the eight-head shape on the general route; timed (eager, and device
      time from a CUDA graph) against the plain backward and the library
      composition's backward, B2-bwd at both training shapes;
   4. slice checked: a reduced-depth float32 config whose map has 512
@@ -41,8 +47,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      polylines, 90 steps, check_level=1: finite poses of the documented
      shapes, 90 KNN launches and no attention-kernel launch per call, seconds
      per call, peak memory and agent-steps/s; phases 6 and 8 record the
-     shapes at which the paths launch B2 and fail on one phase 3 did not check,
-     and on any B2 launch that did not take the staged route;
+     shapes at which the paths launch B4 and B2 and fail on one phase 3 did
+     not check, and on any B4 or B2 launch, forward or backward, that did not
+     take the staged route;
   6. slice at full width, use_pallas=True (the eval main path): the same
      call with the KNARPE attention kernels; B1, B2 and B4 launches per call
      asserted (90, 4 layers x 90 steps, 8 map layers); then one more call
@@ -58,11 +65,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      with use_pallas=True, 8 synthetic scenarios per step, bf16 compute with
      f32 parameters: one warm-up step, then 3 timed steps; seconds per step,
      train samples/s, peak memory, forward and backward launches per step
-     (asserted), every bf16 B2 forward and backward launch on the staged route
-     at a shape phase 3 checked; loss and grad_norm finite and non-zero,
+     (asserted), every bf16 B4 and B2 forward and backward launch on the
+     staged route at a shape phase 3 checked; loss and grad_norm finite and non-zero,
      parameters changed.
 Then it prints the `kernels` JSON line (forward launches from phase 6,
-backward ones from phase 8, by route), the card line, and last
+training-shape and backward ones from phase 8, B4's and the backwards' by
+route), the card line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -112,6 +120,13 @@ POST_TL_X_PATH = (8, 128, 24, 128, 128, 4)
 # no multiple of any tile; odd K; one and eight heads
 X_EDGE = [(3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
 ATTN_EDGE = [(3, 7, 5, 16, 16, 2), (2, 17, 89, 64, 32, 1)]
+# bf16 B4 and B4-bwd shapes phase 3 holds on the staged route (csrc/knarpe_attn_staged.cuh,
+# csrc/knarpe_attn_bwd_staged.cuh) besides the paths' and ATTN_EDGE: K=5 and K=24 (no multiple of 16) at
+# 97 sources (under the 132-block grid, no multiple of the four groups or the ring), a single source and
+# 8 x 1024 + 7 sources; and an eight-head shape the staged kernels refuse, on the general route
+ATTN_STAGED_EDGE = [(1, 97, 5, 128, 128, 4), (1, 97, 24, 64, 64, 2), (1, 1, 32, 128, 128, 4),
+                    (1, 8199, 32, 128, 128, 4)]
+ATTN_GENERAL = [(1, 33, 89, 32, 16, 8)]
 # bf16 B2 backward shapes phase 3 holds on the staged route (csrc/knarpe_bwd_staged.cuh) besides the
 # training path's: K not a multiple of 16 with an all-invalid source at 21 sources (under the 132-block
 # grid), and 200 sources (no multiple of the grid); and the eight-head edge shape the staged backward
@@ -311,7 +326,7 @@ def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged") ->
     out16 = kernel(*a16, n_head).float()
     torch.cuda.synchronize()
     took = [key.split("/")[1] for key, n in knarpe.ROUTE_LAUNCHES.items() if n != before[key]]
-    if cross and took != [want_route]:
+    if took != [want_route]:
         raise AssertionError(f"{name} {shape} bf16: launched on the {took} route, expected {want_route}")
     ref32 = plain(*[a if a.dtype == torch.bool else a.float() for a in a16], n_head)
     note = ""
@@ -327,10 +342,9 @@ def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged") ->
     excess = float(((out16 - ref16).abs() - (rtol * ref16.abs() + atol)).max())
     if not (torch.isfinite(out16).all() and excess <= 0 and torch.all(out16[0, 0] == 0)):
         raise AssertionError(f"{name} {shape} bf16: |err| exceeds {rtol} relative + {atol} by {excess}")
-    if cross:  # neither bf16 B2/B3 kernel has atomics
-        if not torch.equal(kernel(*a16, n_head).float(), out16):
-            raise AssertionError(f"{name} {shape} bf16: two launches on the same inputs differ")
-        note += f"; {want_route} route, two launches bit-identical"
+    if not torch.equal(kernel(*a16, n_head).float(), out16):  # no bf16 kernel has atomics
+        raise AssertionError(f"{name} {shape} bf16: two launches on the same inputs differ")
+    note += f"; {want_route} route, two launches bit-identical"
     log(f"  {name} {list(shape)} (n_b, n_s, K, D, R, H): float32 max |err| {err:.3e} (tolerance "
         f"{KNARPE_F32_ATOL}); bf16 within {rtol:g} relative + {atol:.3g} absolute{note}; all-invalid source zero")
     return err
@@ -370,11 +384,12 @@ SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
 
 def check_knarpe_kernels() -> list:
     """Kernels B4, B2, B3 vs their plain versions at the paths' and edge shapes; times at the eval
-    path's shapes (the row) and, for B2 and B3, at the training path's (logged) (bf16)."""
+    path's shapes (the row) and at the training path's (B4: the row's `training_shape`; B2, B3: logged)
+    (bf16)."""
     rows = []
     for name, path, edges, replaces, source in (
-            ("knarpe_attention", ATTN_PATH, ATTN_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:243",
-             "trafficbotsv15_tpu_torch/csrc/knarpe.cu"),
+            ("knarpe_attention", ATTN_PATH, ATTN_EDGE + [TRAIN_ATTN_PATH, *ATTN_STAGED_EDGE],
+             "trafficbotsv15_tpu/ops/pallas_knarpe.py:243", "trafficbotsv15_tpu_torch/csrc/knarpe_attn_staged.cuh"),
             ("knarpe_cross_attention", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH],
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:443", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh"),
             ("knarpe_cross_attention_v3", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH],
@@ -383,7 +398,11 @@ def check_knarpe_kernels() -> list:
         for i, shape in enumerate(edges):
             check_one_knarpe(name, shape, seed=2 + i)
         row = time_knarpe(name, path)
-        if name != "knarpe_attention":
+        if name == "knarpe_attention":
+            for i, shape in enumerate(ATTN_GENERAL):
+                check_one_knarpe(name, shape, seed=20 + i, want_route="general")
+            row["training_shape"] = {"shape": list(TRAIN_ATTN_PATH), **time_knarpe(name, TRAIN_ATTN_PATH)}
+        else:
             time_knarpe(name, TRAIN_X_PATH)
             for i, shape in enumerate(GENERAL_X):
                 check_one_knarpe(name, shape, seed=20 + i, want_route="general")
@@ -394,14 +413,17 @@ def check_knarpe_kernels() -> list:
     return rows
 
 
+# bf16 B4 shapes that phase 3 holds against the plain version on the staged route, forward and backward
+CHECKED_ATTN = {s[2:] for s in (ATTN_PATH, TRAIN_ATTN_PATH, *ATTN_EDGE, *ATTN_STAGED_EDGE)}
+
+
 @contextlib.contextmanager
-def recorded_cross_shapes():
-    """The (kernel, dtype, K, D, R, H) of every B2/B3 forward launch inside the block."""
+def recorded_forward_shapes():
+    """The (kernel, dtype, K, D, R, H) of every B4, B2 and B3 forward launch inside the block."""
     real, seen = knarpe._launch, set()
 
     def recorder(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head):
-        if tgt is not None:
-            seen.add((kernel, q.dtype, tgt.shape[2], tgt.shape[3], rpe.shape[3], n_head))
+        seen.add((kernel, q.dtype, rpe.shape[2], q.shape[2], rpe.shape[3], n_head))
         return real(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
 
     knarpe._launch = recorder
@@ -411,14 +433,15 @@ def recorded_cross_shapes():
         knarpe._launch = real
 
 
-def check_path_cross_shapes(where: str, seen: set) -> None:
-    """Every B2 launch of a path was in bf16 at a shape phase 3 checked on the staged route."""
+def check_path_forward_shapes(where: str, seen: set) -> None:
+    """Every B4 and B2 launch of a path was in bf16 at a shape phase 3 checked on the staged route."""
     for kernel, dtype, *k_d_r_h in sorted(seen, key=str):
-        if dtype != torch.bfloat16 or tuple(k_d_r_h) not in CHECKED_X:
+        checked = CHECKED_ATTN if kernel == "knarpe_attention" else CHECKED_X
+        if dtype != torch.bfloat16 or tuple(k_d_r_h) not in checked:
             raise AssertionError(f"{where}: {kernel} launched in {dtype} at (K, D, R, H)={tuple(k_d_r_h)}, "
                                  f"which phase 3 did not check")
-    log(f"  {where}: B2 launched at (K, D, R, H) {sorted(tuple(s[2:]) for s in seen)}, each checked in "
-        f"phase 3 on the staged route")
+    log(f"  {where}: B4 and B2 launched at (kernel, K, D, R, H) {sorted((s[0], *s[2:]) for s in seen)}, each "
+        f"checked in phase 3 on the staged route")
 
 
 # bf16 B2 backward shapes that phase 3 holds against autograd of the plain version on the staged route;
@@ -428,14 +451,13 @@ CHECKED_X_BWD = {s[2:] for s in (TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE)}
 
 @contextlib.contextmanager
 def recorded_bwd_shapes():
-    """Counts of the B2 backward launches inside the block by (K, D, R, H); a bf16 launch only."""
+    """Counts of the B4 and B2 backward launches inside the block by (kernel, K, D, R, H); bf16 only."""
     real, seen = knarpe._launch_bwd, collections.Counter()
 
     def recorder(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head):
-        if tgt is not None:
-            if q.dtype != torch.bfloat16:
-                raise AssertionError(f"B2 backward launched in {q.dtype}, expected bf16")
-            seen[(tgt.shape[2], tgt.shape[3], rpe.shape[3], n_head)] += 1
+        if q.dtype != torch.bfloat16:
+            raise AssertionError(f"{kernel} backward launched in {q.dtype}, expected bf16")
+        seen[(kernel, rpe.shape[2], q.shape[2], rpe.shape[3], n_head)] += 1
         return real(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head)
 
     knarpe._launch_bwd = recorder
@@ -446,25 +468,23 @@ def recorded_bwd_shapes():
 
 
 def check_path_bwd_shapes(where: str, seen) -> None:
-    """Every B2 backward launch of a path was at a shape phase 3 checked on the staged route."""
-    if not set(seen) <= CHECKED_X_BWD:
-        raise AssertionError(f"{where}: B2 backward launched at (K, D, R, H) {sorted(set(seen) - CHECKED_X_BWD)}, "
-                             f"which phase 3 did not check")
-    log(f"  {where}: B2 backward launches by (K, D, R, H) {dict(seen)}, each shape checked in phase 3 on the "
-        f"staged route")
+    """Every B4 and B2 backward launch of a path was at a shape phase 3 checked on the staged route."""
+    unchecked = [key for key in seen if key[1:] not in (CHECKED_ATTN if key[0] == "knarpe_attention" else CHECKED_X_BWD)]
+    if unchecked:
+        raise AssertionError(f"{where}: backward launched at (kernel, K, D, R, H) {sorted(unchecked)}, which phase 3 "
+                             f"did not check")
+    log(f"  {where}: B4 and B2 backward launches by (kernel, K, D, R, H) {dict(seen)}, each shape checked in "
+        f"phase 3 on the staged route")
 
 
 def check_staged_route(where: str) -> None:
-    """Every bf16 B2/B3 forward launch and every bf16 B2 backward launch since the last reset took the
-    staged route: the flagship must not slide onto the slower general kernels unseen."""
-    n = knarpe.LAUNCHES["knarpe_cross_attention"] + knarpe.LAUNCHES["knarpe_cross_attention_v3"]
-    n_bwd = knarpe.LAUNCHES["knarpe_cross_attention_bwd"]
+    """Every bf16 B4, B2 and B3 forward launch and every B4 and B2 backward launch since the last reset
+    took the staged route: the flagship must not slide onto the slower general kernels unseen."""
     routes = dict(knarpe.ROUTE_LAUNCHES)
-    staged = routes["knarpe_cross_attention/staged"] + routes["knarpe_cross_attention_v3/staged"]
-    if (staged != n or routes["knarpe_cross_attention_bwd/staged"] != n_bwd
+    if (any(routes[f"{kernel}/staged"] != n for kernel, n in knarpe.LAUNCHES.items())
             or any(v for key, v in routes.items() if key.endswith("/general"))):
-        raise AssertionError(f"{where}: B2/B3 launches by route {routes}, expected all {n} forward and {n_bwd} "
-                             f"backward launches on the staged route")
+        raise AssertionError(f"{where}: launches by route {routes}, expected all of {knarpe.LAUNCHES} on the "
+                             f"staged route")
 
 
 def knarpe_bwd_bound(name: str, args, g, n_head: int) -> tuple:
@@ -507,9 +527,9 @@ def _kernel_bwd(name: str, args, g, n_head: int):
     return [a.grad for a in leaves if a.requires_grad]
 
 
-def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "general") -> float:
-    """Backward kernel vs autograd of the plain version, float32 and bf16, the bf16 B2/B3 backward on
-    want_route and bit-identical on a second launch; returns the float32 max |err|."""
+def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "staged") -> float:
+    """Backward kernel vs autograd of the plain version, float32 and bf16, the bf16 backward on want_route
+    and bit-identical on a second launch; returns the float32 max |err|."""
     n_head = shape[-1]
     args = knarpe_inputs(shape, name != "knarpe_attention", seed)
     g = torch.from_numpy(np.random.default_rng(seed + 100).normal(size=args[0].shape).astype(np.float32)).cuda()
@@ -524,9 +544,10 @@ def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "general
     a16 = [a if a.dtype == torch.bool else a.to(torch.bfloat16) for a in args]
     before = dict(knarpe.ROUTE_LAUNCHES)
     got16 = _kernel_bwd(name, a16, g.to(torch.bfloat16), n_head)
+    bwd = "knarpe_attention_bwd" if name == "knarpe_attention" else "knarpe_cross_attention_bwd"
     took = [key.split("/")[1] for key, n in knarpe.ROUTE_LAUNCHES.items()
-            if key.startswith("knarpe_cross_attention_bwd/") and n != before[key]]
-    if name != "knarpe_attention" and took != [want_route]:
+            if key.startswith(f"{bwd}/") and n != before[key]]
+    if took != [want_route]:
         raise AssertionError(f"{name} backward {shape} bf16: launched on the {took} route, expected {want_route}")
     want32 = _plain_bwd(name, [a if a.dtype == torch.bool else a.float() for a in a16], g.bfloat16().float(), n_head)
     for a, b in zip(got16, want32):
@@ -539,8 +560,7 @@ def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "general
         raise AssertionError(f"{name} backward {shape} bf16: two launches on the same inputs differ")
     log(f"  {name} backward {list(shape)}: output has a grad_fn; float32 max |err| {max_err:.3e}, "
         f"{worst:.2e} of the largest gradient (tolerance {KNARPE_BWD_F32_REL:g}); bf16 within 2^-8 relative + "
-        f"1e-4 of the largest{'' if name == 'knarpe_attention' else ', ' + want_route + ' route'}, two launches "
-        f"bit-identical; all-invalid source zero")
+        f"1e-4 of the largest, {want_route} route, two launches bit-identical; all-invalid source zero")
     return max_err
 
 
@@ -553,11 +573,10 @@ def time_knarpe_bwd(name: str, shape) -> dict:
     if name == "knarpe_attention":
         q, k, v, rpe, inv, w, b = args
         kernel = lambda: knarpe._launch_bwd(name, q, k, v, None, rpe, inv, None, w, b, g, n_head)
-        way = "general"
     else:
         q, tgt, rpe, inv, w_kv, w_rpe, b = args
         kernel = lambda: knarpe._launch_bwd(name, q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, n_head)
-        way = knarpe.bwd_route(name, torch.bfloat16, *shape[2:], torch.cuda.current_device())
+    way = knarpe.bwd_route(name, torch.bfloat16, *shape[2:], torch.cuda.current_device())
     ms = cuda_ms(kernel, 20)
     device_ms = graph_ms(kernel)
     plain_ms = cuda_ms(lambda: _plain_bwd(name, args, g, n_head), 5)
@@ -579,16 +598,21 @@ def time_knarpe_bwd(name: str, shape) -> dict:
 
 def check_knarpe_bwd_kernels() -> list:
     """B4-bwd, B2-bwd and B3's backward (B2-bwd through B3's Function) vs autograd of the plain
-    versions at the training path's and edge shapes, bf16 B2/B3 on the staged route where it takes
-    the shape; B4-bwd timed at the training path's shape, B2-bwd at both of its training shapes (bf16)."""
+    versions at the training path's and edge shapes, bf16 on the staged route where it takes the shape
+    and on the general route at the shapes it refuses; B4-bwd timed at the training path's shape, B2-bwd
+    at both of its training shapes (bf16)."""
     rows = []
     for name, path, edges, replaces in (
-            ("knarpe_attention", TRAIN_ATTN_PATH, ATTN_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:293"),
+            ("knarpe_attention", TRAIN_ATTN_PATH, ATTN_EDGE + ATTN_STAGED_EDGE,
+             "trafficbotsv15_tpu/ops/pallas_knarpe.py:293"),
             ("knarpe_cross_attention", TRAIN_X_PATH, X_BWD_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:579")):
         cross = name != "knarpe_attention"
-        max_err = check_one_knarpe_bwd(name, path, seed=11, want_route="staged" if cross else "general")
+        max_err = check_one_knarpe_bwd(name, path, seed=11)
         for i, shape in enumerate(edges):
-            check_one_knarpe_bwd(name, shape, seed=12 + i, want_route="staged" if cross else "general")
+            check_one_knarpe_bwd(name, shape, seed=12 + i)
+        if not cross:
+            for i, shape in enumerate(ATTN_GENERAL):
+                check_one_knarpe_bwd(name, shape, seed=30 + i, want_route="general")
         if cross:
             check_one_knarpe_bwd(name, POST_TL_X_PATH, seed=14, want_route="staged")
             for i, shape in enumerate(X_BWD_GENERAL):
@@ -597,7 +621,7 @@ def check_knarpe_bwd_kernels() -> list:
                 check_one_knarpe_bwd("knarpe_cross_attention_v3", shape, seed=20 + i, want_route="staged")
         row = time_knarpe_bwd(name, path)
         source = "trafficbotsv15_tpu_torch/csrc/knarpe_bwd_staged.cuh" if cross else \
-            "trafficbotsv15_tpu_torch/csrc/knarpe_bwd.cu"
+            "trafficbotsv15_tpu_torch/csrc/knarpe_attn_bwd_staged.cuh"
         rows.append({"name": f"{name}_bwd", "route": "cuda", "source": source, "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, **row})
         if cross:
@@ -727,12 +751,12 @@ def run_full_width(card: str, use_pallas: bool, n_timed: int = 3, replay_rules: 
     gen = torch.Generator().manual_seed(0)
     n_params = sum(p.numel() for p in model.parameters())
     t0 = time.perf_counter()
-    with recorded_cross_shapes() as seen:
+    with recorded_forward_shapes() as seen:
         joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
     torch.cuda.synchronize()
     log(f"  warm-up call {time.perf_counter() - t0:.3f} s ({n_params} parameters, bf16 compute)")
     if use_pallas:
-        check_path_cross_shapes("eval call", seen)
+        check_path_forward_shapes("eval call", seen)
     torch.cuda.reset_peak_memory_stats()
     times, per_call = [], []
     for _ in range(n_timed):
@@ -763,10 +787,11 @@ def run_full_width(card: str, use_pallas: bool, n_timed: int = 3, replay_rules: 
         f"{n_ag} agents, {cfg.data.n_mp} polylines, {n_step} steps: seconds per call {[round(t, 4) for t in times]} "
         f"(median {sec:.4f} s), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"{agent_steps / sec:.1f} agent-steps/s, kernel launches per call {per_call[-1]}, "
-        f"agent-steps flagged {flags}, B2 launches by route {knarpe.ROUTE_LAUNCHES} [{card}]")
+        f"agent-steps flagged {flags}, launches by route {knarpe.ROUTE_LAUNCHES} [{card}]")
+    routes = dict(knarpe.ROUTE_LAUNCHES)
     if replay_rules:
         replay_rule_checks_on_cpu(cfg, model, batch, gen)
-    return per_call[-1]
+    return per_call[-1], routes
 
 
 def no_dropout(cfg):
@@ -833,11 +858,11 @@ def run_train_full_width(card: str, n_timed: int = 3) -> dict:
     gen = torch.Generator().manual_seed(0)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     t0 = time.perf_counter()
-    with recorded_cross_shapes() as seen, recorded_bwd_shapes() as seen_bwd:
+    with recorded_forward_shapes() as seen, recorded_bwd_shapes() as seen_bwd:
         step(batch, gen)
     torch.cuda.synchronize()
     log(f"  warm-up step {time.perf_counter() - t0:.3f} s")
-    check_path_cross_shapes("training step", seen)
+    check_path_forward_shapes("training step", seen)
     check_path_bwd_shapes("training step", seen_bwd)
     torch.cuda.reset_peak_memory_stats()
     times, per_step, metrics = [], [], []
@@ -866,7 +891,7 @@ def run_train_full_width(card: str, n_timed: int = 3) -> dict:
         f"(median {sec:.4f} s), {n_sc / sec:.3f} train samples/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {[round(m['training/loss'], 4) for m in metrics]}, "
         f"grad_norm {[round(m['grad_norm'], 4) for m in metrics]}, {changed} of {len(before)} parameters changed, "
-        f"kernel launches per step {per_step[-1]}, B2 launches by route {knarpe.ROUTE_LAUNCHES} [{card}]")
+        f"kernel launches per step {per_step[-1]}, launches by route {knarpe.ROUTE_LAUNCHES} [{card}]")
     return per_step[-1], dict(knarpe.ROUTE_LAUNCHES), seen_bwd
 
 
@@ -902,7 +927,7 @@ def main() -> int:
     run_full_width(card, use_pallas=False)
 
     log("[6/8] slice at full width, use_pallas=True (the KNARPE attention kernels)")
-    counts = run_full_width(card, use_pallas=True, replay_rules=True)
+    counts, routes = run_full_width(card, use_pallas=True, replay_rules=True)
 
     log("[7/8] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_train_step_card_vs_cpu(use_pallas=False)
@@ -910,17 +935,19 @@ def main() -> int:
 
     log("[8/8] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
+    by_route = lambda counts, kernel: {way: counts[f"{kernel}/{way}"] for way in ("staged", "general")}
     for row in rows:
         row["launches"] = counts[row["name"]]
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
+    b4 = rows[1]  # per eval call (phase 6), and at the training shape per step (phase 8)
+    b4["launches_by_route"] = by_route(routes, "knarpe_attention")
+    b4["training_shape"].update(launches=train_counts["knarpe_attention"],
+                                launches_by_route=by_route(train_routes, "knarpe_attention"))
     for row in bwd_rows:
         row["launches"] = train_counts[row["name"]]
-        if row["name"] == "knarpe_attention_bwd":
-            row["launches_by_route"] = {"general": row["launches"]}
-        else:
-            row["launches_by_route"] = {way: train_routes[f"knarpe_cross_attention_bwd/{way}"]
-                                        for way in ("staged", "general")}
-            row["post_tl_shape"]["launches"] = train_bwd_shapes[POST_TL_X_PATH[2:]]  # of the 368, per step
+        row["launches_by_route"] = by_route(train_routes, row["name"])
+        if row["name"] == "knarpe_cross_attention_bwd":  # of the 368, per step
+            row["post_tl_shape"]["launches"] = train_bwd_shapes[("knarpe_cross_attention", *POST_TL_X_PATH[2:])]
     rows += bwd_rows
     for row in rows:
         for key, val in row.items():

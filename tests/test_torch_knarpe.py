@@ -284,3 +284,74 @@ def test_validate_raises_for_misaligned_bf16_operands(name, monkeypatch):
     t32["tgt"] = torch.zeros(t32["tgt"].numel() + 1)[1:].view(t32["tgt"].shape)
     assert t32["tgt"].data_ptr() % 16
     assert _validate(name, t32, N_HEAD)[:4] == (2, 3, 5, D)
+
+
+def _bf16_attn(misalign=None):
+    """bf16 B4 operands on the CPU (D=16, R=16, K=5); misalign "rpe": rpe one element into a buffer (2 bytes
+    off a 16-byte boundary); "ld_kv": k and v rows of a [.., 2D + 4] buffer (8 bytes off a multiple of 16)."""
+    t = _cast(_inputs(2, 3, 5, seed=0, cross=False), jnp.float32, torch.float32)[1]
+    t = {k: v if v.dtype == torch.bool else v.to(torch.bfloat16) for k, v in t.items()}
+    if misalign == "rpe":
+        buf = torch.zeros(t["rpe"].numel() + 1, dtype=torch.bfloat16)
+        buf[1:] = t["rpe"].reshape(-1)
+        t["rpe"] = buf[1:].view(t["rpe"].shape)
+    elif misalign == "ld_kv":
+        buf = torch.zeros(*t["k"].shape[:-1], 2 * D + 4, dtype=torch.bfloat16)
+        buf[..., :D], buf[..., D:2 * D] = t["k"], t["v"]
+        t["k"], t["v"] = buf[..., :D], buf[..., D:2 * D]
+    return t
+
+
+def _validate_attn(t, n_head=N_HEAD):
+    return knarpe._validate("knarpe_attention", t["q"], t["k"], t["v"], None, t["rpe"], t["invalid"], None,
+                            t["w_rpe"], t["b_rpe"], n_head)
+
+
+@pytest.mark.parametrize("code", [0, *sorted(knarpe.ATTN_STAGED_REFUSALS)])
+def test_validate_routes_bf16_attention_by_the_staged_code(code, monkeypatch):
+    """bf16 B4 takes the staged kernel where the built library's answer is 0 and the general kernel for
+    each refusal code, asked from the shape alone (the general kernel is not asked: it takes every B4
+    shape); float32 B4 takes the general kernel without asking."""
+    asked = _fake_routes(monkeypatch, [code], [1])
+    t = _bf16_attn()
+    assert _validate_attn(t) == (2, 3, 5, D, R, 0, D, "staged" if code == 0 else "general")
+    assert asked == [("staged", "knarpe_attention", 5, D, R, N_HEAD, 0)]
+    asked.clear()
+    t32 = {k: v if v.dtype == torch.bool else v.float() for k, v in t.items()}
+    assert _validate_attn(t32)[-1] == "general" and asked == []
+
+
+def test_attention_refusals_name_each_code():
+    """One text per refusal code of `staged_attn::refusal` (1-4) and the plan's no-fit (5), each its own."""
+    texts = knarpe.ATTN_STAGED_REFUSALS
+    assert sorted(texts) == [1, 2, 3, 4, 5]
+    assert len(set(texts.values())) == len(texts) and all(texts.values())
+    assert "128" in texts[1] and "16" in texts[2] and "n_head" in texts[3] and "shared memory" in texts[4]
+
+
+@pytest.mark.parametrize("misalign,match", [("rpe", "16-byte aligned"), ("ld_kv", "multiple of 16 bytes")])
+def test_validate_raises_for_misaligned_bf16_attention_operands(misalign, match, monkeypatch):
+    """At a shape the staged B4 takes, an operand off a 16-byte boundary or k/v rows 8 bytes off a multiple
+    of 16 bytes apart raise (the route follows from the shape, not from the addresses); on the general
+    route neither check applies."""
+    t = _bf16_attn(misalign)
+    assert t["rpe"].data_ptr() % 16 if misalign == "rpe" else t["k"].stride(2) == 2 * D + 4
+    _fake_routes(monkeypatch, [0], [1])
+    with pytest.raises(ValueError, match=match):
+        _validate_attn(t)
+    _fake_routes(monkeypatch, [4], [1])
+    assert _validate_attn(t)[-1] == "general"
+
+
+def test_route_launches_count_attention_by_route_and_cpu_calls_count_none():
+    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's; a CPU call, forward and
+    backward, counts no launch on any route."""
+    kernels = ("knarpe_attention", "knarpe_cross_attention", "knarpe_cross_attention_v3", "knarpe_attention_bwd",
+               "knarpe_cross_attention_bwd")
+    assert set(knarpe.ROUTE_LAUNCHES) == {f"{k}/{r}" for k in kernels for r in ("staged", "general")}
+    before, launches = dict(knarpe.ROUTE_LAUNCHES), dict(knarpe.LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = {k: v if v.dtype == torch.bool else v.to(dtype).requires_grad_(True) for k, v in _bf16_attn().items()}
+        knarpe.knarpe_attention(*t.values(), N_HEAD).float().sum().backward()
+        assert t["k"].grad is not None
+    assert knarpe.ROUTE_LAUNCHES == before and knarpe.LAUNCHES == launches

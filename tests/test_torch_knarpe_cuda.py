@@ -44,6 +44,14 @@ training path's shapes, K below 16 and no multiple of 16, source counts under
 and over the 132-block grid, one head, a single source and K=128; the shapes
 it refuses (eight heads, K=200) take the general kernel, named and counted;
 two launches give the same bits, and an operand off a 16-byte boundary raises.
+bf16 B4 and its backward run on the staged kernels (csrc/knarpe_attn_staged.cuh,
+csrc/knarpe_attn_bwd_staged.cuh): held at the eval and training paths' shapes,
+K=5 and K=24, 1, 97 and 8 x 1024 + 7 sources, one head at K=89, with k and v
+both the halves of one [.., 2D] tensor and separate tensors, at the tolerances
+above; the route is asserted and counted, two launches give the same bits, and
+an operand off a 16-byte boundary or k/v rows 8 bytes off a multiple of 16
+apart raise. The shapes they refuse (K=200, D=24, eight heads) and float32 take
+the general kernels.
 """
 
 import numpy as np
@@ -378,3 +386,146 @@ def test_staged_backward_raises_for_misaligned_operands():
     with pytest.raises(ValueError, match="16-byte aligned"):
         knarpe._launch_bwd("knarpe_cross_attention", q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, shape[-1])
     assert _bwd_route_counts() == counts
+
+
+# the staged bf16 B4 and B4-bwd (csrc/knarpe_attn_staged.cuh, csrc/knarpe_attn_bwd_staged.cuh): the eval and
+# training paths' map encoder; K=5 and K=24 (no multiple of 16) at 97 sources (under the 132 SMs, no
+# multiple of the four groups or of the ring); a single source; 8 x 1024 + 7 sources; one head at K=89
+ATTN_STAGED_SHAPES = [(4, 1024, 32, 128, 128, 4), (8, 1024, 32, 128, 128, 4), (1, 97, 5, 128, 128, 4),
+                      (1, 97, 24, 64, 64, 2), (1, 1, 32, 128, 128, 4), (1, 8199, 32, 128, 128, 4),
+                      (2, 5, 89, 32, 32, 1)]
+# bf16 B4 shapes the staged kernels refuse, with the code (the same in both directions): K=200 (over the
+# softmax's 128), D=24 (no multiple of 16), eight heads
+ATTN_GENERAL_SHAPES = [((1, 9, 200, 128, 128, 4), 1), ((1, 9, 5, 24, 16, 2), 2), ((1, 33, 89, 32, 16, 8), 3)]
+
+
+def _attn_counts(kernel):
+    return (knarpe.LAUNCHES[kernel], knarpe.ROUTE_LAUNCHES[f"{kernel}/staged"],
+            knarpe.ROUTE_LAUNCHES[f"{kernel}/general"])
+
+
+def _as_halves(args):
+    """B4's operands with k and v the halves of one [.., 2D] tensor, as the map encoder passes them."""
+    kv = torch.cat(args[1:3], -1)
+    return [args[0], *kv.chunk(2, -1), *args[3:]]
+
+
+def _attn_grads(args, g, n_head, halves):
+    """bf16 B4 gradients through the Function (dq, dk, dv, drpe, dw_rpe, db); with halves, k and v are
+    views of one leaf [.., 2D] tensor whose gradient is split back."""
+    leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in args]
+    if halves:
+        kv = torch.cat([leaves[1].detach(), leaves[2].detach()], -1).requires_grad_(True)
+        call = [leaves[0], *kv.chunk(2, -1), *leaves[3:]]
+    else:
+        call = leaves
+    out = knarpe.knarpe_attention(*call, n_head)
+    out.backward(g)
+    torch.cuda.synchronize()
+    dk, dv = kv.grad.chunk(2, -1) if halves else (leaves[1].grad, leaves[2].grad)
+    return [leaves[0].grad, dk, dv, leaves[3].grad, leaves[5].grad, leaves[6].grad]
+
+
+def _check_attn(shape, want_route, halves):
+    """bf16 B4 and its backward on want_route against the float32 plain versions, routes counted, two
+    launches bit-identical, zero for the all-invalid source."""
+    n_head = shape[-1]
+    a16 = _cast(_inputs(shape, False, seed=sum(shape) + 5), torch.bfloat16)
+    if halves:
+        a16 = _as_halves(a16)
+    n, staged, general = _attn_counts("knarpe_attention")
+    out16 = knarpe.knarpe_attention(*a16, n_head)
+    torch.cuda.synchronize()
+    assert _attn_counts("knarpe_attention") == ((n + 1, staged + 1, general) if want_route == "staged"
+                                                else (n + 1, staged, general + 1))
+    _check_bf16("knarpe_attention", out16, a16, n_head)
+    assert torch.equal(knarpe.knarpe_attention(*a16, n_head), out16)  # no atomics
+
+    g16 = torch.from_numpy(np.random.default_rng(sum(shape)).normal(size=a16[0].shape).astype(np.float32))
+    g16 = g16.cuda().to(torch.bfloat16)
+    n, staged, general = _attn_counts("knarpe_attention_bwd")
+    got16 = _attn_grads(a16, g16, n_head, halves)
+    assert _attn_counts("knarpe_attention_bwd") == ((n + 1, staged + 1, general) if want_route == "staged"
+                                                    else (n + 1, staged, general + 1))
+    want32 = _plain_grads("knarpe_attention", _cast(a16, torch.float32), g16.float(), n_head)
+    for a, b in zip(got16, want32):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        tol = 2.0 ** -8 * b.abs() + 1e-4 * float(b.abs().max())
+        assert bool(((a.float() - b).abs() <= tol).all())
+    assert all(torch.all(x[0, 0] == 0) for x in got16[:4])  # dq, dk, dv, drpe of the all-invalid source
+    assert all(torch.equal(a, b) for a, b in zip(_attn_grads(a16, g16, n_head, halves), got16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halves", [True, False], ids=["kv_halves", "kv_separate"])
+@pytest.mark.parametrize("shape", ATTN_STAGED_SHAPES)
+def test_staged_attention_matches_plain_versions_on_card(shape, halves):
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert knarpe.staged_refusal("knarpe_attention", *shape[2:], dev) == 0
+    assert knarpe.attn_bwd_staged_refusal(*shape[2:], dev) == 0
+    assert knarpe.route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "staged"
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "staged"
+    _check_attn(shape, "staged", halves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,code", ATTN_GENERAL_SHAPES)
+def test_bf16_attention_shapes_the_staged_kernels_refuse_take_the_general_route(shape, code):
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert knarpe.staged_refusal("knarpe_attention", *shape[2:], dev) == code
+    assert knarpe.attn_bwd_staged_refusal(*shape[2:], dev) == code
+    assert knarpe.route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "general"
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "general"
+    _check_attn(shape, "general", halves=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES[1:])
+def test_attention_edge_shapes_pass_on_their_named_route(shape):
+    """The edge shapes of `ATTN_SHAPES` (K=5 at D=R=16 with two heads; K=89 at D=64, R=32 with one head)
+    on whichever route `route` names for them, which both the forward and the backward take."""
+    _need_card()
+    dev = torch.cuda.current_device()
+    way = knarpe.route("knarpe_attention", torch.bfloat16, *shape[2:], dev)
+    assert way == knarpe.bwd_route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "staged"
+    _check_attn(shape, way, halves=True)
+
+
+@pytest.mark.cuda
+def test_float32_attention_stays_on_the_general_route():
+    _need_card()
+    shape = ATTN_STAGED_SHAPES[2]
+    args, g = _grad_case("knarpe_attention", shape, torch.float32)
+    assert knarpe.route("knarpe_attention", torch.float32, *shape[2:], 0) == "general"
+    n, staged, general = _attn_counts("knarpe_attention")
+    n_b, staged_b, general_b = _attn_counts("knarpe_attention_bwd")
+    _kernel_grads("knarpe_attention", args, g, shape[-1])
+    assert _attn_counts("knarpe_attention") == (n + 1, staged, general + 1)
+    assert _attn_counts("knarpe_attention_bwd") == (n_b + 1, staged_b, general_b + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["misaligned_rpe", "kv_stride_off_16_bytes"])
+def test_staged_attention_raises_for_misaligned_operands(fault):
+    """At a staged shape an operand off a 16-byte boundary, or k and v rows 8 bytes off a multiple of 16
+    bytes apart, raises in both directions; it does not slide onto the general kernel."""
+    _need_card()
+    shape = ATTN_STAGED_SHAPES[2]
+    n_b, n_s, n_knn, d, _, n_head = shape
+    (q, k, v, rpe, inv, w, b), g = _grad_case("knarpe_attention", shape, torch.bfloat16)
+    if fault == "misaligned_rpe":
+        buf = torch.empty(rpe.numel() + 1, dtype=torch.bfloat16, device="cuda")
+        buf[1:] = rpe.reshape(-1)
+        rpe, match = buf[1:].view(rpe.shape), "16-byte aligned"
+    else:  # rows of 2D + 4 elements: k and v keep one stride, 8 bytes off a multiple of 16
+        buf = torch.zeros(n_b, n_s, n_knn, 2 * d + 4, dtype=torch.bfloat16, device="cuda")
+        buf[..., :d], buf[..., d:2 * d] = k, v
+        k, v, match = buf[..., :d], buf[..., d:2 * d], "multiple of 16 bytes"
+    counts = (_attn_counts("knarpe_attention"), _attn_counts("knarpe_attention_bwd"))
+    with pytest.raises(ValueError, match=match):
+        knarpe.knarpe_attention(q, k, v, rpe, inv, w, b, n_head)
+    with pytest.raises(ValueError, match=match):
+        knarpe._launch_bwd("knarpe_attention", q, k, v, None, rpe, inv, None, w, b, g, n_head)
+    assert (_attn_counts("knarpe_attention"), _attn_counts("knarpe_attention_bwd")) == counts

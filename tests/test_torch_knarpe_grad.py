@@ -144,14 +144,14 @@ def test_bwd_route_sends_bf16_b2_to_the_staged_kernel(monkeypatch):
 
 @pytest.mark.parametrize("code", sorted(knarpe.BWD_STAGED_REFUSALS))
 def test_bwd_route_sends_each_refusal_to_the_general_kernel(code, monkeypatch):
-    """Every refusal code of the staged backward sends bf16 B2-bwd to the general kernel; float32 and
-    B4-bwd take the general kernel without asking the library."""
+    """Every refusal code of the staged backward sends bf16 B2-bwd to the general kernel; float32 B2-bwd
+    and B4-bwd take the general kernel without asking the library."""
     asked = _fake_bwd_route(monkeypatch, [code])
     assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 24, 128, 128, 4, 0) == "general"
     assert asked == [(24, 128, 128, 4, 0)]
     asked.clear()
     assert knarpe.bwd_route("knarpe_cross_attention", torch.float32, 24, 128, 128, 4, 0) == "general"
-    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 24, 128, 128, 4, 0) == "general"
+    assert knarpe.bwd_route("knarpe_attention", torch.float32, 24, 128, 128, 4, 0) == "general"
     assert asked == []
 
 
@@ -185,6 +185,78 @@ def test_launch_bwd_raises_for_misaligned_bf16_operands_on_the_staged_route(rout
                                       t["w_kv"], t["w_rpe"], t["b"], g, N_HEAD)
     if route_code == 0:
         with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
+    else:
+        def no_card():
+            raise RuntimeError("no card")
+
+        monkeypatch.setattr(knarpe, "load_bwd_library", no_card)
+        with pytest.raises(RuntimeError, match="no card"):
+            call()
+
+
+def _fake_attn_bwd_route(monkeypatch, codes):
+    """Fake the built library's answer for B4-bwd (`attn_bwd_staged_refusal`); -> the calls, in order."""
+    asked = []
+
+    def answer(n_knn, d_model, d_rpe, n_head, device_index):
+        asked.append((n_knn, d_model, d_rpe, n_head, device_index))
+        return codes[0]
+
+    monkeypatch.setattr(knarpe, "attn_bwd_staged_refusal", answer)
+    return asked
+
+
+@pytest.mark.parametrize("code", [0, *sorted(knarpe.ATTN_BWD_STAGED_REFUSALS)])
+def test_bwd_route_sends_bf16_attention_by_the_staged_code(code, monkeypatch):
+    """bf16 B4-bwd takes the staged B4 backward where the built library's answer is 0 and the general
+    kernel for each refusal code, asked from the shape alone (not B2's answer); float32 B4-bwd takes the
+    general kernel without asking."""
+    asked = _fake_attn_bwd_route(monkeypatch, [code])
+    asked_b2 = _fake_bwd_route(monkeypatch, [0])
+    want = "staged" if code == 0 else "general"
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 32, 128, 128, 4, 0) == want
+    assert asked == [(32, 128, 128, 4, 0)] and asked_b2 == []
+    asked.clear()
+    assert knarpe.bwd_route("knarpe_attention", torch.float32, 32, 128, 128, 4, 0) == "general"
+    assert asked == []
+
+
+def test_attention_bwd_refusals_name_each_code():
+    """One text per refusal code of `staged_attn_bwd::refusal` (1-4) and the plan's no-fit (5), each its own."""
+    texts = knarpe.ATTN_BWD_STAGED_REFUSALS
+    assert sorted(texts) == [1, 2, 3, 4, 5]
+    assert len(set(texts.values())) == len(texts) and all(texts.values())
+    assert "128" in texts[1] and "16" in texts[2] and "n_head" in texts[3] and "shared memory" in texts[4]
+
+
+def _bf16_attn_bwd_operands(misalign):
+    args, g = _inputs(2, 3, 5, seed=5, cross=False)
+    t = {k: torch.from_numpy(v) if v.dtype == bool else torch.from_numpy(v).to(torch.bfloat16) for k, v in args.items()}
+    if misalign == "q":  # the same values one element into a buffer: contiguous, 2 bytes off a 16-byte boundary
+        buf = torch.zeros(t["q"].numel() + 1, dtype=torch.bfloat16)
+        buf[1:] = t["q"].reshape(-1)
+        t["q"] = buf[1:].view(t["q"].shape)
+    elif misalign == "ld_kv":  # k and v rows of a [.., 2D + 4] buffer: 8 bytes off a multiple of 16 apart
+        buf = torch.zeros(*t["k"].shape[:-1], 2 * D + 4, dtype=torch.bfloat16)
+        buf[..., :D], buf[..., D:2 * D] = t["k"], t["v"]
+        t["k"], t["v"] = buf[..., :D], buf[..., D:2 * D]
+    return t, torch.from_numpy(g).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("route_code", [0, 4])
+@pytest.mark.parametrize("misalign,match", [("q", "16-byte aligned"), ("ld_kv", "multiple of 16 bytes")])
+def test_launch_bwd_raises_for_misaligned_bf16_attention_operands_on_the_staged_route(misalign, match, route_code,
+                                                                                      monkeypatch):
+    """At a shape the staged B4 backward takes, an operand off a 16-byte boundary or k/v rows 8 bytes off a
+    multiple of 16 bytes apart raise before any launch; on the general route neither check applies, and
+    the launch itself needs the card."""
+    _fake_attn_bwd_route(monkeypatch, [route_code])
+    t, g = _bf16_attn_bwd_operands(misalign)
+    call = lambda: knarpe._launch_bwd("knarpe_attention", t["q"], t["k"], t["v"], None, t["rpe"], t["invalid"], None,
+                                      t["w_rpe"], t["b_rpe"], g, N_HEAD)
+    if route_code == 0:
+        with pytest.raises(ValueError, match=match):
             call()
     else:
         def no_card():

@@ -37,20 +37,26 @@
 // products of length X per source, ~2.9 M multiply-adds per source. Only a
 // script reaches B3 in the JAX package.
 //
-// Routes. bf16 B2 and B3 run on the staged kernel of knarpe_staged.cuh (each
+// Routes. bf16 B4 runs on the staged kernel of knarpe_attn_staged.cuh (a ring
+// of source stages filled by tensor copies, four groups of warps each on its
+// own source, every product on the tensor cores) wherever it takes the shape
+// (knarpe_staged_route's code 0 in mode 0: up to 4 heads, D and R multiples
+// of 16, K up to 128, four stages within the block's shared memory), and on
+// the kernel below otherwise. bf16 B2 and B3 run on the staged kernel of knarpe_staged.cuh (each
 // source's targets copied into shared memory while the previous one is
 // computed; every product on the tensor cores), whose header says how, for
 // every shape it takes (knarpe_staged_route's code 0). It keeps the whole bf16
 // [W_kv; W_rpe] resident, so it refuses D = R = 256 (the scaled preset) and, at
 // D = R = 128, K >= 90; those shapes run on the kernel below, instantiated for
 // bf16 too (the general route; knarpe_general_route says whether it takes a
-// shape). The route follows from the shape alone. The kernel below serves B4,
-// float32 B2 and B3, and the general route. Its B3 accumulates 4 x 4 tiles of
+// shape). The route follows from the shape alone. The kernel below serves
+// float32 B4, B2 and B3, and the general bf16 route. Its B3 accumulates 4 x 4 tiles of
 // kk (4 targets x 4 columns of one head) in registers from the source's [K, X]
 // inputs, staged in shared memory where they fit (float32 at D = R = 256, K = 89
 // does not: then they are read from device memory): tensor cores would compute
 // float32 in TF32, outside float32's tolerance.
 
+#include "knarpe_attn_staged.cuh"
 #include "knarpe_staged.cuh"
 
 #include <cuda_bf16.h>
@@ -622,7 +628,115 @@ int bf16_cross(const Params& p, int n_head, int dev, cudaStream_t stream) {
   return by_heads<__nv_bfloat16, MODE>(p, n_head, dev, stream);
 }
 
-// float32 runs every mode on the general kernel; bf16 runs B4 there, and B2 and B3 by bf16_cross.
+// The staged B4 kernel's plan per (device, K, D, R) and head count: its refusal code
+// (staged_attn::refusal; 0 = taken, 5 = no block fits an SM), layout and resident blocks on the device.
+struct AttnPlan {
+  int dev, n_knn, d_model, d_rpe, refused;
+  staged_attn::Layout L;
+  long long slots;
+};
+
+template <int H>
+int make_attn_plan(AttnPlan& pl) {
+  int max_smem = 0, n_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.refused = staged_attn::refusal(pl.n_knn, pl.d_model, pl.d_rpe, H, static_cast<size_t>(max_smem));
+  if (pl.refused) return 0;
+  pl.L = staged_attn::make_layout(pl.n_knn, pl.d_model, pl.d_rpe, H,
+                                  staged_attn::stage_count(pl.n_knn, pl.d_model, pl.d_rpe, H, max_smem));
+  auto kern = staged_attn::knarpe_attn_staged_kernel<H>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, staged_attn::kThreads, pl.L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) pl.refused = 5;
+  pl.slots = static_cast<long long>(per_sm) * n_sm;
+  return 0;
+}
+
+template <int H>
+int attn_plan(int dev, int K, int D, int R, AttnPlan* out) {
+  static std::mutex mu;
+  static std::vector<AttnPlan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const AttnPlan& c : plans) {
+    if (c.dev == dev && c.n_knn == K && c.d_model == D && c.d_rpe == R) {
+      *out = c;
+      return 0;
+    }
+  }
+  AttnPlan pl{};
+  pl.dev = dev; pl.n_knn = K; pl.d_model = D; pl.d_rpe = R;
+  const int rc = make_attn_plan<H>(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+// The staged kernel's code for a bf16 B4 shape: 0 if it takes the shape, else staged_attn::refusal's code
+// (5: no block fits an SM), or minus a CUDA error; -1 for a head count the wrapper does not take. Eight
+// heads are refused (3) without asking the device.
+int attn_staged_code(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  AttnPlan pl{};
+  int rc = 0;
+  switch (n_head) {
+    case 1: rc = attn_plan<1>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case 2: rc = attn_plan<2>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case 4: rc = attn_plan<4>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case 8: return staged_attn::refusal(n_knn, d_model, d_rpe, 8, SIZE_MAX);
+    default: return -1;
+  }
+  return rc != 0 ? -rc : pl.refused;
+}
+
+// Launches the staged B4 kernel; a shape it refuses, an operand that is not 16-byte aligned or a k/v row
+// stride that is no multiple of 16 bytes (the tensor copies need both) is cudaErrorInvalidValue.
+template <int H>
+int attn_staged_launch(const Params& g, int dev, cudaStream_t stream) {
+  AttnPlan pl{};
+  const int rc = attn_plan<H>(dev, g.n_knn, g.d_model, g.d_rpe, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused || (g.ld_kv * 2) % 16 || !(aligned16(g.q) && aligned16(g.k) && aligned16(g.v) && aligned16(g.rpe) &&
+                                            aligned16(g.w_rpe) && aligned16(g.bias)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  staged_attn::Params p{};
+  p.q = static_cast<const bf16*>(g.q);
+  p.w_rpe = static_cast<const bf16*>(g.w_rpe);
+  p.bias = static_cast<const bf16*>(g.bias);
+  p.invalid = g.invalid;
+  p.out = static_cast<bf16*>(g.out);
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.d_model = g.d_model; p.d_rpe = g.d_rpe; p.scale = g.scale;
+  p.mw = staged::swizzle_mask(g.d_model / 4);
+  p.L = pl.L;
+  const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
+  int enc = staged::encode_rows(&p.tm_k, g.k, n_rows, g.d_model, g.ld_kv, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_v, g.v, n_rows, g.d_model, g.ld_kv, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, g.d_rpe, g.d_rpe, g.n_knn);
+  if (enc != 0) return enc;
+  const int grid = static_cast<int>(g.n_src < pl.slots ? g.n_src : pl.slots);
+  staged_attn::knarpe_attn_staged_kernel<H><<<grid, staged_attn::kThreads, p.L.total, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 B4: the staged kernel where it takes the shape, else the general kernel.
+int bf16_attn(const Params& p, int n_head, int dev, cudaStream_t stream) {
+  const int code = attn_staged_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
+  if (code < 0) return code == -1 ? static_cast<int>(cudaErrorInvalidValue) : -code;
+  if (code != 0) return by_heads<__nv_bfloat16, kAttn>(p, n_head, dev, stream);
+  switch (n_head) {
+    case 1: return attn_staged_launch<1>(p, dev, stream);
+    case 2: return attn_staged_launch<2>(p, dev, stream);
+    default: return attn_staged_launch<4>(p, dev, stream);
+  }
+}
+
+// float32 runs every mode on the general kernel; bf16 runs B4 by bf16_attn, and B2 and B3 by bf16_cross.
 int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStream_t stream) {
   if (dtype == 0) {
     switch (mode) {
@@ -634,7 +748,7 @@ int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStrea
   }
   if (dtype == 1) {
     switch (mode) {
-      case kAttn: return by_heads<__nv_bfloat16, kAttn>(p, n_head, dev, stream);
+      case kAttn: return bf16_attn(p, n_head, dev, stream);
       case kCross: return bf16_cross<kCross>(p, n_head, dev, stream);
       case kCrossV3: return bf16_cross<kCrossV3>(p, n_head, dev, stream);
       default: return static_cast<int>(cudaErrorInvalidValue);
@@ -667,12 +781,16 @@ extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, 
   return by_mode(p, mode, dtype, n_head, dev, static_cast<cudaStream_t>(stream));
 }
 
-// Whether the staged kernel takes a bf16 B2 (mode 1) or B3 (mode 2) launch at this shape on
-// device dev, given 16-byte aligned operands: 0 if it does, else staged::refusal's code (6: no
-// block fits an SM), or minus a CUDA error; -1 for any other mode or dtype. knarpe_launch runs
-// bf16 B2/B3 on the staged kernel where this is 0 and on the general kernel otherwise.
+// Whether a staged kernel takes a bf16 launch at this shape on device dev, given 16-byte aligned
+// operands (and, for B4, a k/v row stride that is a multiple of 16 bytes): 0 if it does, else the
+// refusal code of knarpe_attn_staged.cuh (B4, mode 0; staged_attn::refusal, 5: no block fits an SM) or
+// knarpe_staged.cuh (B2, mode 1, or B3, mode 2; staged::refusal, 6: no block fits an SM), or minus a
+// CUDA error; -1 for any other mode or dtype. knarpe_launch runs bf16 launches on the staged kernel
+// where this is 0 and on the general kernel otherwise.
 extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
-  if (dtype != 1 || (mode != kCross && mode != kCrossV3)) return -1;
+  if (dtype != 1) return -1;
+  if (mode == kAttn) return attn_staged_code(n_knn, d_model, d_rpe, n_head, dev);
+  if (mode != kCross && mode != kCrossV3) return -1;
   return staged_code(mode, n_knn, d_model, d_rpe, n_head, dev);
 }
 

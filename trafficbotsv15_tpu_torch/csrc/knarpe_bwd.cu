@@ -37,18 +37,24 @@
 // tensor cores), so its bytes bound it. B4-bwd writes dk and dv in full and is
 // bound by its 409 MB at 8 x 1024 sources.
 //
-// Routes. bf16 B2-bwd (B3's too) runs its per-source step on the staged
+// Routes. bf16 B4-bwd runs its per-source step on the staged kernel of
+// knarpe_attn_bwd_staged.cuh (the forward's ring of stages and four groups of
+// warps, every product on the tensor cores, dk/dv/drpe written as full lines)
+// wherever it takes the shape (knarpe_bwd_staged_route's code 0 in mode 0: up
+// to 4 heads, D and R multiples of 16, K up to 128, four stages within the
+// block's shared memory). bf16 B2-bwd (B3's too) runs its per-source step on the staged
 // kernel of knarpe_bwd_staged.cuh (each source staged in shared memory by bulk
 // copies and read from device memory once, every product on the tensor cores;
 // its header says how) wherever that kernel takes the shape
 // (knarpe_bwd_staged_route's code 0: up to 4 heads, D and R multiples of 16,
 // one stage within the block's shared memory). The per-source kernel below
-// serves B4-bwd, float32 B2-bwd and the bf16 shapes the staged kernel refuses
+// serves float32 B4-bwd and B2-bwd and the bf16 shapes the staged kernels refuse
 // (the general route): it reads x_j twice per source (the second time through
 // L2) and does its multiply-adds on the CUDA cores in float32, one persistent
 // 512-thread block per SM slot with [W_kv; W_rpe] staged in shared memory when
-// it fits. The two weight-gradient passes follow either per-source kernel; at
-// the training shape they take ~6 % of the general route's device time.
+// it fits. The two weight-gradient passes follow every per-source kernel; at
+// the training shapes they take ~6 % of the general route's device time, ~24 %
+// of the staged B2 backward's and ~27 % of the staged B4 backward's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +64,7 @@
 #include <mutex>
 #include <vector>
 
+#include "knarpe_attn_bwd_staged.cuh"
 #include "knarpe_bwd_staged.cuh"
 
 namespace {
@@ -506,8 +513,8 @@ __global__ void knarpe_wgrad_reduce(const float* partial, int n_chunks, int X1, 
   }
 }
 
-// The two weight-gradient passes over pbuf, after either per-source kernel (the staged one or the
-// one above): dW_kv, dW_rpe and db.
+// The two weight-gradient passes over pbuf, after any per-source kernel (a staged one or the one
+// above): dW_kv, dW_rpe and db.
 template <typename T>
 int wgrad_launch(const Params& p, int H, void* dw_kv, void* dw_rpe, void* db, float* partial, int n_chunks,
                  cudaStream_t stream) {
@@ -685,38 +692,6 @@ int staged_code(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link against libcuda); null if absent
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  });
-  return fn;
-}
-
-// rows [n_rows, width] of bf16 at base as a 2-D tensor whose boxes are 64 columns by box_rows rows,
-// landing with the 128-byte swizzle (knarpe_bwd_staged.cuh's stage layout); 0 or a CUDA error
-int encode_rows(CUtensorMap* map, const void* base, long long n_rows, int width, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(n_rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(width) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, steps,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 // Launches the staged kernel, then the weight-gradient passes; a shape it refuses, or an operand
 // that is not 16-byte aligned (the copies and the dx stores move 16-byte chunks), is
 // cudaErrorInvalidValue.
@@ -748,8 +723,8 @@ int staged_launch(const Params& g, void* dw_kv, void* dw_rpe, void* db, float* p
   p.mw = staged::swizzle_mask(g.d_model / 4);
   p.L = pl.L;
   const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
-  int enc = encode_rows(&p.tm_t, g.tgt, n_rows, g.d_model, g.n_knn);
-  if (enc == 0) enc = encode_rows(&p.tm_r, g.rpe, n_rows, g.d_rpe, g.n_knn);
+  int enc = staged::encode_rows(&p.tm_t, g.tgt, n_rows, g.d_model, g.d_model, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, g.d_rpe, g.d_rpe, g.n_knn);
   if (enc != 0) return enc;
   const int grid = static_cast<int>(g.n_src < pl.slots ? g.n_src : pl.slots);
   staged_bwd::knarpe_x_bwd_staged_kernel<H><<<grid, staged_bwd::kThreads, p.L.total, stream>>>(p);
@@ -768,6 +743,125 @@ int bf16_cross(const Params& p, int n_head, void* dw_kv, void* dw_rpe, void* db,
     case 1: return staged_launch<1>(p, dw_kv, dw_rpe, db, partial, n_chunks, dev, stream);
     case 2: return staged_launch<2>(p, dw_kv, dw_rpe, db, partial, n_chunks, dev, stream);
     default: return staged_launch<4>(p, dw_kv, dw_rpe, db, partial, n_chunks, dev, stream);
+  }
+}
+
+// The staged B4 backward's plan per (device, K, D, R) and head count: its refusal code
+// (staged_attn_bwd::refusal; 0 = taken, 5 = no block fits an SM), layout and resident blocks on the device.
+struct AttnPlan {
+  int dev, n_knn, d_model, d_rpe, refused;
+  staged_attn_bwd::Layout L;
+  long long slots;
+};
+
+template <int H>
+int make_attn_plan(AttnPlan& pl) {
+  int max_smem = 0, n_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.refused = staged_attn_bwd::refusal(pl.n_knn, pl.d_model, pl.d_rpe, H, static_cast<size_t>(max_smem));
+  if (pl.refused) return 0;
+  pl.L = staged_attn_bwd::make_layout(pl.n_knn, pl.d_model, pl.d_rpe, H,
+                                      staged_attn_bwd::stage_count(pl.n_knn, pl.d_model, pl.d_rpe, H, max_smem));
+  auto kern = staged_attn_bwd::knarpe_attn_bwd_staged_kernel<H>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, staged_attn_bwd::kThreads, pl.L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) pl.refused = 5;
+  pl.slots = static_cast<long long>(per_sm) * n_sm;
+  return 0;
+}
+
+template <int H>
+int attn_plan(int dev, int K, int D, int R, AttnPlan* out) {
+  static std::mutex mu;
+  static std::vector<AttnPlan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const AttnPlan& c : plans) {
+    if (c.dev == dev && c.n_knn == K && c.d_model == D && c.d_rpe == R) {
+      *out = c;
+      return 0;
+    }
+  }
+  AttnPlan pl{};
+  pl.dev = dev; pl.n_knn = K; pl.d_model = D; pl.d_rpe = R;
+  const int rc = make_attn_plan<H>(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+// The staged kernel's code for a bf16 B4 backward shape: 0 if it takes the shape, else
+// staged_attn_bwd::refusal's code (5: no block fits an SM), or minus a CUDA error; -1 for a head count
+// the wrapper does not take. Eight heads are refused (3) without asking the device.
+int attn_staged_code(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  AttnPlan pl{};
+  int rc = 0;
+  switch (n_head) {
+    case 1: rc = attn_plan<1>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case 2: rc = attn_plan<2>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case 4: rc = attn_plan<4>(dev, n_knn, d_model, d_rpe, &pl); break;
+    case 8: return staged_attn_bwd::refusal(n_knn, d_model, d_rpe, 8, SIZE_MAX);
+    default: return -1;
+  }
+  return rc != 0 ? -rc : pl.refused;
+}
+
+// Launches the staged B4 backward, then the weight-gradient passes; a shape it refuses, an operand or
+// output that is not 16-byte aligned, or a k/v row stride that is no multiple of 16 bytes is
+// cudaErrorInvalidValue.
+template <int H>
+int attn_staged_launch(const Params& g, void* dw_rpe, void* db, float* partial, int n_chunks, int dev,
+                       cudaStream_t stream) {
+  AttnPlan pl{};
+  const int rc = attn_plan<H>(dev, g.n_knn, g.d_model, g.d_rpe, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused || (g.ld_kv * 2) % 16 ||
+      !(aligned16(g.q) && aligned16(g.g) && aligned16(g.k) && aligned16(g.v) && aligned16(g.rpe) &&
+        aligned16(g.w_rpe) && aligned16(g.bias) && aligned16(g.dk) && aligned16(g.dv) && aligned16(g.drpe)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  staged_attn_bwd::Params p{};
+  p.q = static_cast<const bf16*>(g.q);
+  p.g = static_cast<const bf16*>(g.g);
+  p.w_rpe = static_cast<const bf16*>(g.w_rpe);
+  p.bias = static_cast<const bf16*>(g.bias);
+  p.invalid = g.invalid;
+  p.dq = static_cast<bf16*>(g.dq);
+  p.dk = static_cast<bf16*>(g.dk);
+  p.dv = static_cast<bf16*>(g.dv);
+  p.drpe = static_cast<bf16*>(g.drpe);
+  p.pbuf = g.pbuf;
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.d_model = g.d_model; p.d_rpe = g.d_rpe; p.scale = g.scale;
+  p.mw = staged::swizzle_mask(g.d_model / 4);
+  p.L = pl.L;
+  const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
+  int enc = staged::encode_rows(&p.tm_k, g.k, n_rows, g.d_model, g.ld_kv, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_v, g.v, n_rows, g.d_model, g.ld_kv, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, g.d_rpe, g.d_rpe, g.n_knn);
+  if (enc != 0) return enc;
+  const int grid = static_cast<int>(g.n_src < pl.slots ? g.n_src : pl.slots);
+  staged_attn_bwd::knarpe_attn_bwd_staged_kernel<H><<<grid, staged_attn_bwd::kThreads, p.L.total, stream>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return wgrad_launch<bf16>(g, H, nullptr, dw_rpe, db, partial, n_chunks, stream);
+}
+
+// bf16 B4-bwd: the staged kernel where it takes the shape, else the general kernel above.
+int bf16_attn(const Params& p, int n_head, void* dw_rpe, void* db, float* partial, int n_chunks, int dev,
+              cudaStream_t stream) {
+  const int code = attn_staged_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
+  if (code < 0) return code == -1 ? static_cast<int>(cudaErrorInvalidValue) : -code;
+  if (code != 0) return by_heads<__nv_bfloat16, kAttn>(p, n_head, nullptr, dw_rpe, db, partial, n_chunks, dev, stream);
+  switch (n_head) {
+    case 1: return attn_staged_launch<1>(p, dw_rpe, db, partial, n_chunks, dev, stream);
+    case 2: return attn_staged_launch<2>(p, dw_rpe, db, partial, n_chunks, dev, stream);
+    default: return attn_staged_launch<4>(p, dw_rpe, db, partial, n_chunks, dev, stream);
   }
 }
 
@@ -802,15 +896,20 @@ extern "C" int knarpe_bwd_launch(int mode, int dtype, const void* q, const void*
   float* part = static_cast<float*>(partial);
   if (dtype == 0) return by_mode<float>(p, mode, n_head, dw_kv, dw_rpe, db, part, n_chunks, dev, st);
   if (dtype == 1 && mode == kCross) return bf16_cross(p, n_head, dw_kv, dw_rpe, db, part, n_chunks, dev, st);
+  if (dtype == 1 && mode == kAttn) return bf16_attn(p, n_head, dw_rpe, db, part, n_chunks, dev, st);
   if (dtype == 1) return by_mode<__nv_bfloat16>(p, mode, n_head, dw_kv, dw_rpe, db, part, n_chunks, dev, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Whether the staged kernel (knarpe_bwd_staged.cuh) takes a bf16 B2 backward (mode 1) at this shape on
-// device dev, given 16-byte aligned operands: 0 if it does, else staged_bwd::refusal's code (5: no
-// block fits an SM), or minus a CUDA error; -1 for any other mode or dtype. knarpe_bwd_launch runs
-// bf16 B2-bwd on the staged kernel where this is 0 and on the general kernel otherwise.
+// Whether a staged backward takes a bf16 launch at this shape on device dev, given 16-byte aligned
+// operands (and, for B4, a k/v row stride that is a multiple of 16 bytes): 0 if it does, else the refusal
+// code of knarpe_attn_bwd_staged.cuh (B4-bwd, mode 0; staged_attn_bwd::refusal) or knarpe_bwd_staged.cuh
+// (B2-bwd, mode 1; staged_bwd::refusal), 5 for either when no block fits an SM, or minus a CUDA error; -1
+// for any other mode or dtype. knarpe_bwd_launch runs bf16 launches on the staged kernel where this is 0
+// and on the general kernel otherwise.
 extern "C" int knarpe_bwd_staged_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
-  if (dtype != 1 || mode != kCross) return -1;
+  if (dtype != 1) return -1;
+  if (mode == kAttn) return attn_staged_code(n_knn, d_model, d_rpe, n_head, dev);
+  if (mode != kCross) return -1;
   return staged_code(n_knn, d_model, d_rpe, n_head, dev);
 }

@@ -72,8 +72,6 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap
-
 #include "knarpe_staged.cuh"
 
 namespace staged_bwd {
@@ -91,11 +89,9 @@ using staged::smem_u32;
 
 constexpr int kUW = 16;  // columns of [U_hi W_hi | U_lo W_lo]: 2H <= 8 per half
 
-// The stage holds tgt and rpe as boxes of 64 columns (128 bytes) by K rows, each box as the tensor
-// copy writes it with the 128-byte swizzle: 16-byte chunk c of row j at chunk c ^ (j & 7), rows 128
-// bytes apart, so the eight rows an ldmatrix reads fall on distinct banks. Boxes start 1024 bytes apart.
-__host__ __device__ inline int n_boxes(int width) { return (width + 63) >> 6; }
-__host__ __device__ inline size_t box_bytes(int K) { return (static_cast<size_t>(K) * 128 + 1023) & ~static_cast<size_t>(1023); }
+// The stage holds tgt and rpe as boxes of 64 columns by K rows (staged::box_bytes says how they land).
+using staged::box_bytes;
+using staged::n_boxes;
 
 // Byte offsets from the block's 1024-byte aligned base in dynamic shared memory (total counts the
 // alignment's slack); the stage's fields are offsets inside it.
@@ -161,12 +157,6 @@ __device__ __forceinline__ uint32_t x_addr(const Params& p, uint32_t slot, int j
          (((cc & 7) ^ (j & 7)) << 4);
 }
 
-// the tensor copy (TMA) of the box at columns c0, row c1 of map into shared memory, counted on bar
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-               ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar) : "memory");
-}
-
 __device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
@@ -191,9 +181,9 @@ __device__ __forceinline__ void stage_source(const Params& p, uint32_t slot, uin
   const int K = p.n_knn, D = p.d_model, nt = n_boxes(D), nr = n_boxes(p.d_rpe);
   if (lane == 0) staged::mbar_expect(bar, static_cast<uint32_t>((nt + nr) * K * 128 + 2 * D * 2));
   if (lane < nt) {
-    tma_load_2d(slot + static_cast<uint32_t>(p.L.xt + lane * p.L.box), &p.tm_t, 64 * lane, s * K, bar);
+    staged::tma_load_2d(slot + static_cast<uint32_t>(p.L.xt + lane * p.L.box), &p.tm_t, 64 * lane, s * K, bar);
   } else if (lane < nt + nr) {
-    tma_load_2d(slot + static_cast<uint32_t>(p.L.xr + (lane - nt) * p.L.box), &p.tm_r, 64 * (lane - nt), s * K, bar);
+    staged::tma_load_2d(slot + static_cast<uint32_t>(p.L.xr + (lane - nt) * p.L.box), &p.tm_r, 64 * (lane - nt), s * K, bar);
   } else if (lane < nt + nr + 2) {
     const bool is_q = lane == nt + nr;
     staged::bulk_copy(slot + static_cast<uint32_t>(is_q ? p.L.q : p.L.g), (is_q ? p.q : p.g) + static_cast<size_t>(s) * D,

@@ -58,11 +58,14 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace staged {
 
@@ -101,6 +104,13 @@ inline Layout make_layout(int K, int D, int R, int H) {
   L.total = off;
   return L;
 }
+
+// A 2-D tensor copy (encode_rows) lands rows of bf16 as boxes of 64 columns (128 bytes) by K rows with the
+// 128-byte swizzle: 16-byte chunk c of row j at chunk c ^ (j & 7), rows 128 bytes apart, so the eight rows
+// an ldmatrix reads fall on distinct banks. Boxes start 1024 bytes apart, the span the swizzle repeats over.
+__host__ __device__ inline int n_boxes(int width) { return (width + 63) >> 6; }
+__host__ __device__ inline size_t box_bytes(int K) { return (static_cast<size_t>(K) * 128 + 1023) & ~static_cast<size_t>(1023); }
+__host__ __device__ inline size_t a1024(size_t x) { return (x + 1023) & ~static_cast<size_t>(1023); }
 
 // XOR mask of a region with n_c 16-byte chunks per row: the largest power of two
 // dividing n_c, at most 8, minus one, so that a swizzled chunk stays in its row
@@ -145,9 +155,16 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
                ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
+// the tensor copy (TMA) of the box at columns c0, row c1 of map into shared memory, counted on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+               ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
 }
+// orders this thread's earlier generic-proxy accesses of shared memory before its later tensor copies
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 // the one arrival of a phase, expecting `bytes` of bulk copies (which may land before or after it)
 __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
@@ -156,6 +173,39 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile("{\n.reg .pred done;\nWAIT:\n"
                "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
                "@!done bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link against libcuda); null if absent
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  });
+  return fn;
+}
+
+// n_rows rows of `width` bf16 at base, ld elements apart, as a 2-D tensor whose boxes are 64 columns by
+// box_rows rows, landing with the 128-byte swizzle (16-byte chunk c of box row j at chunk c ^ (j & 7));
+// columns past width arrive as zeros. 0 or a CUDA error
+inline int encode_rows(CUtensorMap* map, const void* base, long long n_rows, int width, long long ld, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(n_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, steps,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }

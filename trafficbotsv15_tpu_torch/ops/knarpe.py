@@ -22,30 +22,32 @@ What bounds them on the card is the bytes: at the rollout's shapes B2 reads
 [K, 2D] projection output, which an unfused path writes and reads back, is
 what the kernels keep out of device memory (`csrc/knarpe.cu` says how). A
 launch takes one of two routes, named by `route` from the shape alone:
-"staged", the kernel that stages each source's targets in shared memory while
-the previous source computes, every product on the tensor cores
-(`csrc/knarpe_staged.cuh`), for bf16 B2 and B3 at every shape it takes; and
-"general", the kernel of `csrc/knarpe.cu`, for B4, float32 B2 and B3, and the
-bf16 B2 and B3 shapes the staged kernel refuses (the scaled preset's
-D = R = 256, K >= 90 at D = R = 128). A shape both refuse, or an operand of a
-staged launch not at a 16-byte aligned address, raises.
+"staged", for bf16 at every shape a staged kernel takes, every product on the
+tensor cores: B4 on `csrc/knarpe_attn_staged.cuh` (a ring of source stages
+filled by tensor copies, four groups of warps each on its own source), B2
+and B3 on `csrc/knarpe_staged.cuh` (each source's targets staged in shared
+memory while the previous source computes); and "general", the kernel of
+`csrc/knarpe.cu`, for float32 and the bf16 shapes the staged kernels refuse
+(B4 with more than 4 heads or K > 128; B2 and B3 at the scaled preset's
+D = R = 256, and K >= 90 at D = R = 128). A bf16 B2 or B3 shape both refuse
+raises; so does an operand of a staged launch not at a 16-byte aligned
+address, or B4's k and v rows not a multiple of 16 bytes apart.
 
 Each wrapper is a `torch.autograd.Function`: its forward launches the
 forward kernel and its backward the backward kernel of `csrc/knarpe_bwd.cu`,
 which replaces `_bwd_kernel` (B4-bwd) and `_x_bwd_kernel` (B2-bwd; B3's
-backward is B2's, as `pallas_knarpe.py:778-783` has it). The B2 backward also
+backward is B2's, as `pallas_knarpe.py:778-783` has it). The backward also
 takes one of two routes, named by `bwd_route` from the shape alone: "staged"
-(`csrc/knarpe_bwd_staged.cuh`: each source staged in shared memory by bulk
-copies, every product on the tensor cores) for bf16 wherever it takes the
-shape, and "general" (the kernel of `csrc/knarpe_bwd.cu`) for float32, B4-bwd
-and the bf16 shapes it refuses (more than 4 heads, or a layout beyond the
-block's shared memory); an operand of a staged launch off a 16-byte boundary
-raises. For tensors on the CPU both directions take the plain versions (the
+for bf16 wherever a staged backward takes the shape
+(`csrc/knarpe_attn_bwd_staged.cuh` for B4, `csrc/knarpe_bwd_staged.cuh` for
+B2 and B3), and "general" (the kernel of `csrc/knarpe_bwd.cu`) for float32
+and the bf16 shapes they refuse (more than 4 heads, K > 128, or a layout
+beyond the block's shared memory), with the same alignment checks. For
+tensors on the CPU both directions take the plain versions (the
 `*_reference` forwards and autograd through them, `*_bwd_reference`); for
 CUDA tensors they launch the kernels or raise; they never fall back.
 `LAUNCHES` counts kernel launches per kernel, backward ones under `*_bwd`
-(never plain-version calls), and `ROUTE_LAUNCHES` the B2 and B3 forwards and
-the B2 backward by route.
+(never plain-version calls), and `ROUTE_LAUNCHES` every launch by route.
 """
 
 from __future__ import annotations
@@ -66,9 +68,10 @@ LAUNCHES = {"knarpe_attention": 0, "knarpe_cross_attention": 0, "knarpe_cross_at
 _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_attention_v3": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# B2 and B3 forward launches and B2 backward launches (B3's backward is B2's) by route since the last
-# reset (read by chip_smoke.py)
-ROUTE_LAUNCHES = {f"{kernel}/{route}": 0 for kernel in ("knarpe_cross_attention", "knarpe_cross_attention_v3",
+# forward and backward launches by route since the last reset (read by chip_smoke.py); B3's backward
+# counts as B2's
+ROUTE_LAUNCHES = {f"{kernel}/{route}": 0 for kernel in ("knarpe_attention", "knarpe_cross_attention",
+                                                        "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                                                         "knarpe_cross_attention_bwd")
                   for route in ("staged", "general")}
 
@@ -92,6 +95,26 @@ BWD_STAGED_REFUSALS = {
     2: "d_model and d_rpe must be multiples of 16 (the tensor cores' k steps)",
     3: "n_head must be at most 4: [U | W] hi and lo share one 16-column tile",
     4: "the weights and one source stage exceed the device's shared memory per block",
+    5: "no block fits a multiprocessor",
+}
+# why the staged bf16 B4 (csrc/knarpe_attn_staged.cuh) refuses a shape, by the code of `knarpe_staged_route`
+# in mode 0 (`staged_attn::refusal`); such a shape takes the general kernel
+ATTN_STAGED_REFUSALS = {
+    1: "K must be in [1, 128]: the softmax keeps each head's K / 32 targets per lane in registers",
+    2: "d_model and d_rpe must be multiples of 16 (the tensor cores' k steps)",
+    3: "n_head must be at most 4: [U_hi | U_lo] takes 2 n_head <= 8 columns",
+    4: "the weights, four source stages (one per group of warps) and the groups' scratch exceed the device's "
+       "shared memory per block",
+    5: "no block fits a multiprocessor",
+}
+# why the staged bf16 B4 backward (csrc/knarpe_attn_bwd_staged.cuh) refuses a shape, by the code of
+# `knarpe_bwd_staged_route` in mode 0 (`staged_attn_bwd::refusal`); such a shape takes the general kernel
+ATTN_BWD_STAGED_REFUSALS = {
+    1: "K must be in [1, 128]: the softmax keeps each head's K / 32 targets per lane in registers",
+    2: "d_model and d_rpe must be multiples of 16 (the tensor cores' k steps)",
+    3: "n_head must be at most 4: [U | W] hi and lo share one 16-column tile",
+    4: "the weights, four source stages (one per group of warps) and the groups' scratch exceed the device's "
+       "shared memory per block",
     5: "no block fits a multiprocessor",
 }
 # why the general kernel (csrc/knarpe.cu) refuses a shape, by the code of `knarpe_general_route`
@@ -205,8 +228,8 @@ def _route_code(entry: str, kernel: str, n_knn: int, d_model: int, d_rpe: int, n
 
 @functools.lru_cache(maxsize=None)
 def staged_refusal(kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
-    """0 if the staged kernel takes a bf16 launch of B2 or B3 at this shape on the card, else the
-    built library's refusal code (`STAGED_REFUSALS` says why)."""
+    """0 if the staged kernel takes a bf16 launch of B4, B2 or B3 at this shape on the card, else the
+    built library's refusal code (`ATTN_STAGED_REFUSALS` for B4, `STAGED_REFUSALS` for B2 and B3 say why)."""
     return _route_code("knarpe_staged_route", kernel, n_knn, d_model, d_rpe, n_head, device_index)
 
 
@@ -218,13 +241,15 @@ def general_refusal(kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: i
 
 
 def route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
-    """The kernel a forward launch takes, from its shape alone: "staged" for bf16 B2 and B3 where the
-    staged kernel takes the shape, else "general"; raises when neither bf16 kernel takes it."""
-    if kernel == "knarpe_attention" or dtype != torch.bfloat16:
+    """The kernel a forward launch takes, from its shape alone: "staged" in bf16 where the staged kernel
+    takes the shape, else "general"; for B2 and B3, raises when neither bf16 kernel takes it."""
+    if dtype != torch.bfloat16:
         return "general"
     code = staged_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
     if code == 0:
         return "staged"
+    if kernel == "knarpe_attention":
+        return "general"
     general = general_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
     if general == 0:
         return "general"
@@ -254,25 +279,48 @@ def bind_bwd_launch(lib: ctypes.CDLL):
     return fn
 
 
+def _bwd_route_code(kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """The built library's answer (`knarpe_bwd_staged_route`) for a bf16 backward launch."""
+    load_bwd_library()
+    code = build.load("knarpe_bwd", "knarpe_bwd.cu").knarpe_bwd_staged_route(
+        _MODES[kernel], _DTYPES[torch.bfloat16], n_knn, d_model, d_rpe, n_head, device_index)
+    if code < 0:
+        raise RuntimeError(f"{kernel} backward: planning a launch (knarpe_bwd_staged_route) failed: code {code}")
+    return code
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_staged_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
     """0 if the staged backward takes a bf16 B2 (or B3) backward at this shape on the card, else the
     built library's refusal code (`BWD_STAGED_REFUSALS` says why)."""
-    load_bwd_library()
-    code = build.load("knarpe_bwd", "knarpe_bwd.cu").knarpe_bwd_staged_route(
-        _MODES["knarpe_cross_attention"], _DTYPES[torch.bfloat16], n_knn, d_model, d_rpe, n_head, device_index)
-    if code < 0:
-        raise RuntimeError(f"knarpe_cross_attention backward: planning a launch (knarpe_bwd_staged_route) failed: "
-                           f"code {code}")
-    return code
+    return _bwd_route_code("knarpe_cross_attention", n_knn, d_model, d_rpe, n_head, device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def attn_bwd_staged_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the staged B4 backward takes a bf16 B4 backward at this shape on the card, else the built
+    library's refusal code (`ATTN_BWD_STAGED_REFUSALS` says why)."""
+    return _bwd_route_code("knarpe_attention", n_knn, d_model, d_rpe, n_head, device_index)
 
 
 def bwd_route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
-    """The kernel a backward launch takes, from its shape alone: "staged" for bf16 B2 and B3 where the
-    staged backward takes the shape, else "general" (B4-bwd, float32, and the bf16 shapes it refuses)."""
-    if kernel == "knarpe_attention" or dtype != torch.bfloat16:
+    """The kernel a backward launch takes, from its shape alone: "staged" in bf16 where the staged backward
+    (of B4, or of B2 and B3) takes the shape, else "general" (float32, and the bf16 shapes it refuses)."""
+    if dtype != torch.bfloat16:
         return "general"
-    return "staged" if bwd_staged_refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0 else "general"
+    refusal = attn_bwd_staged_refusal if kernel == "knarpe_attention" else bwd_staged_refusal
+    return "staged" if refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0 else "general"
+
+
+def _check_staged_alignment(kernel: str, tensors, ld_kv: int) -> None:
+    """A staged launch copies 16-byte chunks: every operand starts at a 16-byte aligned address and B4's
+    k and v rows lie a multiple of 16 bytes apart (ld_kv elements of 2 bytes)."""
+    if any(t.data_ptr() % 16 for t in tensors if t is not None):
+        raise ValueError(f"{kernel}: the staged bf16 kernel copies 16-byte chunks; its operands must start at "
+                         f"16-byte aligned addresses")
+    if ld_kv % 8:
+        raise ValueError(f"{kernel}: the staged bf16 kernel copies k and v rows by tensor copies, whose rows must "
+                         f"lie a multiple of 16 bytes apart; got a stride of {ld_kv} elements")
 
 
 def _check(kernel: str, name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -324,9 +372,8 @@ def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: i
         _check(kernel, "w_kv", w_kv, (d_model, 2 * d_model), dtype, device)
     _check(kernel, "w_rpe", w_rpe, (d_rpe, 2 * d_model), dtype, device)
     way = route(kernel, dtype, n_knn, d_model, d_rpe, n_head, device.index or 0) if forward else None
-    if way == "staged" and any(t.data_ptr() % 16 for t in (q, tgt, rpe, w_kv, w_rpe, b)):
-        raise ValueError(f"{kernel}: the staged bf16 kernel copies 16-byte chunks; q, tgt, rpe, w_kv, w_rpe and b "
-                         f"must start at 16-byte aligned addresses")
+    if way == "staged":
+        _check_staged_alignment(kernel, (q, k, v, tgt, rpe, w_kv, w_rpe, b), ld_kv)
     return n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv, way
 
 
@@ -351,8 +398,7 @@ def _launch(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: int
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed ({way} route): cudaError {rc}")
     LAUNCHES[kernel] += 1
-    if tgt is not None:
-        ROUTE_LAUNCHES[f"{kernel}/{way}"] += 1
+    ROUTE_LAUNCHES[f"{kernel}/{way}"] += 1
     return out
 
 
@@ -373,9 +419,8 @@ def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_he
     dtype, device = q.dtype, q.device
     _check(kernel, "g", g, (n_b, n_s, d_model), dtype, device)
     way = bwd_route(kernel, dtype, n_knn, d_model, d_rpe, n_head, device.index or 0)
-    if way == "staged" and any(t.data_ptr() % 16 for t in (q, tgt, rpe, w_kv, w_rpe, b, g)):
-        raise ValueError(f"{kernel} backward: the staged bf16 kernel copies 16-byte chunks; q, tgt, rpe, w_kv, w_rpe, "
-                         f"b and g must start at 16-byte aligned addresses")
+    if way == "staged":
+        _check_staged_alignment(f"{kernel} backward", (q, k, v, tgt, rpe, w_kv, w_rpe, b, g), ld_kv)
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=device)
@@ -404,9 +449,9 @@ def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_he
                     torch.cuda.current_device(), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} backward kernel launch failed ({way} route): cudaError {rc}")
-    LAUNCHES["knarpe_attention_bwd" if attn else "knarpe_cross_attention_bwd"] += 1
-    if not attn:
-        ROUTE_LAUNCHES[f"knarpe_cross_attention_bwd/{way}"] += 1
+    name = "knarpe_attention_bwd" if attn else "knarpe_cross_attention_bwd"
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[f"{name}/{way}"] += 1
     return dq, dk, dv, dtgt, drpe, dw_kv, dw_rpe, db
 
 

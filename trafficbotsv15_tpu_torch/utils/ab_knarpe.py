@@ -12,7 +12,9 @@ With `--other`, on
 the same bf16 inputs (numpy seed 1; 30 % of targets invalid), for B2
 (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`) at the eval
 path's shape [128·64 sources, K=89, D=R=128, H=4] and the training path's
-[8·64, K=89], and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32].
+[8·64, K=89], and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32]
+and the training path's [8·1024, K=32] (k and v the halves of one [.., 2D]
+tensor, as the map encoder passes them).
 With `--other-knn`, B1 (`knn_xy`) at the eval path's [128, 64, 1024] and the
 training path's [8, 64, 1024], k=64 (numpy seed 1; coordinates uniform in
 ±100 m, 20 % of sources and targets invalid). Each case times the other
@@ -27,10 +29,10 @@ which B3's backward is too) at the training path's two bf16 shapes, the agent
 decoder's [8·64 sources, K=89, D=R=128, H=4] and the posterior TL encoder's
 [8·128, K=24], and B3's forward and backward through `knarpe_cross_attention_v3`'s
 autograd Function at the same shapes (only the backward library differs between
-the sides; numpy seed 1, 30 % of targets invalid, one source with none); each
-side's gradients against the float32 plain backward (`*_bwd_reference`), as the
-largest |error| over all six gradients relative to that gradient's largest
-magnitude. With `--split`, each backward case is also traced by `torch.profiler`
+the sides), and the B4 backward at the training path's [8·1024, K=32] (numpy
+seed 1, 30 % of targets invalid, one source with none); each side's gradients
+against the float32 plain backward (`*_bwd_reference`), as the largest |error|
+over all six gradients relative to that gradient's largest magnitude. With `--split`, each backward case is also traced by `torch.profiler`
 through each side's library: its device time per kernel, averaged over 20
 launches. With `--calls`, it also times the full-width `joint_future_pred`
 (`leaderboard_config()`, `use_pallas=True`, 4 scenarios x K=32,
@@ -69,11 +71,14 @@ CASES = [("knarpe_cross_attention", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention", "train", (8, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention_v3", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention_v3", "train", (8, 64, 89, 128, 128, 4)),
-         ("knarpe_attention", "eval", (4, 1024, 32, 128, 128, 4))]
+         ("knarpe_attention", "eval", (4, 1024, 32, 128, 128, 4)),
+         ("knarpe_attention", "train", (8, 1024, 32, 128, 128, 4))]
 # (label, (n_rows, n_src, n_tgt, k))
 KNN_CASES = [("eval", (128, 64, 1024, 64)), ("train", (8, 64, 1024, 64))]
-# (label, (n_b, n_s, K, D, R, H)) of the training path's bf16 B2 backward launches
-BWD_CASES = [("train", (8, 64, 89, 128, 128, 4)), ("post_tl", (8, 128, 24, 128, 128, 4))]
+# (kernel, label, (n_b, n_s, K, D, R, H)) of the training path's bf16 B2 and B4 backward launches
+BWD_CASES = [("knarpe_cross_attention", "train", (8, 64, 89, 128, 128, 4)),
+             ("knarpe_cross_attention", "post_tl", (8, 128, 24, 128, 128, 4)),
+             ("knarpe_attention", "train", (8, 1024, 32, 128, 128, 4))]
 ORDER = ("other", "this", "this", "other")
 
 
@@ -118,20 +123,20 @@ def inputs(kernel: str, shape):
     return [f(n_b, n_s, d), f(n_b, n_s, n_knn, d), f(n_b, n_s, n_knn, r), inv, f(d, 2 * d, scale=d ** -0.5), w_rpe, b]
 
 
-def bwd_inputs(shape):
-    """bf16 operands of B2 and its incoming gradient g; source 0 has no valid target."""
-    ops = inputs("knarpe_cross_attention", shape)
-    ops[3][0, 0] = True
+def bwd_inputs(kernel: str, shape):
+    """bf16 operands of B2 or B4 and the incoming gradient g; source 0 has no valid target."""
+    ops = inputs(kernel, shape)
+    ops[4 if kernel == "knarpe_attention" else 3][0, 0] = True
     rng = np.random.default_rng(2)
     g = torch.from_numpy(rng.normal(size=tuple(ops[0].shape)).astype(np.float32)).to("cuda", torch.bfloat16)
     return ops, g
 
 
-def bwd_worst_err(grads, ops, g, n_head: int) -> float:
+def bwd_worst_err(kernel: str, grads, ops, g, n_head: int) -> float:
     """Largest |error| of the bf16 gradients against the float32 plain backward on the same bf16-valued
     inputs, each relative to its own gradient's largest magnitude."""
-    want = knarpe.knarpe_cross_attention_bwd_reference(*[a if a.dtype == torch.bool else a.float() for a in ops],
-                                                       g.float(), n_head)
+    plain = getattr(knarpe, f"{kernel}_bwd_reference")
+    want = plain(*[a if a.dtype == torch.bool else a.float() for a in ops], g.float(), n_head)
     return max(float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(grads, want))
 
 
@@ -205,7 +210,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other tree's csrc/knarpe.cu (B2, B3, B4)")
     ap.add_argument("--other-knn", type=Path, help="the other tree's csrc/knn.cu (B1)")
-    ap.add_argument("--other-bwd", type=Path, help="the other tree's csrc/knarpe_bwd.cu (B2/B3-bwd)")
+    ap.add_argument("--other-bwd", type=Path, help="the other tree's csrc/knarpe_bwd.cu (B2/B3-bwd, B4-bwd)")
     ap.add_argument("--split", action="store_true", help="each backward case's device time per kernel, per side")
     ap.add_argument("--rounds", type=int, default=3, help="rounds of other, this, this, other per kernel case")
     ap.add_argument("--calls", type=int, default=0, help="rounds of full-width joint_future_pred calls")
@@ -256,8 +261,8 @@ def main() -> None:
         print(f"  indices and distances equal to the plain version: other {row['other_equals_plain']}, "
               f"this {row['this_equals_plain']}", flush=True)
         results["kernels"].append(row)
-    for label, shape in BWD_CASES if args.other_bwd is not None else []:
-        results["backward"] += time_bwd(libs, label, shape, args.rounds, args.split, card)
+    for kernel, label, shape in BWD_CASES if args.other_bwd is not None else []:
+        results["backward"] += time_bwd(libs, kernel, label, shape, args.rounds, args.split, card)
 
     if args.calls:
         cfg = with_pallas(leaderboard_config(), True)
@@ -276,31 +281,38 @@ def main() -> None:
     print(json.dumps(results))
 
 
-def time_bwd(libs: dict, label: str, shape, rounds: int, split: bool, card: str) -> list:
-    """B2's backward launch alone, and B3's forward and backward through its autograd Function, through
-    each side's backward library, in turns; each side's error against the float32 plain backward."""
+def time_bwd(libs: dict, kernel: str, label: str, shape, rounds: int, split: bool, card: str) -> list:
+    """The backward launch of B2 or B4 alone, and for B2 also B3's forward and backward through its
+    autograd Function, through each side's backward library, in turns; each side's error against the
+    float32 plain backward."""
     n_head = shape[-1]
-    ops, g = bwd_inputs(shape)
-    q, tgt, rpe, inv, w_kv, w_rpe, b = ops
-    b2 = lambda: knarpe._launch_bwd("knarpe_cross_attention", q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g,
-                                    n_head)
-    leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in ops]
-    want = [a for a in leaves if a.requires_grad]
-    b3 = lambda: torch.autograd.grad(knarpe.knarpe_cross_attention_v3(*leaves, n_head), want, g)
+    ops, g = bwd_inputs(kernel, shape)
+    if kernel == "knarpe_attention":
+        q, k, v, rpe, inv, w_rpe, b = ops
+        launch = lambda: knarpe._launch_bwd(kernel, q, k, v, None, rpe, inv, None, w_rpe, b, g, n_head)
+    else:
+        q, tgt, rpe, inv, w_kv, w_rpe, b = ops
+        launch = lambda: knarpe._launch_bwd(kernel, q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, n_head)
+    cases = [(f"{kernel}_bwd", kernel, "backward launch", launch,
+              lambda: [t for t in launch() if t is not None])]
+    if kernel == "knarpe_cross_attention":
+        leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in ops]
+        want = [a for a in leaves if a.requires_grad]
+        b3 = lambda: torch.autograd.grad(knarpe.knarpe_cross_attention_v3(*leaves, n_head), want, g)
+        cases.append(("knarpe_cross_attention_v3", kernel, "forward + backward through the Function", b3, b3))
     rows = []
-    for kernel, what, call, grads in (
-            ("knarpe_cross_attention_bwd", "backward launch", b2, lambda: [t for t in b2() if t is not None]),
-            ("knarpe_cross_attention_v3", "forward + backward through the Function", b3, b3)):
-        row = {"kernel": kernel, "what": what, "shape": label, "dims": list(shape),
-               **time_case(libs, call, rounds, f"{kernel} {what} {label} {list(shape)}", card)}
+    for name, plain, what, call, grads in cases:
+        is_launch = name.endswith("_bwd")
+        row = {"kernel": name, "what": what, "shape": label, "dims": list(shape),
+               **time_case(libs, call, rounds, f"{name} {what} {label} {list(shape)}", card)}
         for side in libs:
             with launching_with(libs[side]):
-                row[f"{side}_worst_rel_err_vs_f32_plain"] = bwd_worst_err(grads(), ops, g, n_head)
-                if split and kernel == "knarpe_cross_attention_bwd":
+                row[f"{side}_worst_rel_err_vs_f32_plain"] = bwd_worst_err(plain, grads(), ops, g, n_head)
+                if split and is_launch:
                     row[f"{side}_split_ms"] = kernel_split(call)
         print(f"  max |grad - f32 plain| / max |grad|: other {row['other_worst_rel_err_vs_f32_plain']:.3e}, this "
               f"{row['this_worst_rel_err_vs_f32_plain']:.3e}", flush=True)
-        for side in libs if split and kernel == "knarpe_cross_attention_bwd" else []:
+        for side in libs if split and is_launch else []:
             print(f"  {side}'s device time per kernel (torch.profiler, ms per launch): "
                   f"{ {k: round(v, 5) for k, v in row[f'{side}_split_ms'].items()} } [{card}]", flush=True)
         rows.append(row)
