@@ -67,10 +67,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      train samples/s, peak memory, forward and backward launches per step
      (asserted), every bf16 B4 and B2 forward and backward launch on the
      staged route at a shape phase 3 checked; loss and grad_norm finite and non-zero,
-     parameters changed.
-Then it prints the `kernels` JSON line (forward launches from phase 6,
-training-shape and backward ones from phase 8, B4's and the backwards' by
-route), the card line, and last
+     parameters changed;
+  9. validation step (`eval/runner.py::make_validate_step`: reactive replay, its
+     loss and metric sums, K joint futures, WOMD post-processing and native
+     motion metrics, the WOSAC filter, native realism): the phase-4 config with
+     K=34 futures on the card and on the CPU, same weights and draws, use_pallas
+     False and True: buffers, flags and every entry of `out` agree, and the
+     card's realism agrees with the CPU's on the card's own futures; then
+     `leaderboard_config()` with use_pallas=True, 4 scenarios, K=32, level 1,
+     native realism: one warm-up, 3 timed steps (seconds per step,
+     wosac_validate_scenarios_per_sec_per_chip, peak memory), launches per step
+     asserted (B1 181, B4 16, B2 728, staged, at shapes phase 3 checked), one
+     more step split by part with the realism part's working set;
+ 10. submission: `test_submission` at `leaderboard_config()` for one test-split
+     scenario with K=128 futures: WOMD and WOSAC arrays of the submission's
+     shapes, finite, in the global frame; the card's 32 futures equal the CPU's
+     filter on the same buffer; the call timed.
+Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
+`validate_launches`, from phase 9; training-shape and backward ones from phase
+8, B4's and the backwards' by route), the card line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -90,9 +105,14 @@ import numpy as np
 import torch
 
 from trafficbotsv15_tpu_torch.config import leaderboard_config, tiny_config, with_pallas
+from trafficbotsv15_tpu_torch.data.preprocessing import pre_processing
 from trafficbotsv15_tpu_torch.data.synthetic import make_batch
+from trafficbotsv15_tpu_torch.eval import runner as eval_runner
+from trafficbotsv15_tpu_torch.eval import wosac_likelihood
+from trafficbotsv15_tpu_torch.eval.wosac_post_processing import filter_futures
 from trafficbotsv15_tpu_torch.ops import knarpe, knn
 from trafficbotsv15_tpu_torch.sim import rollout as rollout_lib
+from trafficbotsv15_tpu_torch.train import evaluation as eval_lib
 from trafficbotsv15_tpu_torch.train import pipeline as train_lib
 from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
@@ -155,6 +175,11 @@ KNARPE_BWD_F32_REL = 1e-4
 # at least 1e-3 of the largest over the model, so that one ~0 by cancellation (a bias before a
 # LayerNorm) is not held to its rounding noise
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
+# validation step, card vs CPU in float32 (phase 9): the rollout buffers to SLICE_POSE_ATOL, the rule flags
+# to RULE_FLAG_SHARE; loss terms, error and rule sums, WOMD modes and scores, native motion metrics and the
+# realism fields to 1e-4 relative (1e-6 absolute near zero; modes also SLICE_POSE_ATOL absolute). The joint
+# futures are more than the 32 the WOSAC filter keeps, so that it selects
+VALIDATE_REL, VALIDATE_K = 1e-4, 34
 
 
 def log(*a):
@@ -895,6 +920,242 @@ def run_train_full_width(card: str, n_timed: int = 3) -> dict:
     return per_step[-1], dict(knarpe.ROUTE_LAUNCHES), seen_bwd
 
 
+def expected_validate_launches(cfg) -> dict:
+    """Kernel launches per validation step that the config implies: reactive replay encodes the scene
+    (the map encoder's B4), the posterior latent (one TL KNN, one B2 per TL and agent layer) and runs the
+    rollout (one agent->map KNN and the agent decoder's B2 per step); then one joint-future call."""
+    m, n = cfg.model, cfg.time_step_end
+    pallas = m.tf_cfg.use_pallas
+    jf = expected_launches(cfg, n)
+    post = m.tl_encoder.n_layer_tf + m.ag_encoder.n_layer_tf
+    return {**jf, "knn_xy": jf["knn_xy"] + n + 1,
+            "knarpe_attention": 2 * jf["knarpe_attention"],
+            "knarpe_cross_attention": 2 * jf["knarpe_cross_attention"] + (post if pallas else 0)}
+
+
+@contextlib.contextmanager
+def captured_rollouts():
+    """The reactive-replay and joint-future results (pp, buffer) of the validation steps inside the block."""
+    real_rr, real_jf, seen = eval_lib.reactive_replay, eval_lib.joint_future_pred, {}
+
+    def rr(*args, **kwargs):
+        out = real_rr(*args, **kwargs)
+        seen["reactive_replay"] = out[:2]
+        return out
+
+    def jf(*args, **kwargs):
+        out = real_jf(*args, **kwargs)
+        seen["joint_futures"] = out
+        return out
+
+    eval_lib.reactive_replay, eval_lib.joint_future_pred = rr, jf
+    try:
+        yield seen
+    finally:
+        eval_lib.reactive_replay, eval_lib.joint_future_pred = real_rr, real_jf
+
+
+def buffer_to_cpu(buf):
+    """A RolloutBuffer with every tensor (and every tensor of its dicts) on the CPU."""
+    def cpu(x):
+        if isinstance(x, dict):
+            return {k: v.cpu() for k, v in x.items()}
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+    return dataclasses.replace(buf, **{f.name: cpu(getattr(buf, f.name)) for f in dataclasses.fields(buf)})
+
+
+def _flat_out(out: dict) -> dict:
+    """A validation step's `out` as {name: tensor on the CPU}, nested dicts flattened."""
+    flat = {}
+    for key, val in out.items():
+        for sub, v in (val.items() if isinstance(val, dict) else [("", val)]):
+            flat[f"{key}/{sub}" if sub else key] = v.detach().float().cpu()
+    return flat
+
+
+def _rel_excess(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """max(|got - want| - rtol |want| - atol): <= 0 where got is within the tolerance."""
+    return float(((got - want).abs() - rtol * want.abs() - atol).max())
+
+
+def check_validate_card_vs_cpu(use_pallas: bool) -> None:
+    """One validation step on the card and on the CPU: the phase-4 config with K=34 joint futures, the same
+    weights and the same draws. Every comparison is made and logged before any failure is raised."""
+    cfg = with_pallas(dataclasses.replace(tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=31, hidden_dim=64),
+                                          n_joint_future_wosac=VALIDATE_K), use_pallas)
+    batch = make_batch(cfg.data, n_sc=1, seed=3)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, seed=1, device=device)
+        damp_weights(model, 0.5)
+        reset_launches()
+        with captured_rollouts() as seen:
+            out = eval_runner.make_validate_step(cfg, model, device=device)(batch, torch.Generator().manual_seed(0))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            want = expected_validate_launches(cfg)
+            if launches() != want:
+                raise AssertionError(f"validate check: kernel launches {launches()}, expected {want}")
+        runs[device] = (_flat_out(out), seen)
+    (cpu, cpu_seen), (gpu, gpu_seen) = runs["cpu"], runs["cuda"]
+    failures, notes = [], []
+    if set(cpu) != set(gpu):
+        failures.append(f"out entries differ: {sorted(set(cpu) ^ set(gpu))}")
+    n_diff = n_flags = 0
+    for part in ("reactive_replay", "joint_futures"):
+        c_buf, g_buf = cpu_seen[part][1], gpu_seen[part][1]
+        pose_err = float((g_buf.pred_pose.cpu() - c_buf.pred_pose).abs().max())
+        notes.append(f"{part} poses {pose_err:.2e}")
+        if not (torch.equal(g_buf.pred_valid.cpu(), c_buf.pred_valid) and pose_err <= SLICE_POSE_ATOL):
+            failures.append(f"{part} buffer: max pose err {pose_err} (tolerance {SLICE_POSE_ATOL}) or validity differs")
+        for key, val in c_buf.violation.items():
+            n_diff += int((g_buf.violation[key].cpu() != val).sum())
+            n_flags += val.numel()
+    notes.append(f"{n_diff} of {n_flags} flags differ")
+    if n_diff > RULE_FLAG_SHARE * n_flags:
+        failures.append(f"rule flags: {n_diff} of {n_flags} differ (tolerance {RULE_FLAG_SHARE:g} of them)")
+    worst = {}
+    for key in sorted(set(cpu) & set(gpu)):
+        atol = SLICE_POSE_ATOL if key.endswith("trajs") else 1e-6
+        excess = _rel_excess(gpu[key], cpu[key], VALIDATE_REL, atol)
+        rel = float(((gpu[key] - cpu[key]).abs() / cpu[key].abs().clamp_min(1e-12)).max())
+        worst[key] = rel
+        if excess > 0:
+            failures.append(f"{key}: off by {rel:.3e} relative (tolerance {VALIDATE_REL:g} + {atol:g})")
+    # the realism code alone: the card's realism against the CPU's on the card's own joint futures
+    g_jf = gpu_seen["joint_futures"][1]
+    cpu_batch = train_lib.batch_to_device(batch, torch.device("cpu"))
+    pp = pre_processing(cpu_batch, tl_mode=cfg.model.tl_mode, navi_mode=cfg.model.navi_mode,
+                        n_step_hist=cfg.n_step_hist, training=True)
+    replay = wosac_likelihood.realism_from_rollout(cpu_batch, pp, buffer_to_cpu(g_jf), cfg.time_step_current)
+    replay_worst = 0.0
+    for key, val in replay.items():
+        got = gpu[f"wosac_realism/{key}"]
+        replay_worst = max(replay_worst, float(((got - val).abs() / val.abs().clamp_min(1e-12)).max()))
+        if _rel_excess(got, val, VALIDATE_REL, 1e-6) > 0:
+            failures.append(f"realism of the card's futures, card vs CPU: {key} {got.tolist()} vs {val.tolist()}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  use_pallas={use_pallas}: validation step card vs CPU, K={VALIDATE_K}: {'; '.join(notes)}; {len(worst)} out "
+        f"values, worst relative {[(k, f'{v:.2e}') for k, v in top]} (tolerance {VALIDATE_REL:g}); realism of the "
+        f"card's futures recomputed on the CPU: worst relative {replay_worst:.2e}; kernel launches "
+        f"{expected_validate_launches(cfg)} as the config implies")
+    if failures:
+        raise AssertionError(f"validate check use_pallas={use_pallas}: " + "; ".join(failures))
+
+
+def run_validate_full_width(card: str, n_timed: int = 3) -> dict:
+    """The validation step at full width: leaderboard_config() with use_pallas=True, 4 scenarios, K=32, level-1
+    rule checks, native realism. One warm-up, then n_timed steps; one more step split by part."""
+    cfg = with_pallas(leaderboard_config(), True)
+    if not cfg.native_wosac_realism or cfg.n_joint_future_wosac != 32:
+        raise AssertionError("full-width validation: expected native realism and K=32 in leaderboard_config()")
+    n_sc = 4
+    model = build_model(cfg, seed=0, device="cuda")
+    step = eval_runner.make_validate_step(cfg, model)
+    batch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_sc, seed=0), torch.device("cuda"))
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    with recorded_forward_shapes() as seen:
+        step(batch, gen)
+    torch.cuda.synchronize()
+    log(f"  warm-up step {time.perf_counter() - t0:.3f} s")
+    check_path_forward_shapes("validation step", seen)
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step = [], []
+    for _ in range(n_timed):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append(launches())
+        check_staged_route("validation step")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = expected_validate_launches(cfg)
+    if any(c != want for c in per_step):
+        raise AssertionError(f"full-width validation: kernel launches per step {per_step}, expected {want}")
+    n_ag, k = cfg.data.n_ag, cfg.n_joint_future_wosac
+    n_fut = cfg.time_step_gt - cfg.time_step_current
+    shapes = {"womd_trajs": (n_sc, n_ag, 6, n_fut // 5, 3), "womd_scores": (n_sc, n_ag, 6),
+              "wosac_trajs": (n_sc, 32, n_ag, n_fut, 3)}
+    for name, shape in shapes.items():
+        if tuple(out[name].shape) != shape or not torch.isfinite(out[name]).all():
+            raise AssertionError(f"full-width validation: {name} is {tuple(out[name].shape)} (expected {shape}) or "
+                                 f"not finite")
+    realism = {key: v.float().cpu() for key, v in out["wosac_realism"].items()}
+    loss = {key: float(v) for key, v in out["loss_metrics"].items()}
+    if not (all(tuple(v.shape) == (n_sc,) and bool(torch.isfinite(v).all()) for v in realism.values())
+            and all(0 < float(v) <= 1 for key, val in realism.items() if key.endswith("likelihood") for v in val)
+            and all(math.isfinite(v) for v in loss.values()) and loss["reactive_replay/diffbar_reward"] != 0):
+        raise AssertionError(f"full-width validation: realism {realism} or losses {loss} out of range")
+
+    # one more step, split by part (synchronised at the part boundaries), with the realism part's own peak
+    real_realism, realism_peak = eval_runner.realism_from_rollout, {}
+
+    def realism_with_peak(*args, **kwargs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = real_realism(*args, **kwargs)
+        torch.cuda.synchronize()
+        realism_peak["GiB"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        return result
+
+    split = {}
+    eval_runner.realism_from_rollout = realism_with_peak
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, gen, split=split)
+        t_split = time.perf_counter() - t0
+    finally:
+        eval_runner.realism_from_rollout = real_realism
+    sec = float(np.median(times))
+    log(f"  leaderboard_config use_pallas=True validation step: {n_sc} scenarios, K={k} joint futures, {n_ag} agents, "
+        f"{cfg.data.n_mp} polylines, {cfg.time_step_end} steps, check_level=1, native realism: seconds per step "
+        f"{[round(t, 4) for t in times]} (median {sec:.4f} s), wosac_validate_scenarios_per_sec_per_chip "
+        f"{n_sc / sec:.4f}, peak memory {peak:.2f} GiB; split step {t_split:.4f} s: "
+        f"{ {part: round(split.get(part, 0.0), 4) for part in eval_runner.SPLIT_PARTS} }, realism working set above "
+        f"its inputs {realism_peak['GiB']:.2f} GiB (chunks of at most {wosac_likelihood.CHUNK_ELEMS} elements); "
+        f"metametric {[round(v, 4) for v in realism['metametric'].tolist()]}, val loss "
+        f"{loss['reactive_replay/loss']:.4f}; kernel launches per step {per_step[-1]}, launches by route "
+        f"{knarpe.ROUTE_LAUNCHES} [{card}]")
+    return per_step[-1]
+
+
+def run_submission(card: str) -> None:
+    """test_submission at full width: one test-split scenario, K=128 futures filtered to the 32 of the
+    submission; the card's filter against the CPU's on the same buffer."""
+    cfg = with_pallas(leaderboard_config(), True)
+    model = build_model(cfg, seed=0, device="cuda")
+    batch = make_batch(cfg.data, n_sc=1, seed=0, test_mode=True)
+    n_ag, n_fut = cfg.data.n_ag, cfg.time_step_gt - cfg.time_step_current
+    with captured_rollouts() as seen:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = eval_runner.test_submission(cfg, model, [batch], n_joint_future=128)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    if not isinstance(result, list):  # no waymo_open_dataset: the arrays come back
+        raise AssertionError(f"submission: expected the arrays without waymo_open_dataset, got {result}")
+    (out,) = result
+    shapes = {"womd_trajs": (1, n_ag, 6, n_fut // 5, 3), "womd_scores": (1, n_ag, 6),
+              "wosac_trajs": (1, 32, n_ag, n_fut, 3)}
+    for name, shape in shapes.items():
+        if out[name].shape != shape or not np.isfinite(out[name]).all():
+            raise AssertionError(f"submission: {name} is {out[name].shape} (expected {shape}) or not finite")
+    pp, buf = seen["joint_futures"]
+    if tuple(buf.pred_pose.shape[:2]) != (1, 128):
+        raise AssertionError(f"submission: {tuple(buf.pred_pose.shape[:2])} futures, expected (1, 128)")
+    on_card = filter_futures(cfg.wosac_post, buf, pp.ag_role, cfg.time_step_current).cpu()
+    on_cpu = filter_futures(cfg.wosac_post, buffer_to_cpu(buf), pp.ag_role.cpu(), cfg.time_step_current)
+    if not torch.equal(on_card, on_cpu):
+        raise AssertionError("submission: the card's 32 futures differ from the CPU's on the same buffer")
+    log(f"  test_submission, leaderboard_config use_pallas=True, 1 test scenario, K=128 -> 32: {sec:.4f} s for the "
+        f"call; WOMD {out['womd_trajs'].shape}, WOSAC {out['wosac_trajs'].shape} in the global frame, all finite; "
+        f"filter_futures on the card keeps the CPU's 32 futures [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's main path needs an NVIDIA GPU",
@@ -902,7 +1163,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/8] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/10] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -913,31 +1174,40 @@ def main() -> int:
         for fut in [pool.submit(knn.load_library), pool.submit(knarpe.load_library),
                     pool.submit(knarpe.load_bwd_library)]:
             fut.result()
-    log(f"[2/8] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/10] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    log("[3/8] kernels vs plain versions")
+    log("[3/10] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
 
-    log("[4/8] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[4/10] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_slice_card_vs_cpu(use_pallas=False)
     check_slice_card_vs_cpu(use_pallas=True)
 
-    log("[5/8] slice at full width, use_pallas=False")
+    log("[5/10] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    log("[6/8] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    log("[6/10] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True)
 
-    log("[7/8] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[7/10] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_train_step_card_vs_cpu(use_pallas=False)
     check_train_step_card_vs_cpu(use_pallas=True)
 
-    log("[8/8] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    log("[8/10] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
+
+    log("[9/10] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    check_validate_card_vs_cpu(use_pallas=False)
+    check_validate_card_vs_cpu(use_pallas=True)
+    validate_counts = run_validate_full_width(card)
+
+    log("[10/10] submission: test_submission at full width, K=128")
+    run_submission(card)
     by_route = lambda counts, kernel: {way: counts[f"{kernel}/{way}"] for way in ("staged", "general")}
     for row in rows:
         row["launches"] = counts[row["name"]]
+        row["validate_launches"] = validate_counts[row["name"]]  # per full-width validation step (phase 9)
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     b4 = rows[1]  # per eval call (phase 6), and at the training shape per step (phase 8)
     b4["launches_by_route"] = by_route(routes, "knarpe_attention")

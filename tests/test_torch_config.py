@@ -95,7 +95,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred
+    from trafficbotsv15_tpu_torch.eval import runner
+    from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred, reactive_replay
     from trafficbotsv15_tpu_torch.train.pipeline import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -108,6 +109,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     model = build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         joint_future_pred(cfg, model, {}, generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reactive_replay(cfg, model, {})
+    for entry in (lambda: runner.make_validate_step(cfg, model), lambda: runner.validate(cfg, model, []),
+                  lambda: runner.test_submission(cfg, model, [])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
     assert resolve_device("cpu").type == "cpu"
 
 

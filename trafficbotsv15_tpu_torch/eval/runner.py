@@ -1,0 +1,217 @@
+"""Validation and submission runners on one device (counterpart of `trafficbotsv15_tpu/eval/runner.py`).
+
+`make_validate_step` is one validation batch: reactive replay with its loss
+and error and rule sums, the K joint futures with their rule sums, WOMD
+post-processing (K -> 6 modes) and native motion metrics on both rollouts,
+the WOSAC future filter and the native WOSAC realism metametric. `validate`
+runs it over a loader and reduces the metrics under the JAX package's
+names; `test_submission` makes the WOMD and WOSAC submissions of the test
+split. Neither restores a checkpoint, reduces across devices, renders
+videos or calls the official Waymo metrics (those need the
+`waymo_open_dataset` package).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from trafficbotsv15_tpu_torch.config import ExperimentCfg
+from trafficbotsv15_tpu_torch.eval.metrics import (compute_error_metrics, compute_traffic_rule_metrics,
+                                                   error_metric_sums, merge_sums, traffic_rule_sums)
+from trafficbotsv15_tpu_torch.eval.womd_metrics import native_motion_metrics
+from trafficbotsv15_tpu_torch.eval.womd_post_processing import womd_post_process
+from trafficbotsv15_tpu_torch.eval.wosac_likelihood import realism_from_rollout
+from trafficbotsv15_tpu_torch.eval.wosac_post_processing import (WOSAC_HIST_KEYS, filter_futures,
+                                                                 get_scenario_rollouts, to_global_frame)
+from trafficbotsv15_tpu_torch.train import evaluation
+from trafficbotsv15_tpu_torch.train.losses import training_loss
+from trafficbotsv15_tpu_torch.utils.device import resolve_device
+from trafficbotsv15_tpu_torch.utils.logging import MetricsLogger
+
+SPLIT_PARTS = ("reactive_replay", "joint_futures", "post_and_metrics", "realism")
+
+
+def make_validate_step(cfg: ExperimentCfg, model, device=None):
+    """step(batch, generator, split=None) -> out, the JAX step's `out` keys with tensor values on the device.
+
+    batch: h5-schema dict with the ground truth; generator draws the joint futures' latents and
+    destinations. With a dict as `split`, the step synchronises the device after each part and adds
+    its seconds under SPLIT_PARTS (a measurement aid; the result is the same)."""
+    device = resolve_device(device)
+    evaluation.check_model(model, device)
+
+    def mark(split, part=None, t0=0.0):
+        """With a split dict: synchronise the device and add the seconds since t0 under part. -> now."""
+        if split is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        if split is not None and part is not None:
+            split[part] = split.get(part, 0.0) + now - t0
+        return now
+
+    @torch.no_grad()
+    def step(batch, generator: torch.Generator, split: Optional[Dict[str, float]] = None):
+        t0 = mark(split)
+        batch = evaluation.batch_to_device(batch, device)
+        pp, rr_buf, navi_pred, post, prior = evaluation.reactive_replay(cfg, model, batch, device=device)
+        rr_flat = rr_buf.flatten_joint_future(1)
+        _, loss_metrics = training_loss(cfg.training_metrics, rr_buf, pp.ag_role, navi_pred, pp.gt_navi, post, prior,
+                                        prefix="reactive_replay")
+        err_sums = error_metric_sums(rr_flat, pp.gt_valid, pp.gt_pose, pp.gt_motion)
+        rr_rule = traffic_rule_sums(rr_flat, pp.ag_type)
+        t0 = mark(split, "reactive_replay", t0)
+
+        pp2, jf_buf = evaluation.joint_future_pred(cfg, model, batch, generator=generator, device=device)
+        t0 = mark(split, "joint_futures", t0)
+        jf_rule = traffic_rule_sums(jf_buf, pp2.ag_type)
+        n_future = cfg.time_step_gt - cfg.time_step_current
+        womd = womd_post_process(cfg.womd_post, pp2.ag_type, jf_buf.pred_pose[:, :, :, cfg.time_step_current:],
+                                 jf_buf.log_prob, track_future_samples=n_future)
+        wosac_trajs = filter_futures(cfg.wosac_post, jf_buf, pp2.ag_role, cfg.time_step_current)
+        out = dict(loss_metrics=loss_metrics, err_sums=err_sums, rr_rule=rr_rule, jf_rule=jf_rule,
+                   womd_trajs=womd["trajs"], womd_scores=womd["scores"], wosac_trajs=wosac_trajs)
+        if pp2.gt_valid is not None and womd["trajs"].shape[3] > 0:
+            # native WOMD motion metrics on the reduced modes, of the joint futures and of reactive replay
+            out["womd_metric_vals"] = native_motion_metrics(
+                womd["trajs"], womd["scores"], gt_pos=pp2.gt_pose[..., :2], gt_yaw=pp2.gt_pose[..., 2],
+                gt_valid=pp2.gt_valid, gt_spd=pp2.gt_motion[..., 0], mask_pred=pp2.ag_role[..., 2],
+                step_current=cfg.time_step_current)
+            womd_rr = womd_post_process(cfg.womd_post, pp.ag_type,
+                                        rr_buf.pred_pose[:, None, :, cfg.time_step_current:], None,
+                                        track_future_samples=n_future)
+            if womd_rr["trajs"].shape[3] > 0:
+                out["womd_rr_metric_vals"] = native_motion_metrics(
+                    womd_rr["trajs"], womd_rr["scores"], gt_pos=pp.gt_pose[..., :2], gt_yaw=pp.gt_pose[..., 2],
+                    gt_valid=pp.gt_valid, gt_spd=pp.gt_motion[..., 0], mask_pred=pp.ag_role[..., 2],
+                    step_current=cfg.time_step_current)
+                out["womd_rr_trajs"] = womd_rr["trajs"]
+                out["womd_rr_scores"] = womd_rr["scores"]
+        t0 = mark(split, "post_and_metrics", t0)
+        if cfg.native_wosac_realism and pp2.gt_valid is not None:
+            out["wosac_realism"] = realism_from_rollout(batch, pp2, jf_buf, cfg.time_step_current)
+            mark(split, "realism", t0)
+        return out
+
+    return step
+
+
+def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] = None,
+             logger: Optional[MetricsLogger] = None, device=None) -> Dict[str, float]:
+    """Validation over val_loader's batches on one device: the per-batch sums and means reduced under the
+    JAX package's metric names (`val/loss`, `wosac/*`, `wosac_likelihood/*`, `joint_future_pred/womd/*`,
+    `reactive_replay/*`, `joint_future_pred/traffic_rule/*`, `val/scenarios_per_sec`). Batch i draws its
+    joint futures from a generator seeded with cfg.seed + i, as the JAX package keys it."""
+    step = make_validate_step(cfg, model, device)
+    logger = logger or MetricsLogger()
+    err_sums, rr_rule, jf_rule, losses, womd_vals = {}, {}, {}, [], []
+    realism_sums: Dict[str, float] = {}
+    realism_n = n = 0
+    t0 = time.time()
+    for i, batch in enumerate(val_loader):
+        if max_batches and i >= max_batches:
+            break
+        out = step(batch, torch.Generator().manual_seed(cfg.seed + i))
+        err_sums = merge_sums(err_sums, out["err_sums"])
+        rr_rule = merge_sums(rr_rule, out["rr_rule"])
+        jf_rule = merge_sums(jf_rule, out["jf_rule"])
+        losses.append({k: float(v) for k, v in out["loss_metrics"].items()})
+        if "womd_metric_vals" in out:
+            womd_vals.append({k: float(v) for k, v in out["womd_metric_vals"].items()})
+        if "womd_rr_metric_vals" in out:
+            losses[-1].update({f"reactive_replay/womd/{k}": float(v) for k, v in out["womd_rr_metric_vals"].items()})
+        if "wosac_realism" in out:
+            for k, v in out["wosac_realism"].items():
+                realism_sums[k] = realism_sums.get(k, 0.0) + float(v.double().sum())
+            realism_n += int(next(iter(out["wosac_realism"].values())).shape[0])
+        n += int(batch["map/valid"].shape[0])
+
+    metrics: Dict[str, float] = {}
+    if realism_n > 0:
+        mean = {k: v / realism_n for k, v in realism_sums.items()}
+        metrics["wosac/realism_meta_metric"] = mean.pop("metametric")
+        for bucket in ("kinematic_metrics", "interactive_metrics", "map_based_metrics"):
+            metrics[f"wosac/{bucket}"] = mean.pop(bucket)
+        metrics["wosac/min_ade"] = mean["min_average_displacement_error"]
+        for k, v in mean.items():
+            metrics[f"wosac_likelihood/{k}"] = v
+    for k in (womd_vals[0] if womd_vals else {}):
+        metrics[f"joint_future_pred/womd/{k}"] = float(np.sum([w[k] for w in womd_vals])) / len(womd_vals)
+    metrics.update(compute_error_metrics(err_sums, "reactive_replay"))
+    metrics.update(compute_traffic_rule_metrics(rr_rule, "reactive_replay"))
+    metrics.update(compute_traffic_rule_metrics(jf_rule, "joint_future_pred"))
+    for k in (losses[0] if losses else {}):
+        metrics[k] = float(np.sum([loss[k] for loss in losses])) / len(losses)
+    metrics["val/loss"] = metrics.get("reactive_replay/loss", 0.0)
+    metrics["val/scenarios_per_sec"] = n / (time.time() - t0)
+    logger.log(0, metrics)
+    return metrics
+
+
+def _decode_sids(id_rows) -> list:
+    """Scenario-id char-code rows (zero-padded) back to strings."""
+    return ["".join(chr(c) for c in row if c > 0) for row in id_rows]
+
+
+def test_submission(cfg: ExperimentCfg, model, test_loader, out_dir: str = ".", n_joint_future: Optional[int] = None,
+                    max_batches: Optional[int] = None, meta=None, device=None):
+    """WOMD and WOSAC submissions of the test split (no ground truth): K joint futures per scenario (K from
+    `cfg.n_joint_future_wosac` unless given; the submission config sets 128), WOMD post-processing to 6
+    modes, the 32 futures with the fewest violations, in the global frame. Batch i draws from a generator
+    seeded with cfg.seed + i. A tail batch smaller than the first is padded with its last scenario and
+    sliced back. Writes the protos and returns the (WOMD, WOSAC) tar paths when waymo_open_dataset is
+    importable, else returns the per-batch arrays."""
+    from trafficbotsv15_tpu_torch.eval.submission import SubmissionMeta, SubWOMD, SubWOSAC
+
+    device = resolve_device(device)
+    k = n_joint_future if n_joint_future is not None else cfg.n_joint_future_wosac
+    meta = meta or SubmissionMeta()
+    try:
+        sub_womd, sub_wosac = SubWOMD(meta), SubWOSAC(meta, out_dir=f"{out_dir}/WOSAC")
+        have_protos = True
+    except ImportError:
+        sub_womd = sub_wosac = None
+        have_protos = False
+
+    results = []
+    n_full = None
+    for i, batch in enumerate(test_loader):
+        if max_batches and i >= max_batches:
+            break
+        b = {kk: np.asarray(v) for kk, v in batch.items() if not isinstance(v, list)}
+        n_real = next(iter(b.values())).shape[0]
+        n_full = n_real if n_full is None else n_full
+        if n_real > n_full:
+            raise ValueError(f"test batch grew from {n_full} to {n_real}")
+        if n_real < n_full:  # pad with the last scenario: a submission must cover every scenario
+            b = {kk: np.concatenate([v, np.repeat(v[-1:], n_full - n_real, axis=0)]) for kk, v in b.items()}
+        pp, buf = evaluation.joint_future_pred(cfg, model, b, generator=torch.Generator().manual_seed(cfg.seed + i),
+                                               n_joint_future=k, device=device)
+        womd = womd_post_process(cfg.womd_post, pp.ag_type, buf.pred_pose[:, :, :, cfg.time_step_current:],
+                                 buf.log_prob, track_future_samples=cfg.time_step_gt - cfg.time_step_current)
+        wosac_trajs = filter_futures(cfg.wosac_post, buf, pp.ag_role, cfg.time_step_current)
+        b = {kk: v[:n_real] for kk, v in b.items()}  # drop the padded duplicates
+        womd = {kk: v[:n_real] for kk, v in womd.items()}
+        wosac_trajs, role = wosac_trajs[:n_real], pp.ag_role[:n_real, :, 2].cpu().numpy()
+        if "scenario_center" in b:
+            wosac_trajs = to_global_frame(wosac_trajs, torch.from_numpy(b["scenario_center"]).to(device),
+                                          torch.from_numpy(b["scenario_yaw"]).to(device))
+        out = {kk: v.float().cpu().numpy() for kk, v in (("womd_trajs", womd["trajs"]), ("womd_scores", womd["scores"]),
+                                                          ("wosac_trajs", wosac_trajs))}  # bf16 scores as float32
+        results.append(out)
+        if have_protos:
+            g = out["womd_trajs"][..., :2]
+            if "scenario_center" in b:
+                cy = b["scenario_yaw"]
+                rot = np.stack([np.stack([np.cos(cy), np.sin(cy)], -1), np.stack([-np.sin(cy), np.cos(cy)], -1)], -2)
+                g = g @ rot[:, None, None] + b["scenario_center"][:, None, None, None]
+            sids = _decode_sids(b["scenario_id"])
+            sub_womd.add(sids, g, out["womd_scores"], b["history/agent/object_id"], role)
+            wd = {"trajs": out["wosac_trajs"], **{kk: b[kk] for kk in WOSAC_HIST_KEYS}}
+            sub_wosac.add(get_scenario_rollouts(cfg.wosac_post, wd, cfg.time_step_current, cfg.time_step_gt, sids))
+    if have_protos:
+        return sub_womd.save(out_dir), sub_wosac.save()
+    return results

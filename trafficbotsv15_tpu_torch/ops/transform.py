@@ -45,3 +45,13 @@ def rad2local(rad: torch.Tensor, local_rad: torch.Tensor, cast: bool = True) -> 
     """Angles [..., M] minus frame yaw [...]; optionally wrapped to [-pi, pi)."""
     out = rad - local_rad[..., None]
     return cast_rad(out) if cast else out
+
+
+def pos2global(pos: torch.Tensor, local_pos: torch.Tensor, local_rot: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pos2local`: points [..., M, 2] of the frame back into the world."""
+    return _rot_apply(pos, local_rot, transpose=True) + local_pos
+
+
+def rad2global(rad: torch.Tensor, local_rad: torch.Tensor) -> torch.Tensor:
+    """Inverse of `rad2local` (always wraps)."""
+    return cast_rad(rad + local_rad[..., None])

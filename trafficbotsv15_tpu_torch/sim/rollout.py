@@ -3,8 +3,11 @@
 The JAX `lax.scan` becomes a loop over a carry; each step's outputs are
 stacked at the end with the step axis at dim 2, as in the JAX buffer. Two
 flavours, both with TL from the pre-pass:
-  - `rollout`, evaluation (joint-future prediction): no gradients,
-    deterministic actions, rule checks at the caller's level;
+  - `rollout`, evaluation (joint-future prediction, reactive replay): no
+    gradients, deterministic actions, rule checks at the caller's level,
+    `diffbar_reward` in the buffer where the caller asks for it (reactive
+    replay's validation loss reads it; joint-future prediction leaves it
+    None and runs no reward ops);
   - `rollout_train`, training: gradients through the dynamics chain (the
     history window the encoders read is detached under
     `training_detach_model_input`), rule checks at level 0 on detached
@@ -52,7 +55,7 @@ class RolloutBuffer:
     navi_log_prob: torch.Tensor  # [n_sc, n_ag, 1]
     navi_log_prob_valid: torch.Tensor  # [n_sc, n_ag, 1]
     log_prob: Optional[torch.Tensor] = None  # [n_sc, n_ag] joint-future scores
-    diffbar_reward: Optional[Dict[str, torch.Tensor]] = None  # training: each [n_sc, n_ag, n_step]
+    diffbar_reward: Optional[Dict[str, torch.Tensor]] = None  # training, reactive replay: each [n_sc, n_ag, n_step]
 
     def flatten_joint_future(self, k: int) -> "RolloutBuffer":
         """[n_sc * k, ...] -> [n_sc, k, ...] on every tensor."""
@@ -81,12 +84,13 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
             ag_attr, ag_type, ag_size, ag_latent, ag_latent_valid, ag_navi, ag_navi_valid, ag_navi_log_prob,
             gt_valid, gt_pose, gt_motion, gt_tl_state, ag_forcing,
             rule_statics: RuleCheckerStatics, rule_state0: RuleCheckerState, check_level: int,
-            tl_precomputed: Dict[str, torch.Tensor], tf_cfg=None) -> RolloutBuffer:
+            tl_precomputed: Dict[str, torch.Tensor], tf_cfg=None, with_reward: bool = False) -> RolloutBuffer:
     """Run the closed-loop simulation from step 1 to cfg.time_step_end inclusive.
 
     gt_* cover the first T steps ([n_sc, n_ag, T]); ag_forcing is the
     precomputed teacher-forcing mask over them. tl_precomputed holds the
     pre-pass outputs over the un-replicated scenarios (n_sc_u divides n_sc).
+    with_reward fills `diffbar_reward` (the JAX eval rollout always does).
     """
     tf_cfg = cfg.teacher_forcing_training if tf_cfg is None else tf_cfg
     check_error_reset(tf_cfg)
@@ -112,7 +116,7 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     navi_mode = cfg.model.navi_mode
 
     outs = {k: [] for k in ("pred_valid", "pred_pose", "pred_motion", "pred_action", "action_log_prob",
-                            "mask_teacher_forcing", "violation")}
+                            "mask_teacher_forcing", "violation", "diffbar_reward")}
     for i in range(n_step_roll):
         hist_valid = torch.cat([hist_valid[:, :, 1:], valid[:, :, None]], 2)
         hist_pose = torch.cat([hist_pose[:, :, 1:], pose[:, :, None]], 2)
@@ -138,6 +142,9 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
         rule_state, violations = check_rules(rule_statics, rule_state, pred_valid, pred_pose, pred_motion,
                                              tl_state, check_level)
         step_gt_valid = gt_valid_s[:, :, i] & (i + 1 < t_gt)
+        if with_reward:
+            outs["diffbar_reward"].append(diffbar_reward(cfg.reward, pred_valid, pred_pose, pred_motion, step_gt_valid,
+                                                         tf_pose[:, :, i], tf_motion[:, :, i], ag_size))
         valid, disabled = dyn.disable_outside_map(ov_valid, disabled, violations["outside_map_this_step"],
                                                   step_gt_valid)
         pose, motion = ov_pose, ov_motion
@@ -155,13 +162,20 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
             outs[key].append(val)
 
     buf = _tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll)
+    reward = outs.pop("diffbar_reward")
     return RolloutBuffer(**{k: _stack(outs[k]) for k in outs if k != "violation"}, **buf,
-                         violation={k: _stack([v[k] for v in outs["violation"]]) for k in outs["violation"][0]},
+                         violation=_stack_dicts(outs["violation"]),
+                         diffbar_reward=_stack_dicts(reward) if reward else None,
                          navi_log_prob=ag_navi_log_prob[..., None], navi_log_prob_valid=ag_navi_valid[..., None])
 
 
 def _stack(seq):
     return torch.stack(seq, 2)
+
+
+def _stack_dicts(seq):
+    """Per-step dicts of tensors -> one dict of tensors stacked at dim 2."""
+    return {k: _stack([d[k] for d in seq]) for k in seq[0]}
 
 
 def _check_rollout_cfg(cfg: ExperimentCfg, tl_precomputed, n_sc: int, n_step_roll: int) -> int:
@@ -281,12 +295,10 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
     def stacked(key):
         return _stack([o[key] for o in outs])
 
-    def stacked_dict(key):
-        return {k: _stack([o[key][k] for o in outs]) for k in outs[0][key]}
-
     buf = _tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll)
     return RolloutBuffer(
         **{k: stacked(k) for k in ("pred_valid", "pred_pose", "pred_motion", "pred_action", "action_log_prob",
                                    "mask_teacher_forcing")},
-        **buf, violation=stacked_dict("violation"), diffbar_reward=stacked_dict("diffbar_reward"),
+        **buf, violation=_stack_dicts([o["violation"] for o in outs]),
+        diffbar_reward=_stack_dicts([o["diffbar_reward"] for o in outs]),
         navi_log_prob=ag_navi_log_prob[..., None], navi_log_prob_valid=ag_navi_valid[..., None])

@@ -94,6 +94,18 @@ def _compact_segments(valid: torch.Tensor, budget: int, *arrays):
     return (torch.gather(valid, 1, order), *outs)
 
 
+def build_road_edges(mp_valid, mp_type, mp_pos, mp_dir, segment_budget: int = 6144):
+    """Road-edge segments [n_sc, n_seg, 2, 2] and their validity [n_sc, n_seg]: each node of a polyline of
+    type 4, 5 or 7 (road edge boundary / median) with its direction vector, valid ones first. The rule
+    checker and the native WOSAC realism features share it."""
+    n_sc, n_seg = mp_valid.shape[0], mp_valid.shape[1] * mp_valid.shape[2]
+    pos, vec = mp_pos[..., :2], mp_dir[..., :2]
+    road_edge_valid = (mp_valid & mp_type[:, :, [4, 5, 7]].any(-1, keepdim=True)).reshape(n_sc, n_seg)
+    road_edge_valid, road_edge = _compact_segments(
+        road_edge_valid, segment_budget, torch.stack([pos, pos + vec], -2).reshape(n_sc, n_seg, 2, 2))
+    return road_edge, road_edge_valid
+
+
 def init_rule_checker(mp_boundary, mp_valid, mp_type, mp_pos, mp_dir, ag_type, ag_size, tl_valid, tl_pose,
                       ag_goal=None, ag_dest=None, segment_budget: int = 6144) -> Tuple[RuleCheckerStatics, RuleCheckerState]:
     """Statics of one rollout + zeroed accumulators."""
@@ -102,13 +114,10 @@ def init_rule_checker(mp_boundary, mp_valid, mp_type, mp_pos, mp_dir, ag_type, a
     zeros = torch.zeros((n_sc, n_ag), dtype=torch.bool, device=dev)
     ped = ag_type[:, :, 1]
     collision_invalid = torch.eye(n_ag, dtype=torch.bool, device=dev)[None] | (ped[:, None, :] & ped[:, :, None])
-    # road edges: the nodes of polylines of type 4, 5 or 7 (road edge boundary / median) with their
-    # direction vectors; lane centres: the nodes of types 0-2
+    # lane centres: the nodes of polylines of types 0-2
     n_seg = mp_valid.shape[1] * mp_valid.shape[2]
-    pos, vec = mp_pos[..., :2], mp_dir[..., :2]
-    road_edge_valid = (mp_valid & mp_type[:, :, [4, 5, 7]].any(-1, keepdim=True)).reshape(n_sc, n_seg)
-    road_edge_valid, road_edge = _compact_segments(
-        road_edge_valid, segment_budget, torch.stack([pos, pos + vec], -2).reshape(n_sc, n_seg, 2, 2))
+    pos = mp_pos[..., :2]
+    road_edge, road_edge_valid = build_road_edges(mp_valid, mp_type, mp_pos, mp_dir, segment_budget)
     lane_center_valid = (mp_valid & mp_type[:, :, :3].any(-1, keepdim=True)).reshape(n_sc, n_seg)
     lane_center_valid, lane_center = _compact_segments(lane_center_valid, segment_budget, pos.reshape(n_sc, n_seg, 2))
     dest = dict(dest_invalid=None, dest_type=None, dest_pos=None, dest_dir=None, dest_thresh_pos=None)

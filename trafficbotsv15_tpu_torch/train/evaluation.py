@@ -1,10 +1,15 @@
-"""WOSAC joint-future prediction (counterpart of `trafficbotsv15_tpu/train/evaluation.py::joint_future_pred`).
+"""The evaluation rollouts (counterpart of `trafficbotsv15_tpu/train/evaluation.py`).
 
-The main path: L2 pre-processing, scene encoding (map encoder, TL
-precompute), the prior latent, the navi predictor, the TL-only pre-pass,
-replication of everything K times along the scenario axis, and the
-closed-loop rollout. Latent and navi draws come from an explicit
-`torch.Generator`. Reactive replay comes with the next slice.
+`joint_future_pred`, the WOSAC joint futures: L2 pre-processing, scene
+encoding (map encoder, TL precompute), the prior latent, the navi
+predictor, the TL-only pre-pass, replication of everything K times along
+the scenario axis, and the closed-loop rollout. Latent and navi draws come
+from an explicit `torch.Generator`.
+
+`reactive_replay`, the validation's reconstruction rollout: the posterior
+latent's mean, the ground-truth destination, every agent spawned from the
+log (`teacher_forcing_reactive_replay`), TL forced to the log, deterministic
+actions; it draws nothing.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[
             for k, v in batch.items()}
 
 
-def _check_model(model: TrafficBots, device: torch.device) -> None:
+def check_model(model: TrafficBots, device: torch.device) -> None:
     model_dev = next(model.parameters()).device
     if model_dev.type != device.type:
         raise ValueError(f"model is on {model_dev}, the run on {device}: build the model on the same device")
@@ -59,6 +64,49 @@ def encode_scene(cfg: ExperimentCfg, model: TrafficBots, pp: PreProcessedBatch):
     mp_tokens = model.encode_map(pp.mp_valid, pp.mp_attr, pp.mp_pose, pp.mp_type)
     tl_tokens = model.precompute_tl(pp.tl_valid, pp.tl_attr, pp.tl_pose, mp_tokens)
     return mp_tokens, tl_tokens
+
+
+@torch.no_grad()
+def reactive_replay(cfg: ExperimentCfg, model: TrafficBots, batch, check_level: int = 1, device=None):
+    """Posterior-latent, ground-truth-destination reconstruction rollout over the logged scenarios.
+
+    batch: h5-schema dict of numpy arrays or tensors, with the ground truth. Runs on `device` (CUDA
+    unless device="cpu"), where the model must already be. Returns (pp, buffer [n_sc, n_ag, ...] with
+    `diffbar_reward`, navi_pred, latent_post, latent_prior)."""
+    device = resolve_device(device)
+    check_model(model, device)
+    batch = batch_to_device(batch, device)
+    if not cfg.tl_prepass or cfg.model.temp_window_size <= 0:
+        raise NotImplementedError("the in-rollout TL path is out of this slice (tl_prepass=True, HPTR mode)")
+    pp = pre_processing(batch, tl_mode=cfg.model.tl_mode, navi_mode=cfg.model.navi_mode,
+                        n_step_hist=cfg.n_step_hist, training=True)
+    mp_tokens, tl_tokens = encode_scene(cfg, model, pp)
+    gt_tl_state = pp.gt_tl_state.float()
+    latent_post = model.encode_latent(pp.gt_valid, pp.ag_attr, pp.gt_motion, pp.gt_pose, pp.ag_type, gt_tl_state,
+                                      mp_tokens, tl_tokens, posterior=True)
+    latent_prior = model.encode_latent(pp.ag_valid, pp.ag_attr, pp.ag_motion, pp.ag_pose, pp.ag_type,
+                                       pp.tl_state.float(), mp_tokens, tl_tokens, posterior=False)
+    ag_latent = None if latent_post is None else latent_post.sample(None, True)
+    navi_pred = model.predict_navi(pp.ag_valid, pp.ag_attr, pp.ag_motion, pp.ag_pose, pp.ag_type, mp_tokens)
+    statics, state0 = init_rule_checker(
+        mp_boundary=batch["map/boundary"], mp_valid=batch["map/valid"], mp_type=batch["map/type"].bool(),
+        mp_pos=batch["map/pos"], mp_dir=batch["map/dir"], ag_type=pp.ag_type, ag_size=pp.ag_size,
+        tl_valid=tl_tokens.valid, tl_pose=tl_tokens.pose, ag_goal=batch.get("agent/goal"),
+        ag_dest=batch.get("agent/dest"))
+    tl_forcing0 = torch.ones(gt_tl_state.shape[:3], dtype=torch.bool, device=device)
+    ag_forcing, tl_forcing = build_forcing_masks(cfg.teacher_forcing_reactive_replay, pp.gt_valid, tl_forcing0)
+    if not (gt_tl_state.shape[2] >= cfg.time_step_end + 1 and tl_prepass.fully_forced(tl_forcing, tl_forcing0)):
+        raise NotImplementedError("reactive replay needs TL forced over the whole horizon (the in-rollout TL path)")
+    tl_pre = tl_prepass.tl_rollout_forced(model, tl_tokens, gt_tl_state, cfg.time_step_end,
+                                          cfg.model.temp_window_size)
+    buffer = rollout_lib.rollout(
+        model, cfg, mp_tokens, tl_tokens, ag_attr=pp.ag_attr, ag_type=pp.ag_type, ag_size=pp.ag_size,
+        ag_latent=ag_latent, ag_latent_valid=None if latent_post is None else latent_post.valid,
+        ag_navi=pp.gt_navi, ag_navi_valid=pp.gt_valid.any(-1), ag_navi_log_prob=torch.zeros_like(pp.ag_attr[:, :, 0]),
+        gt_valid=pp.gt_valid, gt_pose=pp.gt_pose, gt_motion=pp.gt_motion, gt_tl_state=gt_tl_state,
+        ag_forcing=ag_forcing, rule_statics=statics, rule_state0=state0, check_level=check_level,
+        tl_precomputed=tl_pre, tf_cfg=cfg.teacher_forcing_reactive_replay, with_reward=True)
+    return pp, buffer, navi_pred, latent_post, latent_prior
 
 
 @torch.no_grad()
@@ -152,7 +200,7 @@ def joint_future_pred(cfg: ExperimentCfg, model: TrafficBots, batch, *, generato
     Returns (pp, buffer) with every buffer tensor shaped [n_sc, K, ...].
     """
     device = resolve_device(device)
-    _check_model(model, device)
+    check_model(model, device)
     k = cfg.n_joint_future_wosac if n_joint_future is None else n_joint_future
     batch = batch_to_device(batch, device)
     scene = prepare_joint_future(cfg, model, batch)

@@ -1,6 +1,7 @@
 """Where the time of the full-width joint-future call, or of a training step, goes, on one GPU.
 
     python -m trafficbotsv15_tpu_torch.utils.profile_slice [--use-pallas] [--out DIR] [--ab ROUNDS] [--train]
+                                                          [--validate]
 
 Runs `joint_future_pred` on `leaderboard_config()` (bf16 compute, seeded
 random weights, 4 synthetic scenarios x K=32 futures, check_level=1; with
@@ -23,6 +24,11 @@ package's `bench.py` trains, one warm-up step, then the seconds of 3 steps
 and of 3 forwards alone (training_forward without backward and update),
 train samples/s (8 / seconds per step), peak memory, and one traced step:
 device busy and idle share and the top device ops.
+With `--validate` it profiles the validation step (`eval/runner.py::make_validate_step`) instead:
+`leaderboard_config()`, 4 synthetic scenarios, K=32, check_level=1, native realism; one warm-up step, the
+seconds of 3 steps (wosac_validate_scenarios_per_sec_per_chip = 4 / seconds per step), peak memory, the
+median of 3 steps split by part (reactive replay, joint futures, post-processing and metrics, realism;
+synchronised at the part boundaries), and one traced step: device busy and idle share and the top device ops.
 Needs a CUDA device; prints the card's name and power limit with the numbers.
 """
 
@@ -127,12 +133,43 @@ def profile_train(card: str, use_pallas: bool, out) -> None:
            f"train_step_{'use_pallas' if use_pallas else 'plain'}")
 
 
+def profile_validate(card: str, use_pallas: bool, out) -> None:
+    """The validation step at full width: seconds per step, scenarios/s, peak memory, the split by part, one
+    traced step."""
+    from trafficbotsv15_tpu_torch.eval.runner import SPLIT_PARTS, make_validate_step
+
+    cfg = with_pallas(leaderboard_config(), use_pallas)
+    n_sc = 4
+    model = build_model(cfg, seed=0, device="cuda")
+    step = make_validate_step(cfg, model)
+    batch = ev.batch_to_device(make_batch(cfg.data, n_sc=n_sc, seed=0), torch.device("cuda"))
+    gen = torch.Generator().manual_seed(0)
+    _timed(lambda: step(batch, gen))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _, t_step = _timed(lambda: step(batch, gen), 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    splits = []
+    for _ in range(3):
+        split = {}
+        step(batch, gen, split=split)
+        splits.append(split)
+    parts = {p: sorted(s[p] for s in splits)[1] for p in SPLIT_PARTS}
+    print(f"card: {card}; validation step, use_pallas={use_pallas}, {n_sc} scenarios x K={cfg.n_joint_future_wosac}, "
+          f"check_level=1, native realism")
+    print(f"median of 3: step {t_step:.4f} s ({n_sc / t_step:.4f} wosac_validate_scenarios_per_sec_per_chip), peak "
+          f"memory {peak:.2f} GiB | split, medians of 3 synchronised steps: "
+          + " | ".join(f"{p} {t:.4f} s" for p, t in parts.items()))
+    _trace(lambda: step(batch, gen), 2 * cfg.time_step_end, t_step, out,
+           f"validate_step_{'use_pallas' if use_pallas else 'plain'}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path, default=None, help="directory for the Chrome trace")
     ap.add_argument("--use-pallas", action="store_true", help="run the KNARPE attention kernels (B4, B2)")
     ap.add_argument("--ab", type=int, default=0, metavar="ROUNDS", help="time the three arms in turns instead")
     ap.add_argument("--train", action="store_true", help="profile the training step instead")
+    ap.add_argument("--validate", action="store_true", help="profile the validation step instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -141,6 +178,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
         return profile_train(card, args.use_pallas, args.out)
+    if args.validate:
+        return profile_validate(card, args.use_pallas, args.out)
     if args.ab:
         return compare_arms(card, args.ab)
     return profile_call(card, args.use_pallas, args.out)
