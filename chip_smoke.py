@@ -11,17 +11,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and at edge cases; times kernel, plain version and
      the nearest PyTorch call or composition of calls (`library_ms`):
-     B1 (`knn_xy`; also at the training path's [8, 64, 1024], all distances
-     tied, k=1, k = n_tgt, n_tgt 1000 and 2048, every source invalid; timed
-     at the eval and training shapes), B4 (`knarpe_attention`; in bf16 on
+     B1 (`knn_xy`; also at the training path's [8, 64, 1024], the training
+     entry point's [2, 64, 1024] and its validation's [4, 64, 1024], all
+     distances tied, k=1, k = n_tgt, n_tgt 1000 and 2048, every
+     source invalid; timed at the eval and training shapes), B4 (`knarpe_attention`; in bf16 on
      the staged kernel of csrc/knarpe_attn_staged.cuh, the route asserted,
-     at both paths' shapes, K=5, K=24, 1, 97 and 8 x 1024 + 7 sources and
-     the edge shapes, an eight-head shape on the general route; timed at
-     both paths' shapes), B2
+     at both paths' shapes and the entry point's 2 x 1024, K=5, K=24, 1, 97
+     and 8 x 1024 + 7 sources and the edge shapes, an eight-head shape on the
+     general route; timed at both paths' shapes), B2
      (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`, which
      only this phase launches); B2 and B3 also at the training path's shapes
      (the agent decoder and posterior agent encoder, the posterior TL encoder
-     at K=24) and timed at the first of them; in bf16 these run on the staged
+     at K=24), at the entry point's batch of 2 and its validation's of 4, and
+     timed at the first of them; in bf16 these run on the staged
      kernel of csrc/knarpe_staged.cuh (the route asserted); the shapes it
      refuses, the scaled preset's D=R=256 with 8 heads and K=90 and K=128 at
      D=R=128, run on the general route (csrc/knarpe.cu, asserted), timed at
@@ -32,7 +34,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      same bits on a second launch; bf16 B2-bwd and B3's backward run on the
      staged kernel of csrc/knarpe_bwd_staged.cuh (the route asserted) at both
      training shapes, K=5 at 21 sources and 200 sources, the eight-head edge
-     shape on the general route (csrc/knarpe_bwd.cu); bf16 B4-bwd on the
+     shape on the general route (csrc/knarpe_bwd.cu), and the entry point's
+     batch-2 shapes; bf16 B4-bwd on the
      staged kernel of csrc/knarpe_attn_bwd_staged.cuh at B4's shapes above,
      the eight-head shape on the general route; timed (eager, and device
      time from a CUDA graph) against the plain backward and the library
@@ -82,11 +85,29 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. submission: `test_submission` at `leaderboard_config()` for one test-split
      scenario with K=128 futures: WOMD and WOSAC arrays of the submission's
      shapes, finite, in the global frame; the card's 32 futures equal the CPU's
-     filter on the same buffer; the call timed.
+     filter on the same buffer; the call timed;
+ 11. the training entry point (`trafficbotsv15_tpu_torch/run.py`), in a
+     temporary directory: (a) `run.fit` for 4 calls (accumulate_grad_batches=2,
+     EMA 0.5, SWA from step 0) on the card and on the CPU from the same damped
+     seed-0 weights and tbcache file: the first update's gradients agree, and
+     each device's parameters, EMA and SWA agree with a CPU replay of its own
+     updates; (b) `run.main(["action=fit", ...])` on `leaderboard_config()` with
+     use_pallas=True from a tbcache of 8 training and 4 validation scenarios at
+     batch 2: 3 steps, launches per step asserted (all staged, every launch at
+     a full shape phase 3 checked), loss and grad_norm finite, "last" and "best"
+     written, the restored parameters equal the live ones; then `resume=true`
+     to step 4 from exactly the saved state and the next batch; (c) a
+     `python -m trafficbotsv15_tpu_torch.run action=fit` subprocess at the
+     phase-4 config gets SIGTERM after its first step: exit 143, and a resume
+     adds one step; (d) `action=validate` from "last" gives the fit's own
+     val/loss, `action=test` from "best" writes the K=128 arrays; (e) seconds
+     per fit step, samples/s, peak memory, save and write seconds, checkpoint
+     bytes, resume seconds.
 Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
 `validate_launches`, from phase 9; training-shape and backward ones from phase
-8, B4's and the backwards' by route), the card line, and last
-`{"ok": true, "device": {...}}`. Imports nothing of JAX.
+8, B4's and the backwards' by route; `fit_launches` per full-width fit step
+from phase 11), the card line, and last `{"ok": true, "device": {...}}`.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -100,11 +121,14 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from trafficbotsv15_tpu_torch import run as run_lib
 from trafficbotsv15_tpu_torch.config import leaderboard_config, tiny_config, with_pallas
+from trafficbotsv15_tpu_torch.data import tbcache
 from trafficbotsv15_tpu_torch.data.preprocessing import pre_processing
 from trafficbotsv15_tpu_torch.data.synthetic import make_batch
 from trafficbotsv15_tpu_torch.eval import runner as eval_runner
@@ -112,8 +136,10 @@ from trafficbotsv15_tpu_torch.eval import wosac_likelihood
 from trafficbotsv15_tpu_torch.eval.wosac_post_processing import filter_futures
 from trafficbotsv15_tpu_torch.ops import knarpe, knn
 from trafficbotsv15_tpu_torch.sim import rollout as rollout_lib
+from trafficbotsv15_tpu_torch.train import checkpoint as checkpoint_lib
 from trafficbotsv15_tpu_torch.train import evaluation as eval_lib
 from trafficbotsv15_tpu_torch.train import pipeline as train_lib
+from trafficbotsv15_tpu_torch.train import swa as swa_lib
 from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model
@@ -136,6 +162,14 @@ TRAIN_ATTN_PATH = (8, 1024, 32, 128, 128, 4)
 # the training path's posterior encoders: the agent encoder's B2 at TRAIN_X_PATH, the TL encoder's
 # at 8 x 128 TL lanes over K=24 map targets (0.75 x 32)
 POST_TL_X_PATH = (8, 128, 24, 128, 128, 4)
+# and the training entry point's (phase 11: `run.fit` at the flagship's batch_size_train=2): the agent decoder's
+# B2 and its backward at 2 x 64, the posterior TL encoder's at 2 x 128 over K=24, the map encoder's B4 and its
+# backward at 2 x 1024; B1 at [2, 64, 1024]; and its validation's (4 scenarios, as phase 9's): reactive replay's
+# B2 at 4 x 64 and its posterior TL encoder's at 4 x 128, B1 at [4, 64, 1024]
+FIT_X = [(2, 64, 89, 128, 128, 4), (2, 128, 24, 128, 128, 4)]
+VAL_X = [(4, 64, 89, 128, 128, 4), (4, 128, 24, 128, 128, 4)]
+FIT_ATTN_PATH = (2, 1024, 32, 128, 128, 4)
+FIT_KNN = [(2, 64, 1024, 64), (4, 64, 1024, 64)]
 # edge cases: an all-invalid and a one-target source in each; source counts that are
 # no multiple of any tile; odd K; one and eight heads
 X_EDGE = [(3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
@@ -145,13 +179,13 @@ ATTN_EDGE = [(3, 7, 5, 16, 16, 2), (2, 17, 89, 64, 32, 1)]
 # 97 sources (under the 132-block grid, no multiple of the four groups or the ring), a single source and
 # 8 x 1024 + 7 sources; and an eight-head shape the staged kernels refuse, on the general route
 ATTN_STAGED_EDGE = [(1, 97, 5, 128, 128, 4), (1, 97, 24, 64, 64, 2), (1, 1, 32, 128, 128, 4),
-                    (1, 8199, 32, 128, 128, 4)]
+                    (1, 8199, 32, 128, 128, 4), FIT_ATTN_PATH]
 ATTN_GENERAL = [(1, 33, 89, 32, 16, 8)]
 # bf16 B2 backward shapes phase 3 holds on the staged route (csrc/knarpe_bwd_staged.cuh) besides the
 # training path's: K not a multiple of 16 with an all-invalid source at 21 sources (under the 132-block
 # grid), and 200 sources (no multiple of the grid); and the eight-head edge shape the staged backward
 # refuses, which takes the general route (csrc/knarpe_bwd.cu)
-X_BWD_EDGE = [(3, 7, 5, 16, 16, 2), (2, 100, 40, 128, 128, 4)]
+X_BWD_EDGE = [(3, 7, 5, 16, 16, 2), (2, 100, 40, 128, 128, 4), *FIT_X]
 X_BWD_GENERAL = [X_EDGE[1]]
 # kernel vs plain version: float32 differs by summation order only (the kernel
 # reassociates the projections with the attention, csrc/knarpe.cu); bf16 rounds
@@ -226,23 +260,28 @@ def time_knn(args, k: int) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
+# B1 cases phase 3 checks, name: (rows, sources, targets, k, knn_case options)
+KNN_CASES = {
+    "main_path_float": (KNN_ROWS, KNN_SRC, KNN_TGT, KNN_K, {}),
+    "integer_grid_ties": (KNN_ROWS, KNN_SRC, KNN_TGT, KNN_K, dict(grid=True)),
+    "invalid_rows_and_targets": (8, 64, 1024, KNN_K, dict(grid=True, p_src=0.3, p_tgt=0.97)),
+    "k_equals_n_tgt": (2, 8, 128, 128, {}),
+    "training_shape": (KNN_TRAIN_ROWS, KNN_SRC, KNN_TGT, KNN_K, {}),
+    "all_targets_at_one_point": (4, 64, 1024, KNN_K, dict(p_tgt=0.0)),
+    "k_1": (16, 64, 1024, 1, dict(grid=True)),
+    "k_equals_n_tgt_1024": (4, 16, 1024, 1024, dict(grid=True)),
+    "n_tgt_1000": (8, 64, 1000, KNN_K, {}),
+    "n_tgt_2048": (4, 64, 2048, KNN_K, dict(grid=True)),
+    "every_source_invalid": (4, 64, 1024, KNN_K, dict(p_src=1.0)),
+    **{f"entry_{rows}x{src}_k{k}": (rows, src, tgt, k, {}) for rows, src, tgt, k in FIT_KNN},
+}
+
+
 def check_knn_kernel() -> dict:
     """Kernel B1 vs its plain version: identical indices, bit-equal distances; timed at the eval and
     the training path's shapes."""
     gen = torch.Generator().manual_seed(0)
-    cases = {
-        "main_path_float": (knn_case(gen, KNN_ROWS, KNN_SRC, KNN_TGT), KNN_K),
-        "integer_grid_ties": (knn_case(gen, KNN_ROWS, KNN_SRC, KNN_TGT, grid=True), KNN_K),
-        "invalid_rows_and_targets": (knn_case(gen, 8, 64, 1024, grid=True, p_src=0.3, p_tgt=0.97), KNN_K),
-        "k_equals_n_tgt": (knn_case(gen, 2, 8, 128), 128),
-        "training_shape": (knn_case(gen, KNN_TRAIN_ROWS, KNN_SRC, KNN_TGT), KNN_K),
-        "all_targets_at_one_point": (knn_case(gen, 4, 64, 1024, p_tgt=0.0), KNN_K),
-        "k_1": (knn_case(gen, 16, 64, 1024, grid=True), 1),
-        "k_equals_n_tgt_1024": (knn_case(gen, 4, 16, 1024, grid=True), 1024),
-        "n_tgt_1000": (knn_case(gen, 8, 64, 1000), KNN_K),
-        "n_tgt_2048": (knn_case(gen, 4, 64, 2048, grid=True), KNN_K),
-        "every_source_invalid": (knn_case(gen, 4, 64, 1024, p_src=1.0), KNN_K),
-    }
+    cases = {name: (knn_case(gen, rows, src, tgt, **kw), k) for name, (rows, src, tgt, k, kw) in KNN_CASES.items()}
     src_inv, tgt_inv = cases["invalid_rows_and_targets"][0][1::2]
     tgt_inv[0] = True  # a row with no valid target: every source emits its +inf tail
     src_inv[1, 5] = True  # an invalid source in another row
@@ -399,7 +438,7 @@ def time_knarpe(name: str, shape) -> dict:
 
 # bf16 B2/B3 shapes that phase 3 holds against the plain versions on the staged route; phases 6 and 8
 # check that the paths launch no other
-CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE)}
+CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT_X, *VAL_X)}
 # bf16 B2/B3 shapes the staged kernel refuses, which take the general route: the scaled preset's
 # widths (D=R=256, 8 heads) and K=90 and K=128 at the flagship's D=R=128, H=4; timed at the scaled
 # preset's eval shape (4 scenarios x 32 futures x 64 agents, K=89)
@@ -415,9 +454,9 @@ def check_knarpe_kernels() -> list:
     for name, path, edges, replaces, source in (
             ("knarpe_attention", ATTN_PATH, ATTN_EDGE + [TRAIN_ATTN_PATH, *ATTN_STAGED_EDGE],
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:243", "trafficbotsv15_tpu_torch/csrc/knarpe_attn_staged.cuh"),
-            ("knarpe_cross_attention", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH],
+            ("knarpe_cross_attention", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH, *FIT_X, *VAL_X],
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:443", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh"),
-            ("knarpe_cross_attention_v3", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH],
+            ("knarpe_cross_attention_v3", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH, *FIT_X, *VAL_X],
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:742", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh")):
         max_err = check_one_knarpe(name, path, seed=1)
         for i, shape in enumerate(edges):
@@ -1156,6 +1195,455 @@ def run_submission(card: str) -> None:
         f"filter_futures on the card keeps the CPU's 32 futures [{card}]")
 
 
+# phase 11, the training entry point, card vs CPU after two accumulated updates (float32): the first
+# update's gradient (the mean of two calls' at the same parameters) to phase 7's tolerance (TRAIN_GRAD_REL
+# of its scale); and the parameters, EMA and SWA elementwise to FIT_REL relative + FIT_ATOL absolute
+# against a CPU replay of the same updates from each device's own gradients. Adam turns every gradient
+# into a step of about lr whatever its size, so an element whose gradient lies within the gradient
+# tolerance of 0 steps by +lr on one device and -lr on the other (89-96 of 758,474 values did in chip
+# runs); from then on the two runs' parameters differ, so the second update's gradients are only logged,
+# and the replay holds the card's optimizer, EMA and SWA to tight tolerances without that amplification. `action=validate` from the checkpoint against the fit's own
+# validation of the same parameters, val/loss to VAL_LOSS_REL relative
+FIT_REL, FIT_ATOL, VAL_LOSS_REL = 1e-4, 1e-6, 1e-4
+
+
+def phase4_config():
+    return tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=31, hidden_dim=64)
+
+
+def config_overrides(base, cfg) -> list:
+    """The run.py key=value arguments that turn config `base` into `cfg` (dotted keys, JSON values)."""
+    out = []
+
+    def walk(a, b, prefix):
+        for key, val in b.items():
+            if isinstance(val, dict):
+                walk(a[key], val, f"{prefix}{key}.")
+            elif a[key] != val:
+                out.append(f"{prefix}{key}={json.dumps(val)}")
+
+    walk(run_lib.config_to_dict(base), run_lib.config_to_dict(cfg), "")
+    return out
+
+
+def write_tbcache_split(path, cfg, n_sc: int, seed: int, test_mode: bool = False) -> None:
+    """n_sc synthetic scenarios (`make_batch`) as a tbcache file, one episode each."""
+    batch = make_batch(cfg.data, n_sc=n_sc, seed=seed, test_mode=test_mode)
+    tbcache.write_cache(str(path), ({k: v[i] for k, v in batch.items()} for i in range(n_sc)))
+
+
+def seed_checkpoint(cfg, ckpt_dir, steps_per_epoch: int) -> None:
+    """A "last" checkpoint at step 0 holding the seed-0 weights damped to gain 0.5 (`damp_weights`) and a
+    fresh optimizer and schedule: a fit with resume=true starts from it, on the card as on the CPU."""
+    model = build_model(cfg, seed=0, device="cpu")
+    damp_weights(model, 0.5)
+    opt, schedule = make_optimizer(cfg.optimizer, model, steps_per_epoch=steps_per_epoch)
+    ckpt = checkpoint_lib.CheckpointManager(str(ckpt_dir))
+    ckpt.save_last({"model": model.state_dict(), "optimizer": opt.state_dict(), "schedule": schedule.state_dict()},
+                   cfg, {"step": 0, "epoch": 0})
+    ckpt.wait()
+
+
+@contextlib.contextmanager
+def recorded_fit(with_grads: bool = False):
+    """What the fits inside the block do: per train-step call its seconds (synchronised), launches, launches by
+    route, metrics and batch (with_grads: on an update, the gradients it applied, on the CPU); the full shape of every B1, B4 and B2 launch, forward and backward; the seconds of
+    each save_last until it returns and of each background write; restore_resume's seconds; each validation's
+    metrics; and the model and optimizer state each fit's first step starts from."""
+    rec = {"steps": [], "shapes": collections.Counter(), "save_return": [], "write": [], "restore": [],
+           "validate": [], "start_state": []}
+    real = dict(make=run_lib.make_train_step, fwd=knarpe._launch, bwd=knarpe._launch_bwd, knn=knn.load_library(),
+                save_last=checkpoint_lib.CheckpointManager.save_last, write=checkpoint_lib._Write._run,
+                restore=checkpoint_lib.CheckpointManager.restore_resume, validate=eval_runner.validate)
+
+    def make(cfg, model, opt, *args, **kwargs):
+        step, calls = real["make"](cfg, model, opt, *args, **kwargs), []
+
+        def timed(batch, *a, **kw):
+            if not calls:  # the state the first step starts from, after a resume's restore
+                rec["start_state"].append((checkpoint_lib.to_host(model.state_dict()),
+                                           checkpoint_lib.to_host(opt.state_dict())))
+            calls.append(1)
+            before, routes = launches(), dict(knarpe.ROUTE_LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(batch, *a, **kw)
+            torch.cuda.synchronize()
+            rec["steps"].append(dict(sec=time.perf_counter() - t0, batch=batch,
+                                     launches={k: v - before[k] for k, v in launches().items()},
+                                     routes={k: v - routes[k] for k, v in knarpe.ROUTE_LAUNCHES.items()},
+                                     metrics={k: float(v) for k, v in metrics.items()}))
+            if with_grads and "grad_norm" in metrics:
+                rec["steps"][-1]["grads"] = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+            return metrics
+
+        timed.accumulator = step.accumulator
+        return timed
+
+    def fwd(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head):
+        rec["shapes"][(kernel, str(q.dtype), *q.shape[:2], rpe.shape[2], q.shape[2], rpe.shape[3], n_head)] += 1
+        return real["fwd"](kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
+
+    def bwd(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head):
+        key = (f"{kernel}_bwd", str(q.dtype), *q.shape[:2], rpe.shape[2], q.shape[2], rpe.shape[3], n_head)
+        rec["shapes"][key] += 1
+        return real["bwd"](kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head)
+
+    def knn_launch(*args):
+        rec["shapes"][("knn_xy", *args[6:10])] += 1
+        return real["knn"](*args)
+
+    def save_last(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        real["save_last"](self, *args, **kwargs)
+        rec["save_return"].append(time.perf_counter() - t0)
+
+    def write(self, *args):
+        t0 = time.perf_counter()
+        real["write"](self, *args)
+        rec["write"].append(time.perf_counter() - t0)
+
+    def restore(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real["restore"](self, *args, **kwargs)
+        rec["restore"].append(time.perf_counter() - t0)
+        return out
+
+    def validate(*args, **kwargs):
+        metrics = real["validate"](*args, **kwargs)
+        rec["validate"].append(metrics)
+        return metrics
+
+    run_lib.make_train_step, knarpe._launch, knarpe._launch_bwd, knn._LAUNCH_FN = make, fwd, bwd, knn_launch
+    checkpoint_lib.CheckpointManager.save_last, checkpoint_lib._Write._run = save_last, write
+    checkpoint_lib.CheckpointManager.restore_resume, eval_runner.validate = restore, validate
+    try:
+        yield rec
+    finally:
+        run_lib.make_train_step, knarpe._launch, knarpe._launch_bwd = real["make"], real["fwd"], real["bwd"]
+        knn._LAUNCH_FN = real["knn"]
+        checkpoint_lib.CheckpointManager.save_last, checkpoint_lib._Write._run = real["save_last"], real["write"]
+        checkpoint_lib.CheckpointManager.restore_resume, eval_runner.validate = real["restore"], real["validate"]
+
+
+def grads_excess(got: dict, want: dict) -> tuple:
+    """(worst |got - want| over its scale, its name) as phase 7 measures gradients: a tensor's scale is its largest
+    |want|, floored at TRAIN_GRAD_FLOOR of the largest over the model."""
+    floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in want.values())
+    worst = max((float((got[n] - g).abs().max()) / max(float(g.abs().max()), floor), n) for n, g in want.items())
+    return worst
+
+
+def replay_fit(cfg, seed_model: dict, updates: list, n_calls: int, steps_per_epoch: int) -> dict:
+    """The parameters, EMA and SWA that `n_calls` calls of a fit reach on the CPU from `seed_model` when update j
+    applies the gradients `updates[j]` (after the clip): AdamW and the schedule on every k-th call, the EMA and
+    the SWA average after every call, as `run.fit` does."""
+    model = build_model(cfg, seed=0, device="cpu")
+    model.load_state_dict(seed_model)
+    names, params = zip(*model.named_parameters())
+    opt, schedule = make_optimizer(cfg.optimizer, model, steps_per_epoch=steps_per_epoch)
+    ema, swa_state = swa_lib.ema_init(params), swa_lib.swa_init(params)
+    swa_start = int(cfg.swa_epoch_start * cfg.max_epochs) * steps_per_epoch
+    pending = iter(updates)
+    for call in range(n_calls):
+        if (call + 1) % cfg.optimizer.accumulate_grad_batches == 0:
+            grads = next(pending)
+            for n, p in zip(names, params):
+                p.grad = grads[n].clone()
+            opt.step()
+            schedule.step()
+        swa_lib.ema_update(ema, params, cfg.ema_decay)
+        swa_lib.swa_update(swa_state, params, call, swa_start)
+    return {"model": dict(model.state_dict()), "ema": dict(zip(names, ema)),
+            "swa": dict(zip(names, swa_lib.swa_params(swa_state, params)))}
+
+
+def states_excess(got: dict, want: dict) -> tuple:
+    """(largest |got - want| - FIT_REL |want| - FIT_ATOL over every tensor, its name, elements outside)."""
+    if set(got) != set(want):
+        raise AssertionError(f"fit card vs CPU: entries differ: {sorted(set(got) ^ set(want))}")
+    worst, worst_name, n_out = -math.inf, "", 0
+    for name, w in want.items():
+        excess = (got[name].float() - w.float()).abs() - FIT_REL * w.float().abs() - FIT_ATOL
+        n_out += int((excess > 0).sum())
+        if float(excess.max()) > worst:
+            worst, worst_name = float(excess.max()), name
+    return worst, worst_name, n_out
+
+
+def check_fit_card_vs_cpu(tmp) -> None:
+    """(a) run.fit for 4 calls (2 updates, accumulate_grad_batches=2) with EMA and SWA on the card and on the CPU,
+    from the same damped seed-0 weights and the same tbcache file: parameters, EMA and SWA agree."""
+    base = no_dropout(with_pallas(phase4_config(), True))
+    cfg = dataclasses.replace(base, ema_decay=0.5, swa=True, swa_epoch_start=0.0, limit_train_batches=1.0,
+                              validate_every_epoch=False,
+                              optimizer=dataclasses.replace(base.optimizer, accumulate_grad_batches=2))
+    data_dir = tmp / "fit_a_data"
+    data_dir.mkdir()
+    write_tbcache_split(data_dir / "training.tbcache", cfg, 8, seed=3)
+    write_tbcache_split(data_dir / "validation.tbcache", cfg, 2, seed=4)
+    states, updates = {}, {}
+    for device in ("cpu", "cuda"):
+        ckpt_dir = tmp / f"fit_a_{device}"
+        train_loader, val_loader = run_lib.make_dataloaders(cfg, "tbcache", str(data_dir))
+        seed_checkpoint(cfg, ckpt_dir, len(train_loader))
+        seed_model = checkpoint_lib.CheckpointManager(str(ckpt_dir)).restore("last")[0]["model"]
+        t0 = time.perf_counter()
+        with recorded_fit(with_grads=True) as rec:
+            _, _, stopped = run_lib.fit(cfg, train_loader, val_loader, ckpt_dir=str(ckpt_dir), max_steps=4,
+                                        resume=True, device=device)
+        sec = time.perf_counter() - t0
+        updates[device] = [st["grads"] for st in rec["steps"] if "grads" in st]
+        state, _, meta = checkpoint_lib.CheckpointManager(str(ckpt_dir)).restore("last")
+        if stopped or meta["step"] != 4 or not {"ema", "swa", "swa_state", "accumulator"} <= set(state):
+            raise AssertionError(f"fit card vs CPU on {device}: stopped {stopped}, last at {meta}, entries "
+                                 f"{sorted(state)}")
+        states[device] = state
+        log(f"  run.fit on {device}: 4 calls, 2 updates in {sec:.2f} s; last.json meta {meta}")
+    if not len(updates["cpu"]) == len(updates["cuda"]) == 2:
+        raise AssertionError(f"fit card vs CPU: {len(updates['cpu'])} and {len(updates['cuda'])} updates, expected 2")
+    notes, failures = [], []
+    for j, (g_gpu, g_cpu) in enumerate(zip(updates["cuda"], updates["cpu"])):
+        worst, name = grads_excess(g_gpu, g_cpu)
+        gated = j == 0  # the later updates' gradients are taken at parameters Adam's sign steps already moved apart
+        notes.append(f"update {j + 1}'s gradients within {worst:.2e} of their scale ({name}"
+                     f"{f', tolerance {TRAIN_GRAD_REL:g}' if gated else ', not gated'})")
+        if gated and not worst <= TRAIN_GRAD_REL:
+            failures.append(f"update {j + 1}'s gradient of {name} off by {worst} of its scale")
+    steps_per_epoch = len(train_loader)
+    for device in ("cpu", "cuda"):
+        replay = replay_fit(cfg, seed_model, updates[device], 4, steps_per_epoch)
+        for entry in ("model", "ema", "swa"):
+            worst, name, n_out = states_excess(states[device][entry], replay[entry])
+            notes.append(f"{device} {entry} against the replay of its own gradients: worst excess over the tolerance "
+                         f"{worst:.3e} ({name}), {n_out} of {sum(v.numel() for v in replay[entry].values())} outside")
+            if n_out:
+                failures.append(f"{device} {entry}: {n_out} values beyond {FIT_REL:g} relative + {FIT_ATOL:g} of the "
+                                f"replay")
+    direct = states_excess(states["cuda"]["model"], states["cpu"]["model"])
+    notes.append(f"parameters card vs CPU directly: {direct[2]} values beyond {FIT_REL:g} relative + {FIT_ATOL:g} "
+                 f"(Adam's sign steps), worst excess {direct[0]:.3e} ({direct[1]})")
+    log("  card vs CPU after 2 accumulated updates: " + "; ".join(notes))
+    if failures:
+        raise AssertionError("fit card vs CPU: " + "; ".join(failures))
+
+
+def check_fit_shapes(shapes) -> None:
+    """Every B1, B4 and B2 launch of the fits, forward and backward, at a full shape phase 3 checked: bf16 B4 and
+    B2 on the staged route, B1 against its plain version."""
+    fwd_x = [X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT_X, *VAL_X]
+    attn = [ATTN_PATH, TRAIN_ATTN_PATH, *ATTN_EDGE, *ATTN_STAGED_EDGE]
+    checked = {("knarpe_attention", *s) for s in attn} | {("knarpe_attention_bwd", *s) for s in attn}
+    checked |= {("knarpe_cross_attention", *s) for s in fwd_x}
+    checked |= {("knarpe_cross_attention_bwd", *s) for s in [TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE]}
+    checked_knn = {case[:4] for case in KNN_CASES.values()}
+    bad = []
+    for key in shapes:  # (kernel, dtype, n_b, n_s, K, D, R, H), or ("knn_xy", rows, sources, targets, k)
+        if key[0] == "knn_xy":
+            ok = tuple(key[1:]) in checked_knn
+        else:
+            ok = key[1] == str(torch.bfloat16) and (key[0], *key[2:]) in checked
+        if not ok:
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"fit: launches at shapes phase 3 did not check: {sorted(bad, key=str)}")
+
+
+def run_fit_full_width(card: str, tmp) -> tuple:
+    """(b) `run.main(["action=fit", ...])` on leaderboard_config() with use_pallas=True from a tbcache of 8
+    training and 4 validation scenarios: 3 steps, then a resume to 4. -> (launches per step, ckpt_dir, data_dir,
+    the resumed fit's validation loss, times)."""
+    cfg = with_pallas(leaderboard_config(), True)
+    data_dir, ckpt_dir = tmp / "fit_b_data", tmp / "fit_b_ckpt"
+    data_dir.mkdir()
+    t0 = time.perf_counter()
+    write_tbcache_split(data_dir / "training.tbcache", cfg, 8, seed=0)
+    write_tbcache_split(data_dir / "validation.tbcache", cfg, 4, seed=1)
+    log(f"  tbcache of 8 training and 4 validation scenarios at full width written in {time.perf_counter() - t0:.2f} s "
+        f"({(data_dir / 'training.tbcache').stat().st_size} and {(data_dir / 'validation.tbcache').stat().st_size} "
+        f"bytes)")
+    args = ["action=fit", "data=tbcache", f"data_dir={data_dir}", f"ckpt_dir={ckpt_dir}", "model.tf_cfg.use_pallas=true",
+            "ckpt_every_steps=2", "ema_decay=0.999", "val_epoch_batches=1", "batch_size_test=4", "limit_train_batches=1.0",
+            "log_every=1"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with recorded_fit() as rec:
+        t0 = time.perf_counter()
+        model, _, stopped = run_lib.main(args + ["max_steps=3"])
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+    run_counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, want = rec["steps"], expected_train_launches(cfg)  # a fit step's are a training step's at any batch
+    if stopped or len(steps) != 3 or len(rec["validate"]) != 1:
+        raise AssertionError(f"fit: stopped {stopped}, {len(steps)} steps, {len(rec['validate'])} validations")
+    for i, st in enumerate(steps):
+        m = st["metrics"]
+        if st["launches"] != want:
+            raise AssertionError(f"fit step {i + 1}: kernel launches {st['launches']}, expected {want}")
+        if any(v for key, v in st["routes"].items() if key.endswith("/general")):
+            raise AssertionError(f"fit step {i + 1}: launches by route {st['routes']}, expected all staged")
+        if not (math.isfinite(m["training/loss"]) and math.isfinite(m.get("grad_norm", math.nan)) and m["grad_norm"] > 0):
+            raise AssertionError(f"fit step {i + 1}: loss {m['training/loss']}, grad_norm {m.get('grad_norm')}")
+    want_run = {k: 3 * want[k] + expected_validate_launches(cfg)[k] for k in want}
+    if run_counts != want_run:
+        raise AssertionError(f"fit: launches over the run {run_counts}, expected 3 steps and one validation {want_run}")
+    check_fit_shapes(rec["shapes"])
+    ckpt = checkpoint_lib.CheckpointManager(str(ckpt_dir))
+    last, _, meta = ckpt.restore("last")
+    _, _, best_meta = ckpt.restore("best")
+    live = checkpoint_lib.to_host(model.state_dict())
+    if meta["step"] != 3 or best_meta["step"] != 3 or not all(torch.equal(last["model"][n], v) for n, v in live.items()):
+        raise AssertionError(f"fit: last {meta}, best {best_meta}, or the restored parameters differ from the live ones")
+    ckpt_bytes = ckpt.path("last").stat().st_size
+    n_params = sum(v.numel() for v in live.values())
+    sec = [st["sec"] for st in steps]
+    log(f"  leaderboard_config use_pallas=True run.main action=fit, tbcache, batch 2: steps {[round(t, 4) for t in sec]} s "
+        f"(median of the steps after the first {np.median(sec[1:]):.4f} s, {2 / np.median(sec[1:]):.3f} train samples/s), "
+        f"whole run {t_fit:.2f} s, peak memory {peak:.2f} GiB, losses "
+        f"{[round(st['metrics']['training/loss'], 4) for st in steps]}, grad_norm "
+        f"{[round(st['metrics']['grad_norm'], 4) for st in steps]}; launches per step {steps[-1]['launches']} (all "
+        f"staged), over the run {run_counts}; launches by full shape {dict(rec['shapes'])}, each checked in phase 3; "
+        f"save_last returns in {[round(t, 4) for t in rec['save_return']]} s, writes {[round(t, 4) for t in rec['write']]}"
+        f" s; checkpoint {ckpt_bytes} bytes ({n_params} parameters); last {meta}, best {best_meta}; the restored "
+        f"parameters equal the live model's bit for bit [{card}]")
+
+    # the resume: from step 3, exactly the saved state, the 4th batch of epoch 0's permutation
+    saved = checkpoint_lib.to_host(ckpt.restore("last")[0])
+    with recorded_fit() as rec2:
+        t0 = time.perf_counter()
+        run_lib.main(args + ["max_steps=4", "resume=true"])
+        t_resume_run = time.perf_counter() - t0
+    state, _, meta2 = ckpt.restore("last")
+    start_model, start_opt = rec2["start_state"][0]
+    same_model = all(torch.equal(start_model[n], v) for n, v in saved["model"].items())
+    same_opt = all(torch.equal(a, b) for a, b in zip(_tensors(start_opt), _tensors(saved["optimizer"])))
+    idx = np.arange(8)
+    np.random.default_rng(cfg.seed).shuffle(idx)
+    want_batch = tbcache.TBCacheDataset(str(data_dir / "training.tbcache")).get_batch(idx[6:8])
+    got_batch = rec2["steps"][0]["batch"]
+    same_batch = all(np.array_equal(np.asarray(got_batch[k]), v) for k, v in want_batch.items())
+    if not (len(rec2["steps"]) == 1 and meta2["step"] == 4 and same_model and same_opt and same_batch):
+        raise AssertionError(f"fit resume: {len(rec2['steps'])} steps, last at {meta2}, starts from the saved model "
+                             f"{same_model} and optimizer {same_opt}, on the 4th batch {same_batch}")
+    log(f"  resume=true max_steps=4: restore_resume {rec2['restore'][0]:.4f} s, whole resumed run {t_resume_run:.2f} s "
+        f"(one step {rec2['steps'][0]['sec']:.4f} s and one validation); started from the saved model and optimizer "
+        f"state bit for bit, at step 3 on the 4th batch of epoch 0's permutation; last {meta2} [{card}]")
+    times = dict(step_s=float(np.median(sec[1:])), samples_per_s=2 / float(np.median(sec[1:])), peak_gib=peak,
+                 save_return_s=rec["save_return"], write_s=rec["write"], ckpt_bytes=ckpt_bytes,
+                 resume_s=rec2["restore"][0])
+    return steps[-1]["launches"], ckpt_dir, data_dir, rec2["validate"][0]["val/loss"], times
+
+
+def _tensors(obj):
+    """The tensors of a nested dict / list, in order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _tensors(v)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in _tensors(v)]
+    return []
+
+
+def check_fit_preemption(card: str, tmp) -> None:
+    """(c) A `python -m trafficbotsv15_tpu_torch.run action=fit` subprocess at the phase-4 config gets SIGTERM once
+    it has logged its first step (its handler installed): exit 143 with "last" at a step >= 1; a resume=true
+    relaunch adds exactly one step."""
+    import signal
+
+    ckpt_dir = tmp / "fit_c_ckpt"
+    base = tiny_config()
+    cfg = dataclasses.replace(with_pallas(phase4_config(), True), validate_every_epoch=False, max_epochs=5)
+    args = [sys.executable, "-u", "-m", "trafficbotsv15_tpu_torch.run", "action=fit", "preset=tiny", "data=synthetic",
+            f"ckpt_dir={ckpt_dir}", "log_every=1", *config_overrides(base, cfg)]
+    t0 = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=repo)
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("[step 1]"):
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate(timeout=300)
+        lines.append(rest)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 143:
+        raise AssertionError(f"fit preemption: exit {proc.returncode}, expected 143:\n{''.join(lines)[-3000:]}")
+    _, _, meta = checkpoint_lib.CheckpointManager(str(ckpt_dir)).restore("last")
+    t_stop = time.perf_counter() - t0
+    resumed = subprocess.run(args + ["resume=true", f"max_steps={meta['step'] + 1}"], capture_output=True, text=True,
+                             timeout=300, cwd=repo)
+    _, _, meta2 = checkpoint_lib.CheckpointManager(str(ckpt_dir)).restore("last")
+    if meta["step"] < 1 or resumed.returncode != 0 or meta2["step"] != meta["step"] + 1:
+        raise AssertionError(f"fit preemption: stopped at {meta}, resume exit {resumed.returncode} at {meta2}:\n"
+                             f"{resumed.stdout[-2000:]}{resumed.stderr[-2000:]}")
+    log(f"  SIGTERM after the first logged step: exit 143 in {t_stop:.2f} s with last at step {meta['step']}; "
+        f"resume=true relaunch: exit 0, last at step {meta2['step']} [{card}]")
+
+
+def check_validate_and_test(card: str, ckpt_dir, data_dir, fit_val_loss: float, tmp) -> None:
+    """(d) `action=validate` from the fit's checkpoint gives the fit's own val/loss; `action=test` from "best" at
+    K=128 makes the submission arrays phase 10 checks."""
+    common = [f"ckpt_dir={ckpt_dir}", "data=tbcache"]
+    t0 = time.perf_counter()
+    metrics = run_lib.main(["action=validate", f"data_dir={data_dir}", "model.tf_cfg.use_pallas=true",
+                            "batch_size_test=4", *common])
+    t_val = time.perf_counter() - t0
+    rel = abs(metrics["val/loss"] - fit_val_loss) / max(abs(fit_val_loss), 1e-12)
+    if not rel <= VAL_LOSS_REL:
+        raise AssertionError(f"action=validate: val/loss {metrics['val/loss']} against the fit's {fit_val_loss}")
+    cfg = leaderboard_config()
+    test_dir = tmp / "fit_d_test"
+    test_dir.mkdir()
+    write_tbcache_split(test_dir / "validation.tbcache", cfg, 1, seed=0, test_mode=True)
+    write_tbcache_split(test_dir / "training.tbcache", cfg, 1, seed=0)
+    t0 = time.perf_counter()
+    result = run_lib.main(["action=test", f"data_dir={test_dir}", *common])
+    t_test = time.perf_counter() - t0
+    if not isinstance(result, list) or len(result) != 1:
+        raise AssertionError(f"action=test: expected one batch of arrays without waymo_open_dataset, got {type(result)}")
+    (out,) = result
+    n_ag, n_fut = cfg.data.n_ag, cfg.time_step_gt - cfg.time_step_current
+    shapes = {"womd_trajs": (1, n_ag, 6, n_fut // 5, 3), "womd_scores": (1, n_ag, 6),
+              "wosac_trajs": (1, 32, n_ag, n_fut, 3)}
+    for name, shape in shapes.items():
+        if out[name].shape != shape or not np.isfinite(out[name]).all():
+            raise AssertionError(f"action=test: {name} is {out[name].shape} (expected {shape}) or not finite")
+    log(f"  action=validate from last: val/loss {metrics['val/loss']:.6f} against the fit's {fit_val_loss:.6f} "
+        f"({rel:.2e} relative, tolerance {VAL_LOSS_REL:g}) in {t_val:.2f} s; action=test from best, K=128, batch 1: "
+        f"WOMD {out['womd_trajs'].shape}, WOSAC {out['wosac_trajs'].shape}, finite, in {t_test:.2f} s [{card}]")
+
+
+def run_fit_phase(card: str) -> dict:
+    """Phase 11: (a)-(d); -> launches per full-width fit step."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as name:
+        tmp = Path(name)
+        check_fit_card_vs_cpu(tmp)
+        t_a = time.perf_counter() - t0
+        counts, ckpt_dir, data_dir, val_loss, times = run_fit_full_width(card, tmp)
+        t_b = time.perf_counter() - t0 - t_a
+        check_fit_preemption(card, tmp)
+        t_c = time.perf_counter() - t0 - t_a - t_b
+        check_validate_and_test(card, ckpt_dir, data_dir, val_loss, tmp)
+    total = time.perf_counter() - t0
+    log(f"  (e) fit at full width, batch 2: {times['step_s']:.4f} s per step, {times['samples_per_s']:.4f} train "
+        f"samples/s, peak {times['peak_gib']:.2f} GiB; save_last returns in "
+        f"{[round(t, 4) for t in times['save_return_s']]} s, background writes "
+        f"{[round(t, 4) for t in times['write_s']]} s, checkpoint {times['ckpt_bytes']} bytes, resume (restore_resume) "
+        f"{times['resume_s']:.4f} s; phase 11 {total:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (d) "
+        f"{total - t_a - t_b - t_c:.1f}) [{card}]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's main path needs an NVIDIA GPU",
@@ -1163,7 +1651,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/10] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/11] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -1174,40 +1662,44 @@ def main() -> int:
         for fut in [pool.submit(knn.load_library), pool.submit(knarpe.load_library),
                     pool.submit(knarpe.load_bwd_library)]:
             fut.result()
-    log(f"[2/10] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/11] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    log("[3/10] kernels vs plain versions")
+    log("[3/11] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
 
-    log("[4/10] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[4/11] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_slice_card_vs_cpu(use_pallas=False)
     check_slice_card_vs_cpu(use_pallas=True)
 
-    log("[5/10] slice at full width, use_pallas=False")
+    log("[5/11] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    log("[6/10] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    log("[6/11] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True)
 
-    log("[7/10] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[7/11] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_train_step_card_vs_cpu(use_pallas=False)
     check_train_step_card_vs_cpu(use_pallas=True)
 
-    log("[8/10] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    log("[8/11] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    log("[9/10] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    log("[9/11] validation step: reduced-depth fp32 config card vs CPU, then full width")
     check_validate_card_vs_cpu(use_pallas=False)
     check_validate_card_vs_cpu(use_pallas=True)
     validate_counts = run_validate_full_width(card)
 
-    log("[10/10] submission: test_submission at full width, K=128")
+    log("[10/11] submission: test_submission at full width, K=128")
     run_submission(card)
+
+    log("[11/11] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    fit_counts = run_fit_phase(card)
     by_route = lambda counts, kernel: {way: counts[f"{kernel}/{way}"] for way in ("staged", "general")}
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["validate_launches"] = validate_counts[row["name"]]  # per full-width validation step (phase 9)
+        row["fit_launches"] = fit_counts[row["name"]]  # per full-width fit step at batch 2 (phase 11)
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     b4 = rows[1]  # per eval call (phase 6), and at the training shape per step (phase 8)
     b4["launches_by_route"] = by_route(routes, "knarpe_attention")
@@ -1215,6 +1707,7 @@ def main() -> int:
                                 launches_by_route=by_route(train_routes, "knarpe_attention"))
     for row in bwd_rows:
         row["launches"] = train_counts[row["name"]]
+        row["fit_launches"] = fit_counts[row["name"]]
         row["launches_by_route"] = by_route(train_routes, row["name"])
         if row["name"] == "knarpe_cross_attention_bwd":  # of the 368, per step
             row["post_tl_shape"]["launches"] = train_bwd_shapes[("knarpe_cross_attention", *POST_TL_X_PATH[2:])]

@@ -117,6 +117,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             entry()
     assert resolve_device("cpu").type == "cpu"
 
+    from trafficbotsv15_tpu_torch import run
+
+    loaders = run.make_dataloaders(cfg, "synthetic", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.fit(cfg, *loaders, ckpt_dir="unused")
+    for action in ("fit", "validate", "test"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run.main([f"action={action}", "preset=tiny", "ckpt_dir=unused"])
+
 
 def test_knn_wrapper_raises_off_cpu_without_kernel():
     src = torch.zeros(1, 8, 2, device="meta")

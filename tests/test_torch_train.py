@@ -303,8 +303,11 @@ def test_optimizer_updates_match_optax(lr_navi):
 
 
 def test_optimizer_refuses_accumulation():
-    with pytest.raises(NotImplementedError):
-        make_optimizer(pc.OptimizerCfg(accumulate_grad_batches=2), torch.nn.Linear(2, 2))
+    """Accumulation over fewer than one call is refused (k >= 2 accumulates: tests/test_torch_checkpoint.py)."""
+    for k in (0, -1):
+        with pytest.raises(ValueError, match="accumulate_grad_batches"):
+            make_optimizer(pc.OptimizerCfg(accumulate_grad_batches=k), torch.nn.Linear(2, 2))
+    make_optimizer(pc.OptimizerCfg(accumulate_grad_batches=2), torch.nn.Linear(2, 2))
 
 
 # -- dropout, recompute and launch counts -------------------------------------

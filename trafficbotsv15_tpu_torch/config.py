@@ -412,3 +412,31 @@ def with_pallas(cfg: ExperimentCfg, use_pallas: bool) -> ExperimentCfg:
     """cfg with `TransformerCfg.use_pallas` set (True runs the KNARPE attention kernels)."""
     tf = dataclasses.replace(cfg.model.tf_cfg, use_pallas=use_pallas)
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, tf_cfg=tf))
+
+
+def config_to_dict(cfg: ExperimentCfg) -> dict:
+    """The config as nested dicts (`dataclasses.asdict`): the JAX package's `config_to_dict`, key for key, so
+    a checkpoint's `<name>.json` reads in either package."""
+    return dataclasses.asdict(cfg)
+
+
+def _build(cls, d: dict):
+    """cls from a dict of its fields: nested dicts become the field's dataclass, lists tuples; unknown keys are
+    dropped (as the JAX package's `config_from_dict` drops them)."""
+    defaults = cls()
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v, default = d[f.name], getattr(defaults, f.name)
+        if isinstance(v, dict) and dataclasses.is_dataclass(default):
+            v = _build(type(default), v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def config_from_dict(d: dict) -> ExperimentCfg:
+    """An ExperimentCfg from `config_to_dict`'s output (a checkpoint's config, the CLI's merged overrides)."""
+    return _build(ExperimentCfg, d)

@@ -1,0 +1,343 @@
+"""The command line: fit, validate and test (counterpart of `trafficbotsv15_tpu/run.py`).
+
+    python -m trafficbotsv15_tpu_torch.run action=fit data=tbcache data_dir=DIR max_steps=100
+    python -m trafficbotsv15_tpu_torch.run action=validate data=tbcache data_dir=DIR ckpt_dir=ckpt
+    python -m trafficbotsv15_tpu_torch.run action=test data=tbcache data_dir=DIR ckpt_dir=ckpt
+
+Arguments are key=value, values parsed as JSON where they parse; dots nest
+(`optimizer.lr=1e-4`). Besides the config's own fields: `action`
+(fit | validate | test), `data` (synthetic | tbcache | h5, with `data_dir`
+holding training.* and validation.*), `preset` (leaderboard | tiny),
+`max_steps`, `log_every`, `ckpt_dir`, `resume` and `device` (the card unless
+`device=cpu`). The run is one process on one device. Keys the port has no
+counterpart for raise `NotImplementedError`: `profile_dir` and `video_dir`
+(ROADMAP A12), `parallel.strategy` other than dp or a model axis over one
+device (A10), and the JAX-only switches `rbg` and `debug_nans`.
+
+`fit` trains with checkpoints ("last" every `ckpt_every_steps` and at each
+epoch's end, "best" on `val/loss` after each epoch's validation), EMA and SWA
+when configured, and resumes from "last" with `resume=true`; SIGTERM or SIGINT
+finishes the current step, saves "last" and exits 143. `validate` restores
+"last", `test` restores "best" with K=128 futures (unless
+`n_joint_future_wosac` is given) at batch 1 (unless `batch_size_test` is) and
+writes the submission into `ckpt_dir` (with `waymo_open_dataset`; without it,
+`main` returns the arrays).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import signal
+import sys
+import time
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from trafficbotsv15_tpu_torch.config import (ExperimentCfg, config_from_dict, config_to_dict, leaderboard_config,
+                                             tiny_config)
+from trafficbotsv15_tpu_torch.ops.flags import check_supported
+from trafficbotsv15_tpu_torch.train.checkpoint import CheckpointManager, deep_update
+from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
+from trafficbotsv15_tpu_torch.train.pipeline import build_model, make_train_step
+from trafficbotsv15_tpu_torch.train.swa import ema_init, ema_update, swa_init, swa_params, swa_update
+from trafficbotsv15_tpu_torch.utils.device import resolve_device
+from trafficbotsv15_tpu_torch.utils.logging import MetricsLogger
+
+
+RUN_KEYS = ("action", "data", "data_dir", "preset", "max_steps", "log_every", "ckpt_dir", "resume", "device",
+            "profile_dir", "video_dir", "rbg", "debug_nans")
+
+
+def parse_overrides(argv) -> Dict[str, Any]:
+    """key=value arguments as a nested dict (dots nest; values parsed as JSON where they parse)."""
+    out: Dict[str, Any] = {}
+    for arg in argv:
+        if "=" not in arg:
+            continue
+        k, v = arg.split("=", 1)
+        try:
+            v = json.loads(v)
+        except json.JSONDecodeError:
+            pass
+        cur = out
+        parts = k.split(".")
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return out
+
+
+def apply_overrides(cfg: ExperimentCfg, overrides: Dict[str, Any]) -> ExperimentCfg:
+    return config_from_dict(deep_update(config_to_dict(cfg), overrides))
+
+
+class SynthLoader:
+    """`n_batches` synthetic batches of `n_sc` scenarios, batch i from seed seed0 + i (the JAX loader's)."""
+
+    def __init__(self, cfg: ExperimentCfg, n_batches: int, n_sc: int, seed0: int, test_mode: bool = False):
+        self.cfg, self.n_batches, self.n_sc, self.seed0, self.test_mode = cfg, n_batches, n_sc, seed0, test_mode
+
+    def __len__(self) -> int:
+        return self.n_batches
+
+    def __iter__(self):
+        return self.iter_from(0)
+
+    def iter_from(self, start_batch: int = 0):
+        from trafficbotsv15_tpu_torch.data.synthetic import make_batch
+
+        for i in range(start_batch, self.n_batches):
+            yield make_batch(self.cfg.data, n_sc=self.n_sc, seed=self.seed0 + i, test_mode=self.test_mode)
+
+
+def make_dataloaders(cfg: ExperimentCfg, data: str, data_dir: Optional[str], n_synthetic: int = 64,
+                     test_mode: bool = False):
+    """(train loader, validation loader) for one device: synthetic scenes, a tbcache or an h5 split pair."""
+    if data == "synthetic":
+        bs_train, bs_test = max(cfg.batch_size_train, 1), max(cfg.batch_size_test, 1)
+        return (SynthLoader(cfg, n_synthetic // bs_train, bs_train, 0),
+                SynthLoader(cfg, max(n_synthetic // bs_test // 4, 1), bs_test, 10_000, test_mode=test_mode))
+    if data_dir is None:
+        raise ValueError(f"data={data} needs data_dir=<directory with training.* and validation.*>")
+    if data == "tbcache":
+        from trafficbotsv15_tpu_torch.data.tbcache import TBCacheDataset, TBCacheLoader
+
+        return (TBCacheLoader(TBCacheDataset(f"{data_dir}/training.tbcache"), cfg.batch_size_train, shuffle=True,
+                              seed=cfg.seed),
+                TBCacheLoader(TBCacheDataset(f"{data_dir}/validation.tbcache"), cfg.batch_size_test))
+    if data == "h5":
+        from trafficbotsv15_tpu_torch.data.h5_dataset import DataLoader, H5Dataset, tensor_size_train, tensor_size_val
+
+        train_ds = H5Dataset(f"{data_dir}/training.h5", tensor_size_train(cfg.data))
+        val_ds = H5Dataset(f"{data_dir}/validation.h5", tensor_size_val(cfg.data), with_attrs=True)
+        return (DataLoader(train_ds, cfg.batch_size_train, shuffle=True, seed=cfg.seed),
+                DataLoader(val_ds, cfg.batch_size_test))
+    raise ValueError(f"unknown data {data!r}: synthetic | tbcache | h5")
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of training step `step`'s draws, seeded from (seed, step) alone: a resumed run draws
+    what the uninterrupted run would, on the card as on the CPU (the JAX loop's fold_in of the step)."""
+    return torch.Generator().manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]))
+
+
+def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", max_steps: Optional[int] = None,
+        log_every: int = 50, resume: bool = False, device=None):
+    """Train cfg's model on `device` (the card unless "cpu"); -> (model, logger, stopped by a signal).
+
+    A step is one call of the train step on one batch (with gradient accumulation, every
+    `accumulate_grad_batches`-th call updates); `max_steps` and `ckpt_every_steps` count calls. The EMA and
+    the SWA average fold in the parameters after every call, as the JAX loop does. Metrics go to
+    `<ckpt_dir>/metrics.jsonl`."""
+    device = resolve_device(device)
+    logger = MetricsLogger(str(Path(ckpt_dir) / "metrics.jsonl"))
+    model = build_model(cfg, device=device)
+    names, params = zip(*model.named_parameters())
+    print(f"model parameters: {sum(p.numel() for p in params) / 1e6:.2f}M, device: {device}")
+
+    steps_per_epoch = max(int(len(train_loader) * cfg.limit_train_batches), 1)
+    opt, schedule = make_optimizer(cfg.optimizer, model, steps_per_epoch=steps_per_epoch)
+    train_step = make_train_step(cfg, model, opt, schedule, device=device)
+    accumulator = train_step.accumulator
+    ckpt = CheckpointManager(ckpt_dir)
+
+    start_step, restored = 0, {}
+    if resume and not (ckpt.dir / "last.json").exists():
+        # restart wrappers pass resume=true every time; the first launch has nothing to restore
+        print(f"resume requested but {ckpt_dir}/last not found: starting fresh")
+        resume = False
+    if resume:
+        keep = {"model", "optimizer", "schedule"}
+        keep |= {"accumulator"} if accumulator is not None else set()
+        keep |= {"ema"} if cfg.ema_decay > 0 else set()
+        keep |= {"swa_state"} if cfg.swa else set()
+        restored, _, meta = ckpt.restore_resume(keep)
+        model.load_state_dict(restored["model"])
+        opt.load_state_dict(restored["optimizer"])
+        schedule.load_state_dict(restored["schedule"])
+        if "accumulator" in restored:
+            accumulator.load_state_dict(restored["accumulator"])
+        start_step = int(meta.get("step", 0))
+        print(f"resumed from {ckpt_dir}/last at step {start_step}")
+
+    def by_name(tensors):
+        return dict(zip(names, tensors))
+
+    ema = None
+    if cfg.ema_decay > 0:
+        ema = ema_init(params)
+        if "ema" in restored:
+            with torch.no_grad():
+                torch._foreach_copy_(ema, [restored["ema"][n].to(device) for n in names])
+    # SWA (the reference's StochasticWeightAveraging callback): the equal-weight average of the parameters
+    # from swa_epoch_start * max_epochs on
+    swa_state, swa_start = None, int(cfg.swa_epoch_start * cfg.max_epochs) * steps_per_epoch
+    if cfg.swa:
+        swa_state = swa_init(params)
+        if "swa_state" in restored:
+            with torch.no_grad():
+                torch._foreach_copy_(swa_state[0], [restored["swa_state"]["avg"][n].to(device) for n in names])
+                swa_state[1].copy_(restored["swa_state"]["count"])
+
+    def snapshot():
+        state = {"model": model.state_dict(), "optimizer": opt.state_dict(), "schedule": schedule.state_dict()}
+        if accumulator is not None:
+            state["accumulator"] = accumulator.state_dict()
+        if ema is not None:
+            state["ema"] = by_name(ema)
+        if swa_state is not None:
+            state["swa"] = by_name(swa_params(swa_state, params))
+            state["swa_state"] = {"avg": by_name(swa_state[0]), "count": swa_state[1]}
+        return state
+
+    # preemption: SIGTERM / SIGINT ask for a graceful stop: the current step finishes, "last" is saved and
+    # fit returns, so a wrapper can relaunch with resume=true; a second SIGINT raises KeyboardInterrupt
+    stop_signal, prev_handlers = [], {}
+
+    def request_stop(signum, frame):
+        if stop_signal and signum == signal.SIGINT:
+            raise KeyboardInterrupt
+        stop_signal.append(signum)
+        print(f"signal {signal.Signals(signum).name} received: saving 'last' after this step, then stopping "
+              "(resume with resume=true)", flush=True)
+
+    try:
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            prev_handlers[sig] = signal.signal(sig, request_stop)
+    except ValueError:  # not in the main thread
+        prev_handlers = {}
+
+    step = start_step
+    start_epoch = min(start_step // steps_per_epoch, max(cfg.max_epochs - 1, 0))
+    last_saved_step = -1
+    t_start = time.time()
+    try:
+        for epoch in range(start_epoch, cfg.max_epochs):
+            if hasattr(train_loader, "set_epoch"):  # the resumed epoch replays the interrupted one's order
+                train_loader.set_epoch(epoch)
+            skip = max(step - epoch * steps_per_epoch, 0)
+            if hasattr(train_loader, "iter_from"):
+                epoch_iter = train_loader.iter_from(skip)  # skipped by index, nothing read
+            else:
+                epoch_iter = iter(train_loader)
+                for _ in range(skip):
+                    next(epoch_iter, None)
+            for batch in epoch_iter:
+                if step >= steps_per_epoch * (epoch + 1):
+                    break
+                metrics = train_step(batch, step_generator(cfg.seed + 1, step), epoch)
+                if ema is not None:
+                    ema_update(ema, params, cfg.ema_decay)
+                if swa_state is not None:
+                    swa_update(swa_state, params, step, swa_start)
+                step += 1
+                if step % log_every == 0 or step == 1:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["steps_per_sec"] = (step - start_step) / (time.time() - t_start)
+                    m["lr"] = schedule.get_last_lr()[0]
+                    logger.log(step, m)
+                if cfg.ckpt_every_steps and step % cfg.ckpt_every_steps == 0:
+                    ckpt.save_last(snapshot(), cfg, {"step": step, "epoch": epoch})
+                    last_saved_step = step
+                if stop_signal or (max_steps and step >= max_steps):
+                    break
+            state = snapshot()
+            if step != last_saved_step:  # not when the step's own save already wrote this step
+                ckpt.save_last(state, cfg, {"step": step, "epoch": epoch})
+                last_saved_step = step
+            if stop_signal:
+                break
+            if cfg.validate_every_epoch:
+                from trafficbotsv15_tpu_torch.eval.runner import validate
+
+                vm = validate(cfg, model, val_loader, max_batches=cfg.val_epoch_batches, logger=logger, device=device)
+                ckpt.save_best(state, cfg, vm.get("val/loss", 0.0), {"step": step, "epoch": epoch})
+            if max_steps and step >= max_steps:
+                break
+    finally:
+        # the handlers are restored even when the last write fails: a leaked handler would swallow every
+        # later SIGTERM of the process
+        try:
+            ckpt.wait()
+        finally:
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+    return model, logger, bool(stop_signal)
+
+
+def restore_model(ckpt_dir: str, name: str, device, cfg: Optional[ExperimentCfg] = None, config_overrides=None):
+    """(model of cfg with checkpoint `name`'s weights on device, cfg); without cfg, the checkpoint's own config
+    with config_overrides merged in."""
+    state, saved_cfg, _ = CheckpointManager(ckpt_dir).restore(name, config_overrides=config_overrides)
+    cfg = saved_cfg if cfg is None else cfg
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state["model"])
+    return model, cfg
+
+
+def main(argv=None):
+    """Run one action from key=value arguments; -> fit's (model, logger, stopped), validate's metrics or
+    test_submission's result. A fit stopped by a signal exits 143."""
+    argv = sys.argv[1:] if argv is None else argv
+    # the run's own keys apart from the config's, so that data=tbcache and data.n_ag=16 can stand side by side
+    is_run_key = lambda arg: arg.split("=", 1)[0] in RUN_KEYS
+    run_args = parse_overrides([a for a in argv if is_run_key(a)])
+    overrides = parse_overrides([a for a in argv if not is_run_key(a)])
+    action = run_args.get("action", "fit")
+    data = run_args.get("data", "synthetic")
+    data_dir = run_args.get("data_dir")
+    preset = run_args.get("preset", "leaderboard")
+    max_steps = run_args.get("max_steps")
+    log_every = int(run_args.get("log_every", 50))
+    ckpt_dir = run_args.get("ckpt_dir", "ckpt")
+    resume = bool(run_args.get("resume", False))
+    device = resolve_device(run_args.get("device"))
+    for key in ("profile_dir", "video_dir"):
+        if run_args.get(key) is not None:
+            raise NotImplementedError(f"{key}: profiling and validation videos are not ported (ROADMAP A12)")
+    for key in ("rbg", "debug_nans"):
+        if run_args.get(key):
+            raise NotImplementedError(f"{key} is a switch of the JAX runtime; the port has no counterpart")
+
+    cfg = tiny_config() if preset == "tiny" else leaderboard_config()
+    last_json = Path(ckpt_dir) / "last.json"
+    if resume and last_json.exists():  # the checkpoint's own config, the command line's overrides on top
+        cfg = config_from_dict(json.loads(last_json.read_text())["config"])
+    cfg = apply_overrides(cfg, overrides)
+    if cfg.parallel.strategy != "dp" or cfg.parallel.model_axis != 1:
+        raise NotImplementedError(f"parallel.strategy={cfg.parallel.strategy!r}, model_axis={cfg.parallel.model_axis}:"
+                                  " the port runs on one device (multi-GPU is ROADMAP A10)")
+    check_supported(cfg.ops)
+    if action == "test" and "batch_size_test" not in overrides:
+        # the submission's K=128 futures of one scenario share its map and KNN work: batch 1
+        cfg = dataclasses.replace(cfg, batch_size_test=1)
+
+    train_loader, val_loader = make_dataloaders(cfg, data, data_dir, test_mode=action == "test")
+    logger = MetricsLogger(str(Path(ckpt_dir) / "metrics.jsonl"))
+    if action == "fit":
+        out = fit(cfg, train_loader, val_loader, ckpt_dir=ckpt_dir, max_steps=max_steps, log_every=log_every,
+                  resume=resume, device=device)
+        if out[2]:  # a signal's stop is no clean finish: 128 + SIGTERM tells a restart wrapper to resume
+            raise SystemExit(143)
+        return out
+    if action == "validate":
+        from trafficbotsv15_tpu_torch.eval.runner import validate
+
+        model, _ = restore_model(ckpt_dir, "last", device, cfg=cfg)
+        return validate(cfg, model, val_loader, logger=logger, device=device)
+    if action == "test":
+        from trafficbotsv15_tpu_torch.eval.runner import test_submission
+
+        # the morph for submission: the checkpoint's config with K=128 futures unless K is given
+        sub_k = int(overrides.get("n_joint_future_wosac", 128))
+        model, cfg = restore_model(ckpt_dir, "best", device, config_overrides={"n_joint_future_wosac": sub_k})
+        return test_submission(cfg, model, val_loader, out_dir=ckpt_dir, device=device)
+    raise SystemExit(f"unknown action {action}")
+
+
+if __name__ == "__main__":
+    main()

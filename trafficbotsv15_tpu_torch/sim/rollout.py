@@ -15,8 +15,10 @@ flavours, both with TL from the pre-pass:
     and `torch.utils.checkpoint` around each step unless `remat_policy` is
     "none" (the whole step is recomputed in the backward pass; JAX's
     "names" / "names+kv" save lists are not ported).
-The player override, `pred_navi_after_reached`, the in-rollout TL path and
-token dedup raise where the config asks for them.
+Both apply the teacher-forcing config's error-threshold reset
+(`sim/teacher_forcing.py::error_reset_mask`) where it sets a threshold. The
+player override, `pred_navi_after_reached`, the in-rollout TL path and token
+dedup raise where the config asks for them.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from trafficbotsv15_tpu_torch.ops.dropout import normal as dropout_normal
 from trafficbotsv15_tpu_torch.sim import dynamics as dyn
 from trafficbotsv15_tpu_torch.sim.rewards import diffbar_reward
 from trafficbotsv15_tpu_torch.sim.rule_checker import RuleCheckerState, RuleCheckerStatics, check_rules
-from trafficbotsv15_tpu_torch.sim.teacher_forcing import check_error_reset
+from trafficbotsv15_tpu_torch.sim.teacher_forcing import error_reset_mask
 from trafficbotsv15_tpu_torch.sim.tl_prepass import pad_steps
 
 
@@ -93,7 +95,6 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     with_reward fills `diffbar_reward` (the JAX eval rollout always does).
     """
     tf_cfg = cfg.teacher_forcing_training if tf_cfg is None else tf_cfg
-    check_error_reset(tf_cfg)
     n_step_roll = cfg.time_step_end
     n_sc, n_ag, t_gt = gt_valid.shape
     tl_rep = _check_rollout_cfg(cfg, tl_precomputed, n_sc, n_step_roll)
@@ -103,6 +104,7 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     tf_pose = pad_steps(gt_pose, n_step_roll)
     tf_motion = pad_steps(gt_motion, n_step_roll)
     gt_valid_s = pad_steps(gt_valid, n_step_roll, False)
+    reset = _error_reset(tf_cfg, gt_valid, gt_pose, gt_motion, n_step_roll)
     dev = gt_valid.device
 
     valid = gt_valid[:, :, 0]
@@ -135,7 +137,7 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
         pred_pose, pred_motion, action_bounded = dyn.step_dynamics(pose, motion, valid, action, ag_type,
                                                                    cfg.dynamics)
         pred_valid = valid
-        force = tf_valid[:, :, i]
+        force = tf_valid[:, :, i] if reset is None else tf_valid[:, :, i] | reset(i, valid, pose, motion)
         ov_valid, ov_pose, ov_motion = dyn.override_ag(pred_valid, pred_pose, pred_motion, disabled, force,
                                                        tf_pose[:, :, i], tf_motion[:, :, i])
         # rule checking on the pre-override prediction
@@ -178,6 +180,26 @@ def _stack_dicts(seq):
     return {k: _stack([d[k] for d in seq]) for k in seq[0]}
 
 
+def _error_reset(tf_cfg, gt_valid, gt_pose, gt_motion, n_step_roll: int):
+    """None when tf_cfg sets no error threshold, else reset(i, valid, pose, motion) -> the agents that
+    rollout step i forces back to the log: the carry (the state after step i - 1's override, without
+    gradient) against the log at that step, within the log's horizon. Comparing the freshly integrated
+    state with the previous step's log would count speed * dt as error and reset every fast agent."""
+    if tf_cfg.threshold_xy <= 0 and tf_cfg.threshold_yaw <= 0 and tf_cfg.threshold_spd <= 0:
+        return None
+    t_gt = gt_valid.shape[2]
+    prev_valid = pad_steps(torch.roll(gt_valid, 1, 2), n_step_roll, False)
+    prev_pose = pad_steps(torch.roll(gt_pose, 1, 2), n_step_roll)
+    prev_motion = pad_steps(torch.roll(gt_motion, 1, 2), n_step_roll)
+
+    def reset(i, valid, pose, motion):
+        mask = error_reset_mask(tf_cfg, valid, pose.detach(), motion.detach(), prev_valid[:, :, i],
+                                prev_pose[:, :, i], prev_motion[:, :, i])
+        return mask & (i + 1 < t_gt)
+
+    return reset
+
+
 def _check_rollout_cfg(cfg: ExperimentCfg, tl_precomputed, n_sc: int, n_step_roll: int) -> int:
     """Raise for the options neither flavour ports; -> how often each pre-pass scenario repeats."""
     if tl_precomputed is None:
@@ -218,7 +240,6 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
     encoder; step i draws its dropout masks (and sampled actions) from step_seeds[i], so
     the per-step recompute of the backward pass draws them again alike.
     """
-    check_error_reset(cfg.teacher_forcing_training)
     n_step_roll = cfg.time_step_end
     n_sc, n_ag, t_gt = gt_valid.shape
     tl_rep = _check_rollout_cfg(cfg, tl_precomputed, n_sc, n_step_roll)
@@ -229,6 +250,7 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
     tf_pose = pad_steps(gt_pose, n_step_roll)
     tf_motion = pad_steps(gt_motion, n_step_roll)
     gt_valid_s = pad_steps(gt_valid, n_step_roll, False)
+    reset = _error_reset(cfg.teacher_forcing_training, gt_valid, gt_pose, gt_motion, n_step_roll)
     navi_mode = cfg.model.navi_mode
 
     def step(i, valid, disabled, pose, motion, hist_valid, hist_pose, hist_motion, hist_step_invalid,
@@ -253,7 +275,7 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
             action_log_prob = torch.where(valid, action_dist.log_prob(action.detach()), 0.0)
             pred_pose, pred_motion, action_bounded = dyn.step_dynamics(pose, motion, valid, action, ag_type,
                                                                        cfg.dynamics)
-            force = tf_valid[:, :, i]
+            force = tf_valid[:, :, i] if reset is None else tf_valid[:, :, i] | reset(i, valid, pose, motion)
             ov_valid, ov_pose, ov_motion = dyn.override_ag(valid, pred_pose, pred_motion, disabled, force,
                                                            tf_pose[:, :, i], tf_motion[:, :, i])
             rule_state, violations = check_rules(rule_statics, rule_state, valid, pred_pose.detach(),

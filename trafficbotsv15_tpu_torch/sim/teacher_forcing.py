@@ -2,8 +2,12 @@
 
 The random branches (per-agent forcing, scheduled sampling, both decreasing
 per epoch) take uniform draws from the caller: a mask entry is set where its
-draw is below the probability (jax.random.bernoulli's rule). The
-error-threshold reset raises (no configuration of the repo sets one).
+draw is below the probability (jax.random.bernoulli's rule).
+
+`error_reset_mask` is the error-threshold reset: the rollouts force an agent
+back to the log where its previous post-override state strays from the log
+at the previous step by more than `threshold_xy` (m), `threshold_yaw`
+(degrees) or `threshold_spd` (m/s); a threshold <= 0 is off.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from trafficbotsv15_tpu_torch.config import TeacherForcingCfg
+from trafficbotsv15_tpu_torch.ops.transform import cast_rad
 
 
 def build_forcing_masks(cfg: TeacherForcingCfg, ag_valid: torch.Tensor, tl_valid_step: torch.Tensor,
@@ -51,7 +56,22 @@ def build_forcing_masks(cfg: TeacherForcingCfg, ag_valid: torch.Tensor, tl_valid
     return forcing, tl_valid_step
 
 
-def check_error_reset(cfg: TeacherForcingCfg) -> None:
-    """The error-threshold reset is not ported: every threshold must be off (<= 0)."""
-    if cfg.threshold_xy > 0 or cfg.threshold_yaw > 0 or cfg.threshold_spd > 0:
-        raise NotImplementedError("error-threshold teacher-forcing resets are not ported")
+def error_reset_mask(cfg: TeacherForcingCfg, pred_valid: torch.Tensor, pred_pose: torch.Tensor,
+                     pred_motion: torch.Tensor, gt_valid_prev: torch.Tensor, gt_pose_prev: torch.Tensor,
+                     gt_motion_prev: torch.Tensor) -> torch.Tensor:
+    """Agents to reset [n_sc, n_ag]: where both the state and the log at the previous step are valid and
+    the state's xy distance, yaw difference (wrapped, in degrees) or speed difference exceeds its threshold.
+    pred_valid, gt_valid_prev [n_sc, n_ag]; poses and motions [n_sc, n_ag, 3]."""
+    out = torch.zeros_like(pred_valid)
+    if cfg.threshold_xy <= 0 and cfg.threshold_yaw <= 0 and cfg.threshold_spd <= 0:
+        return out
+    err_valid = pred_valid & gt_valid_prev
+    err_pose = torch.where(err_valid[..., None], pred_pose - gt_pose_prev, 0.0)
+    if cfg.threshold_xy > 0:
+        out = out | (torch.linalg.vector_norm(err_pose[..., :2], dim=-1) > cfg.threshold_xy)
+    if cfg.threshold_yaw > 0:
+        out = out | (torch.rad2deg(cast_rad(err_pose[..., 2])).abs() > cfg.threshold_yaw)
+    if cfg.threshold_spd > 0:
+        err_spd = torch.where(err_valid, pred_motion[..., 0] - gt_motion_prev[..., 0], 0.0).abs()
+        out = out | (err_spd > cfg.threshold_spd)
+    return out

@@ -10,13 +10,19 @@ lr(t) = lr * gamma ** ((t // steps_per_epoch) // scheduler_step_epochs) as a Lam
 The clip, g' = g * max_norm / norm where norm >= max_norm, has no epsilon (unlike
 `torch.nn.utils.clip_grad_norm_`, which divides by norm + 1e-6): `clip_by_global_norm`.
 With `lr_navi` set apart from `lr`, the `navi_predictor.*` parameters form a second group
-(optax.multi_transform): their own clipping norm, and lr_navi in place of lr. Gradient
-accumulation (MultiSteps) raises.
+(optax.multi_transform): their own clipping norm, and lr_navi in place of lr.
+
+Gradient accumulation follows `optax.MultiSteps(chain, every_k_schedule=accumulate_grad_batches)`
+(`GradAccumulator`): each call folds its raw gradients into a running mean, acc += (g - acc) / (n + 1);
+the k-th call hands the mean to the chain (clip, Adam, decay, StepLR) and resets the mean. Parameters,
+moments and the schedule's count stay as they are on the other calls, so the StepLR epoch spans k times
+more calls, as in the JAX package. `torch.optim.AdamW` decays the weights on every `step()`, so
+`optimizer.step()` and `schedule.step()` run only on the k-th call.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 
@@ -26,8 +32,8 @@ from trafficbotsv15_tpu_torch.config import OptimizerCfg
 def make_optimizer(cfg: OptimizerCfg, model: torch.nn.Module, steps_per_epoch: int = 1000
                    ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
     """(optimizer, schedule): step the schedule after each optimizer step."""
-    if cfg.accumulate_grad_batches > 1:
-        raise NotImplementedError("gradient accumulation (optax.MultiSteps) is not ported")
+    if cfg.accumulate_grad_batches < 1:
+        raise ValueError(f"accumulate_grad_batches must be at least 1, not {cfg.accumulate_grad_batches}")
     split = cfg.lr_navi is not None and cfg.lr_navi != cfg.lr
     groups = {cfg.lr: [], cfg.lr_navi: []}
     for name, p in model.named_parameters():
@@ -50,3 +56,47 @@ def clip_by_global_norm(param_groups: Iterable[dict], max_norm: float) -> torch.
         torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0, max_norm / norm))
         squares.append(norm.square())
     return torch.sqrt(sum(squares))
+
+
+class GradAccumulator:
+    """optax.MultiSteps' gradient mean over `k` calls, one float32 buffer per parameter.
+
+    `add()` folds each parameter's `.grad` into the mean and returns True on the k-th call,
+    after writing the mean into `.grad` and resetting the buffers; on the other calls it returns
+    False and the caller leaves the parameters alone."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], k: int):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.k = int(k)
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+
+    @torch.no_grad()
+    def add(self) -> bool:
+        grads = [p.grad.float() for p in self.params]
+        diff = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(diff, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, diff)
+        self.mini_step += 1
+        if self.mini_step < self.k:
+            return False
+        for p, a in zip(self.params, self.acc):
+            p.grad = a.to(p.dtype, copy=True)
+        torch._foreach_zero_(self.acc)
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> dict:
+        return {"mini_step": self.mini_step, "acc": [a.detach() for a in self.acc]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.mini_step = int(state["mini_step"])
+        for a, saved in zip(self.acc, state["acc"], strict=True):
+            a.copy_(saved)
+
+
+def make_accumulator(cfg: OptimizerCfg, model: torch.nn.Module) -> Optional[GradAccumulator]:
+    """A GradAccumulator over the model's parameters when cfg accumulates over more than one call, else None
+    (`make_optimizer` refuses fewer than one)."""
+    return GradAccumulator(model.parameters(), cfg.accumulate_grad_batches) if cfg.accumulate_grad_batches > 1 else None

@@ -35,7 +35,7 @@ from trafficbotsv15_tpu_torch.sim.rule_checker import init_rule_checker
 from trafficbotsv15_tpu_torch.sim.teacher_forcing import build_forcing_masks
 from trafficbotsv15_tpu_torch.train.evaluation import batch_to_device
 from trafficbotsv15_tpu_torch.train.losses import training_loss
-from trafficbotsv15_tpu_torch.train.optimizer import clip_by_global_norm
+from trafficbotsv15_tpu_torch.train.optimizer import clip_by_global_norm, make_accumulator
 from trafficbotsv15_tpu_torch.utils.device import resolve_device
 
 
@@ -154,14 +154,18 @@ def make_train_step(cfg: ExperimentCfg, model: TrafficBots, optimizer: torch.opt
                     schedule: Optional[torch.optim.lr_scheduler.LRScheduler] = None, device=None):
     """The gradient step: train_step(batch, generator, epoch=0, noise=None) -> metrics.
 
-    Runs on `device` (CUDA unless device="cpu"), where the model must be; clips each of the
-    optimizer's groups by `cfg.optimizer.grad_clip_norm`, steps the optimizer over the model's
-    parameters in place, then the schedule (`train/optimizer.py::make_optimizer` makes both).
-    metrics holds the loss terms and `grad_norm`, the global norm of the gradients before clipping."""
+    Runs on `device` (CUDA unless device="cpu"), where the model must be. With
+    `cfg.optimizer.accumulate_grad_batches` k > 1 each call folds its gradients into
+    `train_step.accumulator` (a `GradAccumulator`; None when k = 1) and only every k-th call updates.
+    An update clips each of the optimizer's groups by `cfg.optimizer.grad_clip_norm`, steps the optimizer
+    over the model's parameters in place, then the schedule (`train/optimizer.py::make_optimizer` makes
+    both). metrics holds each call's loss terms and, on an update, `grad_norm`, the global norm before
+    clipping of the gradients the update applies (with k > 1, their mean over the k calls)."""
     device = resolve_device(device)
     model_dev = next(model.parameters()).device
     if model_dev.type != device.type:
         raise ValueError(f"model is on {model_dev}, the step on {device}: build the model on the same device")
+    accumulator = make_accumulator(cfg.optimizer, model)
 
     def train_step(batch, generator: Optional[torch.Generator] = None, epoch: int = 0, noise=None):
         batch = batch_to_device(batch, device)
@@ -173,12 +177,14 @@ def make_train_step(cfg: ExperimentCfg, model: TrafficBots, optimizer: torch.opt
         for p in model.parameters():  # optax updates every parameter: its moments and its decay
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        gnorm = clip_by_global_norm(optimizer.param_groups, cfg.optimizer.grad_clip_norm)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if accumulator is not None and not accumulator.add():
+            return metrics
+        metrics["grad_norm"] = clip_by_global_norm(optimizer.param_groups, cfg.optimizer.grad_clip_norm)
         optimizer.step()
         if schedule is not None:
             schedule.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = gnorm
         return metrics
 
+    train_step.accumulator = accumulator
     return train_step

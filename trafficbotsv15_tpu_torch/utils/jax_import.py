@@ -12,6 +12,17 @@ plus these layout rules:
 Every flax leaf maps to one port parameter, the posterior latent encoders'
 included; `load_jax_params` raises on a leaf with no parameter and on a
 parameter with no leaf.
+
+The migration path for a JAX training run's checkpoint (Orbax, which the port
+does not read): on a machine with the JAX package, restore it to numpy with
+that package's `train/checkpoint.py::CheckpointManager(dir).restore("last")`,
+build the port's model from `config.py::config_from_dict(<dir>/last.json's
+"config">)`, `load_jax_params(model, state["params"])`, and save
+`{"model": model.state_dict()}` with the port's
+`train/checkpoint.py::CheckpointManager` (`save_last` for `action=validate`,
+`save_best` for `action=test`); `python -m trafficbotsv15_tpu_torch.run
+action=validate ckpt_dir=...` then runs from it (`tests/test_torch_checkpoint.py::test_jax_checkpoint_migrates_into_the_port`).
+The optimizer state does not come across: a fit from it starts Adam afresh.
 """
 
 from __future__ import annotations
