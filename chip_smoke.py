@@ -102,11 +102,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      adds one step; (d) `action=validate` from "last" gives the fit's own
      val/loss, `action=test` from "best" writes the K=128 arrays; (e) seconds
      per fit step, samples/s, peak memory, save and write seconds, checkpoint
-     bytes, resume seconds.
+     bytes, resume seconds;
+ 12. reference-torch goldens (`tests/golden/`, the original PyTorch modules'
+     outputs), through the case functions of `tests/test_torch_golden_model.py`
+     and `tests/test_torch_golden_sim.py` on the card: (a) every golden that
+     reaches an attention kernel, in float32 with use_pallas=True (`attn_rpe`,
+     `tfblock_enc_cross`: B2; `tfblock_enc_self_knn` at dense_knn_max=0: B4;
+     `tfblock_dec_cross` at 0: both; `traffic_bots_full` at 0: B4 8, B2 6),
+     each output within the CPU test's tolerance, the launches asserted
+     exactly and all on the general route (float32); then every model and sim
+     case with use_pallas=False, no kernel launched; (b) `leaderboard_config()`
+     with use_pallas=True and damped seed-0 weights exported to the
+     reference's state_dict layout (`tests/torch_reference_layout.py`, which
+     gives `traffic_bots_full`'s 526 names and shapes), loaded back through
+     `utils/torch_import.py::load_reference_state_dict`: every parameter
+     bit-equal; one full-width call launches B1 90, B4 8, B2 360 (staged, at
+     shapes phase 3 checked) and its K0 futures and rule flags equal, bit for
+     bit, the directly loaded model's call. Phase 12's float32 golden launches
+     are not recorded for the shape check of phases 6, 8, 9 and 11: the
+     goldens themselves hold them.
 Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
 `validate_launches`, from phase 9; training-shape and backward ones from phase
 8, B4's and the backwards' by route; `fit_launches` per full-width fit step
-from phase 11), the card line, and last `{"ok": true, "device": {...}}`.
+from phase 11; `reference_layout_launches` from phase 12 (b)), the card line,
+and last `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
 
@@ -1644,6 +1663,124 @@ def run_fit_phase(card: str) -> dict:
     return counts
 
 
+def _worst(checks) -> str:
+    """The toleranced check nearest its tolerance (largest excess), with its error and tolerance; the checks
+    held to equality pass only when equal."""
+    tol = [c for c in checks if c.atol or c.rtol]
+    if not tol:
+        return "every check equal"
+    c = max(tol, key=lambda c: c.excess())
+    return (f"{c.name}: max |err| {c.max_abs_err():.3e} against atol {c.atol:g} + rtol {c.rtol:g} * |golden|, "
+            f"excess {c.excess():.3e}")
+
+
+def _run_golden(module, case: str, use_pallas: bool, kw: dict, want: dict) -> list:
+    """One golden case on the card; every check within its tolerance and the kernels launched exactly as `want`
+    says (the others not at all), float32 on the general route."""
+    reset_launches()
+    checks = module.run_case(case, device="cuda", use_pallas=use_pallas, **kw)
+    torch.cuda.synchronize()
+    want = {name: want.get(name, 0) for name in launches()}
+    routes = {f"{kernel}/{way}": (n if way == "general" else 0) for kernel, n in want.items() if kernel != "knn_xy"
+              for way in ("staged", "general")}
+    got_routes = {key: knarpe.ROUTE_LAUNCHES[key] for key in routes}
+    if launches() != want or got_routes != routes:
+        raise AssertionError(f"golden {case} use_pallas={use_pallas} {kw}: launches {launches()} by route "
+                             f"{got_routes}, expected {want} on the general route")
+    bad = [c for c in checks if not c.excess() <= 0.0]
+    if bad:
+        raise AssertionError(f"golden {case} use_pallas={use_pallas} {kw} on the card: " + "; ".join(_worst([c])
+                                                                                                for c in bad))
+    return checks
+
+
+def check_reference_layout_flagship(card: str, gm, reference_state_dict) -> dict:
+    """(b) leaderboard_config's weights through the reference layout: exported, loaded back through
+    `load_reference_state_dict`, bit-equal, and one full-width call bit-equal to the directly loaded model's."""
+    from trafficbotsv15_tpu_torch.utils.torch_import import load_reference_state_dict
+
+    t0 = time.perf_counter()
+    sd = gm.load_golden("model", "traffic_bots_full")[0]
+    exported = reference_state_dict(gm.full_model("traffic_bots_full", "cpu")[0])
+    if len(sd) != 526 or {k: v.shape for k, v in exported.items()} != {k: v.shape for k, v in sd.items()}:
+        raise AssertionError(f"reference layout at traffic_bots_full's config: {len(exported)} keys, the golden "
+                             f"{len(sd)}; names or shapes differ")
+    cfg = with_pallas(leaderboard_config(), True)
+    src = build_model(cfg, seed=0, device="cuda")
+    damp_weights(src, 0.5)
+    t1 = time.perf_counter()
+    ref_sd = reference_state_dict(src, cfg.data)
+    t_export = time.perf_counter() - t1
+    dst = build_model(cfg, seed=1, device="cuda")
+    t1 = time.perf_counter()
+    load_reference_state_dict(dst, ref_sd, cfg.model, cfg.time_step_gt)
+    t_load = time.perf_counter() - t1
+    want = src.state_dict()
+    differ = [k for k, v in dst.state_dict().items() if not torch.equal(v.view(torch.int32), want[k].view(torch.int32))]
+    if differ:
+        raise AssertionError(f"reference layout: parameters differ after the round trip: {differ[:8]}")
+    log(f"  (b) the inverse at traffic_bots_full's config gives the golden's {len(sd)} names and shapes; "
+        f"leaderboard_config (use_pallas=True, seed 0, damped 0.5): {len(ref_sd)} reference entries exported in "
+        f"{t_export:.2f} s, loaded through load_reference_state_dict in {t_load:.2f} s, all {len(want)} parameters "
+        f"bit-equal")
+    batch = make_batch(cfg.data, n_sc=4, seed=0)
+    bufs, counts = {}, {}
+    for name, model in (("direct", src), ("reference layout", dst)):
+        reset_launches()
+        with recorded_forward_shapes() as seen:
+            _, bufs[name] = joint_future_pred(cfg, model, batch, generator=torch.Generator().manual_seed(0),
+                                              check_level=1)
+        torch.cuda.synchronize()
+        counts[name] = launches()
+        check_staged_route(f"reference-layout {name} call")
+        check_path_forward_shapes(f"reference-layout {name} call", seen)
+    want_counts = expected_launches(cfg, cfg.time_step_end)
+    if counts["reference layout"] != want_counts or counts["direct"] != want_counts:
+        raise AssertionError(f"reference layout: launches {counts}, expected {want_counts} each")
+    a, b = bufs["direct"], bufs["reference layout"]
+    same = {"pred_pose": torch.equal(a.pred_pose[:, 0], b.pred_pose[:, 0]),
+            "pred_valid": torch.equal(a.pred_valid[:, 0], b.pred_valid[:, 0]),
+            **{f"violation/{k}": torch.equal(a.violation[k][:, 0], b.violation[k][:, 0]) for k in a.violation}}
+    if not all(same.values()):
+        raise AssertionError(f"reference layout: K0 futures or rule flags differ from the direct model's: "
+                             f"{[k for k, v in same.items() if not v]}")
+    flags = {k: int(v[:, 0].sum()) for k, v in b.violation.items() if not k.endswith("_this_step")}
+    log(f"  (b) joint_future_pred 4 scenarios x K=32, 64 agents, 1024 polylines, 90 steps, check_level=1 from the "
+        f"reloaded model: launches {counts['reference layout']} (as the direct model's, all staged); K0 futures "
+        f"{list(b.pred_pose[:, 0].shape)} and all {len(a.violation)} rule flags bit-equal to the direct model's "
+        f"(K0 agent-steps flagged {flags}); phase (b) {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts["reference layout"]
+
+
+def run_golden_phase(card: str) -> dict:
+    """Phase 12: (a) the reference-torch goldens through the kernels and through the card's plain path; (b) the
+    flagship through the reference layout. -> launches of (b)'s full-width call."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_golden_model as gm
+    import test_torch_golden_sim as gs
+    from torch_reference_layout import reference_state_dict
+
+    for case, (kw, want) in gm.KERNEL_CASES.items():
+        checks = _run_golden(gm, case, True, kw, want)
+        errs = ", ".join(f"{c.name} {c.max_abs_err():.3e} ({c.atol:g}, {c.rtol:g})" for c in checks)
+        log(f"  (a) {case} {kw or ''} use_pallas=True float32: launches {want} on the general route; max |err| "
+            f"(atol, rtol): {errs}; worst {_worst(checks)}")
+    sweep = [(gm, name, kw) for name, kw in gm.MODEL_CASES] + [(gm, "traffic_bots_full", {})]
+    sweep += [(gs, name, {}) for name in gs.SIM_CASES]
+    worst = []
+    for module, case, kw in sweep:
+        checks = [c for c in _run_golden(module, case, False, kw, {}) if c.atol or c.rtol]
+        worst += [(c.excess(), case, kw, c) for c in checks]
+    excess, case, kw, c = max(worst, key=lambda w: w[0])
+    log(f"  (a) sweep on the card with use_pallas=False: {len(sweep)} golden cases ({len(gm.MODEL_CASES) + 1} model, "
+        f"{len(gs.SIM_CASES)} sim), every check within its tolerance (the exact ones equal), no kernel launch; "
+        f"nearest its tolerance: {case} {kw or ''} {_worst([c])} [{card}]")
+    counts = check_reference_layout_flagship(card, gm, reference_state_dict)
+    log(f"  phase 12 {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's main path needs an NVIDIA GPU",
@@ -1651,7 +1788,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/11] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/12] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -1662,44 +1799,49 @@ def main() -> int:
         for fut in [pool.submit(knn.load_library), pool.submit(knarpe.load_library),
                     pool.submit(knarpe.load_bwd_library)]:
             fut.result()
-    log(f"[2/11] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/12] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    log("[3/11] kernels vs plain versions")
+    log("[3/12] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
 
-    log("[4/11] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[4/12] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_slice_card_vs_cpu(use_pallas=False)
     check_slice_card_vs_cpu(use_pallas=True)
 
-    log("[5/11] slice at full width, use_pallas=False")
+    log("[5/12] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    log("[6/11] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    log("[6/12] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True)
 
-    log("[7/11] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[7/12] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_train_step_card_vs_cpu(use_pallas=False)
     check_train_step_card_vs_cpu(use_pallas=True)
 
-    log("[8/11] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    log("[8/12] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    log("[9/11] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    log("[9/12] validation step: reduced-depth fp32 config card vs CPU, then full width")
     check_validate_card_vs_cpu(use_pallas=False)
     check_validate_card_vs_cpu(use_pallas=True)
     validate_counts = run_validate_full_width(card)
 
-    log("[10/11] submission: test_submission at full width, K=128")
+    log("[10/12] submission: test_submission at full width, K=128")
     run_submission(card)
 
-    log("[11/11] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    log("[11/12] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
     fit_counts = run_fit_phase(card)
+
+    log("[12/12] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
+        "reference layout")
+    layout_counts = run_golden_phase(card)
     by_route = lambda counts, kernel: {way: counts[f"{kernel}/{way}"] for way in ("staged", "general")}
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["validate_launches"] = validate_counts[row["name"]]  # per full-width validation step (phase 9)
         row["fit_launches"] = fit_counts[row["name"]]  # per full-width fit step at batch 2 (phase 11)
+        row["reference_layout_launches"] = layout_counts[row["name"]]  # phase 12 (b)'s call
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     b4 = rows[1]  # per eval call (phase 6), and at the training shape per step (phase 8)
     b4["launches_by_route"] = by_route(routes, "knarpe_attention")

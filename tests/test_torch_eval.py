@@ -19,15 +19,14 @@ and flags are exact.
 """
 
 import dataclasses
-import json
 import types
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from test_torch_golden_model import load_golden
 from test_torch_helpers import set_threads
 from trafficbotsv15_tpu.config import WOMDPostCfg as JaxWOMDPostCfg
 from trafficbotsv15_tpu.config import WOSACPostCfg as JaxWOSACPostCfg
@@ -49,7 +48,6 @@ from trafficbotsv15_tpu_torch.sim import rule_checker as prc
 
 set_threads()
 RTOL, ATOL = 1e-5, 1e-6
-GOLD = Path(__file__).parent / "golden" / "sim"
 
 
 def _t(x):
@@ -118,10 +116,7 @@ def test_traffic_rule_sums_match_jax():
 def test_logging_metrics_match_golden():
     """The reference's ErrorMetrics / TrafficRuleMetrics over two batches, as `test_sim_parity.py` holds the
     JAX package to it, with its tolerance."""
-    data = np.load(GOLD / "logging_metrics.npz")
-    ins = {k[3:]: data[k] for k in data.files if k.startswith("in/")}
-    outs = {k[4:]: data[k] for k in data.files if k.startswith("out/")}
-    meta = json.loads(bytes(data["meta"]).decode())
+    _, ins, outs, meta = load_golden("sim", "logging_metrics")
     err_sums, tr_sums = {}, {}
     for i in range(meta["n_batches"]):
         b = {k[len(f"b{i}_"):]: v for k, v in ins.items() if k.startswith(f"b{i}_")}

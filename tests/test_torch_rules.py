@@ -14,8 +14,6 @@
 """
 
 import dataclasses
-import json
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +22,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_golden_model import load_golden
 from test_torch_helpers import jax_model_params, jax_sort_knn, port_cfg, port_model, set_threads
 from trafficbotsv15_tpu.config import tiny_config
 from trafficbotsv15_tpu.data.synthetic import make_batch
@@ -35,19 +34,10 @@ from trafficbotsv15_tpu_torch.sim import wosac_collision as pwc
 from trafficbotsv15_tpu_torch.train import evaluation as port_eval
 
 set_threads()
-GOLD = Path(__file__).parent / "golden" / "sim"
 GEOM_ATOL = 1e-4
 LEVEL1 = ("collided", "collided_wosac", "run_road_edge", "run_red_light", "passive")
 RULE_INPUTS = ("mp_boundary", "mp_valid", "mp_type", "mp_pos", "mp_dir", "ag_type", "ag_size", "tl_valid", "tl_pose",
                "ag_goal", "ag_dest")
-
-
-def _golden(name):
-    data = np.load(GOLD / f"{name}.npz")
-    ins = {k[3:]: data[k] for k in data.files if k.startswith("in/")}
-    outs = {k[4:]: data[k] for k in data.files if k.startswith("out/")}
-    meta = json.loads(bytes(data["meta"]).decode()) if "meta" in data.files else {}
-    return ins, outs, meta
 
 
 def _live_pairs(valid):
@@ -56,7 +46,7 @@ def _live_pairs(valid):
 
 
 def test_wosac_collision_vs_golden():
-    ins, outs, _ = _golden("wosac_collision")
+    _, ins, outs, _ = load_golden("sim", "wosac_collision")
     pose, size, valid = (torch.from_numpy(ins[k]) for k in ("pose", "size", "valid"))
     np.testing.assert_allclose(pwc.get_ag_bbox(pose, size[..., :2]).numpy(), outs["bbox"], rtol=1e-5, atol=GEOM_ATOL)
     sd = pwc.pairwise_signed_distance_soa(pose, size, valid).numpy()
@@ -68,7 +58,7 @@ def test_wosac_collision_vs_golden():
 
 def test_rule_checker_level1_vs_golden():
     """The reference's 30-step scripted scenario: every key bit-exact at every step."""
-    ins, outs, meta = _golden("rule_checker")
+    _, ins, outs, meta = load_golden("sim", "rule_checker")
     statics, state = prc.init_rule_checker(**{k: torch.from_numpy(ins[k]) for k in RULE_INPUTS})
     mismatches = []
     for t in range(meta["T"]):

@@ -1,40 +1,58 @@
-"""Action head and navi/latent fusion (counterpart of `trafficbotsv15_tpu/models/heads.py`)."""
+"""Gaussian head and navi/latent fusion (counterpart of `trafficbotsv15_tpu/models/heads.py`)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
-from trafficbotsv15_tpu_torch.config import ActionHeadCfg, AddNaviLatentCfg
+from trafficbotsv15_tpu_torch.config import ActionHeadCfg, AddNaviLatentCfg, DistEncoderCfg
 from trafficbotsv15_tpu_torch.models.mlp import MLP
 from trafficbotsv15_tpu_torch.ops.distributions import DiagGaussian
 
 
-class ActionHead(nn.Module):
-    """MLP mean + learned log_std, branched per agent type (`mean{i}`, `log_std{i}`)."""
+class GaussianHead(nn.Module):
+    """Diagonal Gaussian head, the action head and the `diag_gaus` latent head: an MLP mean and a learned
+    log_std vector or an MLP log_std, one of each per agent type with `branch_type` (`mean{i}`,
+    `log_std{i}`), else one (`mean`, `log_std`). cfg is an `ActionHeadCfg` or a `DistEncoderCfg`."""
 
-    def __init__(self, cfg: ActionHeadCfg, hidden_dim: int, action_dim: int, n_ag_type: int = 3,
-                 dtype=torch.float32):
+    skips_forward = False
+
+    def __init__(self, cfg: Union[ActionHeadCfg, DistEncoderCfg], hidden_dim: int, out_dim: int, n_ag_type: int,
+                 dtype=torch.float32, fp32_out: bool = False):
+        """fp32_out: cast mean and log_std to float32 (the action head, which feeds the dynamics and the
+        log-prob losses)."""
         super().__init__()
-        if not cfg.branch_type or cfg.log_std is None:
-            raise NotImplementedError("only the type-branched head with a learned log_std vector is on the path")
-        self.n_ag_type = n_ag_type
-        dims = [hidden_dim] * (cfg.n_layer - 1) + [action_dim]
-        for i in range(n_ag_type):
-            self.add_module(f"mean{i}", MLP(hidden_dim, dims, end_layer_activation=False,
-                                            use_layernorm=cfg.mlp_use_layernorm, dtype=dtype))
-            self.register_parameter(f"log_std{i}", nn.Parameter(torch.full((action_dim,), float(cfg.log_std))))
+        self.branch_type, self.fp32_out = cfg.branch_type, fp32_out
+        self.branches = [str(i) for i in range(n_ag_type)] if cfg.branch_type else [""]
+        dims = [hidden_dim] * (cfg.n_layer - 1) + [out_dim]
+        mlp = lambda: MLP(hidden_dim, dims, end_layer_activation=False, use_layernorm=cfg.mlp_use_layernorm,
+                          dtype=dtype)
+        for b in self.branches:
+            self.add_module(f"mean{b}", mlp())
+            if cfg.log_std is None:
+                self.add_module(f"log_std{b}", mlp())
+            else:
+                self.register_parameter(f"log_std{b}", nn.Parameter(torch.full((out_dim,), float(cfg.log_std))))
 
     def forward(self, x, valid, ag_type) -> DiagGaussian:
-        """x [n_sc, n_ag, hidden], valid [n_sc, n_ag], ag_type one-hot [n_sc, n_ag, 3]."""
+        """x [n_sc, n_ag, hidden], valid [n_sc, n_ag], ag_type one-hot [n_sc, n_ag, n_ag_type] (read by the
+        type-branched head only) -> [n_sc, n_ag, out_dim]."""
         mean = log_std = 0.0
-        for i in range(self.n_ag_type):
-            mask = ~(ag_type[..., i] & valid)
-            mean = mean + getattr(self, f"mean{i}")(x, mask)
-            log_std = log_std + torch.where(mask[..., None], 0.0, getattr(self, f"log_std{i}"))
-        return DiagGaussian(mean.float(), torch.exp(log_std.float()), valid=valid)
+        for i, b in enumerate(self.branches):
+            mask = ~(ag_type[..., i] & valid) if self.branch_type else ~valid
+            mean = mean + getattr(self, f"mean{b}")(x, mask)
+            head = getattr(self, f"log_std{b}")
+            if isinstance(head, nn.Module):
+                log_std = log_std + head(x, mask)
+            elif self.branch_type:
+                log_std = log_std + torch.where(mask[..., None], 0.0, head)
+            else:
+                log_std = head.expand(mean.shape)
+        if self.fp32_out:
+            mean, log_std = mean.float(), log_std.float()
+        return DiagGaussian(mean, torch.exp(log_std), valid=valid)
 
 
 class AddNaviLatent(nn.Module):

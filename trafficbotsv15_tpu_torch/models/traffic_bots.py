@@ -18,7 +18,7 @@ from torch import nn
 
 from trafficbotsv15_tpu_torch.config import DataCfg, ModelCfg
 from trafficbotsv15_tpu_torch.models.agent_encoder import AgentEncoder
-from trafficbotsv15_tpu_torch.models.heads import ActionHead, AddNaviLatent
+from trafficbotsv15_tpu_torch.models.heads import AddNaviLatent, GaussianHead
 from trafficbotsv15_tpu_torch.models.latent_encoder import LatentEncoder
 from trafficbotsv15_tpu_torch.models.map_encoder import MapEncoder
 from trafficbotsv15_tpu_torch.models.navigation import NaviEncoder, NaviPredictor
@@ -65,14 +65,14 @@ class TrafficBots(nn.Module):
             c.latent_encoder, c.tl_encoder, c.ag_encoder, c.tf_cfg, h, c.temp_window_size, time_step_gt,
             enc_kw=dict(n_tgt_knn=c.n_tgt_knn, dist_limit=c.dist_limit, pose_rpe=pose_rpe, **temp),
             tl_kw=dict(tl_state_dim=TL_STATE_DIM, tl_mode=c.tl_mode),
-            ag_kw=dict(attr_dim=ag_attr_dim, knn_kernel_on=ops.knn_pallas), dtype=dtype)
+            ag_kw=dict(attr_dim=ag_attr_dim, knn_kernel_on=ops.knn_pallas), n_ag_type=data.n_ag_type, dtype=dtype)
         self.navi_encoder = NaviEncoder(c.navi_encoder, h, c.navi_mode, pose_rpe, dtype=dtype)
         self.navi_predictor = NaviPredictor(c.navi_predictor, c.ag_encoder, h, c.navi_mode, c.temp_window_size,
                                             pose_rpe, ag_attr_dim, dtype=dtype, **temp)
         self.add_navi = AddNaviLatent(c.add_navi_latent, h, h, dtype=dtype)
         self.add_latent = AddNaviLatent(c.add_navi_latent, h, max(c.latent_encoder.latent_dim, 1),
                                         dummy=self.latent_encoder.dummy, dtype=dtype)
-        self.action_head = ActionHead(c.action_head, h, action_dim, n_ag_type=data.n_ag_type, dtype=dtype)
+        self.action_head = GaussianHead(c.action_head, h, action_dim, data.n_ag_type, dtype=dtype, fp32_out=True)
 
     # --- per-phase entry points ----------------------------------------------
     def encode_map(self, mp_valid, mp_attr, mp_pose, mp_type) -> MapTokens:

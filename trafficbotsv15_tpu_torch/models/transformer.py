@@ -7,7 +7,8 @@
   - project-then-gather: KNN self-attention over larger token sets (the
     map's 1024 polylines): project the tokens once, then gather K/V;
   - fused K/V + RPE: cross-attention over per-source raw KNN targets, with
-    the target LayerNorm folded into the K/V projection (agent->map⊕TL);
+    the target LayerNorm folded into the K/V projection (agent->map⊕TL),
+    and the same without RPE;
   - precomputed static K/V (TL->map, hoisted out of the rollout);
   - plain dense attention.
 With `TransformerCfg.use_pallas=True` (and the `OpsCfg.use_pallas_attention`
@@ -190,8 +191,10 @@ class AttentionRPE(nn.Module):
                 out = knn_attention(q.reshape(n_b, n_src, n_head, d_head), k, v, tgt_padding_mask, rpe_k, rpe_v)
         elif tgt is not None and tgt.ndim == 4:
             if rpe is None:
-                raise NotImplementedError("KNN cross-attention without RPE is not on the joint-future path")
-            if self.use_pallas:
+                # no kernel takes a KNN cross-attention without RPE, in either package
+                kf, vf = self._project_kv(tgt, ln=tgt_ln).chunk(2, -1)
+                out = knn_attention_fullwidth(q, kf, vf, tgt_padding_mask, n_head)
+            elif self.use_pallas:
                 # kernel B2 fuses both projections into the attention (JAX transformer.py:367-396);
                 # the target LayerNorm folds into W_kv and b in float32 before the cast
                 dt = self.dtype
