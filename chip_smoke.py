@@ -12,13 +12,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      the main path's shapes and at edge cases; times kernel, plain version and
      the nearest PyTorch call or composition of calls (`library_ms`):
      B1 (`knn_xy`; also at the training path's [8, 64, 1024], the training
-     entry point's [2, 64, 1024] and its validation's [4, 64, 1024], all
+     entry point's [2, 64, 1024] and its validation's [4, 64, 1024], the
+     scaled preset's training [1, 64, 1024], all
      distances tied, k=1, k = n_tgt, n_tgt 1000 and 2048, every
      source invalid; timed at the eval and training shapes), B4 (`knarpe_attention`; in bf16 on
      the staged kernel of csrc/knarpe_attn_staged.cuh, the route asserted,
      at both paths' shapes and the entry point's 2 x 1024, K=5, K=24, 1, 97
-     and 8 x 1024 + 7 sources and the edge shapes, an eight-head shape on the
-     general route; timed at both paths' shapes), B2
+     and 8 x 1024 + 7 sources and the edge shapes, an eight-head shape and
+     the scaled preset's [4, 1024, 32, 256, 256, 8] on the general route;
+     timed at both paths' shapes and the scaled preset's), B2
      (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`, which
      only this phase launches); B2 and B3 also at the training path's shapes
      (the agent decoder and posterior agent encoder, the posterior TL encoder
@@ -26,8 +28,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      timed at the first of them; in bf16 these run on the staged
      kernel of csrc/knarpe_staged.cuh (the route asserted); the shapes it
      refuses, the scaled preset's D=R=256 with 8 heads and K=90 and K=128 at
-     D=R=128, run on the general route (csrc/knarpe.cu, asserted), timed at
-     the scaled preset's eval shape; every bf16 B2/B3 must give the same bits
+     D=R=128, run on the general route (csrc/knarpe.cu, asserted), checked
+     and timed at the scaled preset's eval shape too; every bf16 B2/B3 must give the same bits
      on a second launch; then the backward kernels B4-bwd and B2-bwd (B3's backward is B2's)
      through the wrappers' autograd: the card's output has a grad_fn, and its
      gradients match autograd of the plain versions in float32 and bf16, the
@@ -66,7 +68,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch, forward and backward, as often as the config implies;
   8. training at full width (the training main path): `leaderboard_config()`
      with use_pallas=True, 8 synthetic scenarios per step, bf16 compute with
-     f32 parameters: one warm-up step, then 3 timed steps; seconds per step,
+     f32 parameters: one warm-up step, then 2 timed steps; seconds per step,
      train samples/s, peak memory, forward and backward launches per step
      (asserted), every bf16 B4 and B2 forward and backward launch on the
      staged route at a shape phase 3 checked; loss and grad_norm finite and non-zero,
@@ -78,7 +80,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      False and True: buffers, flags and every entry of `out` agree, and the
      card's realism agrees with the CPU's on the card's own futures; then
      `leaderboard_config()` with use_pallas=True, 4 scenarios, K=32, level 1,
-     native realism: one warm-up, 3 timed steps (seconds per step,
+     native realism: one warm-up, 2 timed steps (seconds per step,
      wosac_validate_scenarios_per_sec_per_chip, peak memory), launches per step
      asserted (B1 181, B4 16, B2 728, staged, at shapes phase 3 checked), one
      more step split by part with the realism part's working set;
@@ -120,12 +122,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      shapes phase 3 checked) and its K0 futures and rule flags equal, bit for
      bit, the directly loaded model's call. Phase 12's float32 golden launches
      are not recorded for the shape check of phases 6, 8, 9 and 11: the
-     goldens themselves hold them.
+     goldens themselves hold them;
+ 13. the scaled preset (`scaled_config()`: hidden 256, 8 heads, 12/6/6
+     map/TL/agent layers, 120 steps against the 91 the log holds, bf16
+     compute), random seed-0 weights, synthetic scenarios, use_pallas=False
+     unless said: (a) `joint_future_pred`, 4 scenarios x K=32, level 1: one
+     warm-up and 2 timed calls, in turns with (d)'s, B1 120 per call all at
+     [128, 64, 1024], poses [4, 32, 64, 120, 3] finite, past the log no
+     agent forced and the TL NLL masked; (b) `make_train_step` at the preset's batch of 1: one
+     warm-up and 2 timed steps, B1 241 per step at [1, 64, 1024] (the
+     rollout, its recompute, the posterior encoder), loss and grad_norm
+     finite, every parameter a finite non-zero gradient but the action
+     head's log_std; (c) `make_validate_step`, 4 scenarios x K=32: a warm-up
+     and one step split by part, B1 120 + 121; (d) `joint_future_pred` with
+     use_pallas=True, one warm-up and 2 timed calls in turns with (a)'s
+     (a d d a): B1 120, B4 12 and B2 720 per call, every B4 and B2 on the
+     general route, at shapes phase 3 checked
+     (B4 [4, 1024, 32, 256, 256, 8], B2 [128, 64, 89, 256, 256, 8]);
+     (e) the phase-4 config rolled out to 40 steps against its 31 logged:
+     the training step's gradients (phase 7's check) and the validation step
+     with reactive replay's buffer (phase 9's) card vs CPU. (a)-(d) log
+     seconds and peak memory.
 Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
 `validate_launches`, from phase 9; training-shape and backward ones from phase
 8, B4's and the backwards' by route; `fit_launches` per full-width fit step
-from phase 11; `reference_layout_launches` from phase 12 (b)), the card line,
-and last `{"ok": true, "device": {...}}`.
+from phase 11; `reference_layout_launches` from phase 12 (b); `scaled_launches`
+per call or step of each path of phase 13; B4's and B2's `general_route`
+times at the scaled preset's shapes), the card line, and last
+`{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
 
@@ -146,7 +170,7 @@ import numpy as np
 import torch
 
 from trafficbotsv15_tpu_torch import run as run_lib
-from trafficbotsv15_tpu_torch.config import leaderboard_config, tiny_config, with_pallas
+from trafficbotsv15_tpu_torch.config import leaderboard_config, scaled_config, tiny_config, with_pallas
 from trafficbotsv15_tpu_torch.data import tbcache
 from trafficbotsv15_tpu_torch.data.preprocessing import pre_processing
 from trafficbotsv15_tpu_torch.data.synthetic import make_batch
@@ -200,6 +224,8 @@ ATTN_EDGE = [(3, 7, 5, 16, 16, 2), (2, 17, 89, 64, 32, 1)]
 ATTN_STAGED_EDGE = [(1, 97, 5, 128, 128, 4), (1, 97, 24, 64, 64, 2), (1, 1, 32, 128, 128, 4),
                     (1, 8199, 32, 128, 128, 4), FIT_ATTN_PATH]
 ATTN_GENERAL = [(1, 33, 89, 32, 16, 8)]
+# the scaled preset's map encoder (4 scenarios x 1024 polylines, D=R=256, 8 heads): B4 forward on the general route
+SCALED_ATTN_PATH = (4, 1024, 32, 256, 256, 8)
 # bf16 B2 backward shapes phase 3 holds on the staged route (csrc/knarpe_bwd_staged.cuh) besides the
 # training path's: K not a multiple of 16 with an all-invalid source at 21 sources (under the 132-block
 # grid), and 200 sources (no multiple of the grid); and the eight-head edge shape the staged backward
@@ -292,6 +318,7 @@ KNN_CASES = {
     "n_tgt_1000": (8, 64, 1000, KNN_K, {}),
     "n_tgt_2048": (4, 64, 2048, KNN_K, dict(grid=True)),
     "every_source_invalid": (4, 64, 1024, KNN_K, dict(p_src=1.0)),
+    "scaled_training_shape": (1, KNN_SRC, KNN_TGT, KNN_K, {}),  # the scaled preset's batch_size_train=1
     **{f"entry_{rows}x{src}_k{k}": (rows, src, tgt, k, {}) for rows, src, tgt, k in FIT_KNN},
 }
 
@@ -459,10 +486,10 @@ def time_knarpe(name: str, shape) -> dict:
 # check that the paths launch no other
 CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT_X, *VAL_X)}
 # bf16 B2/B3 shapes the staged kernel refuses, which take the general route: the scaled preset's
-# widths (D=R=256, 8 heads) and K=90 and K=128 at the flagship's D=R=128, H=4; timed at the scaled
-# preset's eval shape (4 scenarios x 32 futures x 64 agents, K=89)
-GENERAL_X = [(2, 64, 89, 256, 256, 8), (2, 64, 90, 128, 128, 4), (2, 64, 128, 128, 128, 4)]
+# widths (D=R=256, 8 heads), at its eval shape (4 scenarios x 32 futures x 64 agents, K=89) too, and
+# K=90 and K=128 at the flagship's D=R=128, H=4; timed at the scaled preset's eval shape
 SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
+GENERAL_X = [(2, 64, 89, 256, 256, 8), SCALED_X_PATH, (2, 64, 90, 128, 128, 4), (2, 64, 128, 128, 128, 4)]
 
 
 def check_knarpe_kernels() -> list:
@@ -482,9 +509,11 @@ def check_knarpe_kernels() -> list:
             check_one_knarpe(name, shape, seed=2 + i)
         row = time_knarpe(name, path)
         if name == "knarpe_attention":
-            for i, shape in enumerate(ATTN_GENERAL):
+            for i, shape in enumerate([*ATTN_GENERAL, SCALED_ATTN_PATH]):
                 check_one_knarpe(name, shape, seed=20 + i, want_route="general")
             row["training_shape"] = {"shape": list(TRAIN_ATTN_PATH), **time_knarpe(name, TRAIN_ATTN_PATH)}
+            row["general_route"] = {"source": "trafficbotsv15_tpu_torch/csrc/knarpe.cu",
+                                    "shape": list(SCALED_ATTN_PATH), **time_knarpe(name, SCALED_ATTN_PATH)}
         else:
             time_knarpe(name, TRAIN_X_PATH)
             for i, shape in enumerate(GENERAL_X):
@@ -826,7 +855,7 @@ def replay_rule_checks_on_cpu(cfg, model, batch, gen) -> None:
         f"{n_flags} flags differ (tolerance {RULE_FLAG_SHARE:g} of them); fired: {sorted(fired)}")
 
 
-def run_full_width(card: str, use_pallas: bool, n_timed: int = 3, replay_rules: bool = False) -> dict:
+def run_full_width(card: str, use_pallas: bool, n_timed: int = 2, replay_rules: bool = False) -> dict:
     cfg = with_pallas(leaderboard_config(), use_pallas)
     n_sc, k = 4, cfg.n_joint_future_wosac
     batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
@@ -887,9 +916,10 @@ def no_dropout(cfg):
         add_navi_latent=dataclasses.replace(m.add_navi_latent, mlp_dropout_p=0.0)))
 
 
-def check_train_step_card_vs_cpu(use_pallas: bool) -> None:
-    """One make_train_step on the card and on the CPU: same weights, same draws, no dropout."""
-    cfg = with_pallas(no_dropout(tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=31, hidden_dim=64)), use_pallas)
+def check_train_step_card_vs_cpu(use_pallas: bool, time_step_end: int = None) -> None:
+    """One make_train_step on the card and on the CPU: same weights, same draws, no dropout. time_step_end past
+    the log's 30 steps takes the TL pass step by step (phase 13 (e))."""
+    cfg = with_pallas(no_dropout(horizon(phase4_config(), time_step_end)), use_pallas)
     batch = make_batch(cfg.data, n_sc=2, seed=3)
     noise = train_lib.draw_training_noise(cfg, batch, torch.Generator().manual_seed(0), "cpu")
     runs = {}
@@ -923,7 +953,8 @@ def check_train_step_card_vs_cpu(use_pallas: bool) -> None:
                              f"(tolerance {TRAIN_LOSS_REL}), gradient of {worst_name} off by {worst} of its scale "
                              f"(tolerance {TRAIN_GRAD_REL})")
     norm_tgt = [n for n in g_cpu if n.endswith("norm_tgt_scale") and float(g_cpu[n].abs().max()) > 0]
-    log(f"  use_pallas={use_pallas}: card vs CPU, loss {m_gpu['training/loss']:.6f} vs {m_cpu['training/loss']:.6f}, "
+    log(f"  use_pallas={use_pallas}, {cfg.time_step_end} steps: card vs CPU, loss {m_gpu['training/loss']:.6f} vs "
+        f"{m_cpu['training/loss']:.6f}, "
         f"grad_norm {m_gpu['grad_norm']:.6f} vs {m_cpu['grad_norm']:.6f}, loss terms and grad_norm within "
         f"{loss_err:.2e} relative (tolerance {TRAIN_LOSS_REL:g}); {len(g_cpu)} parameter gradients within "
         f"{worst:.2e} of their scale (worst {worst_name}; tolerance {TRAIN_GRAD_REL:g}; scale floored at "
@@ -931,7 +962,7 @@ def check_train_step_card_vs_cpu(use_pallas: bool) -> None:
         f"folded norm_tgt_scale gradients non-zero; launches {expected_train_launches(cfg)} as the config implies")
 
 
-def run_train_full_width(card: str, n_timed: int = 3) -> dict:
+def run_train_full_width(card: str, n_timed: int = 2) -> dict:
     """leaderboard_config() training with use_pallas=True, 8 scenarios per step, bf16 compute."""
     cfg = with_pallas(leaderboard_config(), True)
     n_sc = 8
@@ -1036,11 +1067,12 @@ def _rel_excess(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float)
     return float(((got - want).abs() - rtol * want.abs() - atol).max())
 
 
-def check_validate_card_vs_cpu(use_pallas: bool) -> None:
+def check_validate_card_vs_cpu(use_pallas: bool, time_step_end: int = None) -> None:
     """One validation step on the card and on the CPU: the phase-4 config with K=34 joint futures, the same
-    weights and the same draws. Every comparison is made and logged before any failure is raised."""
-    cfg = with_pallas(dataclasses.replace(tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=31, hidden_dim=64),
-                                          n_joint_future_wosac=VALIDATE_K), use_pallas)
+    weights and the same draws. Every comparison is made and logged before any failure is raised. time_step_end
+    past the log's 30 steps runs reactive replay's TL step by step past it (phase 13 (e))."""
+    cfg = with_pallas(dataclasses.replace(horizon(phase4_config(), time_step_end), n_joint_future_wosac=VALIDATE_K),
+                      use_pallas)
     batch = make_batch(cfg.data, n_sc=1, seed=3)
     runs = {}
     for device in ("cpu", "cuda"):
@@ -1093,7 +1125,8 @@ def check_validate_card_vs_cpu(use_pallas: bool) -> None:
         if _rel_excess(got, val, VALIDATE_REL, 1e-6) > 0:
             failures.append(f"realism of the card's futures, card vs CPU: {key} {got.tolist()} vs {val.tolist()}")
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
-    log(f"  use_pallas={use_pallas}: validation step card vs CPU, K={VALIDATE_K}: {'; '.join(notes)}; {len(worst)} out "
+    log(f"  use_pallas={use_pallas}: validation step card vs CPU, K={VALIDATE_K}, {cfg.time_step_end} steps: "
+        f"{'; '.join(notes)}; {len(worst)} out "
         f"values, worst relative {[(k, f'{v:.2e}') for k, v in top]} (tolerance {VALIDATE_REL:g}); realism of the "
         f"card's futures recomputed on the CPU: worst relative {replay_worst:.2e}; kernel launches "
         f"{expected_validate_launches(cfg)} as the config implies")
@@ -1101,7 +1134,7 @@ def check_validate_card_vs_cpu(use_pallas: bool) -> None:
         raise AssertionError(f"validate check use_pallas={use_pallas}: " + "; ".join(failures))
 
 
-def run_validate_full_width(card: str, n_timed: int = 3) -> dict:
+def run_validate_full_width(card: str, n_timed: int = 2) -> dict:
     """The validation step at full width: leaderboard_config() with use_pallas=True, 4 scenarios, K=32, level-1
     rule checks, native realism. One warm-up, then n_timed steps; one more step split by part."""
     cfg = with_pallas(leaderboard_config(), True)
@@ -1230,6 +1263,11 @@ def phase4_config():
     return tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=31, hidden_dim=64)
 
 
+def horizon(cfg, time_step_end=None):
+    """cfg rolled out to time_step_end steps (None: its own)."""
+    return cfg if time_step_end is None else dataclasses.replace(cfg, time_step_end=time_step_end)
+
+
 def config_overrides(base, cfg) -> list:
     """The run.py key=value arguments that turn config `base` into `cfg` (dotted keys, JSON values)."""
     out = []
@@ -1264,16 +1302,36 @@ def seed_checkpoint(cfg, ckpt_dir, steps_per_epoch: int) -> None:
 
 
 @contextlib.contextmanager
+def recorded_launch_shapes():
+    """The full shape of every B1, B4 and B2/B3 forward launch inside the block, counted: (kernel, dtype, n_b, n_s,
+    K, D, R, H), or ("knn_xy", rows, sources, targets, k)."""
+    shapes, real_fwd, real_knn = collections.Counter(), knarpe._launch, knn.load_library()
+
+    def fwd(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head):
+        shapes[(kernel, str(q.dtype), *q.shape[:2], rpe.shape[2], q.shape[2], rpe.shape[3], n_head)] += 1
+        return real_fwd(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
+
+    def knn_launch(*args):
+        shapes[("knn_xy", *args[6:10])] += 1
+        return real_knn(*args)
+
+    knarpe._launch, knn._LAUNCH_FN = fwd, knn_launch
+    try:
+        yield shapes
+    finally:
+        knarpe._launch, knn._LAUNCH_FN = real_fwd, real_knn
+
+
+@contextlib.contextmanager
 def recorded_fit(with_grads: bool = False):
     """What the fits inside the block do: per train-step call its seconds (synchronised), launches, launches by
     route, metrics and batch (with_grads: on an update, the gradients it applied, on the CPU); the full shape of every B1, B4 and B2 launch, forward and backward; the seconds of
     each save_last until it returns and of each background write; restore_resume's seconds; each validation's
     metrics; and the model and optimizer state each fit's first step starts from."""
-    rec = {"steps": [], "shapes": collections.Counter(), "save_return": [], "write": [], "restore": [],
-           "validate": [], "start_state": []}
-    real = dict(make=run_lib.make_train_step, fwd=knarpe._launch, bwd=knarpe._launch_bwd, knn=knn.load_library(),
-                save_last=checkpoint_lib.CheckpointManager.save_last, write=checkpoint_lib._Write._run,
-                restore=checkpoint_lib.CheckpointManager.restore_resume, validate=eval_runner.validate)
+    rec = {"steps": [], "save_return": [], "write": [], "restore": [], "validate": [], "start_state": []}
+    manager = checkpoint_lib.CheckpointManager
+    real = dict(make=run_lib.make_train_step, bwd=knarpe._launch_bwd, save_last=manager.save_last,
+                write=checkpoint_lib._Write._run, restore=manager.restore_resume, validate=eval_runner.validate)
 
     def make(cfg, model, opt, *args, **kwargs):
         step, calls = real["make"](cfg, model, opt, *args, **kwargs), []
@@ -1299,18 +1357,10 @@ def recorded_fit(with_grads: bool = False):
         timed.accumulator = step.accumulator
         return timed
 
-    def fwd(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head):
-        rec["shapes"][(kernel, str(q.dtype), *q.shape[:2], rpe.shape[2], q.shape[2], rpe.shape[3], n_head)] += 1
-        return real["fwd"](kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
-
     def bwd(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head):
         key = (f"{kernel}_bwd", str(q.dtype), *q.shape[:2], rpe.shape[2], q.shape[2], rpe.shape[3], n_head)
         rec["shapes"][key] += 1
         return real["bwd"](kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head)
-
-    def knn_launch(*args):
-        rec["shapes"][("knn_xy", *args[6:10])] += 1
-        return real["knn"](*args)
 
     def save_last(self, *args, **kwargs):
         t0 = time.perf_counter()
@@ -1333,14 +1383,15 @@ def recorded_fit(with_grads: bool = False):
         rec["validate"].append(metrics)
         return metrics
 
-    run_lib.make_train_step, knarpe._launch, knarpe._launch_bwd, knn._LAUNCH_FN = make, fwd, bwd, knn_launch
+    run_lib.make_train_step, knarpe._launch_bwd = make, bwd
     checkpoint_lib.CheckpointManager.save_last, checkpoint_lib._Write._run = save_last, write
     checkpoint_lib.CheckpointManager.restore_resume, eval_runner.validate = restore, validate
     try:
-        yield rec
+        with recorded_launch_shapes() as shapes:  # the forwards and B1; the backwards join them below
+            rec["shapes"] = shapes
+            yield rec
     finally:
-        run_lib.make_train_step, knarpe._launch, knarpe._launch_bwd = real["make"], real["fwd"], real["bwd"]
-        knn._LAUNCH_FN = real["knn"]
+        run_lib.make_train_step, knarpe._launch_bwd = real["make"], real["bwd"]
         checkpoint_lib.CheckpointManager.save_last, checkpoint_lib._Write._run = real["save_last"], real["write"]
         checkpoint_lib.CheckpointManager.restore_resume, eval_runner.validate = real["restore"], real["validate"]
 
@@ -1780,6 +1831,200 @@ def run_golden_phase(card: str) -> dict:
     log(f"  phase 12 {time.perf_counter() - t0:.1f} s [{card}]")
     return counts
 
+# phase 13, the scaled preset: 4 scenarios x K=32 futures for eval and validation, the preset's own batch of 1 for
+# training; (e) rolls the phase-4 config out 10 steps past its 30 logged ones
+SCALED_N_SC, SCALED_CHECK_END = 4, 40
+
+
+def check_scaled_shapes(where: str, shapes, want: dict) -> None:
+    """The launches of a scaled-preset call, by full shape, are exactly `want`, and each shape is one phase 3 checked:
+    B1 against its plain version, bf16 B4 and B2 against theirs on the general route."""
+    checked = {("knn_xy", *case[:4]) for case in KNN_CASES.values()}
+    checked |= {("knarpe_attention", str(torch.bfloat16), *s) for s in [*ATTN_GENERAL, SCALED_ATTN_PATH]}
+    checked |= {("knarpe_cross_attention", str(torch.bfloat16), *s) for s in GENERAL_X}
+    if dict(shapes) != want or not set(shapes) <= checked:
+        raise AssertionError(f"{where}: launches by shape {dict(shapes)}, expected {want}, each at a shape phase 3 "
+                             f"checked (unchecked: {sorted(set(shapes) - checked, key=str)})")
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def run_scaled_phase(card: str) -> dict:
+    """`scaled_config()` at full width (hidden 256, 8 heads, 12/6/6 layers, 120 steps past the log's 91, bf16
+    compute), random seed-0 weights, synthetic scenarios: (a) joint_future_pred, use_pallas=False, and (d) with
+    use_pallas=True, the general-route kernels, timed in turns; (b) the training step at batch 1; (c) the validation
+    step; (e) the phase-4 config past its log, card against CPU. Returns the launches per call or step by path."""
+    t_phase = time.perf_counter()
+    n_sc = SCALED_N_SC
+    knn_eval = ("knn_xy", n_sc * 32, KNN_SRC, KNN_TGT, KNN_K)  # the agent->map KNN of 4 x 32 rollouts
+
+    # (a) eval with use_pallas=False and (d) with use_pallas=True, where B4 and B2 in bf16 at D=R=256, H=8 take the
+    # general route: a warm-up call each, then two timed calls each, in turns (a d d a)
+    t0 = time.perf_counter()
+    cfg = with_pallas(scaled_config(), False)
+    n_step, n_ag, k = cfg.time_step_end, cfg.data.n_ag, cfg.n_joint_future_wosac
+    n_logged = cfg.data.n_step
+    if not (n_step >= n_logged and k == 32 and cfg.precision == "bf16"):
+        raise AssertionError(f"scaled_config(): {n_step} steps against {n_logged} logged, K={k}, {cfg.precision}")
+    batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
+    model = build_model(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(0)
+    joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pcfg = with_pallas(scaled_config(), True)
+    pmodel = build_model(pcfg, seed=0, device="cuda")
+    pgen = torch.Generator().manual_seed(0)
+    joint_future_pred(pcfg, pmodel, batch, generator=pgen, check_level=1)
+    torch.cuda.synchronize()
+    t_pwarm = time.perf_counter() - t0
+    n_b4, n_b2 = pcfg.model.mp_encoder.n_layer_tf, pcfg.model.ag_encoder.n_layer_tf * n_step
+    arms = {"a": (cfg, model, gen, {knn_eval: n_step}, {}),
+            "d": (pcfg, pmodel, pgen,
+                  {knn_eval: n_step, ("knarpe_attention", str(torch.bfloat16), *SCALED_ATTN_PATH): n_b4,
+                   ("knarpe_cross_attention", str(torch.bfloat16), *SCALED_X_PATH): n_b2},
+                  {"knarpe_attention/general": n_b4, "knarpe_cross_attention/general": n_b2})}
+    times, peaks, counts, bufs, routes = {}, {}, {}, {}, {}
+    for arm in "adda":
+        acfg, amodel, agen, want_shapes, want_general = arms[arm]
+        where = f"scaled eval call use_pallas={acfg.model.tf_cfg.use_pallas}"
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t1 = time.perf_counter()
+        with recorded_launch_shapes() as shapes:
+            _, bufs[arm] = joint_future_pred(acfg, amodel, batch, generator=agen, check_level=1)
+        torch.cuda.synchronize()
+        times.setdefault(arm, []).append(time.perf_counter() - t1)
+        peaks[arm] = max(peaks.get(arm, 0.0), peak_gib())
+        check_scaled_shapes(where, shapes, want_shapes)
+        counts[arm], routes[arm] = launches(), dict(knarpe.ROUTE_LAUNCHES)
+        want_routes = {key: want_general.get(key, 0) for key in routes[arm]}
+        if counts[arm] != expected_launches(acfg, n_step) or routes[arm] != want_routes:
+            raise AssertionError(f"{where}: launches {counts[arm]}, by route {routes[arm]}, expected "
+                                 f"{expected_launches(acfg, n_step)}, by route {want_routes}")
+    buf, pbuf = bufs["a"], bufs["d"]
+    eval_counts, pallas_counts = counts["a"], counts["d"]
+    if tuple(buf.pred_pose.shape) != (n_sc, k, n_ag, n_step, 3) or not (torch.isfinite(buf.pred_pose).all()
+                                                                         and torch.isfinite(buf.log_prob).all()):
+        raise AssertionError(f"scaled eval call: pred_pose {tuple(buf.pred_pose.shape)} or not finite")
+    past = n_logged - 1  # buffer index of step 91, the first the log does not hold
+    free = int(torch.nonzero(~buf.tl_state_nll_invalid.flatten(0, 2).all(0)).max()) + 1  # first all-invalid index
+    if not (buf.tl_state_nll_invalid[..., past:].all() and not buf.mask_teacher_forcing[..., past:].any()):
+        raise AssertionError("scaled eval call: TL NLL not masked or agents forced past the log")
+    if tuple(pbuf.pred_pose.shape) != tuple(buf.pred_pose.shape) or not torch.isfinite(pbuf.pred_pose).all():
+        raise AssertionError("scaled eval call use_pallas=True: poses out of shape or not finite")
+    eval_s, pallas_s = (float(np.median(times[arm])) for arm in "ad")
+    log(f"  (a) scaled_config use_pallas=False joint_future_pred: {n_sc} scenarios x K={k}, {n_ag} agents, "
+        f"{cfg.data.n_mp} polylines, {n_step} steps ({n_logged} logged), {n_params} parameters, bf16 compute: warm-up "
+        f"{t_warm:.3f} s, seconds per call {[round(t, 4) for t in times['a']]} (median {eval_s:.4f} s), "
+        f"{n_sc * k * n_ag * (n_step - cfg.time_step_current) / eval_s:.1f} agent-steps/s, peak memory "
+        f"{peaks['a']:.2f} GiB; launches per call {eval_counts} (B1 all at {list(knn_eval[1:])}); poses "
+        f"{list(buf.pred_pose.shape)} finite; from buffer index {free} on (history ends there) and so past index "
+        f"{past}: TL NLL masked, no agent forced [{card}]")
+    log(f"  (d) scaled_config use_pallas=True joint_future_pred: warm-up {t_pwarm:.3f} s, seconds per call "
+        f"{[round(t, 4) for t in times['d']]} (median {pallas_s:.4f} s) against (a)'s median {eval_s:.4f} s, in turns "
+        f"a d d a ({pallas_s - eval_s:+.4f} s), peak memory {peaks['d']:.2f} GiB; launches per call {pallas_counts}, "
+        f"by route {routes['d']} (B4 at {list(SCALED_ATTN_PATH)}, B2 at {list(SCALED_X_PATH)}, general route, shapes "
+        f"phase 3 checked); poses finite [{card}]")
+    del pmodel, arms
+    torch.cuda.empty_cache()
+
+    # (b) the training step at the preset's batch_size_train
+    t0 = time.perf_counter()
+    n_train = cfg.batch_size_train
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
+    step(tbatch, gen)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for _ in range(2):
+        reset_launches()
+        t1 = time.perf_counter()
+        with recorded_launch_shapes() as shapes:
+            m = step(tbatch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        metrics.append({key: float(v) for key, v in m.items()})
+        check_scaled_shapes("scaled training step", shapes,
+                            {("knn_xy", n_train, KNN_SRC, KNN_TGT, KNN_K): 2 * n_step + 1})
+        # every parameter has a finite gradient, non-zero but for the action head's log_std: with deterministic
+        # training actions the loss reads the action distribution's mean only (JAX's gradient there is 0 too)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        bad = [n for n, g in grads.items() if g is None or not bool(torch.isfinite(g).all())]
+        zero = [n for n, g in grads.items() if n not in bad and not bool(g.any())]
+        unread = [n for n in zero if cfg.training_deterministic_action and n.startswith("action_head.log_std")]
+        if bad or zero != unread:
+            raise AssertionError(f"scaled training step: parameters without a finite gradient {bad[:8]}, with a zero "
+                                 f"one {zero[:8]}")
+    train_counts, train_peak = launches(), peak_gib()
+    if train_counts != expected_train_launches(cfg):
+        raise AssertionError(f"scaled training step: launches {train_counts}, expected {expected_train_launches(cfg)}")
+    if not all(math.isfinite(mm["training/loss"]) and math.isfinite(mm["grad_norm"]) and mm["grad_norm"] > 0
+               for mm in metrics):
+        raise AssertionError(f"scaled training step: metrics {metrics}")
+    train_s = float(np.median(times))
+    log(f"  (b) scaled_config use_pallas=False training step, batch {n_train}: warm-up {t_warm:.3f} s, seconds per "
+        f"step {[round(t, 4) for t in times]} (median {train_s:.4f} s), {n_train / train_s:.4f} train samples/s, "
+        f"peak memory {train_peak:.2f} GiB, losses {[round(mm['training/loss'], 4) for mm in metrics]}, grad_norm "
+        f"{[round(mm['grad_norm'], 4) for mm in metrics]}, all {len(grads)} parameters with a finite, non-zero "
+        f"gradient but the {len(unread)} log_std the loss does not read; launches per step {train_counts} (B1 all "
+        f"at {[n_train, *knn_eval[2:]]}) [{card}]")
+
+    # (c) the validation step
+    t0 = time.perf_counter()
+    vstep = eval_runner.make_validate_step(cfg, model)
+    vbatch = train_lib.batch_to_device(batch, torch.device("cuda"))
+    vstep(vbatch, gen)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    split = {}
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes:
+        out = vstep(vbatch, gen, split=split)
+    val_s = time.perf_counter() - t1
+    val_counts, val_peak = launches(), peak_gib()
+    check_scaled_shapes("scaled validation step", shapes, {knn_eval: n_step, ("knn_xy", n_sc, KNN_SRC, KNN_TGT, KNN_K):
+                                                            n_step + 1})
+    if val_counts != expected_validate_launches(cfg):
+        raise AssertionError(f"scaled validation step: launches {val_counts}, expected "
+                             f"{expected_validate_launches(cfg)}")
+    n_fut = cfg.time_step_gt - cfg.time_step_current
+    realism = {key: v.float().cpu() for key, v in out["wosac_realism"].items()}
+    loss = {key: float(v) for key, v in out["loss_metrics"].items()}
+    if not (tuple(out["womd_trajs"].shape) == (n_sc, n_ag, 6, n_fut // 5, 3)
+            and tuple(out["wosac_trajs"].shape) == (n_sc, 32, n_ag, n_step - cfg.time_step_current, 3)
+            and all(torch.isfinite(out[key]).all() for key in ("womd_trajs", "womd_scores", "wosac_trajs"))
+            and all(bool(torch.isfinite(v).all()) for v in realism.values())
+            and all(math.isfinite(v) for v in loss.values()) and float(out["err_sums"]["err_counter"]) > 0):
+        raise AssertionError(f"scaled validation step: outputs out of shape or not finite: losses {loss}")
+    log(f"  (c) scaled_config validation step, {n_sc} scenarios, K={k}, native realism: warm-up {t_warm:.3f} s, "
+        f"split step {val_s:.4f} s: { {part: round(split.get(part, 0.0), 4) for part in eval_runner.SPLIT_PARTS} }, "
+        f"{n_sc / val_s:.4f} scenarios/s, peak memory {val_peak:.2f} GiB; launches per step {val_counts} (B1 "
+        f"{n_step} at {list(knn_eval[1:])}, {n_step + 1} at {[n_sc, *knn_eval[2:]]}); WOMD modes over the {n_fut} "
+        f"logged future steps, WOSAC futures over all {n_step - cfg.time_step_current}, realism over the logged ones: "
+        f"metametric {[round(v, 4) for v in realism['metametric'].tolist()]}, val loss "
+        f"{loss['reactive_replay/loss']:.4f} [{card}]")
+
+    del model, step, vstep
+    torch.cuda.empty_cache()
+
+    # (e) the TL pass past the log, card against CPU at reduced depth
+    t0 = time.perf_counter()
+    check_train_step_card_vs_cpu(use_pallas=False, time_step_end=SCALED_CHECK_END)
+    check_validate_card_vs_cpu(use_pallas=False, time_step_end=SCALED_CHECK_END)
+    log(f"  (e) phase-4 config at {SCALED_CHECK_END} steps against 31 logged, card vs CPU: "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  phase 13 {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"eval": eval_counts, "train": train_counts, "validate": val_counts, "eval_use_pallas": pallas_counts}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1788,7 +2033,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/12] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/13] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -1799,49 +2044,56 @@ def main() -> int:
         for fut in [pool.submit(knn.load_library), pool.submit(knarpe.load_library),
                     pool.submit(knarpe.load_bwd_library)]:
             fut.result()
-    log(f"[2/12] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/13] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    log("[3/12] kernels vs plain versions")
+    log("[3/13] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
 
-    log("[4/12] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[4/13] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_slice_card_vs_cpu(use_pallas=False)
     check_slice_card_vs_cpu(use_pallas=True)
 
-    log("[5/12] slice at full width, use_pallas=False")
+    log("[5/13] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    log("[6/12] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    log("[6/13] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True)
 
-    log("[7/12] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[7/13] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_train_step_card_vs_cpu(use_pallas=False)
     check_train_step_card_vs_cpu(use_pallas=True)
 
-    log("[8/12] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    log("[8/13] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    log("[9/12] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    log("[9/13] validation step: reduced-depth fp32 config card vs CPU, then full width")
     check_validate_card_vs_cpu(use_pallas=False)
     check_validate_card_vs_cpu(use_pallas=True)
     validate_counts = run_validate_full_width(card)
 
-    log("[10/12] submission: test_submission at full width, K=128")
+    log("[10/13] submission: test_submission at full width, K=128")
     run_submission(card)
 
-    log("[11/12] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    log("[11/13] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
     fit_counts = run_fit_phase(card)
 
-    log("[12/12] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
+    log("[12/13] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
         "reference layout")
     layout_counts = run_golden_phase(card)
+
+    log("[13/13] the scaled preset at full width: eval, training, validation, eval through the general-route kernels; "
+        "the TL pass past the log, card vs CPU")
+    scaled_counts = run_scaled_phase(card)
     by_route = lambda counts, kernel: {way: counts[f"{kernel}/{way}"] for way in ("staged", "general")}
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["validate_launches"] = validate_counts[row["name"]]  # per full-width validation step (phase 9)
         row["fit_launches"] = fit_counts[row["name"]]  # per full-width fit step at batch 2 (phase 11)
         row["reference_layout_launches"] = layout_counts[row["name"]]  # phase 12 (b)'s call
+        # per call or step of phase 13's paths at scaled_config(): eval (a), training (b), validation (c), and the
+        # eval call through the kernels (d), whose B4 and B2 launches all take the general route
+        row["scaled_launches"] = {path: counts_[row["name"]] for path, counts_ in scaled_counts.items()}
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     b4 = rows[1]  # per eval call (phase 6), and at the training shape per step (phase 8)
     b4["launches_by_route"] = by_route(routes, "knarpe_attention")
@@ -1850,6 +2102,7 @@ def main() -> int:
     for row in bwd_rows:
         row["launches"] = train_counts[row["name"]]
         row["fit_launches"] = fit_counts[row["name"]]
+        row["scaled_launches"] = {path: counts_[row["name"]] for path, counts_ in scaled_counts.items()}
         row["launches_by_route"] = by_route(train_routes, row["name"])
         if row["name"] == "knarpe_cross_attention_bwd":  # of the 368, per step
             row["post_tl_shape"]["launches"] = train_bwd_shapes[("knarpe_cross_attention", *POST_TL_X_PATH[2:])]

@@ -143,10 +143,11 @@ def jax_training_noise(cfg, batch, key, n_seeds=None):
 GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-7, 1e-5
 
 
-def train_step_parity(cfg, key_seed: int = 3):
+def train_step_parity(cfg, key_seed: int = 3, edit_tree=None):
     """One training step of both packages on tiny-config weights (gain 0.5) and one batch, with the
     JAX draws handed to the port: JAX `jax.jit(jax.value_and_grad(training_forward))` and the port's
     `make_train_step` (its clip off and its optimizer replaced by a recorder of the gradients).
+    edit_tree(tree) -> tree, if given, edits the random weights before both packages get them.
     Returns dict(jax_loss, jax_metrics, jax_grads {port name: array}, port_metrics, port_grads, model)."""
     from trafficbotsv15_tpu.data.synthetic import make_batch
     from trafficbotsv15_tpu.train import pipeline as jax_pipeline
@@ -154,6 +155,8 @@ def train_step_parity(cfg, key_seed: int = 3):
     from trafficbotsv15_tpu_torch.utils.jax_import import params_from_jax
 
     jmodel, tree = jax_model_params(cfg, seed=0, gain=0.5)
+    if edit_tree is not None:
+        tree = edit_tree(tree)
     batch = make_batch(cfg.data, n_sc=2, seed=1)
     key = jax.random.PRNGKey(key_seed)
 

@@ -37,6 +37,7 @@ from test_torch_helpers import (assert_grads_match, assert_loss_matches, jax_mod
                                 jax_training_noise, no_dropout, port_cfg, port_model, set_threads, t2n, to_jnp,
                                 train_step_parity)
 from test_torch_validate import _assert_buffers, _assert_losses
+from trafficbotsv15_tpu import config as jax_config
 from trafficbotsv15_tpu import run as jax_run
 from trafficbotsv15_tpu.config import tiny_config
 from trafficbotsv15_tpu.data.synthetic import make_batch
@@ -84,6 +85,39 @@ def test_main_keeps_its_own_keys_apart_from_the_config(monkeypatch, tmp_path):
               f"ckpt_dir={tmp_path}", "optimizer.accumulate_grad_batches=2"])
     assert seen["cfg"].data.n_ag == 4 and seen["cfg"].optimizer.accumulate_grad_batches == 2
     assert seen["max_steps"] == 3 and seen["device"].type == "cpu" and seen["ckpt_dir"] == str(tmp_path)
+
+
+# -- presets ---------------------------------------------------------------------------------------------------------
+def test_scaled_preset_gives_the_jax_scaled_config(monkeypatch, tmp_path):
+    """`preset=scaled` reaches `fit` with the JAX package's `scaled_config()`, field for field."""
+    seen = {}
+    monkeypatch.setattr(run, "make_dataloaders", lambda *a, **kw: (None, None))
+    monkeypatch.setattr(run, "fit", lambda cfg, *a, **kw: seen.update(cfg=cfg) or (None, None, False))
+    run.main(["action=fit", "device=cpu", "preset=scaled", f"ckpt_dir={tmp_path}"])
+    assert port_config.config_to_dict(seen["cfg"]) == jax_config.config_to_dict(jax_config.scaled_config())
+    assert seen["cfg"].time_step_end == 120 and seen["cfg"].model.tf_cfg.n_head == 8
+
+
+@pytest.mark.parametrize("preset", ["flagship", "Scaled", ""])
+def test_unknown_preset_raises(monkeypatch, tmp_path, preset):
+    """Where JAX's run.py falls back to the leaderboard config, the port refuses and names its presets."""
+    monkeypatch.setattr(run, "fit", lambda *a, **kw: pytest.fail("fit reached with an unknown preset"))
+    with pytest.raises(ValueError, match="leaderboard, tiny, scaled"):
+        run.main(["action=fit", "device=cpu", f"preset={preset}", f"ckpt_dir={tmp_path}"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_params_from_jax_carries_a_scaled_config_tree_both_ways():
+    """A JAX `scaled_config()` parameter tree (its shapes, random values) fills every parameter of the port's model
+    at `preset=scaled` and every leaf lands in one (`load_state_dict(strict=True)`), the values unchanged."""
+    _, tree = jax_model_params(jax_config.scaled_config(), seed=0)
+    model = build_model(run.preset_config("scaled"), device="cpu")
+    state = params_from_jax(tree)
+    model.load_state_dict(state, strict=True)
+    params = dict(model.named_parameters())
+    assert set(params) == set(state) and len(jax.tree_util.tree_leaves(tree)) == len(state)
+    assert all(torch.equal(params[n], v) for n, v in state.items())
+    assert sum(p.numel() for p in params.values()) > 30e6  # the ~40M-parameter preset
 
 
 # -- the error-threshold reset --------------------------------------------------------------------------------------

@@ -18,15 +18,17 @@ from trafficbotsv15_tpu_torch.ops.transform import cast_rad
 def error_metric_sums(buffer, gt_valid: torch.Tensor, gt_pose: torch.Tensor, gt_motion: torch.Tensor,
                       step_start: int = 1) -> Dict[str, torch.Tensor]:
     """Reconstruction errors against the ground truth. buffer flattened [n_sc, K=1, n_ag, n_step(, d)], its
-    steps the absolute steps [step_start, step_start + n_step); gt_* [n_sc, n_ag, n_step_gt] from step 0."""
-    n_step = buffer.pred_valid.shape[-1]
+    steps the absolute steps [step_start, step_start + n_step); gt_* [n_sc, n_ag, n_step_gt] from step 0.
+    A rollout past the log's horizon (the scaled preset) counts its logged steps only; JAX's function
+    raises there (the buffer and the log do not broadcast)."""
+    n_step = min(buffer.pred_valid.shape[-1], gt_valid.shape[2] - step_start)
     gt_valid = gt_valid[:, :, step_start:step_start + n_step]
     gt_pose = gt_pose[:, :, step_start:step_start + n_step]
     gt_motion = gt_motion[:, :, step_start:step_start + n_step]
-    err_valid = buffer.pred_valid[:, 0] & gt_valid
+    err_valid = buffer.pred_valid[:, 0, :, :n_step] & gt_valid
     inv = ~err_valid[..., None]
-    err_pose = torch.where(inv, 0.0, buffer.pred_pose[:, 0] - gt_pose)
-    err_motion = torch.where(inv, 0.0, buffer.pred_motion[:, 0] - gt_motion)
+    err_pose = torch.where(inv, 0.0, buffer.pred_pose[:, 0, :, :n_step] - gt_pose)
+    err_motion = torch.where(inv, 0.0, buffer.pred_motion[:, 0, :, :n_step] - gt_motion)
     return {
         "err_counter": err_valid.sum().float(),
         "err_pos_meter": torch.linalg.vector_norm(err_pose[..., :2], dim=-1).sum(),

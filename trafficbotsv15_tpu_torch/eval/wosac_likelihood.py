@@ -299,16 +299,19 @@ def realism_from_rollout(batch: Dict[str, torch.Tensor], pp, jf_buf, step_curren
     joint futures (flattened buffer [n_sc, K, ...]) against the logged ground truth; road edges from the
     packed map; simulated offroad from the rule checker's flags, logged offroad by replaying the same
     crossing test on the logged boxes. -> dict of [n_sc] tensors: the 9 likelihood fields, the buckets,
-    "metametric", and WOSAC's average and min-average displacement errors."""
+    "metametric", and WOSAC's average and min-average displacement errors. Futures past the log's horizon
+    (the scaled preset) are scored over the logged steps only, the steps WOSAC scores; JAX's function raises
+    there (the futures and the log do not broadcast)."""
     road_edge, road_edge_valid = build_road_edges(batch["map/valid"], batch["map/type"].bool(), batch["map/pos"],
                                                   batch["map/dir"], segment_budget)
-    sim = jf_buf.pred_pose[:, :, :, step_current:].float()  # [n_sc, K, n_ag, n_fut, 3]
-    # every agent present anywhere in the futures is simulated over the whole horizon
-    sim_valid = jf_buf.pred_valid[:, :, :, step_current:].any(3).any(1)  # [n_sc, n_ag]
     logged = pp.gt_pose[:, :, step_current + 1:].float()  # absolute steps aligned with sim
     logged_valid = pp.gt_valid[:, :, step_current + 1:]
+    future = slice(step_current, step_current + logged.shape[2])
+    sim = jf_buf.pred_pose[:, :, :, future].float()  # [n_sc, K, n_ag, n_fut, 3]
+    # every agent present anywhere in the futures is simulated over the whole horizon
+    sim_valid = jf_buf.pred_valid[:, :, :, future].any(3).any(1)  # [n_sc, n_ag]
     ag_size = pp.ag_size.float()
-    sim_offroad = jf_buf.violation["run_road_edge_this_step"][:, :, :, step_current:].any(-1)  # [n_sc, K, n_ag]
+    sim_offroad = jf_buf.violation["run_road_edge_this_step"][:, :, :, future].any(-1)  # [n_sc, K, n_ag]
 
     # logged offroad: the crossing test of every (step, scenario), [n_ag, n_seg] per box edge
     n_sc, n_ag, n_fut = logged_valid.shape

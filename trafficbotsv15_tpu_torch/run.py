@@ -7,12 +7,18 @@
 Arguments are key=value, values parsed as JSON where they parse; dots nest
 (`optimizer.lr=1e-4`). Besides the config's own fields: `action`
 (fit | validate | test), `data` (synthetic | tbcache | h5, with `data_dir`
-holding training.* and validation.*), `preset` (leaderboard | tiny),
+holding training.* and validation.*), `preset` (leaderboard | tiny | scaled),
 `max_steps`, `log_every`, `ckpt_dir`, `resume` and `device` (the card unless
 `device=cpu`). The run is one process on one device. Keys the port has no
 counterpart for raise `NotImplementedError`: `profile_dir` and `video_dir`
 (ROADMAP A12), `parallel.strategy` other than dp or a model axis over one
 device (A10), and the JAX-only switches `rbg` and `debug_nans`.
+
+`preset=scaled` is `config.scaled_config()` (hidden 256, 8 heads, 12/6/6
+map/TL/agent layers, a 120-step horizon past the data's 91 logged steps).
+JAX's `run.py` has no `scaled` preset (its bench takes it) and gives the
+leaderboard config for any name it does not know; here an unknown preset
+raises a `ValueError` that names the presets.
 
 `fit` trains with checkpoints ("last" every `ckpt_every_steps` and at each
 epoch's end, "best" on `val/loss` after each epoch's validation), EMA and SWA
@@ -38,7 +44,7 @@ import numpy as np
 import torch
 
 from trafficbotsv15_tpu_torch.config import (ExperimentCfg, config_from_dict, config_to_dict, leaderboard_config,
-                                             tiny_config)
+                                             scaled_config, tiny_config)
 from trafficbotsv15_tpu_torch.ops.flags import check_supported
 from trafficbotsv15_tpu_torch.train.checkpoint import CheckpointManager, deep_update
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
@@ -48,6 +54,7 @@ from trafficbotsv15_tpu_torch.utils.device import resolve_device
 from trafficbotsv15_tpu_torch.utils.logging import MetricsLogger
 
 
+PRESETS = {"leaderboard": leaderboard_config, "tiny": tiny_config, "scaled": scaled_config}
 RUN_KEYS = ("action", "data", "data_dir", "preset", "max_steps", "log_every", "ckpt_dir", "resume", "device",
             "profile_dir", "video_dir", "rbg", "debug_nans")
 
@@ -279,6 +286,13 @@ def restore_model(ckpt_dir: str, name: str, device, cfg: Optional[ExperimentCfg]
     return model, cfg
 
 
+def preset_config(preset: str) -> ExperimentCfg:
+    """The config a `preset=` names; an unknown name raises."""
+    if preset not in PRESETS:
+        raise ValueError(f"unknown preset {preset!r}: expected one of {', '.join(PRESETS)}")
+    return PRESETS[preset]()
+
+
 def main(argv=None):
     """Run one action from key=value arguments; -> fit's (model, logger, stopped), validate's metrics or
     test_submission's result. A fit stopped by a signal exits 143."""
@@ -303,7 +317,7 @@ def main(argv=None):
         if run_args.get(key):
             raise NotImplementedError(f"{key} is a switch of the JAX runtime; the port has no counterpart")
 
-    cfg = tiny_config() if preset == "tiny" else leaderboard_config()
+    cfg = preset_config(preset)
     last_json = Path(ckpt_dir) / "last.json"
     if resume and last_json.exists():  # the checkpoint's own config, the command line's overrides on top
         cfg = config_from_dict(json.loads(last_json.read_text())["config"])

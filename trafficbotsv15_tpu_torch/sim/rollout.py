@@ -17,8 +17,13 @@ flavours, both with TL from the pre-pass:
     "names" / "names+kv" save lists are not ported).
 Both apply the teacher-forcing config's error-threshold reset
 (`sim/teacher_forcing.py::error_reset_mask`) where it sets a threshold. The
-player override, `pred_navi_after_reached`, the in-rollout TL path and token
-dedup raise where the config asks for them.
+player override, `pred_navi_after_reached` and token dedup raise where the
+config asks for them. TL comes from a pass made before the loop
+(`sim/tl_prepass.py`), never from inside it: JAX's in-scan TL path is that
+pass's `tl_rollout_scan`. Past the GT horizon (`time_step_end` >= T) nothing
+is forced or reset, `step_gt_valid` and so the reward are off, and
+`_tl_outputs` masks the TL-state NLL off (`tl_state_nll_invalid` true) as
+JAX's `tl_avail` does.
 """
 
 from __future__ import annotations
@@ -203,7 +208,8 @@ def _error_reset(tf_cfg, gt_valid, gt_pose, gt_motion, n_step_roll: int):
 def _check_rollout_cfg(cfg: ExperimentCfg, tl_precomputed, n_sc: int, n_step_roll: int) -> int:
     """Raise for the options neither flavour ports; -> how often each pre-pass scenario repeats."""
     if tl_precomputed is None:
-        raise NotImplementedError("the in-rollout TL path is not ported: run the TL pre-pass")
+        raise NotImplementedError("the agent loop has no in-rollout TL encoder: run the TL pass first "
+                                  "(sim/tl_prepass.py::tl_rollout_scan) and hand it in as tl_precomputed")
     if cfg.pred_navi_after_reached:
         raise NotImplementedError("pred_navi_after_reached is not ported")
     if cfg.rollout_token_dedup:

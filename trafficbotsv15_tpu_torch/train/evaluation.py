@@ -9,7 +9,9 @@ from an explicit `torch.Generator`.
 `reactive_replay`, the validation's reconstruction rollout: the posterior
 latent's mean, the ground-truth destination, every agent spawned from the
 log (`teacher_forcing_reactive_replay`), TL forced to the log, deterministic
-actions; it draws nothing.
+actions; it draws nothing. Past the log's horizon (`time_step_end` >= the
+logged steps, the scaled preset) TL runs free from its own predictions, as
+in JAX's in-scan TL path (`sim/tl_prepass.py::tl_rollout_scan`).
 """
 
 from __future__ import annotations
@@ -95,10 +97,8 @@ def reactive_replay(cfg: ExperimentCfg, model: TrafficBots, batch, check_level: 
         ag_dest=batch.get("agent/dest"))
     tl_forcing0 = torch.ones(gt_tl_state.shape[:3], dtype=torch.bool, device=device)
     ag_forcing, tl_forcing = build_forcing_masks(cfg.teacher_forcing_reactive_replay, pp.gt_valid, tl_forcing0)
-    if not (gt_tl_state.shape[2] >= cfg.time_step_end + 1 and tl_prepass.fully_forced(tl_forcing, tl_forcing0)):
-        raise NotImplementedError("reactive replay needs TL forced over the whole horizon (the in-rollout TL path)")
-    tl_pre = tl_prepass.tl_rollout_forced(model, tl_tokens, gt_tl_state, cfg.time_step_end,
-                                          cfg.model.temp_window_size)
+    tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, gt_tl_state, tl_forcing, cfg.time_step_end,
+                                        cfg.model.temp_window_size)
     buffer = rollout_lib.rollout(
         model, cfg, mp_tokens, tl_tokens, ag_attr=pp.ag_attr, ag_type=pp.ag_type, ag_size=pp.ag_size,
         ag_latent=ag_latent, ag_latent_valid=None if latent_post is None else latent_post.valid,

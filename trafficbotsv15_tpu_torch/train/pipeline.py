@@ -108,8 +108,11 @@ def select_latent(post, prior, use_prior: torch.Tensor, eps: torch.Tensor):
 
 def training_forward(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, torch.Tensor],
                      noise: Dict[str, object], current_epoch: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One training forward: pre-processing -> encoders -> CVAE latent -> TL pre-pass -> rollout -> loss.
-    batch: tensors on the model's device; noise: `draw_training_noise`'s dict. -> (loss, metrics)."""
+    """One training forward: pre-processing -> encoders -> CVAE latent -> TL pass -> rollout -> loss.
+    batch: tensors on the model's device; noise: `draw_training_noise`'s dict. -> (loss, metrics).
+    `cfg.time_step_end` may pass the data's horizon (the scaled preset's 120 steps against 91): past it the
+    TL pass (`sim/tl_prepass.py::tl_rollout_scan`) runs from its own predictions, and the rollout forces
+    nothing, resets nothing and rewards nothing, and the TL-state NLL is masked off."""
     dev = batch["agent/valid"].device
     if not cfg.tl_prepass or cfg.model.temp_window_size <= 0:
         raise NotImplementedError("the in-rollout TL path is not ported (tl_prepass=True, HPTR mode)")
@@ -135,10 +138,8 @@ def training_forward(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, to
     tl_forcing0 = torch.ones(pp.gt_tl_state.shape[:3], dtype=torch.bool, device=dev)  # TL forced to GT
     ag_forcing, tl_forcing = build_forcing_masks(cfg.teacher_forcing_training, pp.gt_valid, tl_forcing0,
                                                  current_epoch, noise["u_agent"], noise["u_ss"])
-    if not (pp.gt_tl_state.shape[2] >= cfg.time_step_end + 1 and tl_prepass.fully_forced(tl_forcing, tl_forcing0)):
-        raise NotImplementedError("training needs TL forced over the whole horizon (the in-rollout TL path)")
-    tl_pre = tl_prepass.tl_rollout_forced(model, tl_tokens, pp.gt_tl_state.float(), cfg.time_step_end,
-                                          cfg.model.temp_window_size, seeds=noise["seeds_tl"])
+    tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, pp.gt_tl_state.float(), tl_forcing, cfg.time_step_end,
+                                        cfg.model.temp_window_size, seeds=noise["seeds_tl"])
     buffer = rollout_lib.rollout_train(
         model, cfg, mp_tokens, tl_tokens, ag_attr=pp.ag_attr, ag_type=pp.ag_type, ag_size=pp.ag_size,
         ag_latent=ag_latent, ag_latent_valid=ag_latent_valid, ag_navi=pp.gt_navi,
