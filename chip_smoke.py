@@ -26,10 +26,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the agent decoder and posterior agent encoder, the posterior TL encoder
      at K=24), at the entry point's batch of 2 and its validation's of 4, and
      timed at the first of them; in bf16 these run on the staged
-     kernel of csrc/knarpe_staged.cuh (the route asserted); the shapes it
-     refuses, the scaled preset's D=R=256 with 8 heads and K=90 and K=128 at
-     D=R=128, run on the general route (csrc/knarpe.cu, asserted), checked
-     and timed at the scaled preset's eval shape too; every bf16 B2/B3 must give the same bits
+     kernel of csrc/knarpe_staged.cuh (the route asserted); at the shapes it
+     refuses, bf16 B2 at the scaled preset's D=R=256 with 8 heads runs on the
+     cluster route (csrc/knarpe_cluster.cuh, asserted; at the eval shape, the
+     training shape [1, 64, 89, 256, 256, 8], K=5, K=24 and K=104 at 21
+     sources, a single source and 8192 + 7 sources, each with an all-invalid
+     and a one-target source; timed at the scaled preset's eval and training
+     shapes), and on the general route (csrc/knarpe.cu, asserted, the cluster
+     kernel's refusal code too) at K=120 there and at K=90 and K=128 at
+     D=R=128; B3 runs on the general route at D=R=256 and at K=90 and K=128
+     (asserted; timed at the scaled preset's eval shape); every bf16 B2/B3 must give the same bits
      on a second launch; then the backward kernels B4-bwd and B2-bwd (B3's backward is B2's)
      through the wrappers' autograd: the card's output has a grad_fn, and its
      gradients match autograd of the plain versions in float32 and bf16, the
@@ -41,7 +47,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      staged kernel of csrc/knarpe_attn_bwd_staged.cuh at B4's shapes above,
      the eight-head shape on the general route; timed (eager, and device
      time from a CUDA graph) against the plain backward and the library
-     composition's backward, B2-bwd at both training shapes;
+     composition's backward, B2-bwd at both training shapes; B2-bwd and
+     B4-bwd also at the scaled preset's training shapes ([1, 64, 89, 256,
+     256, 8], [1, 1024, 32, 256, 256, 8]) on the general route (asserted);
   4. slice checked: a reduced-depth float32 config whose map has 512
      polylines runs `joint_future_pred` (check_level=1) on the card and on
      the CPU with the same weights, once with use_pallas=False and once with
@@ -136,9 +144,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      head's log_std; (c) `make_validate_step`, 4 scenarios x K=32: a warm-up
      and one step split by part, B1 120 + 121; (d) `joint_future_pred` with
      use_pallas=True, one warm-up and 2 timed calls in turns with (a)'s
-     (a d d a): B1 120, B4 12 and B2 720 per call, every B4 and B2 on the
-     general route, at shapes phase 3 checked
-     (B4 [4, 1024, 32, 256, 256, 8], B2 [128, 64, 89, 256, 256, 8]);
+     (a d d a): B1 120, B4 12 and B2 720 per call, every B4 on the general
+     route and every B2 on the cluster route, at shapes phase 3 checked
+     (B4 [4, 1024, 32, 256, 256, 8], B2 [128, 64, 89, 256, 256, 8]); the
+     first B2 launch of its warm-up call, captured, against the float32
+     plain version on its own inputs at phase 3's bf16 tolerance;
      (e) the phase-4 config rolled out to 40 steps against its 31 logged:
      the training step's gradients (phase 7's check) and the validation step
      with reactive replay's buffer (phase 9's) card vs CPU. (a)-(d) log
@@ -147,8 +157,9 @@ Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
 `validate_launches`, from phase 9; training-shape and backward ones from phase
 8, B4's and the backwards' by route; `fit_launches` per full-width fit step
 from phase 11; `reference_layout_launches` from phase 12 (b); `scaled_launches`
-per call or step of each path of phase 13; B4's and B2's `general_route`
-times at the scaled preset's shapes), the card line, and last
+per call or step of each path of phase 13; B4's and B3's `general_route`
+and B2's `cluster_route` times at the scaled preset's shapes, the latter with
+its launches per phase 13 (d) call), the card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -226,6 +237,8 @@ ATTN_STAGED_EDGE = [(1, 97, 5, 128, 128, 4), (1, 97, 24, 64, 64, 2), (1, 1, 32, 
 ATTN_GENERAL = [(1, 33, 89, 32, 16, 8)]
 # the scaled preset's map encoder (4 scenarios x 1024 polylines, D=R=256, 8 heads): B4 forward on the general route
 SCALED_ATTN_PATH = (4, 1024, 32, 256, 256, 8)
+# and its training path's (batch 1): B4-bwd timed there on the general route (csrc/knarpe_bwd.cu)
+SCALED_TRAIN_ATTN_PATH = (1, 1024, 32, 256, 256, 8)
 # bf16 B2 backward shapes phase 3 holds on the staged route (csrc/knarpe_bwd_staged.cuh) besides the
 # training path's: K not a multiple of 16 with an all-invalid source at 21 sources (under the 132-block
 # grid), and 200 sources (no multiple of the grid); and the eight-head edge shape the staged backward
@@ -418,9 +431,9 @@ def knarpe_bound(name: str, args, n_head: int) -> tuple:
     return nbytes, 2 * n_src * macs
 
 
-def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged") -> float:
-    """Kernel vs plain version in float32 and bfloat16, bf16 B2/B3 on want_route; returns the float32
-    max |err|."""
+def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged") -> tuple:
+    """Kernel vs plain version in float32 and bfloat16, bf16 B2/B3 on want_route; returns the float32 and the
+    bf16 max |err| (the bf16 one against the reference the tolerance is taken from)."""
     kernel, plain = getattr(knarpe, name), getattr(knarpe, f"{name}_reference")
     cross, n_head = name != "knarpe_attention", shape[-1]
     args = knarpe_inputs(shape, cross, seed)
@@ -455,9 +468,11 @@ def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged") ->
     if not torch.equal(kernel(*a16, n_head).float(), out16):  # no bf16 kernel has atomics
         raise AssertionError(f"{name} {shape} bf16: two launches on the same inputs differ")
     note += f"; {want_route} route, two launches bit-identical"
+    err16 = float((out16 - ref16).abs().max())
     log(f"  {name} {list(shape)} (n_b, n_s, K, D, R, H): float32 max |err| {err:.3e} (tolerance "
-        f"{KNARPE_F32_ATOL}); bf16 within {rtol:g} relative + {atol:.3g} absolute{note}; all-invalid source zero")
-    return err
+        f"{KNARPE_F32_ATOL}); bf16 max |err| {err16:.3e}, within {rtol:g} relative + {atol:.3g} absolute{note}; "
+        f"all-invalid source zero")
+    return err, err16
 
 
 def time_knarpe(name: str, shape) -> dict:
@@ -485,11 +500,21 @@ def time_knarpe(name: str, shape) -> dict:
 # bf16 B2/B3 shapes that phase 3 holds against the plain versions on the staged route; phases 6 and 8
 # check that the paths launch no other
 CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT_X, *VAL_X)}
-# bf16 B2/B3 shapes the staged kernel refuses, which take the general route: the scaled preset's
-# widths (D=R=256, 8 heads), at its eval shape (4 scenarios x 32 futures x 64 agents, K=89) too, and
-# K=90 and K=128 at the flagship's D=R=128, H=4; timed at the scaled preset's eval shape
+# bf16 B2/B3 shapes the staged kernel refuses: the scaled preset's widths (D=R=256, 8 heads), at its eval
+# shape (4 scenarios x 32 futures x 64 agents, K=89) too, and K=90 and K=128 at the flagship's D=R=128, H=4.
+# B3 takes the general route there (csrc/knarpe.cu), timed at the scaled preset's eval shape
 SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
 GENERAL_X = [(2, 64, 89, 256, 256, 8), SCALED_X_PATH, (2, 64, 90, 128, 128, 4), (2, 64, 128, 128, 128, 4)]
+# B2 the cluster route (csrc/knarpe_cluster.cuh) at D=R=256, 8 heads: the eval shape, the scaled training path's
+# (batch 1 x 64 agents), K=5 and K=24 (no multiple of 16) and K=104 (the largest its shared memory takes) at 21
+# sources, a single source (fewer than the clusters), and 8192 + 7 sources (no multiple of the grid); each has an
+# all-invalid and a one-target source. Timed at the scaled preset's eval shape
+SCALED_TRAIN_X_PATH = (1, 64, 89, 256, 256, 8)
+CLUSTER_X = [SCALED_X_PATH, (2, 64, 89, 256, 256, 8), SCALED_TRAIN_X_PATH, (1, 21, 5, 256, 256, 8),
+             (1, 21, 24, 256, 256, 8), (1, 21, 104, 256, 256, 8), (1, 1, 89, 256, 256, 8), (1, 8199, 89, 256, 256, 8)]
+# and the general route where the cluster kernel refuses too, by its refusal code: K=120 at D=R=256, 8 heads (its
+# shared memory, code 3), K=90 and K=128 at D=R=128 (widths it is not compiled for, code 2)
+GENERAL_B2_X = {(2, 64, 120, 256, 256, 8): 3, (2, 64, 90, 128, 128, 4): 2, (2, 64, 128, 128, 128, 4): 2}
 
 
 def check_knarpe_kernels() -> list:
@@ -504,7 +529,7 @@ def check_knarpe_kernels() -> list:
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:443", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh"),
             ("knarpe_cross_attention_v3", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH, *FIT_X, *VAL_X],
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:742", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh")):
-        max_err = check_one_knarpe(name, path, seed=1)
+        max_err = check_one_knarpe(name, path, seed=1)[0]
         for i, shape in enumerate(edges):
             check_one_knarpe(name, shape, seed=2 + i)
         row = time_knarpe(name, path)
@@ -514,6 +539,22 @@ def check_knarpe_kernels() -> list:
             row["training_shape"] = {"shape": list(TRAIN_ATTN_PATH), **time_knarpe(name, TRAIN_ATTN_PATH)}
             row["general_route"] = {"source": "trafficbotsv15_tpu_torch/csrc/knarpe.cu",
                                     "shape": list(SCALED_ATTN_PATH), **time_knarpe(name, SCALED_ATTN_PATH)}
+        elif name == "knarpe_cross_attention":
+            time_knarpe(name, TRAIN_X_PATH)
+            # bf16 only: float32 B2 takes the general kernel at these shapes, which check_one_knarpe holds too
+            err16 = max(check_one_knarpe(name, shape, seed=20 + i, want_route="cluster")[1]
+                        for i, shape in enumerate(CLUSTER_X))
+            row["cluster_route"] = {"name": "knarpe_cross_attention", "route": "cuda",
+                                    "source": "trafficbotsv15_tpu_torch/csrc/knarpe_cluster.cuh",
+                                    "replaces": replaces, "shape": list(SCALED_X_PATH), "launches": None,
+                                    "max_abs_err": err16, **time_knarpe(name, SCALED_X_PATH)}
+            row["cluster_route"]["scaled_training_shape"] = {"shape": list(SCALED_TRAIN_X_PATH),
+                                                             **time_knarpe(name, SCALED_TRAIN_X_PATH)}
+            for i, (shape, code) in enumerate(GENERAL_B2_X.items()):
+                got = knarpe.cluster_refusal(*shape[2:], torch.cuda.current_device())
+                if got != code:
+                    raise AssertionError(f"{name} {shape}: the cluster kernel's refusal code {got}, expected {code}")
+                check_one_knarpe(name, shape, seed=40 + i, want_route="general")
         else:
             time_knarpe(name, TRAIN_X_PATH)
             for i, shape in enumerate(GENERAL_X):
@@ -732,6 +773,14 @@ def check_knarpe_bwd_kernels() -> list:
             for i, shape in enumerate([path, POST_TL_X_PATH, *X_BWD_EDGE]):
                 check_one_knarpe_bwd("knarpe_cross_attention_v3", shape, seed=20 + i, want_route="staged")
         row = time_knarpe_bwd(name, path)
+        # the scaled preset's training shape (batch 1, D=R=256, 8 heads), which the staged backwards refuse (more
+        # than 4 heads): timed on the general route, where the layout of csrc/knarpe_bwd.cu fits (the weights read
+        # through L1/L2)
+        scaled = SCALED_TRAIN_X_PATH if cross else SCALED_TRAIN_ATTN_PATH
+        row["scaled_training_shape"] = {"shape": list(scaled), **time_knarpe_bwd(name, scaled)}
+        if row["scaled_training_shape"]["kernel_route"] != "general":
+            raise AssertionError(f"{name} backward at {list(scaled)}: {row['scaled_training_shape']['kernel_route']} "
+                                 f"route, expected general")
         source = "trafficbotsv15_tpu_torch/csrc/knarpe_bwd_staged.cuh" if cross else \
             "trafficbotsv15_tpu_torch/csrc/knarpe_attn_bwd_staged.cuh"
         rows.append({"name": f"{name}_bwd", "route": "cuda", "source": source, "replaces": replaces, "launches": None,
@@ -1838,13 +1887,49 @@ SCALED_N_SC, SCALED_CHECK_END = 4, 40
 
 def check_scaled_shapes(where: str, shapes, want: dict) -> None:
     """The launches of a scaled-preset call, by full shape, are exactly `want`, and each shape is one phase 3 checked:
-    B1 against its plain version, bf16 B4 and B2 against theirs on the general route."""
+    B1 against its plain version, bf16 B4 against its own on the general route and bf16 B2 on the cluster route."""
     checked = {("knn_xy", *case[:4]) for case in KNN_CASES.values()}
     checked |= {("knarpe_attention", str(torch.bfloat16), *s) for s in [*ATTN_GENERAL, SCALED_ATTN_PATH]}
-    checked |= {("knarpe_cross_attention", str(torch.bfloat16), *s) for s in GENERAL_X}
+    checked |= {("knarpe_cross_attention", str(torch.bfloat16), *s) for s in CLUSTER_X}
     if dict(shapes) != want or not set(shapes) <= checked:
         raise AssertionError(f"{where}: launches by shape {dict(shapes)}, expected {want}, each at a shape phase 3 "
                              f"checked (unchecked: {sorted(set(shapes) - checked, key=str)})")
+
+
+@contextlib.contextmanager
+def captured_launch(kernel: str):
+    """The operands (q, tgt, rpe, invalid, w_kv, w_rpe, b), n_head and output of the first `kernel` forward launch
+    inside the block, cloned: {"args": [...], "n_head": H, "out": tensor}; empty if there was none."""
+    real, got = knarpe._launch, {}
+
+    def capture(name, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head):
+        out = real(name, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
+        if name == kernel and not got:
+            got.update(args=[t.clone() for t in (q, tgt, rpe, invalid, w_kv, w_rpe, b)], n_head=n_head,
+                       out=out.clone())
+        return out
+
+    knarpe._launch = capture
+    try:
+        yield got
+    finally:
+        knarpe._launch = real
+
+
+def check_path_launch(where: str, got: dict) -> float:
+    """A captured bf16 B2 launch of a path against the float32 plain version on its own (bf16-valued) operands, at
+    phase 3's bf16 tolerance; returns the max |err|."""
+    ref = knarpe.knarpe_cross_attention_reference(*[a if a.dtype == torch.bool else a.float() for a in got["args"]],
+                                                  got["n_head"])
+    out = got["out"].float()
+    err = float((out - ref).abs().max())
+    excess = float(((out - ref).abs() - (BF16_HALF_ULP * ref.abs() + KNARPE_F32_ATOL)).max())
+    if not (got["out"].dtype == torch.bfloat16 and torch.isfinite(out).all() and excess <= 0):
+        raise AssertionError(f"{where}: the first B2 launch's output exceeds {BF16_HALF_ULP} relative + "
+                             f"{KNARPE_F32_ATOL} of the plain version on its inputs by {excess}")
+    log(f"  {where}: the first B2 launch {list(got['out'].shape)} against the float32 plain version on its own "
+        f"inputs: max |err| {err:.3e}, within {BF16_HALF_ULP:g} relative + {KNARPE_F32_ATOL:g} absolute")
+    return err
 
 
 def peak_gib() -> float:
@@ -1855,13 +1940,15 @@ def run_scaled_phase(card: str) -> dict:
     """`scaled_config()` at full width (hidden 256, 8 heads, 12/6/6 layers, 120 steps past the log's 91, bf16
     compute), random seed-0 weights, synthetic scenarios: (a) joint_future_pred, use_pallas=False, and (d) with
     use_pallas=True, the general-route kernels, timed in turns; (b) the training step at batch 1; (c) the validation
-    step; (e) the phase-4 config past its log, card against CPU. Returns the launches per call or step by path."""
+    step; (e) the phase-4 config past its log, card against CPU. Returns the launches per call or step by path, and
+    the max |err| of (d)'s first B2 launch against the plain version on its inputs."""
     t_phase = time.perf_counter()
     n_sc = SCALED_N_SC
     knn_eval = ("knn_xy", n_sc * 32, KNN_SRC, KNN_TGT, KNN_K)  # the agent->map KNN of 4 x 32 rollouts
 
-    # (a) eval with use_pallas=False and (d) with use_pallas=True, where B4 and B2 in bf16 at D=R=256, H=8 take the
-    # general route: a warm-up call each, then two timed calls each, in turns (a d d a)
+    # (a) eval with use_pallas=False and (d) with use_pallas=True, where B4 in bf16 at D=R=256, H=8 takes the general
+    # route and B2 the cluster route: a warm-up call each, then two timed calls each, in turns (a d d a); the first
+    # B2 launch of (d)'s warm-up call is captured and held against the plain version on its own inputs
     t0 = time.perf_counter()
     cfg = with_pallas(scaled_config(), False)
     n_step, n_ag, k = cfg.time_step_end, cfg.data.n_ag, cfg.n_joint_future_wosac
@@ -1879,18 +1966,21 @@ def run_scaled_phase(card: str) -> dict:
     pcfg = with_pallas(scaled_config(), True)
     pmodel = build_model(pcfg, seed=0, device="cuda")
     pgen = torch.Generator().manual_seed(0)
-    joint_future_pred(pcfg, pmodel, batch, generator=pgen, check_level=1)
+    with captured_launch("knarpe_cross_attention") as first_b2:
+        joint_future_pred(pcfg, pmodel, batch, generator=pgen, check_level=1)
     torch.cuda.synchronize()
     t_pwarm = time.perf_counter() - t0
+    first_b2_err = check_path_launch("(d) scaled eval call use_pallas=True", first_b2)
+    del first_b2
     n_b4, n_b2 = pcfg.model.mp_encoder.n_layer_tf, pcfg.model.ag_encoder.n_layer_tf * n_step
     arms = {"a": (cfg, model, gen, {knn_eval: n_step}, {}),
             "d": (pcfg, pmodel, pgen,
                   {knn_eval: n_step, ("knarpe_attention", str(torch.bfloat16), *SCALED_ATTN_PATH): n_b4,
                    ("knarpe_cross_attention", str(torch.bfloat16), *SCALED_X_PATH): n_b2},
-                  {"knarpe_attention/general": n_b4, "knarpe_cross_attention/general": n_b2})}
+                  {"knarpe_attention/general": n_b4, "knarpe_cross_attention/cluster": n_b2})}
     times, peaks, counts, bufs, routes = {}, {}, {}, {}, {}
     for arm in "adda":
-        acfg, amodel, agen, want_shapes, want_general = arms[arm]
+        acfg, amodel, agen, want_shapes, want_routes = arms[arm]
         where = f"scaled eval call use_pallas={acfg.model.tf_cfg.use_pallas}"
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -1902,10 +1992,10 @@ def run_scaled_phase(card: str) -> dict:
         peaks[arm] = max(peaks.get(arm, 0.0), peak_gib())
         check_scaled_shapes(where, shapes, want_shapes)
         counts[arm], routes[arm] = launches(), dict(knarpe.ROUTE_LAUNCHES)
-        want_routes = {key: want_general.get(key, 0) for key in routes[arm]}
-        if counts[arm] != expected_launches(acfg, n_step) or routes[arm] != want_routes:
+        by_route = {key: want_routes.get(key, 0) for key in routes[arm]}
+        if counts[arm] != expected_launches(acfg, n_step) or routes[arm] != by_route:
             raise AssertionError(f"{where}: launches {counts[arm]}, by route {routes[arm]}, expected "
-                                 f"{expected_launches(acfg, n_step)}, by route {want_routes}")
+                                 f"{expected_launches(acfg, n_step)}, by route {by_route}")
     buf, pbuf = bufs["a"], bufs["d"]
     eval_counts, pallas_counts = counts["a"], counts["d"]
     if tuple(buf.pred_pose.shape) != (n_sc, k, n_ag, n_step, 3) or not (torch.isfinite(buf.pred_pose).all()
@@ -1928,8 +2018,8 @@ def run_scaled_phase(card: str) -> dict:
     log(f"  (d) scaled_config use_pallas=True joint_future_pred: warm-up {t_pwarm:.3f} s, seconds per call "
         f"{[round(t, 4) for t in times['d']]} (median {pallas_s:.4f} s) against (a)'s median {eval_s:.4f} s, in turns "
         f"a d d a ({pallas_s - eval_s:+.4f} s), peak memory {peaks['d']:.2f} GiB; launches per call {pallas_counts}, "
-        f"by route {routes['d']} (B4 at {list(SCALED_ATTN_PATH)}, B2 at {list(SCALED_X_PATH)}, general route, shapes "
-        f"phase 3 checked); poses finite [{card}]")
+        f"by route {routes['d']} (B4 at {list(SCALED_ATTN_PATH)} on the general route, B2 at {list(SCALED_X_PATH)} on "
+        f"the cluster route, shapes phase 3 checked); poses finite [{card}]")
     del pmodel, arms
     torch.cuda.empty_cache()
 
@@ -2023,7 +2113,8 @@ def run_scaled_phase(card: str) -> dict:
     log(f"  (e) phase-4 config at {SCALED_CHECK_END} steps against 31 logged, card vs CPU: "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"  phase 13 {time.perf_counter() - t_phase:.1f} s [{card}]")
-    return {"eval": eval_counts, "train": train_counts, "validate": val_counts, "eval_use_pallas": pallas_counts}
+    return {"eval": eval_counts, "train": train_counts, "validate": val_counts,
+            "eval_use_pallas": pallas_counts}, first_b2_err
 
 
 def main() -> int:
@@ -2082,18 +2173,20 @@ def main() -> int:
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    log("[13/13] the scaled preset at full width: eval, training, validation, eval through the general-route kernels; "
-        "the TL pass past the log, card vs CPU")
-    scaled_counts = run_scaled_phase(card)
-    by_route = lambda counts, kernel: {way: counts[f"{kernel}/{way}"] for way in ("staged", "general")}
+    log("[13/13] the scaled preset at full width: eval, training, validation, eval through the kernels (B4 general, "
+        "B2 cluster route); the TL pass past the log, card vs CPU")
+    scaled_counts, first_b2_err = run_scaled_phase(card)
+    by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["validate_launches"] = validate_counts[row["name"]]  # per full-width validation step (phase 9)
         row["fit_launches"] = fit_counts[row["name"]]  # per full-width fit step at batch 2 (phase 11)
         row["reference_layout_launches"] = layout_counts[row["name"]]  # phase 12 (b)'s call
         # per call or step of phase 13's paths at scaled_config(): eval (a), training (b), validation (c), and the
-        # eval call through the kernels (d), whose B4 and B2 launches all take the general route
+        # eval call through the kernels (d), whose B4 launches all take the general route and B2's the cluster route
         row["scaled_launches"] = {path: counts_[row["name"]] for path, counts_ in scaled_counts.items()}
+    b2 = rows[2]["cluster_route"]  # the cluster route's launches per (d) call, and (d)'s first launch's error
+    b2.update(launches=scaled_counts["eval_use_pallas"]["knarpe_cross_attention"], path_launch_max_abs_err=first_b2_err)
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     b4 = rows[1]  # per eval call (phase 6), and at the training shape per step (phase 8)
     b4["launches_by_route"] = by_route(routes, "knarpe_attention")

@@ -6,8 +6,9 @@ against `trafficbotsv15_tpu/ops/pallas_knarpe.py`: the Pallas kernels in
 interpret mode (as `tests/test_pallas_knarpe.py` runs them) and the JAX
 `*_reference` functions. Inputs come from a numpy seed; sizes are small
 (B=2, S in {7, 8, 33}, K in {4, 5, 89}, H=2, d_head=8, R=16), and two wider
-cases take the shapes the card runs on the general bf16 route (H=8 with
-d_head=32 and D=R=256 at K=89; K=90 at D=R=128, H=4; measured within 1.2e-6
+cases take shapes the staged bf16 kernels refuse on the card (H=8 with
+d_head=32 and D=R=256 at K=89, where bf16 B2 takes the cluster route and B3
+the general one; K=90 at D=R=128, H=4, the general route; measured within 1.2e-6
 in float32 and 3.2e-2 in bfloat16, under the tolerances below); every case
 has a source whose targets are all invalid and partly invalid sources, and
 B*S=66 is not a multiple of the Pallas source tile.
@@ -109,8 +110,9 @@ def test_plain_version_matches_tpu_kernel_bf16(name, n_b, n_s, n_knn):
 
 
 # Wider than the cases above: the scaled preset's heads (H=8, d_head=32, D=R=256) and K=90 at the
-# flagship's D=R=128, H=4, two shapes the staged bf16 kernel refuses (they take its general route on
-# the card). (n_head, d_head, R, n_b, n_s, K); weights scaled by 1/sqrt(fan-in), outputs of size ~1-3.
+# flagship's D=R=128, H=4, two shapes the staged bf16 kernel refuses (on the card bf16 B2 takes the
+# cluster route at the first, tests/test_torch_knarpe_cluster.py holding that kernel's arithmetic; B3 at
+# both and B2 at the second the general route). (n_head, d_head, R, n_b, n_s, K); weights scaled by 1/sqrt(fan-in), outputs of size ~1-3.
 WIDE = [(8, 32, 256, 1, 9, 89), (4, 32, 128, 2, 5, 90)]
 
 
@@ -215,8 +217,9 @@ def _validate(name, t, n_head):
 CROSS_KERNELS = ["knarpe_cross_attention", "knarpe_cross_attention_v3"]
 
 
-def _fake_routes(monkeypatch, staged, general):
-    """Fake the built library's answers (`staged_refusal`, `general_refusal`); -> the calls, in order."""
+def _fake_routes(monkeypatch, staged, general, cluster=(2,)):
+    """Fake the built library's answers (`staged_refusal`, `general_refusal`, and B2's `cluster_refusal`,
+    which refuses unless told otherwise); -> the calls, in order."""
     asked = []
 
     def answer(which, codes):
@@ -227,6 +230,8 @@ def _fake_routes(monkeypatch, staged, general):
 
     monkeypatch.setattr(knarpe, "staged_refusal", answer("staged", staged))
     monkeypatch.setattr(knarpe, "general_refusal", answer("general", general))
+    cluster_fn = answer("cluster", cluster)
+    monkeypatch.setattr(knarpe, "cluster_refusal", lambda *shape: cluster_fn("knarpe_cross_attention", *shape))
     return asked
 
 
@@ -240,11 +245,13 @@ def test_validate_routes_each_staged_refusal_to_the_general_kernel(name, monkeyp
     t = _bf16_cross(5, 32, 16)
     assert _validate(name, t, 2) == (2, 3, 5, 32, 16, 32, 0, "staged")
     assert asked == [("staged", name, 5, 32, 16, 2, 0)]
+    # B2 asks the cluster kernel between the two (refusing here), B3 does not
+    between = [("cluster", name, 5, 32, 16, 2, 0)] if name == "knarpe_cross_attention" else []
     for code in knarpe.STAGED_REFUSALS:
         staged[0] = code
         asked.clear()
         assert _validate(name, t, 2)[-1] == "general"
-        assert asked == [("staged", name, 5, 32, 16, 2, 0), ("general", name, 5, 32, 16, 2, 0)]
+        assert asked == [("staged", name, 5, 32, 16, 2, 0), *between, ("general", name, 5, 32, 16, 2, 0)]
     misaligned = _bf16_cross(5, 32, 16, misalign=True)
     assert misaligned["tgt"].data_ptr() % 16 and _validate(name, misaligned, 2)[-1] == "general"
 
@@ -256,10 +263,12 @@ def test_validate_raises_for_shapes_the_staged_kernel_refuses(name, monkeypatch)
     asked = _fake_routes(monkeypatch, [0], [1])
     t = _bf16_cross(5, 32, 16)
     assert _validate(name, t, 2)[:5] == (2, 3, 5, 32, 16) and asked == [("staged", name, 5, 32, 16, 2, 0)]
+    cluster = (f", the cluster kernel too ({knarpe.CLUSTER_REFUSALS[2]})" if name == "knarpe_cross_attention"
+               else "")
     for code, why in knarpe.STAGED_REFUSALS.items():
         _fake_routes(monkeypatch, [code], [1])
-        want = (f"no bf16 kernel takes K=5, d_model=32, d_rpe=16, n_head=2: the staged kernel refuses it ({why}), "
-                f"and the general kernel too ({knarpe.GENERAL_REFUSALS[1]})")
+        want = (f"no bf16 kernel takes K=5, d_model=32, d_rpe=16, n_head=2: the staged kernel refuses it ({why})"
+                f"{cluster}, and the general kernel too ({knarpe.GENERAL_REFUSALS[1]})")
         with pytest.raises(ValueError, match=re.escape(want)):
             _validate(name, t, 2)
     asked = _fake_routes(monkeypatch, [5], [1])
@@ -284,6 +293,42 @@ def test_validate_raises_for_misaligned_bf16_operands(name, monkeypatch):
     t32["tgt"] = torch.zeros(t32["tgt"].numel() + 1)[1:].view(t32["tgt"].shape)
     assert t32["tgt"].data_ptr() % 16
     assert _validate(name, t32, N_HEAD)[:4] == (2, 3, 5, D)
+
+
+@pytest.mark.parametrize("name,widths,staged,want", [
+    ("knarpe_cross_attention", (128, 128, 4), 0, "staged"),
+    ("knarpe_cross_attention", (256, 256, 8), 5, "cluster"),
+    ("knarpe_cross_attention_v3", (256, 256, 8), 5, "general")])
+def test_validate_routes_bf16_cross_attention_by_widths(name, widths, staged, want, monkeypatch):
+    """The flagship's D=R=128, H=4, where the staged kernel takes the shape, stays staged, the cluster kernel not
+    asked; at the scaled preset's D=R=256, H=8 the staged kernel refuses (its resident weights, code 5), and B2
+    takes the cluster kernel, the general kernel not asked, where an operand off a 16-byte boundary raises, while
+    B3 takes the general kernel without asking the cluster kernel."""
+    d, r, n_head = widths
+    asked = _fake_routes(monkeypatch, [staged], [0], cluster=[0])
+    t = _bf16_cross(89, d, r)
+    assert _validate(name, t, n_head) == (2, 3, 89, d, r, d, 0, want)
+    ways = {"staged": ["staged"], "cluster": ["staged", "cluster"], "general": ["staged", "general"]}[want]
+    assert asked == [(way, name, 89, d, r, n_head, 0) for way in ways]
+    if want == "cluster":
+        with pytest.raises(ValueError, match="the cluster bf16 kernel copies 16-byte chunks"):
+            _validate(name, _bf16_cross(89, d, r, misalign=True), n_head)
+
+
+@pytest.mark.parametrize("code", sorted(knarpe.CLUSTER_REFUSALS))
+def test_validate_routes_each_cluster_refusal_to_the_general_kernel(code, monkeypatch):
+    """A bf16 B2 shape the staged and cluster kernels refuse takes the general kernel, whatever the cluster
+    kernel's reason; where the general kernel refuses it too, the error names each kernel's reason, the
+    cluster kernel's by its own code's text."""
+    name, t = "knarpe_cross_attention", _bf16_cross(89, 256, 256)
+    asked = _fake_routes(monkeypatch, [5], [0], cluster=[code])
+    assert _validate(name, t, 8)[-1] == "general"
+    assert [a[0] for a in asked] == ["staged", "cluster", "general"]
+    _fake_routes(monkeypatch, [5], [1], cluster=[code])
+    want = (f"the staged kernel refuses it ({knarpe.STAGED_REFUSALS[5]}), the cluster kernel too "
+            f"({knarpe.CLUSTER_REFUSALS[code]}), and the general kernel too ({knarpe.GENERAL_REFUSALS[1]})")
+    with pytest.raises(ValueError, match=re.escape(want)):
+        _validate(name, t, 8)
 
 
 def _bf16_attn(misalign=None):
@@ -344,11 +389,12 @@ def test_validate_raises_for_misaligned_bf16_attention_operands(misalign, match,
 
 
 def test_route_launches_count_attention_by_route_and_cpu_calls_count_none():
-    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's; a CPU call, forward and
-    backward, counts no launch on any route."""
+    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's, and B2's cluster route; a CPU
+    call, forward and backward, counts no launch on any route."""
     kernels = ("knarpe_attention", "knarpe_cross_attention", "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                "knarpe_cross_attention_bwd")
-    assert set(knarpe.ROUTE_LAUNCHES) == {f"{k}/{r}" for k in kernels for r in ("staged", "general")}
+    assert set(knarpe.ROUTE_LAUNCHES) == {f"{k}/{r}" for k in kernels for r in ("staged", "general")} | {
+        "knarpe_cross_attention/cluster"}
     before, launches = dict(knarpe.ROUTE_LAUNCHES), dict(knarpe.LAUNCHES)
     for dtype in (torch.float32, torch.bfloat16):
         t = {k: v if v.dtype == torch.bool else v.to(dtype).requires_grad_(True) for k, v in _bf16_attn().items()}

@@ -13,9 +13,13 @@ the staged kernel (csrc/knarpe_staged.cuh) where it takes the shape, held at the
 training path's shapes, K below 16 and no multiple of 16, fewer sources than
 SMs, an odd count and a single source; the library takes each of those shapes,
 two launches give the same bits, and an operand off a 16-byte boundary raises.
-The shapes it refuses take the general kernel (csrc/knarpe.cu), the route named
-and counted: the scaled preset's D=R=256 with H=8, K=90 and K=128 at D=R=128,
-and refusals of every other kind. Tolerances:
+Of the shapes it refuses, bf16 B2 at the scaled preset's D=R=256 with H=8 takes
+the cluster kernel (csrc/knarpe_cluster.cuh; at its eval and training shapes, K=5,
+K=24 and K=104, the largest it takes, at 21 sources, and a single source); B3
+there, B2 at K=120 (the cluster kernel's shared memory) and at K=90 and K=128 at
+D=R=128 (widths it is not compiled for), and both at refusals of every other
+kind, take the general kernel (csrc/knarpe.cu); the route is named and counted,
+and two launches give the same bits. Tolerances:
   - float32 kernel vs float32 plain version: 1e-4 on outputs of size ~1-5;
     the kernel reassociates the projections with the attention
     (csrc/knarpe.cu), so the two differ by float32 summation order only;
@@ -162,8 +166,8 @@ def _plain_grads(name, args, g, n_head):
     return list(knarpe.knarpe_cross_attention_bwd_reference(*args, g, n_head))
 
 
-# B2-bwd (B3's backward too) at shapes whose forward takes the general bf16 route: the scaled preset's
-# D=R=256 with 8 heads, and K=128 at D=R=128
+# B2-bwd (B3's backward too) at shapes the staged bf16 forward refuses: the scaled preset's D=R=256 with 8
+# heads, and K=128 at D=R=128
 WIDE_BWD_CASES = [("knarpe_cross_attention", (2, 16, 89, 256, 256, 8)), ("knarpe_cross_attention", (2, 16, 128, 128, 128, 4))]
 
 
@@ -218,7 +222,9 @@ def test_shapes_planned_later_do_not_break_earlier_ones():
 
 
 def _launch_counts(name):
-    return knarpe.LAUNCHES[name], knarpe.ROUTE_LAUNCHES[f"{name}/staged"], knarpe.ROUTE_LAUNCHES[f"{name}/general"]
+    """Launches of a B2/B3 forward kernel, and by route: staged, general, cluster (B2 only)."""
+    return (knarpe.LAUNCHES[name], knarpe.ROUTE_LAUNCHES[f"{name}/staged"], knarpe.ROUTE_LAUNCHES[f"{name}/general"],
+            knarpe.ROUTE_LAUNCHES.get(f"{name}/cluster", 0))
 
 
 @pytest.mark.cuda
@@ -227,7 +233,8 @@ def test_bf16_shapes_the_staged_kernel_refuses_take_the_general_route(name):
     """Every bf16 B2/B3 shape above takes the staged kernel on the card; a shape it refuses (two
     stages of K=120 overflow the shared memory; D=24 is no multiple of 16; for B3 a d_head of 64 spans
     two warps' column blocks) takes the general kernel, named by `route` and counted under it, and
-    matches the plain version; an operand off a 16-byte boundary at a staged shape raises."""
+    matches the plain version (for B2 the cluster kernel refuses both: widths it is not compiled for, code
+    2); an operand off a 16-byte boundary at a staged shape raises."""
     _need_card()
     dev = torch.cuda.current_device()
     for shape in STAGED_SHAPES + CROSS_SHAPES:
@@ -238,13 +245,15 @@ def test_bf16_shapes_the_staged_kernel_refuses_take_the_general_route(name):
         refused.append(((1, 3, 5, 128, 128, 2), 4))
     for shape, code in refused:
         assert knarpe.staged_refusal(name, *shape[2:], dev) == code
+        if name == "knarpe_cross_attention":
+            assert knarpe.cluster_refusal(*shape[2:], dev) == 2
         assert knarpe.general_refusal(name, *shape[2:], dev) == 0
         assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "general"
         args = _cast(_inputs(shape, True, seed=9), torch.bfloat16)
-        n, staged, general = _launch_counts(name)
+        n, staged, general, cluster = _launch_counts(name)
         out16 = getattr(knarpe, name)(*args, shape[-1])
         torch.cuda.synchronize()
-        assert _launch_counts(name) == (n + 1, staged, general + 1)
+        assert _launch_counts(name) == (n + 1, staged, general + 1, cluster)
         _check_bf16(name, out16, args, shape[-1])
     args = _cast(_inputs(CROSS_SHAPES[1], True, seed=9), torch.bfloat16)
     buf = torch.empty(args[1].numel() + 1, dtype=torch.bfloat16, device="cuda")
@@ -255,8 +264,16 @@ def test_bf16_shapes_the_staged_kernel_refuses_take_the_general_route(name):
 
 
 # bf16 B2/B3 shapes the staged kernel refuses (C1): the scaled preset's D=R=256 with 8 heads, and
-# K=90 and K=128 at the flagship's D=R=128, H=4
+# K=90 and K=128 at the flagship's D=R=128, H=4; all take the general kernel in B3
 GENERAL_SHAPES = [(2, 64, 89, 256, 256, 8), (2, 64, 90, 128, 128, 4), (2, 64, 128, 128, 128, 4)]
+# and in B2, with the cluster kernel's refusal code: K=120 at D=R=256, H=8 (its shared memory), and the
+# D=R=128 shapes (widths it is not compiled for)
+GENERAL_B2_SHAPES = {(2, 64, 120, 256, 256, 8): 3, (2, 64, 90, 128, 128, 4): 2, (2, 64, 128, 128, 128, 4): 2}
+# bf16 B2 on the cluster kernel: D=R=256, H=8 at K=89, the scaled training path's (1 x 64 agents), K=5 and
+# K=24 (no multiple of 16) and K=104 (the largest its shared memory takes) at 21 sources, and a single
+# source (fewer sources than clusters)
+CLUSTER_SHAPES = [(2, 64, 89, 256, 256, 8), (1, 64, 89, 256, 256, 8), (1, 21, 5, 256, 256, 8),
+                  (1, 21, 24, 256, 256, 8), (1, 21, 104, 256, 256, 8), (1, 1, 89, 256, 256, 8)]
 
 
 def _check_bf16(name, out16, a16, n_head):
@@ -274,25 +291,50 @@ def _check_bf16(name, out16, a16, n_head):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
-@pytest.mark.parametrize("shape", GENERAL_SHAPES)
+@pytest.mark.parametrize("name,shape", [*[("knarpe_cross_attention", s) for s in GENERAL_B2_SHAPES],
+                                        *[("knarpe_cross_attention_v3", s) for s in GENERAL_SHAPES]])
 def test_general_bf16_route_matches_plain_version(name, shape):
     """bf16 on the general route, and float32 at the same shapes (the general kernel reads B3's
-    inputs from device memory where they do not fit in shared memory: float32 at D=R=256)."""
+    inputs from device memory where they do not fit in shared memory: float32 at D=R=256); B2 at
+    shapes the cluster kernel refuses too, by the code named."""
     _need_card()
     dev, n_head = torch.cuda.current_device(), shape[-1]
     assert knarpe.staged_refusal(name, *shape[2:], dev) == 5
+    if name == "knarpe_cross_attention":
+        assert knarpe.cluster_refusal(*shape[2:], dev) == GENERAL_B2_SHAPES[shape]
     assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "general"
     args = _inputs(shape, True, seed=sum(shape))
     out = getattr(knarpe, name)(*args, n_head)
     torch.testing.assert_close(out, getattr(knarpe, f"{name}_reference")(*args, n_head), rtol=0, atol=F32_ATOL)
     a16 = _cast(args, torch.bfloat16)
-    n, staged, general = _launch_counts(name)
+    n, staged, general, cluster = _launch_counts(name)
     out16 = getattr(knarpe, name)(*a16, n_head)
     torch.cuda.synchronize()
-    assert _launch_counts(name) == (n + 1, staged, general + 1)
+    assert _launch_counts(name) == (n + 1, staged, general + 1, cluster)
     _check_bf16(name, out16, a16, n_head)
     assert torch.equal(getattr(knarpe, name)(*a16, n_head), out16)  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cluster_bf16_route_matches_plain_version(shape):
+    """bf16 B2 where the staged kernel refuses the shape (code 5, its resident weights) and the cluster kernel
+    takes it: the cluster route, named and counted, within the bf16 tolerance of the float32 plain version on
+    the same bf16-valued inputs, the all-invalid source zero, two launches bit-identical (no atomics: every
+    sum, the partials exchanged between the cluster's blocks too, has a fixed order); float32 at the same
+    shape takes the general kernel."""
+    _need_card()
+    name, dev, n_head = "knarpe_cross_attention", torch.cuda.current_device(), shape[-1]
+    assert knarpe.staged_refusal(name, *shape[2:], dev) == 5 and knarpe.cluster_refusal(*shape[2:], dev) == 0
+    assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "cluster"
+    assert knarpe.route(name, torch.float32, *shape[2:], dev) == "general"
+    a16 = _cast(_inputs(shape, True, seed=sum(shape)), torch.bfloat16)
+    n, staged, general, cluster = _launch_counts(name)
+    out16 = knarpe.knarpe_cross_attention(*a16, n_head)
+    torch.cuda.synchronize()
+    assert _launch_counts(name) == (n + 1, staged, general, cluster + 1)
+    _check_bf16(name, out16, a16, n_head)
+    assert torch.equal(knarpe.knarpe_cross_attention(*a16, n_head), out16)
 
 
 @pytest.mark.cuda

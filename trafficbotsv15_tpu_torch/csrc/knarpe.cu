@@ -47,9 +47,13 @@
 // computed; every product on the tensor cores), whose header says how, for
 // every shape it takes (knarpe_staged_route's code 0). It keeps the whole bf16
 // [W_kv; W_rpe] resident, so it refuses D = R = 256 (the scaled preset) and, at
-// D = R = 128, K >= 90; those shapes run on the kernel below, instantiated for
-// bf16 too (the general route; knarpe_general_route says whether it takes a
-// shape). The route follows from the shape alone. The kernel below serves
+// D = R = 128, K >= 90. bf16 B2 at D = R = 256 with 8 heads (K <= 104) runs on
+// the cluster kernel of knarpe_cluster.cuh (four blocks a source, each with a
+// quarter of the weights and of the source's columns; knarpe_cluster_route's
+// code 0); B3 at the shapes the staged kernel refuses, and B2 at those both
+// refuse (D = R = 128 at K >= 90 among them), run on the kernel below,
+// instantiated for bf16 too (the general route; knarpe_general_route says
+// whether it takes a shape). The route follows from the shape alone. The kernel below serves
 // float32 B4, B2 and B3, and the general bf16 route. Its B3 accumulates 4 x 4 tiles of
 // kk (4 targets x 4 columns of one head) in registers from the source's [K, X]
 // inputs, staged in shared memory where they fit (float32 at D = R = 256, K = 89
@@ -57,6 +61,7 @@
 // float32 in TF32, outside float32's tolerance.
 
 #include "knarpe_attn_staged.cuh"
+#include "knarpe_cluster.cuh"
 #include "knarpe_staged.cuh"
 
 #include <cuda_bf16.h>
@@ -619,12 +624,111 @@ int staged_code(int mode, int n_knn, int d_model, int d_rpe, int n_head, int dev
   return rc != 0 ? -rc : pl.refused;
 }
 
-// bf16 B2 or B3: the staged kernel where it takes the shape, else the general kernel.
+// The cluster kernel's plan per (device, K): its refusal code (cluster_x::refusal; 0 = taken, 4 = no cluster
+// fits the device), layout and the clusters resident on the device.
+struct ClusterPlan {
+  int dev, n_knn, refused;
+  cluster_x::Layout L;
+  long long clusters;
+};
+
+int make_cluster_plan(ClusterPlan& pl) {
+  int max_smem = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.refused = cluster_x::refusal(pl.n_knn, cluster_x::kWidth, cluster_x::kWidth, cluster_x::kHeads,
+                                  static_cast<size_t>(max_smem));
+  if (pl.refused) return 0;
+  pl.L = cluster_x::make_layout(pl.n_knn);
+  auto kern = cluster_x::knarpe_x_cluster_kernel;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr{};
+  const cudaLaunchConfig_t cfg = cluster_x::launch_config(cluster_x::kCluster, pl.L.total, nullptr, &attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kern), &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 1) pl.refused = 4;
+  pl.clusters = n;
+  return 0;
+}
+
+int cluster_plan(int dev, int K, ClusterPlan* out) {
+  static std::mutex mu;
+  static std::vector<ClusterPlan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const ClusterPlan& c : plans) {
+    if (c.dev == dev && c.n_knn == K) {
+      *out = c;
+      return 0;
+    }
+  }
+  ClusterPlan pl{};
+  pl.dev = dev; pl.n_knn = K;
+  const int rc = make_cluster_plan(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+// The cluster kernel's code for a bf16 B2 shape: 0 if it takes the shape, else cluster_x::refusal's code (2 for
+// widths it is not compiled for, without asking the device; 4: no cluster fits the device), or minus a CUDA error.
+int cluster_code(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  const int code = cluster_x::refusal(n_knn, d_model, d_rpe, n_head, SIZE_MAX);
+  if (code != 0) return code;
+  ClusterPlan pl{};
+  const int rc = cluster_plan(dev, n_knn, &pl);
+  return rc != 0 ? -rc : pl.refused;
+}
+
+// Launches the cluster kernel at a shape cluster_code takes; an operand that is not 16-byte aligned (the tensor
+// and bulk copies need it) is cudaErrorInvalidValue.
+int cluster_launch(const Params& g, int dev, cudaStream_t stream) {
+  ClusterPlan pl{};
+  const int rc = cluster_plan(dev, g.n_knn, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused || !(aligned16(g.q) && aligned16(g.tgt) && aligned16(g.rpe) && aligned16(g.w_kv) &&
+                      aligned16(g.w_rpe) && aligned16(g.bias)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  constexpr int D = cluster_x::kWidth;
+  cluster_x::Params p{};
+  p.q = static_cast<const bf16*>(g.q);
+  p.w_kv = static_cast<const bf16*>(g.w_kv);
+  p.w_rpe = static_cast<const bf16*>(g.w_rpe);
+  p.bias = static_cast<const bf16*>(g.bias);
+  p.invalid = g.invalid;
+  p.out = static_cast<bf16*>(g.out);
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.scale = g.scale;
+  p.L = pl.L;
+  const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
+  int enc = staged::encode_rows(&p.tm_t, g.tgt, n_rows, D, D, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, D, D, g.n_knn);
+  if (enc != 0) return enc;
+  const long long n_cl = g.n_src < pl.clusters ? g.n_src : pl.clusters;
+  cudaLaunchAttribute attr{};
+  const cudaLaunchConfig_t cfg =
+      cluster_x::launch_config(static_cast<int>(cluster_x::kCluster * n_cl), p.L.total, stream, &attr);
+  void* args[] = {&p};
+  const cudaError_t err =
+      cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(cluster_x::knarpe_x_cluster_kernel), args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 B2 or B3: the staged kernel where it takes the shape; else, for B2, the cluster kernel where it
+// takes the shape; else the general kernel.
 template <int MODE>
 int bf16_cross(const Params& p, int n_head, int dev, cudaStream_t stream) {
   const int code = staged_code(MODE, p.n_knn, p.d_model, p.d_rpe, n_head, dev);
   if (code < 0) return code == -1 ? static_cast<int>(cudaErrorInvalidValue) : -code;
   if (code == 0) return staged_by_heads<MODE>(p, n_head, dev, stream);
+  if (MODE == kCross) {
+    const int wide = cluster_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
+    if (wide < 0) return -wide;
+    if (wide == 0) return cluster_launch(p, dev, stream);
+  }
   return by_heads<__nv_bfloat16, MODE>(p, n_head, dev, stream);
 }
 
@@ -764,9 +868,9 @@ int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStrea
 // elements at stride ld_kv and no tgt / w_kv (d_tgt = 0); B2/B3 read tgt and
 // w_kv (d_tgt = d_model) and no k/v. n_head in {1, 2, 4, 8}, d_model even and
 // divisible by n_head, for B3 d_model / n_head a multiple of 4; a bf16 B2/B3
-// shape on the staged route needs 16-byte aligned operands (checked by the
-// Python wrapper, which also names the route: knarpe_staged_route, then
-// knarpe_general_route). dev is the current device, which owns the tensors and
+// shape on the staged or cluster route needs 16-byte aligned operands (checked
+// by the Python wrapper, which also names the route: knarpe_staged_route, then
+// for B2 knarpe_cluster_route, then knarpe_general_route). dev is the current device, which owns the tensors and
 // the stream. Returns cudaGetLastError(), or cudaErrorInvalidValue for a launch
 // no kernel takes.
 extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
@@ -794,10 +898,19 @@ extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, 
   return staged_code(mode, n_knn, d_model, d_rpe, n_head, dev);
 }
 
+// Whether the cluster kernel of knarpe_cluster.cuh takes a bf16 B2 launch at this shape on device dev,
+// given 16-byte aligned operands: 0 if it does, else cluster_x::refusal's code (2: widths other than
+// d_model = d_rpe = 256 with 8 heads; 4: no cluster fits the device), or minus a CUDA error. knarpe_launch
+// runs a bf16 B2 that knarpe_staged_route refuses on the cluster kernel where this is 0.
+extern "C" int knarpe_cluster_route(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  return cluster_code(n_knn, d_model, d_rpe, n_head, dev);
+}
+
 // Whether the general kernel takes a bf16 B2 (mode 1) or B3 (mode 2) launch at this shape on device
 // dev: 0 if it does, 1 if its layout exceeds the block's shared memory even with the weights (and
 // B3's inputs) read through L1/L2, or minus a CUDA error; -1 for any other mode or dtype. The wrapper
-// asks it for the shapes knarpe_staged_route refuses, and raises when this refuses too.
+// asks it for the shapes knarpe_staged_route (and, for B2, knarpe_cluster_route) refuses, and raises
+// when this refuses too.
 extern "C" int knarpe_general_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
   if (dtype != 1) return -1;
   const int X = d_model + d_rpe;

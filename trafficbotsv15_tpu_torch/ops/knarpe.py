@@ -21,17 +21,22 @@ What bounds them on the card is the bytes: at the rollout's shapes B2 reads
 ~373 MB of targets and relative poses per launch and writes 2 MB, and the
 [K, 2D] projection output, which an unfused path writes and reads back, is
 what the kernels keep out of device memory (`csrc/knarpe.cu` says how). A
-launch takes one of two routes, named by `route` from the shape alone:
+launch takes one of three routes, named by `route` from the shape alone:
 "staged", for bf16 at every shape a staged kernel takes, every product on the
 tensor cores: B4 on `csrc/knarpe_attn_staged.cuh` (a ring of source stages
 filled by tensor copies, four groups of warps each on its own source), B2
 and B3 on `csrc/knarpe_staged.cuh` (each source's targets staged in shared
-memory while the previous source computes); and "general", the kernel of
-`csrc/knarpe.cu`, for float32 and the bf16 shapes the staged kernels refuse
-(B4 with more than 4 heads or K > 128; B2 and B3 at the scaled preset's
-D = R = 256, and K >= 90 at D = R = 128). A bf16 B2 or B3 shape both refuse
-raises; so does an operand of a staged launch not at a 16-byte aligned
-address, or B4's k and v rows not a multiple of 16 bytes apart.
+memory while the previous source computes); "cluster", for bf16 B2 at the
+scaled preset's D = R = 256 with 8 heads (K <= 104), which the staged kernel
+refuses, on `csrc/knarpe_cluster.cuh`: a cluster of four blocks per source,
+each holding a quarter of the weights and taking a quarter of the source's
+columns, the partial sums exchanged through distributed shared memory; and
+"general", the kernel of `csrc/knarpe.cu`, for float32 and the remaining bf16
+shapes (B4 with more than 4 heads or K > 128; B3 at D = R = 256 and at K >= 90;
+B2 where the cluster kernel refuses too, such as K >= 90 at D = R = 128).
+A bf16 B2 or B3 shape that every bf16 kernel refuses raises; so does an
+operand of a staged or cluster launch not at a 16-byte aligned address, or
+B4's k and v rows not a multiple of 16 bytes apart.
 
 Each wrapper is a `torch.autograd.Function`: its forward launches the
 forward kernel and its backward the backward kernel of `csrc/knarpe_bwd.cu`,
@@ -69,11 +74,12 @@ _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_atte
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # forward and backward launches by route since the last reset (read by chip_smoke.py); B3's backward
-# counts as B2's
-ROUTE_LAUNCHES = {f"{kernel}/{route}": 0 for kernel in ("knarpe_attention", "knarpe_cross_attention",
-                                                        "knarpe_cross_attention_v3", "knarpe_attention_bwd",
-                                                        "knarpe_cross_attention_bwd")
-                  for route in ("staged", "general")}
+# counts as B2's; only B2 has the cluster route
+ROUTE_LAUNCHES = {**{f"{kernel}/{route}": 0 for kernel in ("knarpe_attention", "knarpe_cross_attention",
+                                                           "knarpe_cross_attention_v3", "knarpe_attention_bwd",
+                                                           "knarpe_cross_attention_bwd")
+                     for route in ("staged", "general")},
+                  "knarpe_cross_attention/cluster": 0}
 
 _LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
 _BWD_FN = None
@@ -116,6 +122,14 @@ ATTN_BWD_STAGED_REFUSALS = {
     4: "the weights, four source stages (one per group of warps) and the groups' scratch exceed the device's "
        "shared memory per block",
     5: "no block fits a multiprocessor",
+}
+# why the cluster bf16 B2 kernel (csrc/knarpe_cluster.cuh) refuses a shape, by the code of
+# `knarpe_cluster_route` (`cluster_x::refusal`); such a shape takes the general kernel
+CLUSTER_REFUSALS = {
+    1: "K must be in [1, 128]: the softmax holds a head's logits in one warp's registers, at most four a lane",
+    2: "d_model = d_rpe = 256 with 8 heads are the only widths the kernel is compiled for",
+    3: "a quarter of the weights and two source stages exceed the device's shared memory per block",
+    4: "no cluster of four blocks fits the device",
 }
 # why the general kernel (csrc/knarpe.cu) refuses a shape, by the code of `knarpe_general_route`
 GENERAL_REFUSALS = {
@@ -202,6 +216,8 @@ def load_library():
         for fn in (lib.knarpe_staged_route, lib.knarpe_general_route):
             fn.argtypes = [ctypes.c_int] * 7
             fn.restype = ctypes.c_int
+        lib.knarpe_cluster_route.argtypes = [ctypes.c_int] * 5
+        lib.knarpe_cluster_route.restype = ctypes.c_int
         _LAUNCH_FN = bind_launch(lib)
     return _LAUNCH_FN
 
@@ -240,9 +256,21 @@ def general_refusal(kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: i
     return _route_code("knarpe_general_route", kernel, n_knn, d_model, d_rpe, n_head, device_index)
 
 
+@functools.lru_cache(maxsize=None)
+def cluster_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the cluster kernel takes a bf16 B2 launch at this shape on the card, else the built library's
+    refusal code (`CLUSTER_REFUSALS` says why)."""
+    load_library()
+    code = build.load("knarpe", "knarpe.cu").knarpe_cluster_route(n_knn, d_model, d_rpe, n_head, device_index)
+    if code < 0:
+        raise RuntimeError(f"knarpe_cross_attention: planning a launch (knarpe_cluster_route) failed: code {code}")
+    return code
+
+
 def route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
     """The kernel a forward launch takes, from its shape alone: "staged" in bf16 where the staged kernel
-    takes the shape, else "general"; for B2 and B3, raises when neither bf16 kernel takes it."""
+    takes the shape; for bf16 B2 then "cluster" where the cluster kernel takes it; else "general"; for B2
+    and B3, raises when no bf16 kernel takes it."""
     if dtype != torch.bfloat16:
         return "general"
     code = staged_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
@@ -250,12 +278,17 @@ def route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int,
         return "staged"
     if kernel == "knarpe_attention":
         return "general"
+    why = f"the staged kernel refuses it ({STAGED_REFUSALS[code]})"
+    if kernel == "knarpe_cross_attention":
+        cluster = cluster_refusal(n_knn, d_model, d_rpe, n_head, device_index)
+        if cluster == 0:
+            return "cluster"
+        why += f", the cluster kernel too ({CLUSTER_REFUSALS[cluster]})"
     general = general_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
     if general == 0:
         return "general"
     raise ValueError(f"{kernel}: no bf16 kernel takes K={n_knn}, d_model={d_model}, d_rpe={d_rpe}, "
-                     f"n_head={n_head}: the staged kernel refuses it ({STAGED_REFUSALS[code]}), and the general "
-                     f"kernel too ({GENERAL_REFUSALS[general]})")
+                     f"n_head={n_head}: {why}, and the general kernel too ({GENERAL_REFUSALS[general]})")
 
 
 def load_bwd_library():
@@ -312,11 +345,11 @@ def bwd_route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: 
     return "staged" if refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0 else "general"
 
 
-def _check_staged_alignment(kernel: str, tensors, ld_kv: int) -> None:
-    """A staged launch copies 16-byte chunks: every operand starts at a 16-byte aligned address and B4's
-    k and v rows lie a multiple of 16 bytes apart (ld_kv elements of 2 bytes)."""
+def _check_staged_alignment(kernel: str, tensors, ld_kv: int, way: str = "staged") -> None:
+    """A staged or cluster launch copies 16-byte chunks: every operand starts at a 16-byte aligned address
+    and B4's k and v rows lie a multiple of 16 bytes apart (ld_kv elements of 2 bytes)."""
     if any(t.data_ptr() % 16 for t in tensors if t is not None):
-        raise ValueError(f"{kernel}: the staged bf16 kernel copies 16-byte chunks; its operands must start at "
+        raise ValueError(f"{kernel}: the {way} bf16 kernel copies 16-byte chunks; its operands must start at "
                          f"16-byte aligned addresses")
     if ld_kv % 8:
         raise ValueError(f"{kernel}: the staged bf16 kernel copies k and v rows by tensor copies, whose rows must "
@@ -372,8 +405,8 @@ def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: i
         _check(kernel, "w_kv", w_kv, (d_model, 2 * d_model), dtype, device)
     _check(kernel, "w_rpe", w_rpe, (d_rpe, 2 * d_model), dtype, device)
     way = route(kernel, dtype, n_knn, d_model, d_rpe, n_head, device.index or 0) if forward else None
-    if way == "staged":
-        _check_staged_alignment(kernel, (q, k, v, tgt, rpe, w_kv, w_rpe, b), ld_kv)
+    if way in ("staged", "cluster"):
+        _check_staged_alignment(kernel, (q, k, v, tgt, rpe, w_kv, w_rpe, b), ld_kv, way)
     return n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv, way
 
 

@@ -12,7 +12,10 @@ With `--other`, on
 the same bf16 inputs (numpy seed 1; 30 % of targets invalid), for B2
 (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`) at the eval
 path's shape [128·64 sources, K=89, D=R=128, H=4] and the training path's
-[8·64, K=89], and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32]
+[8·64, K=89], B2 also at the scaled preset's eval shape [128·64, K=89,
+D=R=256, H=8] (this tree's cluster route against, say, the parent's general
+kernel: the route is named by this tree, the launch goes through the side's
+library), and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32]
 and the training path's [8·1024, K=32] (k and v the halves of one [.., 2D]
 tensor, as the map encoder passes them).
 With `--other-knn`, B1 (`knn_xy`) at the eval path's [128, 64, 1024] and the
@@ -69,6 +72,7 @@ from trafficbotsv15_tpu_torch.utils.timing import cuda_ms, graph_ms
 # (kernel, label, (n_b, n_s, K, D, R, H))
 CASES = [("knarpe_cross_attention", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention", "train", (8, 64, 89, 128, 128, 4)),
+         ("knarpe_cross_attention", "scaled_eval", (128, 64, 89, 256, 256, 8)),
          ("knarpe_cross_attention_v3", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention_v3", "train", (8, 64, 89, 128, 128, 4)),
          ("knarpe_attention", "eval", (4, 1024, 32, 128, 128, 4)),
