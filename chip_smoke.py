@@ -18,9 +18,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      source invalid; timed at the eval and training shapes), B4 (`knarpe_attention`; in bf16 on
      the staged kernel of csrc/knarpe_attn_staged.cuh, the route asserted,
      at both paths' shapes and the entry point's 2 x 1024, K=5, K=24, 1, 97
-     and 8 x 1024 + 7 sources and the edge shapes, an eight-head shape and
-     the scaled preset's [4, 1024, 32, 256, 256, 8] on the general route;
-     timed at both paths' shapes and the scaled preset's), B2
+     and 8 x 1024 + 7 sources and the edge shapes; at the scaled preset's
+     D=R=256 with 8 heads on the heads kernel of csrc/knarpe_attn_heads.cuh
+     (asserted; at the eval shape [4, 1024, 32, 256, 256, 8], the training
+     shape [1, 1024, 32, 256, 256, 8], K=5, K=24 and K=40 (the largest its
+     shared memory takes) at 97 sources, a single source and 8 x 1024 + 7
+     sources, k and v the halves of one tensor and two tensors, each with an
+     all-invalid and a one-target source, the same bits on a second launch);
+     on the general route (asserted, the heads kernel's refusal code too) at
+     K=89 there and at an eight-head shape of other widths; timed at both
+     paths' shapes and the scaled preset's two), B2
      (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`, which
      only this phase launches); B2 and B3 also at the training path's shapes
      (the agent decoder and posterior agent encoder, the posterior TL encoder
@@ -144,11 +151,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      head's log_std; (c) `make_validate_step`, 4 scenarios x K=32: a warm-up
      and one step split by part, B1 120 + 121; (d) `joint_future_pred` with
      use_pallas=True, one warm-up and 2 timed calls in turns with (a)'s
-     (a d d a): B1 120, B4 12 and B2 720 per call, every B4 on the general
-     route and every B2 on the cluster route, at shapes phase 3 checked
-     (B4 [4, 1024, 32, 256, 256, 8], B2 [128, 64, 89, 256, 256, 8]); the
-     first B2 launch of its warm-up call, captured, against the float32
-     plain version on its own inputs at phase 3's bf16 tolerance;
+     (a d d a): B1 120, B4 12 and B2 720 per call, every B4 on the heads
+     route and every B2 on the cluster route, none on the general route, at
+     shapes phase 3 checked (B4 [4, 1024, 32, 256, 256, 8], B2 [128, 64, 89,
+     256, 256, 8]); the first B4 and the first B2 launch of its warm-up call,
+     captured, against the float32 plain versions on their own inputs at
+     phase 3's bf16 tolerance;
      (e) the phase-4 config rolled out to 40 steps against its 31 logged:
      the training step's gradients (phase 7's check) and the validation step
      with reactive replay's buffer (phase 9's) card vs CPU. (a)-(d) log
@@ -157,9 +165,9 @@ Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
 `validate_launches`, from phase 9; training-shape and backward ones from phase
 8, B4's and the backwards' by route; `fit_launches` per full-width fit step
 from phase 11; `reference_layout_launches` from phase 12 (b); `scaled_launches`
-per call or step of each path of phase 13; B4's and B3's `general_route`
-and B2's `cluster_route` times at the scaled preset's shapes, the latter with
-its launches per phase 13 (d) call), the card line, and last
+per call or step of each path of phase 13; B3's `general_route`, B4's
+`heads_route` and B2's `cluster_route` times at the scaled preset's shapes,
+the latter two with their launches per phase 13 (d) call), the card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -235,10 +243,20 @@ ATTN_EDGE = [(3, 7, 5, 16, 16, 2), (2, 17, 89, 64, 32, 1)]
 ATTN_STAGED_EDGE = [(1, 97, 5, 128, 128, 4), (1, 97, 24, 64, 64, 2), (1, 1, 32, 128, 128, 4),
                     (1, 8199, 32, 128, 128, 4), FIT_ATTN_PATH]
 ATTN_GENERAL = [(1, 33, 89, 32, 16, 8)]
-# the scaled preset's map encoder (4 scenarios x 1024 polylines, D=R=256, 8 heads): B4 forward on the general route
+# the scaled preset's map encoder (4 scenarios x 1024 polylines, D=R=256, 8 heads): B4 forward on the heads route
 SCALED_ATTN_PATH = (4, 1024, 32, 256, 256, 8)
-# and its training path's (batch 1): B4-bwd timed there on the general route (csrc/knarpe_bwd.cu)
+# and its training path's (batch 1): B4 forward timed there on the heads route, B4-bwd on the general route
+# (csrc/knarpe_bwd.cu)
 SCALED_TRAIN_ATTN_PATH = (1, 1024, 32, 256, 256, 8)
+# bf16 B4 on the heads route (csrc/knarpe_attn_heads.cuh) at D=R=256, 8 heads: both scaled shapes, K=5 and K=24
+# (no multiple of 16) and K=40 (the largest its shared memory takes) at 97 sources (no multiple of the grid or the
+# groups), a single source (fewer than the grid's slots) and 8 x 1024 + 7 sources; each has an all-invalid and a
+# one-target source and runs with k and v the halves of one tensor and as two tensors
+HEADS_ATTN = [SCALED_ATTN_PATH, SCALED_TRAIN_ATTN_PATH, (1, 97, 5, 256, 256, 8), (1, 97, 24, 256, 256, 8),
+              (1, 97, 40, 256, 256, 8), (1, 1, 32, 256, 256, 8), (1, 8199, 32, 256, 256, 8)]
+# and the general route where the heads kernel refuses too, by its refusal code: K=89 at D=R=256, 8 heads (its
+# shared memory, code 3), and ATTN_GENERAL's eight heads at other widths (widths it is not compiled for, code 2)
+GENERAL_B4 = {(1, 33, 89, 256, 256, 8): 3, ATTN_GENERAL[0]: 2}
 # bf16 B2 backward shapes phase 3 holds on the staged route (csrc/knarpe_bwd_staged.cuh) besides the
 # training path's: K not a multiple of 16 with an all-invalid source at 21 sources (under the 132-block
 # grid), and 200 sources (no multiple of the grid); and the eight-head edge shape the staged backward
@@ -431,12 +449,15 @@ def knarpe_bound(name: str, args, n_head: int) -> tuple:
     return nbytes, 2 * n_src * macs
 
 
-def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged") -> tuple:
-    """Kernel vs plain version in float32 and bfloat16, bf16 B2/B3 on want_route; returns the float32 and the
-    bf16 max |err| (the bf16 one against the reference the tolerance is taken from)."""
+def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged", separate_kv: bool = False) -> tuple:
+    """Kernel vs plain version in float32 and bfloat16, bf16 on want_route; B4's k and v the halves of one
+    tensor, or with separate_kv two tensors; returns the float32 and the bf16 max |err| (the bf16 one against
+    the reference the tolerance is taken from)."""
     kernel, plain = getattr(knarpe, name), getattr(knarpe, f"{name}_reference")
     cross, n_head = name != "knarpe_attention", shape[-1]
     args = knarpe_inputs(shape, cross, seed)
+    if separate_kv:
+        args[1], args[2] = args[1].contiguous(), args[2].contiguous()
     out = kernel(*args, n_head)
     torch.cuda.synchronize()
     ref = plain(*args, n_head)
@@ -467,7 +488,7 @@ def check_one_knarpe(name: str, shape, seed: int, want_route: str = "staged") ->
         raise AssertionError(f"{name} {shape} bf16: |err| exceeds {rtol} relative + {atol} by {excess}")
     if not torch.equal(kernel(*a16, n_head).float(), out16):  # no bf16 kernel has atomics
         raise AssertionError(f"{name} {shape} bf16: two launches on the same inputs differ")
-    note += f"; {want_route} route, two launches bit-identical"
+    note += f"; {want_route} route, two launches bit-identical" + ("; k and v two tensors" if separate_kv else "")
     err16 = float((out16 - ref16).abs().max())
     log(f"  {name} {list(shape)} (n_b, n_s, K, D, R, H): float32 max |err| {err:.3e} (tolerance "
         f"{KNARPE_F32_ATOL}); bf16 max |err| {err16:.3e}, within {rtol:g} relative + {atol:.3g} absolute{note}; "
@@ -534,11 +555,23 @@ def check_knarpe_kernels() -> list:
             check_one_knarpe(name, shape, seed=2 + i)
         row = time_knarpe(name, path)
         if name == "knarpe_attention":
-            for i, shape in enumerate([*ATTN_GENERAL, SCALED_ATTN_PATH]):
-                check_one_knarpe(name, shape, seed=20 + i, want_route="general")
             row["training_shape"] = {"shape": list(TRAIN_ATTN_PATH), **time_knarpe(name, TRAIN_ATTN_PATH)}
-            row["general_route"] = {"source": "trafficbotsv15_tpu_torch/csrc/knarpe.cu",
-                                    "shape": list(SCALED_ATTN_PATH), **time_knarpe(name, SCALED_ATTN_PATH)}
+            # bf16 only: float32 B4 takes the general kernel at these shapes, which check_one_knarpe holds too
+            err16 = max(check_one_knarpe(name, shape, seed=20 + i, want_route="heads", separate_kv=separate)[1]
+                        for separate in (False, True) for i, shape in enumerate(HEADS_ATTN))
+            row["heads_route"] = {"name": "knarpe_attention", "route": "cuda",
+                                  "source": "trafficbotsv15_tpu_torch/csrc/knarpe_attn_heads.cuh",
+                                  "replaces": replaces, "shape": list(SCALED_ATTN_PATH), "launches": None,
+                                  "max_abs_err": err16, **time_knarpe(name, SCALED_ATTN_PATH)}
+            row["heads_route"]["scaled_training_shape"] = {"shape": list(SCALED_TRAIN_ATTN_PATH),
+                                                           **time_knarpe(name, SCALED_TRAIN_ATTN_PATH)}
+            for i, (shape, code) in enumerate(GENERAL_B4.items()):
+                got = knarpe.heads_refusal(*shape[2:], torch.cuda.current_device())
+                if got != code:
+                    raise AssertionError(f"{name} {shape}: the heads kernel's refusal code {got}, expected {code}")
+                log(f"  {name} {list(shape)}: the heads kernel refuses it with code {got} "
+                    f"({knarpe.HEADS_REFUSALS[got]}), so it takes the general route")
+                check_one_knarpe(name, shape, seed=40 + i, want_route="general")
         elif name == "knarpe_cross_attention":
             time_knarpe(name, TRAIN_X_PATH)
             # bf16 only: float32 B2 takes the general kernel at these shapes, which check_one_knarpe holds too
@@ -1887,9 +1920,9 @@ SCALED_N_SC, SCALED_CHECK_END = 4, 40
 
 def check_scaled_shapes(where: str, shapes, want: dict) -> None:
     """The launches of a scaled-preset call, by full shape, are exactly `want`, and each shape is one phase 3 checked:
-    B1 against its plain version, bf16 B4 against its own on the general route and bf16 B2 on the cluster route."""
+    B1 against its plain version, bf16 B4 against its own on the heads route and bf16 B2 on the cluster route."""
     checked = {("knn_xy", *case[:4]) for case in KNN_CASES.values()}
-    checked |= {("knarpe_attention", str(torch.bfloat16), *s) for s in [*ATTN_GENERAL, SCALED_ATTN_PATH]}
+    checked |= {("knarpe_attention", str(torch.bfloat16), *s) for s in HEADS_ATTN}
     checked |= {("knarpe_cross_attention", str(torch.bfloat16), *s) for s in CLUSTER_X}
     if dict(shapes) != want or not set(shapes) <= checked:
         raise AssertionError(f"{where}: launches by shape {dict(shapes)}, expected {want}, each at a shape phase 3 "
@@ -1897,16 +1930,18 @@ def check_scaled_shapes(where: str, shapes, want: dict) -> None:
 
 
 @contextlib.contextmanager
-def captured_launch(kernel: str):
-    """The operands (q, tgt, rpe, invalid, w_kv, w_rpe, b), n_head and output of the first `kernel` forward launch
-    inside the block, cloned: {"args": [...], "n_head": H, "out": tensor}; empty if there was none."""
+def captured_launches(*kernels: str):
+    """The operands (B4: q, k, v, rpe, invalid, w_rpe, b; B2: q, tgt, rpe, invalid, w_kv, w_rpe, b), n_head and
+    output of the first forward launch of each of `kernels` inside the block, cloned: {kernel: {"args": [...],
+    "n_head": H, "out": tensor}}, without the kernels that did not launch."""
     real, got = knarpe._launch, {}
 
     def capture(name, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head):
         out = real(name, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head)
-        if name == kernel and not got:
-            got.update(args=[t.clone() for t in (q, tgt, rpe, invalid, w_kv, w_rpe, b)], n_head=n_head,
-                       out=out.clone())
+        if name in kernels and name not in got:
+            ops = (q, k, v, rpe, invalid, w_rpe, b) if name == "knarpe_attention" else (q, tgt, rpe, invalid, w_kv,
+                                                                                          w_rpe, b)
+            got[name] = {"args": [t.clone() for t in ops], "n_head": n_head, "out": out.clone()}
         return out
 
     knarpe._launch = capture
@@ -1916,18 +1951,21 @@ def captured_launch(kernel: str):
         knarpe._launch = real
 
 
-def check_path_launch(where: str, got: dict) -> float:
-    """A captured bf16 B2 launch of a path against the float32 plain version on its own (bf16-valued) operands, at
-    phase 3's bf16 tolerance; returns the max |err|."""
-    ref = knarpe.knarpe_cross_attention_reference(*[a if a.dtype == torch.bool else a.float() for a in got["args"]],
-                                                  got["n_head"])
+def check_path_launch(where: str, kernel: str, got: dict) -> float:
+    """A captured bf16 B4 or B2 launch of a path against the float32 plain version on its own (bf16-valued)
+    operands, at phase 3's bf16 tolerance; returns the max |err|."""
+    what = "B4" if kernel == "knarpe_attention" else "B2"
+    if not got:
+        raise AssertionError(f"{where}: no {what} launch to check")
+    plain = getattr(knarpe, f"{kernel}_reference")
+    ref = plain(*[a if a.dtype == torch.bool else a.float() for a in got["args"]], got["n_head"])
     out = got["out"].float()
     err = float((out - ref).abs().max())
     excess = float(((out - ref).abs() - (BF16_HALF_ULP * ref.abs() + KNARPE_F32_ATOL)).max())
     if not (got["out"].dtype == torch.bfloat16 and torch.isfinite(out).all() and excess <= 0):
-        raise AssertionError(f"{where}: the first B2 launch's output exceeds {BF16_HALF_ULP} relative + "
+        raise AssertionError(f"{where}: the first {what} launch's output exceeds {BF16_HALF_ULP} relative + "
                              f"{KNARPE_F32_ATOL} of the plain version on its inputs by {excess}")
-    log(f"  {where}: the first B2 launch {list(got['out'].shape)} against the float32 plain version on its own "
+    log(f"  {where}: the first {what} launch {list(got['out'].shape)} against the float32 plain version on its own "
         f"inputs: max |err| {err:.3e}, within {BF16_HALF_ULP:g} relative + {KNARPE_F32_ATOL:g} absolute")
     return err
 
@@ -1939,16 +1977,17 @@ def peak_gib() -> float:
 def run_scaled_phase(card: str) -> dict:
     """`scaled_config()` at full width (hidden 256, 8 heads, 12/6/6 layers, 120 steps past the log's 91, bf16
     compute), random seed-0 weights, synthetic scenarios: (a) joint_future_pred, use_pallas=False, and (d) with
-    use_pallas=True, the general-route kernels, timed in turns; (b) the training step at batch 1; (c) the validation
-    step; (e) the phase-4 config past its log, card against CPU. Returns the launches per call or step by path, and
-    the max |err| of (d)'s first B2 launch against the plain version on its inputs."""
+    use_pallas=True, B4 on the heads route and B2 on the cluster route, timed in turns; (b) the training step at
+    batch 1; (c) the validation step; (e) the phase-4 config past its log, card against CPU. Returns the launches
+    per call or step by path, and the max |err| of (d)'s first B4 and first B2 launch against the plain versions on
+    their inputs, by kernel."""
     t_phase = time.perf_counter()
     n_sc = SCALED_N_SC
     knn_eval = ("knn_xy", n_sc * 32, KNN_SRC, KNN_TGT, KNN_K)  # the agent->map KNN of 4 x 32 rollouts
 
-    # (a) eval with use_pallas=False and (d) with use_pallas=True, where B4 in bf16 at D=R=256, H=8 takes the general
+    # (a) eval with use_pallas=False and (d) with use_pallas=True, where B4 in bf16 at D=R=256, H=8 takes the heads
     # route and B2 the cluster route: a warm-up call each, then two timed calls each, in turns (a d d a); the first
-    # B2 launch of (d)'s warm-up call is captured and held against the plain version on its own inputs
+    # B4 and B2 launches of (d)'s warm-up call are captured and held against the plain versions on their own inputs
     t0 = time.perf_counter()
     cfg = with_pallas(scaled_config(), False)
     n_step, n_ag, k = cfg.time_step_end, cfg.data.n_ag, cfg.n_joint_future_wosac
@@ -1966,18 +2005,19 @@ def run_scaled_phase(card: str) -> dict:
     pcfg = with_pallas(scaled_config(), True)
     pmodel = build_model(pcfg, seed=0, device="cuda")
     pgen = torch.Generator().manual_seed(0)
-    with captured_launch("knarpe_cross_attention") as first_b2:
+    with captured_launches("knarpe_attention", "knarpe_cross_attention") as first:
         joint_future_pred(pcfg, pmodel, batch, generator=pgen, check_level=1)
     torch.cuda.synchronize()
     t_pwarm = time.perf_counter() - t0
-    first_b2_err = check_path_launch("(d) scaled eval call use_pallas=True", first_b2)
-    del first_b2
+    first_errs = {kernel: check_path_launch("(d) scaled eval call use_pallas=True", kernel, first.get(kernel, {}))
+                  for kernel in ("knarpe_attention", "knarpe_cross_attention")}
+    del first
     n_b4, n_b2 = pcfg.model.mp_encoder.n_layer_tf, pcfg.model.ag_encoder.n_layer_tf * n_step
     arms = {"a": (cfg, model, gen, {knn_eval: n_step}, {}),
             "d": (pcfg, pmodel, pgen,
                   {knn_eval: n_step, ("knarpe_attention", str(torch.bfloat16), *SCALED_ATTN_PATH): n_b4,
                    ("knarpe_cross_attention", str(torch.bfloat16), *SCALED_X_PATH): n_b2},
-                  {"knarpe_attention/general": n_b4, "knarpe_cross_attention/cluster": n_b2})}
+                  {"knarpe_attention/heads": n_b4, "knarpe_cross_attention/cluster": n_b2})}
     times, peaks, counts, bufs, routes = {}, {}, {}, {}, {}
     for arm in "adda":
         acfg, amodel, agen, want_shapes, want_routes = arms[arm]
@@ -2018,7 +2058,7 @@ def run_scaled_phase(card: str) -> dict:
     log(f"  (d) scaled_config use_pallas=True joint_future_pred: warm-up {t_pwarm:.3f} s, seconds per call "
         f"{[round(t, 4) for t in times['d']]} (median {pallas_s:.4f} s) against (a)'s median {eval_s:.4f} s, in turns "
         f"a d d a ({pallas_s - eval_s:+.4f} s), peak memory {peaks['d']:.2f} GiB; launches per call {pallas_counts}, "
-        f"by route {routes['d']} (B4 at {list(SCALED_ATTN_PATH)} on the general route, B2 at {list(SCALED_X_PATH)} on "
+        f"by route {routes['d']} (B4 at {list(SCALED_ATTN_PATH)} on the heads route, B2 at {list(SCALED_X_PATH)} on "
         f"the cluster route, shapes phase 3 checked); poses finite [{card}]")
     del pmodel, arms
     torch.cuda.empty_cache()
@@ -2114,7 +2154,7 @@ def run_scaled_phase(card: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     log(f"  phase 13 {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {"eval": eval_counts, "train": train_counts, "validate": val_counts,
-            "eval_use_pallas": pallas_counts}, first_b2_err
+            "eval_use_pallas": pallas_counts}, first_errs
 
 
 def main() -> int:
@@ -2173,9 +2213,9 @@ def main() -> int:
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    log("[13/13] the scaled preset at full width: eval, training, validation, eval through the kernels (B4 general, "
+    log("[13/13] the scaled preset at full width: eval, training, validation, eval through the kernels (B4 heads, "
         "B2 cluster route); the TL pass past the log, card vs CPU")
-    scaled_counts, first_b2_err = run_scaled_phase(card)
+    scaled_counts, first_errs = run_scaled_phase(card)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -2183,10 +2223,11 @@ def main() -> int:
         row["fit_launches"] = fit_counts[row["name"]]  # per full-width fit step at batch 2 (phase 11)
         row["reference_layout_launches"] = layout_counts[row["name"]]  # phase 12 (b)'s call
         # per call or step of phase 13's paths at scaled_config(): eval (a), training (b), validation (c), and the
-        # eval call through the kernels (d), whose B4 launches all take the general route and B2's the cluster route
+        # eval call through the kernels (d), whose B4 launches all take the heads route and B2's the cluster route
         row["scaled_launches"] = {path: counts_[row["name"]] for path, counts_ in scaled_counts.items()}
-    b2 = rows[2]["cluster_route"]  # the cluster route's launches per (d) call, and (d)'s first launch's error
-    b2.update(launches=scaled_counts["eval_use_pallas"]["knarpe_cross_attention"], path_launch_max_abs_err=first_b2_err)
+    for row, key in ((rows[1], "heads_route"), (rows[2], "cluster_route")):  # launches per (d) call, (d)'s first
+        row[key].update(launches=scaled_counts["eval_use_pallas"][row["name"]],  # launch's error
+                        path_launch_max_abs_err=first_errs[row["name"]])
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     b4 = rows[1]  # per eval call (phase 6), and at the training shape per step (phase 8)
     b4["launches_by_route"] = by_route(routes, "knarpe_attention")

@@ -28,6 +28,7 @@ Outputs are of size up to ~6. Tolerances:
 The output of an all-invalid source is exactly zero.
 """
 
+import contextlib
 import re
 
 import numpy as np
@@ -217,9 +218,9 @@ def _validate(name, t, n_head):
 CROSS_KERNELS = ["knarpe_cross_attention", "knarpe_cross_attention_v3"]
 
 
-def _fake_routes(monkeypatch, staged, general, cluster=(2,)):
-    """Fake the built library's answers (`staged_refusal`, `general_refusal`, and B2's `cluster_refusal`,
-    which refuses unless told otherwise); -> the calls, in order."""
+def _fake_routes(monkeypatch, staged, general, cluster=(2,), heads=(2,)):
+    """Fake the built library's answers (`staged_refusal`, `general_refusal`, B2's `cluster_refusal` and B4's
+    `heads_refusal`, which refuse unless told otherwise); -> the calls, in order."""
     asked = []
 
     def answer(which, codes):
@@ -232,6 +233,8 @@ def _fake_routes(monkeypatch, staged, general, cluster=(2,)):
     monkeypatch.setattr(knarpe, "general_refusal", answer("general", general))
     cluster_fn = answer("cluster", cluster)
     monkeypatch.setattr(knarpe, "cluster_refusal", lambda *shape: cluster_fn("knarpe_cross_attention", *shape))
+    heads_fn = answer("heads", heads)
+    monkeypatch.setattr(knarpe, "heads_refusal", lambda *shape: heads_fn("knarpe_attention", *shape))
     return asked
 
 
@@ -354,13 +357,15 @@ def _validate_attn(t, n_head=N_HEAD):
 
 @pytest.mark.parametrize("code", [0, *sorted(knarpe.ATTN_STAGED_REFUSALS)])
 def test_validate_routes_bf16_attention_by_the_staged_code(code, monkeypatch):
-    """bf16 B4 takes the staged kernel where the built library's answer is 0 and the general kernel for
-    each refusal code, asked from the shape alone (the general kernel is not asked: it takes every B4
-    shape); float32 B4 takes the general kernel without asking."""
+    """bf16 B4 takes the staged kernel where the built library's answer is 0 and, for each refusal code,
+    the heads kernel where it takes the shape and else the general kernel, asked from the shape alone (the
+    heads kernel refuses here; the general kernel is not asked: it takes every B4 shape); float32 B4 takes
+    the general kernel without asking."""
     asked = _fake_routes(monkeypatch, [code], [1])
     t = _bf16_attn()
     assert _validate_attn(t) == (2, 3, 5, D, R, 0, D, "staged" if code == 0 else "general")
-    assert asked == [("staged", "knarpe_attention", 5, D, R, N_HEAD, 0)]
+    assert asked == [("staged", "knarpe_attention", 5, D, R, N_HEAD, 0)] + (
+        [] if code == 0 else [("heads", "knarpe_attention", 5, D, R, N_HEAD, 0)])
     asked.clear()
     t32 = {k: v if v.dtype == torch.bool else v.float() for k, v in t.items()}
     assert _validate_attn(t32)[-1] == "general" and asked == []
@@ -389,15 +394,97 @@ def test_validate_raises_for_misaligned_bf16_attention_operands(misalign, match,
 
 
 def test_route_launches_count_attention_by_route_and_cpu_calls_count_none():
-    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's, and B2's cluster route; a CPU
-    call, forward and backward, counts no launch on any route."""
+    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's, B2's cluster route and B4's heads
+    route; a CPU call, forward and backward, counts no launch on any route."""
     kernels = ("knarpe_attention", "knarpe_cross_attention", "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                "knarpe_cross_attention_bwd")
     assert set(knarpe.ROUTE_LAUNCHES) == {f"{k}/{r}" for k in kernels for r in ("staged", "general")} | {
-        "knarpe_cross_attention/cluster"}
+        "knarpe_cross_attention/cluster", "knarpe_attention/heads"}
     before, launches = dict(knarpe.ROUTE_LAUNCHES), dict(knarpe.LAUNCHES)
     for dtype in (torch.float32, torch.bfloat16):
         t = {k: v if v.dtype == torch.bool else v.to(dtype).requires_grad_(True) for k, v in _bf16_attn().items()}
         knarpe.knarpe_attention(*t.values(), N_HEAD).float().sum().backward()
         assert t["k"].grad is not None
     assert knarpe.ROUTE_LAUNCHES == before and knarpe.LAUNCHES == launches
+
+
+def _bf16_attn_scaled(misalign=None):
+    """bf16 B4 operands on the CPU at the scaled preset's widths (D=R=256, 8 heads, K=32), k and v the halves
+    of one [.., 2D] tensor; misalign "q": q one element into a buffer (2 bytes off a 16-byte boundary);
+    "ld_kv": k and v rows of a [.., 2D + 4] buffer (8 bytes off a multiple of 16)."""
+    rng = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+    width = 2 * 256 + (4 if misalign == "ld_kv" else 0)
+    kv = f(1, 3, 32, width)
+    t = dict(q=f(1, 3, 256), k=kv[..., :256], v=kv[..., 256:512], rpe=f(1, 3, 32, 256),
+             invalid=torch.from_numpy(rng.uniform(size=(1, 3, 32)) < 0.3), w_rpe=f(256, 512), b_rpe=f(512))
+    if misalign == "q":
+        buf = torch.zeros(t["q"].numel() + 1, dtype=torch.bfloat16)
+        buf[1:] = t["q"].reshape(-1)
+        t["q"] = buf[1:].view(t["q"].shape)
+    return t
+
+
+def test_validate_routes_bf16_attention_to_the_heads_kernel(monkeypatch):
+    """At the scaled preset's widths the staged kernel refuses bf16 B4 (more than 4 heads, code 3) and the
+    heads kernel takes it: the heads route, asked in that order from the shape alone, the general kernel not
+    asked; float32 at the same shape takes the general kernel without asking either."""
+    asked = _fake_routes(monkeypatch, [3], [1], heads=[0])
+    t = _bf16_attn_scaled()
+    assert _validate_attn(t, 8) == (1, 3, 32, 256, 256, 0, 512, "heads")
+    assert asked == [(way, "knarpe_attention", 32, 256, 256, 8, 0) for way in ("staged", "heads")]
+    asked.clear()
+    t32 = {k: v if v.dtype == torch.bool else v.float() for k, v in t.items()}
+    assert _validate_attn(t32, 8)[-1] == "general" and asked == []
+
+
+@pytest.mark.parametrize("code", sorted(knarpe.HEADS_REFUSALS))
+def test_validate_routes_each_heads_refusal_to_the_general_kernel(code, monkeypatch):
+    """A bf16 B4 shape that the staged and heads kernels both refuse takes the general kernel, whatever the
+    heads kernel's reason (the general kernel takes every B4 shape and is not asked); no alignment applies
+    there."""
+    asked = _fake_routes(monkeypatch, [3], [1], heads=[code])
+    assert _validate_attn(_bf16_attn_scaled(), 8)[-1] == "general"
+    assert [a[0] for a in asked] == ["staged", "heads"]
+    assert _validate_attn(_bf16_attn_scaled("q"), 8)[-1] == "general"
+
+
+def test_heads_refusals_name_each_code():
+    """One text per refusal code of `heads_attn::refusal` (1-3) and the plan's no-fit (4), each its own."""
+    texts = knarpe.HEADS_REFUSALS
+    assert sorted(texts) == [1, 2, 3, 4]
+    assert len(set(texts.values())) == len(texts) and all(texts.values())
+    assert "128" in texts[1] and "256" in texts[2] and "8 heads" in texts[2] and "shared memory" in texts[3]
+
+
+@pytest.mark.parametrize("misalign,match", [("q", "the heads bf16 kernel copies 16-byte chunks"),
+                                            ("ld_kv", "the heads bf16 kernel copies k and v rows")])
+def test_validate_raises_for_misaligned_operands_on_the_heads_route(misalign, match, monkeypatch):
+    """At a shape the heads kernel takes, an operand off a 16-byte boundary or k/v rows 8 bytes off a multiple
+    of 16 bytes apart raise, naming the route (it follows from the shape, not from the addresses)."""
+    t = _bf16_attn_scaled(misalign)
+    assert t["q"].data_ptr() % 16 if misalign == "q" else t["k"].stride(2) == 2 * 256 + 4
+    _fake_routes(monkeypatch, [3], [1], heads=[0])
+    with pytest.raises(ValueError, match=match):
+        _validate_attn(t, 8)
+
+
+def test_a_heads_launch_counts_on_the_heads_route(monkeypatch):
+    """`_launch` counts a launch that `_validate` routes to the heads kernel once in `LAUNCHES` and once under
+    `ROUTE_LAUNCHES["knarpe_attention/heads"]`, nothing on another route (the built library and the card
+    faked: the C entry point records its call and returns 0)."""
+    calls = []
+    monkeypatch.setattr(knarpe, "load_library", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(knarpe, "_validate", lambda *a, **kw: (1, 3, 32, 256, 256, 0, 512, "heads"))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(knarpe, "LAUNCHES", dict(knarpe.LAUNCHES))  # this test's counts stay its own
+    monkeypatch.setattr(knarpe, "ROUTE_LAUNCHES", dict(knarpe.ROUTE_LAUNCHES))
+    t = _bf16_attn_scaled()
+    before, launches = dict(knarpe.ROUTE_LAUNCHES), dict(knarpe.LAUNCHES)
+    out = knarpe._launch("knarpe_attention", t["q"], t["k"], t["v"], None, t["rpe"], t["invalid"], None,
+                         t["w_rpe"], t["b_rpe"], 8)
+    assert out.shape == (1, 3, 256) and len(calls) == 1 and calls[0][:2] == (0, 1)
+    assert knarpe.LAUNCHES == {**launches, "knarpe_attention": launches["knarpe_attention"] + 1}
+    assert knarpe.ROUTE_LAUNCHES == {**before, "knarpe_attention/heads": before["knarpe_attention/heads"] + 1}

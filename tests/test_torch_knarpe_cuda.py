@@ -55,7 +55,13 @@ both the halves of one [.., 2D] tensor and separate tensors, at the tolerances
 above; the route is asserted and counted, two launches give the same bits, and
 an operand off a 16-byte boundary or k/v rows 8 bytes off a multiple of 16
 apart raise. The shapes they refuse (K=200, D=24, eight heads) and float32 take
-the general kernels.
+the general kernels. Of the bf16 B4 shapes the staged kernel refuses, those at the
+scaled preset's D=R=256 with H=8 take the heads kernel (csrc/knarpe_attn_heads.cuh;
+at its eval and training shapes, K=5, K=24 and K=40, the largest it takes, at 97
+sources, a single source and 8 x 1024 + 7 sources, k and v the halves of one tensor
+and two tensors), the route named and counted, two launches bit-identical; K=89
+there (its shared memory) and eight heads at other widths take the general kernel,
+by the heads kernel's code.
 """
 
 import numpy as np
@@ -571,3 +577,86 @@ def test_staged_attention_raises_for_misaligned_operands(fault):
     with pytest.raises(ValueError, match=match):
         knarpe._launch_bwd("knarpe_attention", q, k, v, None, rpe, inv, None, w, b, g, n_head)
     assert (_attn_counts("knarpe_attention"), _attn_counts("knarpe_attention_bwd")) == counts
+
+
+# bf16 B4 on the heads kernel (csrc/knarpe_attn_heads.cuh): the scaled preset's eval and training shapes, K=5, K=24
+# and K=40 (the largest its shared memory takes) at 97 sources, a single source and 8 x 1024 + 7 sources
+HEADS_ATTN_SHAPES = [(4, 1024, 32, 256, 256, 8), (1, 1024, 32, 256, 256, 8), (1, 97, 5, 256, 256, 8),
+                     (1, 97, 24, 256, 256, 8), (1, 97, 40, 256, 256, 8), (1, 1, 32, 256, 256, 8),
+                     (1, 8199, 32, 256, 256, 8)]
+# bf16 B4 shapes the heads kernel refuses too, with its code: K=89 at D=R=256, 8 heads (its shared memory), and
+# ATTN_GENERAL_SHAPES' eight heads at other widths (widths it is not compiled for)
+HEADS_GENERAL_SHAPES = [((1, 33, 89, 256, 256, 8), 3), (ATTN_GENERAL_SHAPES[2][0], 2)]
+
+
+def _heads_counts():
+    return (knarpe.LAUNCHES["knarpe_attention"],
+            *(knarpe.ROUTE_LAUNCHES[f"knarpe_attention/{way}"] for way in ("staged", "heads", "general")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halves", [True, False], ids=["kv_halves", "kv_separate"])
+@pytest.mark.parametrize("shape", HEADS_ATTN_SHAPES)
+def test_heads_attention_matches_plain_version_on_card(shape, halves):
+    """bf16 B4 where the staged kernel refuses the shape (more than 4 heads, code 3) and the heads kernel takes it:
+    the heads route, named and counted, within the bf16 tolerance of the float32 plain version on the same
+    bf16-valued inputs, the all-invalid source zero, two launches bit-identical (no atomics); float32 at the same
+    shape takes the general kernel, the backward the general backward."""
+    _need_card()
+    dev, n_head = torch.cuda.current_device(), shape[-1]
+    assert knarpe.staged_refusal("knarpe_attention", *shape[2:], dev) == 3
+    assert knarpe.heads_refusal(*shape[2:], dev) == 0
+    assert knarpe.route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "heads"
+    assert knarpe.route("knarpe_attention", torch.float32, *shape[2:], dev) == "general"
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "general"
+    a16 = _cast(_inputs(shape, False, seed=sum(shape) + 7), torch.bfloat16)
+    if halves:
+        a16 = _as_halves(a16)
+    n, staged, heads, general = _heads_counts()
+    out16 = knarpe.knarpe_attention(*a16, n_head)
+    torch.cuda.synchronize()
+    assert _heads_counts() == (n + 1, staged, heads + 1, general)
+    _check_bf16("knarpe_attention", out16, a16, n_head)
+    assert torch.equal(knarpe.knarpe_attention(*a16, n_head), out16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,code", HEADS_GENERAL_SHAPES)
+def test_bf16_attention_shapes_the_heads_kernel_refuses_take_the_general_route(shape, code):
+    """bf16 B4 where the staged and heads kernels both refuse: the general route, by the heads kernel's code, within
+    the bf16 tolerance, two launches bit-identical."""
+    _need_card()
+    dev, n_head = torch.cuda.current_device(), shape[-1]
+    assert knarpe.staged_refusal("knarpe_attention", *shape[2:], dev) == 3
+    assert knarpe.heads_refusal(*shape[2:], dev) == code
+    assert knarpe.route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "general"
+    a16 = _as_halves(_cast(_inputs(shape, False, seed=sum(shape) + 7), torch.bfloat16))
+    n, staged, heads, general = _heads_counts()
+    out16 = knarpe.knarpe_attention(*a16, n_head)
+    torch.cuda.synchronize()
+    assert _heads_counts() == (n + 1, staged, heads, general + 1)
+    _check_bf16("knarpe_attention", out16, a16, n_head)
+    assert torch.equal(knarpe.knarpe_attention(*a16, n_head), out16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["misaligned_rpe", "kv_stride_off_16_bytes"])
+def test_heads_attention_raises_for_misaligned_operands(fault):
+    """At a heads shape an operand off a 16-byte boundary, or k and v rows 8 bytes off a multiple of 16 bytes
+    apart, raises; it does not slide onto the general kernel."""
+    _need_card()
+    shape = HEADS_ATTN_SHAPES[2]
+    n_b, n_s, n_knn, d, _, n_head = shape
+    q, k, v, rpe, inv, w, b = _cast(_inputs(shape, False, seed=3), torch.bfloat16)
+    if fault == "misaligned_rpe":
+        buf = torch.empty(rpe.numel() + 1, dtype=torch.bfloat16, device="cuda")
+        buf[1:] = rpe.reshape(-1)
+        rpe, match = buf[1:].view(rpe.shape), "16-byte aligned"
+    else:
+        buf = torch.zeros(n_b, n_s, n_knn, 2 * d + 4, dtype=torch.bfloat16, device="cuda")
+        buf[..., :d], buf[..., d:2 * d] = k, v
+        k, v, match = buf[..., :d], buf[..., d:2 * d], "multiple of 16 bytes"
+    counts = _heads_counts()
+    with pytest.raises(ValueError, match=match):
+        knarpe.knarpe_attention(q, k, v, rpe, inv, w, b, n_head)
+    assert _heads_counts() == counts

@@ -41,8 +41,11 @@
 // of source stages filled by tensor copies, four groups of warps each on its
 // own source, every product on the tensor cores) wherever it takes the shape
 // (knarpe_staged_route's code 0 in mode 0: up to 4 heads, D and R multiples
-// of 16, K up to 128, four stages within the block's shared memory), and on
-// the kernel below otherwise. bf16 B2 and B3 run on the staged kernel of knarpe_staged.cuh (each
+// of 16, K up to 128, four stages within the block's shared memory); at the
+// scaled preset's D = R = 256 with 8 heads (K <= 40) on the heads kernel of
+// knarpe_attn_heads.cuh (four blocks a source, each on two heads with its
+// quarter of W_rpe, no exchange between them; knarpe_attn_heads_route's code
+// 0); and on the kernel below otherwise. bf16 B2 and B3 run on the staged kernel of knarpe_staged.cuh (each
 // source's targets copied into shared memory while the previous one is
 // computed; every product on the tensor cores), whose header says how, for
 // every shape it takes (knarpe_staged_route's code 0). It keeps the whole bf16
@@ -60,6 +63,7 @@
 // does not: then they are read from device memory): tensor cores would compute
 // float32 in TF32, outside float32's tolerance.
 
+#include "knarpe_attn_heads.cuh"
 #include "knarpe_attn_staged.cuh"
 #include "knarpe_cluster.cuh"
 #include "knarpe_staged.cuh"
@@ -828,11 +832,106 @@ int attn_staged_launch(const Params& g, int dev, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 B4: the staged kernel where it takes the shape, else the general kernel.
+// The heads B4 kernel's plan per (device, K): its refusal code (heads_attn::refusal; 0 = taken, 4 = no block
+// fits an SM), layout and the slots of four blocks (one per quarter of the heads) resident on the device.
+struct HeadsPlan {
+  int dev, n_knn, refused;
+  heads_attn::Layout L;
+  long long slots;
+};
+
+int make_heads_plan(HeadsPlan& pl) {
+  int max_smem = 0, n_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.refused = heads_attn::refusal(pl.n_knn, heads_attn::kWidth, heads_attn::kWidth, heads_attn::kHeads,
+                                   static_cast<size_t>(max_smem));
+  if (pl.refused) return 0;
+  pl.L = heads_attn::make_layout(pl.n_knn, heads_attn::group_count(pl.n_knn, static_cast<size_t>(max_smem)));
+  auto kern = heads_attn::knarpe_attn_heads_kernel;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, heads_attn::kGroupThreads * pl.L.n_groups,
+                                                      pl.L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.slots = static_cast<long long>(per_sm) * n_sm / heads_attn::kSplit;
+  if (pl.slots < 1) pl.refused = 4;
+  return 0;
+}
+
+int heads_plan(int dev, int K, HeadsPlan* out) {
+  static std::mutex mu;
+  static std::vector<HeadsPlan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const HeadsPlan& c : plans) {
+    if (c.dev == dev && c.n_knn == K) {
+      *out = c;
+      return 0;
+    }
+  }
+  HeadsPlan pl{};
+  pl.dev = dev; pl.n_knn = K;
+  const int rc = make_heads_plan(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+// The heads kernel's code for a bf16 B4 shape: 0 if it takes the shape, else heads_attn::refusal's code (2 for
+// widths it is not compiled for, without asking the device; 4: no block fits an SM), or minus a CUDA error.
+int heads_code(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  const int code = heads_attn::refusal(n_knn, d_model, d_rpe, n_head, SIZE_MAX);
+  if (code != 0) return code;
+  HeadsPlan pl{};
+  const int rc = heads_plan(dev, n_knn, &pl);
+  return rc != 0 ? -rc : pl.refused;
+}
+
+// Launches the heads B4 kernel at a shape heads_code takes; an operand that is not 16-byte aligned or a k/v row
+// stride that is no multiple of 16 bytes (the tensor copies need both) is cudaErrorInvalidValue.
+int heads_launch(const Params& g, int dev, cudaStream_t stream) {
+  HeadsPlan pl{};
+  const int rc = heads_plan(dev, g.n_knn, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused || (g.ld_kv * 2) % 16 || !(aligned16(g.q) && aligned16(g.k) && aligned16(g.v) && aligned16(g.rpe) &&
+                                            aligned16(g.w_rpe) && aligned16(g.bias)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  constexpr int D = heads_attn::kWidth;
+  heads_attn::Params p{};
+  p.q = static_cast<const bf16*>(g.q);
+  p.w_rpe = static_cast<const bf16*>(g.w_rpe);
+  p.bias = static_cast<const bf16*>(g.bias);
+  p.invalid = g.invalid;
+  p.out = static_cast<bf16*>(g.out);
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.scale = g.scale;
+  p.L = pl.L;
+  const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
+  int enc = staged::encode_rows(&p.tm_k, g.k, n_rows, D, g.ld_kv, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_v, g.v, n_rows, D, g.ld_kv, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, D, D, g.n_knn);
+  if (enc != 0) return enc;
+  const long long n_slots = g.n_src < pl.slots ? g.n_src : pl.slots;
+  const int grid = static_cast<int>(heads_attn::kSplit * n_slots);
+  heads_attn::knarpe_attn_heads_kernel<<<grid, heads_attn::kGroupThreads * p.L.n_groups, p.L.total, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 B4: the staged kernel where it takes the shape; else the heads kernel where it takes the shape; else the
+// general kernel.
 int bf16_attn(const Params& p, int n_head, int dev, cudaStream_t stream) {
   const int code = attn_staged_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
   if (code < 0) return code == -1 ? static_cast<int>(cudaErrorInvalidValue) : -code;
-  if (code != 0) return by_heads<__nv_bfloat16, kAttn>(p, n_head, dev, stream);
+  if (code != 0) {
+    const int heads = heads_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
+    if (heads < 0) return -heads;
+    if (heads == 0) return heads_launch(p, dev, stream);
+    return by_heads<__nv_bfloat16, kAttn>(p, n_head, dev, stream);
+  }
   switch (n_head) {
     case 1: return attn_staged_launch<1>(p, dev, stream);
     case 2: return attn_staged_launch<2>(p, dev, stream);
@@ -890,7 +989,8 @@ extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, 
 // refusal code of knarpe_attn_staged.cuh (B4, mode 0; staged_attn::refusal, 5: no block fits an SM) or
 // knarpe_staged.cuh (B2, mode 1, or B3, mode 2; staged::refusal, 6: no block fits an SM), or minus a
 // CUDA error; -1 for any other mode or dtype. knarpe_launch runs bf16 launches on the staged kernel
-// where this is 0 and on the general kernel otherwise.
+// where this is 0, else B4 on the heads kernel and B2 on the cluster kernel where their routes say 0, and
+// on the general kernel otherwise.
 extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
   if (dtype != 1) return -1;
   if (mode == kAttn) return attn_staged_code(n_knn, d_model, d_rpe, n_head, dev);
@@ -904,6 +1004,15 @@ extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, 
 // runs a bf16 B2 that knarpe_staged_route refuses on the cluster kernel where this is 0.
 extern "C" int knarpe_cluster_route(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
   return cluster_code(n_knn, d_model, d_rpe, n_head, dev);
+}
+
+// Whether the heads kernel of knarpe_attn_heads.cuh takes a bf16 B4 launch at this shape on device dev, given
+// 16-byte aligned operands and a k/v row stride that is a multiple of 16 bytes: 0 if it does, else
+// heads_attn::refusal's code (1: K outside [1, 128]; 2: widths other than d_model = d_rpe = 256 with 8 heads; 3:
+// four stages exceed the shared memory; 4: no block fits an SM), or minus a CUDA error. knarpe_launch runs a bf16
+// B4 that knarpe_staged_route refuses on the heads kernel where this is 0, and on the general kernel otherwise.
+extern "C" int knarpe_attn_heads_route(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  return heads_code(n_knn, d_model, d_rpe, n_head, dev);
 }
 
 // Whether the general kernel takes a bf16 B2 (mode 1) or B3 (mode 2) launch at this shape on device

@@ -30,13 +30,17 @@ memory while the previous source computes); "cluster", for bf16 B2 at the
 scaled preset's D = R = 256 with 8 heads (K <= 104), which the staged kernel
 refuses, on `csrc/knarpe_cluster.cuh`: a cluster of four blocks per source,
 each holding a quarter of the weights and taking a quarter of the source's
-columns, the partial sums exchanged through distributed shared memory; and
-"general", the kernel of `csrc/knarpe.cu`, for float32 and the remaining bf16
-shapes (B4 with more than 4 heads or K > 128; B3 at D = R = 256 and at K >= 90;
+columns, the partial sums exchanged through distributed shared memory;
+"heads", for bf16 B4 at the same widths (K <= 40), which the staged kernel
+refuses, on `csrc/knarpe_attn_heads.cuh`: four blocks per source, each on two
+of the eight heads with their quarter of W_rpe, with no exchange between them;
+and "general", the kernel of `csrc/knarpe.cu`, for float32 and the remaining
+bf16 shapes (B4 where the heads kernel refuses too, such as K > 40 at D = R =
+256 or more than 4 heads at other widths; B3 at D = R = 256 and at K >= 90;
 B2 where the cluster kernel refuses too, such as K >= 90 at D = R = 128).
 A bf16 B2 or B3 shape that every bf16 kernel refuses raises; so does an
-operand of a staged or cluster launch not at a 16-byte aligned address, or
-B4's k and v rows not a multiple of 16 bytes apart.
+operand of a staged, cluster or heads launch not at a 16-byte aligned address,
+or B4's k and v rows not a multiple of 16 bytes apart.
 
 Each wrapper is a `torch.autograd.Function`: its forward launches the
 forward kernel and its backward the backward kernel of `csrc/knarpe_bwd.cu`,
@@ -74,12 +78,12 @@ _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_atte
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # forward and backward launches by route since the last reset (read by chip_smoke.py); B3's backward
-# counts as B2's; only B2 has the cluster route
+# counts as B2's; only B2 has the cluster route, only B4 the heads route
 ROUTE_LAUNCHES = {**{f"{kernel}/{route}": 0 for kernel in ("knarpe_attention", "knarpe_cross_attention",
                                                            "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                                                            "knarpe_cross_attention_bwd")
                      for route in ("staged", "general")},
-                  "knarpe_cross_attention/cluster": 0}
+                  "knarpe_cross_attention/cluster": 0, "knarpe_attention/heads": 0}
 
 _LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
 _BWD_FN = None
@@ -130,6 +134,15 @@ CLUSTER_REFUSALS = {
     2: "d_model = d_rpe = 256 with 8 heads are the only widths the kernel is compiled for",
     3: "a quarter of the weights and two source stages exceed the device's shared memory per block",
     4: "no cluster of four blocks fits the device",
+}
+# why the heads bf16 B4 kernel (csrc/knarpe_attn_heads.cuh) refuses a shape, by the code of
+# `knarpe_attn_heads_route` (`heads_attn::refusal`); such a shape takes the general kernel
+HEADS_REFUSALS = {
+    1: "K must be in [1, 128]: the softmax keeps each head's K / 32 targets per lane in registers",
+    2: "d_model = d_rpe = 256 with 8 heads are the only widths the kernel is compiled for",
+    3: "a quarter of the weights, four source stages (one per group of warps) and the groups' scratch exceed the "
+       "device's shared memory per block (K > 40 on an H100)",
+    4: "no block of the four a source takes fits a multiprocessor",
 }
 # why the general kernel (csrc/knarpe.cu) refuses a shape, by the code of `knarpe_general_route`
 GENERAL_REFUSALS = {
@@ -216,8 +229,9 @@ def load_library():
         for fn in (lib.knarpe_staged_route, lib.knarpe_general_route):
             fn.argtypes = [ctypes.c_int] * 7
             fn.restype = ctypes.c_int
-        lib.knarpe_cluster_route.argtypes = [ctypes.c_int] * 5
-        lib.knarpe_cluster_route.restype = ctypes.c_int
+        for fn in (lib.knarpe_cluster_route, lib.knarpe_attn_heads_route):
+            fn.argtypes = [ctypes.c_int] * 5
+            fn.restype = ctypes.c_int
         _LAUNCH_FN = bind_launch(lib)
     return _LAUNCH_FN
 
@@ -267,17 +281,28 @@ def cluster_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_in
     return code
 
 
+@functools.lru_cache(maxsize=None)
+def heads_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the heads kernel takes a bf16 B4 launch at this shape on the card, else the built library's
+    refusal code (`HEADS_REFUSALS` says why)."""
+    load_library()
+    code = build.load("knarpe", "knarpe.cu").knarpe_attn_heads_route(n_knn, d_model, d_rpe, n_head, device_index)
+    if code < 0:
+        raise RuntimeError(f"knarpe_attention: planning a launch (knarpe_attn_heads_route) failed: code {code}")
+    return code
+
+
 def route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
     """The kernel a forward launch takes, from its shape alone: "staged" in bf16 where the staged kernel
-    takes the shape; for bf16 B2 then "cluster" where the cluster kernel takes it; else "general"; for B2
-    and B3, raises when no bf16 kernel takes it."""
+    takes the shape; then for bf16 B4 "heads" where the heads kernel takes it, for bf16 B2 "cluster" where
+    the cluster kernel takes it; else "general"; for B2 and B3, raises when no bf16 kernel takes it."""
     if dtype != torch.bfloat16:
         return "general"
     code = staged_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
     if code == 0:
         return "staged"
     if kernel == "knarpe_attention":
-        return "general"
+        return "heads" if heads_refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0 else "general"
     why = f"the staged kernel refuses it ({STAGED_REFUSALS[code]})"
     if kernel == "knarpe_cross_attention":
         cluster = cluster_refusal(n_knn, d_model, d_rpe, n_head, device_index)
@@ -346,13 +371,13 @@ def bwd_route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: 
 
 
 def _check_staged_alignment(kernel: str, tensors, ld_kv: int, way: str = "staged") -> None:
-    """A staged or cluster launch copies 16-byte chunks: every operand starts at a 16-byte aligned address
-    and B4's k and v rows lie a multiple of 16 bytes apart (ld_kv elements of 2 bytes)."""
+    """A staged, cluster or heads launch copies 16-byte chunks: every operand starts at a 16-byte aligned
+    address and B4's k and v rows lie a multiple of 16 bytes apart (ld_kv elements of 2 bytes)."""
     if any(t.data_ptr() % 16 for t in tensors if t is not None):
         raise ValueError(f"{kernel}: the {way} bf16 kernel copies 16-byte chunks; its operands must start at "
                          f"16-byte aligned addresses")
     if ld_kv % 8:
-        raise ValueError(f"{kernel}: the staged bf16 kernel copies k and v rows by tensor copies, whose rows must "
+        raise ValueError(f"{kernel}: the {way} bf16 kernel copies k and v rows by tensor copies, whose rows must "
                          f"lie a multiple of 16 bytes apart; got a stride of {ld_kv} elements")
 
 
@@ -405,7 +430,7 @@ def _validate(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, n_head: i
         _check(kernel, "w_kv", w_kv, (d_model, 2 * d_model), dtype, device)
     _check(kernel, "w_rpe", w_rpe, (d_rpe, 2 * d_model), dtype, device)
     way = route(kernel, dtype, n_knn, d_model, d_rpe, n_head, device.index or 0) if forward else None
-    if way in ("staged", "cluster"):
+    if way in ("staged", "cluster", "heads"):
         _check_staged_alignment(kernel, (q, k, v, tgt, rpe, w_kv, w_rpe, b), ld_kv, way)
     return n_b, n_s, n_knn, d_model, d_rpe, d_tgt, ld_kv, way
 

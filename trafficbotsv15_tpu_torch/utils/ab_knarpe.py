@@ -16,8 +16,10 @@ path's shape [128·64 sources, K=89, D=R=128, H=4] and the training path's
 D=R=256, H=8] (this tree's cluster route against, say, the parent's general
 kernel: the route is named by this tree, the launch goes through the side's
 library), and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32]
-and the training path's [8·1024, K=32] (k and v the halves of one [.., 2D]
-tensor, as the map encoder passes them).
+and the training path's [8·1024, K=32], and at the scaled preset's eval
+[4·1024, K=32, D=R=256, H=8] and training [1·1024] shapes (this tree's heads
+route against, say, the parent's general kernel) (k and v the halves of one
+[.., 2D] tensor, as the map encoder passes them).
 With `--other-knn`, B1 (`knn_xy`) at the eval path's [128, 64, 1024] and the
 training path's [8, 64, 1024], k=64 (numpy seed 1; coordinates uniform in
 ±100 m, 20 % of sources and targets invalid). Each case times the other
@@ -76,7 +78,9 @@ CASES = [("knarpe_cross_attention", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention_v3", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention_v3", "train", (8, 64, 89, 128, 128, 4)),
          ("knarpe_attention", "eval", (4, 1024, 32, 128, 128, 4)),
-         ("knarpe_attention", "train", (8, 1024, 32, 128, 128, 4))]
+         ("knarpe_attention", "train", (8, 1024, 32, 128, 128, 4)),
+         ("knarpe_attention", "scaled_eval", (4, 1024, 32, 256, 256, 8)),
+         ("knarpe_attention", "scaled_train", (1, 1024, 32, 256, 256, 8))]
 # (label, (n_rows, n_src, n_tgt, k))
 KNN_CASES = [("eval", (128, 64, 1024, 64)), ("train", (8, 64, 1024, 64))]
 # (kernel, label, (n_b, n_s, K, D, R, H)) of the training path's bf16 B2 and B4 backward launches
