@@ -41,8 +41,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      and a one-target source; timed at the scaled preset's eval and training
      shapes), and on the general route (csrc/knarpe.cu, asserted, the cluster
      kernel's refusal code too) at K=120 there and at K=90 and K=128 at
-     D=R=128; B3 runs on the general route at D=R=256 and at K=90 and K=128
-     (asserted; timed at the scaled preset's eval shape); every bf16 B2/B3 must give the same bits
+     D=R=128; bf16 B3 at D=R=256 with 8 heads runs on the heads route
+     (csrc/knarpe_v3_heads.cuh, asserted; at the eval shape, the training
+     shape, K=5, K=24 and K=200 at 21 sources, a single source and 8192 + 7
+     sources, each with an all-invalid and a one-target source; timed at the
+     scaled preset's eval and training shapes), on the general route
+     (asserted, the heads kernel's refusal code too) at K=90 and K=128 at
+     D=R=128; every bf16 B2/B3 must give the same bits
      on a second launch; then the backward kernels B4-bwd and B2-bwd (B3's backward is B2's)
      through the wrappers' autograd: the card's output has a grad_fn, and its
      gradients match autograd of the plain versions in float32 and bf16, the
@@ -57,6 +62,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      composition's backward, B2-bwd at both training shapes; B2-bwd and
      B4-bwd also at the scaled preset's training shapes ([1, 64, 89, 256,
      256, 8], [1, 1024, 32, 256, 256, 8]) on the general route (asserted);
+     last, B3's path: the ported bench (`python -m
+     trafficbotsv15_tpu_torch.utils.bench_knarpe --shape scaled`, 3
+     iterations), every count at 0 before it, its B3 launches all on the
+     heads route and its B2 launches on the cluster route (asserted);
   4. slice checked: a reduced-depth float32 config whose map has 512
      polylines runs `joint_future_pred` (check_level=1) on the card and on
      the CPU with the same weights, once with use_pallas=False and once with
@@ -165,9 +174,10 @@ Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
 `validate_launches`, from phase 9; training-shape and backward ones from phase
 8, B4's and the backwards' by route; `fit_launches` per full-width fit step
 from phase 11; `reference_layout_launches` from phase 12 (b); `scaled_launches`
-per call or step of each path of phase 13; B3's `general_route`, B4's
-`heads_route` and B2's `cluster_route` times at the scaled preset's shapes,
-the latter two with their launches per phase 13 (d) call), the card line, and last
+per call or step of each path of phase 13; B3's and B4's `heads_route` and
+B2's `cluster_route` times at the scaled preset's shapes, B4's and B2's with
+their launches per phase 13 (d) call, B3's with its launches in phase 3's bench
+run), the card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -205,7 +215,8 @@ from trafficbotsv15_tpu_torch.train import swa as swa_lib
 from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model
-from trafficbotsv15_tpu_torch.utils.timing import cuda_ms, graph_ms
+from trafficbotsv15_tpu_torch.utils import bench_knarpe
+from trafficbotsv15_tpu_torch.utils.timing import card_line, cuda_ms, graph_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet, 700 W)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -294,12 +305,6 @@ VALIDATE_REL, VALIDATE_K = 1e-4, 34
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def knn_case(gen, n_rows, n_src, n_tgt, grid=False, p_src=0.2, p_tgt=0.2):
@@ -410,22 +415,11 @@ def knarpe_library_call(name: str, args, n_head: int):
     """The PyTorch composition that computes the same function (timing yardstick
     only, never called by the port): one matmul for the projections, then
     scaled_dot_product_attention with a boolean mask."""
-    if name == "knarpe_attention":
-        q, k, v, rpe, inv, w, b = args
-        rk, rv = (rpe @ w + b).chunk(2, -1)
-        k, v = k + rk, v + rv
-    else:
-        q, tgt, rpe, inv, w_kv, w_rpe, b = args
-        k, v = (torch.matmul(torch.cat([tgt, rpe], -1), torch.cat([w_kv, w_rpe], 0)) + b).chunk(2, -1)
-    n_b, n_s, n_knn, d = k.shape
-    dh = d // n_head
-
-    def heads(t):  # [b, s, K, D] -> [b*s, H, K, dh]
-        return t.reshape(n_b * n_s, n_knn, n_head, dh).transpose(1, 2)
-
-    out = torch.nn.functional.scaled_dot_product_attention(
-        q.reshape(n_b * n_s, n_head, 1, dh), heads(k), heads(v), attn_mask=~inv.reshape(n_b * n_s, 1, 1, n_knn))
-    return out.reshape(n_b, n_s, d)
+    if name != "knarpe_attention":
+        return bench_knarpe.library_fullwidth(*args, n_head)
+    q, k, v, rpe, inv, w, b = args
+    rk, rv = (rpe @ w + b).chunk(2, -1)
+    return bench_knarpe.library_attention(q, k + rk, v + rv, inv, n_head)
 
 
 def knarpe_bound(name: str, args, n_head: int) -> tuple:
@@ -522,10 +516,8 @@ def time_knarpe(name: str, shape) -> dict:
 # check that the paths launch no other
 CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT_X, *VAL_X)}
 # bf16 B2/B3 shapes the staged kernel refuses: the scaled preset's widths (D=R=256, 8 heads), at its eval
-# shape (4 scenarios x 32 futures x 64 agents, K=89) too, and K=90 and K=128 at the flagship's D=R=128, H=4.
-# B3 takes the general route there (csrc/knarpe.cu), timed at the scaled preset's eval shape
+# shape (4 scenarios x 32 futures x 64 agents, K=89) too, and K=90 and K=128 at the flagship's D=R=128, H=4
 SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
-GENERAL_X = [(2, 64, 89, 256, 256, 8), SCALED_X_PATH, (2, 64, 90, 128, 128, 4), (2, 64, 128, 128, 128, 4)]
 # B2 the cluster route (csrc/knarpe_cluster.cuh) at D=R=256, 8 heads: the eval shape, the scaled training path's
 # (batch 1 x 64 agents), K=5 and K=24 (no multiple of 16) and K=104 (the largest its shared memory takes) at 21
 # sources, a single source (fewer than the clusters), and 8192 + 7 sources (no multiple of the grid); each has an
@@ -536,6 +528,15 @@ CLUSTER_X = [SCALED_X_PATH, (2, 64, 89, 256, 256, 8), SCALED_TRAIN_X_PATH, (1, 2
 # and the general route where the cluster kernel refuses too, by its refusal code: K=120 at D=R=256, 8 heads (its
 # shared memory, code 3), K=90 and K=128 at D=R=128 (widths it is not compiled for, code 2)
 GENERAL_B2_X = {(2, 64, 120, 256, 256, 8): 3, (2, 64, 90, 128, 128, 4): 2, (2, 64, 128, 128, 128, 4): 2}
+# B3 the heads route (csrc/knarpe_v3_heads.cuh) at D=R=256, 8 heads: the eval shape, the scaled training path's,
+# K=5 and K=24 (under one 32-target tile) and K=200 (seven tiles; the ring streams any K, so none is the largest its
+# shared memory takes) at 21 sources, a single source (fewer than the grid's slots) and 8192 + 7 sources (no multiple
+# of the grid); each has an all-invalid and a one-target source. Timed at the scaled preset's eval and training shapes
+V3_HEADS_X = [SCALED_X_PATH, SCALED_TRAIN_X_PATH, (1, 21, 5, 256, 256, 8), (1, 21, 24, 256, 256, 8),
+              (1, 21, 200, 256, 256, 8), (1, 1, 89, 256, 256, 8), (1, 8199, 89, 256, 256, 8)]
+# and the general route where the heads kernel refuses too, by its refusal code: K=90 and K=128 at D=R=128 (widths
+# it is not compiled for, code 2)
+GENERAL_B3_X = {(2, 64, 90, 128, 128, 4): 2, (2, 64, 128, 128, 128, 4): 2}
 
 
 def check_knarpe_kernels() -> list:
@@ -590,10 +591,22 @@ def check_knarpe_kernels() -> list:
                 check_one_knarpe(name, shape, seed=40 + i, want_route="general")
         else:
             time_knarpe(name, TRAIN_X_PATH)
-            for i, shape in enumerate(GENERAL_X):
-                check_one_knarpe(name, shape, seed=20 + i, want_route="general")
-            row["general_route"] = {"source": "trafficbotsv15_tpu_torch/csrc/knarpe.cu", "shape": list(SCALED_X_PATH),
-                                    **time_knarpe(name, SCALED_X_PATH)}
+            # bf16 only: float32 B3 takes the general kernel at these shapes, which check_one_knarpe holds too
+            err16 = max(check_one_knarpe(name, shape, seed=20 + i, want_route="heads")[1]
+                        for i, shape in enumerate(V3_HEADS_X))
+            row["heads_route"] = {"name": name, "route": "cuda",
+                                  "source": "trafficbotsv15_tpu_torch/csrc/knarpe_v3_heads.cuh",
+                                  "replaces": replaces, "shape": list(SCALED_X_PATH), "launches": None,
+                                  "max_abs_err": err16, **time_knarpe(name, SCALED_X_PATH)}
+            row["heads_route"]["scaled_training_shape"] = {"shape": list(SCALED_TRAIN_X_PATH),
+                                                           **time_knarpe(name, SCALED_TRAIN_X_PATH)}
+            for i, (shape, code) in enumerate(GENERAL_B3_X.items()):
+                got = knarpe.v3_heads_refusal(*shape[2:], torch.cuda.current_device())
+                if got != code:
+                    raise AssertionError(f"{name} {shape}: the heads kernel's refusal code {got}, expected {code}")
+                log(f"  {name} {list(shape)}: the heads kernel refuses it with code {got} "
+                    f"({knarpe.V3_HEADS_REFUSALS[got]}), so it takes the general route")
+                check_one_knarpe(name, shape, seed=40 + i, want_route="general")
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, **row})
     return rows
@@ -821,6 +834,26 @@ def check_knarpe_bwd_kernels() -> list:
         if cross:
             rows[-1]["post_tl_shape"] = {"shape": list(POST_TL_X_PATH), **time_knarpe_bwd(name, POST_TL_X_PATH)}
     return rows
+
+
+def run_bench_knarpe() -> dict:
+    """The ported bench (`utils/bench_knarpe.py`, the entry point that reaches B3) once at the scaled shape, a
+    few iterations, with every count at 0 just before and read just after: its B3 launches all on the heads
+    route, its B2 launches on the cluster route. -> the bench's knarpe launches by route."""
+    reset_launches()
+    result = bench_knarpe.run("scaled", iters=3)
+    routes = {key: n for key, n in knarpe.ROUTE_LAUNCHES.items() if n}
+    b3 = knarpe.LAUNCHES["knarpe_cross_attention_v3"]
+    want = {"knarpe_cross_attention_v3/heads": b3, "knarpe_cross_attention/cluster": knarpe.LAUNCHES[
+        "knarpe_cross_attention"]}
+    took = {row["variant"]: row["route"] for row in result["variants"]}
+    if not (b3 > 0 and routes == want and took == {"library_fullwidth": "library", "knarpe_v2": "cluster",
+                                                   "knarpe_v3": "heads"}):
+        raise AssertionError(f"bench_knarpe --shape scaled: launches by route {routes}, routes {took}; expected B3 "
+                             f"on the heads route and B2 on the cluster route")
+    log(f"  bench_knarpe --shape scaled --iters 3: B3 {b3} launches, all on the heads route; launches by route "
+        f"{routes}")
+    return routes
 
 
 def reset_launches() -> None:
@@ -2180,6 +2213,7 @@ def main() -> int:
     log("[3/13] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
+    bench_routes = run_bench_knarpe()
 
     log("[4/13] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_slice_card_vs_cpu(use_pallas=False)
@@ -2228,6 +2262,9 @@ def main() -> int:
     for row, key in ((rows[1], "heads_route"), (rows[2], "cluster_route")):  # launches per (d) call, (d)'s first
         row[key].update(launches=scaled_counts["eval_use_pallas"][row["name"]],  # launch's error
                         path_launch_max_abs_err=first_errs[row["name"]])
+    # B3's path is the ported bench (phase 3), which reaches it as scripts/bench_knarpe.py reaches the TPU kernel
+    rows[3]["heads_route"]["launches"] = bench_routes["knarpe_cross_attention_v3/heads"]
+    rows[3]["heads_route"]["launches_path"] = "python -m trafficbotsv15_tpu_torch.utils.bench_knarpe --shape scaled"
     rows[0]["training_shape"]["launches"] = train_counts["knn_xy"]  # B1: 180 at this shape, 1 posterior TL
     b4 = rows[1]  # per eval call (phase 6), and at the training shape per step (phase 8)
     b4["launches_by_route"] = by_route(routes, "knarpe_attention")

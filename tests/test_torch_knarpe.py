@@ -8,7 +8,7 @@ interpret mode (as `tests/test_pallas_knarpe.py` runs them) and the JAX
 (B=2, S in {7, 8, 33}, K in {4, 5, 89}, H=2, d_head=8, R=16), and two wider
 cases take shapes the staged bf16 kernels refuse on the card (H=8 with
 d_head=32 and D=R=256 at K=89, where bf16 B2 takes the cluster route and B3
-the general one; K=90 at D=R=128, H=4, the general route; measured within 1.2e-6
+its heads route; K=90 at D=R=128, H=4, the general route; measured within 1.2e-6
 in float32 and 3.2e-2 in bfloat16, under the tolerances below); every case
 has a source whose targets are all invalid and partly invalid sources, and
 B*S=66 is not a multiple of the Pallas source tile.
@@ -112,8 +112,9 @@ def test_plain_version_matches_tpu_kernel_bf16(name, n_b, n_s, n_knn):
 
 # Wider than the cases above: the scaled preset's heads (H=8, d_head=32, D=R=256) and K=90 at the
 # flagship's D=R=128, H=4, two shapes the staged bf16 kernel refuses (on the card bf16 B2 takes the
-# cluster route at the first, tests/test_torch_knarpe_cluster.py holding that kernel's arithmetic; B3 at
-# both and B2 at the second the general route). (n_head, d_head, R, n_b, n_s, K); weights scaled by 1/sqrt(fan-in), outputs of size ~1-3.
+# cluster route at the first, tests/test_torch_knarpe_cluster.py holding that kernel's arithmetic, and B3
+# its heads route, tests/test_torch_knarpe_v3_scaled.py holding that one's; both the general route at the
+# second). (n_head, d_head, R, n_b, n_s, K); weights scaled by 1/sqrt(fan-in), outputs of size ~1-3.
 WIDE = [(8, 32, 256, 1, 9, 89), (4, 32, 128, 2, 5, 90)]
 
 
@@ -218,9 +219,9 @@ def _validate(name, t, n_head):
 CROSS_KERNELS = ["knarpe_cross_attention", "knarpe_cross_attention_v3"]
 
 
-def _fake_routes(monkeypatch, staged, general, cluster=(2,), heads=(2,)):
-    """Fake the built library's answers (`staged_refusal`, `general_refusal`, B2's `cluster_refusal` and B4's
-    `heads_refusal`, which refuse unless told otherwise); -> the calls, in order."""
+def _fake_routes(monkeypatch, staged, general, cluster=(2,), heads=(2,), v3_heads=(2,)):
+    """Fake the built library's answers (`staged_refusal`, `general_refusal`, B2's `cluster_refusal`, B4's
+    `heads_refusal` and B3's `v3_heads_refusal`, which refuse unless told otherwise); -> the calls, in order."""
     asked = []
 
     def answer(which, codes):
@@ -235,6 +236,8 @@ def _fake_routes(monkeypatch, staged, general, cluster=(2,), heads=(2,)):
     monkeypatch.setattr(knarpe, "cluster_refusal", lambda *shape: cluster_fn("knarpe_cross_attention", *shape))
     heads_fn = answer("heads", heads)
     monkeypatch.setattr(knarpe, "heads_refusal", lambda *shape: heads_fn("knarpe_attention", *shape))
+    v3_heads_fn = answer("heads", v3_heads)
+    monkeypatch.setattr(knarpe, "v3_heads_refusal", lambda *shape: v3_heads_fn("knarpe_cross_attention_v3", *shape))
     return asked
 
 
@@ -248,8 +251,8 @@ def test_validate_routes_each_staged_refusal_to_the_general_kernel(name, monkeyp
     t = _bf16_cross(5, 32, 16)
     assert _validate(name, t, 2) == (2, 3, 5, 32, 16, 32, 0, "staged")
     assert asked == [("staged", name, 5, 32, 16, 2, 0)]
-    # B2 asks the cluster kernel between the two (refusing here), B3 does not
-    between = [("cluster", name, 5, 32, 16, 2, 0)] if name == "knarpe_cross_attention" else []
+    # B2 asks the cluster kernel between the two, B3 its heads kernel (both refusing here)
+    between = [("cluster" if name == "knarpe_cross_attention" else "heads", name, 5, 32, 16, 2, 0)]
     for code in knarpe.STAGED_REFUSALS:
         staged[0] = code
         asked.clear()
@@ -267,7 +270,7 @@ def test_validate_raises_for_shapes_the_staged_kernel_refuses(name, monkeypatch)
     t = _bf16_cross(5, 32, 16)
     assert _validate(name, t, 2)[:5] == (2, 3, 5, 32, 16) and asked == [("staged", name, 5, 32, 16, 2, 0)]
     cluster = (f", the cluster kernel too ({knarpe.CLUSTER_REFUSALS[2]})" if name == "knarpe_cross_attention"
-               else "")
+               else f", the heads kernel too ({knarpe.V3_HEADS_REFUSALS[2]})")
     for code, why in knarpe.STAGED_REFUSALS.items():
         _fake_routes(monkeypatch, [code], [1])
         want = (f"no bf16 kernel takes K=5, d_model=32, d_rpe=16, n_head=2: the staged kernel refuses it ({why})"
@@ -301,20 +304,20 @@ def test_validate_raises_for_misaligned_bf16_operands(name, monkeypatch):
 @pytest.mark.parametrize("name,widths,staged,want", [
     ("knarpe_cross_attention", (128, 128, 4), 0, "staged"),
     ("knarpe_cross_attention", (256, 256, 8), 5, "cluster"),
-    ("knarpe_cross_attention_v3", (256, 256, 8), 5, "general")])
+    ("knarpe_cross_attention_v3", (256, 256, 8), 5, "heads"),
+    ("knarpe_cross_attention_v3", (128, 128, 4), 0, "staged")])
 def test_validate_routes_bf16_cross_attention_by_widths(name, widths, staged, want, monkeypatch):
-    """The flagship's D=R=128, H=4, where the staged kernel takes the shape, stays staged, the cluster kernel not
-    asked; at the scaled preset's D=R=256, H=8 the staged kernel refuses (its resident weights, code 5), and B2
-    takes the cluster kernel, the general kernel not asked, where an operand off a 16-byte boundary raises, while
-    B3 takes the general kernel without asking the cluster kernel."""
+    """The flagship's D=R=128, H=4, where the staged kernel takes the shape, stays staged, no other kernel asked;
+    at the scaled preset's D=R=256, H=8 the staged kernel refuses (its resident weights, code 5), and B2 takes the
+    cluster kernel, B3 its heads kernel, each asked alone and the general kernel not asked, and there an operand
+    off a 16-byte boundary raises, naming the route."""
     d, r, n_head = widths
-    asked = _fake_routes(monkeypatch, [staged], [0], cluster=[0])
+    asked = _fake_routes(monkeypatch, [staged], [0], cluster=[0], v3_heads=[0])
     t = _bf16_cross(89, d, r)
     assert _validate(name, t, n_head) == (2, 3, 89, d, r, d, 0, want)
-    ways = {"staged": ["staged"], "cluster": ["staged", "cluster"], "general": ["staged", "general"]}[want]
-    assert asked == [(way, name, 89, d, r, n_head, 0) for way in ways]
-    if want == "cluster":
-        with pytest.raises(ValueError, match="the cluster bf16 kernel copies 16-byte chunks"):
+    assert asked == [(way, name, 89, d, r, n_head, 0) for way in ["staged", want][:1 if want == "staged" else 2]]
+    if want != "staged":
+        with pytest.raises(ValueError, match=f"the {want} bf16 kernel copies 16-byte chunks"):
             _validate(name, _bf16_cross(89, d, r, misalign=True), n_head)
 
 
@@ -332,6 +335,54 @@ def test_validate_routes_each_cluster_refusal_to_the_general_kernel(code, monkey
             f"({knarpe.CLUSTER_REFUSALS[code]}), and the general kernel too ({knarpe.GENERAL_REFUSALS[1]})")
     with pytest.raises(ValueError, match=re.escape(want)):
         _validate(name, t, 8)
+
+
+@pytest.mark.parametrize("code", sorted(knarpe.V3_HEADS_REFUSALS))
+def test_validate_routes_each_v3_heads_refusal_to_the_general_kernel(code, monkeypatch):
+    """A bf16 B3 shape the staged kernel and B3's heads kernel refuse takes the general kernel, whatever the heads
+    kernel's reason (the D=R=128, H=4 shapes at K >= 90 among them: widths it is not compiled for, code 2), where no
+    alignment applies; where the general kernel refuses it too, the error names each kernel's reason, the heads
+    kernel's by its own code's text."""
+    name = "knarpe_cross_attention_v3"
+    t = _bf16_cross(90, 128, 128)
+    asked = _fake_routes(monkeypatch, [5], [0], v3_heads=[code])
+    assert _validate(name, t, 4)[-1] == "general"
+    assert asked == [(way, name, 90, 128, 128, 4, 0) for way in ("staged", "heads", "general")]
+    assert _validate(name, _bf16_cross(90, 128, 128, misalign=True), 4)[-1] == "general"
+    _fake_routes(monkeypatch, [5], [1], v3_heads=[code])
+    want = (f"the staged kernel refuses it ({knarpe.STAGED_REFUSALS[5]}), the heads kernel too "
+            f"({knarpe.V3_HEADS_REFUSALS[code]}), and the general kernel too ({knarpe.GENERAL_REFUSALS[1]})")
+    with pytest.raises(ValueError, match=re.escape(want)):
+        _validate(name, t, 4)
+
+
+def test_v3_heads_refusals_name_each_code():
+    """One text per refusal code of `heads_x3::refusal` (1-3) and the plan's no-fit (4), each its own; no code
+    bounds K from above (the targets stream through a ring of tiles)."""
+    texts = knarpe.V3_HEADS_REFUSALS
+    assert sorted(texts) == [1, 2, 3, 4]
+    assert len(set(texts.values())) == len(texts) and all(texts.values())
+    assert "at least 1" in texts[1] and "256" in texts[2] and "8 heads" in texts[2] and "shared memory" in texts[3]
+
+
+def test_a_v3_heads_launch_counts_on_the_heads_route(monkeypatch):
+    """`_launch` counts a B3 launch that `_validate` routes to its heads kernel once in `LAUNCHES` and once under
+    `ROUTE_LAUNCHES["knarpe_cross_attention_v3/heads"]`, nothing on another route (the built library and the card
+    faked: the C entry point records its call and returns 0)."""
+    calls = []
+    monkeypatch.setattr(knarpe, "load_library", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(knarpe, "_validate", lambda *a, **kw: (2, 3, 89, 256, 256, 256, 0, "heads"))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(knarpe, "LAUNCHES", dict(knarpe.LAUNCHES))  # this test's counts stay its own
+    monkeypatch.setattr(knarpe, "ROUTE_LAUNCHES", dict(knarpe.ROUTE_LAUNCHES))
+    name, t = "knarpe_cross_attention_v3", _bf16_cross(89, 256, 256)
+    before, launches = dict(knarpe.ROUTE_LAUNCHES), dict(knarpe.LAUNCHES)
+    out = knarpe._launch(name, t["q"], None, None, t["tgt"], t["rpe"], t["invalid"], t["w_kv"], t["w_rpe"], t["b"], 8)
+    assert out.shape == (2, 3, 256) and len(calls) == 1 and calls[0][:2] == (2, 1)
+    assert knarpe.LAUNCHES == {**launches, name: launches[name] + 1}
+    assert knarpe.ROUTE_LAUNCHES == {**before, f"{name}/heads": before[f"{name}/heads"] + 1}
 
 
 def _bf16_attn(misalign=None):
@@ -394,12 +445,12 @@ def test_validate_raises_for_misaligned_bf16_attention_operands(misalign, match,
 
 
 def test_route_launches_count_attention_by_route_and_cpu_calls_count_none():
-    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's, B2's cluster route and B4's heads
-    route; a CPU call, forward and backward, counts no launch on any route."""
+    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's, B2's cluster route and B4's and B3's
+    heads routes; a CPU call, forward and backward, counts no launch on any route."""
     kernels = ("knarpe_attention", "knarpe_cross_attention", "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                "knarpe_cross_attention_bwd")
     assert set(knarpe.ROUTE_LAUNCHES) == {f"{k}/{r}" for k in kernels for r in ("staged", "general")} | {
-        "knarpe_cross_attention/cluster", "knarpe_attention/heads"}
+        "knarpe_cross_attention/cluster", "knarpe_attention/heads", "knarpe_cross_attention_v3/heads"}
     before, launches = dict(knarpe.ROUTE_LAUNCHES), dict(knarpe.LAUNCHES)
     for dtype in (torch.float32, torch.bfloat16):
         t = {k: v if v.dtype == torch.bool else v.to(dtype).requires_grad_(True) for k, v in _bf16_attn().items()}

@@ -16,10 +16,13 @@ two launches give the same bits, and an operand off a 16-byte boundary raises.
 Of the shapes it refuses, bf16 B2 at the scaled preset's D=R=256 with H=8 takes
 the cluster kernel (csrc/knarpe_cluster.cuh; at its eval and training shapes, K=5,
 K=24 and K=104, the largest it takes, at 21 sources, and a single source); B3
-there, B2 at K=120 (the cluster kernel's shared memory) and at K=90 and K=128 at
-D=R=128 (widths it is not compiled for), and both at refusals of every other
-kind, take the general kernel (csrc/knarpe.cu); the route is named and counted,
-and two launches give the same bits. Tolerances:
+there its heads kernel (csrc/knarpe_v3_heads.cuh; at the scaled eval and training
+shapes, K=5, 24, 32, 33 and 200 at 21 sources, a single source and 8192 + 7
+sources; an operand off a 16-byte boundary raises); B2 at K=120 (the cluster
+kernel's shared memory), both at K=90 and K=128 at D=R=128 (widths neither wide
+kernel is compiled for), and both at refusals of every other kind, take the
+general kernel (csrc/knarpe.cu); the route is named and counted, and two
+launches give the same bits. Tolerances:
   - float32 kernel vs float32 plain version: 1e-4 on outputs of size ~1-5;
     the kernel reassociates the projections with the attention
     (csrc/knarpe.cu), so the two differ by float32 summation order only;
@@ -228,9 +231,10 @@ def test_shapes_planned_later_do_not_break_earlier_ones():
 
 
 def _launch_counts(name):
-    """Launches of a B2/B3 forward kernel, and by route: staged, general, cluster (B2 only)."""
+    """Launches of a B2/B3 forward kernel, and by route: staged, general, then B2's cluster or B3's heads route."""
+    wide = f"{name}/cluster" if name == "knarpe_cross_attention" else f"{name}/heads"
     return (knarpe.LAUNCHES[name], knarpe.ROUTE_LAUNCHES[f"{name}/staged"], knarpe.ROUTE_LAUNCHES[f"{name}/general"],
-            knarpe.ROUTE_LAUNCHES.get(f"{name}/cluster", 0))
+            knarpe.ROUTE_LAUNCHES[wide])
 
 
 @pytest.mark.cuda
@@ -239,8 +243,8 @@ def test_bf16_shapes_the_staged_kernel_refuses_take_the_general_route(name):
     """Every bf16 B2/B3 shape above takes the staged kernel on the card; a shape it refuses (two
     stages of K=120 overflow the shared memory; D=24 is no multiple of 16; for B3 a d_head of 64 spans
     two warps' column blocks) takes the general kernel, named by `route` and counted under it, and
-    matches the plain version (for B2 the cluster kernel refuses both: widths it is not compiled for, code
-    2); an operand off a 16-byte boundary at a staged shape raises."""
+    matches the plain version (B2's cluster kernel and B3's heads kernel refuse them all: widths they are not
+    compiled for, code 2); an operand off a 16-byte boundary at a staged shape raises."""
     _need_card()
     dev = torch.cuda.current_device()
     for shape in STAGED_SHAPES + CROSS_SHAPES:
@@ -251,8 +255,8 @@ def test_bf16_shapes_the_staged_kernel_refuses_take_the_general_route(name):
         refused.append(((1, 3, 5, 128, 128, 2), 4))
     for shape, code in refused:
         assert knarpe.staged_refusal(name, *shape[2:], dev) == code
-        if name == "knarpe_cross_attention":
-            assert knarpe.cluster_refusal(*shape[2:], dev) == 2
+        wide = knarpe.cluster_refusal if name == "knarpe_cross_attention" else knarpe.v3_heads_refusal
+        assert wide(*shape[2:], dev) == 2
         assert knarpe.general_refusal(name, *shape[2:], dev) == 0
         assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "general"
         args = _cast(_inputs(shape, True, seed=9), torch.bfloat16)
@@ -269,9 +273,9 @@ def test_bf16_shapes_the_staged_kernel_refuses_take_the_general_route(name):
         getattr(knarpe, name)(*args, CROSS_SHAPES[1][-1])
 
 
-# bf16 B2/B3 shapes the staged kernel refuses (C1): the scaled preset's D=R=256 with 8 heads, and
-# K=90 and K=128 at the flagship's D=R=128, H=4; all take the general kernel in B3
-GENERAL_SHAPES = [(2, 64, 89, 256, 256, 8), (2, 64, 90, 128, 128, 4), (2, 64, 128, 128, 128, 4)]
+# bf16 B3 shapes the staged kernel refuses (C1) that take the general kernel, with the heads kernel's refusal code:
+# K=90 and K=128 at the flagship's D=R=128, H=4 (widths it is not compiled for)
+GENERAL_SHAPES = {(2, 64, 90, 128, 128, 4): 2, (2, 64, 128, 128, 128, 4): 2}
 # and in B2, with the cluster kernel's refusal code: K=120 at D=R=256, H=8 (its shared memory), and the
 # D=R=128 shapes (widths it is not compiled for)
 GENERAL_B2_SHAPES = {(2, 64, 120, 256, 256, 8): 3, (2, 64, 90, 128, 128, 4): 2, (2, 64, 128, 128, 128, 4): 2}
@@ -302,12 +306,14 @@ def _check_bf16(name, out16, a16, n_head):
 def test_general_bf16_route_matches_plain_version(name, shape):
     """bf16 on the general route, and float32 at the same shapes (the general kernel reads B3's
     inputs from device memory where they do not fit in shared memory: float32 at D=R=256); B2 at
-    shapes the cluster kernel refuses too, by the code named."""
+    shapes the cluster kernel refuses too, B3 at shapes its heads kernel refuses too, by the code named."""
     _need_card()
     dev, n_head = torch.cuda.current_device(), shape[-1]
     assert knarpe.staged_refusal(name, *shape[2:], dev) == 5
     if name == "knarpe_cross_attention":
         assert knarpe.cluster_refusal(*shape[2:], dev) == GENERAL_B2_SHAPES[shape]
+    else:
+        assert knarpe.v3_heads_refusal(*shape[2:], dev) == GENERAL_SHAPES[shape]
     assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "general"
     args = _inputs(shape, True, seed=sum(shape))
     out = getattr(knarpe, name)(*args, n_head)
@@ -341,6 +347,78 @@ def test_cluster_bf16_route_matches_plain_version(shape):
     assert _launch_counts(name) == (n + 1, staged, general, cluster + 1)
     _check_bf16(name, out16, a16, n_head)
     assert torch.equal(knarpe.knarpe_cross_attention(*a16, n_head), out16)
+
+
+# bf16 B3 on its heads kernel (csrc/knarpe_v3_heads.cuh) at D=R=256, H=8: the scaled eval shape and its training
+# path's (1 x 64 agents), K=5, K=24, K=32 (one whole tile) and K=33 (a one-target last tile) at 21 sources, K=200
+# (seven tiles: the ring streams any K) at 21 sources, a single source (fewer sources than the grid's slots) and
+# 8192 + 7 sources (no multiple of the grid)
+V3_HEADS_SHAPES = [(128, 64, 89, 256, 256, 8), (1, 64, 89, 256, 256, 8), (1, 21, 5, 256, 256, 8),
+                   (1, 21, 24, 256, 256, 8), (1, 21, 32, 256, 256, 8), (1, 21, 33, 256, 256, 8),
+                   (1, 21, 200, 256, 256, 8), (1, 1, 89, 256, 256, 8), (1, 8199, 89, 256, 256, 8)]
+
+
+def _v3_reference_exact_kk(q, tgt, rpe, invalid, w_kv, w_rpe, b, n_head):
+    """B3's bf16 plain version with kk summed in float64 before its rounding (the correctly rounded kk), the rest as
+    `knarpe_cross_attention_v3_reference`. -> [B, S, D] float32 (the bf16 output's values)."""
+    n_b, n_s, n_knn, d = tgt.shape
+    kk = (tgt.double() @ w_kv.double()[:, :d] + rpe.double() @ w_rpe.double()[:, :d] + b.double()[:d]).float()
+    prod = q[:, :, None, :] * kk.to(torch.bfloat16)
+    logits = prod.float().reshape(n_b, n_s, n_knn, n_head, d // n_head).sum(-1).transpose(2, 3) / (d // n_head) ** 0.5
+    masked = invalid[:, :, None, :]
+    e = torch.where(masked, 0.0, torch.exp(logits - torch.where(masked, -1e9, logits).amax(-1, keepdim=True)))
+    den = e.sum(-1, keepdim=True)
+    attn = e / torch.where(den <= 0, 1.0, den)
+    vv = tgt.float() @ w_kv.float()[:, d:] + rpe.float() @ w_rpe.float()[:, d:] + b.float()[d:]
+    out = torch.einsum("bshk,bskhd->bshd", attn, vv.reshape(n_b, n_s, n_knn, n_head, d // n_head))
+    out = torch.where(den <= 0, 0.0, out)
+    return out.reshape(n_b, n_s, d).to(torch.bfloat16).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", V3_HEADS_SHAPES)
+def test_v3_heads_bf16_route_matches_plain_version(shape):
+    """bf16 B3 where the staged kernel refuses the shape (code 5, its resident weights) and its heads kernel takes it:
+    the heads route, named and counted, within B3's tolerance (one bf16 ulp relative plus 2^-8 of the largest output)
+    of its bf16 plain version, or, element by element, of the same with kk summed in float64; the mean check against
+    the plain version; the all-invalid source zero; two launches bit-identical (no atomics); float32 at the same shape
+    takes the general kernel. Why the second reference: the float32 order of kk's 512 products is free, and where kk
+    lies on a bf16 rounding boundary two orders round it apart; through q * kk, one ulp of a product as large as 16-32
+    (0.125), that moves a logit by 0.022 and, with the attention split between two targets whose v differ by a few
+    units, an output by ~0.03: at [1, 8199, 89] (seed 8809) one element of 2.1 M, 0.0293 from the plain version (0.0165
+    allowed) and equal to the float64-summed result (measured on an H100 and on the CPU)."""
+    _need_card()
+    name, dev, n_head = "knarpe_cross_attention_v3", torch.cuda.current_device(), shape[-1]
+    assert knarpe.staged_refusal(name, *shape[2:], dev) == 5 and knarpe.v3_heads_refusal(*shape[2:], dev) == 0
+    assert knarpe.route(name, torch.bfloat16, *shape[2:], dev) == "heads"
+    assert knarpe.route(name, torch.float32, *shape[2:], dev) == "general"
+    a16 = _cast(_inputs(shape, True, seed=sum(shape)), torch.bfloat16)
+    n, staged, general, heads = _launch_counts(name)
+    out16 = knarpe.knarpe_cross_attention_v3(*a16, n_head)
+    torch.cuda.synchronize()
+    assert _launch_counts(name) == (n + 1, staged, general, heads + 1)
+    assert out16.dtype == torch.bfloat16 and torch.all(out16[0, 0] == 0)
+    got = out16.float()
+    ref32, ref16 = knarpe.knarpe_cross_attention_v3_reference(*_cast(a16, torch.float32), n_head), \
+        knarpe.knarpe_cross_attention_v3_reference(*a16, n_head).float()
+    tol = 2.0 ** -7 * ref16.abs() + 2.0 ** -8 * float(ref16.abs().max())
+    err = torch.minimum((got - ref16).abs(), (got - _v3_reference_exact_kk(*a16, n_head)).abs())
+    assert float((err - tol).max()) <= 0
+    assert (got - ref16).abs().mean() <= 0.25 * (ref32 - ref16).abs().mean()
+    assert torch.equal(knarpe.knarpe_cross_attention_v3(*a16, n_head), out16)
+
+
+@pytest.mark.cuda
+def test_v3_heads_route_raises_for_misaligned_operands():
+    """At a shape B3's heads kernel takes, an operand off a 16-byte boundary raises, naming the route."""
+    _need_card()
+    shape = V3_HEADS_SHAPES[2]
+    args = _cast(_inputs(shape, True, seed=9), torch.bfloat16)
+    buf = torch.empty(args[2].numel() + 1, dtype=torch.bfloat16, device="cuda")
+    buf[1:] = args[2].reshape(-1)
+    args[2] = buf[1:].view(args[2].shape)
+    with pytest.raises(ValueError, match="the heads bf16 kernel copies 16-byte chunks"):
+        knarpe.knarpe_cross_attention_v3(*args, shape[-1])
 
 
 @pytest.mark.cuda

@@ -53,7 +53,10 @@
 // D = R = 128, K >= 90. bf16 B2 at D = R = 256 with 8 heads (K <= 104) runs on
 // the cluster kernel of knarpe_cluster.cuh (four blocks a source, each with a
 // quarter of the weights and of the source's columns; knarpe_cluster_route's
-// code 0); B3 at the shapes the staged kernel refuses, and B2 at those both
+// code 0); bf16 B3 at D = R = 256 with 8 heads (any K) on the heads kernel of
+// knarpe_v3_heads.cuh (four blocks a source, each on two heads with its quarter
+// of the weights, the targets streamed in tiles of 32 with the softmax taken
+// online; knarpe_v3_heads_route's code 0); B2 and B3 at the shapes these
 // refuse (D = R = 128 at K >= 90 among them), run on the kernel below,
 // instantiated for bf16 too (the general route; knarpe_general_route says
 // whether it takes a shape). The route follows from the shape alone. The kernel below serves
@@ -67,6 +70,7 @@
 #include "knarpe_attn_staged.cuh"
 #include "knarpe_cluster.cuh"
 #include "knarpe_staged.cuh"
+#include "knarpe_v3_heads.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -721,18 +725,103 @@ int cluster_launch(const Params& g, int dev, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 B2 or B3: the staged kernel where it takes the shape; else, for B2, the cluster kernel where it
-// takes the shape; else the general kernel.
+// The heads B3 kernel's plan per device: its refusal code (heads_x3::refusal; 0 = taken, 4 = no block fits an SM)
+// and the slots of four blocks (one per quarter of the heads) resident on the device. Its layout does not depend on K.
+struct V3HeadsPlan {
+  int dev, refused;
+  long long slots;
+};
+
+int make_v3_heads_plan(V3HeadsPlan& pl) {
+  int max_smem = 0, n_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.refused = heads_x3::refusal(1, heads_x3::kWidth, heads_x3::kWidth, heads_x3::kHeads,
+                                 static_cast<size_t>(max_smem));
+  if (pl.refused) return 0;
+  auto kern = heads_x3::knarpe_x3_heads_kernel;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, heads_x3::kThreads, heads_x3::kTotal);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.slots = static_cast<long long>(per_sm) * n_sm / heads_x3::kSplit;
+  if (pl.slots < 1) pl.refused = 4;
+  return 0;
+}
+
+int v3_heads_plan(int dev, V3HeadsPlan* out) {
+  static std::mutex mu;
+  static std::vector<V3HeadsPlan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const V3HeadsPlan& c : plans) {
+    if (c.dev == dev) {
+      *out = c;
+      return 0;
+    }
+  }
+  V3HeadsPlan pl{};
+  pl.dev = dev;
+  const int rc = make_v3_heads_plan(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+// The heads B3 kernel's code for a bf16 B3 shape: 0 if it takes the shape, else heads_x3::refusal's code (1 for
+// K < 1 and 2 for widths it is not compiled for, without asking the device; 4: no block fits an SM), or minus a CUDA
+// error.
+int v3_heads_code(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  const int code = heads_x3::refusal(n_knn, d_model, d_rpe, n_head, SIZE_MAX);
+  if (code != 0) return code;
+  V3HeadsPlan pl{};
+  const int rc = v3_heads_plan(dev, &pl);
+  return rc != 0 ? -rc : pl.refused;
+}
+
+// Launches the heads B3 kernel at a shape v3_heads_code takes; an operand that is not 16-byte aligned (the tensor
+// copies need it) is cudaErrorInvalidValue.
+int v3_heads_launch(const Params& g, int dev, cudaStream_t stream) {
+  V3HeadsPlan pl{};
+  const int rc = v3_heads_plan(dev, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused || !(aligned16(g.q) && aligned16(g.tgt) && aligned16(g.rpe) && aligned16(g.w_kv) &&
+                      aligned16(g.w_rpe) && aligned16(g.bias)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  constexpr int D = heads_x3::kWidth;
+  heads_x3::Params p{};
+  p.q = static_cast<const bf16*>(g.q);
+  p.w_kv = static_cast<const bf16*>(g.w_kv);
+  p.w_rpe = static_cast<const bf16*>(g.w_rpe);
+  p.bias = static_cast<const bf16*>(g.bias);
+  p.invalid = g.invalid;
+  p.out = static_cast<bf16*>(g.out);
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.scale = g.scale;
+  const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
+  int enc = staged::encode_rows(&p.tm_t, g.tgt, n_rows, D, D, heads_x3::kTile);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, D, D, heads_x3::kTile);
+  if (enc != 0) return enc;
+  const long long n_slots = g.n_src < pl.slots ? g.n_src : pl.slots;
+  const int grid = static_cast<int>(heads_x3::kSplit * n_slots);
+  heads_x3::knarpe_x3_heads_kernel<<<grid, heads_x3::kThreads, heads_x3::kTotal, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 B2 or B3: the staged kernel where it takes the shape; else, for B2, the cluster kernel and, for B3, the heads
+// kernel where it takes the shape; else the general kernel.
 template <int MODE>
 int bf16_cross(const Params& p, int n_head, int dev, cudaStream_t stream) {
   const int code = staged_code(MODE, p.n_knn, p.d_model, p.d_rpe, n_head, dev);
   if (code < 0) return code == -1 ? static_cast<int>(cudaErrorInvalidValue) : -code;
   if (code == 0) return staged_by_heads<MODE>(p, n_head, dev, stream);
-  if (MODE == kCross) {
-    const int wide = cluster_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
-    if (wide < 0) return -wide;
-    if (wide == 0) return cluster_launch(p, dev, stream);
-  }
+  const int wide = MODE == kCross ? cluster_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev)
+                                  : v3_heads_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
+  if (wide < 0) return -wide;
+  if (wide == 0) return MODE == kCross ? cluster_launch(p, dev, stream) : v3_heads_launch(p, dev, stream);
   return by_heads<__nv_bfloat16, MODE>(p, n_head, dev, stream);
 }
 
@@ -967,9 +1056,9 @@ int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStrea
 // elements at stride ld_kv and no tgt / w_kv (d_tgt = 0); B2/B3 read tgt and
 // w_kv (d_tgt = d_model) and no k/v. n_head in {1, 2, 4, 8}, d_model even and
 // divisible by n_head, for B3 d_model / n_head a multiple of 4; a bf16 B2/B3
-// shape on the staged or cluster route needs 16-byte aligned operands (checked
+// shape on the staged, cluster or heads route needs 16-byte aligned operands (checked
 // by the Python wrapper, which also names the route: knarpe_staged_route, then
-// for B2 knarpe_cluster_route, then knarpe_general_route). dev is the current device, which owns the tensors and
+// for B2 knarpe_cluster_route and for B3 knarpe_v3_heads_route, then knarpe_general_route). dev is the current device, which owns the tensors and
 // the stream. Returns cudaGetLastError(), or cudaErrorInvalidValue for a launch
 // no kernel takes.
 extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
@@ -989,8 +1078,8 @@ extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, 
 // refusal code of knarpe_attn_staged.cuh (B4, mode 0; staged_attn::refusal, 5: no block fits an SM) or
 // knarpe_staged.cuh (B2, mode 1, or B3, mode 2; staged::refusal, 6: no block fits an SM), or minus a
 // CUDA error; -1 for any other mode or dtype. knarpe_launch runs bf16 launches on the staged kernel
-// where this is 0, else B4 on the heads kernel and B2 on the cluster kernel where their routes say 0, and
-// on the general kernel otherwise.
+// where this is 0, else B4 and B3 on their heads kernels and B2 on the cluster kernel where their routes say 0,
+// and on the general kernel otherwise.
 extern "C" int knarpe_staged_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
   if (dtype != 1) return -1;
   if (mode == kAttn) return attn_staged_code(n_knn, d_model, d_rpe, n_head, dev);
@@ -1015,10 +1104,20 @@ extern "C" int knarpe_attn_heads_route(int n_knn, int d_model, int d_rpe, int n_
   return heads_code(n_knn, d_model, d_rpe, n_head, dev);
 }
 
+// Whether the heads kernel of knarpe_v3_heads.cuh takes a bf16 B3 launch at this shape on device dev, given 16-byte
+// aligned operands: 0 if it does, else heads_x3::refusal's code (1: K < 1; 2: widths other than d_model = d_rpe = 256
+// with 8 heads; 3: its layout exceeds the shared memory; 4: no block fits an SM), or minus a CUDA error. knarpe_launch
+// runs a bf16 B3 that knarpe_staged_route refuses on the heads kernel where this is 0, and on the general kernel
+// otherwise.
+extern "C" int knarpe_v3_heads_route(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  return v3_heads_code(n_knn, d_model, d_rpe, n_head, dev);
+}
+
 // Whether the general kernel takes a bf16 B2 (mode 1) or B3 (mode 2) launch at this shape on device
 // dev: 0 if it does, 1 if its layout exceeds the block's shared memory even with the weights (and
 // B3's inputs) read through L1/L2, or minus a CUDA error; -1 for any other mode or dtype. The wrapper
-// asks it for the shapes knarpe_staged_route (and, for B2, knarpe_cluster_route) refuses, and raises
+// asks it for the shapes knarpe_staged_route (and knarpe_cluster_route for B2, knarpe_v3_heads_route for B3)
+// refuses, and raises
 // when this refuses too.
 extern "C" int knarpe_general_route(int mode, int dtype, int n_knn, int d_model, int d_rpe, int n_head, int dev) {
   if (dtype != 1) return -1;

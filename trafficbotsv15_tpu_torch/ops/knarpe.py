@@ -33,11 +33,15 @@ each holding a quarter of the weights and taking a quarter of the source's
 columns, the partial sums exchanged through distributed shared memory;
 "heads", for bf16 B4 at the same widths (K <= 40), which the staged kernel
 refuses, on `csrc/knarpe_attn_heads.cuh`: four blocks per source, each on two
-of the eight heads with their quarter of W_rpe, with no exchange between them;
-and "general", the kernel of `csrc/knarpe.cu`, for float32 and the remaining
-bf16 shapes (B4 where the heads kernel refuses too, such as K > 40 at D = R =
-256 or more than 4 heads at other widths; B3 at D = R = 256 and at K >= 90;
-B2 where the cluster kernel refuses too, such as K >= 90 at D = R = 128).
+of the eight heads with their quarter of W_rpe, with no exchange between them,
+and for bf16 B3 at the same widths (any K) on `csrc/knarpe_v3_heads.cuh`: four
+blocks per source, each on two heads with their quarter of the weights, the
+targets streamed in tiles of 32 and the softmax taken online over them; and
+"general", the kernel of `csrc/knarpe.cu`, for float32 and the remaining bf16
+shapes (B4 where the heads kernel refuses too, such as K > 40 at D = R = 256 or
+more than 4 heads at other widths; B3 where its heads kernel refuses too, such
+as K >= 90 at D = R = 128; B2 where the cluster kernel refuses too, such as
+K >= 90 at D = R = 128).
 A bf16 B2 or B3 shape that every bf16 kernel refuses raises; so does an
 operand of a staged, cluster or heads launch not at a 16-byte aligned address,
 or B4's k and v rows not a multiple of 16 bytes apart.
@@ -78,12 +82,13 @@ _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_atte
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # forward and backward launches by route since the last reset (read by chip_smoke.py); B3's backward
-# counts as B2's; only B2 has the cluster route, only B4 the heads route
+# counts as B2's; only B2 has the cluster route, only B4 and B3 the heads route
 ROUTE_LAUNCHES = {**{f"{kernel}/{route}": 0 for kernel in ("knarpe_attention", "knarpe_cross_attention",
                                                            "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                                                            "knarpe_cross_attention_bwd")
                      for route in ("staged", "general")},
-                  "knarpe_cross_attention/cluster": 0, "knarpe_attention/heads": 0}
+                  "knarpe_cross_attention/cluster": 0, "knarpe_attention/heads": 0,
+                  "knarpe_cross_attention_v3/heads": 0}
 
 _LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
 _BWD_FN = None
@@ -142,6 +147,15 @@ HEADS_REFUSALS = {
     2: "d_model = d_rpe = 256 with 8 heads are the only widths the kernel is compiled for",
     3: "a quarter of the weights, four source stages (one per group of warps) and the groups' scratch exceed the "
        "device's shared memory per block (K > 40 on an H100)",
+    4: "no block of the four a source takes fits a multiprocessor",
+}
+# why the heads bf16 B3 kernel (csrc/knarpe_v3_heads.cuh) refuses a shape, by the code of
+# `knarpe_v3_heads_route` (`heads_x3::refusal`); such a shape takes the general kernel. Its targets stream
+# through a ring of tiles, so no K is too large for its shared memory
+V3_HEADS_REFUSALS = {
+    1: "K must be at least 1",
+    2: "d_model = d_rpe = 256 with 8 heads are the only widths the kernel is compiled for",
+    3: "a quarter of the weights and three tiles of 32 targets exceed the device's shared memory per block",
     4: "no block of the four a source takes fits a multiprocessor",
 }
 # why the general kernel (csrc/knarpe.cu) refuses a shape, by the code of `knarpe_general_route`
@@ -229,7 +243,7 @@ def load_library():
         for fn in (lib.knarpe_staged_route, lib.knarpe_general_route):
             fn.argtypes = [ctypes.c_int] * 7
             fn.restype = ctypes.c_int
-        for fn in (lib.knarpe_cluster_route, lib.knarpe_attn_heads_route):
+        for fn in (lib.knarpe_cluster_route, lib.knarpe_attn_heads_route, lib.knarpe_v3_heads_route):
             fn.argtypes = [ctypes.c_int] * 5
             fn.restype = ctypes.c_int
         _LAUNCH_FN = bind_launch(lib)
@@ -270,32 +284,42 @@ def general_refusal(kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: i
     return _route_code("knarpe_general_route", kernel, n_knn, d_model, d_rpe, n_head, device_index)
 
 
+def _wide_code(entry: str, kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """The built library's answer (`knarpe_cluster_route`, `knarpe_attn_heads_route` or `knarpe_v3_heads_route`)
+    for a bf16 launch at the widths the kernel behind it is compiled for."""
+    load_library()
+    code = getattr(build.load("knarpe", "knarpe.cu"), entry)(n_knn, d_model, d_rpe, n_head, device_index)
+    if code < 0:
+        raise RuntimeError(f"{kernel}: planning a launch ({entry}) failed: code {code}")
+    return code
+
+
 @functools.lru_cache(maxsize=None)
 def cluster_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
     """0 if the cluster kernel takes a bf16 B2 launch at this shape on the card, else the built library's
     refusal code (`CLUSTER_REFUSALS` says why)."""
-    load_library()
-    code = build.load("knarpe", "knarpe.cu").knarpe_cluster_route(n_knn, d_model, d_rpe, n_head, device_index)
-    if code < 0:
-        raise RuntimeError(f"knarpe_cross_attention: planning a launch (knarpe_cluster_route) failed: code {code}")
-    return code
+    return _wide_code("knarpe_cluster_route", "knarpe_cross_attention", n_knn, d_model, d_rpe, n_head, device_index)
 
 
 @functools.lru_cache(maxsize=None)
 def heads_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
     """0 if the heads kernel takes a bf16 B4 launch at this shape on the card, else the built library's
     refusal code (`HEADS_REFUSALS` says why)."""
-    load_library()
-    code = build.load("knarpe", "knarpe.cu").knarpe_attn_heads_route(n_knn, d_model, d_rpe, n_head, device_index)
-    if code < 0:
-        raise RuntimeError(f"knarpe_attention: planning a launch (knarpe_attn_heads_route) failed: code {code}")
-    return code
+    return _wide_code("knarpe_attn_heads_route", "knarpe_attention", n_knn, d_model, d_rpe, n_head, device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def v3_heads_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the heads B3 kernel takes a bf16 B3 launch at this shape on the card, else the built library's
+    refusal code (`V3_HEADS_REFUSALS` says why)."""
+    return _wide_code("knarpe_v3_heads_route", "knarpe_cross_attention_v3", n_knn, d_model, d_rpe, n_head,
+                      device_index)
 
 
 def route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
     """The kernel a forward launch takes, from its shape alone: "staged" in bf16 where the staged kernel
-    takes the shape; then for bf16 B4 "heads" where the heads kernel takes it, for bf16 B2 "cluster" where
-    the cluster kernel takes it; else "general"; for B2 and B3, raises when no bf16 kernel takes it."""
+    takes the shape; then for bf16 B4 and B3 "heads" where their heads kernel takes it, for bf16 B2 "cluster"
+    where the cluster kernel takes it; else "general"; for B2 and B3, raises when no bf16 kernel takes it."""
     if dtype != torch.bfloat16:
         return "general"
     code = staged_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
@@ -309,6 +333,11 @@ def route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int,
         if cluster == 0:
             return "cluster"
         why += f", the cluster kernel too ({CLUSTER_REFUSALS[cluster]})"
+    else:
+        heads = v3_heads_refusal(n_knn, d_model, d_rpe, n_head, device_index)
+        if heads == 0:
+            return "heads"
+        why += f", the heads kernel too ({V3_HEADS_REFUSALS[heads]})"
     general = general_refusal(kernel, n_knn, d_model, d_rpe, n_head, device_index)
     if general == 0:
         return "general"

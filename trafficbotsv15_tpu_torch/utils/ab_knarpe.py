@@ -12,10 +12,10 @@ With `--other`, on
 the same bf16 inputs (numpy seed 1; 30 % of targets invalid), for B2
 (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`) at the eval
 path's shape [128·64 sources, K=89, D=R=128, H=4] and the training path's
-[8·64, K=89], B2 also at the scaled preset's eval shape [128·64, K=89,
-D=R=256, H=8] (this tree's cluster route against, say, the parent's general
-kernel: the route is named by this tree, the launch goes through the side's
-library), and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32]
+[8·64, K=89], both also at the scaled preset's eval shape [128·64, K=89,
+D=R=256, H=8] (this tree's cluster route for B2 and heads route for B3 against,
+say, the parent's general kernel: the route is named by this tree, the launch
+goes through the side's library), and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32]
 and the training path's [8·1024, K=32], and at the scaled preset's eval
 [4·1024, K=32, D=R=256, H=8] and training [1·1024] shapes (this tree's heads
 route against, say, the parent's general kernel) (k and v the halves of one
@@ -69,7 +69,7 @@ from trafficbotsv15_tpu_torch.train import pipeline as train_lib
 from trafficbotsv15_tpu_torch.train.evaluation import batch_to_device, joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.utils import build
-from trafficbotsv15_tpu_torch.utils.timing import cuda_ms, graph_ms
+from trafficbotsv15_tpu_torch.utils.timing import card_line, cuda_ms, graph_ms
 
 # (kernel, label, (n_b, n_s, K, D, R, H))
 CASES = [("knarpe_cross_attention", "eval", (128, 64, 89, 128, 128, 4)),
@@ -77,6 +77,7 @@ CASES = [("knarpe_cross_attention", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention", "scaled_eval", (128, 64, 89, 256, 256, 8)),
          ("knarpe_cross_attention_v3", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_cross_attention_v3", "train", (8, 64, 89, 128, 128, 4)),
+         ("knarpe_cross_attention_v3", "scaled_eval", (128, 64, 89, 256, 256, 8)),
          ("knarpe_attention", "eval", (4, 1024, 32, 128, 128, 4)),
          ("knarpe_attention", "train", (8, 1024, 32, 128, 128, 4)),
          ("knarpe_attention", "scaled_eval", (4, 1024, 32, 256, 256, 8)),
@@ -228,8 +229,7 @@ def main() -> None:
         ap.error("give --other, --other-knn, --other-bwd or several")
     if not torch.cuda.is_available():
         raise SystemExit("ab_knarpe: needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     libs = {"this": {}, "other": {}}  # side -> {(module, attribute): bound launch}
     if args.other is not None:
         libs["this"][knarpe, "_LAUNCH_FN"] = knarpe.load_library()

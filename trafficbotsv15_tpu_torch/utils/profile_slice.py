@@ -35,7 +35,6 @@ Needs a CUDA device; prints the card's name and power limit with the numbers.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 from pathlib import Path
 
@@ -47,6 +46,7 @@ from trafficbotsv15_tpu_torch.train import evaluation as ev
 from trafficbotsv15_tpu_torch.train import pipeline as tp
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model
+from trafficbotsv15_tpu_torch.utils.timing import card_line
 
 
 def compare_arms(card: str, rounds: int) -> None:
@@ -173,8 +173,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
         return profile_train(card, args.use_pallas, args.out)

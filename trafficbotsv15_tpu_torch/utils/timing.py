@@ -3,12 +3,22 @@
 `cuda_ms` times warm eager calls, the host's launch cost included where it is
 longer than the device's work; `graph_ms` times the same calls captured in one
 CUDA graph and replayed, which is the device time alone. Both return
-milliseconds per call.
+milliseconds per call. `card_line` names the card every timing stands beside.
 """
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+    prints them (the first card's line)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
