@@ -47,7 +47,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      sources, each with an all-invalid and a one-target source; timed at the
      scaled preset's eval and training shapes), on the general route
      (asserted, the heads kernel's refusal code too) at K=90 and K=128 at
-     D=R=128; every bf16 B2/B3 must give the same bits
+     D=R=128; B2 on the cluster route also at the scaled training path's
+     posterior TL shape [1, 128, 24, 256, 256, 8]; every bf16 B2/B3 must give the same bits
      on a second launch; then the backward kernels B4-bwd and B2-bwd (B3's backward is B2's)
      through the wrappers' autograd: the card's output has a grad_fn, and its
      gradients match autograd of the plain versions in float32 and bf16, the
@@ -57,11 +58,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      shape on the general route (csrc/knarpe_bwd.cu), and the entry point's
      batch-2 shapes; bf16 B4-bwd on the
      staged kernel of csrc/knarpe_attn_bwd_staged.cuh at B4's shapes above,
-     the eight-head shape on the general route; timed (eager, and device
-     time from a CUDA graph) against the plain backward and the library
-     composition's backward, B2-bwd at both training shapes; B2-bwd and
-     B4-bwd also at the scaled preset's training shapes ([1, 64, 89, 256,
-     256, 8], [1, 1024, 32, 256, 256, 8]) on the general route (asserted);
+     the eight-head shape on the general route; at the scaled preset's
+     D=R=256 with 8 heads bf16 B4-bwd on the heads kernel of
+     csrc/knarpe_attn_bwd_heads.cuh (asserted; at the training shape [1,
+     1024, 32, 256, 256, 8], K=5, K=24 and K=40 (the largest its shared
+     memory takes) at 97 sources, a single source and 8 x 1024 + 7 sources,
+     k and v the halves of one tensor and two tensors), on the general route
+     (asserted, the heads backward's refusal code too) at K=48 and K=89
+     there and at an eight-head shape of other widths; bf16 B2-bwd and B3's
+     backward at the scaled training path's [1, 64, 89, 256, 256, 8] and
+     [1, 128, 24, 256, 256, 8] on the general route (asserted); timed
+     (eager, and device time from a CUDA graph) against the plain backward
+     and the library composition's backward, B2-bwd at both training shapes
+     and the scaled preset's two (general route), B4-bwd at the training
+     shape and on the heads route at the scaled training shape;
      last, B3's path: the ported bench (`python -m
      trafficbotsv15_tpu_torch.utils.bench_knarpe --shape scaled`, 3
      iterations), every count at 0 before it, its B3 launches all on the
@@ -165,19 +175,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      shapes phase 3 checked (B4 [4, 1024, 32, 256, 256, 8], B2 [128, 64, 89,
      256, 256, 8]); the first B4 and the first B2 launch of its warm-up call,
      captured, against the float32 plain versions on their own inputs at
+     phase 3's bf16 tolerance; (f) `make_train_step` with use_pallas=True,
+     built as (b)'s, one warm-up and 2 timed steps in turns with (b)'s (b f f
+     b): B1 241, B4 12 and B4-bwd 12 (all on the heads route), B2 1452 (all
+     on the cluster route), B2-bwd 732 (all on the general route) per step,
+     every launch at a full shape phase 3 checked, the (b) checks of loss,
+     grad_norm and gradients; the first B4-bwd launch of its warm-up step,
+     captured, against the float32 plain backward on its own inputs at
      phase 3's bf16 tolerance;
      (e) the phase-4 config rolled out to 40 steps against its 31 logged:
      the training step's gradients (phase 7's check) and the validation step
-     with reactive replay's buffer (phase 9's) card vs CPU. (a)-(d) log
-     seconds and peak memory.
+     with reactive replay's buffer (phase 9's) card vs CPU. (a)-(d) and (f)
+     log seconds and peak memory.
 Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
 `validate_launches`, from phase 9; training-shape and backward ones from phase
 8, B4's and the backwards' by route; `fit_launches` per full-width fit step
 from phase 11; `reference_layout_launches` from phase 12 (b); `scaled_launches`
-per call or step of each path of phase 13; B3's and B4's `heads_route` and
+per call or step of each path of phase 13, and the backwards' launches by route per
+(f) step; B3's, B4's and B4-bwd's `heads_route` and
 B2's `cluster_route` times at the scaled preset's shapes, B4's and B2's with
-their launches per phase 13 (d) call, B3's with its launches in phase 3's bench
-run), the card line, and last
+their launches per phase 13 (d) call, B4-bwd's with its launches per (f) step,
+B3's with its launches in phase 3's bench run; the scaled training shapes'
+launches per (f) step), the card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -256,8 +275,8 @@ ATTN_STAGED_EDGE = [(1, 97, 5, 128, 128, 4), (1, 97, 24, 64, 64, 2), (1, 1, 32, 
 ATTN_GENERAL = [(1, 33, 89, 32, 16, 8)]
 # the scaled preset's map encoder (4 scenarios x 1024 polylines, D=R=256, 8 heads): B4 forward on the heads route
 SCALED_ATTN_PATH = (4, 1024, 32, 256, 256, 8)
-# and its training path's (batch 1): B4 forward timed there on the heads route, B4-bwd on the general route
-# (csrc/knarpe_bwd.cu)
+# and its training path's (batch 1): B4 forward timed there on the heads route, B4-bwd on the heads route of
+# csrc/knarpe_attn_bwd_heads.cuh
 SCALED_TRAIN_ATTN_PATH = (1, 1024, 32, 256, 256, 8)
 # bf16 B4 on the heads route (csrc/knarpe_attn_heads.cuh) at D=R=256, 8 heads: both scaled shapes, K=5 and K=24
 # (no multiple of 16) and K=40 (the largest its shared memory takes) at 97 sources (no multiple of the grid or the
@@ -268,6 +287,16 @@ HEADS_ATTN = [SCALED_ATTN_PATH, SCALED_TRAIN_ATTN_PATH, (1, 97, 5, 256, 256, 8),
 # and the general route where the heads kernel refuses too, by its refusal code: K=89 at D=R=256, 8 heads (its
 # shared memory, code 3), and ATTN_GENERAL's eight heads at other widths (widths it is not compiled for, code 2)
 GENERAL_B4 = {(1, 33, 89, 256, 256, 8): 3, ATTN_GENERAL[0]: 2}
+# bf16 B4-bwd on the heads route (csrc/knarpe_attn_bwd_heads.cuh) at D=R=256, 8 heads: the scaled training shape, K=5
+# and K=24 (no multiple of 16) and K=40 (the largest its shared memory takes) at 97 sources, a single source and
+# 8 x 1024 + 7 sources; each has an all-invalid and a one-target source and runs with k and v the halves of one
+# tensor and as two tensors
+HEADS_ATTN_BWD = [SCALED_TRAIN_ATTN_PATH, (1, 97, 5, 256, 256, 8), (1, 97, 24, 256, 256, 8), (1, 97, 40, 256, 256, 8),
+                  (1, 1, 32, 256, 256, 8), (1, 8199, 32, 256, 256, 8)]
+# and the general route where the heads backward refuses too, by its refusal code: K=48 at D=R=256, 8 heads (its
+# shared memory, code 3), K=89 there (over the softmax's 64, code 1), and ATTN_GENERAL's eight heads at other widths
+# (widths it is not compiled for, code 2)
+GENERAL_B4_BWD = {(1, 33, 48, 256, 256, 8): 3, (1, 33, 89, 256, 256, 8): 1, ATTN_GENERAL[0]: 2}
 # bf16 B2 backward shapes phase 3 holds on the staged route (csrc/knarpe_bwd_staged.cuh) besides the
 # training path's: K not a multiple of 16 with an all-invalid source at 21 sources (under the 132-block
 # grid), and 200 sources (no multiple of the grid); and the eight-head edge shape the staged backward
@@ -519,12 +548,16 @@ CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT
 # shape (4 scenarios x 32 futures x 64 agents, K=89) too, and K=90 and K=128 at the flagship's D=R=128, H=4
 SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
 # B2 the cluster route (csrc/knarpe_cluster.cuh) at D=R=256, 8 heads: the eval shape, the scaled training path's
-# (batch 1 x 64 agents), K=5 and K=24 (no multiple of 16) and K=104 (the largest its shared memory takes) at 21
-# sources, a single source (fewer than the clusters), and 8192 + 7 sources (no multiple of the grid); each has an
-# all-invalid and a one-target source. Timed at the scaled preset's eval shape
+# (batch 1 x 64 agents, and its posterior TL encoder's), K=5 and K=24 (no multiple of 16) and K=104 (the largest its
+# shared memory takes) at 21 sources, a single source (fewer than the clusters), and 8192 + 7 sources (no multiple of
+# the grid); each has an all-invalid and a one-target source. Timed at the scaled preset's eval shape
 SCALED_TRAIN_X_PATH = (1, 64, 89, 256, 256, 8)
-CLUSTER_X = [SCALED_X_PATH, (2, 64, 89, 256, 256, 8), SCALED_TRAIN_X_PATH, (1, 21, 5, 256, 256, 8),
-             (1, 21, 24, 256, 256, 8), (1, 21, 104, 256, 256, 8), (1, 1, 89, 256, 256, 8), (1, 8199, 89, 256, 256, 8)]
+# and the scaled training path's posterior TL encoder (batch 1 x 128 TL lanes over K=24 map targets), on the cluster
+# route forward and the general route backward
+SCALED_POST_TL_X_PATH = (1, 128, 24, 256, 256, 8)
+CLUSTER_X = [SCALED_X_PATH, (2, 64, 89, 256, 256, 8), SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH,
+             (1, 21, 5, 256, 256, 8), (1, 21, 24, 256, 256, 8), (1, 21, 104, 256, 256, 8), (1, 1, 89, 256, 256, 8),
+             (1, 8199, 89, 256, 256, 8)]
 # and the general route where the cluster kernel refuses too, by its refusal code: K=120 at D=R=256, 8 heads (its
 # shared memory, code 3), K=90 and K=128 at D=R=128 (widths it is not compiled for, code 2)
 GENERAL_B2_X = {(2, 64, 120, 256, 256, 8): 3, (2, 64, 90, 128, 128, 4): 2, (2, 64, 128, 128, 128, 4): 2}
@@ -649,31 +682,38 @@ CHECKED_X_BWD = {s[2:] for s in (TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE)}
 
 
 @contextlib.contextmanager
-def recorded_bwd_shapes():
-    """Counts of the B4 and B2 backward launches inside the block by (kernel, K, D, R, H); bf16 only."""
-    real, seen = knarpe._launch_bwd, collections.Counter()
+def recorded_bwd_launches(capture: bool = False):
+    """The full shape of every B4 and B2 backward launch inside the block, counted: (kernel + "_bwd", dtype, n_b, n_s,
+    K, D, R, H); with capture, also the operands (q, k, v, rpe, invalid, w_rpe, b), g, n_head and gradients (dq, dk,
+    dv, drpe, dw_rpe, db) of the first B4 backward launch, cloned: {"args": [...], "g": g, "n_head": H, "grads":
+    [...]}, empty if none launched."""
+    real, shapes, first = knarpe._launch_bwd, collections.Counter(), {}
 
-    def recorder(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head):
-        if q.dtype != torch.bfloat16:
-            raise AssertionError(f"{kernel} backward launched in {q.dtype}, expected bf16")
-        seen[(kernel, rpe.shape[2], q.shape[2], rpe.shape[3], n_head)] += 1
-        return real(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head)
+    def record(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head):
+        shapes[(f"{kernel}_bwd", str(q.dtype), *q.shape[:2], rpe.shape[2], q.shape[2], rpe.shape[3], n_head)] += 1
+        out = real(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head)
+        if capture and kernel == "knarpe_attention" and not first:
+            first.update(args=[t.clone() for t in (q, k, v, rpe, invalid, w_rpe, b)], g=g.clone(), n_head=n_head,
+                         grads=[out[i].clone() for i in (0, 1, 2, 4, 6, 7)])
+        return out
 
-    knarpe._launch_bwd = recorder
+    knarpe._launch_bwd = record
     try:
-        yield seen
+        yield shapes, first
     finally:
         knarpe._launch_bwd = real
 
 
 def check_path_bwd_shapes(where: str, seen) -> None:
-    """Every B4 and B2 backward launch of a path was at a shape phase 3 checked on the staged route."""
-    unchecked = [key for key in seen if key[1:] not in (CHECKED_ATTN if key[0] == "knarpe_attention" else CHECKED_X_BWD)]
+    """Every B4 and B2 backward launch of a path (`recorded_bwd_launches`) was in bf16 at a shape phase 3 checked on
+    the staged route."""
+    unchecked = [key for key in seen if key[1] != str(torch.bfloat16) or tuple(key[4:]) not in (
+        CHECKED_ATTN if key[0] == "knarpe_attention_bwd" else CHECKED_X_BWD)]
     if unchecked:
-        raise AssertionError(f"{where}: backward launched at (kernel, K, D, R, H) {sorted(unchecked)}, which phase 3 "
-                             f"did not check")
-    log(f"  {where}: B4 and B2 backward launches by (kernel, K, D, R, H) {dict(seen)}, each shape checked in "
-        f"phase 3 on the staged route")
+        raise AssertionError(f"{where}: backward launched at (kernel, dtype, n_b, n_s, K, D, R, H) {sorted(unchecked)}, "
+                             f"which phase 3 did not check")
+    log(f"  {where}: B4 and B2 backward launches by (kernel, dtype, n_b, n_s, K, D, R, H) {dict(seen)}, each shape "
+        f"checked in phase 3 on the staged route")
 
 
 def check_staged_route(where: str) -> None:
@@ -711,10 +751,15 @@ def _plain_bwd(name: str, args, g, n_head: int):
     return list(knarpe.knarpe_cross_attention_bwd_reference(*args, g, n_head))
 
 
-def _kernel_bwd(name: str, args, g, n_head: int):
-    """Gradients through the wrapper's autograd Function on the card (one backward launch)."""
+def _kernel_bwd(name: str, args, g, n_head: int, halves: bool = False):
+    """Gradients through the wrapper's autograd Function on the card (one backward launch); B4's k and v are two
+    tensors, or with halves the halves of one [.., 2D] leaf, as the map encoder passes them."""
     leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in args]
-    out = getattr(knarpe, name)(*leaves, n_head)
+    call = leaves
+    if halves:
+        kv = torch.cat([leaves[1].detach(), leaves[2].detach()], -1).requires_grad_(True)
+        call = [leaves[0], *kv.chunk(2, -1), *leaves[3:]]
+    out = getattr(knarpe, name)(*call, n_head)
     if not (out.requires_grad and out.grad_fn is not None):
         raise AssertionError(f"{name}: the card's output carries no grad_fn")
     bwd = "knarpe_attention_bwd" if name == "knarpe_attention" else "knarpe_cross_attention_bwd"
@@ -723,16 +768,20 @@ def _kernel_bwd(name: str, args, g, n_head: int):
     torch.cuda.synchronize()
     if knarpe.LAUNCHES[bwd] != before + 1:
         raise AssertionError(f"{name}: backward launched {knarpe.LAUNCHES[bwd] - before} kernels, expected 1")
-    return [a.grad for a in leaves if a.requires_grad]
+    grads = [a.grad for a in leaves if a.requires_grad]
+    if halves:
+        grads[1], grads[2] = kv.grad.chunk(2, -1)
+    return grads
 
 
-def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "staged") -> float:
+def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "staged", halves: bool = False) -> tuple:
     """Backward kernel vs autograd of the plain version, float32 and bf16, the bf16 backward on want_route
-    and bit-identical on a second launch; returns the float32 max |err|."""
+    and bit-identical on a second launch; B4's k and v two tensors, or with halves the halves of one; returns the
+    float32 and the bf16 max |err| (the bf16 one against the float32 plain backward on the same bf16 inputs)."""
     n_head = shape[-1]
     args = knarpe_inputs(shape, name != "knarpe_attention", seed)
     g = torch.from_numpy(np.random.default_rng(seed + 100).normal(size=args[0].shape).astype(np.float32)).cuda()
-    got, want = _kernel_bwd(name, args, g, n_head), _plain_bwd(name, args, g, n_head)
+    got, want = _kernel_bwd(name, args, g, n_head, halves), _plain_bwd(name, args, g, n_head)
     max_err, worst = 0.0, 0.0
     for a, b in zip(got, want):
         err, scale = float((a - b).abs().max()), float(b.abs().max())
@@ -742,7 +791,7 @@ def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "staged"
                              f"(tolerance {KNARPE_BWD_F32_REL}), all-invalid source zero: {bool(torch.all(got[0][0, 0] == 0))}")
     a16 = [a if a.dtype == torch.bool else a.to(torch.bfloat16) for a in args]
     before = dict(knarpe.ROUTE_LAUNCHES)
-    got16 = _kernel_bwd(name, a16, g.to(torch.bfloat16), n_head)
+    got16 = _kernel_bwd(name, a16, g.to(torch.bfloat16), n_head, halves)
     bwd = "knarpe_attention_bwd" if name == "knarpe_attention" else "knarpe_cross_attention_bwd"
     took = [key.split("/")[1] for key, n in knarpe.ROUTE_LAUNCHES.items()
             if key.startswith(f"{bwd}/") and n != before[key]]
@@ -755,12 +804,15 @@ def check_one_knarpe_bwd(name: str, shape, seed: int, want_route: str = "staged"
             raise AssertionError(f"{name} backward {shape} bf16: |err| above 2^-8 relative + 1e-4 of the max")
     if not all(torch.all(x[0, 0] == 0) for x in got16[:2]):
         raise AssertionError(f"{name} backward {shape} bf16: the all-invalid source has non-zero gradients")
-    if not all(torch.equal(a, b) for a, b in zip(_kernel_bwd(name, a16, g.to(torch.bfloat16), n_head), got16)):
+    if not all(torch.equal(a, b) for a, b in zip(_kernel_bwd(name, a16, g.to(torch.bfloat16), n_head, halves),
+                                                  got16)):
         raise AssertionError(f"{name} backward {shape} bf16: two launches on the same inputs differ")
+    err16 = max(float((a.float() - b).abs().max()) for a, b in zip(got16, want32))
     log(f"  {name} backward {list(shape)}: output has a grad_fn; float32 max |err| {max_err:.3e}, "
-        f"{worst:.2e} of the largest gradient (tolerance {KNARPE_BWD_F32_REL:g}); bf16 within 2^-8 relative + "
-        f"1e-4 of the largest, {want_route} route, two launches bit-identical; all-invalid source zero")
-    return max_err
+        f"{worst:.2e} of the largest gradient (tolerance {KNARPE_BWD_F32_REL:g}); bf16 max |err| {err16:.3e}, within "
+        f"2^-8 relative + 1e-4 of the largest, {want_route} route, two launches bit-identical; all-invalid source zero"
+        + ("; k and v the halves of one tensor" if halves else ""))
+    return max_err, err16
 
 
 def time_knarpe_bwd(name: str, shape) -> dict:
@@ -795,18 +847,28 @@ def time_knarpe_bwd(name: str, shape) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
+def timed_on(name: str, shape, want_route: str) -> dict:
+    """`time_knarpe_bwd` at shape, which must take want_route."""
+    row = {"shape": list(shape), **time_knarpe_bwd(name, shape)}
+    if row["kernel_route"] != want_route:
+        raise AssertionError(f"{name} backward at {list(shape)}: {row['kernel_route']} route, expected {want_route}")
+    return row
+
+
 def check_knarpe_bwd_kernels() -> list:
     """B4-bwd, B2-bwd and B3's backward (B2-bwd through B3's Function) vs autograd of the plain
-    versions at the training path's and edge shapes, bf16 on the staged route where it takes the shape
-    and on the general route at the shapes it refuses; B4-bwd timed at the training path's shape, B2-bwd
-    at both of its training shapes (bf16)."""
+    versions at the training path's and edge shapes, bf16 on the staged route where it takes the shape,
+    bf16 B4-bwd at the scaled preset's widths on the heads route, and on the general route at the shapes
+    they refuse (B2-bwd at the scaled preset's two training shapes among them); B4-bwd timed at the training
+    path's shape and on the heads route at the scaled training shape, B2-bwd at both of its training shapes
+    and at the scaled preset's two (bf16)."""
     rows = []
     for name, path, edges, replaces in (
             ("knarpe_attention", TRAIN_ATTN_PATH, ATTN_EDGE + ATTN_STAGED_EDGE,
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:293"),
             ("knarpe_cross_attention", TRAIN_X_PATH, X_BWD_EDGE, "trafficbotsv15_tpu/ops/pallas_knarpe.py:579")):
         cross = name != "knarpe_attention"
-        max_err = check_one_knarpe_bwd(name, path, seed=11)
+        max_err = check_one_knarpe_bwd(name, path, seed=11)[0]
         for i, shape in enumerate(edges):
             check_one_knarpe_bwd(name, shape, seed=12 + i)
         if not cross:
@@ -818,21 +880,36 @@ def check_knarpe_bwd_kernels() -> list:
                 check_one_knarpe_bwd(name, shape, seed=17 + i, want_route="general")
             for i, shape in enumerate([path, POST_TL_X_PATH, *X_BWD_EDGE]):
                 check_one_knarpe_bwd("knarpe_cross_attention_v3", shape, seed=20 + i, want_route="staged")
+            # the scaled training path's two shapes (D=R=256, 8 heads), which the staged backward refuses (more
+            # than 4 heads): the general route, where the layout of csrc/knarpe_bwd.cu fits (the weights through
+            # L1/L2), B2's and B3's Function
+            for i, shape in enumerate((SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH)):
+                for kernel in (name, "knarpe_cross_attention_v3"):
+                    check_one_knarpe_bwd(kernel, shape, seed=50 + i, want_route="general")
         row = time_knarpe_bwd(name, path)
-        # the scaled preset's training shape (batch 1, D=R=256, 8 heads), which the staged backwards refuse (more
-        # than 4 heads): timed on the general route, where the layout of csrc/knarpe_bwd.cu fits (the weights read
-        # through L1/L2)
-        scaled = SCALED_TRAIN_X_PATH if cross else SCALED_TRAIN_ATTN_PATH
-        row["scaled_training_shape"] = {"shape": list(scaled), **time_knarpe_bwd(name, scaled)}
-        if row["scaled_training_shape"]["kernel_route"] != "general":
-            raise AssertionError(f"{name} backward at {list(scaled)}: {row['scaled_training_shape']['kernel_route']} "
-                                 f"route, expected general")
         source = "trafficbotsv15_tpu_torch/csrc/knarpe_bwd_staged.cuh" if cross else \
             "trafficbotsv15_tpu_torch/csrc/knarpe_attn_bwd_staged.cuh"
         rows.append({"name": f"{name}_bwd", "route": "cuda", "source": source, "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, **row})
         if cross:
             rows[-1]["post_tl_shape"] = {"shape": list(POST_TL_X_PATH), **time_knarpe_bwd(name, POST_TL_X_PATH)}
+            rows[-1]["scaled_training_shape"] = timed_on(name, SCALED_TRAIN_X_PATH, "general")
+            rows[-1]["scaled_post_tl_shape"] = timed_on(name, SCALED_POST_TL_X_PATH, "general")
+            continue
+        # bf16 only: float32 B4-bwd takes the general kernel at these shapes, which check_one_knarpe_bwd holds too
+        err16 = max(check_one_knarpe_bwd(name, shape, seed=40 + i, want_route="heads", halves=halves)[1]
+                    for halves in (True, False) for i, shape in enumerate(HEADS_ATTN_BWD))
+        for i, (shape, code) in enumerate(GENERAL_B4_BWD.items()):
+            got = knarpe.attn_bwd_heads_refusal(*shape[2:], torch.cuda.current_device())
+            if got != code:
+                raise AssertionError(f"{name} backward {shape}: the heads kernel's refusal code {got}, expected {code}")
+            log(f"  {name} backward {list(shape)}: the heads kernel refuses it with code {got} "
+                f"({knarpe.ATTN_BWD_HEADS_REFUSALS[got]}), so it takes the general route")
+            check_one_knarpe_bwd(name, shape, seed=60 + i, want_route="general", halves=True)
+        rows[-1]["heads_route"] = {"name": f"{name}_bwd", "route": "cuda",
+                                   "source": "trafficbotsv15_tpu_torch/csrc/knarpe_attn_bwd_heads.cuh",
+                                   "replaces": replaces, "launches": None, "max_abs_err": err16,
+                                   **timed_on(name, SCALED_TRAIN_ATTN_PATH, "heads")}
     return rows
 
 
@@ -1087,7 +1164,7 @@ def run_train_full_width(card: str, n_timed: int = 2) -> dict:
     gen = torch.Generator().manual_seed(0)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     t0 = time.perf_counter()
-    with recorded_forward_shapes() as seen, recorded_bwd_shapes() as seen_bwd:
+    with recorded_forward_shapes() as seen, recorded_bwd_launches() as (seen_bwd, _):
         step(batch, gen)
     torch.cuda.synchronize()
     log(f"  warm-up step {time.perf_counter() - t0:.3f} s")
@@ -1952,11 +2029,15 @@ SCALED_N_SC, SCALED_CHECK_END = 4, 40
 
 
 def check_scaled_shapes(where: str, shapes, want: dict) -> None:
-    """The launches of a scaled-preset call, by full shape, are exactly `want`, and each shape is one phase 3 checked:
-    B1 against its plain version, bf16 B4 against its own on the heads route and bf16 B2 on the cluster route."""
+    """The launches of a scaled-preset call or step, by full shape, are exactly `want`, and each shape is one phase 3
+    checked: B1 against its plain version, bf16 B4 against its own on the heads route and bf16 B2 on the cluster
+    route, bf16 B4-bwd against autograd of the plain version on the heads route and bf16 B2-bwd on the general route."""
+    bf = str(torch.bfloat16)
     checked = {("knn_xy", *case[:4]) for case in KNN_CASES.values()}
-    checked |= {("knarpe_attention", str(torch.bfloat16), *s) for s in HEADS_ATTN}
-    checked |= {("knarpe_cross_attention", str(torch.bfloat16), *s) for s in CLUSTER_X}
+    checked |= {("knarpe_attention", bf, *s) for s in HEADS_ATTN}
+    checked |= {("knarpe_cross_attention", bf, *s) for s in CLUSTER_X}
+    checked |= {("knarpe_attention_bwd", bf, *s) for s in HEADS_ATTN_BWD}
+    checked |= {("knarpe_cross_attention_bwd", bf, *s) for s in (SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH)}
     if dict(shapes) != want or not set(shapes) <= checked:
         raise AssertionError(f"{where}: launches by shape {dict(shapes)}, expected {want}, each at a shape phase 3 "
                              f"checked (unchecked: {sorted(set(shapes) - checked, key=str)})")
@@ -2003,6 +2084,27 @@ def check_path_launch(where: str, kernel: str, got: dict) -> float:
     return err
 
 
+def check_path_bwd_launch(where: str, got: dict) -> float:
+    """A captured bf16 B4 backward launch of a path against the float32 plain backward on its own (bf16-valued)
+    operands and g, at phase 3's bf16 tolerance (2^-8 of each value plus 1e-4 of each gradient's largest); returns
+    the max |err|."""
+    if not got:
+        raise AssertionError(f"{where}: no B4 backward launch to check")
+    want = knarpe.knarpe_attention_bwd_reference(*[a if a.dtype == torch.bool else a.float() for a in got["args"]],
+                                                 got["g"].float(), got["n_head"])
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv", "drpe", "dw_rpe", "db"), got["grads"], want):
+        tol = BF16_HALF_ULP * b.abs() + KNARPE_BWD_F32_REL * float(b.abs().max())
+        if not (a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()) and bool(((a.float() - b).abs() <= tol)
+                                                                                   .all())):
+            raise AssertionError(f"{where}: the first B4 backward launch's {name} exceeds 2^-8 relative + 1e-4 of the "
+                                 f"largest against the plain backward on its inputs")
+        err = max(err, float((a.float() - b).abs().max()))
+    log(f"  {where}: the first B4 backward launch {list(got['args'][1].shape)} against the float32 plain backward on "
+        f"its own inputs: max |err| {err:.3e} over its six gradients, each within 2^-8 relative + 1e-4 of the largest")
+    return err
+
+
 def peak_gib() -> float:
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -2011,10 +2113,12 @@ def run_scaled_phase(card: str) -> dict:
     """`scaled_config()` at full width (hidden 256, 8 heads, 12/6/6 layers, 120 steps past the log's 91, bf16
     compute), random seed-0 weights, synthetic scenarios: (a) joint_future_pred, use_pallas=False, and (d) with
     use_pallas=True, B4 on the heads route and B2 on the cluster route, timed in turns; (b) the training step at
-    batch 1; (c) the validation step; (e) the phase-4 config past its log, card against CPU. Returns the launches
-    per call or step by path, and the max |err| of (d)'s first B4 and first B2 launch against the plain versions on
-    their inputs, by kernel."""
+    batch 1, and (f) with use_pallas=True, timed in turns; (c) the validation step; (e) the phase-4 config past its
+    log, card against CPU. Returns the launches per call or step by path; the max |err| of (d)'s first B4 and first
+    B2 launch and of (f)'s first B4-bwd launch against the plain versions on their inputs, by kernel; and (f)'s
+    launches by route and by full shape."""
     t_phase = time.perf_counter()
+    first_errs = {}
     n_sc = SCALED_N_SC
     knn_eval = ("knn_xy", n_sc * 32, KNN_SRC, KNN_TGT, KNN_K)  # the agent->map KNN of 4 x 32 rollouts
 
@@ -2042,8 +2146,8 @@ def run_scaled_phase(card: str) -> dict:
         joint_future_pred(pcfg, pmodel, batch, generator=pgen, check_level=1)
     torch.cuda.synchronize()
     t_pwarm = time.perf_counter() - t0
-    first_errs = {kernel: check_path_launch("(d) scaled eval call use_pallas=True", kernel, first.get(kernel, {}))
-                  for kernel in ("knarpe_attention", "knarpe_cross_attention")}
+    first_errs.update({kernel: check_path_launch("(d) scaled eval call use_pallas=True", kernel, first.get(kernel, {}))
+                       for kernel in ("knarpe_attention", "knarpe_cross_attention")})
     del first
     n_b4, n_b2 = pcfg.model.mp_encoder.n_layer_tf, pcfg.model.ag_encoder.n_layer_tf * n_step
     arms = {"a": (cfg, model, gen, {knn_eval: n_step}, {}),
@@ -2096,48 +2200,88 @@ def run_scaled_phase(card: str) -> dict:
     del pmodel, arms
     torch.cuda.empty_cache()
 
-    # (b) the training step at the preset's batch_size_train
-    t0 = time.perf_counter()
+    # (b) the training step at the preset's batch_size_train with use_pallas=False, and (f) with use_pallas=True, B4 and
+    # B4-bwd on the heads route, B2 on the cluster route and B2-bwd on the general route: (f)'s model and optimizer
+    # built as (b)'s (seed 0), the same batch; a warm-up step each, then two timed steps each, in turns (b f f b); the
+    # first B4 backward launch of (f)'s warm-up step is captured and held against the plain backward on its inputs
     n_train = cfg.batch_size_train
-    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
     tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
+    warm = {}
+    t0 = time.perf_counter()
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
     step(tbatch, gen)
     torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    times, metrics = [], []
-    for _ in range(2):
+    warm["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tmodel = build_model(pcfg, seed=0, device="cuda")
+    tstep = train_lib.make_train_step(pcfg, tmodel, *make_optimizer(pcfg.optimizer, tmodel))
+    tgen = torch.Generator().manual_seed(0)
+    with recorded_bwd_launches(capture=True) as (_, first_bwd):
+        tstep(tbatch, tgen)
+    torch.cuda.synchronize()
+    warm["f"] = time.perf_counter() - t0
+    first_errs["knarpe_attention_bwd"] = check_path_bwd_launch("(f) scaled training step use_pallas=True", first_bwd)
+    del first_bwd
+    bf, knn_train = str(torch.bfloat16), ("knn_xy", n_train, KNN_SRC, KNN_TGT, KNN_K)
+    n_map, n_tl, n_agl = (getattr(pcfg.model, enc).n_layer_tf for enc in ("mp_encoder", "tl_encoder", "ag_encoder"))
+    # B2 at the agent decoder's and posterior agent encoder's shape: the rollout, its recompute and the posterior
+    n_x, n_x_bwd = 2 * n_agl * n_step + n_agl, n_agl * n_step + n_agl
+    arms = {"b": (cfg, model, step, gen, {knn_train: 2 * n_step + 1}, {}),
+            "f": (pcfg, tmodel, tstep, tgen,
+                  {knn_train: 2 * n_step + 1, ("knarpe_attention", bf, *SCALED_TRAIN_ATTN_PATH): n_map,
+                   ("knarpe_cross_attention", bf, *SCALED_TRAIN_X_PATH): n_x,
+                   ("knarpe_cross_attention", bf, *SCALED_POST_TL_X_PATH): n_tl,
+                   ("knarpe_attention_bwd", bf, *SCALED_TRAIN_ATTN_PATH): n_map,
+                   ("knarpe_cross_attention_bwd", bf, *SCALED_TRAIN_X_PATH): n_x_bwd,
+                   ("knarpe_cross_attention_bwd", bf, *SCALED_POST_TL_X_PATH): n_tl},
+                  {"knarpe_attention/heads": n_map, "knarpe_attention_bwd/heads": n_map,
+                   "knarpe_cross_attention/cluster": n_x + n_tl, "knarpe_cross_attention_bwd/general": n_x_bwd + n_tl})}
+    times, peaks, metrics, counts, routes, step_shapes = {}, {}, {}, {}, {}, {}
+    for arm in "bffb":
+        acfg, amodel, astep, agen, want_shapes, want_routes = arms[arm]
+        where = f"scaled training step use_pallas={acfg.model.tf_cfg.use_pallas}"
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t1 = time.perf_counter()
-        with recorded_launch_shapes() as shapes:
-            m = step(tbatch, gen)
+        with recorded_launch_shapes() as shapes, recorded_bwd_launches() as (bwd_shapes, _):
+            m = astep(tbatch, agen)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-        metrics.append({key: float(v) for key, v in m.items()})
-        check_scaled_shapes("scaled training step", shapes,
-                            {("knn_xy", n_train, KNN_SRC, KNN_TGT, KNN_K): 2 * n_step + 1})
+        times.setdefault(arm, []).append(time.perf_counter() - t1)
+        peaks[arm] = max(peaks.get(arm, 0.0), peak_gib())
+        metrics.setdefault(arm, []).append({key: float(v) for key, v in m.items()})
+        step_shapes[arm] = shapes + bwd_shapes
+        check_scaled_shapes(where, step_shapes[arm], want_shapes)
+        counts[arm], routes[arm] = launches(), dict(knarpe.ROUTE_LAUNCHES)
+        by_route = {key: want_routes.get(key, 0) for key in routes[arm]}
+        if counts[arm] != expected_train_launches(acfg) or routes[arm] != by_route:
+            raise AssertionError(f"{where}: launches {counts[arm]}, by route {routes[arm]}, expected "
+                                 f"{expected_train_launches(acfg)}, by route {by_route}")
         # every parameter has a finite gradient, non-zero but for the action head's log_std: with deterministic
         # training actions the loss reads the action distribution's mean only (JAX's gradient there is 0 too)
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        grads = {n: p.grad for n, p in amodel.named_parameters()}
         bad = [n for n, g in grads.items() if g is None or not bool(torch.isfinite(g).all())]
         zero = [n for n, g in grads.items() if n not in bad and not bool(g.any())]
-        unread = [n for n in zero if cfg.training_deterministic_action and n.startswith("action_head.log_std")]
+        unread = [n for n in zero if acfg.training_deterministic_action and n.startswith("action_head.log_std")]
         if bad or zero != unread:
-            raise AssertionError(f"scaled training step: parameters without a finite gradient {bad[:8]}, with a zero "
-                                 f"one {zero[:8]}")
-    train_counts, train_peak = launches(), peak_gib()
-    if train_counts != expected_train_launches(cfg):
-        raise AssertionError(f"scaled training step: launches {train_counts}, expected {expected_train_launches(cfg)}")
-    if not all(math.isfinite(mm["training/loss"]) and math.isfinite(mm["grad_norm"]) and mm["grad_norm"] > 0
-               for mm in metrics):
-        raise AssertionError(f"scaled training step: metrics {metrics}")
-    train_s = float(np.median(times))
-    log(f"  (b) scaled_config use_pallas=False training step, batch {n_train}: warm-up {t_warm:.3f} s, seconds per "
-        f"step {[round(t, 4) for t in times]} (median {train_s:.4f} s), {n_train / train_s:.4f} train samples/s, "
-        f"peak memory {train_peak:.2f} GiB, losses {[round(mm['training/loss'], 4) for mm in metrics]}, grad_norm "
-        f"{[round(mm['grad_norm'], 4) for mm in metrics]}, all {len(grads)} parameters with a finite, non-zero "
-        f"gradient but the {len(unread)} log_std the loss does not read; launches per step {train_counts} (B1 all "
-        f"at {[n_train, *knn_eval[2:]]}) [{card}]")
+            raise AssertionError(f"{where}: parameters without a finite gradient {bad[:8]}, with a zero one "
+                                 f"{zero[:8]}")
+        if not all(math.isfinite(mm["training/loss"]) and math.isfinite(mm["grad_norm"]) and mm["grad_norm"] > 0
+                   for mm in metrics[arm]):
+            raise AssertionError(f"{where}: metrics {metrics[arm]}")
+    train_counts, train_pallas_counts = counts["b"], counts["f"]
+    train_s, train_pallas_s = (float(np.median(times[arm])) for arm in "bf")
+    for arm, what in (("b", "(b) scaled_config use_pallas=False"), ("f", "(f) scaled_config use_pallas=True")):
+        log(f"  {what} training step, batch {n_train}: warm-up {warm[arm]:.3f} s, seconds per step "
+            f"{[round(t, 4) for t in times[arm]]} (median {float(np.median(times[arm])):.4f} s), "
+            f"{n_train / float(np.median(times[arm])):.4f} train samples/s, peak memory {peaks[arm]:.2f} GiB, losses "
+            f"{[round(mm['training/loss'], 4) for mm in metrics[arm]]}, grad_norm "
+            f"{[round(mm['grad_norm'], 4) for mm in metrics[arm]]}, all {len(grads)} parameters with a finite, "
+            f"non-zero gradient but the {len(unread)} log_std the loss does not read; launches per step {counts[arm]}, "
+            f"by route { {key: n for key, n in routes[arm].items() if n} }, by full shape {dict(step_shapes[arm])} "
+            f"(each checked in phase 3) [{card}]")
+    log(f"  (f) against (b), in turns b f f b: median {train_pallas_s:.4f} s against {train_s:.4f} s per step "
+        f"({train_pallas_s - train_s:+.4f} s), peak memory {peaks['f']:.2f} against {peaks['b']:.2f} GiB")
+    del tmodel, tstep, arms
 
     # (c) the validation step
     t0 = time.perf_counter()
@@ -2186,8 +2330,9 @@ def run_scaled_phase(card: str) -> dict:
     log(f"  (e) phase-4 config at {SCALED_CHECK_END} steps against 31 logged, card vs CPU: "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"  phase 13 {time.perf_counter() - t_phase:.1f} s [{card}]")
-    return {"eval": eval_counts, "train": train_counts, "validate": val_counts,
-            "eval_use_pallas": pallas_counts}, first_errs
+    return ({"eval": eval_counts, "train": train_counts, "validate": val_counts, "eval_use_pallas": pallas_counts,
+             "train_use_pallas": train_pallas_counts}, first_errs,
+            {"train_use_pallas": {"by_route": routes["f"], "by_shape": step_shapes["f"]}})
 
 
 def main() -> int:
@@ -2247,9 +2392,9 @@ def main() -> int:
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    log("[13/13] the scaled preset at full width: eval, training, validation, eval through the kernels (B4 heads, "
-        "B2 cluster route); the TL pass past the log, card vs CPU")
-    scaled_counts, first_errs = run_scaled_phase(card)
+    log("[13/13] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
+        "(B4 and B4-bwd heads, B2 cluster, B2-bwd general route); the TL pass past the log, card vs CPU")
+    scaled_counts, first_errs, scaled_train = run_scaled_phase(card)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -2259,6 +2404,7 @@ def main() -> int:
         # per call or step of phase 13's paths at scaled_config(): eval (a), training (b), validation (c), and the
         # eval call through the kernels (d), whose B4 launches all take the heads route and B2's the cluster route
         row["scaled_launches"] = {path: counts_[row["name"]] for path, counts_ in scaled_counts.items()}
+        row["scaled_train_use_pallas_by_route"] = by_route(scaled_train["train_use_pallas"]["by_route"], row["name"])
     for row, key in ((rows[1], "heads_route"), (rows[2], "cluster_route")):  # launches per (d) call, (d)'s first
         row[key].update(launches=scaled_counts["eval_use_pallas"][row["name"]],  # launch's error
                         path_launch_max_abs_err=first_errs[row["name"]])
@@ -2274,9 +2420,22 @@ def main() -> int:
         row["launches"] = train_counts[row["name"]]
         row["fit_launches"] = fit_counts[row["name"]]
         row["scaled_launches"] = {path: counts_[row["name"]] for path, counts_ in scaled_counts.items()}
+        row["scaled_train_use_pallas_by_route"] = by_route(scaled_train["train_use_pallas"]["by_route"], row["name"])
         row["launches_by_route"] = by_route(train_routes, row["name"])
         if row["name"] == "knarpe_cross_attention_bwd":  # of the 368, per step
-            row["post_tl_shape"]["launches"] = train_bwd_shapes[("knarpe_cross_attention", *POST_TL_X_PATH[2:])]
+            row["post_tl_shape"]["launches"] = train_bwd_shapes[("knarpe_cross_attention_bwd", str(torch.bfloat16),
+                                                                 *POST_TL_X_PATH)]
+    # per (f) step, by full shape: the scaled training path's launches of each row timed at its shapes; B4-bwd's heads
+    # route with the error of (f)'s first B4 backward launch
+    by_shape, bf = scaled_train["train_use_pallas"]["by_shape"], str(torch.bfloat16)
+    for part, kernel, shape in (
+            (rows[1]["heads_route"]["scaled_training_shape"], "knarpe_attention", SCALED_TRAIN_ATTN_PATH),
+            (rows[2]["cluster_route"]["scaled_training_shape"], "knarpe_cross_attention", SCALED_TRAIN_X_PATH),
+            (bwd_rows[1]["scaled_training_shape"], "knarpe_cross_attention_bwd", SCALED_TRAIN_X_PATH),
+            (bwd_rows[1]["scaled_post_tl_shape"], "knarpe_cross_attention_bwd", SCALED_POST_TL_X_PATH)):
+        part["launches"] = by_shape[(kernel, bf, *shape)]
+    bwd_rows[0]["heads_route"].update(launches=scaled_counts["train_use_pallas"]["knarpe_attention_bwd"],
+                                      path_launch_max_abs_err=first_errs["knarpe_attention_bwd"])
     rows += bwd_rows
     for row in rows:
         for key, val in row.items():

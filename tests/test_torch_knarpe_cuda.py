@@ -64,8 +64,17 @@ at its eval and training shapes, K=5, K=24 and K=40, the largest it takes, at 97
 sources, a single source and 8 x 1024 + 7 sources, k and v the halves of one tensor
 and two tensors), the route named and counted, two launches bit-identical; K=89
 there (its shared memory) and eight heads at other widths take the general kernel,
-by the heads kernel's code.
+by the heads kernel's code. Their backward takes the heads backward
+(csrc/knarpe_attn_bwd_heads.cuh) at the scaled training shape, K=5, K=24 and K=40
+(the largest it takes) at 97 sources, a single source and 8 x 1024 + 7 sources, k
+and v the halves of one tensor and two tensors, against autograd of the plain
+version at the bf16 tolerance above, the route named and counted, two launches
+bit-identical; K=48 (its shared memory), K=89 (over its softmax's 64) and eight
+heads at other widths take the general backward, by its code, and an operand off
+a 16-byte boundary or k/v rows 8 bytes off a multiple of 16 apart raise.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -679,14 +688,14 @@ def test_heads_attention_matches_plain_version_on_card(shape, halves):
     """bf16 B4 where the staged kernel refuses the shape (more than 4 heads, code 3) and the heads kernel takes it:
     the heads route, named and counted, within the bf16 tolerance of the float32 plain version on the same
     bf16-valued inputs, the all-invalid source zero, two launches bit-identical (no atomics); float32 at the same
-    shape takes the general kernel, the backward the general backward."""
+    shape takes the general kernel; the bf16 backward the heads backward."""
     _need_card()
     dev, n_head = torch.cuda.current_device(), shape[-1]
     assert knarpe.staged_refusal("knarpe_attention", *shape[2:], dev) == 3
     assert knarpe.heads_refusal(*shape[2:], dev) == 0
     assert knarpe.route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "heads"
     assert knarpe.route("knarpe_attention", torch.float32, *shape[2:], dev) == "general"
-    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "general"
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "heads"
     a16 = _cast(_inputs(shape, False, seed=sum(shape) + 7), torch.bfloat16)
     if halves:
         a16 = _as_halves(a16)
@@ -738,3 +747,123 @@ def test_heads_attention_raises_for_misaligned_operands(fault):
     with pytest.raises(ValueError, match=match):
         knarpe.knarpe_attention(q, k, v, rpe, inv, w, b, n_head)
     assert _heads_counts() == counts
+
+
+# bf16 B4-bwd on the heads backward (csrc/knarpe_attn_bwd_heads.cuh): the scaled preset's training shape, K=5, K=24 and
+# K=40 (the largest its shared memory takes) at 97 sources, a single source and 8 x 1024 + 7 sources
+HEADS_ATTN_BWD_SHAPES = [(1, 1024, 32, 256, 256, 8), (1, 97, 5, 256, 256, 8), (1, 97, 24, 256, 256, 8),
+                         (1, 97, 40, 256, 256, 8), (1, 1, 32, 256, 256, 8), (1, 8199, 32, 256, 256, 8)]
+# bf16 B4-bwd shapes the heads backward refuses too, with its code: K=48 at D=R=256, 8 heads (its shared memory), K=89
+# there (over its softmax's 64), and ATTN_GENERAL_SHAPES' eight heads at other widths (widths it is not compiled for)
+HEADS_BWD_GENERAL_SHAPES = [((1, 33, 48, 256, 256, 8), 3), ((1, 33, 89, 256, 256, 8), 1),
+                            (ATTN_GENERAL_SHAPES[2][0], 2)]
+
+
+def _bwd_heads_counts():
+    return (knarpe.LAUNCHES["knarpe_attention_bwd"],
+            *(knarpe.ROUTE_LAUNCHES[f"knarpe_attention_bwd/{way}"] for way in ("staged", "heads", "general")))
+
+
+def _check_attn_bwd(shape, want_route, halves):
+    """bf16 B4-bwd on want_route against the float32 plain backward on the same bf16-valued inputs (2^-8 of each
+    value plus 1e-4 of each gradient's largest), the route counted, the all-invalid source's dq, dk, dv and drpe
+    zero, two launches bit-identical."""
+    n_head = shape[-1]
+    a16 = _cast(_inputs(shape, False, seed=sum(shape) + 9), torch.bfloat16)
+    if halves:
+        a16 = _as_halves(a16)
+    g16 = torch.from_numpy(np.random.default_rng(sum(shape) + 2).normal(size=a16[0].shape).astype(np.float32))
+    g16 = g16.cuda().to(torch.bfloat16)
+    n, staged, heads, general = _bwd_heads_counts()
+    got16 = _attn_grads(a16, g16, n_head, halves)
+    assert _bwd_heads_counts() == ((n + 1, staged, heads + 1, general) if want_route == "heads"
+                                   else (n + 1, staged, heads, general + 1))
+    want32 = _plain_grads("knarpe_attention", _cast(a16, torch.float32), g16.float(), n_head)
+    for a, b in zip(got16, want32):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        tol = 2.0 ** -8 * b.abs() + 1e-4 * float(b.abs().max())
+        assert bool(((a.float() - b).abs() <= tol).all())
+    assert all(torch.all(x[0, 0] == 0) for x in got16[:4])
+    assert all(torch.equal(a, b) for a, b in zip(_attn_grads(a16, g16, n_head, halves), got16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halves", [True, False], ids=["kv_halves", "kv_separate"])
+@pytest.mark.parametrize("shape", HEADS_ATTN_BWD_SHAPES)
+def test_heads_attention_backward_matches_plain_autograd_on_card(shape, halves):
+    """bf16 B4-bwd where the staged backward refuses the shape (more than 4 heads, code 3) and the heads backward takes
+    it: the heads route, named and counted, within the bf16 tolerance of autograd of the float32 plain version; float32
+    takes the general backward."""
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert knarpe.attn_bwd_staged_refusal(*shape[2:], dev) == 3
+    assert knarpe.attn_bwd_heads_refusal(*shape[2:], dev) == 0
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "heads"
+    assert knarpe.bwd_route("knarpe_attention", torch.float32, *shape[2:], dev) == "general"
+    _check_attn_bwd(shape, "heads", halves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,code", HEADS_BWD_GENERAL_SHAPES)
+def test_bf16_attention_backward_shapes_the_heads_kernel_refuses_take_the_general_route(shape, code):
+    """bf16 B4-bwd where the staged and heads backwards both refuse: the general route, by the heads backward's code,
+    within the bf16 tolerance, two launches bit-identical."""
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert knarpe.attn_bwd_staged_refusal(*shape[2:], dev) == 3
+    assert knarpe.attn_bwd_heads_refusal(*shape[2:], dev) == code
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, *shape[2:], dev) == "general"
+    _check_attn_bwd(shape, "general", halves=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["misaligned_rpe", "kv_stride_off_16_bytes"])
+def test_heads_attention_backward_raises_for_misaligned_operands(fault):
+    """At a shape the heads backward takes, an operand off a 16-byte boundary, or k and v rows 8 bytes off a multiple
+    of 16 bytes apart, raises before any launch; it does not slide onto the general kernel."""
+    _need_card()
+    shape = HEADS_ATTN_BWD_SHAPES[1]
+    n_b, n_s, n_knn, d, _, n_head = shape
+    (q, k, v, rpe, inv, w, b), g = _grad_case("knarpe_attention", shape, torch.bfloat16)
+    if fault == "misaligned_rpe":
+        buf = torch.empty(rpe.numel() + 1, dtype=torch.bfloat16, device="cuda")
+        buf[1:] = rpe.reshape(-1)
+        rpe, match = buf[1:].view(rpe.shape), "16-byte aligned"
+    else:
+        buf = torch.zeros(n_b, n_s, n_knn, 2 * d + 4, dtype=torch.bfloat16, device="cuda")
+        buf[..., :d], buf[..., d:2 * d] = k, v
+        k, v, match = buf[..., :d], buf[..., d:2 * d], "multiple of 16 bytes"
+    counts = _bwd_heads_counts()
+    with pytest.raises(ValueError, match=f"the heads bf16 kernel .*{match}"):
+        knarpe._launch_bwd("knarpe_attention", q, k, v, None, rpe, inv, None, w, b, g, n_head)
+    assert _bwd_heads_counts() == counts
+
+
+@pytest.mark.cuda
+def test_launches_from_a_thread_without_a_current_context():
+    """A launch that encodes tensor maps from a thread that has issued no CUDA call yet, as autograd's worker thread
+    does for the first backward launch, succeeds: the heads B4 forward and backward, each the first CUDA call of a
+    fresh thread, give the same bits as from this thread (without a context cuTensorMapEncodeTiled refuses)."""
+    _need_card()
+    shape = HEADS_ATTN_BWD_SHAPES[1]
+    n_head = shape[-1]
+    (q, k, v, rpe, inv, w, b), g = _grad_case("knarpe_attention", shape, torch.bfloat16)
+    fwd = lambda: knarpe._launch("knarpe_attention", q, k, v, None, rpe, inv, None, w, b, n_head)
+    bwd = lambda: knarpe._launch_bwd("knarpe_attention", q, k, v, None, rpe, inv, None, w, b, g, n_head)
+    got = {}
+
+    def in_thread(name, fn):
+        try:
+            got[name] = fn()
+            torch.cuda.synchronize()
+        except Exception as exc:  # re-raised below, on the test's thread
+            got[name] = exc
+
+    for name, fn in (("fwd", fwd), ("bwd", bwd)):
+        worker = threading.Thread(target=in_thread, args=(name, fn))
+        worker.start()
+        worker.join()
+        if isinstance(got[name], Exception):
+            raise got[name]
+    assert torch.equal(got["fwd"], fwd())
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got["bwd"], bwd()))

@@ -265,3 +265,87 @@ def test_launch_bwd_raises_for_misaligned_bf16_attention_operands_on_the_staged_
         monkeypatch.setattr(knarpe, "load_bwd_library", no_card)
         with pytest.raises(RuntimeError, match="no card"):
             call()
+
+
+def _fake_attn_bwd_heads_route(monkeypatch, code):
+    """Fake the built library's answers for B4-bwd at the scaled preset's widths: the staged backward refuses (more
+    than 4 heads, code 3), the heads backward answers `code` (`attn_bwd_heads_refusal`); -> its calls, in order."""
+    _fake_attn_bwd_route(monkeypatch, [3])
+    asked = []
+
+    def answer(n_knn, d_model, d_rpe, n_head, device_index):
+        asked.append((n_knn, d_model, d_rpe, n_head, device_index))
+        return code
+
+    monkeypatch.setattr(knarpe, "attn_bwd_heads_refusal", answer)
+    return asked
+
+
+def test_bwd_route_sends_bf16_attention_at_the_scaled_widths_to_the_heads_kernel(monkeypatch):
+    """bf16 B4-bwd at D=R=256 with 8 heads, which the staged backward refuses, takes the heads kernel where the
+    built library's answer is 0, asked from the shape alone; float32 takes the general kernel without asking."""
+    asked = _fake_attn_bwd_heads_route(monkeypatch, 0)
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 32, 256, 256, 8, 0) == "heads"
+    assert asked == [(32, 256, 256, 8, 0)]
+    asked.clear()
+    assert knarpe.bwd_route("knarpe_attention", torch.float32, 32, 256, 256, 8, 0) == "general"
+    assert asked == []
+
+
+@pytest.mark.parametrize("code", sorted(knarpe.ATTN_BWD_HEADS_REFUSALS))
+def test_bwd_route_sends_each_heads_refusal_to_the_general_kernel(code, monkeypatch):
+    """Every refusal code of the heads backward sends bf16 B4-bwd to the general kernel; eight heads at other widths
+    take the general kernel without asking the heads backward (it is compiled for D=R=256 with 8 heads only); B2's
+    backward at the scaled widths never asks it."""
+    asked = _fake_attn_bwd_heads_route(monkeypatch, code)
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 48, 256, 256, 8, 0) == "general"
+    assert asked == [(48, 256, 256, 8, 0)]
+    asked.clear()
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 89, 32, 16, 8, 0) == "general"
+    _fake_bwd_route(monkeypatch, [3])
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 89, 256, 256, 8, 0) == "general"
+    assert asked == []
+
+
+def test_attention_bwd_heads_refusals_name_each_code():
+    """One text per refusal code of `heads_attn_bwd::refusal` (1-3) and the plan's no-fit (4), each its own, and the
+    route counted under its own key."""
+    texts = knarpe.ATTN_BWD_HEADS_REFUSALS
+    assert sorted(texts) == [1, 2, 3, 4]
+    assert len(set(texts.values())) == len(texts) and all(texts.values())
+    assert "64" in texts[1] and "256" in texts[2] and "shared memory" in texts[3] and "multiprocessor" in texts[4]
+    assert knarpe.ROUTE_LAUNCHES["knarpe_attention_bwd/heads"] >= 0
+
+
+@pytest.mark.parametrize("route_code", [0, 3])
+@pytest.mark.parametrize("misalign,match", [("q", "16-byte aligned"), ("ld_kv", "multiple of 16 bytes")])
+def test_launch_bwd_raises_for_misaligned_bf16_attention_operands_on_the_heads_route(misalign, match, route_code,
+                                                                                     monkeypatch):
+    """At a shape the heads B4 backward takes (D=R=256, 8 heads), an operand off a 16-byte boundary or k/v rows 8
+    bytes off a multiple of 16 bytes apart raise before any launch, naming the route; where it refuses the shape, the
+    general route has neither check, and the launch itself needs the card."""
+    _fake_attn_bwd_heads_route(monkeypatch, route_code)
+    d, r, n_head = 256, 256, 8
+    rng = np.random.default_rng(9)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+    q, rpe, w, b, g = f(1, 3, d), f(1, 3, 5, r), f(r, 2 * d), f(2 * d), f(1, 3, d)
+    inv = torch.zeros(1, 3, 5, dtype=torch.bool)
+    if misalign == "q":  # the same values one element into a buffer: contiguous, 2 bytes off a 16-byte boundary
+        buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+        buf[1:] = q.reshape(-1)
+        q = buf[1:].view(q.shape)
+        k, v = f(1, 3, 5, 2 * d).chunk(2, -1)
+    else:  # k and v rows of a [.., 2D + 4] buffer: 8 bytes off a multiple of 16 apart
+        buf = f(1, 3, 5, 2 * d + 4)
+        k, v = buf[..., :d], buf[..., d:2 * d]
+    call = lambda: knarpe._launch_bwd("knarpe_attention", q, k, v, None, rpe, inv, None, w, b, g, n_head)
+    if route_code == 0:
+        with pytest.raises(ValueError, match=f"the heads bf16 kernel .*{match}"):
+            call()
+    else:
+        def no_card():
+            raise RuntimeError("no card")
+
+        monkeypatch.setattr(knarpe, "load_bwd_library", no_card)
+        with pytest.raises(RuntimeError, match="no card"):
+            call()

@@ -1065,6 +1065,10 @@ extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, 
                              const void* tgt, const void* rpe, const void* invalid, const void* w_kv,
                              const void* w_rpe, const void* bias, void* out, int n_src, int n_knn, int d_model,
                              int d_tgt, int d_rpe, int n_head, float scale, int dev, void* stream) {
+  // a calling thread with no current context yet (an autograd worker that has issued no CUDA call) gets the
+  // device's: cuTensorMapEncodeTiled, which encodes the tensor maps, refuses to run without one
+  const cudaError_t set = cudaSetDevice(dev);
+  if (set != cudaSuccess) return static_cast<int>(set);
   Params p{};
   p.q = q; p.k = k; p.v = v; p.ld_kv = ld_kv; p.tgt = tgt; p.rpe = rpe;
   p.invalid = static_cast<const uint8_t*>(invalid);

@@ -42,7 +42,11 @@
 // warps, every product on the tensor cores, dk/dv/drpe written as full lines)
 // wherever it takes the shape (knarpe_bwd_staged_route's code 0 in mode 0: up
 // to 4 heads, D and R multiples of 16, K up to 128, four stages within the
-// block's shared memory). bf16 B2-bwd (B3's too) runs its per-source step on the staged
+// block's shared memory); at the scaled preset's D = R = 256 with 8 heads
+// (K <= 40), which it refuses, on the heads kernel of knarpe_attn_bwd_heads.cuh
+// (four blocks a source, each on two heads with its quarter of W_rpe, and a
+// second pass that sums drpe over the four; knarpe_attn_bwd_heads_route's code
+// 0). bf16 B2-bwd (B3's too) runs its per-source step on the staged
 // kernel of knarpe_bwd_staged.cuh (each source staged in shared memory by bulk
 // copies and read from device memory once, every product on the tensor cores;
 // its header says how) wherever that kernel takes the shape
@@ -65,6 +69,7 @@
 #include <vector>
 
 #include "knarpe_attn_bwd_staged.cuh"
+#include "knarpe_attn_bwd_heads.cuh"
 #include "knarpe_bwd_staged.cuh"
 
 namespace {
@@ -852,12 +857,124 @@ int attn_staged_launch(const Params& g, void* dw_rpe, void* db, float* partial, 
   return wgrad_launch<bf16>(g, H, nullptr, dw_rpe, db, partial, n_chunks, stream);
 }
 
-// bf16 B4-bwd: the staged kernel where it takes the shape, else the general kernel above.
+// The heads B4 backward's plan per (device, K): its refusal code (heads_attn_bwd::refusal; 0 = taken, 4 = no block
+// fits an SM), layout, the slots of four blocks (one per quarter of the heads) resident on the device, and the SMs.
+struct AttnHeadsPlan {
+  int dev, n_knn, refused, n_sm;
+  heads_attn_bwd::Layout L;
+  long long slots;
+};
+
+int make_attn_heads_plan(AttnHeadsPlan& pl) {
+  int max_smem = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&pl.n_sm, cudaDevAttrMultiProcessorCount, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int W = heads_attn_bwd::kWidth;
+  pl.refused = heads_attn_bwd::refusal(pl.n_knn, W, W, heads_attn_bwd::kHeads, static_cast<size_t>(max_smem));
+  if (pl.refused) return 0;
+  pl.L = heads_attn_bwd::make_layout(pl.n_knn, heads_attn_bwd::group_count(pl.n_knn, static_cast<size_t>(max_smem)));
+  auto kern = heads_attn_bwd::knarpe_attn_bwd_heads_kernel;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, heads_attn_bwd::kGroupThreads * pl.L.n_groups,
+                                                      pl.L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.slots = static_cast<long long>(per_sm) * pl.n_sm / heads_attn_bwd::kSplit;
+  if (pl.slots < 1) pl.refused = 4;
+  return 0;
+}
+
+int attn_heads_plan(int dev, int K, AttnHeadsPlan* out) {
+  static std::mutex mu;
+  static std::vector<AttnHeadsPlan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const AttnHeadsPlan& c : plans) {
+    if (c.dev == dev && c.n_knn == K) {
+      *out = c;
+      return 0;
+    }
+  }
+  AttnHeadsPlan pl{};
+  pl.dev = dev; pl.n_knn = K;
+  const int rc = make_attn_heads_plan(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+// The heads B4 backward's code for a bf16 B4 backward shape: 0 if it takes the shape, else heads_attn_bwd::refusal's
+// code (2 for widths it is not compiled for, without asking the device; 4: no block fits an SM), or minus a CUDA error.
+int attn_heads_code(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  const int code = heads_attn_bwd::refusal(n_knn, d_model, d_rpe, n_head, SIZE_MAX);
+  if (code != 0) return code;
+  AttnHeadsPlan pl{};
+  const int rc = attn_heads_plan(dev, n_knn, &pl);
+  return rc != 0 ? -rc : pl.refused;
+}
+
+// Launches the heads B4 backward, its drpe pass, then the weight-gradient passes, at a shape attn_heads_code takes;
+// an operand or output that is not 16-byte aligned, or a k/v row stride that is no multiple of 16 bytes (the tensor
+// copies and the 16-byte stores need both), is cudaErrorInvalidValue. drpe's factors go into pbuf past its
+// [n_src, 2, H, R + 1] rows: the caller gives pbuf heads_attn_bwd::fac_floats(K) more floats a source.
+int attn_heads_launch(const Params& g, void* dw_rpe, void* db, float* partial, int n_chunks, int dev,
+                      cudaStream_t stream) {
+  AttnHeadsPlan pl{};
+  const int rc = attn_heads_plan(dev, g.n_knn, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused || (g.ld_kv * 2) % 16 ||
+      !(aligned16(g.q) && aligned16(g.g) && aligned16(g.k) && aligned16(g.v) && aligned16(g.rpe) &&
+        aligned16(g.w_rpe) && aligned16(g.bias) && aligned16(g.dk) && aligned16(g.dv) && aligned16(g.drpe)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  constexpr int D = heads_attn_bwd::kWidth;
+  heads_attn_bwd::Params p{};
+  p.q = static_cast<const bf16*>(g.q);
+  p.g = static_cast<const bf16*>(g.g);
+  p.w_rpe = static_cast<const bf16*>(g.w_rpe);
+  p.bias = static_cast<const bf16*>(g.bias);
+  p.invalid = g.invalid;
+  p.dq = static_cast<bf16*>(g.dq);
+  p.dk = static_cast<bf16*>(g.dk);
+  p.dv = static_cast<bf16*>(g.dv);
+  p.pbuf = g.pbuf;
+  p.fac = g.pbuf + static_cast<size_t>(g.n_src) * 2 * heads_attn_bwd::kHeads * heads_attn_bwd::kR1;
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.scale = g.scale;
+  p.L = pl.L;
+  const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
+  int enc = staged::encode_rows(&p.tm_k, g.k, n_rows, D, g.ld_kv, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_v, g.v, n_rows, D, g.ld_kv, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, D, D, g.n_knn);
+  if (enc != 0) return enc;
+  const long long n_slots = g.n_src < pl.slots ? g.n_src : pl.slots;
+  const int grid = static_cast<int>(heads_attn_bwd::kSplit * n_slots);
+  heads_attn_bwd::knarpe_attn_bwd_heads_kernel<<<grid, heads_attn_bwd::kGroupThreads * p.L.n_groups, p.L.total,
+                                                 stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int drpe_grid = g.n_src < 8 * pl.n_sm ? g.n_src : 8 * pl.n_sm;
+  heads_attn_bwd::knarpe_attn_bwd_heads_drpe<<<drpe_grid, heads_attn_bwd::kDrpeThreads, 0, stream>>>(
+      p.fac, static_cast<bf16*>(g.drpe), g.n_src, g.n_knn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return wgrad_launch<bf16>(g, heads_attn_bwd::kHeads, nullptr, dw_rpe, db, partial, n_chunks, stream);
+}
+
+// bf16 B4-bwd: the staged kernel where it takes the shape; else the heads kernel where it takes the shape; else the
+// general kernel above.
 int bf16_attn(const Params& p, int n_head, void* dw_rpe, void* db, float* partial, int n_chunks, int dev,
               cudaStream_t stream) {
   const int code = attn_staged_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
   if (code < 0) return code == -1 ? static_cast<int>(cudaErrorInvalidValue) : -code;
-  if (code != 0) return by_heads<__nv_bfloat16, kAttn>(p, n_head, nullptr, dw_rpe, db, partial, n_chunks, dev, stream);
+  if (code != 0) {
+    const int heads = attn_heads_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
+    if (heads < 0) return -heads;
+    if (heads == 0) return attn_heads_launch(p, dw_rpe, db, partial, n_chunks, dev, stream);
+    return by_heads<__nv_bfloat16, kAttn>(p, n_head, nullptr, dw_rpe, db, partial, n_chunks, dev, stream);
+  }
   switch (n_head) {
     case 1: return attn_staged_launch<1>(p, dw_rpe, db, partial, n_chunks, dev, stream);
     case 2: return attn_staged_launch<2>(p, dw_rpe, db, partial, n_chunks, dev, stream);
@@ -871,12 +988,15 @@ int bf16_attn(const Params& p, int n_head, void* dw_rpe, void* db, float* partia
 // for every operand and gradient. B4 (mode 0) reads k/v rows of D elements at stride
 // ld_kv, writes dk/dv [n_src * K, D] and no dtgt / dw_kv (d_tgt = 0); B2 (mode 1) reads
 // tgt and w_kv and writes dtgt and dw_kv. pbuf is float32 scratch [n_src, 2, H, X + 1],
-// partial float32 scratch [n_chunks, X + 1, 2D] (X = d_tgt + d_rpe); n_chunks >= 1 and
+// partial float32 scratch [n_chunks, X + 1, 2D] (X = d_tgt + d_rpe); a bf16 B4 launch at a shape
+// knarpe_attn_bwd_heads_route takes needs pbuf n_src * (K * 16 + 16 * R) floats longer (the
+// drpe factors of knarpe_attn_bwd_heads.cuh); n_chunks >= 1 and
 // n_src >= 1. n_head in {1, 2, 4, 8}, d_model even and divisible by n_head (checked by
 // the Python wrapper). dev is the current device, which owns the tensors and the
-// stream. bf16 B2 at a shape the staged kernel takes needs 16-byte aligned
+// stream. bf16 B2 and B4 at a shape the staged or heads kernel takes need 16-byte aligned
 // operands and outputs (checked by the Python wrapper, which also names the
-// route: knarpe_bwd_staged_route). Three kernels are queued on the stream;
+// route: knarpe_bwd_staged_route, then knarpe_attn_bwd_heads_route). Three kernels are queued on
+// the stream (four on the heads route: its drpe pass);
 // returns cudaGetLastError(), or cudaErrorInvalidValue for a launch no kernel takes.
 extern "C" int knarpe_bwd_launch(int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
                                  const void* tgt, const void* rpe, const void* invalid, const void* w_kv,
@@ -884,6 +1004,10 @@ extern "C" int knarpe_bwd_launch(int mode, int dtype, const void* q, const void*
                                  void* dtgt, void* drpe, void* dw_kv, void* dw_rpe, void* db, void* pbuf,
                                  void* partial, int n_src, int n_knn, int d_model, int d_tgt, int d_rpe,
                                  int n_head, float scale, int n_chunks, int dev, void* stream) {
+  // a calling thread with no current context yet (an autograd worker that has issued no CUDA call) gets the
+  // device's: cuTensorMapEncodeTiled, which encodes the tensor maps, refuses to run without one
+  const cudaError_t set = cudaSetDevice(dev);
+  if (set != cudaSuccess) return static_cast<int>(set);
   Params p{};
   p.q = q; p.k = k; p.v = v; p.ld_kv = ld_kv; p.tgt = tgt; p.rpe = rpe;
   p.invalid = static_cast<const uint8_t*>(invalid);
@@ -912,4 +1036,14 @@ extern "C" int knarpe_bwd_staged_route(int mode, int dtype, int n_knn, int d_mod
   if (mode == kAttn) return attn_staged_code(n_knn, d_model, d_rpe, n_head, dev);
   if (mode != kCross) return -1;
   return staged_code(n_knn, d_model, d_rpe, n_head, dev);
+}
+
+// Whether the heads kernel of knarpe_attn_bwd_heads.cuh takes a bf16 B4 backward at this shape on device dev, given
+// 16-byte aligned operands and outputs and a k/v row stride that is a multiple of 16 bytes: 0 if it does, else
+// heads_attn_bwd::refusal's code (2: widths other than d_model = d_rpe = 256 with 8 heads; 1: K outside [1, 64]; 3:
+// four stages exceed the shared memory; 4: no block fits an SM), or minus a CUDA error. knarpe_bwd_launch runs a
+// bf16 B4 backward that knarpe_bwd_staged_route refuses on the heads kernel where this is 0, and on the general
+// kernel otherwise.
+extern "C" int knarpe_attn_bwd_heads_route(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  return attn_heads_code(n_knn, d_model, d_rpe, n_head, dev);
 }

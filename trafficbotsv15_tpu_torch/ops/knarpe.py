@@ -50,12 +50,17 @@ Each wrapper is a `torch.autograd.Function`: its forward launches the
 forward kernel and its backward the backward kernel of `csrc/knarpe_bwd.cu`,
 which replaces `_bwd_kernel` (B4-bwd) and `_x_bwd_kernel` (B2-bwd; B3's
 backward is B2's, as `pallas_knarpe.py:778-783` has it). The backward also
-takes one of two routes, named by `bwd_route` from the shape alone: "staged"
+takes one of three routes, named by `bwd_route` from the shape alone: "staged"
 for bf16 wherever a staged backward takes the shape
 (`csrc/knarpe_attn_bwd_staged.cuh` for B4, `csrc/knarpe_bwd_staged.cuh` for
-B2 and B3), and "general" (the kernel of `csrc/knarpe_bwd.cu`) for float32
-and the bf16 shapes they refuse (more than 4 heads, K > 128, or a layout
-beyond the block's shared memory), with the same alignment checks. For
+B2 and B3); "heads" for bf16 B4 at the scaled preset's D = R = 256 with 8
+heads (K <= 40), which the staged backward refuses, on
+`csrc/knarpe_attn_bwd_heads.cuh`: four blocks per source, each on two of the
+eight heads with their quarter of W_rpe, and a second pass that sums drpe
+over the four; and "general" (the kernel of `csrc/knarpe_bwd.cu`) for float32
+and the bf16 shapes they refuse (B2 and B3 with more than 4 heads, B4 with
+more than 4 heads at other widths or K > 40 at D = R = 256, K > 128, or a
+layout beyond the block's shared memory), with the same alignment checks. For
 tensors on the CPU both directions take the plain versions (the
 `*_reference` forwards and autograd through them, `*_bwd_reference`); for
 CUDA tensors they launch the kernels or raise; they never fall back.
@@ -82,13 +87,13 @@ _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_atte
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # forward and backward launches by route since the last reset (read by chip_smoke.py); B3's backward
-# counts as B2's; only B2 has the cluster route, only B4 and B3 the heads route
+# counts as B2's; only B2 has the cluster route, only B4, B3 and B4's backward the heads route
 ROUTE_LAUNCHES = {**{f"{kernel}/{route}": 0 for kernel in ("knarpe_attention", "knarpe_cross_attention",
                                                            "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                                                            "knarpe_cross_attention_bwd")
                      for route in ("staged", "general")},
                   "knarpe_cross_attention/cluster": 0, "knarpe_attention/heads": 0,
-                  "knarpe_cross_attention_v3/heads": 0}
+                  "knarpe_cross_attention_v3/heads": 0, "knarpe_attention_bwd/heads": 0}
 
 _LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
 _BWD_FN = None
@@ -132,6 +137,20 @@ ATTN_BWD_STAGED_REFUSALS = {
        "shared memory per block",
     5: "no block fits a multiprocessor",
 }
+# why the heads bf16 B4 backward (csrc/knarpe_attn_bwd_heads.cuh) refuses a shape, by the code of
+# `knarpe_attn_bwd_heads_route` (`heads_attn_bwd::refusal`); such a shape takes the general kernel
+ATTN_BWD_HEADS_REFUSALS = {
+    1: "K must be in [1, 64]: the softmax keeps each head's K / 32 targets per lane in registers, at most two",
+    2: "d_model = d_rpe = 256 with 8 heads are the only widths the kernel is compiled for",
+    3: "a quarter of the weights, four source stages (one per group of warps) and the groups' scratch exceed the "
+       "device's shared memory per block (K > 40 on an H100)",
+    4: "no block of the four a source takes fits a multiprocessor",
+}
+# the widths the heads kernels are compiled for: d_model, d_rpe, n_head
+HEADS_WIDTHS = (256, 256, 8)
+# floats of drpe's factors per target and per source of the heads B4 backward (`heads_attn_bwd::fac_floats`): F's
+# [scale dl | attn] and G's [u | w] of two heads in each of the four blocks
+HEADS_BWD_FACTORS = 16
 # why the cluster bf16 B2 kernel (csrc/knarpe_cluster.cuh) refuses a shape, by the code of
 # `knarpe_cluster_route` (`cluster_x::refusal`); such a shape takes the general kernel
 CLUSTER_REFUSALS = {
@@ -352,6 +371,8 @@ def load_bwd_library():
         lib = build.load("knarpe_bwd", "knarpe_bwd.cu")
         lib.knarpe_bwd_staged_route.argtypes = [ctypes.c_int] * 7
         lib.knarpe_bwd_staged_route.restype = ctypes.c_int
+        lib.knarpe_attn_bwd_heads_route.argtypes = [ctypes.c_int] * 5
+        lib.knarpe_attn_bwd_heads_route.restype = ctypes.c_int
         _BWD_FN = bind_bwd_launch(lib)
     return _BWD_FN
 
@@ -390,13 +411,33 @@ def attn_bwd_staged_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, d
     return _bwd_route_code("knarpe_attention", n_knn, d_model, d_rpe, n_head, device_index)
 
 
+@functools.lru_cache(maxsize=None)
+def attn_bwd_heads_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the heads B4 backward takes a bf16 B4 backward at this shape on the card, else the built library's
+    refusal code (`ATTN_BWD_HEADS_REFUSALS` says why)."""
+    load_bwd_library()
+    code = build.load("knarpe_bwd", "knarpe_bwd.cu").knarpe_attn_bwd_heads_route(n_knn, d_model, d_rpe, n_head,
+                                                                                device_index)
+    if code < 0:
+        raise RuntimeError(f"knarpe_attention backward: planning a launch (knarpe_attn_bwd_heads_route) failed: "
+                           f"code {code}")
+    return code
+
+
 def bwd_route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
     """The kernel a backward launch takes, from its shape alone: "staged" in bf16 where the staged backward
-    (of B4, or of B2 and B3) takes the shape, else "general" (float32, and the bf16 shapes it refuses)."""
+    (of B4, or of B2 and B3) takes the shape; then for bf16 B4 at `HEADS_WIDTHS` "heads" where the heads
+    backward takes it; else "general" (float32, and the bf16 shapes they refuse)."""
     if dtype != torch.bfloat16:
         return "general"
-    refusal = attn_bwd_staged_refusal if kernel == "knarpe_attention" else bwd_staged_refusal
-    return "staged" if refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0 else "general"
+    if kernel != "knarpe_attention":
+        return "staged" if bwd_staged_refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0 else "general"
+    if attn_bwd_staged_refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0:
+        return "staged"
+    if (d_model, d_rpe, n_head) == HEADS_WIDTHS and attn_bwd_heads_refusal(n_knn, d_model, d_rpe, n_head,
+                                                                           device_index) == 0:
+        return "heads"
+    return "general"
 
 
 def _check_staged_alignment(kernel: str, tensors, ld_kv: int, way: str = "staged") -> None:
@@ -506,8 +547,8 @@ def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_he
     dtype, device = q.dtype, q.device
     _check(kernel, "g", g, (n_b, n_s, d_model), dtype, device)
     way = bwd_route(kernel, dtype, n_knn, d_model, d_rpe, n_head, device.index or 0)
-    if way == "staged":
-        _check_staged_alignment(f"{kernel} backward", (q, k, v, tgt, rpe, w_kv, w_rpe, b, g), ld_kv)
+    if way in ("staged", "heads"):
+        _check_staged_alignment(f"{kernel} backward", (q, k, v, tgt, rpe, w_kv, w_rpe, b, g), ld_kv, way)
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=device)
@@ -524,7 +565,9 @@ def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_he
         return (dq, dk, dv, dtgt, drpe) + tuple(None if t is None else t.zero_() for t in (dw_kv, dw_rpe, db))
     x1 = d_tgt + d_rpe + 1
     n_chunks = bwd_chunks(n_src, x1, d_model, n_head)
-    pbuf = empty(n_src * 2 * n_head * x1, dt=torch.float32)
+    # the heads route also keeps drpe's factors in pbuf, past its rows
+    factors = n_src * HEADS_BWD_FACTORS * (n_knn + d_rpe) if way == "heads" else 0
+    pbuf = empty(n_src * 2 * n_head * x1 + factors, dt=torch.float32)
     partial = empty(n_chunks * x1 * 2 * d_model, dt=torch.float32)
     launch = load_bwd_library()
     with torch.cuda.device(device):
