@@ -13,12 +13,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      the nearest PyTorch call or composition of calls (`library_ms`):
      B1 (`knn_xy`; also at the training path's [8, 64, 1024], the training
      entry point's [2, 64, 1024] and its validation's [4, 64, 1024], the
-     scaled preset's training [1, 64, 1024], all
+     scaled preset's training [1, 64, 1024] (the serving entry point's too), all
      distances tied, k=1, k = n_tgt, n_tgt 1000 and 2048, every
      source invalid; timed at the eval and training shapes), B4 (`knarpe_attention`; in bf16 on
      the staged kernel of csrc/knarpe_attn_staged.cuh, the route asserted,
-     at both paths' shapes and the entry point's 2 x 1024, K=5, K=24, 1, 97
-     and 8 x 1024 + 7 sources and the edge shapes; at the scaled preset's
+     at both paths' shapes, the entry point's 2 x 1024, the serving entry
+     point's 1 x 1024, K=5, K=24, 1, 97 and 8 x 1024 + 7 sources and the edge
+     shapes; at the scaled preset's
      D=R=256 with 8 heads on the heads kernel of csrc/knarpe_attn_heads.cuh
      (asserted; at the eval shape [4, 1024, 32, 256, 256, 8], the training
      shape [1, 1024, 32, 256, 256, 8], K=5, K=24 and K=40 (the largest its
@@ -31,8 +32,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (`knarpe_cross_attention`) and B3 (`knarpe_cross_attention_v3`, which
      only this phase launches); B2 and B3 also at the training path's shapes
      (the agent decoder and posterior agent encoder, the posterior TL encoder
-     at K=24), at the entry point's batch of 2 and its validation's of 4, and
-     timed at the first of them; in bf16 these run on the staged
+     at K=24), at the entry point's batch of 2 and its validation's of 4, B2
+     at the serving entry point's 1 x 64, and timed at the first of them; in bf16 these run on the staged
      kernel of csrc/knarpe_staged.cuh (the route asserted); at the shapes it
      refuses, bf16 B2 at the scaled preset's D=R=256 with 8 heads runs on the
      cluster route (csrc/knarpe_cluster.cuh, asserted; at the eval shape, the
@@ -117,7 +118,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      native realism: one warm-up, 2 timed steps (seconds per step,
      wosac_validate_scenarios_per_sec_per_chip, peak memory), launches per step
      asserted (B1 181, B4 16, B2 728, staged, at shapes phase 3 checked), one
-     more step split by part with the realism part's working set;
+     more step split by part with the realism part's working set; (b) `validate`
+     over one batch of the phase-4 config (2 scenarios with the test split's
+     history keys, scenario ids and scenario bytes) with tests/waymo_stub
+     installed for the call only: the WOSAC pool reports every `wosac/wosac/*`
+     and `wosac/wosac_likelihood/*` key, the stub's metametric as the
+     rollouts' structure gives it;
  10. submission: `test_submission` at `leaderboard_config()` for one test-split
      scenario with K=128 futures: WOMD and WOSAC arrays of the submission's
      shapes, finite, in the global frame; the card's 32 futures equal the CPU's
@@ -186,8 +192,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      (e) the phase-4 config rolled out to 40 steps against its 31 logged:
      the training step's gradients (phase 7's check) and the validation step
      with reactive replay's buffer (phase 9's) card vs CPU. (a)-(d) and (f)
-     log seconds and peak memory.
-Then it prints the `kernels` JSON line (forward launches from phase 6 and, as
+     log seconds and peak memory;
+ 14. the serving entry point (`serve.py::InteractiveSimulator`) at
+     `leaderboard_config()`, 1 scenario x 64 agents x 1024 polylines, random
+     seed-0 weights: (a) use_pallas=False and (b) use_pallas=True, each turn
+     `bench.py`'s serve measurement (reset, 3 warm-up steps, 50 timed steps
+     with fetch=False and one synchronize), in turns a b b a:
+     serve_policy_steps_per_sec, ms per step, reset seconds, peak memory;
+     launches per reset and per step asserted by full shape (B1 1 per step at
+     [1, 64, 1024]; in (b) B4 8 per reset at [1·1024, K=32] and B2 4 per step
+     at [1·64, K=89], all staged, shapes phase 3 checked); then 20 steps with
+     fetch=True, a step scripting the first valid agent (its bounded action
+     the scripted one, its speed moved by dt times it) and `history()` of
+     the documented shapes with finite poses; (c) the phase-4 config on the
+     card and on the CPU, the CPU's latent and destination draws handed to
+     the card, 10 steps with one scripted: poses, motion and actions within
+     phase 4's tolerance, validity and TL states identical, launches as the
+     config implies.
+Then it prints the `serve` JSON line (phase 14's steps/s, ms per step, peak memory
+and the card-vs-CPU errors of both arms, with the card's name and power limit), the
+`kernels` JSON line (forward launches from phase 6 and, as
 `validate_launches`, from phase 9; training-shape and backward ones from phase
 8, B4's and the backwards' by route; `fit_launches` per full-width fit step
 from phase 11; `reference_layout_launches` from phase 12 (b); `scaled_launches`
@@ -196,7 +220,9 @@ per call or step of each path of phase 13, and the backwards' launches by route 
 B2's `cluster_route` times at the scaled preset's shapes, B4's and B2's with
 their launches per phase 13 (d) call, B4-bwd's with its launches per (f) step,
 B3's with its launches in phase 3's bench run; the scaled training shapes'
-launches per (f) step), the card line, and last
+launches per (f) step; B1's, B4's and B2's times at the serving shapes, and every
+row's `serve_launches` per reset and per step of each phase 14 arm, by route), the
+card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -208,6 +234,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -225,7 +252,9 @@ from trafficbotsv15_tpu_torch.data.synthetic import make_batch
 from trafficbotsv15_tpu_torch.eval import runner as eval_runner
 from trafficbotsv15_tpu_torch.eval import wosac_likelihood
 from trafficbotsv15_tpu_torch.eval.wosac_post_processing import filter_futures
+from trafficbotsv15_tpu_torch.eval.wosac_metrics import FIELD_NAMES as WOSAC_FIELDS
 from trafficbotsv15_tpu_torch.ops import knarpe, knn
+from trafficbotsv15_tpu_torch.serve import InteractiveSimulator
 from trafficbotsv15_tpu_torch.sim import rollout as rollout_lib
 from trafficbotsv15_tpu_torch.train import checkpoint as checkpoint_lib
 from trafficbotsv15_tpu_torch.train import evaluation as eval_lib
@@ -235,6 +264,7 @@ from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model
 from trafficbotsv15_tpu_torch.utils import bench_knarpe
+from trafficbotsv15_tpu_torch.utils.logging import MetricsLogger
 from trafficbotsv15_tpu_torch.utils.timing import card_line, cuda_ms, graph_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet, 700 W)
@@ -262,6 +292,11 @@ FIT_X = [(2, 64, 89, 128, 128, 4), (2, 128, 24, 128, 128, 4)]
 VAL_X = [(4, 64, 89, 128, 128, 4), (4, 128, 24, 128, 128, 4)]
 FIT_ATTN_PATH = (2, 1024, 32, 128, 128, 4)
 FIT_KNN = [(2, 64, 1024, 64), (4, 64, 1024, 64)]
+# and the serving entry point's (phase 14: one scenario): the map encoder's B4 at 1 x 1024 at reset, the agent
+# decoder's B2 at 1 x 64 and B1 at [1, 64, 1024] every step
+SERVE_X_PATH = (1, 64, 89, 128, 128, 4)
+SERVE_ATTN_PATH = (1, 1024, 32, 128, 128, 4)
+SERVE_KNN = ("knn_xy", 1, 64, 1024, 64)
 # edge cases: an all-invalid and a one-target source in each; source counts that are
 # no multiple of any tile; odd K; one and eight heads
 X_EDGE = [(3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
@@ -413,10 +448,11 @@ def check_knn_kernel() -> dict:
 
     row = time_knn(*cases["main_path_float"])
     train = time_knn(*cases["training_shape"])
+    serve = time_knn(*cases["scaled_training_shape"])  # [1, 64, 1024]: also the serving entry point's (phase 14)
     row.pop("shape")
     return {"name": "knn_xy", "route": "cuda", "source": "trafficbotsv15_tpu_torch/csrc/knn.cu",
             "replaces": "trafficbotsv15_tpu/ops/pallas_knn.py:143", "launches": None, "max_abs_err": max_err,
-            **row, "training_shape": train}
+            **row, "training_shape": train, "serve_shape": serve}
 
 
 def knarpe_inputs(shape, cross: bool, seed: int, dtype=torch.float32):
@@ -578,9 +614,9 @@ def check_knarpe_kernels() -> list:
     (bf16)."""
     rows = []
     for name, path, edges, replaces, source in (
-            ("knarpe_attention", ATTN_PATH, ATTN_EDGE + [TRAIN_ATTN_PATH, *ATTN_STAGED_EDGE],
+            ("knarpe_attention", ATTN_PATH, ATTN_EDGE + [TRAIN_ATTN_PATH, *ATTN_STAGED_EDGE, SERVE_ATTN_PATH],
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:243", "trafficbotsv15_tpu_torch/csrc/knarpe_attn_staged.cuh"),
-            ("knarpe_cross_attention", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH, *FIT_X, *VAL_X],
+            ("knarpe_cross_attention", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH, *FIT_X, *VAL_X, SERVE_X_PATH],
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:443", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh"),
             ("knarpe_cross_attention_v3", X_PATH, X_EDGE + [TRAIN_X_PATH, POST_TL_X_PATH, *FIT_X, *VAL_X],
              "trafficbotsv15_tpu/ops/pallas_knarpe.py:742", "trafficbotsv15_tpu_torch/csrc/knarpe_staged.cuh")):
@@ -588,6 +624,9 @@ def check_knarpe_kernels() -> list:
         for i, shape in enumerate(edges):
             check_one_knarpe(name, shape, seed=2 + i)
         row = time_knarpe(name, path)
+        serve_shape = {"knarpe_attention": SERVE_ATTN_PATH, "knarpe_cross_attention": SERVE_X_PATH}.get(name)
+        if serve_shape:  # the serving entry point's shape (phase 14)
+            row["serve_shape"] = {"shape": list(serve_shape), **time_knarpe(name, serve_shape)}
         if name == "knarpe_attention":
             row["training_shape"] = {"shape": list(TRAIN_ATTN_PATH), **time_knarpe(name, TRAIN_ATTN_PATH)}
             # bf16 only: float32 B4 takes the general kernel at these shapes, which check_one_knarpe holds too
@@ -1404,6 +1443,62 @@ def run_validate_full_width(card: str, n_timed: int = 2) -> dict:
         f"{loss['reactive_replay/loss']:.4f}; kernel launches per step {per_step[-1]}, launches by route "
         f"{knarpe.ROUTE_LAUNCHES} [{card}]")
     return per_step[-1]
+
+
+@contextlib.contextmanager
+def waymo_stub_installed():
+    """The structural waymo_open_dataset stubs of tests/waymo_stub importable inside the block, in this process and
+    in the WOSAC pool's children (sys.path and PYTHONPATH), and gone after it: phases 10 and 11 hold the submission
+    path to its arrays without the package. Their per-scenario metrics are deterministic functions of the rollout's
+    structure; they exercise the port's pool and aggregation, not Waymo's likelihoods."""
+    stub_dir = str(Path(__file__).resolve().parent / "tests" / "waymo_stub")
+    old_path = os.environ.get("PYTHONPATH")
+    sys.path.insert(0, stub_dir)
+    os.environ["PYTHONPATH"] = stub_dir + (os.pathsep + old_path if old_path else "")
+    try:
+        yield
+    finally:
+        sys.path.remove(stub_dir)
+        if old_path is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = old_path
+        for name in [m for m in sys.modules if m.split(".")[0] == "waymo_open_dataset"]:
+            del sys.modules[name]
+
+
+def check_validate_official(card: str) -> None:
+    """(b) `eval/runner.py::validate` on the card over one batch of the phase-4 config (2 scenarios, K=32, the test
+    split's history keys, scenario ids and frames, scenario bytes attached) with tests/waymo_stub installed: the
+    WOSAC pool gets both scenarios' filtered futures in the global frame and reports every `wosac/wosac/*` and
+    `wosac/wosac_likelihood/*` key; the stub's metametric is exactly what the rollouts' structure gives."""
+    cfg = phase4_config()
+    model = build_model(cfg, seed=1, device="cuda")
+    damp_weights(model, 0.5)
+    batch = make_batch(cfg.data, n_sc=2, seed=3)
+    test = make_batch(cfg.data, n_sc=2, seed=3, test_mode=True)
+    batch.update({k: v for k, v in test.items() if k.startswith(("history/agent", "scenario_"))})
+    batch["scenario_bytes"] = [np.frombuffer(f"scenario {i}".encode(), np.uint8) for i in range(2)]
+    with waymo_stub_installed():
+        t0 = time.perf_counter()
+        metrics = eval_runner.validate(cfg, model, [batch], logger=MetricsLogger(None, echo=False))
+        sec = time.perf_counter() - t0
+    keys = [f"wosac/wosac/{k}" for k in ("realism_meta_metric", "kinematic_metrics", "interactive_metrics",
+                                          "map_based_metrics", "min_ade")]
+    keys += [f"wosac/wosac_likelihood/{k}" for k in WOSAC_FIELDS]
+    missing = [k for k in keys if k not in metrics or not math.isfinite(metrics[k])]
+    # the stub's metametric: 0.1 + 0.001 futures + 0.0001 trajectories (the agents valid at the current step)
+    cur = cfg.time_step_current
+    n_traj = (batch["history/agent/valid"][:, :, cur].sum(1) + batch["history/agent_no_sim/valid"][:, :, cur].sum(1))
+    want = float(np.mean(0.1 + 0.001 * min(cfg.n_joint_future_wosac, 32) + 0.0001 * n_traj))
+    got = metrics.get("wosac/wosac/realism_meta_metric", float("nan"))
+    if missing or not abs(got - want) <= 1e-5 * want:
+        raise AssertionError(f"validate with the WOSAC pool: missing or non-finite {missing}; metametric {got}, "
+                             f"expected {want}")
+    log(f"  (b) validate on the card, phase-4 config, 2 scenarios with scenario bytes, tests/waymo_stub: {sec:.2f} s; "
+        f"{len(keys)} official WOSAC keys from the pool, stub metametric {got:.6f} as the rollouts' structure gives "
+        f"({want:.6f}); native metametric {metrics['wosac/realism_meta_metric']:.4f}, val/loss "
+        f"{metrics['val/loss']:.4f} [{card}]")
 
 
 def run_submission(card: str) -> None:
@@ -2335,6 +2430,192 @@ def run_scaled_phase(card: str) -> dict:
             {"train_use_pallas": {"by_route": routes["f"], "by_shape": step_shapes["f"]}})
 
 
+# phase 14, the serving entry point: bench.py's serve definition (reset, 3 warm-up steps, SERVE_STEPS timed steps
+# with fetch=False and one synchronize at the end), the two arms in turns
+SERVE_STEPS, SERVE_WARMUP, SERVE_FETCH_STEPS = 50, 3, 20
+SERVE_SCRIPTED = (2.5, -0.1)  # (acc, yaw_rate) the scripted agent takes, inside the vehicle bounds
+
+
+def serve_expected(cfg) -> tuple:
+    """Kernel launches per `reset` and per `step` that the config implies: the map encoder's B4 at reset; the
+    agent->map KNN and the agent decoder's B2 per step."""
+    reset = expected_launches(cfg, 0)
+    step = {**expected_launches(cfg, 1), "knarpe_attention": 0}
+    return reset, step
+
+
+def serve_shapes(cfg) -> tuple:
+    """The launches by full shape per `reset` and per `step` (each shape one phase 3 checked)."""
+    bf, pallas, m = str(torch.bfloat16), cfg.model.tf_cfg.use_pallas, cfg.model
+    reset = {("knarpe_attention", bf, *SERVE_ATTN_PATH): m.mp_encoder.n_layer_tf} if pallas else {}
+    step = {SERVE_KNN: 1, **({("knarpe_cross_attention", bf, *SERVE_X_PATH): m.ag_encoder.n_layer_tf}
+                             if pallas else {})}
+    return reset, step
+
+
+def serve_turn(sim, batch, cfg, where: str) -> dict:
+    """One turn of bench.py's serve measurement: reset, SERVE_WARMUP steps, SERVE_STEPS timed steps with
+    fetch=False and one synchronize; the launches of the reset and of the timed steps asserted (all staged)."""
+    want_reset, want_step = serve_expected(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    sim.reset(batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    if launches() != want_reset:
+        raise AssertionError(f"{where}: launches at reset {launches()}, expected {want_reset}")
+    check_staged_route(f"{where} reset")
+    for _ in range(SERVE_WARMUP):
+        out = sim.step(fetch=False)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEPS):
+        out = sim.step(fetch=False)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SERVE_STEPS
+    want = {key: n * SERVE_STEPS for key, n in want_step.items()}
+    if launches() != want:
+        raise AssertionError(f"{where}: launches over {SERVE_STEPS} steps {launches()}, expected {want}")
+    check_staged_route(f"{where} steps")
+    if not all(isinstance(v, torch.Tensor) and v.device.type == sim.device.type for v in out.values()):
+        raise AssertionError(f"{where}: fetch=False returned values off the simulator's device {sim.device}")
+    return {"latency_ms": dt * 1e3, "steps_per_sec": 1.0 / dt, "reset_s": reset_s, "peak_gib": peak_gib()}
+
+
+def check_serve_card_vs_cpu(use_pallas: bool) -> dict:
+    """(c) The phase-4 config (float32) on the card and on the CPU, the same damped weights, the CPU's latent and
+    destination draws handed to the card: 10 steps, the sixth scripting the first valid agent. Poses, motion and
+    actions agree to SLICE_POSE_ATOL, validity and TL states exactly; on the card the kernels launch as the config
+    implies. -> the max errors."""
+    cfg = with_pallas(phase4_config(), use_pallas)
+    batch = make_batch(cfg.data, n_sc=1, seed=3)
+    runs, samples = {}, None
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, seed=1, device=device)
+        damp_weights(model, 0.5)
+        sim = InteractiveSimulator(cfg, model, device=device)
+        reset_launches()
+        obs = sim.reset(batch, torch.Generator().manual_seed(0))
+        if samples is None:
+            samples = {k: sim.static[k] for k in ("ag_latent", "ag_latent_valid", "ag_navi", "ag_navi_valid")}
+        else:
+            sim.static.update({k: None if v is None else v.to(device) for k, v in samples.items()})
+        agent = int(np.argmax(obs["valid"][0]))
+        act = {"valid": np.zeros(obs["valid"].shape, bool), "action": np.zeros(obs["valid"].shape + (2,), np.float32)}
+        act["valid"][0, agent], act["action"][0, agent] = True, SERVE_SCRIPTED
+        outs = [sim.step(actions=act if i == 5 else None) for i in range(10)]
+        if device == "cuda":
+            want_reset, want_step = serve_expected(cfg)
+            want = {key: want_reset[key] + 10 * n for key, n in want_step.items()}
+            if launches() != want:
+                raise AssertionError(f"serve card vs CPU use_pallas={use_pallas}: launches {launches()}, "
+                                     f"expected {want}")
+        if not np.array_equal(outs[5]["action"][0, agent], np.float32(SERVE_SCRIPTED)):
+            raise AssertionError(f"serve on {device}: the scripted agent took {outs[5]['action'][0, agent]}")
+        runs[device] = outs
+    pairs = list(zip(runs["cuda"], runs["cpu"]))
+    errs = {key: max(float(np.abs(g[key] - c[key]).max()) for g, c in pairs) for key in ("pose", "motion", "action")}
+    same = all(np.array_equal(g[key], c[key]) for g, c in pairs for key in ("valid", "tl_state"))
+    if not (same and all(e <= SLICE_POSE_ATOL for e in errs.values())):
+        raise AssertionError(f"serve card vs CPU use_pallas={use_pallas}: max errors {errs} (tolerance "
+                             f"{SLICE_POSE_ATOL}), valid and TL states identical: {same}")
+    log(f"  (c) use_pallas={use_pallas}: InteractiveSimulator card vs CPU, phase-4 config, 10 steps (step 6 scripts "
+        f"agent {agent}): max |err| {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (tolerance "
+        f"{SLICE_POSE_ATOL}); valid and TL states identical; the scripted action taken on both")
+    return errs
+
+
+def run_serve_phase(card: str) -> tuple:
+    """The serving entry point at `leaderboard_config()`, 1 scenario x 64 agents x 1024 polylines, random seed-0
+    weights: (a) use_pallas=False and (b) use_pallas=True, timed in turns a b b a; launches per reset and per step by
+    full shape; a scripted step; history(); (c) card against CPU. -> (the `serve` summary, launches per reset and
+    per step of each arm, by kernel and by route)."""
+    t_phase = time.perf_counter()
+    arms, counts = {}, {}
+    for arm, use_pallas in (("a", False), ("b", True)):
+        cfg = with_pallas(leaderboard_config(), use_pallas)
+        model = build_model(cfg, seed=0, device="cuda")
+        batch = make_batch(cfg.data, n_sc=1, seed=0)
+        sim = InteractiveSimulator(cfg, model)
+        where = f"serve use_pallas={use_pallas}"
+        # one reset and one step with every launch's full shape recorded (outside the timed turns)
+        want_reset, want_step = serve_shapes(cfg)
+        reset_launches()
+        with recorded_launch_shapes() as shapes:
+            sim.reset(batch, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        reset_counts, reset_routes, reset_shapes = launches(), dict(knarpe.ROUTE_LAUNCHES), dict(shapes)
+        reset_launches()
+        with recorded_launch_shapes() as shapes:
+            sim.step(fetch=False)
+        torch.cuda.synchronize()
+        step_counts, step_routes, step_shapes = launches(), dict(knarpe.ROUTE_LAUNCHES), dict(shapes)
+        if reset_shapes != want_reset or step_shapes != want_step:
+            raise AssertionError(f"{where}: launches by full shape at reset {reset_shapes}, per step {step_shapes}, "
+                                 f"expected {want_reset} and {want_step}")
+        counts["plain" if arm == "a" else "use_pallas"] = {"reset": reset_counts, "step": step_counts,
+                                                           "reset_routes": reset_routes, "step_routes": step_routes}
+        arms[arm] = (cfg, sim, batch, where)
+        log(f"  {where}: launches at reset {reset_counts}, per step {step_counts}; by full shape at reset "
+            f"{reset_shapes}, per step {step_shapes} (each checked in phase 3); by route at reset "
+            f"{ {k: n for k, n in reset_routes.items() if n} }, per step "
+            f"{ {k: n for k, n in step_routes.items() if n} }")
+    turns = {"a": [], "b": []}
+    for arm in "abba":
+        cfg, sim, batch, where = arms[arm]
+        turns[arm].append(serve_turn(sim, batch, cfg, where))
+    summary = {"config": "leaderboard_config()", "scenarios": 1, "agents": arms["a"][0].data.n_ag,
+               "polylines": arms["a"][0].data.n_mp, "steps_timed": SERVE_STEPS, "warmup_steps": SERVE_WARMUP,
+               "card": card}
+    for arm, name in (("a", "plain"), ("b", "use_pallas")):
+        cfg, sim, batch, where = arms[arm]
+        lat = [t["latency_ms"] for t in turns[arm]]
+        # fetch=True: one host sync per step (numpy out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_FETCH_STEPS):
+            out = sim.step()
+        fetch_ms = (time.perf_counter() - t0) / SERVE_FETCH_STEPS * 1e3
+        # the scripted step: the first valid agent takes SERVE_SCRIPTED, the others the policy
+        agent = int(np.argmax(out["valid"][0]))
+        act = {"valid": np.zeros(out["valid"].shape, bool), "action": np.zeros(out["valid"].shape + (2,), np.float32)}
+        act["valid"][0, agent], act["action"][0, agent] = True, SERVE_SCRIPTED
+        spd = out["motion"][0, agent, 0]
+        scripted = sim.step(actions=act)
+        if not (out["valid"][0, agent] and np.array_equal(scripted["action"][0, agent], np.float32(SERVE_SCRIPTED))
+                and abs(scripted["motion"][0, agent, 0] - (spd + cfg.dynamics.dt * SERVE_SCRIPTED[0])) <= 1e-4):
+            raise AssertionError(f"{where}: the scripted agent {agent} took {scripted['action'][0, agent]}, speed "
+                                 f"{spd} -> {scripted['motion'][0, agent, 0]}")
+        hist = sim.history()
+        n_steps = SERVE_WARMUP + SERVE_STEPS + SERVE_FETCH_STEPS + 1
+        n_ag, n_tl = cfg.data.n_ag, cfg.data.n_tl_lane
+        want = {"valid": (1, n_ag, n_steps), "pose": (1, n_ag, n_steps, 3), "motion": (1, n_ag, n_steps, 3),
+                "tl_state": (1, n_tl, n_steps, 5), "action": (1, n_ag, n_steps, 2)}
+        got = {k: v.shape for k, v in hist.items()}
+        if got != want or not np.isfinite(hist["pose"]).all():
+            raise AssertionError(f"{where}: history shapes {got}, expected {want}, or non-finite poses")
+        summary[name] = {"serve_policy_steps_per_sec": 1e3 / float(np.median(lat)),
+                         "latency_ms": float(np.median(lat)), "latency_ms_per_turn": lat,
+                         "steps_per_sec_per_turn": [t["steps_per_sec"] for t in turns[arm]],
+                         "fetch_true_latency_ms": fetch_ms, "reset_s": [t["reset_s"] for t in turns[arm]],
+                         "peak_memory_gib": max(t["peak_gib"] for t in turns[arm])}
+        log(f"  ({arm}) {where}, leaderboard_config, 1 scenario x {n_ag} agents x {cfg.data.n_mp} polylines: "
+            f"latency {[round(x, 4) for x in lat]} ms per step with fetch=False (median {np.median(lat):.4f} ms, "
+            f"{1e3 / np.median(lat):.2f} serve_policy_steps_per_sec), fetch=True {fetch_ms:.4f} ms per step, reset "
+            f"{[round(t['reset_s'], 4) for t in turns[arm]]} s, peak memory "
+            f"{summary[name]['peak_memory_gib']:.3f} GiB; "
+            f"scripted agent {agent} took {SERVE_SCRIPTED} exactly; history {got['pose']} finite [{card}]")
+    del arms
+    torch.cuda.empty_cache()
+    summary["card_vs_cpu_max_abs_err"] = {("use_pallas" if p else "plain"): check_serve_card_vs_cpu(p)
+                                          for p in (False, True)}
+    log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return summary, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's main path needs an NVIDIA GPU",
@@ -2342,7 +2623,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/13] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/14] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -2353,48 +2634,53 @@ def main() -> int:
         for fut in [pool.submit(knn.load_library), pool.submit(knarpe.load_library),
                     pool.submit(knarpe.load_bwd_library)]:
             fut.result()
-    log(f"[2/13] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/14] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    log("[3/13] kernels vs plain versions")
+    log("[3/14] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
     bench_routes = run_bench_knarpe()
 
-    log("[4/13] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[4/14] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_slice_card_vs_cpu(use_pallas=False)
     check_slice_card_vs_cpu(use_pallas=True)
 
-    log("[5/13] slice at full width, use_pallas=False")
+    log("[5/14] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    log("[6/13] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    log("[6/14] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True)
 
-    log("[7/13] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    log("[7/14] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_train_step_card_vs_cpu(use_pallas=False)
     check_train_step_card_vs_cpu(use_pallas=True)
 
-    log("[8/13] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    log("[8/14] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    log("[9/13] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    log("[9/14] validation step: reduced-depth fp32 config card vs CPU, then full width")
     check_validate_card_vs_cpu(use_pallas=False)
     check_validate_card_vs_cpu(use_pallas=True)
     validate_counts = run_validate_full_width(card)
+    check_validate_official(card)
 
-    log("[10/13] submission: test_submission at full width, K=128")
+    log("[10/14] submission: test_submission at full width, K=128")
     run_submission(card)
 
-    log("[11/13] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    log("[11/14] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
     fit_counts = run_fit_phase(card)
 
-    log("[12/13] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
+    log("[12/14] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    log("[13/13] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
+    log("[13/14] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
         "(B4 and B4-bwd heads, B2 cluster, B2-bwd general route); the TL pass past the log, card vs CPU")
     scaled_counts, first_errs, scaled_train = run_scaled_phase(card)
+
+    log("[14/14] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
+        "a scripted agent, history, card vs CPU")
+    serve_summary, serve_counts = run_serve_phase(card)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -2405,6 +2691,11 @@ def main() -> int:
         # eval call through the kernels (d), whose B4 launches all take the heads route and B2's the cluster route
         row["scaled_launches"] = {path: counts_[row["name"]] for path, counts_ in scaled_counts.items()}
         row["scaled_train_use_pallas_by_route"] = by_route(scaled_train["train_use_pallas"]["by_route"], row["name"])
+    for row in rows + bwd_rows:  # per reset and per step of each phase 14 arm, by kernel and by route
+        row["serve_launches"] = {arm: {"per_reset": c["reset"][row["name"]], "per_step": c["step"][row["name"]],
+                                       "per_reset_by_route": by_route(c["reset_routes"], row["name"]),
+                                       "per_step_by_route": by_route(c["step_routes"], row["name"])}
+                                 for arm, c in serve_counts.items()}
     for row, key in ((rows[1], "heads_route"), (rows[2], "cluster_route")):  # launches per (d) call, (d)'s first
         row[key].update(launches=scaled_counts["eval_use_pallas"][row["name"]],  # launch's error
                         path_launch_max_abs_err=first_errs[row["name"]])
@@ -2443,6 +2734,7 @@ def main() -> int:
                 raise AssertionError(f"kernels line: {row['name']} {key} is not finite")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"serve": serve_summary}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

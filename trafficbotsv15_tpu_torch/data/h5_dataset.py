@@ -12,9 +12,11 @@ an h5 file raises and names the package.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import pickle
 import queue
 import threading
-from typing import Dict, Iterator, Tuple
+from pathlib import Path
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -107,16 +109,20 @@ def tensor_size_val(c: DataCfg) -> Dict[str, Tuple[int, ...]]:
 
 
 class H5Dataset:
-    """One packed WOMD split. Thread-safe (per-read file handle, SWMR). The JAX package's `scenario_dir` (the
-    scenario protos the official metrics read) is not taken: the port has no official metrics yet."""
+    """One packed WOMD split. Thread-safe (per-read file handle, SWMR). With `scenario_dir`, item idx also
+    carries `scenario_bytes`, the serialized scenario proto the official WOSAC metrics read, as uint8: the
+    bytes pickled in `<scenario_dir>/<idx>.pickle` by the split's packing (trusted input: unpickling runs
+    code)."""
 
-    def __init__(self, h5_path: str, tensor_size: Dict[str, Tuple[int, ...]], with_attrs: bool = False):
+    def __init__(self, h5_path: str, tensor_size: Dict[str, Tuple[int, ...]], scenario_dir: Optional[str] = None,
+                 with_attrs: bool = False):
         h5py = import_h5py()
         self.h5_path = str(h5_path)
         self.tensor_size = tensor_size
         self.with_attrs = with_attrs
         with h5py.File(self.h5_path, "r", libver="latest", swmr=True) as hf:
             self.n = int(hf.attrs["data_len"])
+        self.scenario_dir = Path(scenario_dir) if scenario_dir else None
         self._local = threading.local()
 
     def _file(self):
@@ -145,11 +151,16 @@ class H5Dataset:
             out["scenario_center"] = np.asarray(g.attrs["scenario_center"], np.float32)
             out["scenario_yaw"] = np.asarray(g.attrs["scenario_yaw"], np.float32)
             out["with_map"] = np.asarray(g.attrs["with_map"])
+        if self.scenario_dir is not None:
+            with open(self.scenario_dir / f"{idx}.pickle", "rb") as f:
+                out["scenario_bytes"] = np.frombuffer(pickle.load(f), dtype=np.uint8)
         return out
 
 
 def _collate(items):
-    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+    """Stack each key's items; `scenario_bytes` are ragged and stay a list."""
+    return {k: [it[k] for it in items] if k == "scenario_bytes" else np.stack([it[k] for it in items])
+            for k in items[0]}
 
 
 def shard_indices(idx: np.ndarray, shard_index: int, num_shards: int) -> np.ndarray:

@@ -6,9 +6,18 @@ post-processing (K -> 6 modes) and native motion metrics on both rollouts,
 the WOSAC future filter and the native WOSAC realism metametric. `validate`
 runs it over a loader and reduces the metrics under the JAX package's
 names; `test_submission` makes the WOMD and WOSAC submissions of the test
-split. Neither restores a checkpoint, reduces across devices, renders
-videos or calls the official Waymo metrics (those need the
-`waymo_open_dataset` package).
+split. Neither restores a checkpoint or renders videos.
+
+The official Waymo metrics are host-side and gated on their packages, as in
+the JAX package: where Waymo's WOMD op and TensorFlow are importable
+(`_womd_official_available`), `validate` packs each batch's WOMD inputs of
+the joint futures and of reactive replay and makes one official call per
+flavour at the end over the concatenated rows; where `waymo_open_dataset`
+imports and a batch carries `scenario_bytes` and `scenario_id`, it feeds the
+WOSAC pool (`eval/wosac_metrics.py`) from the filtered futures, in the global
+frame where the batch has `scenario_center`. The port runs one process: the
+JAX package's cross-host sums and gathers of these rows have no counterpart
+yet.
 """
 
 from __future__ import annotations
@@ -22,14 +31,15 @@ import torch
 from trafficbotsv15_tpu_torch.config import ExperimentCfg
 from trafficbotsv15_tpu_torch.eval.metrics import (compute_error_metrics, compute_traffic_rule_metrics,
                                                    error_metric_sums, merge_sums, traffic_rule_sums)
-from trafficbotsv15_tpu_torch.eval.womd_metrics import native_motion_metrics
+from trafficbotsv15_tpu_torch.eval import womd_metrics
+from trafficbotsv15_tpu_torch.eval.womd_metrics import native_motion_metrics, pack_waymo_inputs
 from trafficbotsv15_tpu_torch.eval.womd_post_processing import womd_post_process
 from trafficbotsv15_tpu_torch.eval.wosac_likelihood import realism_from_rollout
 from trafficbotsv15_tpu_torch.eval.wosac_post_processing import (WOSAC_HIST_KEYS, filter_futures,
                                                                  get_scenario_rollouts, to_global_frame)
 from trafficbotsv15_tpu_torch.train import evaluation
 from trafficbotsv15_tpu_torch.train.losses import training_loss
-from trafficbotsv15_tpu_torch.utils.device import resolve_device
+from trafficbotsv15_tpu_torch.utils.device import resolve_device, to_host
 from trafficbotsv15_tpu_torch.utils.logging import MetricsLogger
 
 SPLIT_PARTS = ("reactive_replay", "joint_futures", "post_and_metrics", "realism")
@@ -103,10 +113,20 @@ def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] =
              logger: Optional[MetricsLogger] = None, device=None) -> Dict[str, float]:
     """Validation over val_loader's batches on one device: the per-batch sums and means reduced under the
     JAX package's metric names (`val/loss`, `wosac/*`, `wosac_likelihood/*`, `joint_future_pred/womd/*`,
-    `reactive_replay/*`, `joint_future_pred/traffic_rule/*`, `val/scenarios_per_sec`). Batch i draws its
-    joint futures from a generator seeded with cfg.seed + i, as the JAX package keys it."""
+    `reactive_replay/*`, `joint_future_pred/traffic_rule/*`, `val/scenarios_per_sec`), and the official
+    metrics where their packages are importable (`joint_future_pred/waymo_metrics/*`,
+    `reactive_replay/waymo_metrics/*`, `wosac/wosac/*`, `wosac/wosac_likelihood/*`). Batch i draws its joint
+    futures from a generator seeded with cfg.seed + i, as the JAX package keys it."""
     step = make_validate_step(cfg, model, device)
     logger = logger or MetricsLogger()
+    try:
+        from trafficbotsv15_tpu_torch.eval.wosac_metrics import WOSACMetrics
+
+        wosac_official = WOSACMetrics("wosac")
+    except ImportError:
+        wosac_official = None
+    womd_official_ok = _womd_official_available()
+    womd_packed, womd_rr_packed = [], []
     err_sums, rr_rule, jf_rule, losses, womd_vals = {}, {}, {}, [], []
     realism_sums: Dict[str, float] = {}
     realism_n = n = 0
@@ -114,7 +134,8 @@ def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] =
     for i, batch in enumerate(val_loader):
         if max_batches and i >= max_batches:
             break
-        out = step(batch, torch.Generator().manual_seed(cfg.seed + i))
+        b = {k: v for k, v in batch.items() if not isinstance(v, list)}  # scenario bytes are ragged
+        out = step(b, torch.Generator().manual_seed(cfg.seed + i))
         err_sums = merge_sums(err_sums, out["err_sums"])
         rr_rule = merge_sums(rr_rule, out["rr_rule"])
         jf_rule = merge_sums(jf_rule, out["jf_rule"])
@@ -127,7 +148,25 @@ def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] =
             for k, v in out["wosac_realism"].items():
                 realism_sums[k] = realism_sums.get(k, 0.0) + float(v.double().sum())
             realism_n += int(next(iter(out["wosac_realism"].values())).shape[0])
-        n += int(batch["map/valid"].shape[0])
+        if womd_official_ok and all(k in b for k in _WOMD_GT_KEYS):
+            gt = {k: to_host(b[k]) for k in _WOMD_GT_KEYS}
+            womd_packed.append(pack_waymo_inputs(gt, to_host(out["womd_trajs"]), to_host(out["womd_scores"]),
+                                                 cfg.time_step_gt, cfg.time_step_current))
+            if "womd_rr_trajs" in out:
+                womd_rr_packed.append(pack_waymo_inputs(gt, to_host(out["womd_rr_trajs"]),
+                                                        to_host(out["womd_rr_scores"]), cfg.time_step_gt,
+                                                        cfg.time_step_current))
+        if wosac_official is not None and "scenario_bytes" in batch and "scenario_id" in batch:
+            trajs = out["wosac_trajs"]
+            if "scenario_center" in b:
+                trajs = to_global_frame(trajs, *(torch.as_tensor(b[k], device=trajs.device)
+                                                 for k in ("scenario_center", "scenario_yaw")))
+            wd = {"trajs": to_host(trajs), **{k: to_host(b[k]) for k in WOSAC_HIST_KEYS}}
+            rollouts = get_scenario_rollouts(cfg.wosac_post, wd, cfg.time_step_current, cfg.time_step_gt,
+                                             _decode_sids(to_host(b["scenario_id"])))
+            wosac_official.update(rollouts, [x.tobytes().hex() if hasattr(x, "tobytes") else x
+                                             for x in batch["scenario_bytes"]])
+        n += int(b["map/valid"].shape[0])
 
     metrics: Dict[str, float] = {}
     if realism_n > 0:
@@ -138,6 +177,12 @@ def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] =
         metrics["wosac/min_ade"] = mean["min_average_displacement_error"]
         for k, v in mean.items():
             metrics[f"wosac_likelihood/{k}"] = v
+    if wosac_official is not None and wosac_official.counter > 0:
+        metrics.update(wosac_official.compute())
+    for prefix, plist in (("joint_future_pred", womd_packed), ("reactive_replay", womd_rr_packed)):
+        if plist:  # one official call per flavour over every batch's rows
+            packed = {k: np.concatenate([p[k] for p in plist]) for k in plist[0]}
+            metrics.update(womd_metrics.official_motion_metrics(packed, cfg.time_step_current, prefix))
     for k in (womd_vals[0] if womd_vals else {}):
         metrics[f"joint_future_pred/womd/{k}"] = float(np.sum([w[k] for w in womd_vals])) / len(womd_vals)
     metrics.update(compute_error_metrics(err_sums, "reactive_replay"))
@@ -149,6 +194,22 @@ def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] =
     metrics["val/scenarios_per_sec"] = n / (time.time() - t0)
     logger.log(0, metrics)
     return metrics
+
+
+# the batch keys the official WOMD op's ground truth is packed from
+_WOMD_GT_KEYS = ("agent/role", "agent/valid", "agent/pos", "agent/size", "agent/yaw_bbox", "agent/vel", "agent/type")
+
+
+def _womd_official_available() -> bool:
+    """Waymo's C++/TensorFlow motion-metrics op importable? (Tests monkeypatch this to run the packing and the
+    epoch-end call.)"""
+    import importlib.util
+
+    try:
+        return (importlib.util.find_spec("waymo_open_dataset.metrics.ops") is not None
+                and importlib.util.find_spec("tensorflow") is not None)
+    except ImportError:
+        return False
 
 
 def _decode_sids(id_rows) -> list:

@@ -16,9 +16,13 @@ flavours, both with TL from the pre-pass:
     "none" (the whole step is recomputed in the backward pass; JAX's
     "names" / "names+kv" save lists are not ported).
 Both apply the teacher-forcing config's error-threshold reset
-(`sim/teacher_forcing.py::error_reset_mask`) where it sets a threshold. The
-player override, `pred_navi_after_reached` and token dedup raise where the
-config asks for them. TL comes from a pass made before the loop
+(`sim/teacher_forcing.py::error_reset_mask`) where it sets a threshold. Both
+take JAX's optional player override: `player_valid` [n_sc, n_ag, n_step_roll]
+and `player_action` [n_sc, n_ag, n_step_roll, 2] (bounded acc, yaw_rate)
+script the marked agents step by step; the action is replaced after it is
+sampled and its log-prob taken, so the log-prob stays the policy's own.
+`pred_navi_after_reached` and token dedup raise where the config asks for
+them. TL comes from a pass made before the loop
 (`sim/tl_prepass.py`), never from inside it: JAX's in-scan TL path is that
 pass's `tl_rollout_scan`. Past the GT horizon (`time_step_end` >= T) nothing
 is forced or reset, `step_gt_valid` and so the reward are off, and
@@ -91,13 +95,15 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
             ag_attr, ag_type, ag_size, ag_latent, ag_latent_valid, ag_navi, ag_navi_valid, ag_navi_log_prob,
             gt_valid, gt_pose, gt_motion, gt_tl_state, ag_forcing,
             rule_statics: RuleCheckerStatics, rule_state0: RuleCheckerState, check_level: int,
-            tl_precomputed: Dict[str, torch.Tensor], tf_cfg=None, with_reward: bool = False) -> RolloutBuffer:
+            tl_precomputed: Dict[str, torch.Tensor], tf_cfg=None, with_reward: bool = False,
+            player_valid: Optional[torch.Tensor] = None, player_action: Optional[torch.Tensor] = None) -> RolloutBuffer:
     """Run the closed-loop simulation from step 1 to cfg.time_step_end inclusive.
 
     gt_* cover the first T steps ([n_sc, n_ag, T]); ag_forcing is the
     precomputed teacher-forcing mask over them. tl_precomputed holds the
     pre-pass outputs over the un-replicated scenarios (n_sc_u divides n_sc).
     with_reward fills `diffbar_reward` (the JAX eval rollout always does).
+    player_valid / player_action, if given, script the agents they mark at each step.
     """
     tf_cfg = cfg.teacher_forcing_training if tf_cfg is None else tf_cfg
     n_step_roll = cfg.time_step_end
@@ -139,8 +145,8 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
                                  ag_latent_valid, navi, navi_valid, tl_tokens, mp_tokens, tl_feature)
         action = action_dist.mean  # deterministic action
         action_log_prob = torch.where(valid, action_dist.log_prob(action), 0.0)
-        pred_pose, pred_motion, action_bounded = dyn.step_dynamics(pose, motion, valid, action, ag_type,
-                                                                   cfg.dynamics)
+        pred_pose, pred_motion, action_bounded = dyn.step_dynamics(pose, motion, valid, action, ag_type, cfg.dynamics,
+                                                                   _player(player_valid, player_action, i))
         pred_valid = valid
         force = tf_valid[:, :, i] if reset is None else tf_valid[:, :, i] | reset(i, valid, pose, motion)
         ov_valid, ov_pose, ov_motion = dyn.override_ag(pred_valid, pred_pose, pred_motion, disabled, force,
@@ -174,6 +180,13 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
                          violation=_stack_dicts(outs["violation"]),
                          diffbar_reward=_stack_dicts(reward) if reward else None,
                          navi_log_prob=ag_navi_log_prob[..., None], navi_log_prob_valid=ag_navi_valid[..., None])
+
+
+def _player(player_valid, player_action, i: int):
+    """Step i's player override for `dyn.step_dynamics`, or None without one."""
+    if player_valid is None:
+        return None
+    return {"valid": player_valid[:, :, i], "action": player_action[:, :, i]}
 
 
 def _stack(seq):
@@ -239,7 +252,9 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
                   ag_attr, ag_type, ag_size, ag_latent, ag_latent_valid, ag_navi, ag_navi_valid, ag_navi_log_prob,
                   gt_valid, gt_pose, gt_motion, gt_tl_state, ag_forcing,
                   rule_statics: RuleCheckerStatics, rule_state0: RuleCheckerState,
-                  tl_precomputed: Dict[str, torch.Tensor], step_seeds: Sequence[int]) -> RolloutBuffer:
+                  tl_precomputed: Dict[str, torch.Tensor], step_seeds: Sequence[int],
+                  player_valid: Optional[torch.Tensor] = None,
+                  player_action: Optional[torch.Tensor] = None) -> RolloutBuffer:
     """The training rollout (JAX `rollout(..., train=True)`), from step 1 to cfg.time_step_end.
 
     Gradients flow through the poses and motions of the dynamics chain and into every
@@ -280,7 +295,8 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
                 action = action_dist.rsample(dropout_normal(action_dist.mean.shape, dev))
             action_log_prob = torch.where(valid, action_dist.log_prob(action.detach()), 0.0)
             pred_pose, pred_motion, action_bounded = dyn.step_dynamics(pose, motion, valid, action, ag_type,
-                                                                       cfg.dynamics)
+                                                                       cfg.dynamics,
+                                                                       _player(player_valid, player_action, i))
             force = tf_valid[:, :, i] if reset is None else tf_valid[:, :, i] | reset(i, valid, pose, motion)
             ov_valid, ov_pose, ov_motion = dyn.override_ag(valid, pred_pose, pred_motion, disabled, force,
                                                            tf_pose[:, :, i], tf_motion[:, :, i])

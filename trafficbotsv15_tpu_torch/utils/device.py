@@ -1,4 +1,4 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and the copy of results to the host.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 explicitly; without a GPU and without that request they raise rather than
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor (bf16 as float32) or array-like as a numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+    return np.asarray(x)

@@ -1,7 +1,7 @@
 """Where the time of the full-width joint-future call, or of a training step, goes, on one GPU.
 
     python -m trafficbotsv15_tpu_torch.utils.profile_slice [--use-pallas] [--out DIR] [--ab ROUNDS] [--train]
-                                                          [--validate]
+                                                          [--validate] [--serve]
 
 Runs `joint_future_pred` on `leaderboard_config()` (bf16 compute, seeded
 random weights, 4 synthetic scenarios x K=32 futures, check_level=1; with
@@ -29,6 +29,10 @@ With `--validate` it profiles the validation step (`eval/runner.py::make_validat
 seconds of 3 steps (wosac_validate_scenarios_per_sec_per_chip = 4 / seconds per step), peak memory, the
 median of 3 steps split by part (reactive replay, joint futures, post-processing and metrics, realism;
 synchronised at the part boundaries), and one traced step: device busy and idle share and the top device ops.
+With `--serve` it profiles the serving step (`serve.py::InteractiveSimulator.step`) instead: `leaderboard_config()`,
+one synthetic scenario, reset once, 3 warm-up steps, then 3 runs of 50 steps with fetch=False, each ending in one
+synchronize (`bench.py`'s serve definition: ms per step, serve_policy_steps_per_sec), peak memory, and 10 traced
+steps: device busy and idle share and the top device ops.
 Needs a CUDA device; prints the card's name and power limit with the numbers.
 """
 
@@ -163,6 +167,33 @@ def profile_validate(card: str, use_pallas: bool, out) -> None:
            f"validate_step_{'use_pallas' if use_pallas else 'plain'}")
 
 
+def profile_serve(card: str, use_pallas: bool, out) -> None:
+    """The serving step at full width: ms per step, peak memory, 10 traced steps."""
+    from trafficbotsv15_tpu_torch.serve import InteractiveSimulator
+
+    cfg = with_pallas(leaderboard_config(), use_pallas)
+    sim = InteractiveSimulator(cfg, build_model(cfg, seed=0, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    sim.reset(make_batch(cfg.data, n_sc=1, seed=0), torch.Generator().manual_seed(0))
+
+    def steps(n: int):
+        for _ in range(n):
+            out = sim.step(fetch=False)
+        return out
+
+    n_step = 50
+    _timed(lambda: steps(3))  # warm-up
+    _, t_run = _timed(lambda: steps(n_step), 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = 1e3 * t_run / n_step
+    print(f"card: {card}; serving step, use_pallas={use_pallas}, 1 scenario x {cfg.data.n_ag} agents x "
+          f"{cfg.data.n_mp} polylines")
+    print(f"median of 3 runs of {n_step} steps (fetch=False, one synchronize each): {ms:.4f} ms per step "
+          f"({1e3 / ms:.2f} serve_policy_steps_per_sec) | peak memory {peak:.3f} GiB")
+    name = f"serve_step_{'use_pallas' if use_pallas else 'plain'}"
+    _trace(lambda: steps(10), 10, t_run * 10 / n_step, out, name)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path, default=None, help="directory for the Chrome trace")
@@ -170,6 +201,7 @@ def main() -> None:
     ap.add_argument("--ab", type=int, default=0, metavar="ROUNDS", help="time the three arms in turns instead")
     ap.add_argument("--train", action="store_true", help="profile the training step instead")
     ap.add_argument("--validate", action="store_true", help="profile the validation step instead")
+    ap.add_argument("--serve", action="store_true", help="profile the serving step instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -179,6 +211,8 @@ def main() -> None:
         return profile_train(card, args.use_pallas, args.out)
     if args.validate:
         return profile_validate(card, args.use_pallas, args.out)
+    if args.serve:
+        return profile_serve(card, args.use_pallas, args.out)
     if args.ab:
         return compare_arms(card, args.ab)
     return profile_call(card, args.use_pallas, args.out)
