@@ -103,7 +103,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch, forward and backward, as often as the config implies;
   8. training at full width (the training main path): `leaderboard_config()`
      with use_pallas=True, 8 synthetic scenarios per step, bf16 compute with
-     f32 parameters: one warm-up step, then 2 timed steps; seconds per step,
+     f32 parameters: one warm-up step, then 1 timed step; seconds per step,
      train samples/s, peak memory, forward and backward launches per step
      (asserted), every bf16 B4 and B2 forward and backward launch on the
      staged route at a shape phase 3 checked; loss and grad_norm finite and non-zero,
@@ -115,7 +115,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      False and True: buffers, flags and every entry of `out` agree, and the
      card's realism agrees with the CPU's on the card's own futures; then
      `leaderboard_config()` with use_pallas=True, 4 scenarios, K=32, level 1,
-     native realism: one warm-up, 2 timed steps (seconds per step,
+     native realism: one warm-up, 1 timed step (seconds per step,
      wosac_validate_scenarios_per_sec_per_chip, peak memory), launches per step
      asserted (B1 181, B4 16, B2 728, staged, at shapes phase 3 checked), one
      more step split by part with the realism part's working set; (b) `validate`
@@ -129,7 +129,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      shapes, finite, in the global frame; the card's 32 futures equal the CPU's
      filter on the same buffer; the call timed;
  11. the training entry point (`trafficbotsv15_tpu_torch/run.py`), in a
-     temporary directory: (a) `run.fit` for 4 calls (accumulate_grad_batches=2,
+     temporary directory, (b) first, then (a) and (d) while (c)'s
+     subprocesses run beside them: (a) `run.fit` for 4 calls (accumulate_grad_batches=2,
      EMA 0.5, SWA from step 0) on the card and on the CPU from the same damped
      seed-0 weights and tbcache file: the first update's gradients agree, and
      each device's parameters, EMA and SWA agree with a CPU replay of its own
@@ -166,27 +167,26 @@ Phases, in order; any failure raises and the script exits non-zero:
  13. the scaled preset (`scaled_config()`: hidden 256, 8 heads, 12/6/6
      map/TL/agent layers, 120 steps against the 91 the log holds, bf16
      compute), random seed-0 weights, synthetic scenarios, use_pallas=False
-     unless said: (a) `joint_future_pred`, 4 scenarios x K=32, level 1: one
-     warm-up and 2 timed calls, in turns with (d)'s, B1 120 per call all at
+     unless said, each path's one call or step both checked and timed (a
+     first call, no warm-up): (a) `joint_future_pred`, 4 scenarios x K=32,
+     level 1, in turns with (d)'s, B1 120 per call all at
      [128, 64, 1024], poses [4, 32, 64, 120, 3] finite, past the log no
-     agent forced and the TL NLL masked; (b) `make_train_step` at the preset's batch of 1: one
-     warm-up and 2 timed steps, B1 241 per step at [1, 64, 1024] (the
+     agent forced and the TL NLL masked; (b) `make_train_step` at the preset's batch of 1:
+     B1 241 per step at [1, 64, 1024] (the
      rollout, its recompute, the posterior encoder), loss and grad_norm
      finite, every parameter a finite non-zero gradient but the action
-     head's log_std; (c) `make_validate_step`, 4 scenarios x K=32: a warm-up
-     and one step split by part, B1 120 + 121; (d) `joint_future_pred` with
-     use_pallas=True, one warm-up and 2 timed calls in turns with (a)'s
-     (a d d a): B1 120, B4 12 and B2 720 per call, every B4 on the heads
+     head's log_std; (c) `make_validate_step`, 4 scenarios x K=32: one step
+     split by part, B1 120 + 121; (d) `joint_future_pred` with
+     use_pallas=True, in turns with (a)'s (a d): B1 120, B4 12 and B2 720 per call, every B4 on the heads
      route and every B2 on the cluster route, none on the general route, at
      shapes phase 3 checked (B4 [4, 1024, 32, 256, 256, 8], B2 [128, 64, 89,
-     256, 256, 8]); the first B4 and the first B2 launch of its warm-up call,
+     256, 256, 8]); the first B4 and the first B2 launch of its call,
      captured, against the float32 plain versions on their own inputs at
      phase 3's bf16 tolerance; (f) `make_train_step` with use_pallas=True,
-     built as (b)'s, one warm-up and 2 timed steps in turns with (b)'s (b f f
-     b): B1 241, B4 12 and B4-bwd 12 (all on the heads route), B2 1452 (all
+     built as (b)'s, in turns with (b)'s (b f): B1 241, B4 12 and B4-bwd 12 (all on the heads route), B2 1452 (all
      on the cluster route), B2-bwd 732 (all on the general route) per step,
      every launch at a full shape phase 3 checked, the (b) checks of loss,
-     grad_norm and gradients; the first B4-bwd launch of its warm-up step,
+     grad_norm and gradients; the first B4-bwd launch of its step,
      captured, against the float32 plain backward on its own inputs at
      phase 3's bf16 tolerance;
      (e) the phase-4 config rolled out to 40 steps against its 31 logged:
@@ -208,7 +208,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      card and on the CPU, the CPU's latent and destination draws handed to
      the card, 10 steps with one scripted: poses, motion and actions within
      phase 4's tolerance, validity and TL states identical, launches as the
-     config implies.
+     config implies;
+ 15. data parallel over processes (`parallel/mesh.py`), each process it
+     spawns under deterministic algorithms: (a) `run.main` fit at
+     `leaderboard_config()` with use_pallas=True, batch 2, 2 steps, on one
+     NCCL rank (a torchrun environment of world 1) and without a process
+     group, side by side: the parameters bit for bit; (b) two ranks sharing
+     the card over gloo with CUDA tensors, each `make_train_step` on one
+     scenario in float32 with dropout 0 and its share of the union's draws,
+     against this process's step on the union batch of 2: the loss to 1e-6
+     relative, the applied gradients to phase 7's tolerance, the parameters
+     after the update to 1e-6 of their largest value against this process's
+     AdamW fed each rank's gradients, the ranks' parameters and metrics
+     identical, each rank's launches the training step's at half the union's
+     shapes (all on the general route in float32); then `validate` of one batch
+     per rank, the metrics identical on both; (c) (b) over NCCL on two cards
+     where there are two, else "not run: 1 card".
 Then it prints the `serve` JSON line (phase 14's steps/s, ms per step, peak memory
 and the card-vs-CPU errors of both arms, with the card's name and power limit), the
 `kernels` JSON line (forward launches from phase 6 and, as
@@ -221,8 +236,8 @@ B2's `cluster_route` times at the scaled preset's shapes, B4's and B2's with
 their launches per phase 13 (d) call, B4-bwd's with its launches per (f) step,
 B3's with its launches in phase 3's bench run; the scaled training shapes'
 launches per (f) step; B1's, B4's and B2's times at the serving shapes, and every
-row's `serve_launches` per reset and per step of each phase 14 arm, by route), the
-card line, and last
+row's `serve_launches` per reset and per step of each phase 14 arm, by route; and
+`parallel`, phase 15's checks, launches per rank and seconds), the card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -232,6 +247,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -456,18 +472,17 @@ def check_knn_kernel() -> dict:
 
 
 def knarpe_inputs(shape, cross: bool, seed: int, dtype=torch.float32):
-    """Operands of B2/B3 (cross) or B4 from a numpy seed, on the card; one source
-    has no valid target and one has a single valid target."""
+    """Operands of B2/B3 (cross) or B4, drawn on the card from a seed (the largest shapes hold ~10^8 values each,
+    seconds apiece to draw on the host); one source has no valid target and one has a single valid target."""
     n_b, n_s, n_knn, d, r, _ = shape
-    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def f(*size, scale=1.0):
-        return torch.from_numpy((scale * rng.normal(size=size)).astype(np.float32)).to("cuda", dtype)
+        return (scale * torch.randn(size, generator=gen, device="cuda")).to(dtype)
 
-    inv = rng.uniform(size=(n_b, n_s, n_knn)) < 0.3
+    inv = torch.rand((n_b, n_s, n_knn), generator=gen, device="cuda") < 0.3
     inv[0, 0] = True
     inv[-1, -1, 1:] = True
-    inv = torch.from_numpy(inv).cuda()
     w_rpe, b = f(r, 2 * d, scale=r ** -0.5), f(2 * d, scale=0.1)
     if cross:
         return [f(n_b, n_s, d), f(n_b, n_s, n_knn, d), f(n_b, n_s, n_knn, r), inv, f(d, 2 * d, scale=d ** -0.5),
@@ -1086,7 +1101,7 @@ def replay_rule_checks_on_cpu(cfg, model, batch, gen) -> None:
         f"{n_flags} flags differ (tolerance {RULE_FLAG_SHARE:g} of them); fired: {sorted(fired)}")
 
 
-def run_full_width(card: str, use_pallas: bool, n_timed: int = 2, replay_rules: bool = False) -> dict:
+def run_full_width(card: str, use_pallas: bool, n_timed: int = 1, replay_rules: bool = False) -> dict:
     cfg = with_pallas(leaderboard_config(), use_pallas)
     n_sc, k = 4, cfg.n_joint_future_wosac
     batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
@@ -1193,7 +1208,7 @@ def check_train_step_card_vs_cpu(use_pallas: bool, time_step_end: int = None) ->
         f"folded norm_tgt_scale gradients non-zero; launches {expected_train_launches(cfg)} as the config implies")
 
 
-def run_train_full_width(card: str, n_timed: int = 2) -> dict:
+def run_train_full_width(card: str, n_timed: int = 1) -> dict:
     """leaderboard_config() training with use_pallas=True, 8 scenarios per step, bf16 compute."""
     cfg = with_pallas(leaderboard_config(), True)
     n_sc = 8
@@ -1365,7 +1380,7 @@ def check_validate_card_vs_cpu(use_pallas: bool, time_step_end: int = None) -> N
         raise AssertionError(f"validate check use_pallas={use_pallas}: " + "; ".join(failures))
 
 
-def run_validate_full_width(card: str, n_timed: int = 2) -> dict:
+def run_validate_full_width(card: str, n_timed: int = 1) -> dict:
     """The validation step at full width: leaderboard_config() with use_pallas=True, 4 scenarios, K=32, level-1
     rule checks, native realism. One warm-up, then n_timed steps; one more step split by part."""
     cfg = with_pallas(leaderboard_config(), True)
@@ -1978,26 +1993,36 @@ def check_validate_and_test(card: str, ckpt_dir, data_dir, fit_val_loss: float, 
 
 
 def run_fit_phase(card: str) -> dict:
-    """Phase 11: (a)-(d); -> launches per full-width fit step."""
+    """Phase 11: (b), then (a) and (d) with (c)'s subprocesses running beside them (neither (a) nor (d) times
+    anything (c) would disturb); -> launches per full-width fit step."""
     import tempfile
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as name:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as name, ThreadPoolExecutor(1) as pool:
         tmp = Path(name)
-        check_fit_card_vs_cpu(tmp)
-        t_a = time.perf_counter() - t0
         counts, ckpt_dir, data_dir, val_loss, times = run_fit_full_width(card, tmp)
-        t_b = time.perf_counter() - t0 - t_a
-        check_fit_preemption(card, tmp)
-        t_c = time.perf_counter() - t0 - t_a - t_b
+        t_b = time.perf_counter() - t0
+
+        def preemption():
+            t1 = time.perf_counter()
+            check_fit_preemption(card, tmp)
+            return time.perf_counter() - t1
+
+        preempted = pool.submit(preemption)
+        t1 = time.perf_counter()
+        check_fit_card_vs_cpu(tmp)
+        t_a = time.perf_counter() - t1
+        t1 = time.perf_counter()
         check_validate_and_test(card, ckpt_dir, data_dir, val_loss, tmp)
+        t_d = time.perf_counter() - t1
+        t_c = preempted.result()
     total = time.perf_counter() - t0
     log(f"  (e) fit at full width, batch 2: {times['step_s']:.4f} s per step, {times['samples_per_s']:.4f} train "
         f"samples/s, peak {times['peak_gib']:.2f} GiB; save_last returns in "
         f"{[round(t, 4) for t in times['save_return_s']]} s, background writes "
         f"{[round(t, 4) for t in times['write_s']]} s, checkpoint {times['ckpt_bytes']} bytes, resume (restore_resume) "
-        f"{times['resume_s']:.4f} s; phase 11 {total:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (d) "
-        f"{total - t_a - t_b - t_c:.1f}) [{card}]")
+        f"{times['resume_s']:.4f} s; phase 11 {total:.1f} s ((b) {t_b:.1f}, then (a) {t_a:.1f} and (d) {t_d:.1f} "
+        f"beside (c) {t_c:.1f}) [{card}]")
     return counts
 
 
@@ -2218,9 +2243,9 @@ def run_scaled_phase(card: str) -> dict:
     knn_eval = ("knn_xy", n_sc * 32, KNN_SRC, KNN_TGT, KNN_K)  # the agent->map KNN of 4 x 32 rollouts
 
     # (a) eval with use_pallas=False and (d) with use_pallas=True, where B4 in bf16 at D=R=256, H=8 takes the heads
-    # route and B2 the cluster route: a warm-up call each, then two timed calls each, in turns (a d d a); the first
-    # B4 and B2 launches of (d)'s warm-up call are captured and held against the plain versions on their own inputs
-    t0 = time.perf_counter()
+    # route and B2 the cluster route: one call each, checked and timed, in turns (a d), with no warm-up call (each time
+    # is a first call's at these shapes); the first B4 and B2 launches of (d)'s call are captured and held against the
+    # plain versions on their own inputs
     cfg = with_pallas(scaled_config(), False)
     n_step, n_ag, k = cfg.time_step_end, cfg.data.n_ag, cfg.n_joint_future_wosac
     n_logged = cfg.data.n_step
@@ -2230,20 +2255,9 @@ def run_scaled_phase(card: str) -> dict:
     model = build_model(cfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator().manual_seed(0)
-    joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    t0 = time.perf_counter()
     pcfg = with_pallas(scaled_config(), True)
     pmodel = build_model(pcfg, seed=0, device="cuda")
     pgen = torch.Generator().manual_seed(0)
-    with captured_launches("knarpe_attention", "knarpe_cross_attention") as first:
-        joint_future_pred(pcfg, pmodel, batch, generator=pgen, check_level=1)
-    torch.cuda.synchronize()
-    t_pwarm = time.perf_counter() - t0
-    first_errs.update({kernel: check_path_launch("(d) scaled eval call use_pallas=True", kernel, first.get(kernel, {}))
-                       for kernel in ("knarpe_attention", "knarpe_cross_attention")})
-    del first
     n_b4, n_b2 = pcfg.model.mp_encoder.n_layer_tf, pcfg.model.ag_encoder.n_layer_tf * n_step
     arms = {"a": (cfg, model, gen, {knn_eval: n_step}, {}),
             "d": (pcfg, pmodel, pgen,
@@ -2251,13 +2265,14 @@ def run_scaled_phase(card: str) -> dict:
                    ("knarpe_cross_attention", str(torch.bfloat16), *SCALED_X_PATH): n_b2},
                   {"knarpe_attention/heads": n_b4, "knarpe_cross_attention/cluster": n_b2})}
     times, peaks, counts, bufs, routes = {}, {}, {}, {}, {}
-    for arm in "adda":
+    for arm in "ad":
         acfg, amodel, agen, want_shapes, want_routes = arms[arm]
         where = f"scaled eval call use_pallas={acfg.model.tf_cfg.use_pallas}"
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t1 = time.perf_counter()
-        with recorded_launch_shapes() as shapes:
+        with recorded_launch_shapes() as shapes, captured_launches(
+                *(("knarpe_attention", "knarpe_cross_attention") if arm == "d" else ())) as first:
             _, bufs[arm] = joint_future_pred(acfg, amodel, batch, generator=agen, check_level=1)
         torch.cuda.synchronize()
         times.setdefault(arm, []).append(time.perf_counter() - t1)
@@ -2268,6 +2283,10 @@ def run_scaled_phase(card: str) -> dict:
         if counts[arm] != expected_launches(acfg, n_step) or routes[arm] != by_route:
             raise AssertionError(f"{where}: launches {counts[arm]}, by route {routes[arm]}, expected "
                                  f"{expected_launches(acfg, n_step)}, by route {by_route}")
+        if arm == "d":
+            first_errs.update({kernel: check_path_launch(f"(d) {where}", kernel, first.get(kernel, {}))
+                               for kernel in ("knarpe_attention", "knarpe_cross_attention")})
+        del first
     buf, pbuf = bufs["a"], bufs["d"]
     eval_counts, pallas_counts = counts["a"], counts["d"]
     if tuple(buf.pred_pose.shape) != (n_sc, k, n_ag, n_step, 3) or not (torch.isfinite(buf.pred_pose).all()
@@ -2281,15 +2300,15 @@ def run_scaled_phase(card: str) -> dict:
         raise AssertionError("scaled eval call use_pallas=True: poses out of shape or not finite")
     eval_s, pallas_s = (float(np.median(times[arm])) for arm in "ad")
     log(f"  (a) scaled_config use_pallas=False joint_future_pred: {n_sc} scenarios x K={k}, {n_ag} agents, "
-        f"{cfg.data.n_mp} polylines, {n_step} steps ({n_logged} logged), {n_params} parameters, bf16 compute: warm-up "
-        f"{t_warm:.3f} s, seconds per call {[round(t, 4) for t in times['a']]} (median {eval_s:.4f} s), "
+        f"{cfg.data.n_mp} polylines, {n_step} steps ({n_logged} logged), {n_params} parameters, bf16 compute: "
+        f"seconds per call {[round(t, 4) for t in times['a']]} (median {eval_s:.4f} s; a first call), "
         f"{n_sc * k * n_ag * (n_step - cfg.time_step_current) / eval_s:.1f} agent-steps/s, peak memory "
         f"{peaks['a']:.2f} GiB; launches per call {eval_counts} (B1 all at {list(knn_eval[1:])}); poses "
         f"{list(buf.pred_pose.shape)} finite; from buffer index {free} on (history ends there) and so past index "
         f"{past}: TL NLL masked, no agent forced [{card}]")
-    log(f"  (d) scaled_config use_pallas=True joint_future_pred: warm-up {t_pwarm:.3f} s, seconds per call "
-        f"{[round(t, 4) for t in times['d']]} (median {pallas_s:.4f} s) against (a)'s median {eval_s:.4f} s, in turns "
-        f"a d d a ({pallas_s - eval_s:+.4f} s), peak memory {peaks['d']:.2f} GiB; launches per call {pallas_counts}, "
+    log(f"  (d) scaled_config use_pallas=True joint_future_pred: seconds per call "
+        f"{[round(t, 4) for t in times['d']]} (median {pallas_s:.4f} s; a first call) against (a)'s {eval_s:.4f} s, in turns "
+        f"a d ({pallas_s - eval_s:+.4f} s), peak memory {peaks['d']:.2f} GiB; launches per call {pallas_counts}, "
         f"by route {routes['d']} (B4 at {list(SCALED_ATTN_PATH)} on the heads route, B2 at {list(SCALED_X_PATH)} on "
         f"the cluster route, shapes phase 3 checked); poses finite [{card}]")
     del pmodel, arms
@@ -2297,26 +2316,15 @@ def run_scaled_phase(card: str) -> dict:
 
     # (b) the training step at the preset's batch_size_train with use_pallas=False, and (f) with use_pallas=True, B4 and
     # B4-bwd on the heads route, B2 on the cluster route and B2-bwd on the general route: (f)'s model and optimizer
-    # built as (b)'s (seed 0), the same batch; a warm-up step each, then two timed steps each, in turns (b f f b); the
-    # first B4 backward launch of (f)'s warm-up step is captured and held against the plain backward on its inputs
+    # built as (b)'s (seed 0), the same batch; one step each, checked and timed, in turns (b f), with no warm-up step
+    # (each time is a first step's); the first B4 backward launch of (f)'s step is captured and held against the plain
+    # backward on its inputs
     n_train = cfg.batch_size_train
     tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
-    warm = {}
-    t0 = time.perf_counter()
     step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
-    step(tbatch, gen)
-    torch.cuda.synchronize()
-    warm["b"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     tmodel = build_model(pcfg, seed=0, device="cuda")
     tstep = train_lib.make_train_step(pcfg, tmodel, *make_optimizer(pcfg.optimizer, tmodel))
     tgen = torch.Generator().manual_seed(0)
-    with recorded_bwd_launches(capture=True) as (_, first_bwd):
-        tstep(tbatch, tgen)
-    torch.cuda.synchronize()
-    warm["f"] = time.perf_counter() - t0
-    first_errs["knarpe_attention_bwd"] = check_path_bwd_launch("(f) scaled training step use_pallas=True", first_bwd)
-    del first_bwd
     bf, knn_train = str(torch.bfloat16), ("knn_xy", n_train, KNN_SRC, KNN_TGT, KNN_K)
     n_map, n_tl, n_agl = (getattr(pcfg.model, enc).n_layer_tf for enc in ("mp_encoder", "tl_encoder", "ag_encoder"))
     # B2 at the agent decoder's and posterior agent encoder's shape: the rollout, its recompute and the posterior
@@ -2332,16 +2340,19 @@ def run_scaled_phase(card: str) -> dict:
                   {"knarpe_attention/heads": n_map, "knarpe_attention_bwd/heads": n_map,
                    "knarpe_cross_attention/cluster": n_x + n_tl, "knarpe_cross_attention_bwd/general": n_x_bwd + n_tl})}
     times, peaks, metrics, counts, routes, step_shapes = {}, {}, {}, {}, {}, {}
-    for arm in "bffb":
+    for arm in "bf":
         acfg, amodel, astep, agen, want_shapes, want_routes = arms[arm]
         where = f"scaled training step use_pallas={acfg.model.tf_cfg.use_pallas}"
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t1 = time.perf_counter()
-        with recorded_launch_shapes() as shapes, recorded_bwd_launches() as (bwd_shapes, _):
+        with recorded_launch_shapes() as shapes, recorded_bwd_launches(capture=arm == "f") as (bwd_shapes, first_bwd):
             m = astep(tbatch, agen)
         torch.cuda.synchronize()
         times.setdefault(arm, []).append(time.perf_counter() - t1)
+        if arm == "f":
+            first_errs["knarpe_attention_bwd"] = check_path_bwd_launch(f"(f) {where}", first_bwd)
+        del first_bwd
         peaks[arm] = max(peaks.get(arm, 0.0), peak_gib())
         metrics.setdefault(arm, []).append({key: float(v) for key, v in m.items()})
         step_shapes[arm] = shapes + bwd_shapes
@@ -2366,25 +2377,21 @@ def run_scaled_phase(card: str) -> dict:
     train_counts, train_pallas_counts = counts["b"], counts["f"]
     train_s, train_pallas_s = (float(np.median(times[arm])) for arm in "bf")
     for arm, what in (("b", "(b) scaled_config use_pallas=False"), ("f", "(f) scaled_config use_pallas=True")):
-        log(f"  {what} training step, batch {n_train}: warm-up {warm[arm]:.3f} s, seconds per step "
-            f"{[round(t, 4) for t in times[arm]]} (median {float(np.median(times[arm])):.4f} s), "
+        log(f"  {what} training step, batch {n_train}: seconds per step "
+            f"{[round(t, 4) for t in times[arm]]} (median {float(np.median(times[arm])):.4f} s; a first step), "
             f"{n_train / float(np.median(times[arm])):.4f} train samples/s, peak memory {peaks[arm]:.2f} GiB, losses "
             f"{[round(mm['training/loss'], 4) for mm in metrics[arm]]}, grad_norm "
             f"{[round(mm['grad_norm'], 4) for mm in metrics[arm]]}, all {len(grads)} parameters with a finite, "
             f"non-zero gradient but the {len(unread)} log_std the loss does not read; launches per step {counts[arm]}, "
             f"by route { {key: n for key, n in routes[arm].items() if n} }, by full shape {dict(step_shapes[arm])} "
             f"(each checked in phase 3) [{card}]")
-    log(f"  (f) against (b), in turns b f f b: median {train_pallas_s:.4f} s against {train_s:.4f} s per step "
+    log(f"  (f) against (b), in turns b f: median {train_pallas_s:.4f} s against {train_s:.4f} s per step "
         f"({train_pallas_s - train_s:+.4f} s), peak memory {peaks['f']:.2f} against {peaks['b']:.2f} GiB")
     del tmodel, tstep, arms
 
-    # (c) the validation step
-    t0 = time.perf_counter()
+    # (c) the validation step: one step, split by part, with no warm-up step ((a) ran the model at these shapes)
     vstep = eval_runner.make_validate_step(cfg, model)
     vbatch = train_lib.batch_to_device(batch, torch.device("cuda"))
-    vstep(vbatch, gen)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     split = {}
@@ -2407,8 +2414,8 @@ def run_scaled_phase(card: str) -> dict:
             and all(bool(torch.isfinite(v).all()) for v in realism.values())
             and all(math.isfinite(v) for v in loss.values()) and float(out["err_sums"]["err_counter"]) > 0):
         raise AssertionError(f"scaled validation step: outputs out of shape or not finite: losses {loss}")
-    log(f"  (c) scaled_config validation step, {n_sc} scenarios, K={k}, native realism: warm-up {t_warm:.3f} s, "
-        f"split step {val_s:.4f} s: { {part: round(split.get(part, 0.0), 4) for part in eval_runner.SPLIT_PARTS} }, "
+    log(f"  (c) scaled_config validation step, {n_sc} scenarios, K={k}, native realism: "
+        f"split step {val_s:.4f} s (a first step): { {part: round(split.get(part, 0.0), 4) for part in eval_runner.SPLIT_PARTS} }, "
         f"{n_sc / val_s:.4f} scenarios/s, peak memory {val_peak:.2f} GiB; launches per step {val_counts} (B1 "
         f"{n_step} at {list(knn_eval[1:])}, {n_step + 1} at {[n_sc, *knn_eval[2:]]}); WOMD modes over the {n_fut} "
         f"logged future steps, WOSAC futures over all {n_step - cfg.time_step_current}, realism over the logged ones: "
@@ -2615,6 +2622,286 @@ def run_serve_phase(card: str) -> tuple:
     log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s [{card}]")
     return summary, counts
 
+# phase 15, data parallel over processes (`parallel/mesh.py`), every process it spawns under deterministic
+# algorithms (`spawned`): (a) `run.main` fit on one NCCL rank (a torchrun environment of world 1) against the same
+# fit without a process group, side by side, the parameters bit for bit; (b) two ranks sharing the card over gloo
+# with CUDA tensors, each `make_train_step` on one scenario of a union batch of 2 (float32, dropout 0, the union's
+# draws), against this process on the union beside them: the loss to PARALLEL_LOSS_REL relative, the gradients the
+# update applies to phase 7's TRAIN_GRAD_REL of their scale (summation order through the BPTT steps: 1.82e-4
+# measured, the same with and without deterministic algorithms), and the parameters after the update to
+# PARALLEL_PARAM_REL of their largest value against this process's optimizer fed each rank's own gradients. Not
+# against the union's own update: AdamW's first step moves an element by ~lr * g / (|g| + 1e-8), so an element whose
+# gradient lies within the summation order's noise of 0 steps by up to lr either way, as large as a zero-initialised
+# bias's largest value after the step (logged as `union_param_gap`). The same two ranks validate one batch each:
+# the same metrics on both. (c) (b) over NCCL on two cards, where there are two.
+PARALLEL_LOSS_REL, PARALLEL_PARAM_REL = 1e-6, 1e-6
+PARALLEL_TIMEOUT_S = 300  # a rank that outlives this is killed and fails the phase
+PARALLEL_THREADS = 2  # CPU threads of each spawned process: up to four run beside this one
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _join_ranks(procs, outs, what: str) -> list:
+    """Join the spawned ranks (killing any past PARALLEL_TIMEOUT_S); -> their results. A rank that exits non-zero
+    or leaves no result fails the phase."""
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    for proc in procs:
+        proc.join(max(deadline - time.monotonic(), 1.0))
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    codes = [proc.exitcode for proc in procs]
+    if any(code != 0 for code in codes) or not all(out.exists() for out in outs):
+        raise AssertionError(f"{what}: rank exit codes {codes}")
+    return [torch.load(out, weights_only=False) for out in outs]
+
+
+def spawned(fn, *args) -> None:
+    """fn(*args) in a process this phase spawns, set up with float32 matmuls and deterministic algorithms (cuBLAS's
+    fixed workspace too; an op without a deterministic implementation warns, and `nondeterministic` lists the
+    warnings), the process groups on the loopback interface and PARALLEL_THREADS CPU threads. Without them two identical bf16 fits on the card differ (717 of 720 parameter tensors after 2 steps):
+    the backward's scatter-adds sum in no fixed order, and AdamW's first step turns a last-bit difference of a
+    gradient near 0 into ~lr."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    for var in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):  # every rank is on this host
+        os.environ.setdefault(var, "lo")
+    torch.set_num_threads(PARALLEL_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False  # a fill per allocation; determinism needs none
+    fn(*args)
+
+
+def nondeterministic(caught) -> list:
+    return sorted({str(w.message)[:200] for w in caught if "deterministic" in str(w.message)})
+
+
+def fit_process(args: list, out: str, one_rank: bool) -> None:
+    """(a)'s process: `run.main(args)`, in a torchrun environment of one rank on NCCL where one_rank; writes its
+    parameters, backend and the ops warned as nondeterministic to out."""
+    import warnings
+
+    import torch.distributed as dist
+
+    if one_rank:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(free_port()))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model, _, _ = run_lib.main(args)
+    result = {"params": checkpoint_lib.to_host(dict(model.named_parameters())),
+              "backend": dist.get_backend() if dist.is_initialized() else None,
+              "world": dist.get_world_size() if dist.is_initialized() else None, "warnings": nondeterministic(caught)}
+    torch.save(result, out)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def check_one_rank_fit(card: str, tmp, meanwhile) -> tuple:
+    """(a) run.main fit at leaderboard_config() with use_pallas=True, batch 2, 2 steps from a tbcache, in two
+    processes side by side, one on one NCCL rank, one without a process group: the same parameters bit for bit.
+    meanwhile() runs while they do. -> ((a)'s summary, what meanwhile returned)."""
+    import multiprocessing as mp
+
+    cfg = leaderboard_config()
+    data_dir = tmp / "dp_a_data"
+    data_dir.mkdir()
+    write_tbcache_split(data_dir / "training.tbcache", cfg, 4, seed=0)
+    write_tbcache_split(data_dir / "validation.tbcache", cfg, 2, seed=1)
+    common = ["action=fit", "data=tbcache", f"data_dir={data_dir}", "model.tf_cfg.use_pallas=true", "max_steps=2",
+              "validate_every_epoch=false", "log_every=1"]
+    t0 = time.perf_counter()
+    outs = [tmp / "dp_a_plain.pt", tmp / "dp_a_nccl.pt"]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=spawned, args=(fit_process, common + [f"ckpt_dir={tmp / out.stem}"], str(out),
+                                               one_rank)) for out, one_rank in zip(outs, (False, True))]
+    for proc in procs:
+        proc.start()
+    try:
+        other = meanwhile()
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+            proc.join()
+        raise
+    plain, rank = _join_ranks(procs, outs, "(a) the fits")
+    diff = [n for n, v in plain["params"].items() if not torch.equal(rank["params"][n], v)]
+    if (plain["backend"], rank["backend"], rank["world"]) != (None, "nccl", 1) or diff \
+            or set(rank["params"]) != set(plain["params"]):
+        raise AssertionError(f"(a): backends {plain['backend']} / {rank['backend']}, world {rank['world']}; "
+                             f"parameters that differ: {diff[:10]} ({len(diff)} of {len(plain['params'])}); ops "
+                             f"warned as nondeterministic: {plain['warnings']}")
+    t_a = time.perf_counter() - t0
+    log(f"  (a) run.main fit, leaderboard_config use_pallas=True, batch 2, 2 steps, deterministic algorithms: on one "
+        f"NCCL rank (world 1) and without a process group, side by side (and (b) beside them), {t_a:.1f} s: all "
+        f"{len(plain['params'])} parameter tensors equal bit for bit; ops warned as nondeterministic "
+        f"{plain['warnings']} [{card}]")
+    return {"seconds": t_a, "params_bit_equal": True, "tensors": len(plain["params"]),
+            "nondeterministic_ops": plain["warnings"]}, other
+
+
+def parallel_cfg():
+    """(b)'s config: leaderboard_config() in float32 with dropout 0 and the kernels on."""
+    return with_pallas(no_dropout(dataclasses.replace(leaderboard_config(), precision="fp32")), True)
+
+
+def parallel_model(cfg, device):
+    """The seed-0 weights damped to gain 0.5, and its optimizer and schedule."""
+    model = build_model(cfg, seed=0, device=device)
+    damp_weights(model, 0.5)
+    return (model, *make_optimizer(cfg.optimizer, model))
+
+
+def parallel_process(rank: int, world: int, backend: str | None, device: str, store: str, batch, noise,
+                     out: str) -> None:
+    """(b)/(c)'s process: one train step on rank's share of the union batch and of the union's draws (with backend
+    None, one process on the whole union); then, in a group, validate of one batch of its shard. Writes metrics,
+    gradients, parameters, launches and validation metrics to out."""
+    import warnings
+
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    if backend is not None:
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    cfg = parallel_cfg()
+    model, opt, schedule = parallel_model(cfg, device)
+    step = train_lib.make_train_step(cfg, model, opt, schedule, device=device)
+    n = next(iter(batch.values())).shape[0] // world
+    mine = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    shard = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+             for k, v in train_lib.shard_noise(noise, rank, world).items()}
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught, recorded_launch_shapes() as shapes:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        metrics = step(mine, noise=shard)
+        torch.cuda.synchronize(device)
+        t_step = time.perf_counter() - t0
+    counts, routes = launches(), {k: v for k, v in knarpe.ROUTE_LAUNCHES.items() if v}
+    if backend is not None:
+        print(f"  rank {rank} of {world} ({backend}, {device}): launches {counts}, by route {routes}", flush=True)
+    result = {"metrics": {k: float(v) for k, v in metrics.items()}, "launches": counts, "routes": routes,
+              "shapes": dict(shapes), "step_s": t_step, "warnings": nondeterministic(caught),
+              "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+              "params": checkpoint_lib.to_host(dict(model.named_parameters()))}
+    if backend is not None:
+        loader = run_lib.SynthLoader(cfg, 1, 1, 10_000, shard_index=rank, num_shards=world)
+        t0 = time.perf_counter()
+        result["validate"] = eval_runner.validate(cfg, model, loader, max_batches=1, device=device,
+                                                  logger=MetricsLogger(None, echo=False))
+        result["validate_s"] = time.perf_counter() - t0
+    torch.save(result, out)
+    if backend is not None:
+        dist.destroy_process_group()
+
+
+def check_two_ranks(card: str, tmp, backend: str, devices: list) -> dict:
+    """(b) / (c): two spawned ranks against one process on the union batch of 2, this one, beside them (see
+    PARALLEL_LOSS_REL)."""
+    import multiprocessing as mp
+
+    cfg = parallel_cfg()
+    batch = make_batch(cfg.data, n_sc=2, seed=3)
+    noise = train_lib.draw_training_noise(cfg, batch, torch.Generator().manual_seed(0), "cpu")
+    t0 = time.perf_counter()
+    store = tmp / f"dp_{backend}_store"
+    outs = [tmp / f"dp_{backend}_rank{r}.pt" for r in range(2)] + [tmp / f"dp_{backend}_union.pt"]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=spawned, args=(parallel_process, r, 2, backend, devices[r], str(store), batch, noise,
+                                               str(outs[r]))) for r in range(2)]
+    for proc in procs:
+        proc.start()
+    parallel_process(0, 1, None, devices[0], "", batch, noise, str(outs[2]))
+    union = torch.load(outs[2], weights_only=False)
+    ranks = _join_ranks(procs, outs[:2], f"two ranks over {backend}")
+    t_ranks = time.perf_counter() - t0
+
+    want_counts = expected_train_launches(cfg)
+    # a rank's launches are the union step's, each at half its scenarios
+    want_shapes = collections.Counter({(key[0], key[1] // 2, *key[2:]) if key[0] == "knn_xy"
+                                       else (*key[:2], key[2] // 2, *key[3:]): n for key, n in union["shapes"].items()})
+    floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in union["grads"].values())
+    replay = parallel_model(cfg, "cuda")[0]
+    start = checkpoint_lib.to_host(replay.state_dict())
+    checks = {}
+    for r, res in enumerate(ranks):
+        if res["launches"] != want_counts or union["launches"] != want_counts \
+                or collections.Counter(res["shapes"]) != want_shapes:
+            raise AssertionError(f"rank {r}: launches {res['launches']} (union {union['launches']}, expected "
+                                 f"{want_counts}), shapes {res['shapes']} (expected {dict(want_shapes)})")
+        loss_rel = abs(res["metrics"]["training/loss"] - union["metrics"]["training/loss"]) / \
+            abs(union["metrics"]["training/loss"])
+        norm_rel = abs(res["metrics"]["grad_norm"] - union["metrics"]["grad_norm"]) / union["metrics"]["grad_norm"]
+        grad_rel = max(float((res["grads"][n] - g).abs().max()) / max(float(g.abs().max()), floor)
+                       for n, g in union["grads"].items())
+        union_gap = max(float((res["params"][n] - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+                        for n, p in union["params"].items())
+        replay.load_state_dict(start)  # a fresh optimizer's first update, from this rank's gradients
+        replay_opt = make_optimizer(cfg.optimizer, replay)[0]
+        for n, p in replay.named_parameters():
+            p.grad = res["grads"][n].cuda()
+        replay_opt.step()
+        replayed = checkpoint_lib.to_host(dict(replay.named_parameters()))
+        param_rel = max(float((res["params"][n] - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+                        for n, p in replayed.items())
+        checks[r] = dict(loss_rel=loss_rel, grad_norm_rel=norm_rel, grad_rel=grad_rel, param_rel=param_rel,
+                         union_param_gap=union_gap)
+        if not (loss_rel <= PARALLEL_LOSS_REL and grad_rel <= TRAIN_GRAD_REL and param_rel <= PARALLEL_PARAM_REL):
+            raise AssertionError(f"rank {r} over {backend}: {checks[r]} (tolerances: loss {PARALLEL_LOSS_REL}, "
+                                 f"gradients {TRAIN_GRAD_REL}, parameters {PARALLEL_PARAM_REL}); ops warned as "
+                                 f"nondeterministic {res['warnings']}")
+    r0, r1 = ranks
+    same_params = all(torch.equal(r0["params"][n], r1["params"][n]) for n in r0["params"])
+    if r0["metrics"] != r1["metrics"] or not same_params:
+        raise AssertionError(f"the two ranks differ: metrics {r0['metrics']} vs {r1['metrics']}, parameters equal "
+                             f"{same_params}")
+    if r0["validate"] != r1["validate"] or not all(math.isfinite(v) for v in r0["validate"].values()):
+        diff = {k: (v, r1["validate"].get(k)) for k, v in r0["validate"].items() if r1["validate"].get(k) != v}
+        raise AssertionError(f"validate over {backend}: the ranks' metrics differ or are not finite: {diff}")
+    log(f"  ({'b' if backend == 'gloo' else 'c'}) two ranks over {backend} on {devices}, one scenario each, "
+        f"float32, deterministic algorithms, against one process on the union of 2 beside them: loss "
+        f"{r0['metrics']['training/loss']:.7f} vs {union['metrics']['training/loss']:.7f}; per rank {checks}; the "
+        f"ranks' metrics and parameters identical; launches per rank {r0['launches']} by route {r0['routes']}, "
+        f"shapes the union step's at half its scenarios; steps {[round(res['step_s'], 3) for res in ranks]} s "
+        f"(union {union['step_s']:.3f} s); validate of one batch per rank "
+        f"{[round(res['validate_s'], 3) for res in ranks]} s, {len(r0['validate'])} metrics identical on both "
+        f"(val/loss {r0['validate']['val/loss']:.6f}); ops warned as nondeterministic {r0['warnings']}; "
+        f"{t_ranks:.1f} s in all [{card}]")
+    return {"backend": backend, "devices": devices, "seconds": t_ranks, "checks": checks,
+            "launches_per_rank": r0["launches"], "routes_per_rank": r0["routes"],
+            "validate_metrics_identical": len(r0["validate"]), "nondeterministic_ops": r0["warnings"]}
+
+
+def run_parallel_phase(card: str) -> dict:
+    """Phase 15: (a)-(c); -> the `parallel` object of the kernels line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as name:
+        tmp = Path(name)
+        out = dict(zip(("one_rank_nccl", "two_ranks_gloo_one_card"), check_one_rank_fit(
+            card, tmp, lambda: check_two_ranks(card, tmp, "gloo", ["cuda:0", "cuda:0"]))))
+        if torch.cuda.device_count() >= 2:
+            out["two_ranks_nccl_two_cards"] = check_two_ranks(card, tmp, "nccl", ["cuda:0", "cuda:1"])
+        else:
+            out["two_ranks_nccl_two_cards"] = "not run: 1 card"
+            log("  (c) not run: 1 card")
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card
+    log(f"  phase 15 {out['seconds']:.1f} s [{card}]")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2622,65 +2909,71 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    header = lambda text: log(f"{text} (at {time.perf_counter() - t_start:.1f} s)")  # noqa: E731
     card = card_line()
-    log(f"[1/14] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/15] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
-        f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}; host: "
+        f"{os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} usable, {torch.get_num_threads()} torch threads")
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all at once
         for fut in [pool.submit(knn.load_library), pool.submit(knarpe.load_library),
                     pool.submit(knarpe.load_bwd_library)]:
             fut.result()
-    log(f"[2/14] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
+    header(f"[2/15] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    log("[3/14] kernels vs plain versions")
+    header("[3/15] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
     bench_routes = run_bench_knarpe()
 
-    log("[4/14] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[4/15] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_slice_card_vs_cpu(use_pallas=False)
     check_slice_card_vs_cpu(use_pallas=True)
 
-    log("[5/14] slice at full width, use_pallas=False")
+    header("[5/15] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    log("[6/14] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    header("[6/15] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True)
 
-    log("[7/14] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[7/15] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_train_step_card_vs_cpu(use_pallas=False)
     check_train_step_card_vs_cpu(use_pallas=True)
 
-    log("[8/14] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    header("[8/15] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    log("[9/14] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    header("[9/15] validation step: reduced-depth fp32 config card vs CPU, then full width")
     check_validate_card_vs_cpu(use_pallas=False)
     check_validate_card_vs_cpu(use_pallas=True)
     validate_counts = run_validate_full_width(card)
     check_validate_official(card)
 
-    log("[10/14] submission: test_submission at full width, K=128")
+    header("[10/15] submission: test_submission at full width, K=128")
     run_submission(card)
 
-    log("[11/14] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    header("[11/15] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
     fit_counts = run_fit_phase(card)
 
-    log("[12/14] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
+    header("[12/15] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    log("[13/14] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
+    header("[13/15] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
         "(B4 and B4-bwd heads, B2 cluster, B2-bwd general route); the TL pass past the log, card vs CPU")
     scaled_counts, first_errs, scaled_train = run_scaled_phase(card)
 
-    log("[14/14] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
+    header("[14/15] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
         "a scripted agent, history, card vs CPU")
     serve_summary, serve_counts = run_serve_phase(card)
+
+    header("[15/15] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
+        "vs one process on the union batch, and their validation")
+    parallel = run_parallel_phase(card)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -2735,7 +3028,7 @@ def main() -> int:
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": serve_summary}))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "parallel": parallel}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

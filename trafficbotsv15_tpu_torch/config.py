@@ -231,7 +231,8 @@ class TrainingMetricsCfg:
 @dataclasses.dataclass(frozen=True)
 class ParallelCfg:
     """Mesh layout + parameter-sharding strategy for fit() (mirrored field by
-    field; the port has no multi-GPU path yet).
+    field). The port runs "dp" over processes (`parallel/mesh.py`); "fsdp",
+    "tp" and a model axis over one device raise (ROADMAP A10b).
 
     "dp" is data parallel; "fsdp" splits large params over the data axis and
     "tp" splits projections over the model axis."""

@@ -1,4 +1,4 @@
-"""Validation and submission runners on one device (counterpart of `trafficbotsv15_tpu/eval/runner.py`).
+"""Validation and submission runners (counterpart of `trafficbotsv15_tpu/eval/runner.py`).
 
 `make_validate_step` is one validation batch: reactive replay with its loss
 and error and rule sums, the K joint futures with their rule sums, WOMD
@@ -15,9 +15,15 @@ the joint futures and of reactive replay and makes one official call per
 flavour at the end over the concatenated rows; where `waymo_open_dataset`
 imports and a batch carries `scenario_bytes` and `scenario_id`, it feeds the
 WOSAC pool (`eval/wosac_metrics.py`) from the filtered futures, in the global
-frame where the batch has `scenario_center`. The port runs one process: the
-JAX package's cross-host sums and gathers of these rows have no counterpart
-yet.
+frame where the batch has `scenario_center`.
+
+Over several ranks (`parallel/mesh.py`) each rank evaluates its shard on its
+device, and the results are combined as the JAX package combines its hosts':
+one sum over the ranks of the running sums and of the per-batch loss and WOMD
+sums and counts, the WOSAC pool's sums and counter summed before its
+aggregation, and the WOMD rows and the submission's rows gathered to rank 0,
+which alone makes the official WOMD call (its metrics then go to every rank)
+and writes the submission.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from trafficbotsv15_tpu_torch.eval.womd_post_processing import womd_post_process
 from trafficbotsv15_tpu_torch.eval.wosac_likelihood import realism_from_rollout
 from trafficbotsv15_tpu_torch.eval.wosac_post_processing import (WOSAC_HIST_KEYS, filter_futures,
                                                                  get_scenario_rollouts, to_global_frame)
+from trafficbotsv15_tpu_torch.parallel.mesh import (allgather_rows, broadcast_object, cross_process_max,
+                                                    cross_process_sum, process_index)
 from trafficbotsv15_tpu_torch.train import evaluation
 from trafficbotsv15_tpu_torch.train.losses import training_loss
 from trafficbotsv15_tpu_torch.utils.device import resolve_device, to_host
@@ -116,7 +124,8 @@ def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] =
     `reactive_replay/*`, `joint_future_pred/traffic_rule/*`, `val/scenarios_per_sec`), and the official
     metrics where their packages are importable (`joint_future_pred/waymo_metrics/*`,
     `reactive_replay/waymo_metrics/*`, `wosac/wosac/*`, `wosac/wosac_likelihood/*`). Batch i draws its joint
-    futures from a generator seeded with cfg.seed + i, as the JAX package keys it."""
+    futures from a generator seeded with cfg.seed + i, as the JAX package keys it. Over several ranks every rank
+    evaluates its own loader's batches and returns the same metrics, the union's (`metrics_from_sums`)."""
     step = make_validate_step(cfg, model, device)
     logger = logger or MetricsLogger()
     try:
@@ -168,31 +177,58 @@ def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] =
                                              for x in batch["scenario_bytes"]])
         n += int(b["map/valid"].shape[0])
 
+    # the union's sums (JAX `runner.py:486-499`): the ranks' loaders run the same number of batches, so the summed
+    # per-batch means divide by the summed batch count
+    sums = cross_process_sum({
+        "err": err_sums, "rr": rr_rule, "jf": jf_rule, "realism": realism_sums, "realism_n": realism_n, "n": n,
+        "loss": {k: float(np.sum([loss[k] for loss in losses])) for k in (losses[0] if losses else {})},
+        "loss_cnt": len(losses),
+        "womd": {k: float(np.sum([w[k] for w in womd_vals])) for k in (womd_vals[0] if womd_vals else {})},
+        "womd_cnt": len(womd_vals),
+    })
+    elapsed = cross_process_max(time.time() - t0)
     metrics: Dict[str, float] = {}
+    if wosac_official is not None:  # every rank takes part, with zero scenarios too
+        red = cross_process_sum({"sums": wosac_official.sums, "counter": wosac_official.counter})
+        wosac_official.sums = {k: float(v) for k, v in red["sums"].items()}
+        wosac_official.counter = int(red["counter"])
+        if wosac_official.counter > 0:
+            metrics.update(wosac_official.compute())
+    official: Dict[str, float] = {}
+    for prefix, plist in (("joint_future_pred", womd_packed), ("reactive_replay", womd_rr_packed)):
+        if plist:  # one official call per flavour over every rank's rows, on rank 0
+            packed = allgather_rows({k: np.concatenate([p[k] for p in plist]) for k in plist[0]})
+            if process_index() == 0:
+                official.update(womd_metrics.official_motion_metrics(packed, cfg.time_step_current, prefix))
+    if womd_packed:
+        metrics.update(broadcast_object(official))
+    metrics.update(metrics_from_sums(sums))
+    metrics["val/scenarios_per_sec"] = float(sums["n"]) / elapsed
+    logger.log(0, metrics)
+    return metrics
+
+
+def metrics_from_sums(sums) -> Dict[str, float]:
+    """The metrics of `validate`'s running sums (its `cross_process_sum` tree), as JAX `runner.py:504-547`
+    reduces them, but `val/scenarios_per_sec` and the official metrics."""
+    metrics: Dict[str, float] = {}
+    realism_n = int(sums["realism_n"])
     if realism_n > 0:
-        mean = {k: v / realism_n for k, v in realism_sums.items()}
+        mean = {k: float(v) / realism_n for k, v in sums["realism"].items()}
         metrics["wosac/realism_meta_metric"] = mean.pop("metametric")
         for bucket in ("kinematic_metrics", "interactive_metrics", "map_based_metrics"):
             metrics[f"wosac/{bucket}"] = mean.pop(bucket)
         metrics["wosac/min_ade"] = mean["min_average_displacement_error"]
         for k, v in mean.items():
             metrics[f"wosac_likelihood/{k}"] = v
-    if wosac_official is not None and wosac_official.counter > 0:
-        metrics.update(wosac_official.compute())
-    for prefix, plist in (("joint_future_pred", womd_packed), ("reactive_replay", womd_rr_packed)):
-        if plist:  # one official call per flavour over every batch's rows
-            packed = {k: np.concatenate([p[k] for p in plist]) for k in plist[0]}
-            metrics.update(womd_metrics.official_motion_metrics(packed, cfg.time_step_current, prefix))
-    for k in (womd_vals[0] if womd_vals else {}):
-        metrics[f"joint_future_pred/womd/{k}"] = float(np.sum([w[k] for w in womd_vals])) / len(womd_vals)
-    metrics.update(compute_error_metrics(err_sums, "reactive_replay"))
-    metrics.update(compute_traffic_rule_metrics(rr_rule, "reactive_replay"))
-    metrics.update(compute_traffic_rule_metrics(jf_rule, "joint_future_pred"))
-    for k in (losses[0] if losses else {}):
-        metrics[k] = float(np.sum([loss[k] for loss in losses])) / len(losses)
+    for k, v in sums["womd"].items():
+        metrics[f"joint_future_pred/womd/{k}"] = float(v) / max(int(sums["womd_cnt"]), 1)
+    metrics.update(compute_error_metrics(sums["err"], "reactive_replay"))
+    metrics.update(compute_traffic_rule_metrics(sums["rr"], "reactive_replay"))
+    metrics.update(compute_traffic_rule_metrics(sums["jf"], "joint_future_pred"))
+    for k, v in sums["loss"].items():
+        metrics[k] = float(v) / max(int(sums["loss_cnt"]), 1)
     metrics["val/loss"] = metrics.get("reactive_replay/loss", 0.0)
-    metrics["val/scenarios_per_sec"] = n / (time.time() - t0)
-    logger.log(0, metrics)
     return metrics
 
 
@@ -224,14 +260,20 @@ def test_submission(cfg: ExperimentCfg, model, test_loader, out_dir: str = ".", 
     modes, the 32 futures with the fewest violations, in the global frame. Batch i draws from a generator
     seeded with cfg.seed + i. A tail batch smaller than the first is padded with its last scenario and
     sliced back. Writes the protos and returns the (WOMD, WOSAC) tar paths when waymo_open_dataset is
-    importable, else returns the per-batch arrays."""
+    importable, else returns the per-batch arrays. Over several ranks each rank runs its own loader's batches;
+    with the protos every batch's rows are gathered to rank 0, which alone assembles and writes them, and the
+    other ranks return (None, None); without them each rank returns its own arrays."""
     from trafficbotsv15_tpu_torch.eval.submission import SubmissionMeta, SubWOMD, SubWOSAC
 
     device = resolve_device(device)
     k = n_joint_future if n_joint_future is not None else cfg.n_joint_future_wosac
     meta = meta or SubmissionMeta()
+    rank0 = process_index() == 0
     try:
-        sub_womd, sub_wosac = SubWOMD(meta), SubWOSAC(meta, out_dir=f"{out_dir}/WOSAC")
+        # an active writer imports waymo_open_dataset, or raises ImportError, on every rank alike (an inactive one
+        # imports nothing); only rank 0's is ever fed and saved
+        sub_womd = SubWOMD(meta)
+        sub_wosac = SubWOSAC(meta, is_active=rank0, out_dir=f"{out_dir}/WOSAC")
         have_protos = True
     except ImportError:
         sub_womd = sub_wosac = None
@@ -269,10 +311,14 @@ def test_submission(cfg: ExperimentCfg, model, test_loader, out_dir: str = ".", 
                 cy = b["scenario_yaw"]
                 rot = np.stack([np.stack([np.cos(cy), np.sin(cy)], -1), np.stack([-np.sin(cy), np.cos(cy)], -1)], -2)
                 g = g @ rot[:, None, None] + b["scenario_center"][:, None, None, None]
-            sids = _decode_sids(b["scenario_id"])
-            sub_womd.add(sids, g, out["womd_scores"], b["history/agent/object_id"], role)
-            wd = {"trajs": out["wosac_trajs"], **{kk: b[kk] for kk in WOSAC_HIST_KEYS}}
-            sub_wosac.add(get_scenario_rollouts(cfg.wosac_post, wd, cfg.time_step_current, cfg.time_step_gt, sids))
+            rows = allgather_rows({"sid": b["scenario_id"], "g": g, "scores": out["womd_scores"], "role": role,
+                                   "trajs": out["wosac_trajs"], **{kk: b[kk] for kk in WOSAC_HIST_KEYS}})
+            if rank0:
+                sids = _decode_sids(rows["sid"])
+                sub_womd.add(sids, rows["g"], rows["scores"], rows["history/agent/object_id"], rows["role"])
+                wd = {"trajs": rows["trajs"], **{kk: rows[kk] for kk in WOSAC_HIST_KEYS}}
+                sub_wosac.add(get_scenario_rollouts(cfg.wosac_post, wd, cfg.time_step_current, cfg.time_step_gt,
+                                                    sids))
     if have_protos:
-        return sub_womd.save(out_dir), sub_wosac.save()
+        return (sub_womd.save(out_dir), sub_wosac.save()) if rank0 else (None, None)
     return results

@@ -8,11 +8,24 @@ Arguments are key=value, values parsed as JSON where they parse; dots nest
 (`optimizer.lr=1e-4`). Besides the config's own fields: `action`
 (fit | validate | test), `data` (synthetic | tbcache | h5, with `data_dir`
 holding training.* and validation.*), `preset` (leaderboard | tiny | scaled),
-`max_steps`, `log_every`, `ckpt_dir`, `resume` and `device` (the card unless
-`device=cpu`). The run is one process on one device. Keys the port has no
-counterpart for raise `NotImplementedError`: `profile_dir` and `video_dir`
-(ROADMAP A12), `parallel.strategy` other than dp or a model axis over one
-device (A10), and the JAX-only switches `rbg` and `debug_nans`.
+`max_steps`, `log_every`, `ckpt_dir`, `resume` and `device` (the rank's card
+unless `device=cpu`). Keys the port has no counterpart for raise
+`NotImplementedError`: `profile_dir` and `video_dir` (ROADMAP A12),
+`parallel.strategy` fsdp or tp and a model axis over one device (A10b), and the
+JAX-only switches `rbg` and `debug_nans`.
+
+One process runs on one device. Data parallel (`parallel.strategy=dp`, the
+default) runs N processes, one device each, launched by torchrun (or with
+RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set):
+
+    torchrun --nproc_per_node=4 -m trafficbotsv15_tpu_torch.run action=fit data=tbcache data_dir=DIR
+    torchrun --nproc_per_node=2 -m trafficbotsv15_tpu_torch.run action=fit device=cpu preset=tiny
+
+over NCCL on the cards (rank r on cuda:LOCAL_RANK) and gloo on the CPU. Each
+rank loads its own shard (`batch_size_*` is per process); a step computes what
+one process computes on the union batch (`train/pipeline.py`), validation's
+metrics are the union's on every rank, and rank 0 alone writes checkpoints,
+metrics and the submission (`parallel/mesh.py`).
 
 `preset=scaled` is `config.scaled_config()` (hidden 256, 8 heads, 12/6/6
 map/TL/agent layers, a 120-step horizon past the data's 91 logged steps).
@@ -46,6 +59,8 @@ import torch
 from trafficbotsv15_tpu_torch.config import (ExperimentCfg, config_from_dict, config_to_dict, leaderboard_config,
                                              scaled_config, tiny_config)
 from trafficbotsv15_tpu_torch.ops.flags import check_supported
+from trafficbotsv15_tpu_torch.parallel.mesh import (barrier, broadcast_params, cross_process_max,
+                                                    maybe_init_distributed, process_count, process_index)
 from trafficbotsv15_tpu_torch.train.checkpoint import CheckpointManager, deep_update
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model, make_train_step
@@ -83,10 +98,13 @@ def apply_overrides(cfg: ExperimentCfg, overrides: Dict[str, Any]) -> Experiment
 
 
 class SynthLoader:
-    """`n_batches` synthetic batches of `n_sc` scenarios, batch i from seed seed0 + i (the JAX loader's)."""
+    """`n_batches` synthetic batches of `n_sc` scenarios, batch i of shard s of n from seed seed0 + i·n + s (the JAX
+    loader's disjoint per-process streams; seed0 + i on one process)."""
 
-    def __init__(self, cfg: ExperimentCfg, n_batches: int, n_sc: int, seed0: int, test_mode: bool = False):
+    def __init__(self, cfg: ExperimentCfg, n_batches: int, n_sc: int, seed0: int, test_mode: bool = False,
+                 shard_index: int = 0, num_shards: int = 1):
         self.cfg, self.n_batches, self.n_sc, self.seed0, self.test_mode = cfg, n_batches, n_sc, seed0, test_mode
+        self.shard_index, self.num_shards = shard_index, num_shards
 
     def __len__(self) -> int:
         return self.n_batches
@@ -98,32 +116,56 @@ class SynthLoader:
         from trafficbotsv15_tpu_torch.data.synthetic import make_batch
 
         for i in range(start_batch, self.n_batches):
-            yield make_batch(self.cfg.data, n_sc=self.n_sc, seed=self.seed0 + i, test_mode=self.test_mode)
+            seed = self.seed0 + i * self.num_shards + self.shard_index
+            yield make_batch(self.cfg.data, n_sc=self.n_sc, seed=seed, test_mode=self.test_mode)
 
 
 def make_dataloaders(cfg: ExperimentCfg, data: str, data_dir: Optional[str], n_synthetic: int = 64,
                      test_mode: bool = False):
-    """(train loader, validation loader) for one device: synthetic scenes, a tbcache or an h5 split pair."""
+    """(train loader, validation loader) of this process's shard: synthetic scenes, a tbcache or an h5 split pair.
+    `batch_size_*` is per process; the shards (`parallel/mesh.py::process_index` of `process_count`) are disjoint
+    and of equal length, so the ranks run the same number of batches of the same size."""
+    shard = dict(shard_index=process_index(), num_shards=process_count())
     if data == "synthetic":
         bs_train, bs_test = max(cfg.batch_size_train, 1), max(cfg.batch_size_test, 1)
-        return (SynthLoader(cfg, n_synthetic // bs_train, bs_train, 0),
-                SynthLoader(cfg, max(n_synthetic // bs_test // 4, 1), bs_test, 10_000, test_mode=test_mode))
+        return (SynthLoader(cfg, n_synthetic // bs_train, bs_train, 0, **shard),
+                SynthLoader(cfg, max(n_synthetic // bs_test // 4, 1), bs_test, 10_000, test_mode=test_mode, **shard))
     if data_dir is None:
         raise ValueError(f"data={data} needs data_dir=<directory with training.* and validation.*>")
     if data == "tbcache":
         from trafficbotsv15_tpu_torch.data.tbcache import TBCacheDataset, TBCacheLoader
 
         return (TBCacheLoader(TBCacheDataset(f"{data_dir}/training.tbcache"), cfg.batch_size_train, shuffle=True,
-                              seed=cfg.seed),
-                TBCacheLoader(TBCacheDataset(f"{data_dir}/validation.tbcache"), cfg.batch_size_test))
+                              seed=cfg.seed, **shard),
+                TBCacheLoader(TBCacheDataset(f"{data_dir}/validation.tbcache"), cfg.batch_size_test, **shard))
     if data == "h5":
         from trafficbotsv15_tpu_torch.data.h5_dataset import DataLoader, H5Dataset, tensor_size_train, tensor_size_val
 
         train_ds = H5Dataset(f"{data_dir}/training.h5", tensor_size_train(cfg.data))
         val_ds = H5Dataset(f"{data_dir}/validation.h5", tensor_size_val(cfg.data), with_attrs=True)
-        return (DataLoader(train_ds, cfg.batch_size_train, shuffle=True, seed=cfg.seed),
-                DataLoader(val_ds, cfg.batch_size_test))
+        return (DataLoader(train_ds, cfg.batch_size_train, shuffle=True, seed=cfg.seed, **shard),
+                DataLoader(val_ds, cfg.batch_size_test, **shard))
     raise ValueError(f"unknown data {data!r}: synthetic | tbcache | h5")
+
+
+def init_distributed(device: torch.device) -> bool:
+    """`maybe_init_distributed` with the backend of `device`: NCCL on the card, gloo on the CPU."""
+    return maybe_init_distributed("nccl" if device.type == "cuda" else "gloo")
+
+
+def build_kernels(cfg: ExperimentCfg) -> None:
+    """Build (or find) the CUDA libraries cfg's path launches, one nvcc per source, all at once. The entry point
+    calls it before the process group forms, so that no rank waits in a collective on another's compile."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from trafficbotsv15_tpu_torch.ops import knarpe, knn
+
+    loaders = [knn.load_library]
+    if cfg.model.tf_cfg.use_pallas:
+        loaders += [knarpe.load_library, knarpe.load_bwd_library]
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(f) for f in loaders]:
+            fut.result()
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -139,8 +181,13 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
     A step is one call of the train step on one batch (with gradient accumulation, every
     `accumulate_grad_batches`-th call updates); `max_steps` and `ckpt_every_steps` count calls. The EMA and
     the SWA average fold in the parameters after every call, as the JAX loop does. Metrics go to
-    `<ckpt_dir>/metrics.jsonl`."""
+    `<ckpt_dir>/metrics.jsonl`.
+
+    Over several ranks (a torchrun environment, `parallel/mesh.py`) every rank builds or resumes the model, takes
+    rank 0's parameters, and steps on its own shard; EMA and SWA stay replicated; a signal on any rank stops every
+    rank after the same step."""
     device = resolve_device(device)
+    init_distributed(device)
     logger = MetricsLogger(str(Path(ckpt_dir) / "metrics.jsonl"))
     model = build_model(cfg, device=device)
     names, params = zip(*model.named_parameters())
@@ -170,6 +217,7 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
             accumulator.load_state_dict(restored["accumulator"])
         start_step = int(meta.get("step", 0))
         print(f"resumed from {ckpt_dir}/last at step {start_step}")
+    broadcast_params(model)
 
     def by_name(tensors):
         return dict(zip(names, tensors))
@@ -218,9 +266,15 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
     except ValueError:  # not in the main thread
         prev_handlers = {}
 
+    def stop_agreed() -> bool:
+        """Whether any rank got a signal (a collective: every rank asks at the same points, or one rank's next
+        save would wait on the others forever)."""
+        return cross_process_max(float(bool(stop_signal))) > 0
+
     step = start_step
     start_epoch = min(start_step // steps_per_epoch, max(cfg.max_epochs - 1, 0))
     last_saved_step = -1
+    stopped = False
     t_start = time.time()
     try:
         for epoch in range(start_epoch, cfg.max_epochs):
@@ -250,13 +304,15 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
                 if cfg.ckpt_every_steps and step % cfg.ckpt_every_steps == 0:
                     ckpt.save_last(snapshot(), cfg, {"step": step, "epoch": epoch})
                     last_saved_step = step
-                if stop_signal or (max_steps and step >= max_steps):
+                stopped = stop_agreed()
+                if stopped or (max_steps and step >= max_steps):
                     break
             state = snapshot()
             if step != last_saved_step:  # not when the step's own save already wrote this step
                 ckpt.save_last(state, cfg, {"step": step, "epoch": epoch})
                 last_saved_step = step
-            if stop_signal:
+            stopped = stop_agreed()
+            if stopped:
                 break
             if cfg.validate_every_epoch:
                 from trafficbotsv15_tpu_torch.eval.runner import validate
@@ -273,12 +329,13 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
         finally:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
-    return model, logger, bool(stop_signal)
+    return model, logger, stopped or bool(stop_signal)
 
 
 def restore_model(ckpt_dir: str, name: str, device, cfg: Optional[ExperimentCfg] = None, config_overrides=None):
     """(model of cfg with checkpoint `name`'s weights on device, cfg); without cfg, the checkpoint's own config
-    with config_overrides merged in."""
+    with config_overrides merged in. Every rank restores, once they all are here."""
+    barrier()
     state, saved_cfg, _ = CheckpointManager(ckpt_dir).restore(name, config_overrides=config_overrides)
     cfg = saved_cfg if cfg is None else cfg
     model = build_model(cfg, device=device)
@@ -295,7 +352,8 @@ def preset_config(preset: str) -> ExperimentCfg:
 
 def main(argv=None):
     """Run one action from key=value arguments; -> fit's (model, logger, stopped), validate's metrics or
-    test_submission's result. A fit stopped by a signal exits 143."""
+    test_submission's result. A fit stopped by a signal exits 143. In a torchrun environment it joins the process
+    group first (after building the kernels) and runs data parallel."""
     argv = sys.argv[1:] if argv is None else argv
     # the run's own keys apart from the config's, so that data=tbcache and data.n_ag=16 can stand side by side
     is_run_key = lambda arg: arg.split("=", 1)[0] in RUN_KEYS
@@ -324,8 +382,12 @@ def main(argv=None):
     cfg = apply_overrides(cfg, overrides)
     if cfg.parallel.strategy != "dp" or cfg.parallel.model_axis != 1:
         raise NotImplementedError(f"parallel.strategy={cfg.parallel.strategy!r}, model_axis={cfg.parallel.model_axis}:"
-                                  " the port runs on one device (multi-GPU is ROADMAP A10)")
+                                  " the port runs data parallel only (dp); FSDP, tensor parallelism and a model axis "
+                                  "are ROADMAP A10b")
     check_supported(cfg.ops)
+    if device.type == "cuda":
+        build_kernels(cfg)
+    init_distributed(device)
     if action == "test" and "batch_size_test" not in overrides:
         # the submission's K=128 futures of one scenario share its map and KNN work: batch 1
         cfg = dataclasses.replace(cfg, batch_size_test=1)

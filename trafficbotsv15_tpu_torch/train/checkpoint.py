@@ -21,11 +21,17 @@ package's:
   - `restore_resume(keep)` restores only the entries the run still keeps.
 A fit's state holds the model's `state_dict`, the optimizer's and the
 schedule's, the accumulation buffers when it accumulates, and `ema`, `swa` and
-`swa_state` when they are on. There are no multi-host barriers (one process
-writes), and no `migrate_param_tree`: it renames flax leaves of checkpoints
-older than the JAX package's current param tree, which the port's state dicts
-never had. The JAX package's Orbax checkpoints come across through numpy
-(`utils/jax_import.py`).
+`swa_state` when they are on. There is no `migrate_param_tree`: it renames
+flax leaves of checkpoints older than the JAX package's current param tree,
+which the port's state dicts never had. The JAX package's Orbax checkpoints
+come across through numpy (`utils/jax_import.py`).
+
+Over several ranks (`parallel/mesh.py`) the state is replicated, so rank 0
+alone copies it to the host and writes it (JAX `_is_proc0`); every rank calls
+each save, restore and `wait()` in the same order, and a finalisation ends
+with a barrier on every rank after rank 0's swap (for the async "last", after
+its thread has joined), so no rank restores a checkpoint before it is in
+place. Every rank restores.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 import torch
 
 from trafficbotsv15_tpu_torch.config import ExperimentCfg, config_from_dict, config_to_dict
+from trafficbotsv15_tpu_torch.parallel.mesh import barrier, process_index
 
 
 def to_host(obj):
@@ -92,15 +99,22 @@ class CheckpointManager:
             score = json.loads(best_meta.read_text()).get("meta", {}).get("score")
             if score is not None:
                 self.best_score = float(score)
-        self._pending: Optional[Tuple[str, _Write, str]] = None  # (name, write, json payload)
+        # (name, write, json payload); on the ranks past 0, which write nothing, (name, None, None)
+        self._pending: Optional[Tuple[str, Optional[_Write], Optional[str]]] = None
+        self.writes = process_index() == 0
 
     def _finalize_pending(self) -> None:
         """Wait for the in-flight write, then swap it in: `<name>` -> `<name>.old`, `.tmp` -> `<name>`, the
-        json, then `.old` goes."""
+        json, then `.old` goes; then every rank meets at a barrier."""
         if self._pending is None:
             return
         name, write, payload = self._pending
         self._pending = None
+        if write is not None:
+            self._swap_in(name, write, payload)
+        barrier()
+
+    def _swap_in(self, name: str, write: _Write, payload: str) -> None:
         write.join()
         final, old, tmp = self.dir / name, self.dir / f"{name}.old", self.dir / f"{name}.tmp"
         if final.exists():
@@ -121,10 +135,13 @@ class CheckpointManager:
     def _save(self, name: str, state: Dict[str, Any], cfg: ExperimentCfg, meta: Dict[str, Any],
               block: bool) -> None:
         self._finalize_pending()
-        tmp = self.dir / f"{name}.tmp"
-        tmp.unlink(missing_ok=True)  # a leftover of a crashed save
-        host = to_host(state)
-        self._pending = (name, _Write(host, tmp), json.dumps({"config": config_to_dict(cfg), "meta": meta}))
+        if self.writes:
+            tmp = self.dir / f"{name}.tmp"
+            tmp.unlink(missing_ok=True)  # a leftover of a crashed save
+            host = to_host(state)
+            self._pending = (name, _Write(host, tmp), json.dumps({"config": config_to_dict(cfg), "meta": meta}))
+        else:
+            self._pending = (name, None, None)
         if block:
             self._finalize_pending()
 
@@ -139,7 +156,8 @@ class CheckpointManager:
         self._save("last", state, cfg, meta, block=False)
 
     def save_best(self, state: Dict[str, Any], cfg: ExperimentCfg, score: float, meta: Dict[str, Any]) -> bool:
-        """Keep top-1 on score (lower is better). Blocks: True means the new best is on disk."""
+        """Keep top-1 on score (lower is better). Blocks: True means the new best is on disk. Over several ranks
+        the score must be the same on every rank (validation's metrics are)."""
         if self.best_score is None or score < self.best_score:
             self.best_score = score
             self._save("best", state, cfg, {**meta, "score": score}, block=True)

@@ -6,11 +6,18 @@ from `step_training_start` on, optionally relevant agents only (irrelevant
 ones kept with probability `p_loss_for_irrelevant`, from uniform draws the
 caller makes), optionally without teacher-forced steps, optionally weighted
 towards relevant agents and discounted after teacher-forced steps.
+
+Each term is a masked sum over its valid count, `sum / (count + eps)`. The
+JAX package sums over the whole sharded batch; over several ranks
+(`parallel/mesh.py`) the caller hands in `count_sum`, the sum of the detached
+counts over the ranks, so that each rank's term is its own sum over the global
+count: the ranks' terms then add up to the global term, and the sum of their
+gradients is the global batch's gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -23,10 +30,12 @@ _EPS = 1e-8
 
 def training_loss(cfg: TrainingMetricsCfg, buffer: RolloutBuffer, ag_role: torch.Tensor, navi_pred,
                   navi_gt: Optional[torch.Tensor], latent_post, latent_prior,
-                  u_irrelevant: Optional[torch.Tensor] = None,
-                  prefix: str = "training") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  u_irrelevant: Optional[torch.Tensor] = None, prefix: str = "training",
+                  count_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """buffer leaves [n_sc, n_ag / n_tl, n_step, ...]; ag_role [n_sc, n_ag, 3]; u_irrelevant [n_sc, n_ag, 1]
-    uniform draws, needed when 0 < p_loss_for_irrelevant < 1. -> (loss, metrics)."""
+    uniform draws, needed when 0 < p_loss_for_irrelevant < 1; count_sum(counts) -> the counts summed over the
+    ranks (None: this process's batch is the whole batch). -> (loss, metrics)."""
     loss_valid = buffer.pred_valid.detach()
     n_step = loss_valid.shape[2]
     dev = loss_valid.device
@@ -45,17 +54,17 @@ def training_loss(cfg: TrainingMetricsCfg, buffer: RolloutBuffer, ag_role: torch
     if cfg.w_relevant_agent > 0:
         w_rel = loss_valid.any(-1).float() + ag_role.any(-1) * cfg.w_relevant_agent
 
-    out: Dict[str, torch.Tensor] = {}
-    loss = torch.zeros((), device=dev)
+    # each term as (name, weight, masked sum, index of its count); the counts are summed over the ranks at once
+    terms: List[Tuple[str, float, torch.Tensor, int]] = []
+    counts: List[torch.Tensor] = []
     if latent_post is not None and cfg.w_vae_kl > 0:
         kl_valid = latent_post.valid if cfg.kl_for_unseen_agent else latent_prior.valid
         kl_valid = kl_valid & loss_valid.any(-1)
         err = balanced_kl(latent_post, latent_prior, cfg.kl_balance_scale, cfg.kl_free_nats)
         if w_rel is not None:
             err = err * w_rel
-        kl_sum = torch.where(kl_valid, err, 0.0).sum()
-        out[f"{prefix}/vae_kl"] = cfg.w_vae_kl * kl_sum / (kl_valid.sum() + _EPS)
-        loss = loss + out[f"{prefix}/vae_kl"]
+        terms.append(("vae_kl", cfg.w_vae_kl, torch.where(kl_valid, err, 0.0).sum(), len(counts)))
+        counts.append(kl_valid.sum())
 
     if cfg.w_diffbar_reward > 0:
         rew = buffer.diffbar_reward
@@ -70,11 +79,10 @@ def training_loss(cfg: TrainingMetricsCfg, buffer: RolloutBuffer, ag_role: torch
                 cur = tf[:, :, t] + (1.0 - tf[:, :, t]) * cur * cfg.temporal_discount
                 discs.append(cur)
             r = r * torch.stack(discs, 2)
-        cnt = r_valid.sum()
-        out[f"{prefix}/diffbar_reward"] = cfg.w_diffbar_reward * r.sum() / (cnt + _EPS)
+        terms.append(("diffbar_reward", cfg.w_diffbar_reward, r.sum(), len(counts)))
         for k in ("r_imitation_pos", "r_imitation_rot", "r_imitation_spd", "r_traffic_rule_approx"):
-            out[f"{prefix}/dr_{k}"] = rew[k].sum() / (cnt + _EPS)
-        loss = loss - out[f"{prefix}/diffbar_reward"]
+            terms.append((f"dr_{k}", None, rew[k].sum(), len(counts)))
+        counts.append(r_valid.sum())
 
     if navi_pred is not None and cfg.w_navi > 0:
         navi_valid = navi_pred.valid & loss_valid.any(-1)
@@ -83,14 +91,24 @@ def training_loss(cfg: TrainingMetricsCfg, buffer: RolloutBuffer, ag_role: torch
         nll = torch.where(navi_valid, -navi_pred.log_prob(navi_gt), 0.0)
         if w_rel is not None:
             nll = nll * w_rel
-        out[f"{prefix}/navi_loss"] = cfg.w_navi * nll.sum() / (navi_valid.sum() + _EPS)
-        loss = loss + out[f"{prefix}/navi_loss"]
+        terms.append(("navi_loss", cfg.w_navi, nll.sum(), len(counts)))
+        counts.append(navi_valid.sum())
 
     if cfg.w_tl_state > 0:
         tl_valid = ~buffer.tl_state_nll_invalid
         nll = torch.where(tl_valid, buffer.tl_state_nll, 0.0)
-        out[f"{prefix}/tl_state_loss"] = cfg.w_tl_state * nll.sum() / (tl_valid.sum() + _EPS)
-        loss = loss + out[f"{prefix}/tl_state_loss"]
+        terms.append(("tl_state_loss", cfg.w_tl_state, nll.sum(), len(counts)))
+        counts.append(tl_valid.sum())
 
+    if counts and count_sum is not None:
+        counts = list(count_sum(torch.stack(counts)).unbind())
+    out: Dict[str, torch.Tensor] = {}
+    loss = torch.zeros((), device=dev)
+    for name, weight, total, i in terms:
+        out[f"{prefix}/{name}"] = (total if weight is None else weight * total) / (counts[i] + _EPS)
+        if name == "diffbar_reward":
+            loss = loss - out[f"{prefix}/{name}"]
+        elif weight is not None:
+            loss = loss + out[f"{prefix}/{name}"]
     out[f"{prefix}/loss"] = loss
     return loss, out

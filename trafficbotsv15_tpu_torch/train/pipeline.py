@@ -13,6 +13,16 @@ loss mask; a mask entry is set where its uniform is below the probability,
 jax.random.bernoulli's rule), the latent's standard-normal noise, and one
 dropout seed for the encoders plus one per rollout step for the TL pre-pass
 and for the rollout. A test hands the JAX package's draws in instead.
+
+Over N ranks (`parallel/mesh.py`, one batch of the same size per rank) the
+step computes what one process computes on the union batch: every rank draws
+the union's per-row noise from the same generator and keeps its own rows
+(`shard_noise`), so the one prior-or-posterior draw is shared; each loss term
+is its sum over the global valid count (`train/losses.py`); the gradients are
+summed over the ranks before the clip. The rank is folded into the dropout
+seeds, so that the ranks' scenes get masks of their own. No
+`DistributedDataParallel`: its reducer hooks `forward`, and the step calls the
+model's submodules and methods directly.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from trafficbotsv15_tpu_torch.models.mlp import Dense
 from trafficbotsv15_tpu_torch.models.traffic_bots import TrafficBots
 from trafficbotsv15_tpu_torch.models.transformer import AttentionRPE
 from trafficbotsv15_tpu_torch.ops.dropout import dropout_scope
+from trafficbotsv15_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum, process_count, process_index
 from trafficbotsv15_tpu_torch.sim import rollout as rollout_lib
 from trafficbotsv15_tpu_torch.sim import tl_prepass
 from trafficbotsv15_tpu_torch.sim.rule_checker import init_rule_checker
@@ -72,29 +83,58 @@ def build_model(cfg: ExperimentCfg, seed: Optional[int] = None, device=None) -> 
     return model.to(device).eval()
 
 
+ROW_NOISE = ("u_mp", "u_ag", "latent_eps", "u_agent", "u_ss", "u_irrelevant")  # a row per scenario
+SEED_NOISE = ("seeds_tl", "seeds_step")
+_SEED_MOD = 2 ** 62
+
+
+def fold_seed(seed: int, rank: int) -> int:
+    """A dropout seed of its own for each rank (rank 0 keeps the seed)."""
+    return (seed + rank * 0x9E3779B97F4A7C15) % _SEED_MOD
+
+
+def shard_noise(noise: Dict[str, object], rank: int, world: int) -> Dict[str, object]:
+    """Rank `rank`'s share of one step's draws for the union of `world` equal batches: its rows of each per-row
+    draw, the shared `u_prior`, and the dropout seeds with the rank folded in. The identity for world 1."""
+    if world == 1:
+        return noise
+    out = dict(noise)
+    for key in ROW_NOISE:
+        if noise[key] is not None:
+            n = noise[key].shape[0] // world
+            out[key] = noise[key][rank * n:(rank + 1) * n]
+    out["seed_encoders"] = fold_seed(noise["seed_encoders"], rank)
+    for key in SEED_NOISE:
+        out[key] = [fold_seed(s, rank) for s in noise[key]]
+    return out
+
+
 def draw_training_noise(cfg: ExperimentCfg, batch: Dict[str, torch.Tensor], generator: torch.Generator,
-                        device) -> Dict[str, object]:
-    """Every random draw of one training step (see the module docstring), on `device`."""
+                        device, rank: int = 0, world: int = 1) -> Dict[str, object]:
+    """Every random draw of one training step (see the module docstring), on `device`: with `world` ranks, the
+    draws of the union of `world` batches shaped as this one, and rank `rank`'s share of them (`shard_noise`)."""
     n_sc, n_mp, n_node = batch["map/valid"].shape
+    n_sc *= world
     n_ag, n_step = batch["agent/valid"].shape[1:3]
     n_roll = cfg.time_step_end
 
     def u(*shape):
-        return torch.rand(shape, generator=generator, device=generator.device).to(device)
+        return torch.rand(shape, generator=generator, device=generator.device)
 
     def seeds(n):
-        return torch.randint(0, 2 ** 62, (n,), generator=generator, device=generator.device).tolist()
+        return torch.randint(0, _SEED_MOD, (n,), generator=generator, device=generator.device).tolist()
 
     tf, lm = cfg.teacher_forcing_training, cfg.training_metrics
-    return dict(
+    noise = shard_noise(dict(
         u_mp=u(n_sc, n_mp, n_node - 1), u_ag=u(n_sc, n_ag, cfg.n_step_hist - 1), u_prior=u(),
         latent_eps=torch.randn((n_sc, n_ag, max(cfg.model.latent_encoder.latent_dim, 1)), generator=generator,
-                               device=generator.device).to(device),
+                               device=generator.device),
         u_agent=u(n_sc, n_ag) if tf.prob_forcing_agent > 0 else None,
         u_ss=u(n_sc, n_ag, n_step) if tf.prob_scheduled_sampling > 0 else None,
         u_irrelevant=u(n_sc, n_ag, 1) if 0 < lm.p_loss_for_irrelevant < 1 else None,
         seed_encoders=seeds(1)[0], seeds_tl=seeds(n_roll), seeds_step=seeds(n_roll),
-    )
+    ), rank, world)
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in noise.items()}
 
 
 def select_latent(post, prior, use_prior: torch.Tensor, eps: torch.Tensor):
@@ -107,9 +147,11 @@ def select_latent(post, prior, use_prior: torch.Tensor, eps: torch.Tensor):
 
 
 def training_forward(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, torch.Tensor],
-                     noise: Dict[str, object], current_epoch: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                     noise: Dict[str, object], current_epoch: int = 0,
+                     count_sum=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One training forward: pre-processing -> encoders -> CVAE latent -> TL pass -> rollout -> loss.
-    batch: tensors on the model's device; noise: `draw_training_noise`'s dict. -> (loss, metrics).
+    batch: tensors on the model's device; noise: `draw_training_noise`'s dict; count_sum: `training_loss`'s
+    (the loss counts summed over the ranks). -> (loss, metrics).
     `cfg.time_step_end` may pass the data's horizon (the scaled preset's 120 steps against 91): past it the
     TL pass (`sim/tl_prepass.py::tl_rollout_scan`) runs from its own predictions, and the rollout forces
     nothing, resets nothing and rewards nothing, and the TL-state NLL is masked off."""
@@ -148,7 +190,7 @@ def training_forward(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, to
         ag_forcing=ag_forcing, rule_statics=rule_statics, rule_state0=rule_state0, tl_precomputed=tl_pre,
         step_seeds=noise["seeds_step"])
     return training_loss(cfg.training_metrics, buffer, pp.ag_role, navi_pred, pp.gt_navi, latent_post,
-                         latent_prior, u_irrelevant=noise["u_irrelevant"])
+                         latent_prior, u_irrelevant=noise["u_irrelevant"], count_sum=count_sum)
 
 
 def make_train_step(cfg: ExperimentCfg, model: TrafficBots, optimizer: torch.optim.Optimizer,
@@ -161,26 +203,36 @@ def make_train_step(cfg: ExperimentCfg, model: TrafficBots, optimizer: torch.opt
     An update clips each of the optimizer's groups by `cfg.optimizer.grad_clip_norm`, steps the optimizer
     over the model's parameters in place, then the schedule (`train/optimizer.py::make_optimizer` makes
     both). metrics holds each call's loss terms and, on an update, `grad_norm`, the global norm before
-    clipping of the gradients the update applies (with k > 1, their mean over the k calls)."""
+    clipping of the gradients the update applies (with k > 1, their mean over the k calls).
+
+    Over several ranks (the process group up when the step is made) each call takes this rank's batch and
+    `noise` its share of the union's draws; the metrics are the union batch's, the same on every rank. With
+    accumulation the gradients are summed over the ranks once, on the k-th call: the mean over the calls of the
+    ranks' sums is the sum of the ranks' means."""
     device = resolve_device(device)
     model_dev = next(model.parameters()).device
     if model_dev.type != device.type:
         raise ValueError(f"model is on {model_dev}, the step on {device}: build the model on the same device")
     accumulator = make_accumulator(cfg.optimizer, model)
+    rank, world = process_index(), process_count()
+    count_sum = all_reduce_sum if world > 1 else None
 
     def train_step(batch, generator: Optional[torch.Generator] = None, epoch: int = 0, noise=None):
         batch = batch_to_device(batch, device)
         if noise is None:
-            noise = draw_training_noise(cfg, batch, generator, device)
+            noise = draw_training_noise(cfg, batch, generator, device, rank=rank, world=world)
         model.zero_grad(set_to_none=True)
-        loss, metrics = training_forward(cfg, model, batch, noise, epoch)
+        loss, metrics = training_forward(cfg, model, batch, noise, epoch, count_sum=count_sum)
         loss.backward()
         for p in model.parameters():  # optax updates every parameter: its moments and its decay
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if world > 1:  # the ranks' terms add up to the union's
+            metrics = dict(zip(metrics, all_reduce_sum(torch.stack([v.float() for v in metrics.values()])).unbind()))
         if accumulator is not None and not accumulator.add():
             return metrics
+        all_reduce_grads(model.parameters())
         metrics["grad_norm"] = clip_by_global_norm(optimizer.param_groups, cfg.optimizer.grad_clip_norm)
         optimizer.step()
         if schedule is not None:
