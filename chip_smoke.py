@@ -76,7 +76,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      last, B3's path: the ported bench (`python -m
      trafficbotsv15_tpu_torch.utils.bench_knarpe --shape scaled`, 3
      iterations), every count at 0 before it, its B3 launches all on the
-     heads route and its B2 launches on the cluster route (asserted);
+     heads route and its B2 launches on the cluster route (asserted); and
+     the TrafficBots RNN family's shapes (phase 16): B1 at the flattened
+     posterior's [8, 64 x 19, 1024], bf16 B2 on the staged route at [128·64,
+     K=64], [128·64, K=25], [8·64, K=64], [8·64, K=25], [8, 1216, K=64] and
+     [8·19, 64, K=25], each timed, and B2-bwd at the four training ones (no
+     new B4 shape: the RNN agent self-attention is dense at 64 agents);
   4. slice checked: a reduced-depth float32 config whose map has 512
      polylines runs `joint_future_pred` (check_level=1) on the card and on
      the CPU with the same weights, once with use_pallas=False and once with
@@ -153,8 +158,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      `tfblock_enc_cross`: B2; `tfblock_enc_self_knn` at dense_knn_max=0: B4;
      `tfblock_dec_cross` at 0: both; `traffic_bots_full` at 0: B4 8, B2 6),
      each output within the CPU test's tolerance, the launches asserted
-     exactly and all on the general route (float32); then every model and sim
-     case with use_pallas=False, no kernel launched; (b) `leaderboard_config()`
+     exactly and all on the general route (float32); `traffic_bots_rnn` at 0:
+     11 steps with both GRU hiddens carried, B4 26, B2 48; then every model
+     and sim case with use_pallas=False (`gru_seq`, `gru_step` and
+     `traffic_bots_rnn` among them), no kernel launched; (b) `leaderboard_config()`
      with use_pallas=True and damped seed-0 weights exported to the
      reference's state_dict layout (`tests/torch_reference_layout.py`, which
      gives `traffic_bots_full`'s 526 names and shapes), loaded back through
@@ -223,7 +230,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      identical, each rank's launches the training step's at half the union's
      shapes (all on the general route in float32); then `validate` of one batch
      per rank, the metrics identical on both; (c) (b) over NCCL on two cards
-     where there are two, else "not run: 1 card".
+     where there are two, else "not run: 1 card";
+ 16. the TrafficBots RNN family (`leaderboard_config()` with
+     temp_window_size=-1: the GRU agent encoder with tf_ag2mp, tf_ag2tl and
+     tf_ag2ag, TL encoded and predicted by a GRU inside each rollout step,
+     the flattened posterior, the GRU navi predictor), random seed-0 weights:
+     (a) `joint_future_pred`, 4 scenarios x K=32, level 1, use_pallas=True, a
+     warm-up call and one timed: B1 90 at [128, 64, 1024], B2 360 at
+     [128·64, K=64] and 360 at [128·64, K=25], B4 8 at [4·1024, K=32], all
+     staged, by full shape, each checked in phase 3; seconds, peak memory,
+     agent-steps/s; (b) the phase-4 config in the RNN family on the card and
+     on the CPU in float32, use_pallas False and True: joint_future_pred's K0
+     futures, TL states and rule flags, and one training step's loss terms and
+     gradients, at phases 4 and 7's tolerances; (c) one training step at
+     batch 8, use_pallas=True (a first step): loss and grad_norm finite and
+     non-zero, forward and backward launches by full shape and route (B1 181,
+     B2 1448, B2-bwd 728, B4 8 and B4-bwd 8, all staged); seconds, peak memory.
 Then it prints the `serve` JSON line (phase 14's steps/s, ms per step, peak memory
 and the card-vs-CPU errors of both arms, with the card's name and power limit), the
 `kernels` JSON line (forward launches from phase 6 and, as
@@ -237,7 +259,9 @@ their launches per phase 13 (d) call, B4-bwd's with its launches per (f) step,
 B3's with its launches in phase 3's bench run; the scaled training shapes'
 launches per (f) step; B1's, B4's and B2's times at the serving shapes, and every
 row's `serve_launches` per reset and per step of each phase 14 arm, by route; and
-`parallel`, phase 15's checks, launches per rank and seconds), the card line, and last
+`parallel`, phase 15's checks, launches per rank and seconds; every row's `rnn_launches` per phase 16 (a) call
+and (c) step, B1's and B2's and B2-bwd's `rnn_shapes` timings, and `rnn`, phase 16's seconds, peak memory and
+throughputs), the card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -313,6 +337,17 @@ FIT_KNN = [(2, 64, 1024, 64), (4, 64, 1024, 64)]
 SERVE_X_PATH = (1, 64, 89, 128, 128, 4)
 SERVE_ATTN_PATH = (1, 1024, 32, 128, 128, 4)
 SERVE_KNN = ("knn_xy", 1, 64, 1024, 64)
+# and the TrafficBots RNN family's (phase 16: `leaderboard_config()` with temp_window_size=-1): its agent encoder
+# attends to the map (K=64) and to the TL lanes (K=25) in separate blocks, where HPTR's decoder attends to both at
+# K=89: B2 at [128·64, K=64] and [128·64, K=25] per eval step, at [8·64, ...] per training step and its recompute,
+# and the flattened posterior's at [8, 64 agents x 19 down-sampled steps = 1216, K=64] over the map and at
+# [8·19, 64, K=25] over the TL lanes; B2-bwd at the training shapes; B1 at the posterior's [8, 1216, 1024]. Its
+# agent self-attention (64 agents, K=25) is dense under dense_knn_max 128, so B4 runs in the map encoder only, at
+# ATTN_PATH and TRAIN_ATTN_PATH as in HPTR mode
+RNN_X = [(128, 64, 64, 128, 128, 4), (128, 64, 25, 128, 128, 4)]
+RNN_TRAIN_X = [(8, 64, 64, 128, 128, 4), (8, 64, 25, 128, 128, 4), (8, 1216, 64, 128, 128, 4),
+               (152, 64, 25, 128, 128, 4)]
+RNN_POST_KNN = (8, 1216, 1024, 64)
 # edge cases: an all-invalid and a one-target source in each; source counts that are
 # no multiple of any tile; odd K; one and eight heads
 X_EDGE = [(3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
@@ -435,6 +470,7 @@ KNN_CASES = {
     "n_tgt_2048": (4, 64, 2048, KNN_K, dict(grid=True)),
     "every_source_invalid": (4, 64, 1024, KNN_K, dict(p_src=1.0)),
     "scaled_training_shape": (1, KNN_SRC, KNN_TGT, KNN_K, {}),  # the scaled preset's batch_size_train=1
+    "rnn_posterior": (*RNN_POST_KNN, {}),  # the RNN family's flattened posterior (phase 16)
     **{f"entry_{rows}x{src}_k{k}": (rows, src, tgt, k, {}) for rows, src, tgt, k in FIT_KNN},
 }
 
@@ -465,10 +501,11 @@ def check_knn_kernel() -> dict:
     row = time_knn(*cases["main_path_float"])
     train = time_knn(*cases["training_shape"])
     serve = time_knn(*cases["scaled_training_shape"])  # [1, 64, 1024]: also the serving entry point's (phase 14)
+    rnn_post = time_knn(*cases["rnn_posterior"])
     row.pop("shape")
     return {"name": "knn_xy", "route": "cuda", "source": "trafficbotsv15_tpu_torch/csrc/knn.cu",
             "replaces": "trafficbotsv15_tpu/ops/pallas_knn.py:143", "launches": None, "max_abs_err": max_err,
-            **row, "training_shape": train, "serve_shape": serve}
+            **row, "training_shape": train, "serve_shape": serve, "rnn_shapes": [rnn_post]}
 
 
 def knarpe_inputs(shape, cross: bool, seed: int, dtype=torch.float32):
@@ -594,7 +631,7 @@ def time_knarpe(name: str, shape) -> dict:
 
 # bf16 B2/B3 shapes that phase 3 holds against the plain versions on the staged route; phases 6 and 8
 # check that the paths launch no other
-CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT_X, *VAL_X)}
+CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT_X, *VAL_X, *RNN_X, *RNN_TRAIN_X)}
 # bf16 B2/B3 shapes the staged kernel refuses: the scaled preset's widths (D=R=256, 8 heads), at its eval
 # shape (4 scenarios x 32 futures x 64 agents, K=89) too, and K=90 and K=128 at the flagship's D=R=128, H=4
 SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
@@ -662,6 +699,10 @@ def check_knarpe_kernels() -> list:
                 check_one_knarpe(name, shape, seed=40 + i, want_route="general")
         elif name == "knarpe_cross_attention":
             time_knarpe(name, TRAIN_X_PATH)
+            # the RNN family's shapes (phase 16) on the staged route, each timed
+            for i, shape in enumerate(RNN_X + RNN_TRAIN_X):
+                check_one_knarpe(name, shape, seed=60 + i)
+            row["rnn_shapes"] = [{"shape": list(shape), **time_knarpe(name, shape)} for shape in RNN_X + RNN_TRAIN_X]
             # bf16 only: float32 B2 takes the general kernel at these shapes, which check_one_knarpe holds too
             err16 = max(check_one_knarpe(name, shape, seed=20 + i, want_route="cluster")[1]
                         for i, shape in enumerate(CLUSTER_X))
@@ -732,7 +773,7 @@ def check_path_forward_shapes(where: str, seen: set) -> None:
 
 # bf16 B2 backward shapes that phase 3 holds against autograd of the plain version on the staged route;
 # phase 8 checks that the training step launches no other
-CHECKED_X_BWD = {s[2:] for s in (TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE)}
+CHECKED_X_BWD = {s[2:] for s in (TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE, *RNN_TRAIN_X)}
 
 
 @contextlib.contextmanager
@@ -930,6 +971,8 @@ def check_knarpe_bwd_kernels() -> list:
                 check_one_knarpe_bwd(name, shape, seed=30 + i, want_route="general")
         if cross:
             check_one_knarpe_bwd(name, POST_TL_X_PATH, seed=14, want_route="staged")
+            for i, shape in enumerate(RNN_TRAIN_X):  # the RNN family's training shapes (phase 16)
+                check_one_knarpe_bwd(name, shape, seed=70 + i, want_route="staged")
             for i, shape in enumerate(X_BWD_GENERAL):
                 check_one_knarpe_bwd(name, shape, seed=17 + i, want_route="general")
             for i, shape in enumerate([path, POST_TL_X_PATH, *X_BWD_EDGE]):
@@ -949,6 +992,7 @@ def check_knarpe_bwd_kernels() -> list:
             rows[-1]["post_tl_shape"] = {"shape": list(POST_TL_X_PATH), **time_knarpe_bwd(name, POST_TL_X_PATH)}
             rows[-1]["scaled_training_shape"] = timed_on(name, SCALED_TRAIN_X_PATH, "general")
             rows[-1]["scaled_post_tl_shape"] = timed_on(name, SCALED_POST_TL_X_PATH, "general")
+            rows[-1]["rnn_shapes"] = [timed_on(name, shape, "staged") for shape in RNN_TRAIN_X]
             continue
         # bf16 only: float32 B4-bwd takes the general kernel at these shapes, which check_one_knarpe_bwd holds too
         err16 = max(check_one_knarpe_bwd(name, shape, seed=40 + i, want_route="heads", halves=halves)[1]
@@ -998,29 +1042,42 @@ def launches() -> dict:
     return {"knn_xy": knn.LAUNCHES, **knarpe.LAUNCHES}
 
 
+def _b2_blocks(cfg) -> int:
+    """The agent encoder's B2 blocks per rollout step: HPTR's decoder attends to map and TL targets at once; the
+    RNN family's agent encoder to each in a block of its own (`tf_ag2mp`, `tf_ag2tl`). Its agent self-attention
+    must be dense here (no B4 per step): every caller's agent count is within dense_knn_max."""
+    if cfg.model.temp_window_size > 0:
+        return 1
+    if cfg.data.n_ag > cfg.model.tf_cfg.dense_knn_max:
+        raise AssertionError("RNN configs here keep the agent self-attention dense (n_ag <= dense_knn_max)")
+    return 2
+
+
 def expected_launches(cfg, n_step: int) -> dict:
     """Kernel launches per joint_future_pred call that the config implies."""
     pallas = cfg.model.tf_cfg.use_pallas
     return {"knn_xy": n_step,
             "knarpe_attention": cfg.model.mp_encoder.n_layer_tf if pallas else 0,
-            "knarpe_cross_attention": cfg.model.ag_encoder.n_layer_tf * n_step if pallas else 0,
+            "knarpe_cross_attention": _b2_blocks(cfg) * cfg.model.ag_encoder.n_layer_tf * n_step if pallas else 0,
             "knarpe_cross_attention_v3": 0, "knarpe_attention_bwd": 0, "knarpe_cross_attention_bwd": 0}
 
 
 def expected_train_launches(cfg) -> dict:
     """Kernel launches per training step that the config implies: the rollout's per-step
-    recompute runs the step's forward kernels (the agent->map KNN, the agent decoder's B2) a
+    recompute runs the step's forward kernels (the agent->map KNN, the agent encoder's B2) a
     second time in the backward pass; the posterior encoders add one KNN and one B2 per TL and
-    agent layer; each forward outside a recompute has one backward."""
+    agent layer (RNN family: per agent layer, one over the map and one over the TL lanes, and no
+    TL attention); each forward outside a recompute has one backward."""
     m, n = cfg.model, cfg.time_step_end
     pallas = m.tf_cfg.use_pallas
-    post = m.tl_encoder.n_layer_tf + m.ag_encoder.n_layer_tf
+    blocks = _b2_blocks(cfg)
+    post = m.tl_encoder.n_layer_tf + m.ag_encoder.n_layer_tf if blocks == 1 else 2 * m.ag_encoder.n_layer_tf
     return {"knn_xy": 2 * n + 1,
             "knarpe_attention": m.mp_encoder.n_layer_tf if pallas else 0,
-            "knarpe_cross_attention": 2 * m.ag_encoder.n_layer_tf * n + post if pallas else 0,
+            "knarpe_cross_attention": 2 * blocks * m.ag_encoder.n_layer_tf * n + post if pallas else 0,
             "knarpe_cross_attention_v3": 0,
             "knarpe_attention_bwd": m.mp_encoder.n_layer_tf if pallas else 0,
-            "knarpe_cross_attention_bwd": m.ag_encoder.n_layer_tf * n + post if pallas else 0}
+            "knarpe_cross_attention_bwd": blocks * m.ag_encoder.n_layer_tf * n + post if pallas else 0}
 
 
 def damp_weights(model: torch.nn.Module, gain: float) -> None:
@@ -1032,9 +1089,17 @@ def damp_weights(model: torch.nn.Module, gain: float) -> None:
                 p.mul_(gain)
 
 
-def check_slice_card_vs_cpu(use_pallas: bool) -> None:
+def rnn_mode(cfg):
+    """cfg in the TrafficBots RNN family (temp_window_size=-1, the `traffic_bots_rnn` golden's)."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, temp_window_size=-1))
+
+
+def check_slice_card_vs_cpu(use_pallas: bool, rnn: bool = False) -> None:
+    """The phase-4 config's joint_future_pred on the card and on the CPU from the same weights and the same CPU
+    generator's draws (in the RNN family with rnn): the K0 futures, their TL states and rule flags agree."""
     base = tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=31, hidden_dim=64)
     cfg = with_pallas(dataclasses.replace(base, joint_future_pred_deterministic_k0=True), use_pallas)
+    cfg = rnn_mode(cfg) if rnn else cfg
     batch = make_batch(cfg.data, n_sc=1, seed=3)
     bufs = {}
     for device in ("cpu", "cuda"):
@@ -1053,13 +1118,16 @@ def check_slice_card_vs_cpu(use_pallas: bool) -> None:
     pose_err = float((gpu.pred_pose[:, 0].cpu() - cpu.pred_pose[:, 0]).abs().max())
     if not torch.equal(gpu.pred_valid[:, 0].cpu(), cpu.pred_valid[:, 0]) or not pose_err <= SLICE_POSE_ATOL:
         raise AssertionError(f"slice check: K0 futures differ card vs CPU (max pose err {pose_err})")
+    if not torch.equal(gpu.tl_state[:, 0].cpu(), cpu.tl_state[:, 0]):
+        raise AssertionError("slice check: K0 TL states differ card vs CPU")
     differ = [k for k in cpu.violation if not torch.equal(gpu.violation[k][:, 0].cpu(), cpu.violation[k][:, 0])]
     if differ:
         raise AssertionError(f"slice check: K0 rule flags differ card vs CPU: {differ}")
     fired = sorted(k for k, v in cpu.violation.items() if not k.endswith("_this_step") and bool(v[:, 0].any()))
-    log(f"  use_pallas={use_pallas}: card vs CPU, K0 futures of {list(gpu.pred_pose.shape)}: pred_valid equal, "
-        f"max |pose err| {pose_err:.3e} m (tolerance {SLICE_POSE_ATOL}); rule flags equal (fired: {fired}); "
-        f"kernel launches {expected_launches(cfg, cfg.time_step_end)} as the config implies")
+    log(f"  {'RNN family, ' if rnn else ''}use_pallas={use_pallas}: card vs CPU, K0 futures of "
+        f"{list(gpu.pred_pose.shape)}: pred_valid and TL states equal, max |pose err| {pose_err:.3e} m (tolerance "
+        f"{SLICE_POSE_ATOL}); rule flags equal (fired: {fired}); kernel launches "
+        f"{expected_launches(cfg, cfg.time_step_end)} as the config implies")
 
 
 def to_cpu(obj):
@@ -1162,10 +1230,15 @@ def no_dropout(cfg):
         add_navi_latent=dataclasses.replace(m.add_navi_latent, mlp_dropout_p=0.0)))
 
 
-def check_train_step_card_vs_cpu(use_pallas: bool, time_step_end: int = None) -> None:
+def check_train_step_card_vs_cpu(use_pallas: bool, time_step_end: int = None, rnn: bool = False) -> None:
     """One make_train_step on the card and on the CPU: same weights, same draws, no dropout. time_step_end past
-    the log's 30 steps takes the TL pass step by step (phase 13 (e))."""
+    the log's 30 steps takes the TL pass step by step (phase 13 (e)); rnn, the TrafficBots RNN family (phase 16
+    (b); the GRU TL state predictor's dropout at 0 too)."""
     cfg = with_pallas(no_dropout(horizon(phase4_config(), time_step_end)), use_pallas)
+    if rnn:
+        cfg = rnn_mode(cfg)
+        tl_pred = dataclasses.replace(cfg.model.tl_state_predictor, rnn_dropout_p=0.0)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, tl_state_predictor=tl_pred))
     batch = make_batch(cfg.data, n_sc=2, seed=3)
     noise = train_lib.draw_training_noise(cfg, batch, torch.Generator().manual_seed(0), "cpu")
     runs = {}
@@ -1199,7 +1272,8 @@ def check_train_step_card_vs_cpu(use_pallas: bool, time_step_end: int = None) ->
                              f"(tolerance {TRAIN_LOSS_REL}), gradient of {worst_name} off by {worst} of its scale "
                              f"(tolerance {TRAIN_GRAD_REL})")
     norm_tgt = [n for n in g_cpu if n.endswith("norm_tgt_scale") and float(g_cpu[n].abs().max()) > 0]
-    log(f"  use_pallas={use_pallas}, {cfg.time_step_end} steps: card vs CPU, loss {m_gpu['training/loss']:.6f} vs "
+    log(f"  {'RNN family, ' if rnn else ''}use_pallas={use_pallas}, {cfg.time_step_end} steps: card vs CPU, loss "
+        f"{m_gpu['training/loss']:.6f} vs "
         f"{m_cpu['training/loss']:.6f}, "
         f"grad_norm {m_gpu['grad_norm']:.6f} vs {m_cpu['grad_norm']:.6f}, loss terms and grad_norm within "
         f"{loss_err:.2e} relative (tolerance {TRAIN_LOSS_REL:g}); {len(g_cpu)} parameter gradients within "
@@ -2129,14 +2203,15 @@ def run_golden_phase(card: str) -> dict:
         errs = ", ".join(f"{c.name} {c.max_abs_err():.3e} ({c.atol:g}, {c.rtol:g})" for c in checks)
         log(f"  (a) {case} {kw or ''} use_pallas=True float32: launches {want} on the general route; max |err| "
             f"(atol, rtol): {errs}; worst {_worst(checks)}")
-    sweep = [(gm, name, kw) for name, kw in gm.MODEL_CASES] + [(gm, "traffic_bots_full", {})]
+    sweep = [(gm, name, kw) for name, kw in gm.MODEL_CASES] + [(gm, "traffic_bots_full", {}),
+                                                               (gm, "traffic_bots_rnn", {})]
     sweep += [(gs, name, {}) for name in gs.SIM_CASES]
     worst = []
     for module, case, kw in sweep:
         checks = [c for c in _run_golden(module, case, False, kw, {}) if c.atol or c.rtol]
         worst += [(c.excess(), case, kw, c) for c in checks]
     excess, case, kw, c = max(worst, key=lambda w: w[0])
-    log(f"  (a) sweep on the card with use_pallas=False: {len(sweep)} golden cases ({len(gm.MODEL_CASES) + 1} model, "
+    log(f"  (a) sweep on the card with use_pallas=False: {len(sweep)} golden cases ({len(gm.MODEL_CASES) + 2} model, "
         f"{len(gs.SIM_CASES)} sim), every check within its tolerance (the exact ones equal), no kernel launch; "
         f"nearest its tolerance: {case} {kw or ''} {_worst([c])} [{card}]")
     counts = check_reference_layout_flagship(card, gm, reference_state_dict)
@@ -2158,6 +2233,11 @@ def check_scaled_shapes(where: str, shapes, want: dict) -> None:
     checked |= {("knarpe_cross_attention", bf, *s) for s in CLUSTER_X}
     checked |= {("knarpe_attention_bwd", bf, *s) for s in HEADS_ATTN_BWD}
     checked |= {("knarpe_cross_attention_bwd", bf, *s) for s in (SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH)}
+    check_full_shapes(where, shapes, want, checked)
+
+
+def check_full_shapes(where: str, shapes, want: dict, checked: set) -> None:
+    """A call's or step's launches by full shape are exactly `want`, and each shape is in `checked`."""
     if dict(shapes) != want or not set(shapes) <= checked:
         raise AssertionError(f"{where}: launches by shape {dict(shapes)}, expected {want}, each at a shape phase 3 "
                              f"checked (unchecked: {sorted(set(shapes) - checked, key=str)})")
@@ -2903,6 +2983,141 @@ def run_parallel_phase(card: str) -> dict:
     return out
 
 
+def rnn_full_shapes(cfg, n_sc: int, rows: int, train: bool) -> tuple:
+    """The launches a `leaderboard_config()`-width RNN-family call (train=False: joint_future_pred over `rows`
+    rollouts of n_sc scenarios) or training step (train=True: rows = n_sc) implies, by full shape:
+    ({(kernel, dtype, n_b, n_s, K, D, R, H) or ("knn_xy", rows, sources, targets, k): n} forward and backward,
+    {kernel/route: n}), every bf16 launch on the staged route. Per rollout step the agent->map KNN, B2 per
+    tf_ag2mp (K=64) and tf_ag2tl (K=25) layer, and in training again in the step's recompute; B4 per map layer;
+    in training the flattened posterior over the down-sampled track adds one KNN and B2 per layer at [n_sc, n_ag x
+    steps, K=64] and [n_sc x steps, n_ag, K=25]; each forward outside a recompute has one backward."""
+    m, n, bf = cfg.model, cfg.time_step_end, str(torch.bfloat16)
+    n_ag, n_mp, d, h, lay = cfg.data.n_ag, cfg.data.n_mp, m.hidden_dim, m.tf_cfg.n_head, m.ag_encoder.n_layer_tf
+    k_mp, k_tl = int(m.n_tgt_knn * m.ag_encoder.k_tgt_knn_ag2mp), int(m.n_tgt_knn * m.ag_encoder.k_tgt_knn_ag2tl)
+    _b2_blocks(cfg)  # the agent self-attention dense
+    rep = 2 if train else 1
+    x = lambda kernel, b, s_, k: (kernel, bf, b, s_, k, d, d, h)  # noqa: E731
+    want = collections.Counter({("knn_xy", rows, n_ag, n_mp, k_mp): rep * n,
+                                x("knarpe_cross_attention", rows, n_ag, k_mp): rep * lay * n,
+                                x("knarpe_cross_attention", rows, n_ag, k_tl): rep * lay * n,
+                                x("knarpe_attention", n_sc, n_mp, m.n_tgt_knn): m.mp_encoder.n_layer_tf})
+    if train:
+        n_ds = len(range(0, cfg.time_step_gt + 1, m.latent_encoder.temporal_down_sample_rate))
+        post = [("knarpe_cross_attention", n_sc, n_ag * n_ds, k_mp), ("knarpe_cross_attention", n_sc * n_ds, n_ag,
+                                                                        k_tl)]
+        want[("knn_xy", n_sc, n_ag * n_ds, n_mp, k_mp)] += 1
+        for kernel, b, s_, k in post:
+            want[x(kernel, b, s_, k)] += lay
+        for kernel, b, s_, k in [("knarpe_cross_attention", rows, n_ag, k_mp), ("knarpe_cross_attention", rows, n_ag,
+                                                                                k_tl)]:
+            want[x(kernel + "_bwd", b, s_, k)] += lay * n
+        for kernel, b, s_, k in post:
+            want[x(kernel + "_bwd", b, s_, k)] += lay
+        want[x("knarpe_attention_bwd", n_sc, n_mp, m.n_tgt_knn)] += m.mp_encoder.n_layer_tf
+    routes = collections.Counter()
+    for key, v in want.items():
+        if key[0] != "knn_xy":
+            routes[f"{key[0]}/staged"] += v
+    return dict(want), dict(routes)
+
+
+def check_rnn_shapes(where: str, shapes, want: dict) -> None:
+    """A phase 16 call's or step's launches by full shape are exactly `want`, each at a shape phase 3 checked: B1
+    against its plain version, bf16 B4 and B2 on the staged route against theirs, and their backwards against
+    autograd of theirs."""
+    bf = str(torch.bfloat16)
+    checked = {("knn_xy", *case[:4]) for case in KNN_CASES.values()}
+    for kernel, shapes_ in (("knarpe_attention", (ATTN_PATH, TRAIN_ATTN_PATH)),
+                            ("knarpe_attention_bwd", (TRAIN_ATTN_PATH,)),
+                            ("knarpe_cross_attention", RNN_X + RNN_TRAIN_X),
+                            ("knarpe_cross_attention_bwd", RNN_TRAIN_X)):
+        checked |= {(kernel, bf, *s_) for s_ in shapes_}
+    check_full_shapes(where, shapes, want, checked)
+
+
+def run_rnn_phase(card: str) -> dict:
+    """Phase 16, the TrafficBots RNN family (temp_window_size=-1) at the flagship's widths: (a) joint_future_pred,
+    4 scenarios x K=32, level 1, use_pallas=True: a warm-up call, then one timed; (b) the phase-4 config card vs CPU
+    in float32, joint_future_pred and one training step, use_pallas False and True; (c) one training step at batch 8,
+    use_pallas=True (a first step). Launches of (a) and (c) by full shape and route, each at a shape phase 3
+    checked. -> {"eval": launches per (a) call, "train": per (c) step, by kernel; seconds, peak memory}."""
+    t0 = time.perf_counter()
+    cfg = rnn_mode(with_pallas(leaderboard_config(), True))
+    n_sc, k = 4, cfg.n_joint_future_wosac
+    n_ag, n_step = cfg.data.n_ag, cfg.time_step_end
+    batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
+    model = build_model(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(0)
+    want, want_routes = rnn_full_shapes(cfg, n_sc, n_sc * k, train=False)
+    t1 = time.perf_counter()
+    joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes:
+        _, buf = joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    check_rnn_shapes("(a) RNN eval call", shapes, want)
+    routes = {key: v for key, v in knarpe.ROUTE_LAUNCHES.items() if v}
+    if routes != want_routes:
+        raise AssertionError(f"(a) RNN eval call: launches by route {routes}, expected {want_routes}")
+    eval_counts = launches()
+    if tuple(buf.pred_pose.shape) != (n_sc, k, n_ag, n_step, 3) or not (torch.isfinite(buf.pred_pose).all()
+                                                                         and torch.isfinite(buf.log_prob).all()):
+        raise AssertionError(f"(a) RNN eval call: pred_pose {tuple(buf.pred_pose.shape)} or not finite")
+    if not buf.tl_state_nll_invalid[..., cfg.n_step_hist - 1:].all():
+        raise AssertionError("(a) RNN eval call: the TL-state NLL not masked past the 11 logged steps")
+    agent_steps = n_sc * k * n_ag * (n_step - cfg.time_step_current)
+    out = {"eval_seconds": sec, "eval_warmup_seconds": warm, "eval_peak_gib": peak_gib(),
+           "eval_agent_steps_per_s": agent_steps / sec, "eval": eval_counts}
+    log(f"  (a) leaderboard_config temp_window_size=-1 use_pallas=True check_level=1 joint_future_pred: {n_sc} "
+        f"scenarios x K={k}, {n_ag} agents, {cfg.data.n_mp} polylines, {n_step} steps, {n_params} parameters, bf16: "
+        f"warm-up call {warm:.4f} s, timed call {sec:.4f} s, {agent_steps / sec:.1f} agent-steps/s, peak memory "
+        f"{out['eval_peak_gib']:.2f} GiB; launches {eval_counts} by full shape {dict(shapes)}, by route {routes}, "
+        f"every shape checked in phase 3; poses {list(buf.pred_pose.shape)} finite, TL free and its NLL masked past "
+        f"the history [{card}]")
+    del buf, model
+    torch.cuda.empty_cache()
+
+    for use_pallas in (False, True):
+        check_slice_card_vs_cpu(use_pallas, rnn=True)
+        check_train_step_card_vs_cpu(use_pallas, rnn=True)
+    log(f"  (b) the phase-4 config in the RNN family card vs CPU in float32 (above), {time.perf_counter() - t0:.1f} s "
+        f"into the phase")
+
+    n_train = 8
+    model = build_model(cfg, seed=0, device="cuda")
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
+    want, want_routes = rnn_full_shapes(cfg, n_train, n_train, train=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes, recorded_bwd_launches() as (bwd_shapes, _):
+        metrics = {key: float(v) for key, v in step(tbatch, torch.Generator().manual_seed(0)).items()}
+    torch.cuda.synchronize()
+    train_sec = time.perf_counter() - t1
+    check_rnn_shapes("(c) RNN training step", shapes + bwd_shapes, want)
+    routes = {key: v for key, v in knarpe.ROUTE_LAUNCHES.items() if v}
+    if routes != want_routes:
+        raise AssertionError(f"(c) RNN training step: launches by route {routes}, expected {want_routes}")
+    loss, gnorm = metrics["training/loss"], metrics["grad_norm"]
+    if not (math.isfinite(loss) and loss != 0 and math.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"(c) RNN training step: loss {loss}, grad_norm {gnorm}")
+    out.update(train_seconds=train_sec, train_peak_gib=peak_gib(), train=launches(),
+               train_samples_per_s=n_train / train_sec, seconds=time.perf_counter() - t0, card=card)
+    log(f"  (c) leaderboard_config temp_window_size=-1 use_pallas=True training step: {n_train} scenarios, a first "
+        f"step {train_sec:.4f} s ({n_train / train_sec:.3f} train samples/s), peak memory {out['train_peak_gib']:.2f} "
+        f"GiB, loss {loss:.6f}, grad_norm {gnorm:.6f}; launches {out['train']} by full shape "
+        f"{dict(shapes + bwd_shapes)}, by route {routes}, every shape checked in phase 3 [{card}]")
+    log(f"  phase 16 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's main path needs an NVIDIA GPU",
@@ -2911,7 +3126,7 @@ def main() -> int:
     t_start = time.perf_counter()
     header = lambda text: log(f"{text} (at {time.perf_counter() - t_start:.1f} s)")  # noqa: E731
     card = card_line()
-    log(f"[1/15] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/16] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -2923,57 +3138,61 @@ def main() -> int:
         for fut in [pool.submit(knn.load_library), pool.submit(knarpe.load_library),
                     pool.submit(knarpe.load_bwd_library)]:
             fut.result()
-    header(f"[2/15] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
+    header(f"[2/16] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    header("[3/15] kernels vs plain versions")
+    header("[3/16] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
     bench_routes = run_bench_knarpe()
 
-    header("[4/15] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[4/16] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_slice_card_vs_cpu(use_pallas=False)
     check_slice_card_vs_cpu(use_pallas=True)
 
-    header("[5/15] slice at full width, use_pallas=False")
+    header("[5/16] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    header("[6/15] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    header("[6/16] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True)
 
-    header("[7/15] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[7/16] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     check_train_step_card_vs_cpu(use_pallas=False)
     check_train_step_card_vs_cpu(use_pallas=True)
 
-    header("[8/15] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    header("[8/16] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    header("[9/15] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    header("[9/16] validation step: reduced-depth fp32 config card vs CPU, then full width")
     check_validate_card_vs_cpu(use_pallas=False)
     check_validate_card_vs_cpu(use_pallas=True)
     validate_counts = run_validate_full_width(card)
     check_validate_official(card)
 
-    header("[10/15] submission: test_submission at full width, K=128")
+    header("[10/16] submission: test_submission at full width, K=128")
     run_submission(card)
 
-    header("[11/15] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    header("[11/16] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
     fit_counts = run_fit_phase(card)
 
-    header("[12/15] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
+    header("[12/16] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    header("[13/15] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
+    header("[13/16] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
         "(B4 and B4-bwd heads, B2 cluster, B2-bwd general route); the TL pass past the log, card vs CPU")
     scaled_counts, first_errs, scaled_train = run_scaled_phase(card)
 
-    header("[14/15] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
+    header("[14/16] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
         "a scripted agent, history, card vs CPU")
     serve_summary, serve_counts = run_serve_phase(card)
 
-    header("[15/15] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
+    header("[15/16] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
         "vs one process on the union batch, and their validation")
     parallel = run_parallel_phase(card)
+
+    header("[16/16] the TrafficBots RNN family at full width: joint_future_pred and a training step through the "
+        "kernels; the phase-4 config card vs CPU")
+    rnn = run_rnn_phase(card)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -3020,6 +3239,8 @@ def main() -> int:
         part["launches"] = by_shape[(kernel, bf, *shape)]
     bwd_rows[0]["heads_route"].update(launches=scaled_counts["train_use_pallas"]["knarpe_attention_bwd"],
                                       path_launch_max_abs_err=first_errs["knarpe_attention_bwd"])
+    for row in rows + bwd_rows:  # per phase 16 (a) call and (c) step
+        row["rnn_launches"] = {"eval_call": rnn["eval"][row["name"]], "train_step": rnn["train"][row["name"]]}
     rows += bwd_rows
     for row in rows:
         for key, val in row.items():
@@ -3028,7 +3249,8 @@ def main() -> int:
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": serve_summary}))
-    print(json.dumps({"kernels": rows, "parallel": parallel}))
+    print(json.dumps({"kernels": rows, "parallel": parallel,
+                      "rnn": {k: v for k, v in rnn.items() if k not in ("eval", "train")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -343,33 +343,38 @@ def run_tl_predictor_hptr(device="cpu", use_pallas=False, dense_knn_max=128) -> 
                                            meta["temp_window_size"]),
                 ti.map_tl_predictor(sd, "", meta["n_layer"], 64, meta["temp_window_size"]), device)
     with torch.no_grad():
-        return [close("y", m(a["x"], a["invalid"]), outs["y"])]
+        return [close("y", m(a["x"], a["invalid"])[0], outs["y"])]
 
 
-# ------------------------------------------------- the variants of the RNN family (A11)
+# ------------------------------------------------- the TrafficBots RNN family's GRU
 
 
-def _rnn_module(device):
-    """The modules that would run a golden's GRU: each refuses temp_window_size <= 0 today."""
-    from trafficbotsv15_tpu_torch.models.agent_encoder import AgentEncoder
-    from trafficbotsv15_tpu_torch.ops.pose_emb import PoseEmbConfig
+def _gru(name, device):
+    """(port MultiAgentGRU loaded with the golden's `nn.GRU` weights, inputs, outs): hidden 64, 2 layers, built
+    with the reference's dropout 0.1 and run without it."""
+    from trafficbotsv15_tpu_torch.models.gru import MultiAgentGRU
 
-    return AgentEncoder(pc.AgEncoderCfg(), pc.TransformerCfg(d_model=64), 64, -1, 32, 500.0,
-                        PoseEmbConfig(mode="pe_xy_yaw", pe_dim=64), attr_dim=6).to(device)
+    sd, ins, outs, meta = load_golden("model", name)
+    h, n_layer = meta["hidden"], meta["n_layer"]
+    m = _loaded(MultiAgentGRU(h, h, n_layer, dropout_p=0.1), ti.map_gru(sd, "", n_layer, h), device)
+    return m, _inputs(ins, device), outs
 
 
 def run_gru_seq(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
-    """The RNN agent encoder's temporal GRU over a track."""
-    _rnn_module(device)
-    raise AssertionError("the RNN agent encoder was built: hold its GRU against gru_seq")
+    """The GRU over a track [n_sc, n_ag, n_step] with invalid steps (the RNN agent encoder's and navi
+    predictor's temporal encoder)."""
+    m, a, outs = _gru("gru_seq", device)
+    with torch.no_grad():
+        return [close("y", m(a["x"], a["invalid"])[0], outs["y"])]
 
 
 def run_gru_step(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
-    """One step of the GRU TL-state predictor."""
-    from trafficbotsv15_tpu_torch.models.traffic_light import TrafficLightStatePredictor
-
-    TrafficLightStatePredictor(pc.TlStatePredictorCfg(n_layer=2), 64, 5, -1)
-    raise AssertionError("the GRU TL-state predictor was built: hold it against gru_step")
+    """One GRU step from a given hidden (the reference's [n_layer, n_sc * n_ag, d] layout), with invalid agents."""
+    m, a, outs = _gru("gru_step", device)
+    n_sc, n_ag = a["invalid"].shape
+    with torch.no_grad():
+        y, h1 = m(a["x"], a["invalid"], a["h"].reshape(-1, n_sc, n_ag, a["h"].shape[-1]))
+    return [close("y", y, outs["y"]), close("h1", h1.reshape(a["h"].shape), outs["h1"])]
 
 
 def _navi_predictor(name, device):
@@ -443,7 +448,7 @@ def run_traffic_bots_full(device="cpu", use_pallas=False, dense_knn_max=128) -> 
         action = model.step(a["ag_valid"][:, :, w - 1], a["ag_valid"][:, :, :w], a["ag_pose"][:, :, :w],
                             a["ag_motion"][:, :, :w], a["ag_attr"], a["ag_type"], a["ag_latent"],
                             torch.ones(a["ag_navi"].shape, dtype=torch.bool, device=device), a["ag_navi"],
-                            a["ag_navi_valid"], tl, mp, tl_feature)
+                            a["ag_navi_valid"], tl, mp, tl_feature)[0]
         navi = model.predict_navi(a["ag_valid"], a["ag_attr"], a["ag_motion"], a["ag_pose"], a["ag_type"], mp)
         latent = model.encode_latent(a["ag_valid"], a["ag_attr"], a["ag_motion"], a["ag_pose"], a["ag_type"],
                                      a["tl_state"], mp, tl, posterior=True)
@@ -461,8 +466,36 @@ def run_traffic_bots_full(device="cpu", use_pallas=False, dense_knn_max=128) -> 
 
 
 def run_traffic_bots_rnn(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
-    full_model("traffic_bots_rnn", device, use_pallas, dense_knn_max)
-    raise AssertionError("the RNN TrafficBots was built: hold it against traffic_bots_rnn")
+    """The TrafficBots RNN family with the reference's weights, as JAX `test_traffic_bots_rnn_parity` and
+    `test_traffic_bots_rnn_navi_latent_parity`: 11 steps of `step` with the TL encoder and the GRU state
+    predictor inside it and both hiddens carried, then the action, the TL log-probs and both hiddens (in
+    the reference's [n_layer, n_sc * n_ag, d] layout); the navi probabilities and the posterior latent."""
+    model, a, outs, meta = full_model("traffic_bots_rnn", device, use_pallas, dense_knn_max)
+    rnn_h = tl_h = None
+    with torch.no_grad():
+        mp = model.encode_map(a["mp_valid"], a["mp_attr"], a["mp_pose"], a["mp_type"])
+        tl = model.precompute_tl(a["tl_valid"], a["tl_attr"], a["tl_pose"], mp)
+        for t in range(int(meta["w"])):
+            action, tl_logits, rnn_h, tl_h = model.step(
+                a["ag_valid"][:, :, t], a["ag_valid"][:, :, t:t + 1], a["ag_pose"][:, :, t:t + 1],
+                a["ag_motion"][:, :, t:t + 1], a["ag_attr"], a["ag_type"], a["ag_latent"],
+                torch.ones(a["ag_navi"].shape, dtype=torch.bool, device=device), a["ag_navi"], a["ag_navi_valid"],
+                tl, mp, hist_tl_state=a["tl_state"][:, :, t:t + 1],
+                hist_step_invalid=torch.zeros(1, dtype=torch.bool, device=device), rnn_hidden=rnn_h,
+                tl_rnn_hidden=tl_h)
+        navi = model.predict_navi(a["ag_valid"], a["ag_attr"], a["ag_motion"], a["ag_pose"], a["ag_type"], mp)
+        latent = model.encode_latent(a["ag_valid"], a["ag_attr"], a["ag_motion"], a["ag_pose"], a["ag_type"],
+                                     a["tl_state"], mp, tl, posterior=True)
+    return [
+        close("action_mean", action.mean, outs["action_mean"], FULL_HEADS),
+        close("action_std", action.std, outs["action_std"], FULL_HEADS),
+        close("tl_log_probs", torch.log_softmax(tl_logits, -1), outs["tl_log_probs"], FULL_HEADS),
+        close("rnn_hidden", rnn_h.reshape(outs["rnn_hidden"].shape), outs["rnn_hidden"], FULL_HEADS),
+        close("tl_rnn_hidden", tl_h.reshape(outs["tl_rnn_hidden"].shape), outs["tl_rnn_hidden"], FULL_HEADS),
+        close("navi_probs", torch.softmax(navi.logits.float(), -1), outs["navi_probs"], FULL_NAVI),
+        close("latent_post_mean", latent.mean, outs["latent_post_mean"], FULL_HEADS),
+        close("latent_post_std", latent.std, outs["latent_post_std"], FULL_HEADS),
+    ]
 
 
 # goldens held, in the order the modules build on each other; (case, extra runner kwargs)
@@ -477,12 +510,12 @@ MODEL_CASES = [
     ("tfblock_dense_self", {}),
     ("action_head_branch", {}), ("action_head_mlp_std", {}), ("add_navi_cat", {}),
     ("dist_enc_diag_gaus", {}), ("dist_enc_diag_gaus_branch", {}),
-    ("tl_predictor_hptr", {}),
+    ("tl_predictor_hptr", {}), ("gru_seq", {}), ("gru_step", {}),
 ]
-# goldens of variants the port refuses until A11 ports them
+# goldens of variants the port refuses until A11b ports them
 MODEL_REFUSED = ["add_navi_add", "add_navi_mul", "attn_rpe_q", "dist_enc_cat_branch", "dist_enc_cat_plain",
-                 "dist_enc_std_cat", "gru_seq", "gru_step", "input_encoder_input", "navi_pred_cmd_hptr",
-                 "navi_pred_goal_rnn", "tl_encoder_stacked", "traffic_bots_rnn"]
+                 "dist_enc_std_cat", "input_encoder_input", "navi_pred_cmd_hptr", "navi_pred_goal_rnn",
+                 "tl_encoder_stacked"]
 # the goldens a KNARPE kernel runs with use_pallas=True: case -> (runner kwargs, kernel launches by name)
 KERNEL_CASES = {
     "attn_rpe": ({}, {"knarpe_cross_attention": 1}),
@@ -493,6 +526,9 @@ KERNEL_CASES = {
     # the posterior TL and agent encoders; B2 in the agent encoder and the posterior TL and agent encoders
     # (the main TL encoder attends over static K/V)
     "traffic_bots_full": ({"dense_knn_max": 0}, {"knarpe_attention": 8, "knarpe_cross_attention": 6}),
+    # 2 layers each: B4 in the map encoder, in tf_ag2ag at each of the 11 steps and in the posterior's; B2 in
+    # tf_ag2mp and tf_ag2tl at each step and in the posterior's
+    "traffic_bots_rnn": ({"dense_knn_max": 0}, {"knarpe_attention": 2 + 22 + 2, "knarpe_cross_attention": 44 + 4}),
 }
 
 
@@ -538,9 +574,27 @@ def test_traffic_bots_full_golden(full_checks, stage, use_pallas):
     full_checks[use_pallas][stage].assert_ok()
 
 
+@pytest.fixture(scope="module")
+def rnn_checks():
+    return {p: {c.name: c for c in run_traffic_bots_rnn(use_pallas=p, dense_knn_max=128 if not p else 0)}
+            for p in (False, True)}
+
+
+RNN_STAGES = ["action_mean", "action_std", "tl_log_probs", "rnn_hidden", "tl_rnn_hidden", "navi_probs",
+              "latent_post_mean", "latent_post_std"]
+
+
+@pytest.mark.parametrize("stage", RNN_STAGES)
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "pallas"])
+def test_traffic_bots_rnn_golden(rnn_checks, stage, use_pallas):
+    """The RNN family at each stage, 11 steps with the hiddens carried (use_pallas at dense_knn_max 0: the map
+    and agent self-attentions on B4's plain version, the agent cross-attentions on B2's)."""
+    rnn_checks[use_pallas][stage].assert_ok()
+
+
 @pytest.mark.parametrize("case", MODEL_REFUSED)
 def test_model_golden_refused(case):
-    """Each golden whose variant the port does not run yet: the port refuses it, until A11."""
+    """Each golden whose variant the port does not run yet: the port refuses it, until A11b."""
     with pytest.raises(NotImplementedError):
         run_case(case)
 

@@ -332,7 +332,7 @@ SIM_CASES = ["pose_emb_mpa_pl", "pose_emb_pe_xy_yaw", "diffbar_reward_il", "diff
              "teacher_forcing_flagship", "teacher_forcing_reset", "teacher_forcing_gtsdc_prob1",
              "preproc_train_lane_dest", "preproc_test_lane_goal", "womd_post_topk", "womd_post_mtr",
              "womd_post_aggr", "wosac_post"]
-# goldens of variants the port refuses until A11 ports them
+# goldens of variants the port refuses until A11b ports them
 SIM_REFUSED = ["pose_emb_xy_dir", "pose_emb_pe_xy_dir", "preproc_train_stop_cmd"]
 
 
@@ -352,7 +352,7 @@ def test_sim_golden(case):
 
 @pytest.mark.parametrize("case", SIM_REFUSED)
 def test_sim_golden_refused(case):
-    """Each golden whose variant the port does not run yet: the port refuses it, until A11."""
+    """Each golden whose variant the port does not run yet: the port refuses it, until A11b."""
     with pytest.raises(NotImplementedError):
         run_case(case)
 

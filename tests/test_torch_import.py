@@ -113,6 +113,11 @@ def _jax_case(name):
         m = traffic_light.TrafficLightStatePredictor(cfg=jc.TlStatePredictorCfg(n_layer=3), hidden_dim=64,
                                                      tl_state_dim=5, temp_window_size=11)
         return jti.map_tl_predictor(sd, "", 3, 64, 11), m, (a["x"], a["invalid"]), {}
+    if name.startswith("gru_"):
+        from trafficbotsv15_tpu.models.gru import MultiAgentGRU
+
+        m = MultiAgentGRU(hidden_dim=meta["hidden"], n_layer=meta["n_layer"], dropout_p=0.1)
+        return jti.map_gru(sd, "", meta["n_layer"], meta["hidden"]), m, (a["x"], a["invalid"]), {}
     raise KeyError(name)
 
 
@@ -186,6 +191,38 @@ def test_port_mapping_equals_the_jax_mapping_for_the_whole_model():
     _assert_bit_equal(model.state_dict(), want)
     _assert_bit_equal(ti.conform(ti.map_traffic_bots(sd, gm.full_model_cfg(meta), meta["time_step_gt"]),
                                  model.state_dict()), want)
+
+
+def test_port_mapping_equals_the_jax_mapping_for_the_rnn_model():
+    """traffic_bots_rnn: every GRU leaf (agent encoder, posterior, navi predictor, TL state predictor) and the RNN
+    family's attention blocks, bit for bit, through the port's mapping and through JAX's + `params_from_jax`."""
+    from trafficbotsv15_tpu import config as jc
+    from trafficbotsv15_tpu.models.traffic_bots import TrafficBots
+
+    sd, ins, _, meta = gm.load_golden("model", "traffic_bots_rnn")
+    cfg = jc.ModelCfg(hidden_dim=64, temp_window_size=-1, tf_cfg=jc.TransformerCfg(d_model=64),
+                      mp_encoder=jc.MapEncoderCfg(n_layer_tf=meta["n_layer_mp"]),
+                      tl_encoder=jc.TlEncoderCfg(n_layer_tf=meta["n_layer_tl"]),
+                      ag_encoder=jc.AgEncoderCfg(n_layer_tf=meta["n_layer_ag"]),
+                      navi_predictor=jc.NaviPredictorCfg(n_layer_tf=meta["n_layer_navi"]))
+    a = _j({k: v for k, v in ins.items() if k != "w"})
+
+    def init_all(mdl):
+        mp = mdl.encode_map(a["mp_valid"], a["mp_attr"], a["mp_pose"], a["mp_type"])
+        tl = mdl.precompute_tl(a["tl_valid"], a["tl_attr"], a["tl_pose"], mp)
+        mdl.encode_latent(a["ag_valid"], a["ag_attr"], a["ag_motion"], a["ag_pose"], a["ag_type"], a["tl_state"], mp,
+                          tl, posterior=True)
+        mdl.predict_navi(a["ag_valid"], a["ag_attr"], a["ag_motion"], a["ag_pose"], a["ag_type"], mp)
+        return mdl.step(a["ag_valid"][:, :, 0], a["ag_valid"][:, :, 0:1], a["ag_pose"][:, :, 0:1],
+                        a["ag_motion"][:, :, 0:1], a["tl_state"][:, :, 0:1], jnp.zeros((1,), bool), a["ag_attr"],
+                        a["ag_type"], a["ag_latent"], jnp.ones(a["ag_navi"].shape, bool), a["ag_navi"],
+                        a["ag_navi_valid"], tl, mp)
+
+    flax_params = _flax_params(TrafficBots(cfg=cfg, time_step_gt=meta["time_step_gt"]), method=init_all)
+    want = params_from_jax(jti.conform(jti.map_traffic_bots(sd, cfg, meta["time_step_gt"]), flax_params))
+    model = gm.full_model("traffic_bots_rnn", "cpu")[0]  # through load_reference_state_dict
+    _assert_bit_equal(model.state_dict(), want)
+    assert any(".gru2.hn.bias" in k for k in want)
 
 
 def _full_golden():

@@ -217,7 +217,7 @@ def test_traffic_bots_methods(tiny, n_mp):
             ag_latent_valid=jnp.asarray(valid_any), ag_navi=jnp.asarray(navi), ag_navi_valid=jnp.asarray(valid_any),
             tl_tokens=jtl, mp_tokens=jmp, tl_token_feature=jf)
         pd = pmodel.step(T(hv[:, :, -1]), T(hv), ppp.ag_pose, ppp.ag_motion, ppp.ag_attr, ppp.ag_type, T(lat),
-                         T(valid_any), T(navi), T(valid_any), ptl, pmp, pf)
+                         T(valid_any), T(navi), T(valid_any), ptl, pmp, pf)[0]
         _close(pd.mean, jd.mean, 2e-4)
         _close(pd.std, jd.std, 1e-6)
 

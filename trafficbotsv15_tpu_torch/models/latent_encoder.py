@@ -2,11 +2,12 @@
 
 The posterior sees the whole GT episode, down-sampled in time by
 `temporal_down_sample_rate` (91 steps -> 19 at the flagship): its own TL and
-agent encoders, with a (time_step_gt + 1) // rate + 1 window, and a
-`diag_gaus` head. The flagship prior is `std_gaus`, whose head runs no
-network. A learned prior has encoders of its own, or the posterior's with
-`share_post_prior_encoders`. The categorical heads (`cat`, `std_cat`) and
-the RNN encoders (temp_window_size <= 0) raise.
+agent encoders, with a (time_step_gt + 1) // rate + 1 window in HPTR mode
+(the RNN encoders of the TrafficBots family, temp_window_size <= 0, read the
+whole sequence: `AgentEncoder._forward_rnn_latent`), and a `diag_gaus`
+head. The flagship prior is `std_gaus`, whose head runs no network. A
+learned prior has encoders of its own, or the posterior's with
+`share_post_prior_encoders`. The categorical heads (`cat`, `std_cat`) raise.
 """
 
 from __future__ import annotations
@@ -61,10 +62,11 @@ class LatentEncoder(nn.Module):
         self.dummy = cfg.latent_dim <= 0
         if self.dummy:
             return
-        if temp_window_size <= 0:
-            raise NotImplementedError("the RNN latent encoders come with the RNN slice")
         rate = cfg.temporal_down_sample_rate
-        window = (time_step_gt + 1) // rate + 1 if rate > 1 else time_step_gt + 1
+        if temp_window_size <= 0:
+            window = temp_window_size  # the RNN encoders
+        else:
+            window = (time_step_gt + 1) // rate + 1 if rate > 1 else time_step_gt + 1
         self.dist_post = dist_encoder(cfg.latent_post, hidden_dim, cfg.latent_dim, n_ag_type, dtype=dtype)
         self.dist_prior = dist_encoder(cfg.latent_prior, hidden_dim, cfg.latent_dim, n_ag_type, dtype=dtype)
 
@@ -100,6 +102,6 @@ class LatentEncoder(nn.Module):
             tl_state = tl_state[:, :, ::rate]
         tl_enc, ag_enc = (self.tl_encoder_post, self.ag_encoder_post) if posterior else self._prior_encoders
         tl_feature = tl_enc(tl_state, tl_tokens, called_by_latent_encoder=True)
-        ag_feature = ag_enc(ag_valid, ag_attr, ag_motion, ag_pose, mp_tokens, tl_tokens.invalid,
-                            tl_feature, tl_tokens.pose)
+        ag_feature, _ = ag_enc(ag_valid, ag_attr, ag_motion, ag_pose, mp_tokens, tl_tokens.invalid,
+                               tl_feature, tl_tokens.pose, called_by_latent_encoder=True)
         return head(ag_feature, ag_valid.any(-1), ag_type)

@@ -3,7 +3,11 @@
 The flagship navigates to a destination polyline: the predictor scores every
 map polyline per agent with agent/map-type compatibility masking, and the
 encoder embeds the chosen polyline relative to the agent each step. The
-goal, cmd and RNN variants come with later slices.
+predictor encodes the agent's track with HPTR temporal tokens over the last
+window, or, in the TrafficBots RNN family (temp_window_size <= 0), with a GRU
+over the whole history (its input added back with `rnn_res_add`, then pooled
+by `rnn_latent_temp_pool_mode`). The goal and cmd variants come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 from torch import nn
 
 from trafficbotsv15_tpu_torch.config import AgEncoderCfg, NaviEncoderCfg, NaviPredictorCfg
+from trafficbotsv15_tpu_torch.models.gru import MultiAgentGRU
 from trafficbotsv15_tpu_torch.models.mlp import MLP, InputEncoder, PolylineEncoder
 from trafficbotsv15_tpu_torch.models.tokens import MapTokens
 from trafficbotsv15_tpu_torch.ops.distributions import DestCategorical
@@ -54,7 +59,7 @@ class NaviEncoder(nn.Module):
 
 
 class NaviPredictor(nn.Module):
-    """Destination distribution from the agent track (HPTR temporal tokens)."""
+    """Destination distribution from the agent track (HPTR temporal tokens, or a GRU in RNN mode)."""
 
     def __init__(self, cfg: NaviPredictorCfg, ag_encoder_cfg: AgEncoderCfg, hidden_dim: int, navi_mode: str,
                  temp_window_size: int, pose_rpe: PoseEmbConfig, attr_dim: int,
@@ -62,20 +67,26 @@ class NaviPredictor(nn.Module):
                  temp_encoder_dropout_p: float = 0.1, dtype=torch.float32):
         super().__init__()
         _check_dest(navi_mode)
-        if temp_window_size <= 0:
-            raise NotImplementedError("the GRU navi predictor comes with the RNN slice")
         self.pose_rpe, self.temp_window_size, self.hidden_dim = pose_rpe, temp_window_size, hidden_dim
         self.detach_input = cfg.detach_input
+        self.rnn = temp_window_size <= 0
+        self.rnn_res_add, self.rnn_pool_mode = cfg.rnn_res_add, ag_encoder_cfg.rnn_latent_temp_pool_mode
         ie = ag_encoder_cfg.input_encoder
-        pe_dim = hidden_dim if ie.mode == "add" else hidden_dim // 2
-        self.pe_cfg = PoseEmbConfig(mode=ag_encoder_cfg.pose_emb.mode, pe_dim=pe_dim,
-                                    theta_xy=ag_encoder_cfg.pose_emb.theta_xy,
-                                    theta_cs=ag_encoder_cfg.pose_emb.theta_cs)
-        self.input_encoder = InputEncoder(attr_dim + 3 + temp_window_size, hidden_dim,
-                                          pose_emb_out_dim(self.pe_cfg), ie.n_layer, ie.mode,
-                                          ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
-        self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling,
-                                            mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
+        if self.rnn:  # relative RNN: no pose embedding, no window slot
+            self.input_encoder = InputEncoder(attr_dim + 3, hidden_dim, 0, ie.n_layer, ie.mode,
+                                              ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
+            self.temp_encoder = MultiAgentGRU(hidden_dim, hidden_dim, temp_encoder_n_layer, temp_encoder_dropout_p,
+                                              dtype=dtype)
+        else:
+            pe_dim = hidden_dim if ie.mode == "add" else hidden_dim // 2
+            self.pe_cfg = PoseEmbConfig(mode=ag_encoder_cfg.pose_emb.mode, pe_dim=pe_dim,
+                                        theta_xy=ag_encoder_cfg.pose_emb.theta_xy,
+                                        theta_cs=ag_encoder_cfg.pose_emb.theta_cs)
+            self.input_encoder = InputEncoder(attr_dim + 3 + temp_window_size, hidden_dim,
+                                              pose_emb_out_dim(self.pe_cfg), ie.n_layer, ie.mode,
+                                              ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
+            self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling,
+                                                mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
         self.mlp = MLP(2 * hidden_dim + pose_emb_out_dim(pose_rpe), [hidden_dim] * (cfg.n_layer_mlp - 1) + [1],
                        end_layer_activation=False, use_layernorm=cfg.mlp_use_layernorm, dtype=dtype)
         self.dtype = dtype
@@ -88,21 +99,8 @@ class NaviPredictor(nn.Module):
         ag_token_valid = ag_valid.any(-1)
         ag_invalid, ag_token_invalid = ~ag_valid, ~ag_token_valid
         ag_token_pose = seq_pooling(ag_pose, ag_invalid, "last_valid")
-
-        w = self.temp_window_size
-        if n_step > w:
-            ag_pose, ag_motion, ag_invalid = ag_pose[:, :, -w:], ag_motion[:, :, -w:], ag_invalid[:, :, -w:]
-            n_step = w
-        ag_xy = pos2local(ag_pose[..., :2], ag_token_pose[:, :, None, :2], rad2rot(ag_token_pose[..., 2]))
-        ag_yaw = rad2local(ag_pose[..., 2], ag_token_pose[..., 2], cast=False)
-        pe = apply_pose_emb(self.pe_cfg, ag_xy, ag_yaw[..., None])
-        ohe = torch.eye(w, dtype=self.dtype, device=ag_valid.device)[w - n_step:]
-        attr = torch.cat([
-            ag_attr[:, :, None, :].expand(n_sc, n_ag, n_step, ag_attr.shape[-1]).to(self.dtype),
-            ag_motion.to(self.dtype),
-            ohe[None, None].expand(n_sc, n_ag, n_step, w),
-        ], -1)
-        ag_token_feature = self.temp_encoder(self.input_encoder(attr, pe), ag_invalid)
+        ag_token_feature = (self._track_rnn if self.rnn else self._track_hptr)(ag_attr, ag_motion, ag_pose,
+                                                                             ag_invalid, ag_token_pose)
 
         n_mp, h = mp_tokens.invalid.shape[1], self.hidden_dim
         rpe_ag2mp, _ = get_rel_pose(ag_token_pose, ag_token_invalid, mp_tokens.pose, mp_tokens.invalid)
@@ -125,3 +123,32 @@ class NaviPredictor(nn.Module):
         all_invalid = logits_invalid.all(-1, keepdim=True)
         logits = torch.where(ag_token_invalid[..., None] | all_invalid, 0.0, logits)
         return DestCategorical(logits=logits, valid=ag_token_valid)
+
+    def _track_rnn(self, ag_attr, ag_motion, ag_pose, ag_invalid, ag_token_pose):
+        """The GRU over the whole track [n_sc, n_ag, n_step], pooled -> [n_sc, n_ag, hidden]."""
+        n_sc, n_ag, n_step = ag_invalid.shape
+        attr = torch.cat([ag_attr[:, :, None, :].expand(n_sc, n_ag, n_step, ag_attr.shape[-1]).to(self.dtype),
+                          ag_motion.to(self.dtype)], -1)
+        feat = self.input_encoder(attr, None)
+        out, _ = self.temp_encoder(feat, ag_invalid)
+        if self.rnn_res_add:
+            out = out + feat
+        return seq_pooling(out, ag_invalid, self.rnn_pool_mode)
+
+    def _track_hptr(self, ag_attr, ag_motion, ag_pose, ag_invalid, ag_token_pose):
+        """Temporal tokens over the last window, PointNet-pooled -> [n_sc, n_ag, hidden]."""
+        n_sc, n_ag, n_step = ag_invalid.shape
+        w = self.temp_window_size
+        if n_step > w:
+            ag_pose, ag_motion, ag_invalid = ag_pose[:, :, -w:], ag_motion[:, :, -w:], ag_invalid[:, :, -w:]
+            n_step = w
+        ag_xy = pos2local(ag_pose[..., :2], ag_token_pose[:, :, None, :2], rad2rot(ag_token_pose[..., 2]))
+        ag_yaw = rad2local(ag_pose[..., 2], ag_token_pose[..., 2], cast=False)
+        pe = apply_pose_emb(self.pe_cfg, ag_xy, ag_yaw[..., None])
+        ohe = torch.eye(w, dtype=self.dtype, device=ag_invalid.device)[w - n_step:]
+        attr = torch.cat([
+            ag_attr[:, :, None, :].expand(n_sc, n_ag, n_step, ag_attr.shape[-1]).to(self.dtype),
+            ag_motion.to(self.dtype),
+            ohe[None, None].expand(n_sc, n_ag, n_step, w),
+        ], -1)
+        return self.temp_encoder(self.input_encoder(attr, pe), ag_invalid)

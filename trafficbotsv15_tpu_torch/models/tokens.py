@@ -43,6 +43,15 @@ class TlTokens:
     # per layer of tf_tl2tlmp: ((k + rpe_k, v + rpe_v) of the map targets, decoder (rpe_k, rpe_v))
     static_kv: Optional[tuple] = None
 
+    def repeat(self, k: int) -> "TlTokens":
+        """Every field, each scenario k times: the rollout that runs the TL encoder in its steps reads them all."""
+        def rep(x):
+            if isinstance(x, (tuple, list)):
+                return type(x)(rep(v) for v in x)
+            return _rep(x, k)
+
+        return TlTokens(**{f.name: rep(getattr(self, f.name)) for f in dataclasses.fields(self)})
+
     def repeat_for_rollout(self, k: int) -> "TlTokens":
         """The fields the rollout reads (validity and pose), each scenario k times.
 

@@ -5,7 +5,8 @@ Wires the map / traffic-light / agent encoders, the CVAE latent encoder
 heads and the action head.
 Submodule names follow the flax tree, so `utils/jax_import.py` maps a JAX
 param tree onto `state_dict()` by path. Methods are the per-phase entry
-points the joint-future path calls; the history window lives in the
+points the joint-future path calls; the history window and, in the
+TrafficBots RNN family (temp_window_size <= 0), the GRU hiddens live in the
 rollout's carry.
 """
 
@@ -90,19 +91,37 @@ class TrafficBots(nn.Module):
         return self.navi_predictor(ag_valid, ag_attr, ag_motion, ag_pose, ag_type, mp_tokens)
 
     def step_tl(self, hist_tl_state, hist_step_invalid, tl_tokens: TlTokens):
-        """TL feature + next-state logits for one history window [n_sc, n_tl, W, 5]."""
+        """TL feature + next-state logits for one history window [n_sc, n_tl, W, 5] (the TL pre-pass; HPTR mode
+        only, as in the JAX package: the RNN-mode predictor carries a GRU hidden through the rollout)."""
+        if self.cfg.temp_window_size <= 0:
+            raise ValueError("the TL pre-pass needs HPTR mode (temp_window_size > 0)")
         feature = self.tl_encoder(hist_tl_state, tl_tokens, step_invalid=hist_step_invalid)
-        return feature, self.tl_state_predictor(feature, tl_tokens.invalid)
+        return feature, self.tl_state_predictor(feature, tl_tokens.invalid)[0]
 
     def step(self, ag_valid, hist_ag_valid, hist_ag_pose, hist_ag_motion, ag_attr, ag_type,
              ag_latent, ag_latent_valid, ag_navi, ag_navi_valid, tl_tokens: TlTokens, mp_tokens: MapTokens,
-             tl_token_feature) -> DiagGaussian:
-        """One simulation step with the TL feature from the pre-pass; returns the action distribution."""
-        if tl_token_feature is None:
-            raise NotImplementedError("the in-rollout TL encoder is out of this slice: pass the pre-pass feature")
+             tl_token_feature=None, *, hist_tl_state=None, hist_step_invalid=None, rnn_hidden=None,
+             tl_rnn_hidden=None):
+        """One simulation step -> (action_dist, tl_logits, rnn_hidden, tl_rnn_hidden).
+
+        With tl_token_feature (the TL pre-pass's, HPTR mode) the TL encoder and state predictor do not run
+        and tl_logits is None. Without it they run inside the step on the TL history window hist_tl_state
+        [n_sc, n_tl, W, 5] (hist_step_invalid [W] marks the unfilled slots) and the logits come back. In RNN
+        mode (temp_window_size <= 0) the agent encoder's and the TL state predictor's GRU hiddens
+        ([n_layer, n_sc, n_ag | n_tl, hidden], None for zeros) go in and come out; in HPTR mode they stay None.
+        """
         navi_feature = self.navi_encoder(ag_navi, hist_ag_pose[:, :, -1], mp_tokens)
-        ag_feature = self.ag_encoder(hist_ag_valid, ag_attr, hist_ag_motion, hist_ag_pose, mp_tokens,
-                                     tl_tokens.invalid, tl_token_feature.to(self.dtype), tl_tokens.pose)
+        tl_precomputed = tl_token_feature is not None
+        if tl_precomputed:
+            tl_token_feature = tl_token_feature.to(self.dtype)
+        else:
+            tl_token_feature = self.tl_encoder(hist_tl_state, tl_tokens, step_invalid=hist_step_invalid)
+        ag_feature, rnn_hidden = self.ag_encoder(hist_ag_valid, ag_attr, hist_ag_motion, hist_ag_pose, mp_tokens,
+                                                 tl_tokens.invalid, tl_token_feature, tl_tokens.pose, rnn_hidden)
         ag_feature = self.add_navi(ag_feature, navi_feature, ag_navi_valid)
         ag_feature = self.add_latent(ag_feature, ag_latent, ag_latent_valid)
-        return self.action_head(ag_feature, ag_valid, ag_type)
+        action_dist = self.action_head(ag_feature, ag_valid, ag_type)
+        if tl_precomputed:
+            return action_dist, None, rnn_hidden, tl_rnn_hidden
+        tl_logits, tl_rnn_hidden = self.tl_state_predictor(tl_token_feature, tl_tokens.invalid, tl_rnn_hidden)
+        return action_dist, tl_logits, rnn_hidden, tl_rnn_hidden

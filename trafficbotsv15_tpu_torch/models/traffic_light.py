@@ -1,12 +1,18 @@
-"""Traffic-light encoder and next-state predictor, HPTR lane mode (counterpart of
+"""Traffic-light encoder and next-state predictor, lane mode (counterpart of
 `trafficbotsv15_tpu/models/traffic_light.py`).
 
-`precompute` builds the scenario-static tokens, KNN/RPE and the per-layer
-static K/V once; `forward` encodes one rolling TL-state window. The latent
-encoder's posterior TL encoder is another instance: it does not read the
-static K/V of the main encoder's parameters and attends over the raw map
-targets instead (`called_by_latent_encoder`, the B2 route with
-`use_pallas`). The RNN mode and the stop-line mode raise.
+HPTR (temp_window_size > 0): `precompute` builds the scenario-static tokens,
+KNN/RPE and the per-layer static K/V once; `forward` encodes one rolling
+TL-state window. The latent encoder's posterior TL encoder is another
+instance: it does not read the static K/V of the main encoder's parameters
+and attends over the raw map targets instead (`called_by_latent_encoder`,
+the B2 route with `use_pallas`).
+
+TrafficBots RNN (temp_window_size <= 0): no temporal encoder and no
+attention; `forward` fuses the window's last state (every step for the
+latent encoder) with the lane's map feature, and the state predictor runs a
+GRU over the TL tokens with its hidden carried by the rollout. The
+stop-line mode raises.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 from torch import nn
 
 from trafficbotsv15_tpu_torch.config import TlEncoderCfg, TlStatePredictorCfg, TransformerCfg
+from trafficbotsv15_tpu_torch.models.gru import MultiAgentGRU
 from trafficbotsv15_tpu_torch.models.mlp import MLP, InputEncoder, PolylineEncoder
 from trafficbotsv15_tpu_torch.models.tokens import MapTokens, TlTokens
 from trafficbotsv15_tpu_torch.models.transformer import TransformerBlock
@@ -31,13 +38,18 @@ class TrafficLightEncoder(nn.Module):
         super().__init__()
         if tl_mode != "lane":
             raise NotImplementedError(f"tl_mode {tl_mode!r}: only the lane mode is on the joint-future path")
-        if temp_window_size <= 0:
-            raise NotImplementedError("the RNN (temp_window_size <= 0) TL encoder comes with the RNN slice")
-        if cfg.temp_stack_input:
-            raise NotImplementedError("temp_stack_input is not on the joint-future path")
         self.cfg, self.pose_rpe, self.dtype = cfg, pose_rpe, dtype
         self.detach_lane_feature = cfg.tl_lane_detach_mp_feature
         self.temp_window_size = temp_window_size
+        self.rnn = temp_window_size <= 0
+        ie = cfg.input_encoder
+        if self.rnn:
+            # lane mode: the pose embedding is the lane's map feature (hidden wide)
+            self.input_encoder = InputEncoder(tl_state_dim, hidden_dim, hidden_dim, ie.n_layer, ie.mode,
+                                              ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
+            return
+        if cfg.temp_stack_input:
+            raise NotImplementedError("temp_stack_input is not on the joint-future path")
         self.n_knn_tl2tl = int(n_tgt_knn * cfg.k_tgt_knn_tl2tl)
         self.n_knn_tl2mp = int(n_tgt_knn * cfg.k_tgt_knn_tl2mp)
         self.dist_limit = dist_limit * cfg.k_dist_limit
@@ -45,19 +57,19 @@ class TrafficLightEncoder(nn.Module):
                                             mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
         self.tf_tl2tlmp = TransformerBlock(tf_cfg, cfg.n_layer_tf, "dec_cross_attn",
                                            d_rpe=pose_emb_out_dim(pose_rpe), dtype=dtype)
-        # lane mode: the pose embedding is the lane's map feature (hidden wide)
-        self.input_encoder = InputEncoder(tl_state_dim + temp_window_size, hidden_dim, hidden_dim,
-                                          cfg.input_encoder.n_layer, cfg.input_encoder.mode,
-                                          cfg.input_encoder.mlp_use_layernorm, cfg.input_encoder.mlp_dropout_p,
-                                          dtype=dtype)
+        # the one-hot window slot rides with each state
+        self.input_encoder = InputEncoder(tl_state_dim + temp_window_size, hidden_dim, hidden_dim, ie.n_layer,
+                                          ie.mode, ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
 
     def precompute(self, tl_valid, tl_attr, tl_pose, mp_tokens: MapTokens) -> TlTokens:
-        """Static tokens + KNN/RPE + static K/V. tl_attr: lane index [n_sc, n_tl]."""
+        """Static tokens (+ KNN/RPE + static K/V in HPTR mode). tl_attr: lane index [n_sc, n_tl]."""
         tl_invalid = ~tl_valid
         mp_feat = mp_tokens.feature
         idx = torch.clamp(tl_attr, 0, mp_feat.shape[1] - 1).long()
         lane_feat = mp_feat.detach() if self.detach_lane_feature else mp_feat
         attr = torch.gather(lane_feat, 1, idx[..., None].expand(-1, -1, mp_feat.shape[-1]))
+        if self.rnn:
+            return TlTokens(valid=tl_valid, invalid=tl_invalid, pose=tl_pose, attr=attr)
 
         rel_pose_tl2tl, rel_dist_tl2tl = get_rel_pose(tl_pose, tl_invalid)
         rel_pose_tl2mp, rel_dist_tl2mp = get_rel_pose(tl_pose, tl_invalid, mp_tokens.pose, mp_tokens.invalid)
@@ -77,8 +89,16 @@ class TrafficLightEncoder(nn.Module):
         return tok
 
     def forward(self, tl_state, tl_tokens: TlTokens, step_invalid=None, called_by_latent_encoder: bool = False):
-        """tl_state [n_sc, n_tl, n_step <= W, 5], step_invalid [n_step] -> [n_sc, n_tl, hidden]."""
+        """tl_state [n_sc, n_tl, n_step <= W, 5], step_invalid [n_step] -> [n_sc, n_tl, hidden]
+        ([n_sc, n_tl, n_step, hidden] for the RNN latent encoder, which reads every step)."""
         n_sc, n_tl, n_step, _ = tl_state.shape
+        if self.rnn:
+            if not called_by_latent_encoder:
+                tl_state = tl_state[:, :, -1]
+            attr = tl_tokens.attr
+            if tl_state.ndim == 4:
+                attr = attr[:, :, None].expand(n_sc, n_tl, n_step, attr.shape[-1])
+            return self.input_encoder(tl_state.to(self.dtype), attr)
         invalid = tl_tokens.invalid
         w = self.temp_window_size
         ohe = torch.eye(w, dtype=self.dtype, device=tl_state.device)[w - n_step:]
@@ -101,19 +121,24 @@ class TrafficLightEncoder(nn.Module):
 
 
 class TrafficLightStatePredictor(nn.Module):
-    """Next-step TL-state logits, clamped to ±3, float32."""
+    """Next-step TL-state logits, clamped to ±3, float32; in RNN mode a GRU (`rnn`) before the MLP."""
 
     def __init__(self, cfg: TlStatePredictorCfg, hidden_dim: int, tl_state_dim: int, temp_window_size: int,
                  dtype=torch.float32):
         super().__init__()
-        if temp_window_size <= 0:
-            raise NotImplementedError("the GRU TL-state predictor comes with the RNN slice")
+        self.rnn = (MultiAgentGRU(hidden_dim, hidden_dim, cfg.n_layer, cfg.rnn_dropout_p, dtype=dtype)
+                    if temp_window_size <= 0 else None)
         self.mlp = MLP(hidden_dim, [hidden_dim] * (cfg.n_layer - 1) + [tl_state_dim],
                        end_layer_activation=False, dtype=dtype)
         self.detach_tl_feature = cfg.detach_tl_feature
 
-    def forward(self, tl_token_feature, tl_token_invalid):
+    def forward(self, tl_token_feature, tl_token_invalid, rnn_hidden=None):
+        """tl_token_feature [n_sc, n_tl, hidden] -> (logits [n_sc, n_tl, 5], the GRU's new hidden
+        [n_layer, n_sc, n_tl, hidden] in RNN mode, else None). The GRU treats every token as valid."""
         if self.detach_tl_feature:
             tl_token_feature = tl_token_feature.detach()
+        new_hidden = None
+        if self.rnn is not None:
+            tl_token_feature, new_hidden = self.rnn(tl_token_feature, torch.zeros_like(tl_token_invalid), rnn_hidden)
         logits = self.mlp(tl_token_feature, tl_token_invalid)
-        return torch.clamp(logits, -3.0, 3.0).float()
+        return torch.clamp(logits, -3.0, 3.0).float(), new_hidden

@@ -44,7 +44,8 @@ class InteractiveSimulator:
         self.device = resolve_device(device)
         check_model(model, self.device)
         if cfg.model.temp_window_size <= 0:
-            raise NotImplementedError("the RNN mode (temp_window_size <= 0) is not ported")
+            raise NotImplementedError("serving the RNN mode (temp_window_size <= 0): the JAX package serves "
+                                      "HPTR mode only (its step_tl carries no GRU hidden)")
         self.cfg, self.model, self.det_action = cfg, model, deterministic_action
         self.static: Optional[dict] = None
         self._state: Optional[dict] = None
@@ -114,7 +115,7 @@ class InteractiveSimulator:
         tl_feature, tl_logits = model.step_tl(hist["tl"], hist["step_invalid"], st["tl_tokens"])
         action_dist = model.step(s["valid"], hist["valid"], hist["pose"], hist["motion"], st["ag_attr"],
                                  st["ag_type"], st["ag_latent"], st["ag_latent_valid"], st["ag_navi"],
-                                 st["ag_navi_valid"], st["tl_tokens"], st["mp_tokens"], tl_feature)
+                                 st["ag_navi_valid"], st["tl_tokens"], st["mp_tokens"], tl_feature)[0]
         if self.det_action:
             action = action_dist.mean
         else:

@@ -2,7 +2,7 @@
 
 The JAX `lax.scan` becomes a loop over a carry; each step's outputs are
 stacked at the end with the step axis at dim 2, as in the JAX buffer. Two
-flavours, both with TL from the pre-pass:
+flavours:
   - `rollout`, evaluation (joint-future prediction, reactive replay): no
     gradients, deterministic actions, rule checks at the caller's level,
     `diffbar_reward` in the buffer where the caller asks for it (reactive
@@ -22,12 +22,24 @@ and `player_action` [n_sc, n_ag, n_step_roll, 2] (bounded acc, yaw_rate)
 script the marked agents step by step; the action is replaced after it is
 sampled and its log-prob taken, so the log-prob stays the policy's own.
 `pred_navi_after_reached` and token dedup raise where the config asks for
-them. TL comes from a pass made before the loop
-(`sim/tl_prepass.py`), never from inside it: JAX's in-scan TL path is that
-pass's `tl_rollout_scan`. Past the GT horizon (`time_step_end` >= T) nothing
-is forced or reset, `step_gt_valid` and so the reward are off, and
-`_tl_outputs` masks the TL-state NLL off (`tl_state_nll_invalid` true) as
-JAX's `tl_avail` does.
+them.
+
+TL takes one of two paths, as in JAX:
+  - the pre-pass (`tl_precomputed`, HPTR mode with `tl_prepass`): a pass made
+    before the loop (`sim/tl_prepass.py::tl_rollout_scan`) hands each step
+    its TL feature and state; `_tl_outputs` takes the TL-state NLL from its
+    logits over all steps at once;
+  - in the rollout (`tl_precomputed=None`: the TrafficBots RNN family, and
+    HPTR with `tl_prepass=False`): each step pushes the TL state into the
+    carry's TL window, `model.step` runs the TL encoder and state predictor
+    on it, the next state is the log's where `tl_forcing` forces it and the
+    log has the step, else the one-hot argmax of the logits, and the step's
+    NLL against the log goes into the buffer.
+In RNN mode (temp_window_size <= 0) the agent encoder's and the TL state
+predictor's GRU hiddens ride in the carry from zeros.
+Past the GT horizon (`time_step_end` >= T) nothing is forced or reset,
+`step_gt_valid` and so the reward are off, and the TL-state NLL is masked
+off (`tl_state_nll_invalid` true) as JAX's `tl_avail` does.
 """
 
 from __future__ import annotations
@@ -95,20 +107,24 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
             ag_attr, ag_type, ag_size, ag_latent, ag_latent_valid, ag_navi, ag_navi_valid, ag_navi_log_prob,
             gt_valid, gt_pose, gt_motion, gt_tl_state, ag_forcing,
             rule_statics: RuleCheckerStatics, rule_state0: RuleCheckerState, check_level: int,
-            tl_precomputed: Dict[str, torch.Tensor], tf_cfg=None, with_reward: bool = False,
+            tl_precomputed: Optional[Dict[str, torch.Tensor]] = None, tl_forcing: Optional[torch.Tensor] = None,
+            tf_cfg=None, with_reward: bool = False,
             player_valid: Optional[torch.Tensor] = None, player_action: Optional[torch.Tensor] = None) -> RolloutBuffer:
     """Run the closed-loop simulation from step 1 to cfg.time_step_end inclusive.
 
     gt_* cover the first T steps ([n_sc, n_ag, T]); ag_forcing is the
     precomputed teacher-forcing mask over them. tl_precomputed holds the
-    pre-pass outputs over the un-replicated scenarios (n_sc_u divides n_sc).
+    pre-pass outputs over the un-replicated scenarios (n_sc_u divides n_sc);
+    without it TL runs in the rollout, forced to gt_tl_state where tl_forcing
+    [n_sc, n_tl, T_tl] says so, and tl_tokens must carry every encoder field
+    of the rollout's batch (`TlTokens.repeat`).
     with_reward fills `diffbar_reward` (the JAX eval rollout always does).
     player_valid / player_action, if given, script the agents they mark at each step.
     """
     tf_cfg = cfg.teacher_forcing_training if tf_cfg is None else tf_cfg
     n_step_roll = cfg.time_step_end
     n_sc, n_ag, t_gt = gt_valid.shape
-    tl_rep = _check_rollout_cfg(cfg, tl_precomputed, n_sc, n_step_roll)
+    tl_rep = _check_rollout_cfg(cfg, tl_precomputed, tl_forcing, n_sc, n_step_roll)
     w = max(cfg.model.temp_window_size, 1)
 
     tf_valid = pad_steps(ag_forcing, n_step_roll, False)
@@ -116,6 +132,7 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     tf_motion = pad_steps(gt_motion, n_step_roll)
     gt_valid_s = pad_steps(gt_valid, n_step_roll, False)
     reset = _error_reset(tf_cfg, gt_valid, gt_pose, gt_motion, n_step_roll)
+    tl_in = None if tl_precomputed is not None else _TlInRollout(gt_tl_state, tl_forcing, tl_tokens, n_step_roll)
     dev = gt_valid.device
 
     valid = gt_valid[:, :, 0]
@@ -125,24 +142,31 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     hist_pose = torch.zeros((n_sc, n_ag, w, 3), dtype=gt_pose.dtype, device=dev)
     hist_motion = torch.zeros((n_sc, n_ag, w, 3), dtype=gt_motion.dtype, device=dev)
     hist_step_invalid = torch.ones(w, dtype=torch.bool, device=dev)
+    tl_state, hist_tl = _tl_carry0(gt_tl_state, w, tl_in)
+    rnn_hidden, tl_rnn_hidden = _rnn_hidden0(cfg, n_sc, n_ag, gt_tl_state.shape[1], dev)
     rule_state, navi, navi_valid = rule_state0, ag_navi, ag_navi_valid
     navi_mode = cfg.model.navi_mode
 
     outs = {k: [] for k in ("pred_valid", "pred_pose", "pred_motion", "pred_action", "action_log_prob",
-                            "mask_teacher_forcing", "violation", "diffbar_reward")}
+                            "mask_teacher_forcing", "violation", "diffbar_reward", "tl")}
     for i in range(n_step_roll):
         hist_valid = torch.cat([hist_valid[:, :, 1:], valid[:, :, None]], 2)
         hist_pose = torch.cat([hist_pose[:, :, 1:], pose[:, :, None]], 2)
         hist_motion = torch.cat([hist_motion[:, :, 1:], motion[:, :, None]], 2)
         hist_step_invalid = torch.cat([hist_step_invalid[1:], hist_step_invalid.new_zeros(1)])
-        tl_feature = tl_precomputed["feature"][i]
-        tl_state = tl_precomputed["state"][i]
-        if tl_rep > 1:
-            tl_feature = torch.repeat_interleave(tl_feature, tl_rep, 0)
-            tl_state = torch.repeat_interleave(tl_state, tl_rep, 0)
+        tl_feature, tl_state_pre = _tl_pre_step(tl_precomputed, tl_rep, i)
+        if tl_in is not None:
+            hist_tl = torch.cat([hist_tl[:, :, 1:], tl_state[:, :, None]], 2)
 
-        action_dist = model.step(valid, hist_valid, hist_pose, hist_motion, ag_attr, ag_type, ag_latent,
-                                 ag_latent_valid, navi, navi_valid, tl_tokens, mp_tokens, tl_feature)
+        action_dist, tl_logits, rnn_hidden, tl_rnn_hidden = model.step(
+            valid, hist_valid, hist_pose, hist_motion, ag_attr, ag_type, ag_latent, ag_latent_valid, navi,
+            navi_valid, tl_tokens, mp_tokens, tl_feature, hist_tl_state=hist_tl, hist_step_invalid=hist_step_invalid,
+            rnn_hidden=rnn_hidden, tl_rnn_hidden=tl_rnn_hidden)
+        if tl_in is None:
+            tl_state = tl_state_pre
+        else:
+            tl_state, tl_out = tl_in.step(i, tl_logits)
+            outs["tl"].append(tl_out)
         action = action_dist.mean  # deterministic action
         action_log_prob = torch.where(valid, action_dist.log_prob(action), 0.0)
         pred_pose, pred_motion, action_bounded = dyn.step_dynamics(pose, motion, valid, action, ag_type, cfg.dynamics,
@@ -161,25 +185,77 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
         valid, disabled = dyn.disable_outside_map(ov_valid, disabled, violations["outside_map_this_step"],
                                                   step_gt_valid)
         pose, motion = ov_pose, ov_motion
-        if navi_mode == "dest":
-            reached = violations["dest_reached_this_step"]
-        elif navi_mode == "goal":
-            reached = violations["goal_reached_this_step"]
-        else:
-            reached = torch.zeros_like(valid)
-        navi, navi_valid = dyn.update_navi_on_reached(navi, navi_valid, reached)
+        navi, navi_valid = dyn.update_navi_on_reached(navi, navi_valid, _navi_reached(navi_mode, violations, valid))
 
         for key, val in (("pred_valid", pred_valid), ("pred_pose", pred_pose), ("pred_motion", pred_motion),
                          ("pred_action", action_bounded), ("action_log_prob", action_log_prob),
                          ("mask_teacher_forcing", force), ("violation", violations)):
             outs[key].append(val)
 
-    buf = _tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll)
+    tl_outs = outs.pop("tl")
+    buf = (_tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll) if tl_in is None
+           else _stack_dicts(tl_outs))
     reward = outs.pop("diffbar_reward")
     return RolloutBuffer(**{k: _stack(outs[k]) for k in outs if k != "violation"}, **buf,
                          violation=_stack_dicts(outs["violation"]),
                          diffbar_reward=_stack_dicts(reward) if reward else None,
                          navi_log_prob=ag_navi_log_prob[..., None], navi_log_prob_valid=ag_navi_valid[..., None])
+
+
+class _TlInRollout:
+    """The in-rollout TL path's per-step inputs: the forcing masks and log states, slid to rollout steps."""
+
+    def __init__(self, gt_tl_state, tl_forcing, tl_tokens: TlTokens, n_step_roll: int):
+        self.t_tl = gt_tl_state.shape[2]
+        self.forcing = pad_steps(tl_forcing, n_step_roll, False)
+        self.gt = pad_steps(gt_tl_state, n_step_roll, 0)
+        self.gt_idx = torch.argmax(self.gt.float(), -1)
+        self.invalid = tl_tokens.invalid
+
+    def step(self, i: int, tl_logits):
+        """Rollout step i's next TL state (float) and its buffer entries: the log's where it is forced and
+        available (`tl_avail`: i + 1 < T_tl), else the one-hot argmax; the NLL of the log's state."""
+        avail = i + 1 < self.t_tl
+        state = dyn.override_tl(tl_logits, self.forcing[:, :, i] & avail, self.gt[:, :, i]).float()
+        nll = -torch.gather(torch.log_softmax(tl_logits, -1), -1, self.gt_idx[:, :, i, None])[..., 0]
+        if not avail:
+            nll = torch.zeros_like(nll)
+        return state, dict(tl_state_nll=nll, tl_state_nll_invalid=self.invalid | (not avail), tl_state=state)
+
+
+def _tl_carry0(gt_tl_state, w: int, tl_in):
+    """The TL state at step 0 and an empty TL window (both None on the pre-pass path)."""
+    if tl_in is None:
+        return None, None
+    n_sc, n_tl = gt_tl_state.shape[:2]
+    return gt_tl_state[:, :, 0].float(), torch.zeros((n_sc, n_tl, w, 5), device=gt_tl_state.device)
+
+
+def _tl_pre_step(tl_precomputed, tl_rep: int, i: int):
+    """Step i's TL feature and state from the pre-pass, repeated to the rollout batch; (None, None) without it."""
+    if tl_precomputed is None:
+        return None, None
+    feature, state = tl_precomputed["feature"][i], tl_precomputed["state"][i]
+    if tl_rep > 1:
+        feature, state = torch.repeat_interleave(feature, tl_rep, 0), torch.repeat_interleave(state, tl_rep, 0)
+    return feature, state
+
+
+def _rnn_hidden0(cfg: ExperimentCfg, n_sc: int, n_ag: int, n_tl: int, dev):
+    """Zero GRU hiddens of the agent encoder and the TL state predictor in RNN mode (float32), else None."""
+    m = cfg.model
+    if m.temp_window_size > 0:
+        return None, None
+    return (torch.zeros((m.mp_encoder.pl_encoder.n_layer, n_sc, n_ag, m.hidden_dim), device=dev),
+            torch.zeros((m.tl_state_predictor.n_layer, n_sc, n_tl, m.hidden_dim), device=dev))
+
+
+def _navi_reached(navi_mode: str, violations, valid):
+    if navi_mode == "dest":
+        return violations["dest_reached_this_step"]
+    if navi_mode == "goal":
+        return violations["goal_reached_this_step"]
+    return torch.zeros_like(valid)
 
 
 def _player(player_valid, player_action, i: int):
@@ -218,15 +294,19 @@ def _error_reset(tf_cfg, gt_valid, gt_pose, gt_motion, n_step_roll: int):
     return reset
 
 
-def _check_rollout_cfg(cfg: ExperimentCfg, tl_precomputed, n_sc: int, n_step_roll: int) -> int:
-    """Raise for the options neither flavour ports; -> how often each pre-pass scenario repeats."""
-    if tl_precomputed is None:
-        raise NotImplementedError("the agent loop has no in-rollout TL encoder: run the TL pass first "
-                                  "(sim/tl_prepass.py::tl_rollout_scan) and hand it in as tl_precomputed")
+def _check_rollout_cfg(cfg: ExperimentCfg, tl_precomputed, tl_forcing, n_sc: int, n_step_roll: int) -> int:
+    """Raise for the options neither flavour ports and for TL inputs that do not fit; -> how often each pre-pass
+    scenario repeats (1 on the in-rollout TL path)."""
     if cfg.pred_navi_after_reached:
         raise NotImplementedError("pred_navi_after_reached is not ported")
     if cfg.rollout_token_dedup:
         raise NotImplementedError("rollout_token_dedup is not ported")
+    if tl_precomputed is None:
+        if tl_forcing is None:
+            raise ValueError("the in-rollout TL path needs tl_forcing")
+        return 1
+    if cfg.model.temp_window_size <= 0:
+        raise ValueError("the TL pre-pass needs HPTR mode: in RNN mode TL runs in the rollout")
     n_sc_u = tl_precomputed["feature"].shape[1]
     if n_sc % n_sc_u or tl_precomputed["feature"].shape[0] != n_step_roll:
         raise ValueError("TL pre-pass batch must divide the rollout batch and cover every rollout step")
@@ -252,18 +332,21 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
                   ag_attr, ag_type, ag_size, ag_latent, ag_latent_valid, ag_navi, ag_navi_valid, ag_navi_log_prob,
                   gt_valid, gt_pose, gt_motion, gt_tl_state, ag_forcing,
                   rule_statics: RuleCheckerStatics, rule_state0: RuleCheckerState,
-                  tl_precomputed: Dict[str, torch.Tensor], step_seeds: Sequence[int],
+                  step_seeds: Sequence[int], tl_precomputed: Optional[Dict[str, torch.Tensor]] = None,
+                  tl_forcing: Optional[torch.Tensor] = None,
                   player_valid: Optional[torch.Tensor] = None,
                   player_action: Optional[torch.Tensor] = None) -> RolloutBuffer:
     """The training rollout (JAX `rollout(..., train=True)`), from step 1 to cfg.time_step_end.
 
     Gradients flow through the poses and motions of the dynamics chain and into every
     encoder; step i draws its dropout masks (and sampled actions) from step_seeds[i], so
-    the per-step recompute of the backward pass draws them again alike.
+    the per-step recompute of the backward pass draws them again alike. TL comes from
+    tl_precomputed or runs in the rollout, as in `rollout`; in RNN mode the GRU hiddens
+    carry gradients from step to step.
     """
     n_step_roll = cfg.time_step_end
     n_sc, n_ag, t_gt = gt_valid.shape
-    tl_rep = _check_rollout_cfg(cfg, tl_precomputed, n_sc, n_step_roll)
+    tl_rep = _check_rollout_cfg(cfg, tl_precomputed, tl_forcing, n_sc, n_step_roll)
     w = max(cfg.model.temp_window_size, 1)
     dev = gt_valid.device
     detach = cfg.training_detach_model_input
@@ -272,23 +355,29 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
     tf_motion = pad_steps(gt_motion, n_step_roll)
     gt_valid_s = pad_steps(gt_valid, n_step_roll, False)
     reset = _error_reset(cfg.teacher_forcing_training, gt_valid, gt_pose, gt_motion, n_step_roll)
+    tl_in = None if tl_precomputed is not None else _TlInRollout(gt_tl_state, tl_forcing, tl_tokens, n_step_roll)
     navi_mode = cfg.model.navi_mode
 
     def step(i, valid, disabled, pose, motion, hist_valid, hist_pose, hist_motion, hist_step_invalid,
-             rule_state, navi_valid):
+             rule_state, navi_valid, tl_state, hist_tl, rnn_hidden, tl_rnn_hidden):
         with dropout_scope(step_seeds[i], dev):
             sg = (lambda x: x.detach()) if detach else (lambda x: x)
             hist_valid = torch.cat([hist_valid[:, :, 1:], valid[:, :, None]], 2)
             hist_pose = torch.cat([hist_pose[:, :, 1:], sg(pose)[:, :, None]], 2)
             hist_motion = torch.cat([hist_motion[:, :, 1:], sg(motion)[:, :, None]], 2)
             hist_step_invalid = torch.cat([hist_step_invalid[1:], hist_step_invalid.new_zeros(1)])
-            tl_feature = tl_precomputed["feature"][i]
-            tl_state = tl_precomputed["state"][i]
-            if tl_rep > 1:
-                tl_feature = torch.repeat_interleave(tl_feature, tl_rep, 0)
-                tl_state = torch.repeat_interleave(tl_state, tl_rep, 0)
-            action_dist = model.step(valid, hist_valid, hist_pose, hist_motion, ag_attr, ag_type, ag_latent,
-                                     ag_latent_valid, ag_navi, navi_valid, tl_tokens, mp_tokens, tl_feature)
+            tl_feature, tl_state_pre = _tl_pre_step(tl_precomputed, tl_rep, i)
+            if tl_in is not None:
+                hist_tl = torch.cat([hist_tl[:, :, 1:], tl_state[:, :, None]], 2)
+            action_dist, tl_logits, rnn_hidden, tl_rnn_hidden = model.step(
+                valid, hist_valid, hist_pose, hist_motion, ag_attr, ag_type, ag_latent, ag_latent_valid, ag_navi,
+                navi_valid, tl_tokens, mp_tokens, tl_feature, hist_tl_state=hist_tl,
+                hist_step_invalid=hist_step_invalid, rnn_hidden=rnn_hidden, tl_rnn_hidden=tl_rnn_hidden)
+            out = {}
+            if tl_in is None:
+                tl_state = tl_state_pre
+            else:
+                tl_state, out["tl"] = tl_in.step(i, tl_logits)
             if cfg.training_deterministic_action:
                 action = action_dist.mean
             else:
@@ -307,16 +396,12 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
                                     tf_motion[:, :, i], ag_size)
             new_valid, disabled = dyn.disable_outside_map(ov_valid, disabled, violations["outside_map_this_step"],
                                                           step_gt_valid)
-            if navi_mode == "dest":
-                reached = violations["dest_reached_this_step"]
-            elif navi_mode == "goal":
-                reached = violations["goal_reached_this_step"]
-            else:
-                reached = torch.zeros_like(valid)
-            _, navi_valid = dyn.update_navi_on_reached(ag_navi, navi_valid, reached)
+            _, navi_valid = dyn.update_navi_on_reached(ag_navi, navi_valid,
+                                                       _navi_reached(navi_mode, violations, valid))
             carry = (new_valid, disabled, ov_pose, ov_motion, hist_valid, hist_pose, hist_motion, hist_step_invalid,
-                     rule_state, navi_valid)
-            out = dict(pred_valid=valid, pred_pose=pred_pose, pred_motion=pred_motion,
+                     rule_state, navi_valid, tl_state if tl_in is not None else None, hist_tl, rnn_hidden,
+                     tl_rnn_hidden)
+            out.update(pred_valid=valid, pred_pose=pred_pose, pred_motion=pred_motion,
                        pred_action=action_bounded.detach(), action_log_prob=action_log_prob,
                        mask_teacher_forcing=force, diffbar_reward=reward, violation=violations)
             return carry, out
@@ -326,7 +411,8 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
              torch.zeros((n_sc, n_ag, w), dtype=torch.bool, device=dev),
              torch.zeros((n_sc, n_ag, w, 3), dtype=gt_pose.dtype, device=dev),
              torch.zeros((n_sc, n_ag, w, 3), dtype=gt_motion.dtype, device=dev),
-             torch.ones(w, dtype=torch.bool, device=dev), rule_state0, ag_navi_valid)
+             torch.ones(w, dtype=torch.bool, device=dev), rule_state0, ag_navi_valid,
+             *_tl_carry0(gt_tl_state, w, tl_in), *_rnn_hidden0(cfg, n_sc, n_ag, gt_tl_state.shape[1], dev))
     per_step = cfg.remat_policy != "none" and torch.is_grad_enabled()
     outs = []
     for i in range(n_step_roll):
@@ -339,7 +425,8 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
     def stacked(key):
         return _stack([o[key] for o in outs])
 
-    buf = _tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll)
+    buf = (_tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll) if tl_in is None
+           else _stack_dicts([o["tl"] for o in outs]))
     return RolloutBuffer(
         **{k: stacked(k) for k in ("pred_valid", "pred_pose", "pred_motion", "pred_action", "action_log_prob",
                                    "mask_teacher_forcing")},

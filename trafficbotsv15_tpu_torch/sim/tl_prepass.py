@@ -2,10 +2,11 @@
 
 The TL encoder and state predictor never see agent state, so the rollout
 consumes their per-step feature and state from a pass made before it,
-`tl_rollout_scan`, in every rollout: joint-future prediction (GT is the
-history only), training and reactive replay (TL forced to GT where the log
-has it; past the log's horizon, as in the scaled preset's 120 steps against
-91 logged, from its own predictions). One encoder call per step, outside the
+`tl_rollout_scan`, in every rollout of HPTR mode with `tl_prepass`
+(`prepass_wanted`): joint-future prediction (GT is the history only),
+training and reactive replay (TL forced to GT where the log has it; past the
+log's horizon, as in the scaled preset's 120 steps against 91 logged, from
+its own predictions). One encoder call per step, outside the
 rollout's per-step recompute, with a dropout seed per step.
 
 It is the port's counterpart of JAX's in-scan TL path (`sim/rollout.py` with
@@ -25,6 +26,13 @@ import torch
 from trafficbotsv15_tpu_torch.models.tokens import TlTokens
 from trafficbotsv15_tpu_torch.ops.dropout import dropout_scope
 from trafficbotsv15_tpu_torch.sim import dynamics as dyn
+
+
+def prepass_wanted(cfg) -> bool:
+    """Whether the rollouts take TL from this pass: HPTR mode with `tl_prepass` (JAX's joint-future condition).
+    Otherwise TL runs inside the rollout's steps (`sim/rollout.py`): the TrafficBots RNN family, whose state
+    predictor carries a GRU hidden, and HPTR with `tl_prepass=False`."""
+    return cfg.tl_prepass and cfg.model.temp_window_size > 0
 
 
 def pad_steps(arr: torch.Tensor, n_step_roll: int, fill=0) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 `joint_future_pred`, the WOSAC joint futures: L2 pre-processing, scene
 encoding (map encoder, TL precompute), the prior latent, the navi
-predictor, the TL-only pre-pass, replication of everything K times along
-the scenario axis, and the closed-loop rollout. Latent and navi draws come
+predictor, the TL-only pre-pass (HPTR mode with `tl_prepass`; else TL runs
+in the rollout, as in the TrafficBots RNN family), replication of
+everything K times along the scenario axis, and the closed-loop rollout. Latent and navi draws come
 from an explicit `torch.Generator`.
 
 `reactive_replay`, the validation's reconstruction rollout: the posterior
@@ -11,7 +12,8 @@ latent's mean, the ground-truth destination, every agent spawned from the
 log (`teacher_forcing_reactive_replay`), TL forced to the log, deterministic
 actions; it draws nothing. Past the log's horizon (`time_step_end` >= the
 logged steps, the scaled preset) TL runs free from its own predictions, as
-in JAX's in-scan TL path (`sim/tl_prepass.py::tl_rollout_scan`).
+in JAX's in-scan TL path (`sim/tl_prepass.py::tl_rollout_scan`, or TL in
+the rollout where `tl_prepass.prepass_wanted` says no).
 """
 
 from __future__ import annotations
@@ -35,14 +37,15 @@ from trafficbotsv15_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class JointFutureScene:
     """What the K futures share: the pre-processed batch, the encoded scene and the
-    prior / navi distributions, with the TL pre-pass over the unique scenarios."""
+    prior / navi distributions, with the TL pre-pass over the unique scenarios (None where TL runs in the
+    rollout)."""
 
     pp: PreProcessedBatch
     mp_tokens: object
     tl_tokens: object
     latent_prior: object
     navi_dist: object
-    tl_pre: Dict[str, torch.Tensor]
+    tl_pre: Optional[Dict[str, torch.Tensor]]
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -78,8 +81,6 @@ def reactive_replay(cfg: ExperimentCfg, model: TrafficBots, batch, check_level: 
     device = resolve_device(device)
     check_model(model, device)
     batch = batch_to_device(batch, device)
-    if not cfg.tl_prepass or cfg.model.temp_window_size <= 0:
-        raise NotImplementedError("the in-rollout TL path is out of this slice (tl_prepass=True, HPTR mode)")
     pp = pre_processing(batch, tl_mode=cfg.model.tl_mode, navi_mode=cfg.model.navi_mode,
                         n_step_hist=cfg.n_step_hist, training=True)
     mp_tokens, tl_tokens = encode_scene(cfg, model, pp)
@@ -97,33 +98,36 @@ def reactive_replay(cfg: ExperimentCfg, model: TrafficBots, batch, check_level: 
         ag_dest=batch.get("agent/dest"))
     tl_forcing0 = torch.ones(gt_tl_state.shape[:3], dtype=torch.bool, device=device)
     ag_forcing, tl_forcing = build_forcing_masks(cfg.teacher_forcing_reactive_replay, pp.gt_valid, tl_forcing0)
-    tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, gt_tl_state, tl_forcing, cfg.time_step_end,
-                                        cfg.model.temp_window_size)
+    tl_pre = None
+    if tl_prepass.prepass_wanted(cfg):
+        tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, gt_tl_state, tl_forcing, cfg.time_step_end,
+                                            cfg.model.temp_window_size)
     buffer = rollout_lib.rollout(
         model, cfg, mp_tokens, tl_tokens, ag_attr=pp.ag_attr, ag_type=pp.ag_type, ag_size=pp.ag_size,
         ag_latent=ag_latent, ag_latent_valid=None if latent_post is None else latent_post.valid,
         ag_navi=pp.gt_navi, ag_navi_valid=pp.gt_valid.any(-1), ag_navi_log_prob=torch.zeros_like(pp.ag_attr[:, :, 0]),
         gt_valid=pp.gt_valid, gt_pose=pp.gt_pose, gt_motion=pp.gt_motion, gt_tl_state=gt_tl_state,
         ag_forcing=ag_forcing, rule_statics=statics, rule_state0=state0, check_level=check_level,
-        tl_precomputed=tl_pre, tf_cfg=cfg.teacher_forcing_reactive_replay, with_reward=True)
+        tl_precomputed=tl_pre, tl_forcing=tl_forcing, tf_cfg=cfg.teacher_forcing_reactive_replay, with_reward=True)
     return pp, buffer, navi_pred, latent_post, latent_prior
 
 
 @torch.no_grad()
 def prepare_joint_future(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, torch.Tensor]) -> JointFutureScene:
     """Everything before replication: pre-processing, scene encoding, prior latent,
-    navi distribution and the TL-only pre-pass."""
-    if not cfg.tl_prepass or cfg.model.temp_window_size <= 0:
-        raise NotImplementedError("the in-rollout TL path is out of this slice (tl_prepass=True, HPTR mode)")
+    navi distribution and the TL-only pre-pass (None where TL runs in the rollout)."""
     pp = pre_processing(batch, tl_mode=cfg.model.tl_mode, navi_mode=cfg.model.navi_mode,
                         n_step_hist=cfg.n_step_hist, training="agent/valid" in batch)
     mp_tokens, tl_tokens = encode_scene(cfg, model, pp)
     latent_prior = model.encode_latent(pp.ag_valid, pp.ag_attr, pp.ag_motion, pp.ag_pose, pp.ag_type,
                                        pp.tl_state.float(), mp_tokens, tl_tokens, posterior=False)
     navi_dist = model.predict_navi(pp.ag_valid, pp.ag_attr, pp.ag_motion, pp.ag_pose, pp.ag_type, mp_tokens)
-    tl_state = pp.tl_state.float()
-    tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, tl_state, torch.ones(tl_state.shape[:3], dtype=torch.bool,
-                                        device=tl_state.device), cfg.time_step_end, cfg.model.temp_window_size)
+    tl_pre = None
+    if tl_prepass.prepass_wanted(cfg):
+        tl_state = pp.tl_state.float()
+        tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, tl_state, torch.ones(
+            tl_state.shape[:3], dtype=torch.bool, device=tl_state.device), cfg.time_step_end,
+            cfg.model.temp_window_size)
     return JointFutureScene(pp, mp_tokens, tl_tokens, latent_prior, navi_dist, tl_pre)
 
 
@@ -155,7 +159,8 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
                           ag_navi_log_prob, check_level: int = 1) -> rollout_lib.RolloutBuffer:
     """The K-replicated closed-loop rollout for given latent / navi samples [n_sc * k, ...]."""
     pp = scene.pp
-    tl_tokens = scene.tl_tokens.repeat_for_rollout(k)
+    # TL in the rollout runs its encoder on the replicated batch: every token field repeats
+    tl_tokens = scene.tl_tokens.repeat(k) if scene.tl_pre is None else scene.tl_tokens.repeat_for_rollout(k)
 
     def rep(x):
         return _repeat(x, k)
@@ -175,8 +180,8 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
     # joint future: GT = history only (spawn / warm start up to step 10)
     gt_valid, gt_pose, gt_motion = rep(pp.ag_valid), rep(pp.ag_pose), rep(pp.ag_motion)
     gt_tl_state = rep(pp.tl_state).float()
-    ag_forcing, _ = build_forcing_masks(cfg.teacher_forcing_joint_future_pred, gt_valid,
-                                        torch.ones(gt_tl_state.shape[:3], dtype=torch.bool, device=gt_valid.device))
+    ag_forcing, tl_forcing = build_forcing_masks(cfg.teacher_forcing_joint_future_pred, gt_valid, torch.ones(
+        gt_tl_state.shape[:3], dtype=torch.bool, device=gt_valid.device))
     return rollout_lib.rollout(
         model, cfg, scene.mp_tokens.repeat(k), tl_tokens,
         ag_attr=rep(pp.ag_attr), ag_type=rep(pp.ag_type), ag_size=rep(pp.ag_size),
@@ -184,7 +189,7 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
         ag_navi=ag_navi, ag_navi_valid=ag_navi_valid, ag_navi_log_prob=ag_navi_log_prob,
         gt_valid=gt_valid, gt_pose=gt_pose, gt_motion=gt_motion, gt_tl_state=gt_tl_state, ag_forcing=ag_forcing,
         rule_statics=statics, rule_state0=state0, check_level=check_level,
-        tl_precomputed=scene.tl_pre, tf_cfg=cfg.teacher_forcing_joint_future_pred,
+        tl_precomputed=scene.tl_pre, tl_forcing=tl_forcing, tf_cfg=cfg.teacher_forcing_joint_future_pred,
     )
 
 

@@ -152,12 +152,13 @@ def training_forward(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, to
     """One training forward: pre-processing -> encoders -> CVAE latent -> TL pass -> rollout -> loss.
     batch: tensors on the model's device; noise: `draw_training_noise`'s dict; count_sum: `training_loss`'s
     (the loss counts summed over the ranks). -> (loss, metrics).
-    `cfg.time_step_end` may pass the data's horizon (the scaled preset's 120 steps against 91): past it the
-    TL pass (`sim/tl_prepass.py::tl_rollout_scan`) runs from its own predictions, and the rollout forces
-    nothing, resets nothing and rewards nothing, and the TL-state NLL is masked off."""
+    TL comes from the pass before the rollout (`sim/tl_prepass.py::tl_rollout_scan`) in HPTR mode with
+    `tl_prepass`, else from the rollout's own steps (the TrafficBots RNN family, whose GRU hiddens ride in the
+    rollout's carry).
+    `cfg.time_step_end` may pass the data's horizon (the scaled preset's 120 steps against 91): past it TL
+    runs from its own predictions, and the rollout forces nothing, resets nothing and rewards nothing, and
+    the TL-state NLL is masked off."""
     dev = batch["agent/valid"].device
-    if not cfg.tl_prepass or cfg.model.temp_window_size <= 0:
-        raise NotImplementedError("the in-rollout TL path is not ported (tl_prepass=True, HPTR mode)")
     pp = pre_processing(batch, tl_mode=cfg.model.tl_mode, navi_mode=cfg.model.navi_mode,
                         n_step_hist=cfg.n_step_hist, training=True, dropout_p_history=cfg.dropout_p_history,
                         u_mp=noise["u_mp"], u_ag=noise["u_ag"])
@@ -180,14 +181,17 @@ def training_forward(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, to
     tl_forcing0 = torch.ones(pp.gt_tl_state.shape[:3], dtype=torch.bool, device=dev)  # TL forced to GT
     ag_forcing, tl_forcing = build_forcing_masks(cfg.teacher_forcing_training, pp.gt_valid, tl_forcing0,
                                                  current_epoch, noise["u_agent"], noise["u_ss"])
-    tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, pp.gt_tl_state.float(), tl_forcing, cfg.time_step_end,
-                                        cfg.model.temp_window_size, seeds=noise["seeds_tl"])
+    tl_pre = None
+    if tl_prepass.prepass_wanted(cfg):
+        tl_pre = tl_prepass.tl_rollout_scan(model, tl_tokens, pp.gt_tl_state.float(), tl_forcing,
+                                            cfg.time_step_end, cfg.model.temp_window_size, seeds=noise["seeds_tl"])
     buffer = rollout_lib.rollout_train(
         model, cfg, mp_tokens, tl_tokens, ag_attr=pp.ag_attr, ag_type=pp.ag_type, ag_size=pp.ag_size,
         ag_latent=ag_latent, ag_latent_valid=ag_latent_valid, ag_navi=pp.gt_navi,
         ag_navi_valid=pp.gt_valid.any(-1), ag_navi_log_prob=torch.zeros_like(pp.ag_attr[:, :, 0]),
         gt_valid=pp.gt_valid, gt_pose=pp.gt_pose, gt_motion=pp.gt_motion, gt_tl_state=pp.gt_tl_state.float(),
         ag_forcing=ag_forcing, rule_statics=rule_statics, rule_state0=rule_state0, tl_precomputed=tl_pre,
+        tl_forcing=tl_forcing,
         step_seeds=noise["seeds_step"])
     return training_loss(cfg.training_metrics, buffer, pp.ag_role, navi_pred, pp.gt_navi, latent_post,
                          latent_prior, u_irrelevant=noise["u_irrelevant"], count_sum=count_sum)

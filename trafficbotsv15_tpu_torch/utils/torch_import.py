@@ -30,8 +30,12 @@ Layout changes, reference -> port:
     folds into the K/V projection (`models/transformer.py::AttentionRPE._kv_wb`).
     The reference builds `norm_tgt` in every layer; the port has it only where
     the layer attends over KNN cross targets, and `conform` drops the rest.
-  - The GRU gates (`nn.GRU`) are the RNN family's, which the port does not
-    run yet: those mappings raise NotImplementedError.
+  - `nn.GRU` (the TrafficBots RNN family) stacks its gates row-wise
+    `[3h, .]` in (reset, update, new) order with both `b_ih` and `b_hh`;
+    the port's flax-style cells (`models/gru.py`) keep input biases only,
+    plus `hn`'s: `ir.bias = b_ih[r] + b_hh[r]` (z likewise), `in.bias =
+    b_ih[n]`, `hn.bias = b_hh[n]`, which stays inside the reset-gated term
+    in both; the weights keep torch's `[out, in]` rows (`map_gru`).
 
 Every `map_*` takes `sd`, a flat dict {reference name -> array} (a
 state_dict converted with `.numpy()`, or a golden's `sd/` entries), and a
@@ -167,8 +171,24 @@ def map_input_encoder(sd: SD, p: str, n_layer: int, use_layernorm: bool = False,
     return _sub("mlp", map_mlp(sd, _j(p, "mlp"), n_layer, use_layernorm, False, dropout_p))
 
 
-def _rnn_refused(what: str):
-    raise NotImplementedError(f"{what}: the GRU (RNN family) mappings are not ported")
+def map_gru(sd: SD, p: str, n_layer: int, hidden: int) -> Flat:
+    """Reference MultiAgentGRU (its `nn.GRU` at `rnn`) -> `models/gru.py::MultiAgentGRU`."""
+    out: Flat = {}
+    h = hidden
+    for k in range(n_layer):
+        w_ih = np.asarray(sd[_j(p, f"rnn.weight_ih_l{k}")])  # [3h, in]
+        w_hh = np.asarray(sd[_j(p, f"rnn.weight_hh_l{k}")])  # [3h, h]
+        b_ih = np.asarray(sd[_j(p, f"rnn.bias_ih_l{k}")])
+        b_hh = np.asarray(sd[_j(p, f"rnn.bias_hh_l{k}")])
+        rows = {"r": slice(0, h), "z": slice(h, 2 * h), "n": slice(2 * h, 3 * h)}
+        for g, rs in rows.items():
+            out[f"gru{k}.i{g}.weight"] = np.ascontiguousarray(w_ih[rs])
+            out[f"gru{k}.h{g}.weight"] = np.ascontiguousarray(w_hh[rs])
+        out[f"gru{k}.ir.bias"] = b_ih[rows["r"]] + b_hh[rows["r"]]
+        out[f"gru{k}.iz.bias"] = b_ih[rows["z"]] + b_hh[rows["z"]]
+        out[f"gru{k}.in.bias"] = b_ih[rows["n"]]
+        out[f"gru{k}.hn.bias"] = b_hh[rows["n"]]
+    return out
 
 
 def map_action_head(sd: SD, p: str, n_layer: int, branch_type: bool, use_layernorm: bool,
@@ -210,9 +230,10 @@ def map_dist_encoder(sd: SD, p: str, dist_type: str, n_layer: int, branch_type: 
 
 
 def map_tl_predictor(sd: SD, p: str, n_layer: int, hidden: int, temp_window_size: int) -> Flat:
+    out = _sub("mlp", map_mlp(sd, _j(p, "mlp"), n_layer, False, False))
     if temp_window_size <= 0:
-        _rnn_refused("the GRU TL-state predictor")
-    return _sub("mlp", map_mlp(sd, _j(p, "mlp"), n_layer, False, False))
+        out.update(_sub("rnn", map_gru(sd, _j(p, "rnn"), n_layer, hidden)))
+    return out
 
 
 # --------------------------------------------------------------- composites
@@ -237,8 +258,8 @@ def map_tl_encoder(sd: SD, p: str, cfg, d_model: int, temp_window_size: int, pl_
     ie = cfg.input_encoder
     out = _sub("input_encoder", map_input_encoder(sd, _j(p, "input_encoder"), ie.n_layer, ie.mlp_use_layernorm,
                                                   ie.mlp_dropout_p))
-    if temp_window_size <= 0:
-        _rnn_refused("the RNN TL encoder")
+    if temp_window_size <= 0:  # the RNN TL encoder is its input encoder
+        return out
     if not cfg.temp_stack_input:
         out.update(_sub("temp_encoder", map_polyline_encoder(sd, _j(p, "temp_encoder"), pl_cfg.n_layer,
                                                              pl_cfg.mlp_use_layernorm, pl_cfg.mlp_dropout_p)))
@@ -249,18 +270,20 @@ def map_tl_encoder(sd: SD, p: str, cfg, d_model: int, temp_window_size: int, pl_
 
 def map_agent_encoder(sd: SD, p: str, cfg, d_model: int, temp_window_size: int, pl_cfg, hidden: int,
                       apply_q_rpe: bool = False) -> Flat:
-    """AgentEncoder (HPTR temporal tokens); cfg is AgEncoderCfg."""
-    if temp_window_size <= 0:
-        _rnn_refused("the RNN agent encoder")
+    """AgentEncoder (HPTR temporal tokens, or the RNN family's attention blocks and GRU); cfg is AgEncoderCfg."""
     ie = cfg.input_encoder
-    return {
-        **_sub("input_encoder", map_input_encoder(sd, _j(p, "input_encoder"), ie.n_layer, ie.mlp_use_layernorm,
-                                                  ie.mlp_dropout_p)),
-        **_sub("temp_encoder", map_polyline_encoder(sd, _j(p, "temp_encoder"), pl_cfg.n_layer,
-                                                    pl_cfg.mlp_use_layernorm, pl_cfg.mlp_dropout_p)),
-        **_sub("tf_ag2agmptl", map_transformer_block(sd, _j(p, "tf_ag2agmptl"), d_model, cfg.n_layer_tf,
-                                                     "dec_cross_attn", apply_q_rpe)),
-    }
+    out = _sub("input_encoder", map_input_encoder(sd, _j(p, "input_encoder"), ie.n_layer, ie.mlp_use_layernorm,
+                                                  ie.mlp_dropout_p))
+    if temp_window_size <= 0:
+        out.update(_sub("temp_encoder", map_gru(sd, _j(p, "temp_encoder"), pl_cfg.n_layer, hidden)))
+        for name, mode in (("tf_ag2mp", "enc_cross_attn"), ("tf_ag2tl", "enc_cross_attn"), ("tf_ag2ag", "enc_self_attn")):
+            out.update(_sub(name, map_transformer_block(sd, _j(p, name), d_model, cfg.n_layer_tf, mode, apply_q_rpe)))
+        return out
+    out.update(_sub("temp_encoder", map_polyline_encoder(sd, _j(p, "temp_encoder"), pl_cfg.n_layer,
+                                                         pl_cfg.mlp_use_layernorm, pl_cfg.mlp_dropout_p)))
+    out.update(_sub("tf_ag2agmptl", map_transformer_block(sd, _j(p, "tf_ag2agmptl"), d_model, cfg.n_layer_tf,
+                                                          "dec_cross_attn", apply_q_rpe)))
+    return out
 
 
 def _constant_head(dcfg) -> bool:
@@ -325,15 +348,14 @@ def map_navi_predictor(sd: SD, p: str, cfg, ag_cfg, d_model: int, temp_window_si
     """NaviPredictor; cfg is NaviPredictorCfg."""
     if navi_mode == "dummy":
         return {}
-    if temp_window_size <= 0:
-        _rnn_refused("the RNN navi predictor")
     ie = ag_cfg.input_encoder
     out = {
         **_sub("input_encoder", map_input_encoder(sd, _j(p, "input_encoder"), ie.n_layer, ie.mlp_use_layernorm,
                                                   ie.mlp_dropout_p)),
         **_sub("mlp", map_mlp(sd, _j(p, "mlp"), cfg.n_layer_mlp, cfg.mlp_use_layernorm, False)),
-        **_sub("temp_encoder", map_polyline_encoder(sd, _j(p, "temp_encoder"), pl_cfg.n_layer,
-                                                    pl_cfg.mlp_use_layernorm, pl_cfg.mlp_dropout_p)),
+        **_sub("temp_encoder", map_gru(sd, _j(p, "temp_encoder"), pl_cfg.n_layer, hidden) if temp_window_size <= 0
+               else map_polyline_encoder(sd, _j(p, "temp_encoder"), pl_cfg.n_layer, pl_cfg.mlp_use_layernorm,
+                                         pl_cfg.mlp_dropout_p)),
     }
     if navi_mode != "dest":
         out.update(_sub("tf_ag2mp", map_transformer_block(sd, _j(p, "tf_ag2mp"), d_model, cfg.n_layer_tf,
