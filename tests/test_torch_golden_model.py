@@ -48,6 +48,7 @@ TORCH_THREADS = 2  # tier-1 runs several pytest workers side by side
 # (atol, rtol) of tests/test_model_parity.py for each kind of golden
 CLOSE, ATTN, BLOCK, BRANCH_STD = (1e-5, 1e-4), (2e-5, 1e-4), (5e-5, 1e-4), (2e-5, 1e-3)
 FULL_TOKENS, FULL_HEADS, FULL_NAVI = (2e-4, 1e-3), (5e-4, 1e-3), (1e-4, 1e-3)
+NAVI_GOAL_MEAN, NAVI_CMD_PROBS = (2e-4, 1e-3), (1e-5, 1e-3)
 
 
 def load_golden(kind: str, name: str) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
@@ -377,23 +378,40 @@ def run_gru_step(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Chec
     return [close("y", y, outs["y"]), close("h1", h1.reshape(a["h"].shape), outs["h1"])]
 
 
-def _navi_predictor(name, device):
+def _navi_predictor(name, device, use_pallas, dense_knn_max):
+    """The goal / cmd navi predictor (as JAX `test_navi_predictor_goal_cmd_parity`: K = 32 nearest map polylines
+    within 500 m x 1000, the pose embedding's thetas 1e3 / 1e1): its tf_ag2mp cross-attention takes B2 with
+    use_pallas."""
     from trafficbotsv15_tpu_torch.models.navigation import NaviPredictor
+    from trafficbotsv15_tpu_torch.models.tokens import MapTokens
     from trafficbotsv15_tpu_torch.ops.pose_emb import PoseEmbConfig
 
     sd, ins, outs, meta = load_golden("model", name)
-    NaviPredictor(pc.NaviPredictorCfg(n_layer_tf=meta["n_layer_tf"], n_layer_mlp=meta["n_layer_mlp"]),
-                  pc.AgEncoderCfg(), 64, meta["navi_mode"], meta["temp_window_size"],
-                  PoseEmbConfig(mode="pe_xy_yaw", pe_dim=64), attr_dim=ins["ag_attr"].shape[-1])
-    raise AssertionError(f"the {meta['navi_mode']} navi predictor was built: hold it against {name}")
+    a = _inputs(ins, device)
+    cfg = pc.NaviPredictorCfg(n_layer_tf=meta["n_layer_tf"], n_layer_mlp=meta["n_layer_mlp"])
+    w = meta["temp_window_size"]
+    tf = pc.TransformerCfg(d_model=64, use_pallas=use_pallas, dense_knn_max=dense_knn_max)
+    mapped = ti.map_navi_predictor(sd, "", cfg, pc.AgEncoderCfg(), 64, w, pc.PolylineEncoderCfg(), 64,
+                                   meta["navi_mode"])
+    m = _loaded(NaviPredictor(cfg, pc.AgEncoderCfg(), tf, 64, meta["navi_mode"], w, 32, 500.0,
+                              PoseEmbConfig(mode="pe_xy_yaw", pe_dim=64, theta_xy=1e3, theta_cs=1e1),
+                              attr_dim=ins["ag_attr"].shape[-1], navi_dim=meta["navi_dim"]), mapped, device)
+    mp = MapTokens(invalid=a["mp_invalid"], feature=a["mp_feature"], pose=a["mp_pose"], type=a["mp_type"])
+    with torch.no_grad():
+        dist = m(a["ag_valid"], a["ag_attr"], a["ag_motion"], a["ag_pose"], a["ag_type"], mp)
+    if meta["navi_mode"] == "goal":
+        return [close("mean", dist.mean, outs["mean"], NAVI_GOAL_MEAN), close("std", dist.std, outs["std"], ATTN)]
+    return [close("probs", torch.softmax(dist.logits.float(), -1), outs["probs"], NAVI_CMD_PROBS)]
 
 
 def run_navi_pred_cmd_hptr(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
-    return _navi_predictor("navi_pred_cmd_hptr", device)
+    """cmd mode on the HPTR track encoder (temporal tokens over an 11-step window)."""
+    return _navi_predictor("navi_pred_cmd_hptr", device, use_pallas, dense_knn_max)
 
 
 def run_navi_pred_goal_rnn(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
-    return _navi_predictor("navi_pred_goal_rnn", device)
+    """goal mode on the GRU track encoder (res_add, pooled), its mean back in the world frame."""
+    return _navi_predictor("navi_pred_goal_rnn", device, use_pallas, dense_knn_max)
 
 
 def run_tl_encoder_stacked(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
@@ -508,14 +526,15 @@ MODEL_CASES = [
     ("tfblock_enc_self_knn", {"dense_knn_max": 128}), ("tfblock_enc_self_knn", {"dense_knn_max": 0}),
     ("tfblock_enc_cross", {}), ("tfblock_dec_cross", {}), ("tfblock_dec_cross", {"dense_knn_max": 0}),
     ("tfblock_dense_self", {}),
-    ("action_head_branch", {}), ("action_head_mlp_std", {}), ("add_navi_cat", {}),
+    ("action_head_branch", {}), ("action_head_mlp_std", {}), ("add_navi_cat", {}), ("add_navi_add", {}),
+    ("add_navi_mul", {}),
     ("dist_enc_diag_gaus", {}), ("dist_enc_diag_gaus_branch", {}),
     ("tl_predictor_hptr", {}), ("gru_seq", {}), ("gru_step", {}),
+    ("navi_pred_cmd_hptr", {}), ("navi_pred_goal_rnn", {}),
 ]
 # goldens of variants the port refuses until A11b ports them
-MODEL_REFUSED = ["add_navi_add", "add_navi_mul", "attn_rpe_q", "dist_enc_cat_branch", "dist_enc_cat_plain",
-                 "dist_enc_std_cat", "input_encoder_input", "navi_pred_cmd_hptr", "navi_pred_goal_rnn",
-                 "tl_encoder_stacked"]
+MODEL_REFUSED = ["attn_rpe_q", "dist_enc_cat_branch", "dist_enc_cat_plain", "dist_enc_std_cat",
+                 "input_encoder_input", "tl_encoder_stacked"]
 # the goldens a KNARPE kernel runs with use_pallas=True: case -> (runner kwargs, kernel launches by name)
 KERNEL_CASES = {
     "attn_rpe": ({}, {"knarpe_cross_attention": 1}),
@@ -529,6 +548,9 @@ KERNEL_CASES = {
     # 2 layers each: B4 in the map encoder, in tf_ag2ag at each of the 11 steps and in the posterior's; B2 in
     # tf_ag2mp and tf_ag2tl at each step and in the posterior's
     "traffic_bots_rnn": ({"dense_knn_max": 0}, {"knarpe_attention": 2 + 22 + 2, "knarpe_cross_attention": 44 + 4}),
+    # the goal / cmd navi predictor's tf_ag2mp: B2 once per layer (2), over the K = 32 nearest map polylines
+    "navi_pred_cmd_hptr": ({}, {"knarpe_cross_attention": 2}),
+    "navi_pred_goal_rnn": ({}, {"knarpe_cross_attention": 2}),
 }
 
 
@@ -547,7 +569,7 @@ def _case_id(case):
 
 
 # use_pallas changes the path only where a block attends: there the KNARPE wrappers take their plain versions
-ATTENDING = [case for case in MODEL_CASES if case[0].startswith(("attn_", "tfblock_"))]
+ATTENDING = [case for case in MODEL_CASES if case[0].startswith(("attn_", "tfblock_", "navi_pred_"))]
 
 
 @pytest.mark.parametrize("use_pallas,case", [(False, c) for c in MODEL_CASES] + [(True, c) for c in ATTENDING],

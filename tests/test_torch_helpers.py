@@ -19,6 +19,7 @@ import torch
 
 from trafficbotsv15_tpu.ops import flags as jax_flags
 from trafficbotsv15_tpu.ops.flags import OpsCfg as JaxOpsCfg
+from trafficbotsv15_tpu_torch.sim.rollout import repredicts  # reads either package's config
 
 TORCH_THREADS = 2  # tier-1 runs several pytest workers side by side
 
@@ -111,11 +112,28 @@ def no_dropout(cfg):
         add_navi_latent=dc.replace(m.add_navi_latent, mlp_dropout_p=0.0)))
 
 
+def jax_navi_noise(cfg, key, n_sc: int, n_ag: int, n_mp: int):
+    """The noise of the navi a JAX rollout keyed `key` re-predicts at each step (pred_navi_after_reached): step i
+    splits its carry's key into (next, action, dropout, navi), and the navi key draws the goal's standard normal
+    [n_sc, n_ag, 4] (`DiagGaussian.sample`) or the destination's Gumbel noise [n_sc, n_ag, n_mp]
+    (`jax.random.categorical`), in float32. -> one torch tensor per rollout step."""
+    noise = []
+    for _ in range(cfg.time_step_end):
+        key, _, _, k_navi = jax.random.split(key, 4)
+        if cfg.model.navi_mode == "goal":
+            x = jax.random.normal(k_navi, (n_sc, n_ag, 4), jnp.float32)
+        else:
+            x = jax.random.gumbel(k_navi, (n_sc, n_ag, n_mp), jnp.float32)
+        noise.append(torch.from_numpy(np.array(x)))
+    return noise
+
+
 def jax_training_noise(cfg, batch, key, n_seeds=None):
     """The JAX `training_forward(key)`'s own random draws, as the port's noise dict: the uniforms
     behind its Bernoulli masks (history dropout, prior choice, agent forcing, irrelevant-agent loss)
-    and the latent noise, from the same key splits. Dropout seeds are plain integers."""
-    k_pre, k_latent, k_tf, _, _, k_loss = jax.random.split(key, 6)
+    and the latent noise, from the same key splits, and with re-prediction the rollout's navi noise
+    per step (`jax_navi_noise`). Dropout seeds are plain integers."""
+    k_pre, k_latent, k_tf, k_roll, _, k_loss = jax.random.split(key, 6)
     n_sc, n_mp, n_node = batch["map/valid"].shape
     n_ag, n_step = batch["agent/valid"].shape[1:3]
     k1, k2 = jax.random.split(k_pre)
@@ -124,7 +142,9 @@ def jax_training_noise(cfg, batch, key, n_seeds=None):
     t = lambda x: torch.from_numpy(np.asarray(x))
     lm, tf = cfg.training_metrics, cfg.teacher_forcing_training
     n_roll = cfg.time_step_end if n_seeds is None else n_seeds
+    extra = {"navi_noise": jax_navi_noise(cfg, k_roll, n_sc, n_ag, n_mp)} if repredicts(cfg) else {}
     return dict(
+        **extra,
         u_mp=t(jax.random.uniform(k1, (n_sc, n_mp, n_node - 1))),
         u_ag=t(jax.random.uniform(k2, (n_sc, n_ag, cfg.n_step_hist - 1))),
         u_prior=t(jax.random.uniform(k_sel, ())),
@@ -143,11 +163,12 @@ def jax_training_noise(cfg, batch, key, n_seeds=None):
 GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-7, 1e-5
 
 
-def train_step_parity(cfg, key_seed: int = 3, edit_tree=None):
+def train_step_parity(cfg, key_seed: int = 3, edit_tree=None, batch_seed: int = 1):
     """One training step of both packages on tiny-config weights (gain 0.5) and one batch, with the
     JAX draws handed to the port: JAX `jax.jit(jax.value_and_grad(training_forward))` and the port's
     `make_train_step` (its clip off and its optimizer replaced by a recorder of the gradients).
-    edit_tree(tree) -> tree, if given, edits the random weights before both packages get them.
+    edit_tree(tree) -> tree, if given, edits the random weights before both packages get them; batch_seed seeds the
+    synthetic batch.
     Returns dict(jax_loss, jax_metrics, jax_grads {port name: array}, port_metrics, port_grads, model)."""
     from trafficbotsv15_tpu.data.synthetic import make_batch
     from trafficbotsv15_tpu.train import pipeline as jax_pipeline
@@ -157,7 +178,7 @@ def train_step_parity(cfg, key_seed: int = 3, edit_tree=None):
     jmodel, tree = jax_model_params(cfg, seed=0, gain=0.5)
     if edit_tree is not None:
         tree = edit_tree(tree)
-    batch = make_batch(cfg.data, n_sc=2, seed=1)
+    batch = make_batch(cfg.data, n_sc=2, seed=batch_seed)
     key = jax.random.PRNGKey(key_seed)
 
     def loss_fn(p, b):

@@ -99,10 +99,25 @@ def _jax_case(name):
         m = heads.ActionHead(cfg=cfg, hidden_dim=64, action_dim=2)
         return (jti.map_action_head(sd, "", 3, cfg.branch_type, cfg.mlp_use_layernorm, cfg.log_std is not None), m,
                 (a["x"], a["valid"], a["ag_type"]), {})
-    if name == "add_navi_cat":
-        m = heads.AddNaviLatent(cfg=jc.AddNaviLatentCfg(mode="cat", res_add=meta["res_add"], n_layer=2,
+    if name.startswith("add_navi_"):
+        m = heads.AddNaviLatent(cfg=jc.AddNaviLatentCfg(mode=meta["mode"], res_add=meta["res_add"], n_layer=2,
                                                         mlp_dropout_p=0.1), hidden_dim=64)
         return jti.map_add_navi_latent(sd, "", 2, False, 0.1), m, (a["x"], a["z"], a["z_valid"]), {}
+    if name.startswith("navi_pred_"):
+        from trafficbotsv15_tpu.models.navigation import NaviPredictor
+        from trafficbotsv15_tpu.models.tokens import MapTokens
+        from trafficbotsv15_tpu.ops.pose_emb import PoseEmbConfig
+
+        cfg, w = jc.NaviPredictorCfg(n_layer_tf=meta["n_layer_tf"], n_layer_mlp=meta["n_layer_mlp"]), \
+            meta["temp_window_size"]
+        m = NaviPredictor(cfg=cfg, ag_encoder_cfg=jc.AgEncoderCfg(), tf_cfg=jc.TransformerCfg(d_model=64),
+                          hidden_dim=64, navi_mode=meta["navi_mode"], navi_dim=meta["navi_dim"],
+                          pairwise_relative=True, temp_window_size=w, n_tgt_knn=32, dist_limit=500.0,
+                          pose_rpe=PoseEmbConfig(mode="pe_xy_yaw", pe_dim=64, theta_xy=1e3, theta_cs=1e1))
+        mp = MapTokens(invalid=a["mp_invalid"], feature=a["mp_feature"], pose=a["mp_pose"], type=a["mp_type"])
+        mapped = jti.map_navi_predictor(sd, "", cfg, jc.AgEncoderCfg(), 64, w, jc.PolylineEncoderCfg(), 64,
+                                        meta["navi_mode"])
+        return mapped, m, (a["ag_valid"], a["ag_attr"], a["ag_motion"], a["ag_pose"], a["ag_type"], mp), {}
     if name.startswith("dist_enc_diag_gaus"):
         branch = name.endswith("branch")
         cfg = jc.DistEncoderCfg(dist_type="diag_gaus", branch_type=branch, log_std=None if branch else 0.0, n_layer=3)

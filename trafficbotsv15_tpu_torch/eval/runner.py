@@ -57,7 +57,8 @@ def make_validate_step(cfg: ExperimentCfg, model, device=None):
     """step(batch, generator, split=None) -> out, the JAX step's `out` keys with tensor values on the device.
 
     batch: h5-schema dict with the ground truth; generator draws the joint futures' latents and
-    destinations. With a dict as `split`, the step synchronises the device after each part and adds
+    navi, and with `pred_navi_after_reached` the navi re-predicted in both rollouts (reactive replay's
+    first). With a dict as `split`, the step synchronises the device after each part and adds
     its seconds under SPLIT_PARTS (a measurement aid; the result is the same)."""
     device = resolve_device(device)
     evaluation.check_model(model, device)
@@ -75,7 +76,8 @@ def make_validate_step(cfg: ExperimentCfg, model, device=None):
     def step(batch, generator: torch.Generator, split: Optional[Dict[str, float]] = None):
         t0 = mark(split)
         batch = evaluation.batch_to_device(batch, device)
-        pp, rr_buf, navi_pred, post, prior = evaluation.reactive_replay(cfg, model, batch, device=device)
+        pp, rr_buf, navi_pred, post, prior = evaluation.reactive_replay(cfg, model, batch, device=device,
+                                                                        generator=generator)
         rr_flat = rr_buf.flatten_joint_future(1)
         _, loss_metrics = training_loss(cfg.training_metrics, rr_buf, pp.ag_role, navi_pred, pp.gt_navi, post, prior,
                                         prefix="reactive_replay")

@@ -56,20 +56,22 @@ class GaussianHead(nn.Module):
 
 
 class AddNaviLatent(nn.Module):
-    """Fuse a conditioning vector (navi feature or latent) into the agent feature: cat mode + residual."""
+    """Fuse a conditioning vector (navi feature or latent) into the agent feature: the vector through `mlp_in`,
+    then added to the feature (`add`), multiplied into it (`mul`) or concatenated with it (`cat`), through `mlp`,
+    plus a residual. An invalid vector adds 0 (multiplies by 1; is 0 in the concatenation)."""
 
     def __init__(self, cfg: AddNaviLatentCfg, hidden_dim: int, z_dim: int, dummy: bool = False,
                  dtype=torch.float32):
         super().__init__()
-        self.dummy, self.res_add, self.dtype = dummy, cfg.res_add, dtype
+        self.dummy, self.mode, self.res_add, self.dtype = dummy, cfg.mode, cfg.res_add, dtype
         if dummy:
             return
-        if cfg.mode != "cat":
-            raise NotImplementedError(f"AddNaviLatent mode {cfg.mode!r} is not on the joint-future path")
+        if cfg.mode not in ("add", "mul", "cat"):
+            raise NotImplementedError(f"AddNaviLatent mode {cfg.mode!r}")
         dims = [hidden_dim] * cfg.n_layer
         self.mlp_in = MLP(z_dim, dims, use_layernorm=cfg.mlp_use_layernorm, dropout_p=cfg.mlp_dropout_p, dtype=dtype)
-        self.mlp = MLP(2 * hidden_dim, dims, use_layernorm=cfg.mlp_use_layernorm, dropout_p=cfg.mlp_dropout_p,
-                       dtype=dtype)
+        self.mlp = MLP(2 * hidden_dim if cfg.mode == "cat" else hidden_dim, dims,
+                       use_layernorm=cfg.mlp_use_layernorm, dropout_p=cfg.mlp_dropout_p, dtype=dtype)
 
     def forward(self, x, z, z_valid: Optional[torch.Tensor] = None):
         if self.dummy or z is None:
@@ -78,7 +80,13 @@ class AddNaviLatent(nn.Module):
             z_valid = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
         z_invalid = ~z_valid
         z = self.mlp_in(z.to(self.dtype))
-        h = self.mlp(torch.cat([x, torch.where(z_invalid[..., None], 0.0, z)], -1), z_invalid)
+        if self.mode == "add":
+            h = x + torch.where(z_invalid[..., None], 0.0, z)
+        elif self.mode == "mul":
+            h = x * torch.where(z_invalid[..., None], 1.0, z)
+        else:
+            h = torch.cat([x, torch.where(z_invalid[..., None], 0.0, z)], -1)
+        h = self.mlp(h, z_invalid)
         if self.res_add:
             return h + x
         return h + torch.where(z_valid[..., None], 0.0, x)

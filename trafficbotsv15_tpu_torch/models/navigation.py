@@ -1,54 +1,99 @@
-"""Navigation encoder and predictor, `dest` mode (counterpart of `trafficbotsv15_tpu/models/navigation.py`).
+"""Navigation encoder and predictor (counterpart of `trafficbotsv15_tpu/models/navigation.py`).
 
-The flagship navigates to a destination polyline: the predictor scores every
-map polyline per agent with agent/map-type compatibility masking, and the
-encoder embeds the chosen polyline relative to the agent each step. The
-predictor encodes the agent's track with HPTR temporal tokens over the last
-window, or, in the TrafficBots RNN family (temp_window_size <= 0), with a GRU
-over the whole history (its input added back with `rnn_res_add`, then pooled
-by `rnn_latent_temp_pool_mode`). The goal and cmd variants come with a later
-slice.
+Four modes, as in the JAX package:
+  - `dest` (the flagship): the predictor scores every map polyline per agent
+    with agent/map-type compatibility masking; the encoder embeds the chosen
+    polyline relative to the agent each step;
+  - `goal`: the predictor cross-attends from the agent's track token to its
+    K = n_tgt_knn * k_tgt_knn nearest map polylines (`tf_ag2mp`, KNARPE B2
+    with `use_pallas`), then an MLP gives the goal (x, y, yaw, speed) in the
+    agent's frame, taken back to the world frame, under a diagonal Gaussian
+    with a learned `log_std`; the encoder embeds the goal's pose relative to
+    the agent (stop-gradient on x, y and yaw) with its speed;
+  - `cmd`: the same cross-attention and MLP give the logits of the
+    `n_ag_cmd` driving commands; the encoder is an MLP over the command's
+    one-hot;
+  - `dummy`: no navigation; both return None.
+The predictor encodes the agent's track with HPTR temporal tokens over the
+last window, or, in the TrafficBots RNN family (temp_window_size <= 0), with
+a GRU over the whole history (its input added back with `rnn_res_add`, then
+pooled by `rnn_latent_temp_pool_mode`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
-from trafficbotsv15_tpu_torch.config import AgEncoderCfg, NaviEncoderCfg, NaviPredictorCfg
+from trafficbotsv15_tpu_torch.config import AgEncoderCfg, NaviEncoderCfg, NaviPredictorCfg, TransformerCfg
 from trafficbotsv15_tpu_torch.models.gru import MultiAgentGRU
 from trafficbotsv15_tpu_torch.models.mlp import MLP, InputEncoder, PolylineEncoder
 from trafficbotsv15_tpu_torch.models.tokens import MapTokens
-from trafficbotsv15_tpu_torch.ops.distributions import DestCategorical
+from trafficbotsv15_tpu_torch.models.transformer import TransformerBlock
+from trafficbotsv15_tpu_torch.ops.distributions import DestCategorical, DiagGaussian
 from trafficbotsv15_tpu_torch.ops.pooling import seq_pooling
 from trafficbotsv15_tpu_torch.ops.pose_emb import PoseEmbConfig, apply_pose_emb, pose_emb_out_dim
-from trafficbotsv15_tpu_torch.ops.rpe import get_rel_pose
-from trafficbotsv15_tpu_torch.ops.transform import pos2local, rad2local, rad2rot
+from trafficbotsv15_tpu_torch.ops.rpe import gather_tgt, get_rel_pose, get_tgt_knn
+from trafficbotsv15_tpu_torch.ops.transform import pos2global, pos2local, rad2global, rad2local, rad2rot
 
 _NEG = -1e9
+NAVI_MODES = ("dest", "goal", "cmd", "dummy")
 
 
-def _check_dest(navi_mode: str) -> None:
-    if navi_mode != "dest":
-        raise NotImplementedError(f"navi_mode {navi_mode!r}: only 'dest' is on the joint-future path")
+def navi_dim(navi_mode: str, n_ag_cmd: int) -> Optional[int]:
+    """Width of a goal (x, y, yaw, speed) or command (one-hot) navi; None for dest and dummy."""
+    return {"cmd": n_ag_cmd, "goal": 4}.get(navi_mode)
+
+
+def navi_of_draw(navi_mode: str, navi_dist, draw: torch.Tensor) -> torch.Tensor:
+    """The encoder's navi for a draw of the predictor's navi_dist: a command's one-hot [.., n_ag_cmd] (bool, the
+    form of the data's `agent/cmd`) for its class index; a destination index or a goal as it is. The JAX package
+    hands the class index itself to the cmd encoder, whose first layer then fails on its shape."""
+    if navi_mode == "cmd":
+        return torch.nn.functional.one_hot(draw.long(), navi_dist.logits.shape[-1]).bool()
+    return draw
+
+
+def _check_mode(navi_mode: str) -> None:
+    if navi_mode not in NAVI_MODES:
+        raise NotImplementedError(f"navi_mode {navi_mode!r}")
 
 
 class NaviEncoder(nn.Module):
-    """Per-agent feature of the destination polyline, relative to the agent's pose."""
+    """Per-agent feature of the navigation target, relative to the agent's pose where it has one."""
 
     def __init__(self, cfg: NaviEncoderCfg, hidden_dim: int, navi_mode: str, pose_rpe: PoseEmbConfig,
-                 dtype=torch.float32):
+                 navi_dim: Optional[int] = None, dtype=torch.float32):
         super().__init__()
-        _check_dest(navi_mode)
-        self.pose_rpe = pose_rpe
-        self.detach_mp_feature = cfg.dest_detach_mp_feature
-        self.mlp_mp = MLP(hidden_dim, [hidden_dim], end_layer_activation=False, dtype=dtype)
-        self.mlp_pe = MLP(pose_emb_out_dim(pose_rpe), [hidden_dim], end_layer_activation=False, dtype=dtype)
+        _check_mode(navi_mode)
+        self.navi_mode, self.pose_rpe = navi_mode, pose_rpe
+        self.dummy = navi_mode == "dummy"
+        d_pe = pose_emb_out_dim(pose_rpe)
+        if navi_mode == "dest":
+            self.detach_mp_feature = cfg.dest_detach_mp_feature
+            self.mlp_mp = MLP(hidden_dim, [hidden_dim], end_layer_activation=False, dtype=dtype)
+            self.mlp_pe = MLP(d_pe, [hidden_dim], end_layer_activation=False, dtype=dtype)
+        elif navi_mode == "goal":  # pose embedding ++ speed
+            self.mlp = MLP(d_pe + 1, [hidden_dim], end_layer_activation=False, dtype=dtype)
+        elif navi_mode == "cmd":
+            self.mlp = MLP(navi_dim, [hidden_dim], end_layer_activation=False, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, ag_navi, ag_pose, mp_tokens: MapTokens):
-        """ag_navi [n_sc, n_ag] polyline index, ag_pose [n_sc, n_ag, 3] -> [n_sc, n_ag, hidden]."""
+        """ag_navi: dest [n_sc, n_ag] polyline index, goal [n_sc, n_ag, 4], cmd [n_sc, n_ag, n_ag_cmd] one-hot;
+        ag_pose [n_sc, n_ag, 3] -> [n_sc, n_ag, hidden], or None in dummy mode."""
+        if self.dummy:
+            return None
+        if self.navi_mode == "cmd":
+            return self.mlp(ag_navi.to(self.dtype))
+        if self.navi_mode == "goal":
+            xy, yaw, spd = ag_navi[..., :2].detach(), ag_navi[..., 2:3].detach(), ag_navi[..., 3:4]
+            xy = pos2local(xy[:, :, None], ag_pose[:, :, None, :2], rad2rot(ag_pose[..., 2]))[:, :, 0]
+            yaw = rad2local(yaw, ag_pose[..., 2], cast=False)
+            return self.mlp(torch.cat([apply_pose_emb(self.pose_rpe, xy, yaw), spd], -1))
         mp_feat = mp_tokens.feature.detach() if self.detach_mp_feature else mp_tokens.feature
         idx = torch.clamp(ag_navi, 0, mp_feat.shape[1] - 1).long()
         feat = self.mlp_mp(torch.gather(mp_feat, 1, idx[..., None].expand(-1, -1, mp_feat.shape[-1])))
@@ -59,14 +104,20 @@ class NaviEncoder(nn.Module):
 
 
 class NaviPredictor(nn.Module):
-    """Destination distribution from the agent track (HPTR temporal tokens, or a GRU in RNN mode)."""
+    """Navigation distribution from the agent track (HPTR temporal tokens, or a GRU in RNN mode): a
+    `DestCategorical` over the map polylines (dest) or the commands (cmd), a `DiagGaussian` goal (goal), or None
+    (dummy)."""
 
-    def __init__(self, cfg: NaviPredictorCfg, ag_encoder_cfg: AgEncoderCfg, hidden_dim: int, navi_mode: str,
-                 temp_window_size: int, pose_rpe: PoseEmbConfig, attr_dim: int,
+    def __init__(self, cfg: NaviPredictorCfg, ag_encoder_cfg: AgEncoderCfg, tf_cfg: TransformerCfg,
+                 hidden_dim: int, navi_mode: str, temp_window_size: int, n_tgt_knn: int, dist_limit: float,
+                 pose_rpe: PoseEmbConfig, attr_dim: int, navi_dim: Optional[int] = None,
                  temp_encoder_n_layer: int = 3, temp_encoder_pooling: str = "max_valid",
                  temp_encoder_dropout_p: float = 0.1, dtype=torch.float32):
         super().__init__()
-        _check_dest(navi_mode)
+        _check_mode(navi_mode)
+        self.navi_mode = navi_mode
+        if navi_mode == "dummy":
+            return
         self.pose_rpe, self.temp_window_size, self.hidden_dim = pose_rpe, temp_window_size, hidden_dim
         self.detach_input = cfg.detach_input
         self.rnn = temp_window_size <= 0
@@ -87,22 +138,54 @@ class NaviPredictor(nn.Module):
                                               ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
             self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling,
                                                 mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
-        self.mlp = MLP(2 * hidden_dim + pose_emb_out_dim(pose_rpe), [hidden_dim] * (cfg.n_layer_mlp - 1) + [1],
-                       end_layer_activation=False, use_layernorm=cfg.mlp_use_layernorm, dtype=dtype)
+        dims = [hidden_dim] * (cfg.n_layer_mlp - 1)
+        d_rpe = pose_emb_out_dim(pose_rpe)
+        if navi_mode == "dest":
+            self.mlp = MLP(2 * hidden_dim + d_rpe, dims + [1], end_layer_activation=False,
+                           use_layernorm=cfg.mlp_use_layernorm, dtype=dtype)
+        else:  # goal / cmd: cross-attention to the K nearest map polylines, then the MLP
+            self.n_knn, self.limit = int(n_tgt_knn * cfg.k_tgt_knn), dist_limit * cfg.k_dist_limit
+            self.tf_ag2mp = TransformerBlock(tf_cfg, cfg.n_layer_tf, "enc_cross_attn", d_rpe=d_rpe, dtype=dtype)
+            self.mlp = MLP(hidden_dim, dims + [navi_dim], end_layer_activation=False,
+                           use_layernorm=cfg.mlp_use_layernorm, dtype=dtype)
+            if navi_mode == "goal":
+                self.log_std = nn.Parameter(torch.full((navi_dim,), float(cfg.goal_log_std)))
         self.dtype = dtype
 
-    def forward(self, ag_valid, ag_attr, ag_motion, ag_pose, ag_type, mp_tokens: MapTokens) -> DestCategorical:
+    def forward(self, ag_valid, ag_attr, ag_motion, ag_pose, ag_type, mp_tokens: MapTokens):
+        if self.navi_mode == "dummy":
+            return None
         if self.detach_input:
             ag_motion, ag_pose = ag_motion.detach(), ag_pose.detach()
             mp_tokens = dataclasses.replace(mp_tokens, feature=mp_tokens.feature.detach())
-        n_sc, n_ag, n_step = ag_valid.shape
         ag_token_valid = ag_valid.any(-1)
         ag_invalid, ag_token_invalid = ~ag_valid, ~ag_token_valid
         ag_token_pose = seq_pooling(ag_pose, ag_invalid, "last_valid")
         ag_token_feature = (self._track_rnn if self.rnn else self._track_hptr)(ag_attr, ag_motion, ag_pose,
                                                                              ag_invalid, ag_token_pose)
+        if self.navi_mode == "dest":
+            return self._dest(ag_token_feature, ag_token_pose, ag_token_valid, ag_type, mp_tokens)
 
-        n_mp, h = mp_tokens.invalid.shape[1], self.hidden_dim
+        rel_pose, rel_dist = get_rel_pose(ag_token_pose, ag_token_invalid, mp_tokens.pose, mp_tokens.invalid)
+        idx, knn_invalid, rpe = get_tgt_knn(rel_pose, rel_dist, self.n_knn, self.limit)
+        ag_token_feature = self.tf_ag2mp(ag_token_feature, src_padding_mask=ag_token_invalid,
+                                         tgt=gather_tgt(mp_tokens.feature, idx), tgt_padding_mask=knn_invalid,
+                                         rpe=apply_pose_emb(self.pose_rpe, rpe[..., :2], rpe[..., 2:3]))
+        out = self.mlp(ag_token_feature)
+        if self.navi_mode == "cmd":
+            return DestCategorical(logits=torch.where(ag_token_invalid[..., None], 0.0, out), valid=ag_token_valid)
+        # goal: from the agent's frame back to the world's (float32, as JAX promotes the compute dtype)
+        ref_yaw = ag_token_pose[..., 2]
+        xy = pos2global(out[:, :, None, :2], ag_token_pose[:, :, None, :2], rad2rot(ref_yaw))[:, :, 0]
+        out = torch.cat([xy, rad2global(out[:, :, 2:3], ref_yaw), out[:, :, 3:4].float()], -1)
+        out = torch.where(ag_token_invalid[..., None], 0.0, out)
+        return DiagGaussian(out, torch.exp(self.log_std).expand(out.shape), valid=ag_token_valid)
+
+    def _dest(self, ag_token_feature, ag_token_pose, ag_token_valid, ag_type, mp_tokens: MapTokens):
+        """Logits over the map polylines of each agent's destination, masked by agent / lane type."""
+        n_sc, n_ag, h = ag_token_feature.shape
+        n_mp = mp_tokens.invalid.shape[1]
+        ag_token_invalid = ~ag_token_valid
         rpe_ag2mp, _ = get_rel_pose(ag_token_pose, ag_token_invalid, mp_tokens.pose, mp_tokens.invalid)
         rpe_ag2mp = apply_pose_emb(self.pose_rpe, rpe_ag2mp[..., :2], rpe_ag2mp[..., 2:3])
         pair = torch.cat([

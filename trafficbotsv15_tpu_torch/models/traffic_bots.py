@@ -1,8 +1,8 @@
 """TrafficBots policy (counterpart of `trafficbotsv15_tpu/models/traffic_bots.py`).
 
 Wires the map / traffic-light / agent encoders, the CVAE latent encoder
-(posterior and prior), the navigation predictor and encoder, the fusion
-heads and the action head.
+(posterior and prior), the navigation predictor and encoder (dest, goal,
+cmd or dummy, `models/navigation.py`), the fusion heads and the action head.
 Submodule names follow the flax tree, so `utils/jax_import.py` maps a JAX
 param tree onto `state_dict()` by path. Methods are the per-phase entry
 points the joint-future path calls; the history window and, in the
@@ -22,7 +22,7 @@ from trafficbotsv15_tpu_torch.models.agent_encoder import AgentEncoder
 from trafficbotsv15_tpu_torch.models.heads import AddNaviLatent, GaussianHead
 from trafficbotsv15_tpu_torch.models.latent_encoder import LatentEncoder
 from trafficbotsv15_tpu_torch.models.map_encoder import MapEncoder
-from trafficbotsv15_tpu_torch.models.navigation import NaviEncoder, NaviPredictor
+from trafficbotsv15_tpu_torch.models.navigation import NaviEncoder, NaviPredictor, navi_dim
 from trafficbotsv15_tpu_torch.models.tokens import MapTokens, TlTokens
 from trafficbotsv15_tpu_torch.models.traffic_light import TrafficLightEncoder, TrafficLightStatePredictor
 from trafficbotsv15_tpu_torch.ops.distributions import DiagGaussian
@@ -67,10 +67,12 @@ class TrafficBots(nn.Module):
             enc_kw=dict(n_tgt_knn=c.n_tgt_knn, dist_limit=c.dist_limit, pose_rpe=pose_rpe, **temp),
             tl_kw=dict(tl_state_dim=TL_STATE_DIM, tl_mode=c.tl_mode),
             ag_kw=dict(attr_dim=ag_attr_dim, knn_kernel_on=ops.knn_pallas), n_ag_type=data.n_ag_type, dtype=dtype)
-        self.navi_encoder = NaviEncoder(c.navi_encoder, h, c.navi_mode, pose_rpe, dtype=dtype)
-        self.navi_predictor = NaviPredictor(c.navi_predictor, c.ag_encoder, h, c.navi_mode, c.temp_window_size,
-                                            pose_rpe, ag_attr_dim, dtype=dtype, **temp)
-        self.add_navi = AddNaviLatent(c.add_navi_latent, h, h, dtype=dtype)
+        n_navi = navi_dim(c.navi_mode, data.n_ag_cmd)
+        self.navi_encoder = NaviEncoder(c.navi_encoder, h, c.navi_mode, pose_rpe, n_navi, dtype=dtype)
+        self.navi_predictor = NaviPredictor(c.navi_predictor, c.ag_encoder, c.tf_cfg, h, c.navi_mode,
+                                            c.temp_window_size, c.n_tgt_knn, c.dist_limit, pose_rpe, ag_attr_dim,
+                                            n_navi, dtype=dtype, **temp)
+        self.add_navi = AddNaviLatent(c.add_navi_latent, h, h, dummy=self.navi_encoder.dummy, dtype=dtype)
         self.add_latent = AddNaviLatent(c.add_navi_latent, h, max(c.latent_encoder.latent_dim, 1),
                                         dummy=self.latent_encoder.dummy, dtype=dtype)
         self.action_head = GaussianHead(c.action_head, h, action_dim, data.n_ag_type, dtype=dtype, fp32_out=True)

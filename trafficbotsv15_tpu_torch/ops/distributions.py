@@ -2,8 +2,11 @@
 
 Sampling takes an explicit `torch.Generator`; draws are made on the
 generator's device and moved to the distribution's, so one seed gives the
-same futures on any device. `deterministic` may be a bool or a bool mask
-over the batch dims (the WOSAC K0 future takes the mode per element).
+same futures on any device. `noise(generator)` draws a distribution's noise
+alone and `rsample(noise)` turns given noise into the draw, so that a caller
+can hand in noise drawn elsewhere (the JAX package's, in the parity tests).
+`deterministic` may be a bool or a bool mask over the batch dims (the WOSAC
+K0 future takes the mode per element).
 JAX keys and torch generators never give the same draws.
 """
 
@@ -45,9 +48,12 @@ class DiagGaussian:
         det = _det_mask(deterministic, self.mean.shape[:-1], self.mean.device)
         if bool(det.all()):
             return self.mean
-        eps = torch.randn(self.mean.shape, generator=generator, dtype=torch.float32,
-                          device=generator.device).to(self.mean.device, self.mean.dtype)
-        return torch.where(det[..., None], self.mean, self.rsample(eps))
+        return torch.where(det[..., None], self.mean, self.rsample(self.noise(generator)))
+
+    def noise(self, generator: torch.Generator) -> torch.Tensor:
+        """Standard-normal noise of the mean's shape, drawn on the generator's device."""
+        return torch.randn(self.mean.shape, generator=generator, dtype=torch.float32,
+                           device=generator.device).to(self.mean.device, self.mean.dtype)
 
     def rsample(self, eps: torch.Tensor) -> torch.Tensor:
         """Reparameterised draw for given standard-normal noise: gradients reach mean and std."""
@@ -79,12 +85,17 @@ class DestCategorical:
         mask = _det_mask(deterministic, self.logits.shape[:-1], self.logits.device)
         if bool(mask.all()):
             return det_idx.to(torch.int32)
+        return torch.where(mask, det_idx, self.rsample(self.noise(generator))).to(torch.int32)
+
+    def noise(self, generator: torch.Generator) -> torch.Tensor:
+        """Standard Gumbel noise of the logits' shape (float32), drawn on the generator's device."""
         u = torch.rand(self.logits.shape, generator=generator, dtype=torch.float32,
                        device=generator.device).to(self.logits.device)
-        tiny = torch.finfo(torch.float32).tiny
-        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-        rnd = torch.argmax(self.logits.float() + gumbel, -1)
-        return torch.where(mask, det_idx, rnd).to(torch.int32)
+        return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+    def rsample(self, gumbel: torch.Tensor) -> torch.Tensor:
+        """The draw for given Gumbel noise: argmax(logits + gumbel) (int32)."""
+        return torch.argmax(self.logits.float() + gumbel.float(), -1).to(torch.int32)
 
     def repeat(self, repeats: int, dim: int) -> "DestCategorical":
         return DestCategorical(_repeat(self.logits, repeats, dim), _repeat(self.valid, repeats, dim))

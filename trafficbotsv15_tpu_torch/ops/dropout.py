@@ -51,9 +51,14 @@ def dropout(x: torch.Tensor, p: float) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
 
-def normal(shape, device) -> torch.Tensor:
-    """Standard normal draws from the scope's stream (sampled actions inside a rollout step)."""
+def generator() -> torch.Generator:
+    """The active scope's generator (the draws of a training rollout step: sampled actions, re-predicted navi)."""
     gen = _GEN.get()
     if gen is None:
-        raise RuntimeError("normal draws need an active dropout_scope")
-    return torch.randn(shape, generator=gen, device=device)
+        raise RuntimeError("draws from the dropout stream need an active dropout_scope")
+    return gen
+
+
+def normal(shape, device) -> torch.Tensor:
+    """Standard normal draws from the scope's stream (sampled actions inside a rollout step)."""
+    return torch.randn(shape, generator=generator(), device=device)

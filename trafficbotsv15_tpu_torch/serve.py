@@ -2,7 +2,8 @@
 
 The same policy as the evaluation rollouts, as a stateful stepper: `reset`
 encodes a scenario once (map encoder, TL tokens, prior latent and
-destination, each sampled once from the caller's generator), then each
+navi, each sampled once from the caller's generator; a command as its
+one-hot, where the JAX package's cmd step fails on the class index), then each
 `step` advances the world by one 0.1 s step. Any agent can be scripted from
 outside (an ego planner under test, for example); the others follow the
 policy. Every tensor of the state stays on the device between calls. The TL
@@ -28,6 +29,7 @@ import torch
 
 from trafficbotsv15_tpu_torch.config import ExperimentCfg
 from trafficbotsv15_tpu_torch.data.preprocessing import pre_processing
+from trafficbotsv15_tpu_torch.models.navigation import navi_of_draw
 from trafficbotsv15_tpu_torch.sim import dynamics as dyn
 from trafficbotsv15_tpu_torch.train.evaluation import batch_to_device, check_model, encode_scene
 from trafficbotsv15_tpu_torch.utils.device import resolve_device, to_host
@@ -71,7 +73,8 @@ class InteractiveSimulator:
             mp_tokens=mp_tokens, tl_tokens=tl_tokens, ag_attr=pp.ag_attr, ag_type=pp.ag_type,
             ag_latent=None if latent is None else latent.sample(generator, False),
             ag_latent_valid=None if latent is None else latent.valid,
-            ag_navi=None if navi_dist is None else navi_dist.sample(generator, False),
+            ag_navi=None if navi_dist is None else navi_of_draw(cfg.model.navi_mode, navi_dist,
+                                                                navi_dist.sample(generator, False)),
             ag_navi_valid=(torch.zeros(pp.ag_valid.shape[:2], dtype=torch.bool, device=self.device)
                            if navi_dist is None else navi_dist.valid))
 

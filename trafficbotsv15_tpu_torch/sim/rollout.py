@@ -21,8 +21,18 @@ take JAX's optional player override: `player_valid` [n_sc, n_ag, n_step_roll]
 and `player_action` [n_sc, n_ag, n_step_roll, 2] (bounded acc, yaw_rate)
 script the marked agents step by step; the action is replaced after it is
 sampled and its log-prob taken, so the log-prob stays the policy's own.
-`pred_navi_after_reached` and token dedup raise where the config asks for
-them.
+Token dedup raises where the config asks for it.
+
+With `pred_navi_after_reached` (dest and goal modes, as in JAX) the navi
+predictor runs inside every step on the step's history window: its draw
+(always sampled) replaces the navi of the agents that reached theirs this
+step, the rule checker's destination statics or goal follow it and its
+reached flag clears, and the buffer's `navi_log_prob` / `navi_log_prob_valid`
+gain one entry per step ([n_sc, n_ag, 1 + n_step]: the draw's log-prob where
+an agent re-predicted). Each rollout takes its draws from one `navi_draw(dist,
+i)` (`navi_draws`): a generator's, the step's dropout stream (`rollout_train`'s
+default), or noise handed in per step (`DiagGaussian` / `DestCategorical.noise`'s
+form).
 
 TL takes one of two paths, as in JAX:
   - the pre-pass (`tl_precomputed`, HPTR mode with `tl_prepass`): a pass made
@@ -45,7 +55,7 @@ off (`tl_state_nll_invalid` true) as JAX's `tl_avail` does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -53,12 +63,17 @@ from torch.utils.checkpoint import checkpoint
 from trafficbotsv15_tpu_torch.config import ExperimentCfg
 from trafficbotsv15_tpu_torch.models.tokens import MapTokens, TlTokens
 from trafficbotsv15_tpu_torch.ops.dropout import dropout_scope
+from trafficbotsv15_tpu_torch.ops.dropout import generator as dropout_generator
 from trafficbotsv15_tpu_torch.ops.dropout import normal as dropout_normal
 from trafficbotsv15_tpu_torch.sim import dynamics as dyn
 from trafficbotsv15_tpu_torch.sim.rewards import diffbar_reward
-from trafficbotsv15_tpu_torch.sim.rule_checker import RuleCheckerState, RuleCheckerStatics, check_rules
+from trafficbotsv15_tpu_torch.sim.rule_checker import (RuleCheckerState, RuleCheckerStatics, check_rules,
+                                                      dest_statics_from_navi)
 from trafficbotsv15_tpu_torch.sim.teacher_forcing import error_reset_mask
 from trafficbotsv15_tpu_torch.sim.tl_prepass import pad_steps
+
+# re-prediction's draw: (navi distribution, rollout step) -> the noise its sample is made from
+NaviDraw = Callable[[object, int], torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -75,8 +90,8 @@ class RolloutBuffer:
     mask_teacher_forcing: torch.Tensor  # [n_sc, n_ag, n_step]
     violation: Dict[str, torch.Tensor]  # each [n_sc, n_ag, n_step]
     tl_state: torch.Tensor  # [n_sc, n_tl, n_step, 5]
-    navi_log_prob: torch.Tensor  # [n_sc, n_ag, 1]
-    navi_log_prob_valid: torch.Tensor  # [n_sc, n_ag, 1]
+    navi_log_prob: torch.Tensor  # [n_sc, n_ag, 1], [n_sc, n_ag, 1 + n_step] with re-prediction
+    navi_log_prob_valid: torch.Tensor  # as navi_log_prob
     log_prob: Optional[torch.Tensor] = None  # [n_sc, n_ag] joint-future scores
     diffbar_reward: Optional[Dict[str, torch.Tensor]] = None  # training, reactive replay: each [n_sc, n_ag, n_step]
 
@@ -109,7 +124,9 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
             rule_statics: RuleCheckerStatics, rule_state0: RuleCheckerState, check_level: int,
             tl_precomputed: Optional[Dict[str, torch.Tensor]] = None, tl_forcing: Optional[torch.Tensor] = None,
             tf_cfg=None, with_reward: bool = False,
-            player_valid: Optional[torch.Tensor] = None, player_action: Optional[torch.Tensor] = None) -> RolloutBuffer:
+            player_valid: Optional[torch.Tensor] = None, player_action: Optional[torch.Tensor] = None,
+            navi_update_inputs: Optional[Dict[str, torch.Tensor]] = None,
+            navi_draw: Optional[NaviDraw] = None) -> RolloutBuffer:
     """Run the closed-loop simulation from step 1 to cfg.time_step_end inclusive.
 
     gt_* cover the first T steps ([n_sc, n_ag, T]); ag_forcing is the
@@ -120,6 +137,8 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     of the rollout's batch (`TlTokens.repeat`).
     with_reward fills `diffbar_reward` (the JAX eval rollout always does).
     player_valid / player_action, if given, script the agents they mark at each step.
+    With re-prediction (`repredicts(cfg)`) navi_update_inputs holds the map arrays of the rollout's batch
+    (`navi_map_arrays`) and navi_draw gives each step's draws (`navi_draws`).
     """
     tf_cfg = cfg.teacher_forcing_training if tf_cfg is None else tf_cfg
     n_step_roll = cfg.time_step_end
@@ -146,9 +165,10 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     rnn_hidden, tl_rnn_hidden = _rnn_hidden0(cfg, n_sc, n_ag, gt_tl_state.shape[1], dev)
     rule_state, navi, navi_valid = rule_state0, ag_navi, ag_navi_valid
     navi_mode = cfg.model.navi_mode
+    draw = _repredict_draw(cfg, navi_update_inputs, navi_draw)
 
     outs = {k: [] for k in ("pred_valid", "pred_pose", "pred_motion", "pred_action", "action_log_prob",
-                            "mask_teacher_forcing", "violation", "diffbar_reward", "tl")}
+                            "mask_teacher_forcing", "violation", "diffbar_reward", "tl", "navi")}
     for i in range(n_step_roll):
         hist_valid = torch.cat([hist_valid[:, :, 1:], valid[:, :, None]], 2)
         hist_pose = torch.cat([hist_pose[:, :, 1:], pose[:, :, None]], 2)
@@ -185,7 +205,11 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
         valid, disabled = dyn.disable_outside_map(ov_valid, disabled, violations["outside_map_this_step"],
                                                   step_gt_valid)
         pose, motion = ov_pose, ov_motion
-        navi, navi_valid = dyn.update_navi_on_reached(navi, navi_valid, _navi_reached(navi_mode, violations, valid))
+        navi, navi_valid, rule_statics, rule_state, navi_out = _navi_step(
+            model, navi_mode, draw, i, _navi_reached(navi_mode, violations, valid), navi, navi_valid, rule_statics,
+            rule_state, navi_update_inputs, (hist_valid, ag_attr, hist_motion, hist_pose, ag_type, mp_tokens))
+        if navi_out is not None:
+            outs["navi"].append(navi_out)
 
         for key, val in (("pred_valid", pred_valid), ("pred_pose", pred_pose), ("pred_motion", pred_motion),
                          ("pred_action", action_bounded), ("action_log_prob", action_log_prob),
@@ -196,10 +220,83 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     buf = (_tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll) if tl_in is None
            else _stack_dicts(tl_outs))
     reward = outs.pop("diffbar_reward")
+    navi_outs = outs.pop("navi")
     return RolloutBuffer(**{k: _stack(outs[k]) for k in outs if k != "violation"}, **buf,
                          violation=_stack_dicts(outs["violation"]),
                          diffbar_reward=_stack_dicts(reward) if reward else None,
-                         navi_log_prob=ag_navi_log_prob[..., None], navi_log_prob_valid=ag_navi_valid[..., None])
+                         **_navi_log_probs(ag_navi_log_prob, ag_navi_valid, navi_outs))
+
+
+def repredicts(cfg: ExperimentCfg) -> bool:
+    """Whether the rollout re-predicts the navi of the agents that reached theirs (JAX: dest and goal modes)."""
+    return bool(cfg.pred_navi_after_reached) and cfg.model.navi_mode in ("dest", "goal")
+
+
+def navi_map_arrays(cfg: ExperimentCfg, batch: Dict[str, torch.Tensor], k: int = 1):
+    """The map arrays re-prediction derives new destination statics from (None without re-prediction), each
+    repeated k times along the scenario axis for K joint futures."""
+    if not repredicts(cfg):
+        return None
+    r = lambda x: torch.repeat_interleave(x, k, 0) if k > 1 else x  # noqa: E731
+    return dict(mp_valid=r(batch["map/valid"]), mp_type=r(batch["map/type"]).bool(), mp_pos=r(batch["map/pos"]),
+                mp_dir=r(batch["map/dir"]))
+
+
+def navi_draws(generator: Optional[torch.Generator] = None,
+               noise: Optional[Sequence[torch.Tensor]] = None) -> NaviDraw:
+    """Re-prediction's draw function (dist, step) -> noise: noise[step] where noise is given, else the distribution's
+    noise from generator (None: the step's dropout stream, inside `rollout_train`'s per-step scope)."""
+    if noise is None:
+        return lambda dist, i: dist.noise(dropout_generator() if generator is None else generator)
+
+    def given(dist, i):
+        if i >= len(noise):
+            raise ValueError(f"navi_noise has {len(noise)} steps; the rollout asks for step {i}")
+        return noise[i]
+
+    return given
+
+
+def _navi_step(model, navi_mode: str, draw: Optional[NaviDraw], i: int, reached, navi, navi_valid,
+               statics: RuleCheckerStatics, rule_state: RuleCheckerState, update_inputs, predictor_inputs):
+    """Step i's navi after its rule checks: the reached agents' navi turns invalid, or with a draw (re-prediction)
+    the predictor's draw on the step's history window (predictor_inputs, `predict_navi`'s) replaces it. -> (navi,
+    navi_valid, statics, rule_state, (the draw's log-prob, reached) or None)."""
+    if draw is None:
+        return (*dyn.update_navi_on_reached(navi, navi_valid, reached), statics, rule_state, None)
+    navi_dist = model.predict_navi(*predictor_inputs)
+    navi, navi_valid, statics, rule_state, log_prob = repredict_navi(
+        navi_mode, navi_dist, draw(navi_dist, i), navi, navi_valid, reached, statics, rule_state, update_inputs)
+    return navi, navi_valid, statics, rule_state, (log_prob, reached)
+
+
+def repredict_navi(navi_mode: str, navi_dist, noise, navi, navi_valid, reached, statics: RuleCheckerStatics,
+                   rule_state: RuleCheckerState, update_inputs: Dict[str, torch.Tensor]):
+    """One step's re-prediction: the draw of navi_dist for `noise` replaces the navi of the `reached` agents and
+    makes it valid; the rule checker's destination statics (dest) or goal (goal) follow it and its reached flag
+    clears for them. -> (navi, navi_valid, statics, rule_state, the draw's log-prob where reached, else 0)."""
+    sample = navi_dist.rsample(noise)
+    log_prob = navi_dist.log_prob(sample.detach())
+    navi, navi_valid = dyn.update_navi_on_reached(navi, navi_valid, reached, sample)
+    if navi_mode == "dest":
+        new = dest_statics_from_navi(navi, **update_inputs)
+        new = {k: torch.where(reached.reshape(reached.shape + (1,) * (v.ndim - 2)), v, getattr(statics, k))
+               for k, v in new.items()}
+        statics = dataclasses.replace(statics, **new)
+        rule_state = dataclasses.replace(rule_state, dest_reached=rule_state.dest_reached & ~reached)
+    else:
+        statics = dataclasses.replace(statics, ag_goal=torch.where(reached[..., None], navi, statics.ag_goal))
+        rule_state = dataclasses.replace(rule_state, goal_reached=rule_state.goal_reached & ~reached)
+    return navi, navi_valid, statics, rule_state, torch.where(reached, log_prob, 0.0)
+
+
+def _navi_log_probs(ag_navi_log_prob, ag_navi_valid, step_log_probs) -> Dict[str, torch.Tensor]:
+    """The buffer's navi log-probs: the rollout's initial navi, then each re-predicting step's, by step."""
+    lp, valid = [ag_navi_log_prob[..., None]], [ag_navi_valid[..., None]]
+    if step_log_probs:
+        lp.append(_stack([s[0] for s in step_log_probs]))
+        valid.append(_stack([s[1] for s in step_log_probs]))
+    return dict(navi_log_prob=torch.cat(lp, -1), navi_log_prob_valid=torch.cat(valid, -1))
 
 
 class _TlInRollout:
@@ -294,11 +391,21 @@ def _error_reset(tf_cfg, gt_valid, gt_pose, gt_motion, n_step_roll: int):
     return reset
 
 
+def _repredict_draw(cfg: ExperimentCfg, update_inputs, draw: Optional[NaviDraw]) -> Optional[NaviDraw]:
+    """The rollout's re-prediction draw, None where it does not re-predict (`repredicts`); raises where it would
+    lack its map arrays or its draws."""
+    if not repredicts(cfg):
+        return None
+    if update_inputs is None:
+        raise ValueError("pred_navi_after_reached needs the map arrays (navi_update_inputs)")
+    if draw is None:
+        raise ValueError("pred_navi_after_reached needs a navi_draw (a generator or navi_noise, `navi_draws`)")
+    return draw
+
+
 def _check_rollout_cfg(cfg: ExperimentCfg, tl_precomputed, tl_forcing, n_sc: int, n_step_roll: int) -> int:
     """Raise for the options neither flavour ports and for TL inputs that do not fit; -> how often each pre-pass
     scenario repeats (1 on the in-rollout TL path)."""
-    if cfg.pred_navi_after_reached:
-        raise NotImplementedError("pred_navi_after_reached is not ported")
     if cfg.rollout_token_dedup:
         raise NotImplementedError("rollout_token_dedup is not ported")
     if tl_precomputed is None:
@@ -335,14 +442,18 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
                   step_seeds: Sequence[int], tl_precomputed: Optional[Dict[str, torch.Tensor]] = None,
                   tl_forcing: Optional[torch.Tensor] = None,
                   player_valid: Optional[torch.Tensor] = None,
-                  player_action: Optional[torch.Tensor] = None) -> RolloutBuffer:
+                  player_action: Optional[torch.Tensor] = None,
+                  navi_update_inputs: Optional[Dict[str, torch.Tensor]] = None,
+                  navi_draw: Optional[NaviDraw] = None) -> RolloutBuffer:
     """The training rollout (JAX `rollout(..., train=True)`), from step 1 to cfg.time_step_end.
 
     Gradients flow through the poses and motions of the dynamics chain and into every
-    encoder; step i draws its dropout masks (and sampled actions) from step_seeds[i], so
-    the per-step recompute of the backward pass draws them again alike. TL comes from
-    tl_precomputed or runs in the rollout, as in `rollout`; in RNN mode the GRU hiddens
-    carry gradients from step to step.
+    encoder; step i draws its dropout masks (and sampled actions and, unless navi_draw says
+    otherwise, re-predicted navi) from step_seeds[i], so the per-step recompute of the backward pass draws them again alike. TL
+    comes from tl_precomputed or runs in the rollout, as in `rollout`; in RNN mode the GRU
+    hiddens carry gradients from step to step. With re-prediction the navi carries gradients too:
+    a goal's draw is the predictor's mean plus its std times the noise, and the navi encoder
+    reads its speed.
     """
     n_step_roll = cfg.time_step_end
     n_sc, n_ag, t_gt = gt_valid.shape
@@ -357,9 +468,10 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
     reset = _error_reset(cfg.teacher_forcing_training, gt_valid, gt_pose, gt_motion, n_step_roll)
     tl_in = None if tl_precomputed is not None else _TlInRollout(gt_tl_state, tl_forcing, tl_tokens, n_step_roll)
     navi_mode = cfg.model.navi_mode
+    draw = _repredict_draw(cfg, navi_update_inputs, navi_draws() if navi_draw is None else navi_draw)
 
     def step(i, valid, disabled, pose, motion, hist_valid, hist_pose, hist_motion, hist_step_invalid,
-             rule_state, navi_valid, tl_state, hist_tl, rnn_hidden, tl_rnn_hidden):
+             rule_statics, rule_state, navi, navi_valid, tl_state, hist_tl, rnn_hidden, tl_rnn_hidden):
         with dropout_scope(step_seeds[i], dev):
             sg = (lambda x: x.detach()) if detach else (lambda x: x)
             hist_valid = torch.cat([hist_valid[:, :, 1:], valid[:, :, None]], 2)
@@ -370,7 +482,7 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
             if tl_in is not None:
                 hist_tl = torch.cat([hist_tl[:, :, 1:], tl_state[:, :, None]], 2)
             action_dist, tl_logits, rnn_hidden, tl_rnn_hidden = model.step(
-                valid, hist_valid, hist_pose, hist_motion, ag_attr, ag_type, ag_latent, ag_latent_valid, ag_navi,
+                valid, hist_valid, hist_pose, hist_motion, ag_attr, ag_type, ag_latent, ag_latent_valid, navi,
                 navi_valid, tl_tokens, mp_tokens, tl_feature, hist_tl_state=hist_tl,
                 hist_step_invalid=hist_step_invalid, rnn_hidden=rnn_hidden, tl_rnn_hidden=tl_rnn_hidden)
             out = {}
@@ -396,11 +508,15 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
                                     tf_motion[:, :, i], ag_size)
             new_valid, disabled = dyn.disable_outside_map(ov_valid, disabled, violations["outside_map_this_step"],
                                                           step_gt_valid)
-            _, navi_valid = dyn.update_navi_on_reached(ag_navi, navi_valid,
-                                                       _navi_reached(navi_mode, violations, valid))
+            navi, navi_valid, rule_statics, rule_state, navi_out = _navi_step(
+                model, navi_mode, draw, i, _navi_reached(navi_mode, violations, valid), navi, navi_valid,
+                rule_statics, rule_state, navi_update_inputs,
+                (hist_valid, ag_attr, hist_motion, hist_pose, ag_type, mp_tokens))
+            if navi_out is not None:
+                out["navi"] = navi_out
             carry = (new_valid, disabled, ov_pose, ov_motion, hist_valid, hist_pose, hist_motion, hist_step_invalid,
-                     rule_state, navi_valid, tl_state if tl_in is not None else None, hist_tl, rnn_hidden,
-                     tl_rnn_hidden)
+                     rule_statics, rule_state, navi, navi_valid, tl_state if tl_in is not None else None, hist_tl,
+                     rnn_hidden, tl_rnn_hidden)
             out.update(pred_valid=valid, pred_pose=pred_pose, pred_motion=pred_motion,
                        pred_action=action_bounded.detach(), action_log_prob=action_log_prob,
                        mask_teacher_forcing=force, diffbar_reward=reward, violation=violations)
@@ -411,7 +527,7 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
              torch.zeros((n_sc, n_ag, w), dtype=torch.bool, device=dev),
              torch.zeros((n_sc, n_ag, w, 3), dtype=gt_pose.dtype, device=dev),
              torch.zeros((n_sc, n_ag, w, 3), dtype=gt_motion.dtype, device=dev),
-             torch.ones(w, dtype=torch.bool, device=dev), rule_state0, ag_navi_valid,
+             torch.ones(w, dtype=torch.bool, device=dev), rule_statics, rule_state0, ag_navi, ag_navi_valid,
              *_tl_carry0(gt_tl_state, w, tl_in), *_rnn_hidden0(cfg, n_sc, n_ag, gt_tl_state.shape[1], dev))
     per_step = cfg.remat_policy != "none" and torch.is_grad_enabled()
     outs = []
@@ -432,4 +548,4 @@ def rollout_train(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: Tl
                                    "mask_teacher_forcing")},
         **buf, violation=_stack_dicts([o["violation"] for o in outs]),
         diffbar_reward=_stack_dicts([o["diffbar_reward"] for o in outs]),
-        navi_log_prob=ag_navi_log_prob[..., None], navi_log_prob_valid=ag_navi_valid[..., None])
+        **_navi_log_probs(ag_navi_log_prob, ag_navi_valid, [o["navi"] for o in outs if "navi" in o]))

@@ -4,13 +4,15 @@
 encoding (map encoder, TL precompute), the prior latent, the navi
 predictor, the TL-only pre-pass (HPTR mode with `tl_prepass`; else TL runs
 in the rollout, as in the TrafficBots RNN family), replication of
-everything K times along the scenario axis, and the closed-loop rollout. Latent and navi draws come
-from an explicit `torch.Generator`.
+everything K times along the scenario axis, and the closed-loop rollout. Latent and navi draws, and the
+navi re-predicted in the rollout, come from an explicit `torch.Generator`. A command's draw enters the
+rollout as its one-hot (`models/navigation.py::navi_of_draw`); in dummy mode no navi is drawn.
 
 `reactive_replay`, the validation's reconstruction rollout: the posterior
-latent's mean, the ground-truth destination, every agent spawned from the
+latent's mean, the ground-truth navi, every agent spawned from the
 log (`teacher_forcing_reactive_replay`), TL forced to the log, deterministic
-actions; it draws nothing. Past the log's horizon (`time_step_end` >= the
+actions; it draws nothing but the navi re-predicted in the rollout
+(`pred_navi_after_reached`, from the caller's generator). Past the log's horizon (`time_step_end` >= the
 logged steps, the scaled preset) TL runs free from its own predictions, as
 in JAX's in-scan TL path (`sim/tl_prepass.py::tl_rollout_scan`, or TL in
 the rollout where `tl_prepass.prepass_wanted` says no).
@@ -26,6 +28,7 @@ import torch
 
 from trafficbotsv15_tpu_torch.config import ExperimentCfg
 from trafficbotsv15_tpu_torch.data.preprocessing import PreProcessedBatch, pre_processing
+from trafficbotsv15_tpu_torch.models.navigation import navi_of_draw
 from trafficbotsv15_tpu_torch.models.traffic_bots import TrafficBots
 from trafficbotsv15_tpu_torch.sim import rollout as rollout_lib
 from trafficbotsv15_tpu_torch.sim import tl_prepass
@@ -72,12 +75,14 @@ def encode_scene(cfg: ExperimentCfg, model: TrafficBots, pp: PreProcessedBatch):
 
 
 @torch.no_grad()
-def reactive_replay(cfg: ExperimentCfg, model: TrafficBots, batch, check_level: int = 1, device=None):
-    """Posterior-latent, ground-truth-destination reconstruction rollout over the logged scenarios.
+def reactive_replay(cfg: ExperimentCfg, model: TrafficBots, batch, check_level: int = 1, device=None,
+                    generator: Optional[torch.Generator] = None, navi_noise=None):
+    """Posterior-latent, ground-truth-navi reconstruction rollout over the logged scenarios.
 
     batch: h5-schema dict of numpy arrays or tensors, with the ground truth. Runs on `device` (CUDA
-    unless device="cpu"), where the model must already be. Returns (pp, buffer [n_sc, n_ag, ...] with
-    `diffbar_reward`, navi_pred, latent_post, latent_prior)."""
+    unless device="cpu"), where the model must already be. With `pred_navi_after_reached` the rollout's
+    re-predicted navi are drawn from generator, or given per step as navi_noise. Returns (pp, buffer
+    [n_sc, n_ag, ...] with `diffbar_reward`, navi_pred, latent_post, latent_prior)."""
     device = resolve_device(device)
     check_model(model, device)
     batch = batch_to_device(batch, device)
@@ -108,7 +113,9 @@ def reactive_replay(cfg: ExperimentCfg, model: TrafficBots, batch, check_level: 
         ag_navi=pp.gt_navi, ag_navi_valid=pp.gt_valid.any(-1), ag_navi_log_prob=torch.zeros_like(pp.ag_attr[:, :, 0]),
         gt_valid=pp.gt_valid, gt_pose=pp.gt_pose, gt_motion=pp.gt_motion, gt_tl_state=gt_tl_state,
         ag_forcing=ag_forcing, rule_statics=statics, rule_state0=state0, check_level=check_level,
-        tl_precomputed=tl_pre, tl_forcing=tl_forcing, tf_cfg=cfg.teacher_forcing_reactive_replay, with_reward=True)
+        tl_precomputed=tl_pre, tl_forcing=tl_forcing, tf_cfg=cfg.teacher_forcing_reactive_replay, with_reward=True,
+        navi_update_inputs=rollout_lib.navi_map_arrays(cfg, batch),
+        navi_draw=rollout_lib.navi_draws(generator, navi_noise))
     return pp, buffer, navi_pred, latent_post, latent_prior
 
 
@@ -146,18 +153,24 @@ def sample_joint_futures(cfg: ExperimentCfg, scene: JointFutureScene, k: int, ge
         ag_latent = lat.sample(generator, det)
         out.update(ag_latent=ag_latent, ag_latent_valid=lat.valid,
                    latent_log_prob=torch.where(lat.valid, lat.log_prob(ag_latent), 0.0))
+    if scene.navi_dist is None:  # dummy mode
+        out.update(ag_navi=None, ag_navi_valid=torch.zeros((n_sc * k, n_ag), dtype=torch.bool, device=dev),
+                   ag_navi_log_prob=torch.zeros((n_sc * k, n_ag), device=dev))
+        return out
     nd = scene.navi_dist.repeat(k, 0)
-    ag_navi = nd.sample(generator, det)
-    out.update(ag_navi=ag_navi, ag_navi_valid=nd.valid,
-               ag_navi_log_prob=torch.where(nd.valid, nd.log_prob(ag_navi), 0.0))
+    draw = nd.sample(generator, det)
+    out.update(ag_navi=navi_of_draw(cfg.model.navi_mode, nd, draw), ag_navi_valid=nd.valid,
+               ag_navi_log_prob=torch.where(nd.valid, nd.log_prob(draw), 0.0))
     return out
 
 
 @torch.no_grad()
 def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, torch.Tensor],
                           scene: JointFutureScene, k: int, *, ag_latent, ag_latent_valid, ag_navi, ag_navi_valid,
-                          ag_navi_log_prob, check_level: int = 1) -> rollout_lib.RolloutBuffer:
-    """The K-replicated closed-loop rollout for given latent / navi samples [n_sc * k, ...]."""
+                          ag_navi_log_prob, check_level: int = 1, navi_generator: Optional[torch.Generator] = None,
+                          navi_noise=None) -> rollout_lib.RolloutBuffer:
+    """The K-replicated closed-loop rollout for given latent / navi samples [n_sc * k, ...]; with
+    `pred_navi_after_reached` its re-predicted navi drawn from navi_generator or given per step as navi_noise."""
     pp = scene.pp
     # TL in the rollout runs its encoder on the replicated batch: every token field repeats
     tl_tokens = scene.tl_tokens.repeat(k) if scene.tl_pre is None else scene.tl_tokens.repeat_for_rollout(k)
@@ -190,13 +203,15 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
         gt_valid=gt_valid, gt_pose=gt_pose, gt_motion=gt_motion, gt_tl_state=gt_tl_state, ag_forcing=ag_forcing,
         rule_statics=statics, rule_state0=state0, check_level=check_level,
         tl_precomputed=scene.tl_pre, tl_forcing=tl_forcing, tf_cfg=cfg.teacher_forcing_joint_future_pred,
+        navi_update_inputs=rollout_lib.navi_map_arrays(cfg, batch, k),
+        navi_draw=rollout_lib.navi_draws(navi_generator, navi_noise),
     )
 
 
 @torch.no_grad()
 def joint_future_pred(cfg: ExperimentCfg, model: TrafficBots, batch, *, generator: torch.Generator,
                       n_joint_future: Optional[int] = None, check_level: int = 1, device=None):
-    """Sample K joint futures per scenario: prior latent + predicted destination per future.
+    """Sample K joint futures per scenario: prior latent + predicted navi per future.
 
     batch: h5-schema dict of numpy arrays or tensors. Runs on `device` (CUDA
     unless device="cpu"), where the model must already be. check_level 1
@@ -211,6 +226,7 @@ def joint_future_pred(cfg: ExperimentCfg, model: TrafficBots, batch, *, generato
     scene = prepare_joint_future(cfg, model, batch)
     s = sample_joint_futures(cfg, scene, k, generator)
     latent_log_prob = s.pop("latent_log_prob")
-    buffer = rollout_joint_futures(cfg, model, batch, scene, k, check_level=check_level, **s)
+    buffer = rollout_joint_futures(cfg, model, batch, scene, k, check_level=check_level, navi_generator=generator,
+                                   **s)
     buffer = rollout_lib.compute_log_prob(buffer, latent_log_prob)
     return scene.pp, buffer.flatten_joint_future(k)

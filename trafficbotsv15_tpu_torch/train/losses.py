@@ -87,7 +87,7 @@ def training_loss(cfg: TrainingMetricsCfg, buffer: RolloutBuffer, ag_role: torch
     if navi_pred is not None and cfg.w_navi > 0:
         navi_valid = navi_pred.valid & loss_valid.any(-1)
         if isinstance(navi_pred, DestCategorical) and navi_gt.ndim == navi_pred.logits.ndim:
-            navi_gt = torch.argmax(navi_gt, -1)  # one-hot command -> class index
+            navi_gt = torch.argmax(navi_gt.float(), -1)  # one-hot command -> class index (the first)
         nll = torch.where(navi_valid, -navi_pred.log_prob(navi_gt), 0.0)
         if w_rel is not None:
             nll = nll * w_rel

@@ -12,7 +12,9 @@ prior-or-posterior choice, random teacher forcing, the irrelevant-agent
 loss mask; a mask entry is set where its uniform is below the probability,
 jax.random.bernoulli's rule), the latent's standard-normal noise, and one
 dropout seed for the encoders plus one per rollout step for the TL pre-pass
-and for the rollout. A test hands the JAX package's draws in instead.
+and for the rollout, whose sampled actions and re-predicted navi a step's
+seed draws too. A test hands the JAX package's draws in instead (the
+re-predicted navi's per step as `navi_noise`).
 
 Over N ranks (`parallel/mesh.py`, one batch of the same size per rank) the
 step computes what one process computes on the union batch: every rank draws
@@ -191,8 +193,9 @@ def training_forward(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, to
         ag_navi_valid=pp.gt_valid.any(-1), ag_navi_log_prob=torch.zeros_like(pp.ag_attr[:, :, 0]),
         gt_valid=pp.gt_valid, gt_pose=pp.gt_pose, gt_motion=pp.gt_motion, gt_tl_state=pp.gt_tl_state.float(),
         ag_forcing=ag_forcing, rule_statics=rule_statics, rule_state0=rule_state0, tl_precomputed=tl_pre,
-        tl_forcing=tl_forcing,
-        step_seeds=noise["seeds_step"])
+        tl_forcing=tl_forcing, step_seeds=noise["seeds_step"],
+        navi_update_inputs=rollout_lib.navi_map_arrays(cfg, batch),
+        navi_draw=rollout_lib.navi_draws(noise=noise.get("navi_noise")))
     return training_loss(cfg.training_metrics, buffer, pp.ag_role, navi_pred, pp.gt_navi, latent_post,
                          latent_prior, u_irrelevant=noise["u_irrelevant"], count_sum=count_sum)
 
