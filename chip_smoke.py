@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      TF32 off for matmuls and cuDNN;
   2. build: compiles every CUDA source of the path from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together; meanwhile this process makes
-     the CPU runs of the card-vs-CPU checks of phases 4, 7, 9, 13 (e), 16 (b)
-     and 17 (a) (`CARD_VS_CPU`), which keep them for their phase;
+     the CPU runs of the card-vs-CPU checks of phases 4, 7, 9, 13 (e), 16 (b),
+     17 (a) and 18 (b) (`CARD_VS_CPU`), which keep them for their phase;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and at edge cases; times kernel, plain version and
      the nearest PyTorch call or composition of calls (`library_ms`):
@@ -84,6 +84,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      K=64], [128·64, K=25], [8·64, K=64], [8·64, K=25], [8, 1216, K=64] and
      [8·19, 64, K=25], each timed, and B2-bwd at the four training ones (no
      new B4 shape: the RNN agent self-attention is dense at 64 agents);
+     the variants' (phase 18): bf16 B2 on the staged route at the stop lines'
+     [4·50, K=24] and [8·50, K=24] and B2-bwd at [8·50, K=24], each timed;
+     and the 4-wide RPE of pose_rpe "xy_dir" (d_rpe = 4, which the staged,
+     cluster and heads kernels refuse): B4 at [1·512, K=4, D=64, H=2] and
+     [4·1024, K=32, D=128, H=4], B2 at [2·16, K=11], [1·16, K=3] (D=64, H=2),
+     [128·64, K=89] and [8·64, K=89] (D=128, H=4), B4-bwd at [1·512, K=4] and
+     [8·1024, K=32], B2-bwd at [1·16, K=11], [1·16, K=3] and [8·64, K=89],
+     float32 and bf16 against the plain versions, the route asserted general,
+     each timed;
   4. slice checked: a reduced-depth float32 config whose map has 512
      polylines runs `joint_future_pred` (check_level=1) on the card and on
      the CPU with the same weights, once with use_pallas=False and once with
@@ -265,7 +274,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      scenarios x K=32 at level 1, one call checked and timed: B1 90 at [128, 64, 1024], B2 360
      at [128·64, K=89], the goal predictor's B2 3 at [4·64, K=32] and 270 at
      [128·64, K=32], B4 8 at [4·1024, K=32], all staged, by full shape, each
-     checked in phase 3; seconds, peak memory, agents re-predicted.
+     checked in phase 3; seconds, peak memory, agents re-predicted;
+ 18. the variants: (a) `leaderboard_config()` with a type-branched `cat`
+     posterior and a learned `cat` prior (8 factors of 2 classes over
+     latent_dim 16), TL tokens at the 50 stop lines (tl_mode="stop"), the
+     stacked TL input and use_pallas, random seed-0 weights: joint_future_pred
+     4 scenarios x K=32 at level 1 with the K0 future deterministic, one call
+     checked and timed (a first call):
+     B1 91 (the prior's agent encoder adds one at [4, 64, 1024]), B4 8, B2 368
+     (360 at [128·64, K=89]; the prior's 4 at [4·50, K=24] and 4 at [4·64,
+     K=89]), all staged, by full shape, each checked in phase 3; the K0 latent
+     the prior's argmax one-hot, every draw one-hot per factor, and std_cat's
+     tie (all logits equal) drawing the first class on the card; then one
+     training step at batch 8 (a first step): loss, KL and grad_norm finite and
+     non-zero; B1 182, B4 and B4-bwd 8, B2 736, B2-bwd 376 (the posterior's and
+     the prior's TL encoders at [8·50, K=24]), all staged, by full shape;
+     seconds, peak memory, agent-steps/s and samples/s; (b) the phase-4 config
+     on the card and on the CPU in float32 (20 of its 30 steps), the same
+     weights and draws (the categorical latents' Gumbel noise from the CPU
+     generator): joint_future_pred's K0 futures, TL states and rule flags and
+     one training step's loss terms and gradients at phases 4 and 7's
+     tolerances, launches as the config implies, in three arms
+     (`VARIANT_ARMS`), all with use_pallas: cat + stop + stacked (the learned
+     prior's B2), std_cat + InputEncoder "input" + pose_rpe "pe_xy_dir" +
+     apply_q_rpe (no B2 or B4 launched), and pose_rpe "xy_dir" (B4 and B2 at
+     d_rpe = 4, all on the general route).
 Then it prints the `serve` JSON line (phase 14's steps/s, ms per step, peak memory
 and the card-vs-CPU errors of both arms, with the card's name and power limit), the
 `kernels` JSON line (forward launches from phase 6 and, as
@@ -282,7 +315,10 @@ row's `serve_launches` per reset and per step of each phase 14 arm, by route; an
 `parallel`, phase 15's checks, launches per rank and seconds; every row's `rnn_launches` per phase 16 (a) call
 and (c) step, B1's and B2's and B2-bwd's `rnn_shapes` timings, and `rnn`, phase 16's seconds, peak memory and
 throughputs; every row's `navi_launches` per phase 17 (b) call, B2's and B2-bwd's `navi_shapes`
-timings, and `navi`, phase 17's seconds, peak memory, throughputs and re-predictions), the card line, and last
+timings, and `navi`, phase 17's seconds, peak memory, throughputs and re-predictions; every row's `variant_launches`
+per phase 18 (a) call and step, by route, B2's and B2-bwd's `variant_shapes` and B4's, B2's and their backwards'
+`rpe4_shapes` timings (d_rpe = 4, general route), and `variants`, phase 18's seconds, peak memory and throughputs), the
+card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -377,6 +413,21 @@ RNN_POST_KNN = (8, 1216, 1024, 64)
 # prediction, every step and its recompute): phase 17 runs no such step, phase 3 checks and times its shape
 NAVI_X = [(4, 64, 32, 128, 128, 4), (128, 64, 32, 128, 128, 4)]
 NAVI_TRAIN_X = [(8, 64, 32, 128, 128, 4)]
+# and the variants' (phase 18 (a): `leaderboard_config()` with categorical latents, a learned `cat` prior, TL tokens
+# at the 50 stop lines and the stacked TL input): the prior's TL encoder attends to the K = 0.75 x 32 = 24 nearest map
+# polylines, B2 at [4 scenarios, 50 stop lines, K=24] once per eval call (its agent encoder at [4·64, K=89], VAL_X's);
+# a training step at batch 8 launches B2 and B2-bwd at [8·50, K=24] in the posterior's and the prior's TL encoders
+VARIANT_X = [(4, 50, 24, 128, 128, 4), (8, 50, 24, 128, 128, 4)]
+VARIANT_TRAIN_X = [(8, 50, 24, 128, 128, 4)]
+# the 4-wide RPE of pose_rpe "xy_dir" (phase 18 (b)): the staged kernels refuse d_rpe % 16 (code 2), the cluster and
+# heads kernels take only D=R=256, so every such launch takes the general route of csrc/knarpe.cu and
+# csrc/knarpe_bwd.cu. The phase-4 config's shapes (hidden 64, 2 heads, n_tgt_knn 4: B4 over 512 polylines at K=4, B2
+# over 2 futures x 16 agents at K=11 and the posterior TL's 16 lanes at K=3; a training step's at batch 1) and the
+# flagship's widths (D=128, H=4) at its eval and training shapes
+RPE4_ATTN = [(1, 512, 4, 64, 4, 2), (4, 1024, 32, 128, 4, 4)]
+RPE4_X = [(2, 16, 11, 64, 4, 2), (1, 16, 3, 64, 4, 2), (128, 64, 89, 128, 4, 4), (8, 64, 89, 128, 4, 4)]
+RPE4_ATTN_BWD = [(1, 512, 4, 64, 4, 2), (8, 1024, 32, 128, 4, 4)]
+RPE4_X_BWD = [(1, 16, 11, 64, 4, 2), (1, 16, 3, 64, 4, 2), (8, 64, 89, 128, 4, 4)]
 # edge cases: an all-invalid and a one-target source in each; source counts that are
 # no multiple of any tile; odd K; one and eight heads
 X_EDGE = [(3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
@@ -666,7 +717,7 @@ def time_knarpe(name: str, shape) -> dict:
 # bf16 B2/B3 shapes that phase 3 holds against the plain versions on the staged route; phases 6 and 8
 # check that the paths launch no other
 CHECKED_X = {s[2:] for s in (X_PATH, TRAIN_X_PATH, POST_TL_X_PATH, *X_EDGE, *FIT_X, *VAL_X, *RNN_X, *RNN_TRAIN_X,
-                              *NAVI_X, *NAVI_TRAIN_X)}
+                              *NAVI_X, *NAVI_TRAIN_X, *VARIANT_X)}
 # bf16 B2/B3 shapes the staged kernel refuses: the scaled preset's widths (D=R=256, 8 heads), at its eval
 # shape (4 scenarios x 32 futures x 64 agents, K=89) too, and K=90 and K=128 at the flagship's D=R=128, H=4
 SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
@@ -742,6 +793,10 @@ def check_knarpe_kernels() -> list:
             for i, shape in enumerate(NAVI_X + NAVI_TRAIN_X):
                 check_one_knarpe(name, shape, seed=80 + i)
             row["navi_shapes"] = [{"shape": list(shape), **time_knarpe(name, shape)} for shape in NAVI_X + NAVI_TRAIN_X]
+            # the variants' stop-line TL shapes (phase 18) on the staged route, each timed
+            for i, shape in enumerate(VARIANT_X):
+                check_one_knarpe(name, shape, seed=90 + i)
+            row["variant_shapes"] = [{"shape": list(shape), **time_knarpe(name, shape)} for shape in VARIANT_X]
             # bf16 only: float32 B2 takes the general kernel at these shapes, which check_one_knarpe holds too
             err16 = max(check_one_knarpe(name, shape, seed=20 + i, want_route="cluster")[1]
                         for i, shape in enumerate(CLUSTER_X))
@@ -774,6 +829,11 @@ def check_knarpe_kernels() -> list:
                 log(f"  {name} {list(shape)}: the heads kernel refuses it with code {got} "
                     f"({knarpe.V3_HEADS_REFUSALS[got]}), so it takes the general route")
                 check_one_knarpe(name, shape, seed=40 + i, want_route="general")
+        if name != "knarpe_cross_attention_v3":  # d_rpe = 4 (pose_rpe "xy_dir") on the general route, each timed
+            rpe4 = RPE4_ATTN if name == "knarpe_attention" else RPE4_X
+            errs = [check_one_knarpe(name, shape, seed=100 + i, want_route="general") for i, shape in enumerate(rpe4)]
+            row["rpe4_shapes"] = [{"shape": list(shape), "max_abs_err": err[0], "bf16_max_abs_err": err[1],
+                                   **time_knarpe(name, shape)} for shape, err in zip(rpe4, errs)]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, **row})
     return rows
@@ -812,7 +872,8 @@ def check_path_forward_shapes(where: str, seen: set) -> None:
 
 # bf16 B2 backward shapes that phase 3 holds against autograd of the plain version on the staged route;
 # phase 8 checks that the training step launches no other
-CHECKED_X_BWD = {s[2:] for s in (TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE, *RNN_TRAIN_X, *NAVI_TRAIN_X)}
+CHECKED_X_BWD = {s[2:] for s in (TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE, *RNN_TRAIN_X, *NAVI_TRAIN_X,
+                                  *VARIANT_TRAIN_X)}
 
 
 @contextlib.contextmanager
@@ -1014,6 +1075,8 @@ def check_knarpe_bwd_kernels() -> list:
                 check_one_knarpe_bwd(name, shape, seed=70 + i, want_route="staged")
             for i, shape in enumerate(NAVI_TRAIN_X):  # the navigation family's (phase 17)
                 check_one_knarpe_bwd(name, shape, seed=90 + i, want_route="staged")
+            for i, shape in enumerate(VARIANT_TRAIN_X):  # the variants' stop-line TL shape (phase 18)
+                check_one_knarpe_bwd(name, shape, seed=95 + i, want_route="staged")
             for i, shape in enumerate(X_BWD_GENERAL):
                 check_one_knarpe_bwd(name, shape, seed=17 + i, want_route="general")
             for i, shape in enumerate([path, POST_TL_X_PATH, *X_BWD_EDGE]):
@@ -1024,17 +1087,23 @@ def check_knarpe_bwd_kernels() -> list:
             for i, shape in enumerate((SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH)):
                 for kernel in (name, "knarpe_cross_attention_v3"):
                     check_one_knarpe_bwd(kernel, shape, seed=50 + i, want_route="general")
+        rpe4 = RPE4_X_BWD if cross else RPE4_ATTN_BWD  # d_rpe = 4 (pose_rpe "xy_dir") on the general route
+        rpe4_errs = [check_one_knarpe_bwd(name, shape, seed=110 + i, want_route="general", halves=not cross)
+                     for i, shape in enumerate(rpe4)]
         row = time_knarpe_bwd(name, path)
         source = "trafficbotsv15_tpu_torch/csrc/knarpe_bwd_staged.cuh" if cross else \
             "trafficbotsv15_tpu_torch/csrc/knarpe_attn_bwd_staged.cuh"
         rows.append({"name": f"{name}_bwd", "route": "cuda", "source": source, "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, **row})
+        rows[-1]["rpe4_shapes"] = [{"max_abs_err": err[0], "bf16_max_abs_err": err[1],
+                                    **timed_on(name, shape, "general")} for shape, err in zip(rpe4, rpe4_errs)]
         if cross:
             rows[-1]["post_tl_shape"] = {"shape": list(POST_TL_X_PATH), **time_knarpe_bwd(name, POST_TL_X_PATH)}
             rows[-1]["scaled_training_shape"] = timed_on(name, SCALED_TRAIN_X_PATH, "general")
             rows[-1]["scaled_post_tl_shape"] = timed_on(name, SCALED_POST_TL_X_PATH, "general")
             rows[-1]["rnn_shapes"] = [timed_on(name, shape, "staged") for shape in RNN_TRAIN_X]
             rows[-1]["navi_shapes"] = [timed_on(name, shape, "staged") for shape in NAVI_TRAIN_X]
+            rows[-1]["variant_shapes"] = [timed_on(name, shape, "staged") for shape in VARIANT_TRAIN_X]
             continue
         # bf16 only: float32 B4-bwd takes the general kernel at these shapes, which check_one_knarpe_bwd holds too
         err16 = max(check_one_knarpe_bwd(name, shape, seed=40 + i, want_route="heads", halves=halves)[1]
@@ -1095,11 +1164,25 @@ def _b2_blocks(cfg) -> int:
     return 2
 
 
+def _attends(cfg) -> bool:
+    """Whether the config's attentions launch B4 and B2: use_pallas, but never with apply_q_rpe (its query RPE
+    keeps every attention on the plain path, as in the JAX package)."""
+    return cfg.model.tf_cfg.use_pallas and not cfg.model.tf_cfg.apply_q_rpe
+
+
+def _learned_latents(cfg, train: bool) -> int:
+    """The latent heads whose encoders run: at eval the prior's, in training the posterior's and the prior's; a
+    constant head (std_gaus, std_cat) runs none."""
+    lat = cfg.model.latent_encoder
+    heads = (lat.latent_post, lat.latent_prior) if train else (lat.latent_prior,)
+    return 0 if lat.latent_dim <= 0 else sum(h.dist_type not in ("std_gaus", "std_cat") for h in heads)
+
+
 def _navi_b2(cfg) -> int:
     """B2 launches per navi prediction: one per layer of the goal / cmd predictor's tf_ag2mp (none in the dest and
     dummy modes, whose predictors do not attend)."""
     m = cfg.model
-    return m.navi_predictor.n_layer_tf if m.tf_cfg.use_pallas and m.navi_mode in ("goal", "cmd") else 0
+    return m.navi_predictor.n_layer_tf if _attends(cfg) and m.navi_mode in ("goal", "cmd") else 0
 
 
 def _repredictions(cfg) -> int:
@@ -1107,33 +1190,43 @@ def _repredictions(cfg) -> int:
     return cfg.time_step_end if rollout_lib.repredicts(cfg) else 0
 
 
+def _latent_b2(cfg) -> int:
+    """B2 launches of one run of a latent head's encoders: per TL and agent layer (RNN family: per agent layer, one
+    over the map and one over the TL lanes, and no TL attention)."""
+    m = cfg.model
+    return m.tl_encoder.n_layer_tf + m.ag_encoder.n_layer_tf if _b2_blocks(cfg) == 1 else 2 * m.ag_encoder.n_layer_tf
+
+
 def expected_launches(cfg, n_step: int) -> dict:
     """Kernel launches per joint_future_pred call that the config implies: the navi predictor's once before the
-    futures replicate and, with re-prediction, once per rollout step."""
-    pallas = cfg.model.tf_cfg.use_pallas
+    futures replicate and, with re-prediction, once per rollout step; a learned prior's encoders once (one KNN and
+    their B2)."""
+    pallas = _attends(cfg)
     navi = _navi_b2(cfg) * (1 + _repredictions(cfg))
-    return {"knn_xy": n_step,
+    prior = _learned_latents(cfg, train=False)
+    return {"knn_xy": n_step + prior,
             "knarpe_attention": cfg.model.mp_encoder.n_layer_tf if pallas else 0,
-            "knarpe_cross_attention": _b2_blocks(cfg) * cfg.model.ag_encoder.n_layer_tf * n_step + navi if pallas
-            else 0,
+            "knarpe_cross_attention": _b2_blocks(cfg) * cfg.model.ag_encoder.n_layer_tf * n_step + navi
+            + prior * _latent_b2(cfg) if pallas else 0,
             "knarpe_cross_attention_v3": 0, "knarpe_attention_bwd": 0, "knarpe_cross_attention_bwd": 0}
 
 
 def expected_train_launches(cfg) -> dict:
     """Kernel launches per training step that the config implies: the rollout's per-step
     recompute runs the step's forward kernels (the agent->map KNN, the agent encoder's B2) a
-    second time in the backward pass; the posterior encoders add one KNN and one B2 per TL and
-    agent layer (RNN family: per agent layer, one over the map and one over the TL lanes, and no
+    second time in the backward pass; the posterior encoders (and a learned prior's) add one KNN and one B2 per TL
+    and agent layer (RNN family: per agent layer, one over the map and one over the TL lanes, and no
     TL attention); each forward outside a recompute has one backward. The goal / cmd navi predictor attends once
     before the rollout, with its backward; with re-prediction (goal) again in every step and its recompute, and
     backward in every step but the last, whose draw no later step reads."""
     m, n = cfg.model, cfg.time_step_end
-    pallas = m.tf_cfg.use_pallas
+    pallas = _attends(cfg)
     blocks = _b2_blocks(cfg)
-    post = m.tl_encoder.n_layer_tf + m.ag_encoder.n_layer_tf if blocks == 1 else 2 * m.ag_encoder.n_layer_tf
+    latents = _learned_latents(cfg, train=True)
+    post = latents * _latent_b2(cfg)
     steps = _repredictions(cfg)
     navi, navi_bwd = _navi_b2(cfg) * (1 + 2 * steps), _navi_b2(cfg) * (1 + max(steps - 1, 0))
-    return {"knn_xy": 2 * n + 1,
+    return {"knn_xy": 2 * n + latents,
             "knarpe_attention": m.mp_encoder.n_layer_tf if pallas else 0,
             "knarpe_cross_attention": 2 * blocks * m.ag_encoder.n_layer_tf * n + post + navi if pallas else 0,
             "knarpe_cross_attention_v3": 0,
@@ -1159,6 +1252,40 @@ def navi_variant(cfg, navi_mode: str, repredict: bool = False):
     """cfg in a navigation mode, with navi re-prediction inside the rollout where repredict."""
     return dataclasses.replace(cfg, pred_navi_after_reached=repredict,
                                model=dataclasses.replace(cfg.model, navi_mode=navi_mode))
+
+
+def variant_of(cfg, variant: str):
+    """cfg with the input, TL, pose and latent variants named in `variant`, joined by "+" ("" for none): "cat" (a
+    type-branched `cat` posterior, a learned `cat` prior), "std_cat" (a plain `cat` posterior, the `std_cat` prior),
+    both with 8 factors where latent_dim takes them (the flagship's 16) and 2 at the phase-4 config's 4; "stop"
+    (tl_mode "stop"); "stacked" (the stacked TL input); "input" (InputEncoder mode "input" in the map, TL and agent
+    encoders); "q_rpe" (apply_q_rpe); "pe_xy_dir", "xy_dir" (pose_rpe's mode)."""
+    from trafficbotsv15_tpu_torch.config import DistEncoderCfg, PoseEmbCfg
+
+    m = cfg.model
+    for name in filter(None, variant.split("+")):
+        lat = m.latent_encoder
+        n_cat = 8 if lat.latent_dim % 8 == 0 else 2
+        if name in ("cat", "std_cat"):
+            post = DistEncoderCfg(dist_type="cat", branch_type=name == "cat", n_cat=n_cat)
+            prior = DistEncoderCfg(dist_type=name, n_cat=n_cat)
+            m = dataclasses.replace(m, latent_encoder=dataclasses.replace(lat, latent_post=post, latent_prior=prior))
+        elif name == "stop":
+            m = dataclasses.replace(m, tl_mode="stop")
+        elif name == "stacked":
+            m = dataclasses.replace(m, tl_encoder=dataclasses.replace(m.tl_encoder, temp_stack_input=True))
+        elif name == "input":
+            enc = lambda c: dataclasses.replace(c, input_encoder=dataclasses.replace(  # noqa: E731
+                c.input_encoder, mode="input"))
+            m = dataclasses.replace(m, mp_encoder=enc(m.mp_encoder), tl_encoder=enc(m.tl_encoder),
+                                    ag_encoder=enc(m.ag_encoder))
+        elif name == "q_rpe":
+            m = dataclasses.replace(m, tf_cfg=dataclasses.replace(m.tf_cfg, apply_q_rpe=True))
+        elif name in ("pe_xy_dir", "xy_dir"):
+            m = dataclasses.replace(m, pose_rpe=PoseEmbCfg(mode=name))
+        else:
+            raise ValueError(f"variant {name!r}")
+    return dataclasses.replace(cfg, model=m)
 
 
 _CPU_REFERENCES = {}
@@ -1187,17 +1314,18 @@ def slice_run(cfg, batch, device: str):
 
 def check_slice_card_vs_cpu(use_pallas: bool, rnn: bool = False, navi_mode: str = "dest",
                             repredict: bool = False, time_step_end: int = None, batch_seed: int = 3,
-                            reference_only: bool = False) -> None:
+                            variant: str = "", reference_only: bool = False) -> None:
     """The phase-4 config's joint_future_pred on the card and on the CPU from the same weights and the same CPU
     generator's draws (in the RNN family with rnn; in a navigation mode, with navi re-prediction where repredict;
-    rolled out to time_step_end steps, None for its 30): the K0 futures, their TL states and rule flags agree; with
-    re-prediction also the K0 rows' navi log-probs, of which at least one is a step's re-prediction.
-    reference_only: only the CPU run, kept for the check (`cpu_reference`)."""
+    in the input, TL, pose and latent variants `variant_of` names; rolled out to time_step_end steps, None for its
+    30): the K0 futures, their TL states and rule flags agree; with re-prediction also the K0 rows' navi log-probs,
+    of which at least one is a step's re-prediction. reference_only: only the CPU run, kept for the check
+    (`cpu_reference`)."""
     base = horizon(tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=31, hidden_dim=64), time_step_end)
     cfg = with_pallas(dataclasses.replace(base, joint_future_pred_deterministic_k0=True), use_pallas)
-    cfg = navi_variant(rnn_mode(cfg) if rnn else cfg, navi_mode, repredict)
+    cfg = variant_of(navi_variant(rnn_mode(cfg) if rnn else cfg, navi_mode, repredict), variant)
     batch = make_batch(cfg.data, n_sc=1, seed=batch_seed)
-    key = ("slice", use_pallas, rnn, navi_mode, repredict, time_step_end, batch_seed)
+    key = ("slice", use_pallas, rnn, navi_mode, repredict, time_step_end, batch_seed, variant)
     cpu = cpu_reference(key, lambda: slice_run(cfg, batch, "cpu"), keep=reference_only)
     if reference_only:
         return
@@ -1205,6 +1333,9 @@ def check_slice_card_vs_cpu(use_pallas: bool, rnn: bool = False, navi_mode: str 
     want = expected_launches(cfg, cfg.time_step_end)
     if launches() != want:
         raise AssertionError(f"slice check: kernel launches {launches()}, expected {want}")
+    off_general = {key: n for key, n in knarpe.ROUTE_LAUNCHES.items() if n and not key.endswith("/general")}
+    if off_general:  # float32 takes the general kernels at every width, d_rpe = 4 (xy_dir) too
+        raise AssertionError(f"slice check: float32 launches off the general route {off_general}")
     pose_err = float((gpu.pred_pose[:, 0].cpu() - cpu.pred_pose[:, 0]).abs().max())
     if not torch.equal(gpu.pred_valid[:, 0].cpu(), cpu.pred_valid[:, 0]) or not pose_err <= SLICE_POSE_ATOL:
         raise AssertionError(f"slice check: K0 futures differ card vs CPU (max pose err {pose_err})")
@@ -1225,7 +1356,8 @@ def check_slice_card_vs_cpu(use_pallas: bool, rnn: bool = False, navi_mode: str 
         note = (f"; {n_re} K0 re-predictions, navi log-probs {list(gpu.navi_log_prob.shape)} within {lp_err:.3e} "
                 f"(tolerance {NAVI_LOGP_ATOL:g})")
     log(f"  {'RNN family, ' if rnn else ''}{'' if navi_mode == 'dest' and not repredict else navi_mode + ', '}"
-        f"{'re-predicting, ' if repredict else ''}use_pallas={use_pallas}: card vs CPU, K0 futures of "
+        f"{variant + ', ' if variant else ''}{'re-predicting, ' if repredict else ''}use_pallas={use_pallas}: card vs "
+        f"CPU, K0 futures of "
         f"{list(gpu.pred_pose.shape)}: pred_valid and TL states equal, max |pose err| {pose_err:.3e} m (tolerance "
         f"{SLICE_POSE_ATOL}); rule flags equal (fired: {fired}); kernel launches "
         f"{expected_launches(cfg, cfg.time_step_end)} as the config implies{note}")
@@ -1364,12 +1496,12 @@ def recorded_training_rollouts():
 
 
 def train_check_setup(use_pallas: bool, time_step_end: int = None, rnn: bool = False, navi_mode: str = "dest",
-                      repredict: bool = False, batch_seed: int = 3) -> tuple:
+                      repredict: bool = False, batch_seed: int = 3, variant: str = "") -> tuple:
     """The phase-4 config of the card-vs-CPU training checks, no dropout, and its batch of 2 and draws (on the CPU):
     -> (cfg, batch, noise). rnn: the TrafficBots RNN family (the GRU TL state predictor's dropout at 0 too);
-    repredict: the re-predicted navi's noise drawn up front."""
+    repredict: the re-predicted navi's noise drawn up front; variant: `variant_of`'s."""
     cfg = with_pallas(no_dropout(horizon(phase4_config(), time_step_end)), use_pallas)
-    cfg = navi_variant(cfg, navi_mode, repredict)
+    cfg = variant_of(navi_variant(cfg, navi_mode, repredict), variant)
     if rnn:
         cfg = rnn_mode(cfg)
         tl_pred = dataclasses.replace(cfg.model.tl_state_predictor, rnn_dropout_p=0.0)
@@ -1445,16 +1577,18 @@ def grads_against(got: tuple, want: tuple) -> tuple:
 
 def check_train_step_card_vs_cpu(use_pallas: bool, time_step_end: int = None, rnn: bool = False,
                                  navi_mode: str = "dest", repredict: bool = False, batch_seed: int = 3,
-                                 float64_reference: bool = False, reference_only: bool = False) -> None:
+                                 float64_reference: bool = False, variant: str = "",
+                                 reference_only: bool = False) -> None:
     """One make_train_step on the card and on the CPU: same weights, same draws, no dropout. time_step_end past
     the log's 30 steps takes the TL pass step by step (phase 13 (e)); rnn, the TrafficBots RNN family (phase 16
     (b)); navi_mode and repredict, the navigation family (phase 17 (a); the re-predicted navi's noise drawn up front
     on the CPU, and at least one re-prediction). float64_reference holds the card against the CPU in float64 and
     logs how far the CPU's float32 lies from it: at a batch where the float32 CPU's rounding falls across a kink of
-    the loss (phase 17 (a)'s pinned seed), the float64 run says which float32 run is off. reference_only: only the
-    CPU runs, kept for the check (`cpu_reference`)."""
-    cfg, batch, noise = train_check_setup(use_pallas, time_step_end, rnn, navi_mode, repredict, batch_seed)
-    key = ("train", use_pallas, time_step_end, rnn, navi_mode, repredict, batch_seed, float64_reference)
+    the loss (phase 17 (a)'s pinned seed), the float64 run says which float32 run is off. variant: the input, TL,
+    pose and latent variants `variant_of` names (phase 18 (b)). reference_only: only the CPU runs, kept for the
+    check (`cpu_reference`)."""
+    cfg, batch, noise = train_check_setup(use_pallas, time_step_end, rnn, navi_mode, repredict, batch_seed, variant)
+    key = ("train", use_pallas, time_step_end, rnn, navi_mode, repredict, batch_seed, float64_reference, variant)
     cpu_runs = cpu_reference(key, lambda: (
         train_step_run(cfg, batch, noise, "cpu"),
         train_step_run(cfg, batch, noise, "cpu", float64=True) if float64_reference else None), keep=reference_only)
@@ -1493,7 +1627,8 @@ def check_train_step_card_vs_cpu(use_pallas: bool, time_step_end: int = None, rn
     floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in g_ref.values())
     seed_note = f"batch seed {batch_seed}, " if batch_seed != 3 else ""
     log(f"  {'RNN family, ' if rnn else ''}{'' if navi_mode == 'dest' and not repredict else navi_mode + ', '}"
-        f"{f're-predicting ({n_re} re-predictions), ' if repredict else ''}{seed_note}"
+        f"{variant + ', ' if variant else ''}{f're-predicting ({n_re} re-predictions), ' if repredict else ''}"
+        f"{seed_note}"
         f"use_pallas={use_pallas}, {cfg.time_step_end} steps: card vs {ref_name}, loss {m_gpu['training/loss']:.6f} "
         f"vs {m_ref['training/loss']:.6f}, grad_norm {m_gpu['grad_norm']:.6f} vs {m_ref['grad_norm']:.6f}, loss terms "
         f"and grad_norm within {loss_err:.2e} relative (tolerance {TRAIN_LOSS_REL:g}); {len(g_ref)} parameter "
@@ -3428,6 +3563,174 @@ def run_navi_phase(card: str) -> dict:
     return out
 
 
+def variant_full_shapes(cfg, n_sc: int, rows: int, train: bool) -> tuple:
+    """The launches a `leaderboard_config()`-width call (train=False: joint_future_pred over `rows` rollouts of n_sc
+    scenarios) or training step (train=True: rows = n_sc) implies with a learned latent prior, by full shape:
+    ({(kernel, dtype, n_b, n_s, K, D, R, H) or ("knn_xy", rows, sources, targets, k): n} forward and backward,
+    {kernel/route: n}), every bf16 launch on the staged route. Per rollout step the agent->map KNN and the agent
+    decoder's B2 per layer over the map and TL targets (K=89), in training again in the step's recompute; B4 per map
+    layer; each learned latent head (the prior at eval; the posterior and the prior in training) runs its encoders
+    once: one KNN, B2 per TL layer over the TL tokens' K nearest map polylines and per agent layer at K=89. The main
+    TL encoder attends over its static K/V, and the TL and agent self-attentions are dense (at most dense_knn_max
+    tokens): no kernel. Each forward outside a recompute has one backward."""
+    m, n, bf = cfg.model, cfg.time_step_end, str(torch.bfloat16)
+    n_ag, n_mp, d, h = cfg.data.n_ag, cfg.data.n_mp, m.hidden_dim, m.tf_cfg.n_head
+    n_tl = cfg.data.n_tl_stop if m.tl_mode == "stop" else cfg.data.n_tl_lane
+    if max(n_ag, n_tl) > m.tf_cfg.dense_knn_max:
+        raise AssertionError("the variant configs keep the TL and agent self-attentions dense")
+    k_mp = int(m.n_tgt_knn * m.ag_encoder.k_tgt_knn_ag2mp)
+    k_dec = k_mp + int(m.n_tgt_knn * m.ag_encoder.k_tgt_knn_ag2tl)
+    k_tl = int(m.n_tgt_knn * m.tl_encoder.k_tgt_knn_tl2mp)
+    lay_ag, lay_tl, lay_mp = m.ag_encoder.n_layer_tf, m.tl_encoder.n_layer_tf, m.mp_encoder.n_layer_tf
+    x = lambda kernel, b, s_, k: (kernel, bf, b, s_, k, d, d, h)  # noqa: E731
+    rep, latents = (2 if train else 1), _learned_latents(cfg, train)
+    want = collections.Counter({("knn_xy", rows, n_ag, n_mp, k_mp): rep * n,
+                                x("knarpe_cross_attention", rows, n_ag, k_dec): rep * lay_ag * n,
+                                x("knarpe_attention", n_sc, n_mp, m.n_tgt_knn): lay_mp})
+    want[("knn_xy", n_sc, n_ag, n_mp, k_mp)] += latents
+    want[x("knarpe_cross_attention", n_sc, n_tl, k_tl)] += latents * lay_tl
+    want[x("knarpe_cross_attention", n_sc, n_ag, k_dec)] += latents * lay_ag
+    if train:
+        want[x("knarpe_cross_attention_bwd", rows, n_ag, k_dec)] += lay_ag * n + latents * lay_ag
+        want[x("knarpe_cross_attention_bwd", n_sc, n_tl, k_tl)] += latents * lay_tl
+        want[x("knarpe_attention_bwd", n_sc, n_mp, m.n_tgt_knn)] += lay_mp
+    routes = collections.Counter()
+    for key, v in want.items():
+        if key[0] != "knn_xy":
+            routes[f"{key[0]}/staged"] += v
+    return dict(want), dict(routes)
+
+
+@contextlib.contextmanager
+def captured_joint_future():
+    """The scene (`prepare_joint_future`: the prior latent among it) and the per-future samples
+    (`sample_joint_futures`: ag_latent among them) of the joint_future_pred calls inside the block, the last call's."""
+    real_prepare, real_sample, got = eval_lib.prepare_joint_future, eval_lib.sample_joint_futures, {}
+
+    def prepare(*args, **kwargs):
+        got["scene"] = real_prepare(*args, **kwargs)
+        return got["scene"]
+
+    def sample(*args, **kwargs):
+        got["samples"] = real_sample(*args, **kwargs)
+        return got["samples"]
+
+    eval_lib.prepare_joint_future, eval_lib.sample_joint_futures = prepare, sample
+    try:
+        yield got
+    finally:
+        eval_lib.prepare_joint_future, eval_lib.sample_joint_futures = real_prepare, real_sample
+
+
+def check_variant_shapes(where: str, shapes, want: dict) -> None:
+    """A phase 18 (a) call's or step's launches by full shape are exactly `want`, each at a shape phase 3 checked."""
+    bf = str(torch.bfloat16)
+    checked = {("knn_xy", *case[:4]) for case in KNN_CASES.values()}
+    for kernel, shapes_ in (("knarpe_attention", (ATTN_PATH, TRAIN_ATTN_PATH)),
+                            ("knarpe_attention_bwd", (TRAIN_ATTN_PATH,)),
+                            ("knarpe_cross_attention", (X_PATH, TRAIN_X_PATH, *VAL_X, *VARIANT_X)),
+                            ("knarpe_cross_attention_bwd", (TRAIN_X_PATH, *VARIANT_TRAIN_X))):
+        checked |= {(kernel, bf, *s_) for s_ in shapes_}
+    check_full_shapes(where, shapes, want, checked)
+
+
+def run_variant_phase(card: str) -> dict:
+    """Phase 18, the variants: (a) `leaderboard_config()` with a type-branched `cat` posterior and a learned `cat`
+    prior (8 factors of 2 classes over latent_dim 16), TL tokens at the stop lines, the stacked TL input and
+    use_pallas, seed-0 weights: joint_future_pred 4 scenarios x K=32 at level 1 (one call, checked and timed, a first
+    call) and one training step at batch 8 (a first step), their launches by full shape and route, each at a shape
+    phase 3 checked; the K0 latent the prior's argmax one-hot, and the std_cat tie's first class on the card; (b) the
+    phase-4 config card vs CPU in float32 (`CARD_VS_CPU[18]`). -> {"eval": launches per (a) call, "train": per (a)
+    step, by kernel, and by route; seconds, peak memory, throughputs}."""
+    from trafficbotsv15_tpu_torch.ops.distributions import MultiCategorical
+
+    t0 = time.perf_counter()
+    cfg = variant_of(with_pallas(leaderboard_config(), True), "cat+stop+stacked")
+    cfg = dataclasses.replace(cfg, joint_future_pred_deterministic_k0=True)  # the K0 future takes the modes
+    n_sc, k = 4, cfg.n_joint_future_wosac
+    n_ag, n_step = cfg.data.n_ag, cfg.time_step_end
+    lat_cfg = cfg.model.latent_encoder
+    n_cat = lat_cfg.latent_prior.n_cat
+    batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
+    model = build_model(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    want, want_routes = variant_full_shapes(cfg, n_sc, n_sc * k, train=False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes, captured_joint_future() as got:
+        _, buf = joint_future_pred(cfg, model, batch, generator=torch.Generator().manual_seed(0), check_level=1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    check_variant_shapes("(a) variant eval call", shapes, want)
+    routes = {key: v for key, v in knarpe.ROUTE_LAUNCHES.items() if v}
+    if routes != want_routes:
+        raise AssertionError(f"(a) variant eval call: launches by route {routes}, expected {want_routes}")
+    eval_counts = launches()
+    finite = torch.isfinite(buf.pred_pose).all() and torch.isfinite(buf.log_prob).all()
+    if tuple(buf.pred_pose.shape) != (n_sc, k, n_ag, n_step, 3) or not finite:
+        raise AssertionError(f"(a) variant eval call: pred_pose {tuple(buf.pred_pose.shape)} or not finite")
+    lat, prior = got["samples"]["ag_latent"], got["scene"].latent_prior
+    mode = torch.nn.functional.one_hot(prior.logits.argmax(-1), prior.n_class).to(lat.dtype).reshape(lat[::k].shape)
+    per_factor = lat.float().reshape(n_sc * k, n_ag, n_cat, -1).sum(-1)
+    if (tuple(lat.shape) != (n_sc * k, n_ag, lat_cfg.latent_dim) or not torch.equal(lat[::k], mode)
+            or not bool(((per_factor - 1).abs() <= 1e-2).all())):
+        raise AssertionError(f"(a) variant eval call: ag_latent {tuple(lat.shape)}: K0 not the prior's argmax one-hot, "
+                             f"or a draw not one-hot per factor")
+    tie = MultiCategorical(torch.zeros(n_sc, n_ag, n_cat, 2, device="cuda")).sample(None, True)
+    if not torch.equal(tie.reshape(n_sc, n_ag, n_cat, 2)[..., 0], torch.ones(n_sc, n_ag, n_cat, device="cuda")):
+        raise AssertionError("(a) std_cat's tie: the card's deterministic draw is not the first class")
+    agent_steps = n_sc * k * n_ag * (n_step - cfg.time_step_current)
+    out = {"eval_seconds": sec, "eval_peak_gib": peak_gib(), "eval_agent_steps_per_s": agent_steps / sec,
+           "eval": eval_counts, "eval_by_route": routes}
+    log(f"  (a) leaderboard_config cat posterior (type-branched) + cat prior ({n_cat} x {prior.n_class}), "
+        f"tl_mode=stop ({cfg.data.n_tl_stop} stop lines), temp_stack_input, use_pallas=True, check_level=1 "
+        f"joint_future_pred: {n_sc} scenarios x K={k}, {n_ag} agents, {cfg.data.n_mp} polylines, {n_step} steps, "
+        f"{n_params} parameters, bf16: one call, checked and timed (a first call) {sec:.4f} s, "
+        f"{agent_steps / sec:.1f} agent-steps/s, peak memory {out['eval_peak_gib']:.2f} GiB; launches {eval_counts} by "
+        f"full shape {dict(shapes)}, by route {routes}, every shape checked in phase 3; the K0 latent the prior's "
+        f"argmax one-hot, every draw one-hot per factor; std_cat's tie draws the first class [{card}]")
+    del buf, model, got
+    torch.cuda.empty_cache()
+
+    t_b = time.perf_counter()
+    run_card_vs_cpu(18)
+    out["card_vs_cpu_seconds"] = time.perf_counter() - t_b
+    log(f"  (b) the phase-4 config in the variants card vs CPU in float32 (above), {out['card_vs_cpu_seconds']:.1f} s")
+
+    n_train = 8
+    model = build_model(cfg, seed=0, device="cuda")
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
+    want, want_routes = variant_full_shapes(cfg, n_train, n_train, train=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes, recorded_bwd_launches() as (bwd_shapes, _):
+        metrics = {key: float(v) for key, v in step(tbatch, torch.Generator().manual_seed(0)).items()}
+    torch.cuda.synchronize()
+    train_sec = time.perf_counter() - t1
+    check_variant_shapes("(a) variant training step", shapes + bwd_shapes, want)
+    routes = {key: v for key, v in knarpe.ROUTE_LAUNCHES.items() if v}
+    if routes != want_routes:
+        raise AssertionError(f"(a) variant training step: launches by route {routes}, expected {want_routes}")
+    loss, kl, gnorm = metrics["training/loss"], metrics["training/vae_kl"], metrics["grad_norm"]
+    if not all(math.isfinite(v) and v != 0 for v in (loss, kl, gnorm)):
+        raise AssertionError(f"(a) variant training step: loss {loss}, KL {kl}, grad_norm {gnorm}")
+    out.update(train_seconds=train_sec, train_peak_gib=peak_gib(), train=launches(), train_by_route=routes,
+               train_samples_per_s=n_train / train_sec, seconds=time.perf_counter() - t0, card=card)
+    log(f"  (a) the same config's training step: {n_train} scenarios, a first step {train_sec:.4f} s "
+        f"({n_train / train_sec:.3f} train samples/s), peak memory {out['train_peak_gib']:.2f} GiB, loss {loss:.6f}, "
+        f"KL {kl:.6f}, grad_norm {gnorm:.6f}; launches {out['train']} by full shape {dict(shapes + bwd_shapes)}, by "
+        f"route {routes}, every shape checked in phase 3 [{card}]")
+    log(f"  phase 18 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+# phase 18 (b)'s arms (`variant_of`), all with use_pallas: every variant of the input, TL, pose and latent options in
+# one of them; apply_q_rpe keeps its whole arm off B2 and B4, xy_dir's d_rpe = 4 takes them on the general route
+# (float32). Three arms, not one a variant: each arm's CPU runs cost ~5 s beside the build
+VARIANT_ARMS = (("cat+stop+stacked", True), ("std_cat+input+pe_xy_dir+q_rpe", True), ("xy_dir", True))
 # the card-vs-CPU checks at the phase-4 config, by phase, as (check, its arguments). Their CPU runs are made while
 # the kernels build (`precompute_cpu_references`), the card's runs and the comparisons in their phase. Phase 17 (a):
 # batch seeds at which a K0 row re-predicts within the 20 steps (a destination is reached at step 10 of seed 5's);
@@ -3448,6 +3751,8 @@ CARD_VS_CPU = {
     + [("train", dict(use_pallas=True, time_step_end=NAVI_CHECK_END, navi_mode=mode, repredict=repredict,
                       batch_seed=seed, float64_reference=seed == 0))
        for mode, repredict, seed in (("cmd", False, 3), ("goal", True, 3), ("dest", True, 1), ("dest", True, 0))],
+    18: [(kind, dict(use_pallas=use_pallas, time_step_end=NAVI_CHECK_END, variant=variant))
+         for variant, use_pallas in VARIANT_ARMS for kind in ("slice", "train")],
 }
 
 
@@ -3475,7 +3780,7 @@ def main() -> int:
     t_start = time.perf_counter()
     header = lambda text: log(f"{text} (at {time.perf_counter() - t_start:.1f} s)")  # noqa: E731
     card = card_line()
-    log(f"[1/17] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/18] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -3492,63 +3797,68 @@ def main() -> int:
         n_refs, t_refs = precompute_cpu_references()
         for fut in futures:
             fut.result()
-    header(f"[2/17] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {max(built):.2f} s; beside it the CPU "
+    header(f"[2/18] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {max(built):.2f} s; beside it the CPU "
            f"runs of {n_refs} card-vs-CPU checks in {t_refs:.2f} s")
 
-    header("[3/17] kernels vs plain versions")
+    header("[3/18] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
     bench_routes = run_bench_knarpe()
 
-    header("[4/17] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[4/18] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     run_card_vs_cpu(4)
 
-    header("[5/17] slice at full width, use_pallas=False")
+    header("[5/18] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    header("[6/17] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    header("[6/18] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True, warm_up=False)
 
-    header("[7/17] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[7/18] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     run_card_vs_cpu(7)
 
-    header("[8/17] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    header("[8/18] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    header("[9/17] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    header("[9/18] validation step: reduced-depth fp32 config card vs CPU, then full width")
     run_card_vs_cpu(9)
     validate_counts = run_validate_full_width(card)
     check_validate_official(card)
 
-    header("[10/17] submission: test_submission at full width, K=128")
+    header("[10/18] submission: test_submission at full width, K=128")
     run_submission(card)
 
-    header("[11/17] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    header("[11/18] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
     fit_counts = run_fit_phase(card)
 
-    header("[12/17] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
+    header("[12/18] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    header("[13/17] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
+    header("[13/18] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
         "(B4 and B4-bwd heads, B2 cluster, B2-bwd general route); the TL pass past the log, card vs CPU")
     scaled_counts, first_errs, scaled_train = run_scaled_phase(card)
 
-    header("[14/17] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
+    header("[14/18] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
         "a scripted agent, history, card vs CPU")
     serve_summary, serve_counts = run_serve_phase(card)
 
-    header("[15/17] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
+    header("[15/18] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
         "vs one process on the union batch, and their validation")
     parallel = run_parallel_phase(card)
 
-    header("[16/17] the TrafficBots RNN family at full width: joint_future_pred and a training step through the "
+    header("[16/18] the TrafficBots RNN family at full width: joint_future_pred and a training step through the "
         "kernels; the phase-4 config card vs CPU")
     rnn = run_rnn_phase(card)
 
-    header("[17/17] the navigation family: goal, cmd and dest (re-predicting) card vs CPU at the phase-4 config; goal "
+    header("[17/18] the navigation family: goal, cmd and dest (re-predicting) card vs CPU at the phase-4 config; goal "
            "with re-prediction at full width, joint_future_pred through the kernels")
     navi = run_navi_phase(card)
+
+    header("[18/18] the variants: categorical latents with a learned prior, stop-line TL tokens and the stacked TL "
+           "input at full width, joint_future_pred and a training step through the kernels; every input, TL, pose "
+           "and latent variant card vs CPU at the phase-4 config")
+    variants = run_variant_phase(card)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -3595,9 +3905,13 @@ def main() -> int:
         part["launches"] = by_shape[(kernel, bf, *shape)]
     bwd_rows[0]["heads_route"].update(launches=scaled_counts["train_use_pallas"]["knarpe_attention_bwd"],
                                       path_launch_max_abs_err=first_errs["knarpe_attention_bwd"])
-    for row in rows + bwd_rows:  # per phase 16 (a) call and (c) step, per phase 17 (b) call
+    for row in rows + bwd_rows:  # per phase 16 (a) call and (c) step, per phase 17 (b) call, per phase 18 (a) call
         row["rnn_launches"] = {"eval_call": rnn["eval"][row["name"]], "train_step": rnn["train"][row["name"]]}
         row["navi_launches"] = {"eval_call": navi["eval"][row["name"]]}
+        row["variant_launches"] = {"eval_call": variants["eval"][row["name"]],  # and step, by route
+                                   "train_step": variants["train"][row["name"]],
+                                   "eval_call_by_route": by_route(variants["eval_by_route"], row["name"]),
+                                   "train_step_by_route": by_route(variants["train_by_route"], row["name"])}
     rows += bwd_rows
     for row in rows:
         for key, val in row.items():
@@ -3610,7 +3924,8 @@ def main() -> int:
     print(json.dumps({"serve": serve_summary}))
     print(json.dumps({"kernels": rows, "parallel": parallel,
                       "rnn": {k: v for k, v in rnn.items() if k not in ("eval", "train")},
-                      "navi": {k: v for k, v in navi.items() if k != "eval"}}))
+                      "navi": {k: v for k, v in navi.items() if k != "eval"},
+                      "variants": {k: v for k, v in variants.items() if k not in ("eval", "train")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -191,7 +191,7 @@ def _attention(name, device, use_pallas):
     a = _inputs(ins, device)
     mapped = ti.map_attention(sd, "", meta["d_model"], meta.get("apply_q_rpe", False))
     m = _loaded(AttentionRPE(meta["d_model"], meta["n_head"], d_rpe=meta.get("d_rpe", -1), use_pallas=use_pallas,
-                             dropout_p=0.1), mapped, device)
+                             dropout_p=0.1, apply_q_rpe=meta.get("apply_q_rpe", False)), mapped, device)
     with torch.no_grad():
         y = m(a["src"], a.get("tgt"), tgt_padding_mask=a["pad"], rpe=a.get("rpe"))
     return [close("y", y, outs["y"], ATTN)]
@@ -206,6 +206,7 @@ def run_attn_rpe(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Chec
 
 
 def run_attn_rpe_q(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
+    """The query RPE (rpe_q, rpe_k, rpe_v from one [3d, d_rpe] projection): the plain path whatever use_pallas says."""
     return _attention("attn_rpe_q", device, use_pallas)
 
 
@@ -312,6 +313,11 @@ def _dist_encoder(name, device, std_tol=CLOSE):
     m = _loaded(dist_encoder(cfg, 64, 16, a["ag_type"].shape[-1]), mapped, device)
     with torch.no_grad():
         dist = m(a["x"], a["valid"], a["ag_type"])
+        if cfg.dist_type in ("cat", "std_cat"):
+            checks = [close("logits", dist.logits, outs["logits"])]
+            if "sample" in a:
+                checks.append(close("log_prob", dist.log_prob(a["sample"]), outs["log_prob"]))
+            return checks
     return [close("mean", dist.mean, outs["mean"]), close("std", dist.std, outs["std"], std_tol)]
 
 
@@ -324,6 +330,7 @@ def run_dist_enc_diag_gaus_branch(device="cpu", use_pallas=False, dense_knn_max=
 
 
 def run_dist_enc_cat_branch(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
+    """The type-branched `cat` head: one logits MLP per agent type, each masked to its type, summed."""
     return _dist_encoder("dist_enc_cat_branch", device)
 
 
@@ -332,6 +339,7 @@ def run_dist_enc_cat_plain(device="cpu", use_pallas=False, dense_knn_max=128) ->
 
 
 def run_dist_enc_std_cat(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
+    """The parameter-free `std_cat` head's zero logits and its `MultiCategorical.log_prob` of the golden's one-hot."""
     return _dist_encoder("dist_enc_std_cat", device)
 
 
@@ -415,14 +423,28 @@ def run_navi_pred_goal_rnn(device="cpu", use_pallas=False, dense_knn_max=128) ->
 
 
 def run_tl_encoder_stacked(device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
+    """The stacked-input TL encoder (`temp_stack_input`) over a 7-step window, left-padded to its 11 slots: the
+    lane tokens' attr and the TL feature after 2 decoder layers (JAX `test_tl_encoder_stacked_parity`'s tolerances:
+    `close`'s on the attr, 5e-5 / 1e-3 on the feature), its decoder self-attention dense-masked at dense_knn_max
+    128 and project-then-gather at 0. Both attentions read the static K/V that `precompute` hoists: no kernel."""
+    from trafficbotsv15_tpu_torch.models.tokens import MapTokens
     from trafficbotsv15_tpu_torch.models.traffic_light import TrafficLightEncoder
     from trafficbotsv15_tpu_torch.ops.pose_emb import PoseEmbConfig
 
-    _, _, _, meta = load_golden("model", "tl_encoder_stacked")
-    TrafficLightEncoder(pc.TlEncoderCfg(temp_stack_input=True, n_layer_tf=meta["n_layer_tf"]),
-                        pc.TransformerCfg(d_model=64), 64, 5, "lane", meta["temp_window_size"], 32, 500.0,
-                        PoseEmbConfig(mode="pe_xy_yaw", pe_dim=64))
-    raise AssertionError("the stacked-input TL encoder was built: hold it against tl_encoder_stacked")
+    sd, ins, outs, meta = load_golden("model", "tl_encoder_stacked")
+    a = _inputs(ins, device)
+    w = meta["temp_window_size"]
+    cfg = pc.TlEncoderCfg(temp_stack_input=True, n_layer_tf=meta["n_layer_tf"])
+    tf = pc.TransformerCfg(d_model=64, use_pallas=use_pallas, dense_knn_max=dense_knn_max)
+    m = _loaded(TrafficLightEncoder(cfg, tf, 64, 5, "lane", w, 32, 500.0, PoseEmbConfig(mode="pe_xy_yaw", pe_dim=64)),
+                ti.map_tl_encoder(sd, "", cfg, 64, w, pc.PolylineEncoderCfg()), device)
+    mp = MapTokens(invalid=a["mp_invalid"], feature=a["mp_feature"], pose=a["mp_pose"],
+                   type=torch.ones(a["mp_invalid"].shape + (11,), dtype=torch.bool, device=device))
+    with torch.no_grad():
+        tok = m.precompute(a["tl_valid"], a["tl_attr"].long(), a["tl_pose"], mp)
+        feat = m(a["tl_state"], tok)
+    return [close("tl_token_attr", tok.attr, outs["tl_token_attr"]), close("tl_feature", feat, outs["tl_feature"],
+                                                                           (5e-5, 1e-3))]
 
 
 # ----------------------------------------------------------------- the whole model
@@ -531,10 +553,9 @@ MODEL_CASES = [
     ("dist_enc_diag_gaus", {}), ("dist_enc_diag_gaus_branch", {}),
     ("tl_predictor_hptr", {}), ("gru_seq", {}), ("gru_step", {}),
     ("navi_pred_cmd_hptr", {}), ("navi_pred_goal_rnn", {}),
+    ("attn_rpe_q", {}), ("dist_enc_cat_branch", {}), ("dist_enc_cat_plain", {}), ("dist_enc_std_cat", {}),
+    ("input_encoder_input", {}), ("tl_encoder_stacked", {}), ("tl_encoder_stacked", {"dense_knn_max": 0}),
 ]
-# goldens of variants the port refuses until A11b ports them
-MODEL_REFUSED = ["attn_rpe_q", "dist_enc_cat_branch", "dist_enc_cat_plain", "dist_enc_std_cat",
-                 "input_encoder_input", "tl_encoder_stacked"]
 # the goldens a KNARPE kernel runs with use_pallas=True: case -> (runner kwargs, kernel launches by name)
 KERNEL_CASES = {
     "attn_rpe": ({}, {"knarpe_cross_attention": 1}),
@@ -551,6 +572,8 @@ KERNEL_CASES = {
     # the goal / cmd navi predictor's tf_ag2mp: B2 once per layer (2), over the K = 32 nearest map polylines
     "navi_pred_cmd_hptr": ({}, {"knarpe_cross_attention": 2}),
     "navi_pred_goal_rnn": ({}, {"knarpe_cross_attention": 2}),
+    # no entry for attn_rpe_q (apply_q_rpe takes no kernel, as in the JAX package) or tl_encoder_stacked (the main
+    # TL encoder attends over its static K/V and static decoder RPE, which no kernel takes)
 }
 
 
@@ -612,13 +635,6 @@ def test_traffic_bots_rnn_golden(rnn_checks, stage, use_pallas):
     """The RNN family at each stage, 11 steps with the hiddens carried (use_pallas at dense_knn_max 0: the map
     and agent self-attentions on B4's plain version, the agent cross-attentions on B2's)."""
     rnn_checks[use_pallas][stage].assert_ok()
-
-
-@pytest.mark.parametrize("case", MODEL_REFUSED)
-def test_model_golden_refused(case):
-    """Each golden whose variant the port does not run yet: the port refuses it, until A11b."""
-    with pytest.raises(NotImplementedError):
-        run_case(case)
 
 
 @pytest.mark.parametrize("case", sorted(KERNEL_CASES))

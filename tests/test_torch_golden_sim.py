@@ -331,9 +331,7 @@ SIM_CASES = ["pose_emb_mpa_pl", "pose_emb_pe_xy_yaw", "diffbar_reward_il", "diff
              "diffbar_reward_coll_max", "dynamics_dest", "dynamics_vehall", "dynamics_goal", "dynamics_integrator",
              "teacher_forcing_flagship", "teacher_forcing_reset", "teacher_forcing_gtsdc_prob1",
              "preproc_train_lane_dest", "preproc_test_lane_goal", "womd_post_topk", "womd_post_mtr",
-             "womd_post_aggr", "wosac_post"]
-# goldens of variants the port refuses until A11b ports them
-SIM_REFUSED = ["pose_emb_xy_dir", "pose_emb_pe_xy_dir", "preproc_train_stop_cmd"]
+             "womd_post_aggr", "wosac_post", "pose_emb_xy_dir", "pose_emb_pe_xy_dir", "preproc_train_stop_cmd"]
 
 
 def run_case(case: str, device="cpu", use_pallas=False, dense_knn_max=128) -> List[Check]:
@@ -348,13 +346,6 @@ def _threads():
 @pytest.mark.parametrize("case", SIM_CASES)
 def test_sim_golden(case):
     assert_checks(run_case(case))
-
-
-@pytest.mark.parametrize("case", SIM_REFUSED)
-def test_sim_golden_refused(case):
-    """Each golden whose variant the port does not run yet: the port refuses it, until A11b."""
-    with pytest.raises(NotImplementedError):
-        run_case(case)
 
 
 def test_dynamics_goldens_reach_the_player_override_and_the_new_navi():

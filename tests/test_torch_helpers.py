@@ -128,10 +128,21 @@ def jax_navi_noise(cfg, key, n_sc: int, n_ag: int, n_mp: int):
     return noise
 
 
+def jax_latent_noise(cfg, k_sample, n_sc: int, n_ag: int):
+    """The noise of JAX `_select_latent`'s draws with k_sample (both from one key): the standard normal of a Gaussian
+    latent [n_sc, n_ag, latent_dim], or the Gumbel noise [n_sc, n_ag, n_cat, latent_dim // n_cat] of a categorical
+    one (`MultiCategorical.sample` is `jax.random.categorical`, argmax(logits + gumbel(key, logits.shape)))."""
+    lat = cfg.model.latent_encoder
+    if lat.latent_dim > 0 and lat.latent_post.dist_type in ("cat", "std_cat"):
+        n_cat = lat.latent_post.n_cat
+        return jax.random.gumbel(k_sample, (n_sc, n_ag, n_cat, lat.latent_dim // n_cat), jnp.float32)
+    return jax.random.normal(k_sample, (n_sc, n_ag, max(lat.latent_dim, 1)))
+
+
 def jax_training_noise(cfg, batch, key, n_seeds=None):
     """The JAX `training_forward(key)`'s own random draws, as the port's noise dict: the uniforms
     behind its Bernoulli masks (history dropout, prior choice, agent forcing, irrelevant-agent loss)
-    and the latent noise, from the same key splits, and with re-prediction the rollout's navi noise
+    and the latent noise (`jax_latent_noise`), from the same key splits, and with re-prediction the rollout's navi noise
     per step (`jax_navi_noise`). Dropout seeds are plain integers."""
     k_pre, k_latent, k_tf, k_roll, _, k_loss = jax.random.split(key, 6)
     n_sc, n_mp, n_node = batch["map/valid"].shape
@@ -148,7 +159,7 @@ def jax_training_noise(cfg, batch, key, n_seeds=None):
         u_mp=t(jax.random.uniform(k1, (n_sc, n_mp, n_node - 1))),
         u_ag=t(jax.random.uniform(k2, (n_sc, n_ag, cfg.n_step_hist - 1))),
         u_prior=t(jax.random.uniform(k_sel, ())),
-        latent_eps=t(jax.random.normal(k_sample, (n_sc, n_ag, max(cfg.model.latent_encoder.latent_dim, 1)))),
+        latent_eps=t(jax_latent_noise(cfg, k_sample, n_sc, n_ag)),
         u_agent=t(jax.random.uniform(kt1, (n_sc, n_ag))) if tf.prob_forcing_agent > 0 else None,
         u_ss=t(jax.random.uniform(kt2, (n_sc, n_ag, n_step))) if tf.prob_scheduled_sampling > 0 else None,
         u_irrelevant=t(jax.random.uniform(k_loss, (n_sc, n_ag, 1))) if 0 < lm.p_loss_for_irrelevant < 1 else None,
@@ -163,12 +174,13 @@ def jax_training_noise(cfg, batch, key, n_seeds=None):
 GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-7, 1e-5
 
 
-def train_step_parity(cfg, key_seed: int = 3, edit_tree=None, batch_seed: int = 1):
+def train_step_parity(cfg, key_seed: int = 3, edit_tree=None, batch_seed: int = 1, to_port=None):
     """One training step of both packages on tiny-config weights (gain 0.5) and one batch, with the
     JAX draws handed to the port: JAX `jax.jit(jax.value_and_grad(training_forward))` and the port's
     `make_train_step` (its clip off and its optimizer replaced by a recorder of the gradients).
     edit_tree(tree) -> tree, if given, edits the random weights before both packages get them; batch_seed seeds the
-    synthetic batch.
+    synthetic batch; to_port(tree) -> (port cfg, port model), if given, builds the port's side (by default
+    `port_cfg(cfg)` and `port_model(cfg, tree)`).
     Returns dict(jax_loss, jax_metrics, jax_grads {port name: array}, port_metrics, port_grads, model)."""
     from trafficbotsv15_tpu.data.synthetic import make_batch
     from trafficbotsv15_tpu.train import pipeline as jax_pipeline
@@ -189,7 +201,7 @@ def train_step_parity(cfg, key_seed: int = 3, edit_tree=None, batch_seed: int = 
             to_jnp(tree), {k: jnp.asarray(v) for k, v in batch.items()})
     jgrads = params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
 
-    model = port_model(cfg, tree)
+    pcfg, model = (port_cfg(cfg), port_model(cfg, tree)) if to_port is None else to_port(tree)
     recorded = {}
 
     class Recorder:  # the optimizer's stand-in; with the clip off it sees the raw gradients
@@ -198,7 +210,6 @@ def train_step_parity(cfg, key_seed: int = 3, edit_tree=None, batch_seed: int = 
         def step(self):
             recorded.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
 
-    pcfg = port_cfg(cfg)
     pcfg = dataclasses.replace(pcfg, optimizer=dataclasses.replace(pcfg.optimizer, grad_clip_norm=math.inf))
     step = port_pipeline.make_train_step(pcfg, model, Recorder(), device="cpu")
     metrics = step(batch, noise=jax_training_noise(cfg, batch, key))

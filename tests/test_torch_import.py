@@ -34,7 +34,7 @@ def _flax_params(module, *args, method=None, **kwargs):
     """The flax param structure of `module` on these inputs, as numpy zeros (no compute)."""
     init = (lambda: module.init(RNG, *args, **kwargs)) if method is None else (
         lambda: module.init(RNG, *args, method=method, **kwargs))
-    shapes = jax.eval_shape(init)["params"]
+    shapes = jax.eval_shape(init).get("params", {})  # a parameter-free module (std_cat) has none
     return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
 
 
@@ -78,7 +78,7 @@ def _jax_case(name):
                                      d_rpe=meta.get("d_rpe", -1), apply_q_rpe=meta.get("apply_q_rpe", False))
         args = (a["src"],) + ((a["tgt"],) if "tgt" in a else ())
         kw = dict(tgt_padding_mask=a["pad"], **({"rpe": a["rpe"]} if "rpe" in a else {}))
-        return jti.map_attention(sd, "", meta["d_model"]), m, args, kw
+        return jti.map_attention(sd, "", meta["d_model"], meta.get("apply_q_rpe", False)), m, args, kw
     if name.startswith("tfblock_"):
         fields = {
             "tfblock_enc_self_knn": dict(tgt_idx="idx", tgt_padding_mask="knn_pad", rpe="rpe"),
@@ -124,6 +124,28 @@ def _jax_case(name):
         m = latent_encoder.DistEncoder(cfg=cfg, hidden_dim=64, out_dim=16)
         return (jti.map_dist_encoder(sd, "", "diag_gaus", 3, branch, False, not branch), m,
                 (a["x"], a["valid"], a["ag_type"]), {})
+    if name.startswith(("dist_enc_cat", "dist_enc_std_cat")):
+        branch, dist_type = name.endswith("branch"), meta["dist_type"]
+        cfg = jc.DistEncoderCfg(dist_type=dist_type, branch_type=branch, n_cat=meta["n_cat"], log_std=None, n_layer=3)
+        m = latent_encoder.DistEncoder(cfg=cfg, hidden_dim=64, out_dim=16)
+        return (jti.map_dist_encoder(sd, "", dist_type, 3, branch, False, False), m,
+                (a["x"], a["valid"], a["ag_type"]), {})
+    if name == "tl_encoder_stacked":
+        from trafficbotsv15_tpu.models.tokens import MapTokens
+        from trafficbotsv15_tpu.ops.pose_emb import PoseEmbConfig
+
+        cfg, w = jc.TlEncoderCfg(temp_stack_input=True, n_layer_tf=meta["n_layer_tf"]), meta["temp_window_size"]
+        m = traffic_light.TrafficLightEncoder(
+            cfg=cfg, tf_cfg=jc.TransformerCfg(d_model=64), hidden_dim=64, tl_state_dim=5, tl_mode="lane",
+            pairwise_relative=True, temp_window_size=w, n_tgt_knn=32, dist_limit=500.0,
+            pose_rpe=PoseEmbConfig(mode="pe_xy_yaw", pe_dim=64, theta_xy=1e3, theta_cs=1e1))
+        mp = MapTokens(invalid=a["mp_invalid"], feature=a["mp_feature"], pose=a["mp_pose"],
+                       type=jnp.ones(a["mp_invalid"].shape + (11,), bool))
+
+        def fwd(mdl):
+            return mdl(a["tl_state"], mdl.precompute(a["tl_valid"], a["tl_attr"].astype(jnp.int32), a["tl_pose"], mp))
+
+        return jti.map_tl_encoder(sd, "", cfg, 64, w, jc.PolylineEncoderCfg()), m, (), dict(method=fwd)
     if name == "tl_predictor_hptr":
         m = traffic_light.TrafficLightStatePredictor(cfg=jc.TlStatePredictorCfg(n_layer=3), hidden_dim=64,
                                                      tl_state_dim=5, temp_window_size=11)

@@ -92,16 +92,37 @@ ATTN_CASES = {
     "dense": (128, -1,
               lambda m, x: m(x["src"], tgt_padding_mask=x["mask2d"]),
               lambda m, x: m(x["src"], tgt_padding_mask=x["mask2d"])),
+    # apply_q_rpe (rpe_proj gives rpe_q, rpe_k, rpe_v): KNN self-attention, which skips the dense-KNN form at any
+    # size, and the KNN cross-attention over raw targets with the LayerNorm fold; the port's plain path with
+    # use_pallas as without
+    "q_rpe_self": (128, D,
+                   lambda m, x: m(x["src"], tgt_padding_mask=x["kinv"], rpe=x["rpe"], tgt_idx=x["idx"]),
+                   lambda m, x: m(x["src"], tgt_padding_mask=x["kinv"], rpe=x["rpe"], tgt_idx=x["idx"]),
+                   dict(apply_q_rpe=True)),
+    "q_rpe_cross_pallas": (128, D,
+                           lambda m, x: m(x["src"], x["tgt"], tgt_padding_mask=x["kinv"], rpe=x["rpe"],
+                                          tgt_ln=x["ln"]),
+                           lambda m, x: m(x["src"], x["tgt"], tgt_padding_mask=x["kinv"], rpe=x["rpe"],
+                                          tgt_ln=x["ln"]),
+                           dict(apply_q_rpe=True, use_pallas=True)),
+    "q_rpe_self_pallas": (4, D,
+                          lambda m, x: m(x["src"], tgt_padding_mask=x["kinv"], rpe=x["rpe"], tgt_idx=x["idx"]),
+                          lambda m, x: m(x["src"], tgt_padding_mask=x["kinv"], rpe=x["rpe"], tgt_idx=x["idx"]),
+                          dict(apply_q_rpe=True, use_pallas=True)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ATTN_CASES))
-def test_attention_rpe_branches(case):
-    dense_knn_max, d_rpe, jfn, pfn = ATTN_CASES[case]
+def test_attention_rpe_branches(case, monkeypatch):
+    dense_knn_max, d_rpe, jfn, pfn, *extra = ATTN_CASES[case]
+    kw = extra[0] if extra else {}
     x = _attn_inputs()
     x["kinv"][0, 3] = True  # a source with no valid target gets a zero output
-    jm = JAttn(d_model=D, n_head=H, d_rpe=d_rpe, dense_knn_max=dense_knn_max)
-    pm = AttentionRPE(D, H, d_rpe=d_rpe, dense_knn_max=dense_knn_max)
+    jm = JAttn(d_model=D, n_head=H, d_rpe=d_rpe, dense_knn_max=dense_knn_max, apply_q_rpe=kw.get("apply_q_rpe", False))
+    pm = AttentionRPE(D, H, d_rpe=d_rpe, dense_knn_max=dense_knn_max, **kw)
+    from torch_rnn_common import count_wrappers
+
+    calls = count_wrappers(monkeypatch)
     jx = {k: (tuple(map(jnp.asarray, v)) if isinstance(v, tuple) else jnp.asarray(v)) for k, v in x.items()}
     px = {k: (tuple(map(T, v)) if isinstance(v, tuple) else T(v)) for k, v in x.items()}
     variables = _carry(jm, lambda m: jfn(m, jx), pm)
@@ -110,6 +131,9 @@ def test_attention_rpe_branches(case):
     _close(out, jm.apply(variables, method=lambda m: jfn(m, jx)), 1e-4)
     if case != "dense":
         assert torch.all(out[0, 3] == 0)
+    if kw.get("apply_q_rpe"):  # the query RPE takes no kernel, as in the JAX package
+        assert not calls["knarpe_attention"] and not calls["knarpe_cross_attention"]
+        assert tuple(pm.rpe_proj.weight.shape) == (3 * D, D) and not hasattr(pm, "rpe_proj_w")
 
 
 @pytest.mark.parametrize("mode,dense_knn_max,static", [
@@ -157,6 +181,46 @@ def test_transformer_block(mode, dense_knn_max, static):
     _close(out, jb.apply(variables, method=jfn), 1e-4)
 
 
+@pytest.mark.parametrize("mode", ["dec_cross_attn", "enc_self_attn"])
+def test_transformer_block_q_rpe(mode, monkeypatch):
+    """Two layers with apply_q_rpe and use_pallas: the agent encoder's block (KNN cross-attention over raw targets,
+    decoder KNN self-attention) and the map encoder's (KNN self-attention at a size the dense-KNN form would take);
+    no kernel wrapper is called."""
+    from torch_rnn_common import count_wrappers
+
+    n_b, n_src, k, kd = 2, 10, 6, 4
+    src, src_inv = _f32(n_b, n_src, D), RNG.uniform(size=(n_b, n_src)) < 0.2
+    idx, kinv = _knn_idx(n_b, n_src, kd)
+    rpe_d = _f32(n_b, n_src, kd, D)
+    tgt, tinv, rpe = _f32(n_b, n_src, k, D, scale=2.0), RNG.uniform(size=(n_b, n_src, k)) < 0.3, _f32(n_b, n_src, k, D)
+    jb = JBlock(d_model=D, n_head=H, n_layer=2, mode=mode, d_rpe=D, apply_q_rpe=True)
+    pb = TransformerBlock(TransformerCfg(d_model=D, n_head=H, apply_q_rpe=True, use_pallas=True), 2, mode, d_rpe=D)
+    J = jnp.asarray
+    if mode == "enc_self_attn":
+        def jfn(m):
+            return m(J(src), src_padding_mask=J(src_inv), tgt_idx=J(idx), tgt_padding_mask=J(kinv), rpe=J(rpe_d))
+
+        def pfn(m):
+            return m(T(src), src_padding_mask=T(src_inv), tgt_idx=T(idx), tgt_padding_mask=T(kinv), rpe=T(rpe_d))
+    else:
+        def jfn(m):
+            return m(J(src), src_padding_mask=J(src_inv), tgt=J(tgt), tgt_padding_mask=J(tinv), rpe=J(rpe),
+                     decoder_tgt_idx=J(idx), decoder_tgt_padding_mask=J(kinv), decoder_rpe=J(rpe_d))
+
+        def pfn(m):
+            return m(T(src), src_padding_mask=T(src_inv), tgt=T(tgt), tgt_padding_mask=T(tinv), rpe=T(rpe),
+                     decoder_tgt_idx=T(idx), decoder_tgt_padding_mask=T(kinv), decoder_rpe=T(rpe_d))
+    variables = _carry(jb, jfn, pb)
+    calls = count_wrappers(monkeypatch)
+    with torch.no_grad():
+        out = pfn(pb)
+    _close(out, jb.apply(variables, method=jfn), 1e-4)
+    assert not calls["knarpe_attention"] and not calls["knarpe_cross_attention"]
+    if mode == "dec_cross_attn":
+        with pytest.raises(ValueError, match="apply_q_rpe"):  # JAX asserts on the same hoist
+            pb.compute_static_kv(tgt=T(tgt), rpe=T(rpe), decoder_rpe=T(rpe_d))
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cfg = tiny_config()
@@ -167,14 +231,32 @@ def tiny():
 
 def _inputs(cfg, n_mp):
     batch = make_batch(cfg.data.__class__(**{**cfg.data.__dict__, "n_mp": n_mp}), n_sc=2, seed=4)
-    jpp = jax_pre({k: jnp.asarray(v) for k, v in batch.items()}, n_step_hist=cfg.n_step_hist)
-    ppp = port_pre({k: T(v) for k, v in batch.items()}, n_step_hist=cfg.n_step_hist)
+    tl_mode = cfg.model.tl_mode
+    jpp = jax_pre({k: jnp.asarray(v) for k, v in batch.items()}, tl_mode=tl_mode, n_step_hist=cfg.n_step_hist)
+    ppp = port_pre({k: T(v) for k, v in batch.items()}, tl_mode=tl_mode, n_step_hist=cfg.n_step_hist)
     return jpp, ppp
 
 
 @pytest.mark.parametrize("n_mp", [32, 160])  # map self-attention dense-KNN / project-then-gather
 def test_traffic_bots_methods(tiny, n_mp):
-    cfg, jmodel, params, pmodel = tiny
+    _methods_match(*tiny, n_mp)
+
+
+@pytest.mark.parametrize("variant", ["stop", "stacked", "input", "pe_xy_dir", "xy_dir"])
+def test_traffic_bots_variant_methods(variant):
+    """The same methods in the input, TL and pose variants (`tests/torch_variant_common.py`, gain-0.5 weights; the
+    xy_dir RPE projection scaled there): map tokens (mode `input`, the RPE modes), the TL tokens and a TL step
+    (stop lines: no attr; the stacked window), navi, a policy step. apply_q_rpe is not among them: the JAX model
+    fails on it (`tests/test_torch_variants.py`)."""
+    from torch_variant_common import prepare
+    from trafficbotsv15_tpu.train.pipeline import build_model as jax_build_model
+
+    jcfg, _, tree, pmodel = prepare(variant)
+    _methods_match(jcfg, jax_build_model(jcfg), to_jnp(tree), pmodel, 160)
+
+
+def _methods_match(cfg, jmodel, params, pmodel, n_mp):
+    """encode_map, precompute_tl, step_tl, predict_navi and step of the JAX and the port's model agree."""
     jpp, ppp = _inputs(cfg, n_mp)
 
     def app(method, *a, **kw):
@@ -189,6 +271,9 @@ def test_traffic_bots_methods(tiny, n_mp):
         ptl = pmodel.precompute_tl(ppp.tl_valid, ppp.tl_attr, ppp.tl_pose, pmp)
         np.testing.assert_array_equal(ptl.knn_idx_tl2tl.numpy(), np.asarray(jtl.knn_idx_tl2tl))
         for f in ("attr", "knn_tgt_tl2mp", "rpe_tl2mp", "rpe_tl2tl"):
+            if getattr(jtl, f) is None:  # stop mode: no lane attr
+                assert getattr(ptl, f) is None, f
+                continue
             _close(getattr(ptl, f), getattr(jtl, f), 2e-4)
 
         w = cfg.model.temp_window_size

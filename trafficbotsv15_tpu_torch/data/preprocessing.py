@@ -1,6 +1,12 @@
 """Scene-centric pre-processing: batch dict -> model inputs (counterpart of
 `trafficbotsv15_tpu/data/preprocessing.py`).
 
+The traffic-light tokens are lanes (`tl_mode="lane"`: `tl_lane/*`, the
+lane's index as tl_attr and its first node's pose) or stop lines (`"stop"`:
+`tl_stop/*`, no tl_attr, the stop's position with the heading atan2 of its
+direction; the JAX package's corrected form of the reference's concat,
+`docs/PARITY.md` L2).
+
 Training adds history dropout: each map node but the first and each agent
 history step but the last is dropped with probability `dropout_p_history`,
 from uniform draws the caller makes (`train/pipeline.py` draws them from
@@ -24,7 +30,7 @@ class PreProcessedBatch:
     mp_pose: torch.Tensor  # [n_sc, n_mp, n_node, 3]
     mp_type: torch.Tensor  # [n_sc, n_mp, n_mp_type] bool
     tl_valid: torch.Tensor  # [n_sc, n_tl]
-    tl_attr: Optional[torch.Tensor]  # [n_sc, n_tl] lane index
+    tl_attr: Optional[torch.Tensor]  # [n_sc, n_tl] lane index (lane mode) or None
     tl_state: torch.Tensor  # [n_sc, n_tl, n_step_hist, 5]
     tl_pose: torch.Tensor  # [n_sc, n_tl, 3]
     ag_valid: torch.Tensor  # [n_sc, n_ag, n_step_hist]
@@ -63,16 +69,21 @@ def pre_processing(batch: Dict[str, torch.Tensor], tl_mode: str = "lane", navi_m
     With training, 0 < dropout_p_history <= 1 and the uniform draws u_mp [n_sc, n_mp, n_node - 1]
     and u_ag [n_sc, n_ag, n_step_hist - 1], a node or step is kept where its draw is below
     1 - dropout_p_history (jax.random.bernoulli's rule)."""
-    if tl_mode != "lane":
-        raise NotImplementedError(f"tl_mode {tl_mode!r}: only the lane mode is on the joint-future path")
+    if tl_mode not in ("lane", "stop"):
+        raise ValueError(f"tl_mode {tl_mode!r}")
     prefix = "" if (training or "agent/valid" in batch) else "history/"
     mp_pose = torch.cat([batch["map/pos"][..., :2], _atan2_dir(batch["map/dir"])], -1)
 
+    tlk = f"tl_{tl_mode}"
     tl_valid, tl_state = merge_invalid_tl_into_state(
-        batch[f"{prefix}tl_lane/valid"][:, :, :n_step_hist], batch[f"{prefix}tl_lane/state"][:, :, :n_step_hist])
-    tl_attr = batch[f"{prefix}tl_lane/idx"]
-    idx = torch.clamp(tl_attr, 0, mp_pose.shape[1] - 1).long()
-    tl_pose = torch.gather(mp_pose[:, :, 0], 1, idx[..., None].expand(-1, -1, 3))
+        batch[f"{prefix}{tlk}/valid"][:, :, :n_step_hist], batch[f"{prefix}{tlk}/state"][:, :, :n_step_hist])
+    if tl_mode == "stop":
+        tl_attr = None
+        tl_pose = torch.cat([batch[f"{prefix}tl_stop/pos"][..., :2], _atan2_dir(batch[f"{prefix}tl_stop/dir"])], -1)
+    else:
+        tl_attr = batch[f"{prefix}tl_lane/idx"]
+        idx = torch.clamp(tl_attr, 0, mp_pose.shape[1] - 1).long()
+        tl_pose = torch.gather(mp_pose[:, :, 0], 1, idx[..., None].expand(-1, -1, 3))
 
     size = batch[f"{prefix}agent/size"]
     ag_motion = torch.cat([batch[f"{prefix}agent/{k}"][:, :, :n_step_hist] for k in ("spd", "acc", "yaw_rate")], -1)
@@ -88,7 +99,7 @@ def pre_processing(batch: Dict[str, torch.Tensor], tl_mode: str = "lane", navi_m
 
     gt = dict(gt_valid=None, gt_motion=None, gt_pose=None, gt_navi=None, gt_tl_valid=None, gt_tl_state=None)
     if "agent/valid" in batch:
-        gt_tl_valid, gt_tl_state = merge_invalid_tl_into_state(batch["tl_lane/valid"], batch["tl_lane/state"])
+        gt_tl_valid, gt_tl_state = merge_invalid_tl_into_state(batch[f"{tlk}/valid"], batch[f"{tlk}/state"])
         gt.update(
             gt_valid=batch["agent/valid"],
             gt_motion=torch.cat([batch["agent/spd"], batch["agent/acc"], batch["agent/yaw_rate"]], -1),

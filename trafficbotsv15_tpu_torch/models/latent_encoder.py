@@ -7,12 +7,16 @@ agent encoders, with a (time_step_gt + 1) // rate + 1 window in HPTR mode
 whole sequence: `AgentEncoder._forward_rnn_latent`), and a `diag_gaus`
 head. The flagship prior is `std_gaus`, whose head runs no network. A
 learned prior has encoders of its own, or the posterior's with
-`share_post_prior_encoders`. The categorical heads (`cat`, `std_cat`) raise.
+`share_post_prior_encoders`. The categorical heads draw a flattened one-hot
+of `n_cat` factors of `latent_dim // n_cat` classes: `std_cat` (zero logits,
+no network) and `cat` (an MLP's logits). The posterior and the prior must be
+of one family, Gaussian or categorical: the KL between them and their shared
+training noise are defined only so.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -20,9 +24,12 @@ from torch import nn
 from trafficbotsv15_tpu_torch.config import AgEncoderCfg, DistEncoderCfg, LatentEncoderCfg, TlEncoderCfg, TransformerCfg
 from trafficbotsv15_tpu_torch.models.agent_encoder import AgentEncoder
 from trafficbotsv15_tpu_torch.models.heads import GaussianHead
+from trafficbotsv15_tpu_torch.models.mlp import MLP
 from trafficbotsv15_tpu_torch.models.tokens import MapTokens, TlTokens
 from trafficbotsv15_tpu_torch.models.traffic_light import TrafficLightEncoder
-from trafficbotsv15_tpu_torch.ops.distributions import DiagGaussian
+from trafficbotsv15_tpu_torch.ops.distributions import DiagGaussian, MultiCategorical
+
+CATEGORICAL = ("cat", "std_cat")
 
 
 class StdGaussian(nn.Module):
@@ -40,15 +47,74 @@ class StdGaussian(nn.Module):
         return DiagGaussian(mean, torch.ones_like(mean), valid=valid)
 
 
+class StdCategorical(nn.Module):
+    """The `std_cat` latent head: uniform categoricals (zero logits), no network."""
+
+    skips_forward = True
+
+    def __init__(self, n_cat: int, out_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.n_cat, self.n_class, self.dtype = n_cat, out_dim // n_cat, dtype
+
+    def forward(self, x, valid: torch.Tensor, ag_type=None) -> MultiCategorical:
+        """valid [n_sc, n_ag] -> logits [n_sc, n_ag, n_cat, n_class]; x and ag_type unused."""
+        shape = tuple(valid.shape) + (self.n_cat, self.n_class)
+        return MultiCategorical(torch.zeros(shape, dtype=self.dtype, device=valid.device), valid=valid)
+
+
+class CategoricalHead(nn.Module):
+    """The `cat` latent head: an MLP's logits, one MLP per agent type with `branch_type` (`logits{i}`, each masked
+    to its type's valid agents and summed), else one (`logits`)."""
+
+    skips_forward = False
+
+    def __init__(self, cfg: DistEncoderCfg, hidden_dim: int, out_dim: int, n_ag_type: int, dtype=torch.float32):
+        super().__init__()
+        self.branch_type, self.n_cat, self.n_class = cfg.branch_type, cfg.n_cat, out_dim // cfg.n_cat
+        self.branches = [str(i) for i in range(n_ag_type)] if cfg.branch_type else [""]
+        dims = [hidden_dim] * (cfg.n_layer - 1) + [out_dim]
+        for b in self.branches:
+            self.add_module(f"logits{b}", MLP(hidden_dim, dims, end_layer_activation=False,
+                                              use_layernorm=cfg.mlp_use_layernorm, dtype=dtype))
+
+    def forward(self, x, valid, ag_type) -> MultiCategorical:
+        """x [n_sc, n_ag, hidden], valid [n_sc, n_ag], ag_type one-hot [n_sc, n_ag, n_ag_type] (read by the
+        type-branched head only) -> logits [n_sc, n_ag, n_cat, n_class]."""
+        logits = 0.0
+        for i, b in enumerate(self.branches):
+            mask = ~(ag_type[..., i] & valid) if self.branch_type else ~valid
+            logits = logits + getattr(self, f"logits{b}")(x, mask)
+        return MultiCategorical(logits.reshape(tuple(valid.shape) + (self.n_cat, self.n_class)), valid=valid)
+
+
 def dist_encoder(cfg: DistEncoderCfg, hidden_dim: int, out_dim: int, n_ag_type: int,
                  dtype=torch.float32) -> nn.Module:
-    """Latent distribution head: `std_gaus` (`StdGaussian`) or `diag_gaus` (`GaussianHead`, unbranched or
-    type-branched, log_std a vector or an MLP). The categorical heads raise."""
+    """Latent distribution head: `std_gaus` (`StdGaussian`), `diag_gaus` (`GaussianHead`, unbranched or
+    type-branched, log_std a vector or an MLP), `std_cat` (`StdCategorical`) or `cat` (`CategoricalHead`,
+    unbranched or type-branched)."""
     if cfg.dist_type == "std_gaus":
         return StdGaussian(out_dim, dtype)
     if cfg.dist_type == "diag_gaus":
         return GaussianHead(cfg, hidden_dim, out_dim, n_ag_type, dtype=dtype)
-    raise NotImplementedError(f"latent head {cfg.dist_type!r} is not ported")
+    if cfg.dist_type == "std_cat":
+        return StdCategorical(cfg.n_cat, out_dim, dtype)
+    if cfg.dist_type == "cat":
+        return CategoricalHead(cfg, hidden_dim, out_dim, n_ag_type, dtype=dtype)
+    raise ValueError(f"latent head {cfg.dist_type!r}")
+
+
+def check_latent_cfg(cfg: LatentEncoderCfg) -> None:
+    """The posterior and the prior of one family, with the same factors where categorical: the KL between them
+    (`ops/distributions.py::balanced_kl`) and the one noise both draws take are defined only so."""
+    post, prior = cfg.latent_post, cfg.latent_prior
+    if cfg.latent_dim <= 0:
+        return
+    if (post.dist_type in CATEGORICAL) != (prior.dist_type in CATEGORICAL):
+        raise ValueError(f"latent_post {post.dist_type!r} and latent_prior {prior.dist_type!r}: the posterior and "
+                         f"the prior must both be Gaussian or both categorical")
+    if post.dist_type in CATEGORICAL and (post.n_cat != prior.n_cat or cfg.latent_dim % post.n_cat):
+        raise ValueError(f"categorical latents need one n_cat dividing latent_dim {cfg.latent_dim}: posterior "
+                         f"{post.n_cat}, prior {prior.n_cat}")
 
 
 class LatentEncoder(nn.Module):
@@ -58,6 +124,7 @@ class LatentEncoder(nn.Module):
         """enc_kw: what the TL and agent encoders share (pose_rpe, n_tgt_knn, dist_limit, temporal
         encoder settings); tl_kw / ag_kw: what only one of them takes."""
         super().__init__()
+        check_latent_cfg(cfg)
         self.cfg = cfg
         self.dummy = cfg.latent_dim <= 0
         if self.dummy:
@@ -87,7 +154,7 @@ class LatentEncoder(nn.Module):
                 self._prior_encoders = (self.tl_encoder_prior, self.ag_encoder_prior)
 
     def forward(self, ag_valid, ag_attr, ag_motion, ag_pose, ag_type, tl_state, mp_tokens: MapTokens,
-                tl_tokens: TlTokens, posterior: bool) -> Optional[DiagGaussian]:
+                tl_tokens: TlTokens, posterior: bool) -> Optional[Union[DiagGaussian, MultiCategorical]]:
         """ag_valid [n_sc, n_ag, n_step], ag_motion / ag_pose [.., n_step, 3], tl_state [n_sc, n_tl, n_step, 5]
         -> distribution over [n_sc, n_ag, latent_dim] (None when the latent is disabled). Only the
         type-branched heads read ag_type."""

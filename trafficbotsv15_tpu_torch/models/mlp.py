@@ -81,10 +81,12 @@ class MLP(nn.Module):
 
 
 class InputEncoder(nn.Module):
-    """Fuse attributes with a pose embedding: "cat" (MLP output ++ pe) or "add" (MLP output + pe)."""
+    """Fuse attributes with a pose embedding: "cat" (MLP output ++ pe), "add" (MLP output + pe) or "input" (the
+    MLP over attr ++ pe). With no pe (pe_dim 0) each is the MLP of the attributes."""
 
     def __init__(self, in_dim: int, hidden_dim: int, pe_dim: int, n_layer: int, mode: str,
                  mlp_use_layernorm: bool = False, mlp_dropout_p: float = 0.0, dtype=torch.float32):
+        """in_dim: the attributes' width (the "input" MLP takes in_dim + pe_dim)."""
         super().__init__()
         if mode == "cat":
             out_dim = hidden_dim - pe_dim
@@ -92,8 +94,11 @@ class InputEncoder(nn.Module):
             out_dim = hidden_dim
             if pe_dim not in (0, hidden_dim):
                 raise ValueError(f"add mode needs pe_dim 0 or {hidden_dim}, got {pe_dim}")
+        elif mode == "input":
+            out_dim = hidden_dim
+            in_dim += pe_dim
         else:
-            raise NotImplementedError(f"InputEncoder mode {mode!r} is not on the joint-future path")
+            raise ValueError(f"InputEncoder mode {mode!r}")
         self.mode = mode
         self.dtype = dtype
         self.mlp = MLP(in_dim, [out_dim] * n_layer, end_layer_activation=False,
@@ -102,6 +107,8 @@ class InputEncoder(nn.Module):
     def forward(self, attr, pe):
         if pe is None:
             return self.mlp(attr)
+        if self.mode == "input":
+            return self.mlp(torch.cat([attr.to(self.dtype), pe.to(self.dtype)], -1))
         if self.mode == "cat":
             return torch.cat([self.mlp(attr), pe.to(self.dtype)], -1)
         return self.mlp(attr) + pe.to(self.dtype)

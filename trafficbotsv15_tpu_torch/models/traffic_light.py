@@ -1,18 +1,27 @@
-"""Traffic-light encoder and next-state predictor, lane mode (counterpart of
+"""Traffic-light encoder and next-state predictor (counterpart of
 `trafficbotsv15_tpu/models/traffic_light.py`).
+
+A TL token is a lane (`tl_mode="lane"`: the state fused with the lane's map
+feature) or a stop line (`"stop"`: the state alone, as the pairwise-relative
+model gives the input encoder no pose embedding; the pose only places the
+token).
 
 HPTR (temp_window_size > 0): `precompute` builds the scenario-static tokens,
 KNN/RPE and the per-layer static K/V once; `forward` encodes one rolling
-TL-state window. The latent encoder's posterior TL encoder is another
-instance: it does not read the static K/V of the main encoder's parameters
-and attends over the raw map targets instead (`called_by_latent_encoder`,
-the B2 route with `use_pallas`).
+TL-state window, through a temporal PolylineEncoder over the window's states
+(each with its one-hot slot), or with `temp_stack_input` as one input of
+`tl_state_dim * temp_window_size` stacked states (left-padded with zeros).
+The latent encoder's posterior TL encoder is another instance: it does not
+read the static K/V of the main encoder's parameters and attends over the
+raw map targets instead (`called_by_latent_encoder`, the B2 route with
+`use_pallas`). With `apply_q_rpe` no K/V is hoisted: its query RPE is
+projected with the targets' at every step, as the JAX package's attention
+computes it.
 
 TrafficBots RNN (temp_window_size <= 0): no temporal encoder and no
 attention; `forward` fuses the window's last state (every step for the
 latent encoder) with the lane's map feature, and the state predictor runs a
-GRU over the TL tokens with its hidden carried by the rollout. The
-stop-line mode raises.
+GRU over the TL tokens with its hidden carried by the rollout.
 """
 
 from __future__ import annotations
@@ -36,38 +45,46 @@ class TrafficLightEncoder(nn.Module):
                  temp_encoder_pooling: str = "max_valid", temp_encoder_dropout_p: float = 0.1,
                  dtype=torch.float32):
         super().__init__()
-        if tl_mode != "lane":
-            raise NotImplementedError(f"tl_mode {tl_mode!r}: only the lane mode is on the joint-future path")
+        if tl_mode not in ("lane", "stop"):
+            raise ValueError(f"tl_mode {tl_mode!r}")
         self.cfg, self.pose_rpe, self.dtype = cfg, pose_rpe, dtype
+        self.tl_mode = tl_mode
         self.detach_lane_feature = cfg.tl_lane_detach_mp_feature
         self.temp_window_size = temp_window_size
         self.rnn = temp_window_size <= 0
+        self.stacked = cfg.temp_stack_input and not self.rnn
+        self.hoist_static_kv = not tf_cfg.apply_q_rpe
         ie = cfg.input_encoder
+        pe_dim = hidden_dim if tl_mode == "lane" else 0  # lane: the lane's map feature; stop: none
         if self.rnn:
-            # lane mode: the pose embedding is the lane's map feature (hidden wide)
-            self.input_encoder = InputEncoder(tl_state_dim, hidden_dim, hidden_dim, ie.n_layer, ie.mode,
-                                              ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
+            attr_dim = tl_state_dim
+        elif self.stacked:
+            attr_dim = tl_state_dim * temp_window_size
+        else:
+            attr_dim = tl_state_dim + temp_window_size  # the one-hot window slot rides with each state
+        self.input_encoder = InputEncoder(attr_dim, hidden_dim, pe_dim, ie.n_layer, ie.mode, ie.mlp_use_layernorm,
+                                          ie.mlp_dropout_p, dtype=dtype)
+        if self.rnn:
             return
-        if cfg.temp_stack_input:
-            raise NotImplementedError("temp_stack_input is not on the joint-future path")
         self.n_knn_tl2tl = int(n_tgt_knn * cfg.k_tgt_knn_tl2tl)
         self.n_knn_tl2mp = int(n_tgt_knn * cfg.k_tgt_knn_tl2mp)
         self.dist_limit = dist_limit * cfg.k_dist_limit
-        self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling,
-                                            mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
+        if not self.stacked:
+            self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling,
+                                                mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
         self.tf_tl2tlmp = TransformerBlock(tf_cfg, cfg.n_layer_tf, "dec_cross_attn",
                                            d_rpe=pose_emb_out_dim(pose_rpe), dtype=dtype)
-        # the one-hot window slot rides with each state
-        self.input_encoder = InputEncoder(tl_state_dim + temp_window_size, hidden_dim, hidden_dim, ie.n_layer,
-                                          ie.mode, ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
 
     def precompute(self, tl_valid, tl_attr, tl_pose, mp_tokens: MapTokens) -> TlTokens:
-        """Static tokens (+ KNN/RPE + static K/V in HPTR mode). tl_attr: lane index [n_sc, n_tl]."""
+        """Static tokens (+ KNN/RPE + static K/V in HPTR mode). tl_attr: lane index [n_sc, n_tl] (lane mode; None
+        in stop mode)."""
         tl_invalid = ~tl_valid
         mp_feat = mp_tokens.feature
-        idx = torch.clamp(tl_attr, 0, mp_feat.shape[1] - 1).long()
-        lane_feat = mp_feat.detach() if self.detach_lane_feature else mp_feat
-        attr = torch.gather(lane_feat, 1, idx[..., None].expand(-1, -1, mp_feat.shape[-1]))
+        attr = None
+        if self.tl_mode == "lane":
+            idx = torch.clamp(tl_attr, 0, mp_feat.shape[1] - 1).long()
+            lane_feat = mp_feat.detach() if self.detach_lane_feature else mp_feat
+            attr = torch.gather(lane_feat, 1, idx[..., None].expand(-1, -1, mp_feat.shape[-1]))
         if self.rnn:
             return TlTokens(valid=tl_valid, invalid=tl_invalid, pose=tl_pose, attr=attr)
 
@@ -82,11 +99,19 @@ class TrafficLightEncoder(nn.Module):
             knn_tgt_tl2mp=gather_tgt(mp_feat, idx_tl2mp), knn_invalid_tl2mp=inv_tl2mp,
             rpe_tl2mp=apply_pose_emb(self.pose_rpe, rpe_tl2mp[..., :2], rpe_tl2mp[..., 2:3]),
         )
-        # the cross-attention K/V of the static map targets and the decoder
-        # self-attention rpe K/V are the same at every rollout step
-        tok.static_kv = tuple(self.tf_tl2tlmp.compute_static_kv(
-            tgt=tok.knn_tgt_tl2mp, rpe=tok.rpe_tl2mp, decoder_rpe=tok.rpe_tl2tl))
+        if self.hoist_static_kv:
+            # the cross-attention K/V of the static map targets and the decoder
+            # self-attention rpe K/V are the same at every rollout step
+            tok.static_kv = tuple(self.tf_tl2tlmp.compute_static_kv(
+                tgt=tok.knn_tgt_tl2mp, rpe=tok.rpe_tl2mp, decoder_rpe=tok.rpe_tl2tl))
         return tok
+
+    def _tl_feature(self, tl_state, attr):
+        """The input encoder over states [n_sc, n_tl, (n_step,) d]: with the lane's map feature (lane mode,
+        broadcast over the steps) or alone (stop mode)."""
+        if attr is not None and tl_state.ndim == 4:
+            attr = attr[:, :, None].expand(*tl_state.shape[:3], attr.shape[-1])
+        return self.input_encoder(tl_state.to(self.dtype), attr)
 
     def forward(self, tl_state, tl_tokens: TlTokens, step_invalid=None, called_by_latent_encoder: bool = False):
         """tl_state [n_sc, n_tl, n_step <= W, 5], step_invalid [n_step] -> [n_sc, n_tl, hidden]
@@ -95,20 +120,21 @@ class TrafficLightEncoder(nn.Module):
         if self.rnn:
             if not called_by_latent_encoder:
                 tl_state = tl_state[:, :, -1]
-            attr = tl_tokens.attr
-            if tl_state.ndim == 4:
-                attr = attr[:, :, None].expand(n_sc, n_tl, n_step, attr.shape[-1])
-            return self.input_encoder(tl_state.to(self.dtype), attr)
+            return self._tl_feature(tl_state, tl_tokens.attr)
         invalid = tl_tokens.invalid
         w = self.temp_window_size
-        ohe = torch.eye(w, dtype=self.dtype, device=tl_state.device)[w - n_step:]
-        state_in = torch.cat([tl_state.to(self.dtype), ohe[None, None].expand(n_sc, n_tl, n_step, w)], -1)
-        attr = tl_tokens.attr[:, :, None].expand(n_sc, n_tl, n_step, tl_tokens.attr.shape[-1])
-        feat = self.input_encoder(state_in, attr)
-        temp_invalid = invalid[:, :, None].expand(n_sc, n_tl, n_step)
-        if step_invalid is not None:
-            temp_invalid = temp_invalid | step_invalid[None, None, :]
-        feat = self.temp_encoder(feat, temp_invalid)
+        if self.stacked:
+            # the window's states side by side, the unfilled leading slots zero
+            padded = torch.nn.functional.pad(tl_state.to(self.dtype), (0, 0, w - n_step, 0))
+            feat = self._tl_feature(padded.reshape(n_sc, n_tl, w * tl_state.shape[-1]), tl_tokens.attr)
+        else:
+            ohe = torch.eye(w, dtype=self.dtype, device=tl_state.device)[w - n_step:]
+            state_in = torch.cat([tl_state.to(self.dtype), ohe[None, None].expand(n_sc, n_tl, n_step, w)], -1)
+            feat = self._tl_feature(state_in, tl_tokens.attr)
+            temp_invalid = invalid[:, :, None].expand(n_sc, n_tl, n_step)
+            if step_invalid is not None:
+                temp_invalid = temp_invalid | step_invalid[None, None, :]
+            feat = self.temp_encoder(feat, temp_invalid)
         # the static K/V belong to the main encoder's parameters: the latent encoders' own
         # instances attend over the raw targets
         skv = None if called_by_latent_encoder else tl_tokens.static_kv

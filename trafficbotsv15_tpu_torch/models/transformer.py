@@ -20,6 +20,13 @@ with a raw rpe runs B4 (`knarpe_attention`), fused K/V + RPE runs B2
 `seg_attn` selects nothing in the port: K/V stay full width and heads are
 split where a reduction needs them.
 
+`TransformerCfg.apply_q_rpe` adds a query RPE: one `rpe_proj` Dense of width
+3 d_model gives (rpe_q, rpe_k, rpe_v), and the logits are
+(q + rpe_q)·(k + rpe_k). As in the JAX package, such an attention never runs
+the dense-KNN form, a kernel or a hoisted static K/V: it projects its
+targets and its RPE and attends on the plain path (`knn_attention` with
+rpe_q), whatever `use_pallas` says.
+
 Dropout (`TransformerCfg.dropout_p`) sits where the JAX package puts it with
 `attn_dropout_weights=False`: on the attention's output-projection input and
 on each sub-layer's output (`drop_src`, `drop1`, `drop_ffn`, `drop2`); it
@@ -51,8 +58,6 @@ def standardize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def check_transformer_cfg(tf_cfg: TransformerCfg) -> None:
-    if tf_cfg.apply_q_rpe:
-        raise NotImplementedError("apply_q_rpe is not on the joint-future path")
     if tf_cfg.activation != "relu":
         raise NotImplementedError(f"activation {tf_cfg.activation!r} is not on the joint-future path")
 
@@ -62,8 +67,9 @@ class AttentionRPE(nn.Module):
 
     def __init__(self, d_model: int, n_head: int, d_rpe: int = -1, bias: bool = True,
                  dense_knn_max: int = 128, use_pallas: bool = False, dropout_p: float = 0.0,
-                 attn_dropout_weights: bool = False, dtype=torch.float32):
+                 attn_dropout_weights: bool = False, apply_q_rpe: bool = False, dtype=torch.float32):
         super().__init__()
+        self.apply_q_rpe = apply_q_rpe and d_rpe > 0
         self.dropout_p, self.attn_dropout_weights = dropout_p, attn_dropout_weights
         self.d_model, self.n_head, self.d_rpe = d_model, n_head, d_rpe
         self.dense_knn_max = dense_knn_max
@@ -74,7 +80,9 @@ class AttentionRPE(nn.Module):
         # raw [in, out] matrices (the flax layout), so K/V and RPE can be folded and fused
         self.kv_w = nn.Parameter(torch.empty(d_model, 2 * d_model))
         self.kv_b = nn.Parameter(torch.zeros(2 * d_model)) if bias else None
-        if d_rpe > 0:
+        if self.apply_q_rpe:
+            self.rpe_proj = Dense(d_rpe, 3 * d_model, bias=bias, dtype=dtype)  # (rpe_q, rpe_k, rpe_v)
+        elif d_rpe > 0:
             self.rpe_proj_w = nn.Parameter(torch.empty(d_rpe, 2 * d_model))
             self.rpe_proj_b = nn.Parameter(torch.zeros(2 * d_model))
 
@@ -110,14 +118,28 @@ class AttentionRPE(nn.Module):
         b = self.rpe_proj_b if bk is None else bk + self.rpe_proj_b
         return (cat @ w + b.to(dt)).chunk(2, -1)
 
+    def _q_rpe_attention(self, q, kv, rpe, tgt_padding_mask):
+        """The apply_q_rpe attention over per-source K/V [b, s, K, 2D] and rpe [b, s, K, d_rpe] on the plain path:
+        rpe_proj gives (rpe_q, rpe_k, rpe_v), and the logits are (q + rpe_q)·(k + rpe_k)."""
+        n_b, n_src, n_knn = kv.shape[:3]
+        split = lambda t: t.reshape(n_b, n_src, n_knn, self.n_head, self.d_model // self.n_head)  # noqa: E731
+        k, v = (split(t) for t in kv.chunk(2, -1))
+        rpe_q, rpe_k, rpe_v = (split(t) for t in self.rpe_proj(rpe).chunk(3, -1))
+        qh = q.reshape(n_b, n_src, self.n_head, self.d_model // self.n_head)
+        return knn_attention(qh, k, v, tgt_padding_mask, rpe_k, rpe_v, rpe_q=rpe_q)
+
     def static_kv(self, tgt: torch.Tensor, rpe: Optional[torch.Tensor], ln=None):
         """Scenario-static (k [+ rpe_k], v [+ rpe_v]) of per-source targets [b, s, K, d]."""
+        if self.apply_q_rpe:
+            raise ValueError("an apply_q_rpe attention hoists no static K/V: its query RPE is projected every step")
         if rpe is not None:
             return tuple(self._project_kv_plus_rpe(tgt, rpe, ln))
         return tuple(self._project_kv(tgt, ln).chunk(2, -1))
 
     def static_rpe_kv(self, rpe: torch.Tensor):
         """Scenario-static (rpe_k, rpe_v) for a KNN self-attention with static relative poses."""
+        if self.apply_q_rpe:
+            raise ValueError("an apply_q_rpe attention hoists no static K/V: its query RPE is projected every step")
         return tuple(self._rpe_kv(rpe))
 
     # -- attention ---------------------------------------------------------
@@ -168,7 +190,7 @@ class AttentionRPE(nn.Module):
 
         if kv_static is not None:
             out = knn_attention_fullwidth(q, kv_static[0], kv_static[1], tgt_padding_mask, n_head)
-        elif tgt_idx is not None and n_src <= self.dense_knn_max:
+        elif tgt_idx is not None and n_src <= self.dense_knn_max and not self.apply_q_rpe:
             rpe_k, rpe_v = rpe_kv_static if rpe_kv_static is not None else (
                 self._rpe_kv(rpe) if rpe is not None else (None, None))
             out = self._dense_knn_attention(q, self._project_kv(src), tgt_idx, tgt_padding_mask, rpe_k, rpe_v)
@@ -176,7 +198,9 @@ class AttentionRPE(nn.Module):
             # project the n_src tokens once, then gather (row-wise ops commute with the gather)
             kv = gather_tgt(self._project_kv(src), tgt_idx)
             n_knn = tgt_idx.shape[-1]
-            if rpe is not None and self.use_pallas:
+            if rpe is not None and self.apply_q_rpe:
+                out = self._q_rpe_attention(q, kv, rpe, tgt_padding_mask)
+            elif rpe is not None and self.use_pallas:
                 # kernel B4 fuses the rpe projection into the attention (JAX transformer.py:346-366)
                 dt = self.dtype
                 out = knarpe.knarpe_attention(q, *kv.chunk(2, -1), rpe.to(dt), self._invalid(tgt_padding_mask, kv),
@@ -194,6 +218,8 @@ class AttentionRPE(nn.Module):
                 # no kernel takes a KNN cross-attention without RPE, in either package
                 kf, vf = self._project_kv(tgt, ln=tgt_ln).chunk(2, -1)
                 out = knn_attention_fullwidth(q, kf, vf, tgt_padding_mask, n_head)
+            elif self.apply_q_rpe:
+                out = self._q_rpe_attention(q, self._project_kv(tgt, ln=tgt_ln), rpe, tgt_padding_mask)
             elif self.use_pallas:
                 # kernel B2 fuses both projections into the attention (JAX transformer.py:367-396);
                 # the target LayerNorm folds into W_kv and b in float32 before the cast
@@ -243,7 +269,8 @@ class TransformerLayer(nn.Module):
         attn_kw = dict(d_model=d, n_head=tf_cfg.n_head, d_rpe=d_rpe, bias=tf_cfg.bias,
                        dense_knn_max=tf_cfg.dense_knn_max,
                        use_pallas=tf_cfg.use_pallas and not tf_cfg.attn_dropout_weights,
-                       dropout_p=tf_cfg.dropout_p, attn_dropout_weights=tf_cfg.attn_dropout_weights, dtype=dtype)
+                       dropout_p=tf_cfg.dropout_p, attn_dropout_weights=tf_cfg.attn_dropout_weights,
+                       apply_q_rpe=tf_cfg.apply_q_rpe, dtype=dtype)
         if mode == "dec_cross_attn":
             self.norm_src = LayerNorm(d, dtype=dtype)
             self.attn_src = AttentionRPE(**attn_kw)

@@ -65,15 +65,18 @@ def knn_attention_fullwidth(q, kf, vf, invalid: Optional[torch.Tensor], n_head: 
     return out.reshape(n_b, n_src, d_model)
 
 
-def knn_attention(q, k, v, invalid: Optional[torch.Tensor], rpe_k=None, rpe_v=None) -> torch.Tensor:
-    """KNN/RPE attention with per-source gathered targets.
+def knn_attention(q, k, v, invalid: Optional[torch.Tensor], rpe_k=None, rpe_v=None, rpe_q=None) -> torch.Tensor:
+    """KNN/RPE attention with per-source gathered targets: logits (q [+ rpe_q])·(k [+ rpe_k]) / sqrt(d).
 
-    q [b, s, h, d], k/v (and rpe_k/rpe_v) [b, s, K, h, d], invalid [b, s, K] -> [b, s, h*d].
+    q [b, s, h, d], k/v (and rpe_q/rpe_k/rpe_v) [b, s, K, h, d], invalid [b, s, K] -> [b, s, h*d].
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     if rpe_k is not None:
         k = k + rpe_k
-    logits = torch.sum(q[:, :, None] * k, -1).transpose(2, 3) * scale  # [b, s, h, K]
+    qx = q[:, :, None]
+    if rpe_q is not None:
+        qx = qx + rpe_q
+    logits = torch.sum(qx * k, -1).transpose(2, 3) * scale  # [b, s, h, K]
     inv = None if invalid is None else invalid[:, :, None, :]
     attn, no_valid = _masked_softmax(logits, inv)
     if rpe_v is not None:

@@ -1,8 +1,10 @@
 """Pose embeddings (counterpart of `trafficbotsv15_tpu/ops/pose_emb.py`).
 
-The slice uses two modes: `pe_xy_yaw` (relative-pose RPE and the agent
-tokens) and `mpa_pl` (map nodes). Both are parameter-free functions of
-float32 coordinates.
+Four modes, each a parameter-free function of float32 coordinates:
+`pe_xy_yaw` (the default relative-pose RPE and agent tokens), `mpa_pl` (map
+nodes), `xy_dir` (raw x, y, cos, sin: a 4-wide RPE) and `pe_xy_dir`
+(sinusoids of x, y, cos and sin, each pe_dim // 4 wide, in the JAX package's
+stacked feature order).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ def pose_emb_out_dim(cfg: PoseEmbConfig) -> int:
         return 7
     if cfg.mode in ("pe_xy_dir", "pe_xy_yaw"):
         return cfg.pe_dim
-    raise NotImplementedError(cfg.mode)
+    raise ValueError(f"pose embedding {cfg.mode!r}")
 
 
 def sinusoid_embed(x: torch.Tensor, dim: int, theta: float) -> torch.Tensor:
@@ -78,6 +80,26 @@ def pose_embed_mpa_pl(xy: torch.Tensor, direction: torch.Tensor) -> torch.Tensor
     return torch.cat([r_norm, closest / (r_norm + eps), seg_vec / (seg_norm + eps), seg_norm, end_dist], -1)
 
 
+def pose_embed_xy_dir(xy: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """Raw (x, y, cos, sin) features [..., 4]."""
+    return torch.cat([xy, _as_cos_sin(direction)], -1)
+
+
+def pose_embed_pe_xy_dir(xy: torch.Tensor, direction: torch.Tensor, pe_dim: int, theta_xy: float,
+                         theta_cs: float) -> torch.Tensor:
+    """Sinusoids of (x, y, cos, sin), pe_dim // 4 each: per quantity cos then sin of its pe_dim // 8 frequencies
+    (theta_xy's for x and y, theta_cs's for cos and sin), the JAX package's stacked form
+    (stack([cos, sin], -2).reshape), whose angles are the same float32 products."""
+    q = torch.cat([xy, _as_cos_sin(direction)], -1).float()  # [..., 4]
+    quarter = pe_dim // 4
+    half = quarter // 2
+    exponents = torch.arange(0, quarter, 2, dtype=torch.float32, device=q.device)[:half] / quarter
+    f_xy = 1.0 / torch.pow(torch.tensor(theta_xy, dtype=torch.float32, device=q.device), exponents)
+    f_cs = 1.0 / torch.pow(torch.tensor(theta_cs, dtype=torch.float32, device=q.device), exponents)
+    ang = q[..., :, None] * torch.stack([f_xy, f_xy, f_cs, f_cs])  # [..., 4, half]
+    return torch.stack([torch.cos(ang), torch.sin(ang)], -2).reshape(*q.shape[:-1], pe_dim)
+
+
 def pose_embed_pe_xy_yaw(xy: torch.Tensor, direction: torch.Tensor, pe_dim: int, theta_xy: float) -> torch.Tensor:
     """Sinusoidal x and y (pe_dim//4 each) + angular yaw (pe_dim//2)."""
     yaw = _as_yaw(direction)
@@ -95,4 +117,8 @@ def apply_pose_emb(cfg: PoseEmbConfig, xy: torch.Tensor, direction: torch.Tensor
         return pose_embed_mpa_pl(xy, direction)
     if cfg.mode == "pe_xy_yaw":
         return pose_embed_pe_xy_yaw(xy, direction, cfg.pe_dim, cfg.theta_xy)
-    raise NotImplementedError(f"pose embedding {cfg.mode!r} is not on the joint-future path")
+    if cfg.mode == "xy_dir":
+        return pose_embed_xy_dir(xy, direction)
+    if cfg.mode == "pe_xy_dir":
+        return pose_embed_pe_xy_dir(xy, direction, cfg.pe_dim, cfg.theta_xy, cfg.theta_cs)
+    raise ValueError(f"pose embedding {cfg.mode!r}")

@@ -9,7 +9,8 @@ navi re-predicted in the rollout, come from an explicit `torch.Generator`. A com
 rollout as its one-hot (`models/navigation.py::navi_of_draw`); in dummy mode no navi is drawn.
 
 `reactive_replay`, the validation's reconstruction rollout: the posterior
-latent's mean, the ground-truth navi, every agent spawned from the
+latent's mode (a Gaussian's mean, a categorical's argmax one-hot), the
+ground-truth navi, every agent spawned from the
 log (`teacher_forcing_reactive_replay`), TL forced to the log, deterministic
 actions; it draws nothing but the navi re-predicted in the rollout
 (`pred_navi_after_reached`, from the caller's generator). Past the log's horizon (`time_step_end` >= the

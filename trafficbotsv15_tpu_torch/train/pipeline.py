@@ -10,7 +10,8 @@ Every random draw of a training step comes from the caller's
 uniforms where the JAX package draws Bernoulli masks (history dropout, the
 prior-or-posterior choice, random teacher forcing, the irrelevant-agent
 loss mask; a mask entry is set where its uniform is below the probability,
-jax.random.bernoulli's rule), the latent's standard-normal noise, and one
+jax.random.bernoulli's rule), the latent's noise (standard normal, or Gumbel
+for categorical latents: `latent_noise`), and one
 dropout seed for the encoders plus one per rollout step for the TL pre-pass
 and for the rollout, whose sampled actions and re-predicted navi a step's
 seed draws too. A test hands the JAX package's draws in instead (the
@@ -37,9 +38,11 @@ from torch import nn
 
 from trafficbotsv15_tpu_torch.config import ExperimentCfg
 from trafficbotsv15_tpu_torch.data.preprocessing import pre_processing
+from trafficbotsv15_tpu_torch.models.latent_encoder import CATEGORICAL
 from trafficbotsv15_tpu_torch.models.mlp import Dense
 from trafficbotsv15_tpu_torch.models.traffic_bots import TrafficBots
 from trafficbotsv15_tpu_torch.models.transformer import AttentionRPE
+from trafficbotsv15_tpu_torch.ops.distributions import gumbel_noise
 from trafficbotsv15_tpu_torch.ops.dropout import dropout_scope
 from trafficbotsv15_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum, process_count, process_index
 from trafficbotsv15_tpu_torch.sim import rollout as rollout_lib
@@ -129,14 +132,24 @@ def draw_training_noise(cfg: ExperimentCfg, batch: Dict[str, torch.Tensor], gene
     tf, lm = cfg.teacher_forcing_training, cfg.training_metrics
     noise = shard_noise(dict(
         u_mp=u(n_sc, n_mp, n_node - 1), u_ag=u(n_sc, n_ag, cfg.n_step_hist - 1), u_prior=u(),
-        latent_eps=torch.randn((n_sc, n_ag, max(cfg.model.latent_encoder.latent_dim, 1)), generator=generator,
-                               device=generator.device),
+        latent_eps=latent_noise(cfg, n_sc, n_ag, generator),
         u_agent=u(n_sc, n_ag) if tf.prob_forcing_agent > 0 else None,
         u_ss=u(n_sc, n_ag, n_step) if tf.prob_scheduled_sampling > 0 else None,
         u_irrelevant=u(n_sc, n_ag, 1) if 0 < lm.p_loss_for_irrelevant < 1 else None,
         seed_encoders=seeds(1)[0], seeds_tl=seeds(n_roll), seeds_step=seeds(n_roll),
     ), rank, world)
     return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in noise.items()}
+
+
+def latent_noise(cfg: ExperimentCfg, n_sc: int, n_ag: int, generator: torch.Generator) -> torch.Tensor:
+    """The noise both latent draws of a training step take, on the generator's device: standard normal
+    [n_sc, n_ag, latent_dim] for Gaussian latents, standard Gumbel [n_sc, n_ag, n_cat, latent_dim // n_cat] for
+    categorical ones (JAX's `MultiCategorical.sample` is `jax.random.categorical`, a Gumbel-max)."""
+    lat = cfg.model.latent_encoder
+    if lat.latent_dim > 0 and lat.latent_post.dist_type in CATEGORICAL:
+        n_cat = lat.latent_post.n_cat
+        return gumbel_noise((n_sc, n_ag, n_cat, lat.latent_dim // n_cat), generator, generator.device)
+    return torch.randn((n_sc, n_ag, max(lat.latent_dim, 1)), generator=generator, device=generator.device)
 
 
 def select_latent(post, prior, use_prior: torch.Tensor, eps: torch.Tensor):

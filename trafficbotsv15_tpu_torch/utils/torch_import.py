@@ -19,8 +19,8 @@ Layout changes, reference -> port:
     matrix `kv_w = W[d:].T` with `kv_b = b[d:]`; its column blocks are (k, v),
     as torch chunks the projection's output.
   - `linear_rpe` (`[2d, d_rpe]`) becomes the raw `rpe_proj_w = W.T`
-    `[d_rpe, 2d]` and `rpe_proj_b`. The `apply_q_rpe` layout (`[3d, d_rpe]`)
-    raises: the port does not run that variant.
+    `[d_rpe, 2d]` and `rpe_proj_b`. The `apply_q_rpe` layout (`[3d, d_rpe]`,
+    rows (q, k, v)) is the port's `rpe_proj` Dense as it is.
   - The reference MLP wraps its layers in one nn.Sequential whose indices
     skip the activation and dropout slots; `mlp_linear_indices` reproduces
     that numbering from the constructor's logic, and the port names the
@@ -118,8 +118,6 @@ def map_mlp(sd: SD, p: str, n_lin: int, use_layernorm: bool = False, end_layer_a
 
 def map_attention(sd: SD, p: str, d_model: int, apply_q_rpe: bool = False) -> Flat:
     """Reference AttentionRPE -> `models/transformer.py::AttentionRPE`."""
-    if apply_q_rpe:
-        raise NotImplementedError("apply_q_rpe (the [3d, d_rpe] linear_rpe layout) is not ported")
     w_in = np.asarray(sd[_j(p, "in_proj_weight")])  # [3d, d]
     out = {"q_proj.weight": np.ascontiguousarray(w_in[:d_model]), "kv_w": _t(w_in[d_model:]),
            "out_proj.weight": np.asarray(sd[_j(p, "out_proj_weight")])}
@@ -129,7 +127,9 @@ def map_attention(sd: SD, p: str, d_model: int, apply_q_rpe: bool = False) -> Fl
         out["kv_b"] = b_in[d_model:]
     if _j(p, "out_proj_bias") in sd:
         out["out_proj.bias"] = np.asarray(sd[_j(p, "out_proj_bias")])
-    if _j(p, "linear_rpe.weight") in sd:
+    if _j(p, "linear_rpe.weight") in sd and apply_q_rpe:
+        out.update(_sub("rpe_proj", map_linear(sd, _j(p, "linear_rpe"))))
+    elif _j(p, "linear_rpe.weight") in sd:
         out["rpe_proj_w"] = _t(sd[_j(p, "linear_rpe.weight")])
         out["rpe_proj_b"] = np.asarray(sd[_j(p, "linear_rpe.bias")])
     return out
@@ -226,7 +226,7 @@ def map_dist_encoder(sd: SD, p: str, dist_type: str, n_layer: int, branch_type: 
                 out.update(_sub(f"logits{i}", map_mlp(sd, _j(p, f"mlp_logits.{i}"), n_layer, use_layernorm, False)))
             return out
         return _sub("logits", map_mlp(sd, _j(p, "mlp_logits"), n_layer, use_layernorm, False))
-    raise NotImplementedError(dist_type)
+    raise ValueError(f"latent head {dist_type!r}")
 
 
 def map_tl_predictor(sd: SD, p: str, n_layer: int, hidden: int, temp_window_size: int) -> Flat:
