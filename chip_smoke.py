@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compiles every CUDA source of the path from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together; meanwhile this process makes
      the CPU runs of the card-vs-CPU checks of phases 4, 7, 9, 13 (e), 16 (b),
-     17 (a) and 18 (b) (`CARD_VS_CPU`), which keep them for their phase;
+     17 (a), 18 (b) and 19 (c) (`CARD_VS_CPU`), which keep them for their phase;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and at edge cases; times kernel, plain version and
      the nearest PyTorch call or composition of calls (`library_ms`):
@@ -298,7 +298,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      (`VARIANT_ARMS`), all with use_pallas: cat + stop + stacked (the learned
      prior's B2), std_cat + InputEncoder "input" + pose_rpe "pe_xy_dir" +
      apply_q_rpe (no B2 or B4 launched), and pose_rpe "xy_dir" (B4 and B2 at
-     d_rpe = 4, all on the general route).
+     d_rpe = 4, all on the general route);
+ 19. the scene-centric model, token dedup and the last options: (a)
+     `leaderboard_config()` with pairwise_relative=False and use_pallas,
+     nothing else cut, random seed-0 weights: joint_future_pred 4 scenarios x
+     K=32 at level 1 (one call, checked and timed, a first call) and one
+     training step at batch 8 (a first step): no kernel launches at all, as
+     in the JAX package (its KNN sorts, its attentions take no RPE); seconds,
+     agent-steps/s or samples/s, peak memory; (b) `leaderboard_config()` with
+     use_pallas, joint_future_pred 4 x K=32 with `rollout_token_dedup` (the
+     rollout reading the 4 unique scenarios' map and TL tokens, token_rep 32)
+     and without it, the same weights and generator seed, two calls each in
+     turns (dedup, replicated, replicated, dedup): the first call of each
+     compared over every buffer tensor, the K0 futures, TL states and rule
+     flags held bit for bit (the first differing tensor named where any
+     differs); each call's launches phase 6's (B1 90, B4 8, B2 360, staged, at
+     shapes phase 3 checked); seconds and peak memory above what the call
+     started with, of each call; (c) the phase-4
+     config card vs CPU in float32 (20 of its 30 steps), use_pallas:
+     scene-centric joint_future_pred (K0 futures, TL states, rule flags) and
+     training step (loss terms, gradients), and a training step with gelu FFNs,
+     `mean_valid` polyline pooling and dropout on the attention weights at p =
+     0 (B2 and B4 off, as JAX's gates say), launches as the config implies.
 Then it prints the `serve` JSON line (phase 14's steps/s, ms per step, peak memory
 and the card-vs-CPU errors of both arms, with the card's name and power limit), the
 `kernels` JSON line (forward launches from phase 6 and, as
@@ -317,8 +338,9 @@ and (c) step, B1's and B2's and B2-bwd's `rnn_shapes` timings, and `rnn`, phase 
 throughputs; every row's `navi_launches` per phase 17 (b) call, B2's and B2-bwd's `navi_shapes`
 timings, and `navi`, phase 17's seconds, peak memory, throughputs and re-predictions; every row's `variant_launches`
 per phase 18 (a) call and step, by route, B2's and B2-bwd's `variant_shapes` and B4's, B2's and their backwards'
-`rpe4_shapes` timings (d_rpe = 4, general route), and `variants`, phase 18's seconds, peak memory and throughputs), the
-card line, and last
+`rpe4_shapes` timings (d_rpe = 4, general route), and `variants`, phase 18's seconds, peak memory and throughputs;
+every row's `scene_centric_launches` per phase 19 (a) call and step and per (b) dedup call, and `scene_centric`, phase
+19's seconds, peak memory, throughputs and the dedup comparison), the card line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -1166,8 +1188,15 @@ def _b2_blocks(cfg) -> int:
 
 def _attends(cfg) -> bool:
     """Whether the config's attentions launch B4 and B2: use_pallas, but never with apply_q_rpe (its query RPE
-    keeps every attention on the plain path, as in the JAX package)."""
-    return cfg.model.tf_cfg.use_pallas and not cfg.model.tf_cfg.apply_q_rpe
+    keeps every attention on the plain path, as in the JAX package), with dropout on the attention weights (JAX's
+    gates turn the kernels off), or in the scene-centric model (no attention of it takes an RPE)."""
+    tf = cfg.model.tf_cfg
+    return tf.use_pallas and not tf.apply_q_rpe and not tf.attn_dropout_weights and cfg.model.pairwise_relative
+
+
+def _selects(cfg) -> int:
+    """1 where the agent->map KNN goes through B1 (the pairwise-relative model), 0 where it sorts (scene-centric)."""
+    return int(cfg.model.pairwise_relative)
 
 
 def _learned_latents(cfg, train: bool) -> int:
@@ -1204,7 +1233,7 @@ def expected_launches(cfg, n_step: int) -> dict:
     pallas = _attends(cfg)
     navi = _navi_b2(cfg) * (1 + _repredictions(cfg))
     prior = _learned_latents(cfg, train=False)
-    return {"knn_xy": n_step + prior,
+    return {"knn_xy": (n_step + prior) * _selects(cfg),
             "knarpe_attention": cfg.model.mp_encoder.n_layer_tf if pallas else 0,
             "knarpe_cross_attention": _b2_blocks(cfg) * cfg.model.ag_encoder.n_layer_tf * n_step + navi
             + prior * _latent_b2(cfg) if pallas else 0,
@@ -1226,7 +1255,7 @@ def expected_train_launches(cfg) -> dict:
     post = latents * _latent_b2(cfg)
     steps = _repredictions(cfg)
     navi, navi_bwd = _navi_b2(cfg) * (1 + 2 * steps), _navi_b2(cfg) * (1 + max(steps - 1, 0))
-    return {"knn_xy": 2 * n + latents,
+    return {"knn_xy": (2 * n + latents) * _selects(cfg),
             "knarpe_attention": m.mp_encoder.n_layer_tf if pallas else 0,
             "knarpe_cross_attention": 2 * blocks * m.ag_encoder.n_layer_tf * n + post + navi if pallas else 0,
             "knarpe_cross_attention_v3": 0,
@@ -1259,7 +1288,9 @@ def variant_of(cfg, variant: str):
     type-branched `cat` posterior, a learned `cat` prior), "std_cat" (a plain `cat` posterior, the `std_cat` prior),
     both with 8 factors where latent_dim takes them (the flagship's 16) and 2 at the phase-4 config's 4; "stop"
     (tl_mode "stop"); "stacked" (the stacked TL input); "input" (InputEncoder mode "input" in the map, TL and agent
-    encoders); "q_rpe" (apply_q_rpe); "pe_xy_dir", "xy_dir" (pose_rpe's mode)."""
+    encoders); "q_rpe" (apply_q_rpe); "pe_xy_dir", "xy_dir" (pose_rpe's mode); "scene_centric"
+    (pairwise_relative=False); "gelu" (the FFNs' activation); "mean_valid" (the polyline and temporal encoders'
+    pooling); "wdrop" (dropout on the attention weights)."""
     from trafficbotsv15_tpu_torch.config import DistEncoderCfg, PoseEmbCfg
 
     m = cfg.model
@@ -1283,6 +1314,15 @@ def variant_of(cfg, variant: str):
             m = dataclasses.replace(m, tf_cfg=dataclasses.replace(m.tf_cfg, apply_q_rpe=True))
         elif name in ("pe_xy_dir", "xy_dir"):
             m = dataclasses.replace(m, pose_rpe=PoseEmbCfg(mode=name))
+        elif name == "scene_centric":
+            m = dataclasses.replace(m, pairwise_relative=False)
+        elif name == "gelu":
+            m = dataclasses.replace(m, tf_cfg=dataclasses.replace(m.tf_cfg, activation="gelu"))
+        elif name == "mean_valid":
+            pl = dataclasses.replace(m.mp_encoder.pl_encoder, pooling_mode="mean_valid")
+            m = dataclasses.replace(m, mp_encoder=dataclasses.replace(m.mp_encoder, pl_encoder=pl))
+        elif name == "wdrop":
+            m = dataclasses.replace(m, tf_cfg=dataclasses.replace(m.tf_cfg, attn_dropout_weights=True))
         else:
             raise ValueError(f"variant {name!r}")
     return dataclasses.replace(cfg, model=m)
@@ -3727,6 +3767,149 @@ def run_variant_phase(card: str) -> dict:
     return out
 
 
+def _first_difference(a, b) -> str:
+    """The first buffer field (violation flags by name) in which two rollout buffers differ, "" where every bit is
+    equal."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        pairs = [(f"{f.name}/{k}", x[k], y[k]) for k in x] if isinstance(x, dict) else [(f.name, x, y)]
+        for name, u, v in pairs:
+            if (u is None) != (v is None) or (u is not None and not torch.equal(u, v)):
+                return name
+    return ""
+
+
+def run_scene_centric_phase(card: str) -> dict:
+    """Phase 19: (a) the scene-centric model at `leaderboard_config()` width with use_pallas, one joint_future_pred
+    call (4 scenarios x K=32, level 1) and one training step at batch 8, each a first one, checked and timed: no
+    kernel launch; (b) token dedup at the flagship with use_pallas: dedup and replicated calls in turns (two each), the
+    same weights and draws, compared bit for bit, each with phase 6's launches, its seconds and peak memory; (c) `CARD_VS_CPU[19]`. -> {"eval":
+    launches per (a) call, "train": per (a) step, "dedup": per (b) dedup call, by kernel; seconds, peak memory,
+    throughputs, the dedup comparison}."""
+    t0 = time.perf_counter()
+    zero = {name: 0 for name in launches()}
+    cfg = variant_of(with_pallas(leaderboard_config(), True), "scene_centric")
+    n_sc, k = 4, cfg.n_joint_future_wosac
+    n_ag, n_step = cfg.data.n_ag, cfg.time_step_end
+    batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
+    model = build_model(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes:
+        _, buf = joint_future_pred(cfg, model, batch, generator=torch.Generator().manual_seed(0), check_level=1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    if launches() != zero or shapes or expected_launches(cfg, n_step) != zero:
+        raise AssertionError(f"(a) scene-centric eval call: launches {launches()}, by shape {dict(shapes)}; the JAX "
+                             f"package's scene-centric path reaches no kernel")
+    finite = torch.isfinite(buf.pred_pose).all() and torch.isfinite(buf.log_prob).all()
+    if tuple(buf.pred_pose.shape) != (n_sc, k, n_ag, n_step, 3) or not finite:
+        raise AssertionError(f"(a) scene-centric eval call: pred_pose {tuple(buf.pred_pose.shape)} or not finite")
+    agent_steps = n_sc * k * n_ag * (n_step - cfg.time_step_current)
+    out = {"eval_seconds": sec, "eval_peak_gib": peak_gib(), "eval_agent_steps_per_s": agent_steps / sec,
+           "eval": launches()}
+    flags = {key: int(v.sum()) for key, v in buf.violation.items() if not key.endswith("_this_step")}
+    log(f"  (a) leaderboard_config pairwise_relative=False, use_pallas=True, check_level=1 joint_future_pred: {n_sc} "
+        f"scenarios x K={k}, {n_ag} agents, {cfg.data.n_mp} polylines, {n_step} steps, {n_params} parameters, bf16: "
+        f"one call, checked and timed (a first call) {sec:.4f} s, {agent_steps / sec:.1f} agent-steps/s, peak memory "
+        f"{out['eval_peak_gib']:.2f} GiB; no kernel launched ({launches()}); agent-steps flagged {flags} [{card}]")
+    del buf
+    n_train = 8
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes, recorded_bwd_launches() as (bwd_shapes, _):
+        metrics = {key: float(v) for key, v in step(tbatch, torch.Generator().manual_seed(0)).items()}
+    torch.cuda.synchronize()
+    train_sec = time.perf_counter() - t1
+    if launches() != zero or shapes or bwd_shapes or expected_train_launches(cfg) != zero:
+        raise AssertionError(f"(a) scene-centric training step: launches {launches()}, by shape "
+                             f"{dict(shapes + bwd_shapes)}; the scene-centric path reaches no kernel")
+    loss, gnorm = metrics["training/loss"], metrics["grad_norm"]
+    if not all(math.isfinite(v) and v != 0 for v in (loss, gnorm)):
+        raise AssertionError(f"(a) scene-centric training step: loss {loss}, grad_norm {gnorm}")
+    out.update(train_seconds=train_sec, train_peak_gib=peak_gib(), train=launches(),
+               train_samples_per_s=n_train / train_sec)
+    log(f"  (a) the same model's training step: {n_train} scenarios, a first step {train_sec:.4f} s "
+        f"({n_train / train_sec:.3f} train samples/s), peak memory {out['train_peak_gib']:.2f} GiB, loss {loss:.6f}, "
+        f"grad_norm {gnorm:.6f}; no kernel launched, forward or backward [{card}]")
+    del model, step, tbatch
+    torch.cuda.empty_cache()
+
+    base = with_pallas(leaderboard_config(), True)
+    model = build_model(base, seed=0, device="cuda")
+    bufs, secs, peaks, reps = {}, {"dedup": [], "replicated": []}, {"dedup": [], "replicated": []}, []
+    real_rollout = rollout_lib.rollout
+
+    def spy(*args, **kwargs):
+        reps.append(kwargs.get("token_rep", 1))
+        return real_rollout(*args, **kwargs)
+
+    for arm in ("dedup", "replicated", "replicated", "dedup"):
+        cfg = dataclasses.replace(base, rollout_token_dedup=arm == "dedup")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launches()
+        rollout_lib.rollout = spy
+        t1 = time.perf_counter()
+        try:
+            with recorded_forward_shapes() as seen:
+                _, buf = joint_future_pred(cfg, model, batch, generator=torch.Generator().manual_seed(0),
+                                           check_level=1)
+            torch.cuda.synchronize()
+        finally:
+            rollout_lib.rollout = real_rollout
+        secs[arm].append(time.perf_counter() - t1)
+        # the call's own peak: above what was held when it started (the model, the batch, the other arm's buffer)
+        peaks[arm].append((torch.cuda.max_memory_allocated() - held) / 2 ** 30)
+        bufs.setdefault(arm, buf)
+        del buf
+        want = expected_launches(cfg, n_step)
+        if launches() != want:
+            raise AssertionError(f"(b) {arm} call: launches {launches()}, expected {want}")
+        check_path_forward_shapes(f"(b) {arm} call", seen)
+        check_staged_route(f"(b) {arm} call")
+        if arm == "dedup":
+            out["dedup"] = launches()
+    if reps != [k, 1, 1, k]:
+        raise AssertionError(f"(b) the rollouts took token_rep {reps}, expected [{k}, 1, 1, {k}]")
+    a, b = bufs["dedup"], bufs["replicated"]
+    first = _first_difference(a, b)
+    k0_equal = (torch.equal(a.pred_pose[:, 0], b.pred_pose[:, 0]) and torch.equal(a.pred_valid[:, 0], b.pred_valid[:, 0])
+                and torch.equal(a.tl_state[:, 0], b.tl_state[:, 0])
+                and all(torch.equal(a.violation[key][:, 0], b.violation[key][:, 0]) for key in a.violation))
+    if not k0_equal:
+        err = float((a.pred_pose[:, 0] - b.pred_pose[:, 0]).abs().max())
+        raise AssertionError(f"(b) dedup vs replicated: the K0 futures, TL states or rule flags differ (first "
+                             f"differing tensor {first}; K0 pose max |err| {err})")
+    out.update(dedup_seconds=secs["dedup"], replicated_seconds=secs["replicated"], dedup_peak_gib=peaks["dedup"],
+               replicated_peak_gib=peaks["replicated"], dedup_first_difference=first or None)
+    log(f"  (b) leaderboard_config use_pallas=True joint_future_pred {n_sc} x K={k} with rollout_token_dedup "
+        f"(token_rep {k}) and without, in turns dedup, replicated, replicated, dedup: dedup "
+        f"{', '.join(f'{s:.4f}' for s in secs['dedup'])} s, replicated "
+        f"{', '.join(f'{s:.4f}' for s in secs['replicated'])} s; each call's peak above what it started with: dedup "
+        f"{', '.join(f'{g:.4f}' for g in peaks['dedup'])} GiB, replicated "
+        f"{', '.join(f'{g:.4f}' for g in peaks['replicated'])} GiB; the first call of each arm compared: "
+        + ("every buffer tensor equal bit for bit" if not first else
+           f"the K0 futures, TL states and rule flags equal bit for bit, first differing tensor {first}")
+        + f"; launches per call {out['dedup']} (phase 6's), staged [{card}]")
+    del bufs, a, b, model
+    torch.cuda.empty_cache()
+
+    t_c = time.perf_counter()
+    run_card_vs_cpu(19)
+    out.update(card_vs_cpu_seconds=time.perf_counter() - t_c, seconds=time.perf_counter() - t0, card=card)
+    log(f"  (c) the phase-4 config scene-centric, and with gelu + mean_valid + attn_dropout_weights, card vs CPU in "
+        f"float32 (above), {out['card_vs_cpu_seconds']:.1f} s")
+    log(f"  phase 19 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 # phase 18 (b)'s arms (`variant_of`), all with use_pallas: every variant of the input, TL, pose and latent options in
 # one of them; apply_q_rpe keeps its whole arm off B2 and B4, xy_dir's d_rpe = 4 takes them on the general route
 # (float32). Three arms, not one a variant: each arm's CPU runs cost ~5 s beside the build
@@ -3753,6 +3936,9 @@ CARD_VS_CPU = {
        for mode, repredict, seed in (("cmd", False, 3), ("goal", True, 3), ("dest", True, 1), ("dest", True, 0))],
     18: [(kind, dict(use_pallas=use_pallas, time_step_end=NAVI_CHECK_END, variant=variant))
          for variant, use_pallas in VARIANT_ARMS for kind in ("slice", "train")],
+    19: [(kind, dict(use_pallas=True, time_step_end=NAVI_CHECK_END, variant="scene_centric"))
+         for kind in ("slice", "train")]
+    + [("train", dict(use_pallas=True, time_step_end=NAVI_CHECK_END, variant="gelu+mean_valid+wdrop"))],
 }
 
 
@@ -3780,7 +3966,7 @@ def main() -> int:
     t_start = time.perf_counter()
     header = lambda text: log(f"{text} (at {time.perf_counter() - t_start:.1f} s)")  # noqa: E731
     card = card_line()
-    log(f"[1/18] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/19] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -3797,68 +3983,73 @@ def main() -> int:
         n_refs, t_refs = precompute_cpu_references()
         for fut in futures:
             fut.result()
-    header(f"[2/18] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {max(built):.2f} s; beside it the CPU "
+    header(f"[2/19] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {max(built):.2f} s; beside it the CPU "
            f"runs of {n_refs} card-vs-CPU checks in {t_refs:.2f} s")
 
-    header("[3/18] kernels vs plain versions")
+    header("[3/19] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
     bench_routes = run_bench_knarpe()
 
-    header("[4/18] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[4/19] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     run_card_vs_cpu(4)
 
-    header("[5/18] slice at full width, use_pallas=False")
+    header("[5/19] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    header("[6/18] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    header("[6/19] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True, warm_up=False)
 
-    header("[7/18] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[7/19] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     run_card_vs_cpu(7)
 
-    header("[8/18] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    header("[8/19] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    header("[9/18] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    header("[9/19] validation step: reduced-depth fp32 config card vs CPU, then full width")
     run_card_vs_cpu(9)
     validate_counts = run_validate_full_width(card)
     check_validate_official(card)
 
-    header("[10/18] submission: test_submission at full width, K=128")
+    header("[10/19] submission: test_submission at full width, K=128")
     run_submission(card)
 
-    header("[11/18] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    header("[11/19] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
     fit_counts = run_fit_phase(card)
 
-    header("[12/18] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
+    header("[12/19] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    header("[13/18] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
+    header("[13/19] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
         "(B4 and B4-bwd heads, B2 cluster, B2-bwd general route); the TL pass past the log, card vs CPU")
     scaled_counts, first_errs, scaled_train = run_scaled_phase(card)
 
-    header("[14/18] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
+    header("[14/19] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
         "a scripted agent, history, card vs CPU")
     serve_summary, serve_counts = run_serve_phase(card)
 
-    header("[15/18] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
+    header("[15/19] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
         "vs one process on the union batch, and their validation")
     parallel = run_parallel_phase(card)
 
-    header("[16/18] the TrafficBots RNN family at full width: joint_future_pred and a training step through the "
+    header("[16/19] the TrafficBots RNN family at full width: joint_future_pred and a training step through the "
         "kernels; the phase-4 config card vs CPU")
     rnn = run_rnn_phase(card)
 
-    header("[17/18] the navigation family: goal, cmd and dest (re-predicting) card vs CPU at the phase-4 config; goal "
+    header("[17/19] the navigation family: goal, cmd and dest (re-predicting) card vs CPU at the phase-4 config; goal "
            "with re-prediction at full width, joint_future_pred through the kernels")
     navi = run_navi_phase(card)
 
-    header("[18/18] the variants: categorical latents with a learned prior, stop-line TL tokens and the stacked TL "
+    header("[18/19] the variants: categorical latents with a learned prior, stop-line TL tokens and the stacked TL "
            "input at full width, joint_future_pred and a training step through the kernels; every input, TL, pose "
            "and latent variant card vs CPU at the phase-4 config")
     variants = run_variant_phase(card)
+
+    header("[19/19] the scene-centric model at full width, joint_future_pred and a training step (no kernel); token "
+           "dedup against the replicated rollout through the kernels; scene-centric and gelu + mean_valid + "
+           "attn_dropout_weights card vs CPU at the phase-4 config")
+    scene = run_scene_centric_phase(card)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -3912,6 +4103,9 @@ def main() -> int:
                                    "train_step": variants["train"][row["name"]],
                                    "eval_call_by_route": by_route(variants["eval_by_route"], row["name"]),
                                    "train_step_by_route": by_route(variants["train_by_route"], row["name"])}
+        row["scene_centric_launches"] = {"eval_call": scene["eval"][row["name"]],  # phase 19 (a) and (b)
+                                         "train_step": scene["train"][row["name"]],
+                                         "dedup_eval_call": scene["dedup"][row["name"]]}
     rows += bwd_rows
     for row in rows:
         for key, val in row.items():
@@ -3925,7 +4119,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "parallel": parallel,
                       "rnn": {k: v for k, v in rnn.items() if k not in ("eval", "train")},
                       "navi": {k: v for k, v in navi.items() if k != "eval"},
-                      "variants": {k: v for k, v in variants.items() if k not in ("eval", "train")}}))
+                      "variants": {k: v for k, v in variants.items() if k not in ("eval", "train")},
+                      "scene_centric": {k: v for k, v in scene.items() if k not in ("eval", "train", "dedup")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -149,6 +149,8 @@ def _walk(m: torch.nn.Module, p: str, out: SD, data: DataCfg) -> None:
         _freqs(j("pose_emb"), m.pe_cfg, out)
     if isinstance(m, NaviEncoder):
         _freqs(j("pose_emb"), m.pose_rpe, out)
+    if isinstance(m, NaviPredictor) and hasattr(m, "log_std"):  # goal mode's learned std, a raw parameter
+        out[j("log_std")] = _np(m.log_std)
     if isinstance(m, LatentEncoder) and not m.dummy and m.dist_prior.skips_forward:
         # the reference builds the prior's encoders beside the posterior's and never runs them
         if m.cfg.share_post_prior_encoders or m.dist_post.skips_forward:

@@ -18,6 +18,18 @@ The predictor encodes the agent's track with HPTR temporal tokens over the
 last window, or, in the TrafficBots RNN family (temp_window_size <= 0), with
 a GRU over the whole history (its input added back with `rnn_res_add`, then
 pooled by `rnn_latent_temp_pool_mode`).
+
+The scene-centric model (`pairwise_relative=False`) works in the global
+frame: the encoder embeds a destination by its map feature alone (no
+`mlp_pe`) and a goal's global pose with the map encoder's pose embedding;
+the predictor's track tokens embed global poses (the RNN track too), its
+dest MLP reads no relative pose, its goal / cmd KNN is selected by distance
+alone (`get_rel_dist` + `get_tgt_knn`) and attended without RPE, and its
+goal is the MLP's output as it is.
+
+`mp_rep > 1` (K-futures token dedup): the map tokens hold the unique
+scenarios, each shared by mp_rep consecutive rows; the destination gathers
+fold the replicas into the agent axis.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ from trafficbotsv15_tpu_torch.models.transformer import TransformerBlock
 from trafficbotsv15_tpu_torch.ops.distributions import DestCategorical, DiagGaussian
 from trafficbotsv15_tpu_torch.ops.pooling import seq_pooling
 from trafficbotsv15_tpu_torch.ops.pose_emb import PoseEmbConfig, apply_pose_emb, pose_emb_out_dim
-from trafficbotsv15_tpu_torch.ops.rpe import gather_tgt, get_rel_pose, get_tgt_knn
+from trafficbotsv15_tpu_torch.ops.rpe import gather_tgt, get_rel_dist, get_rel_pose, get_tgt_knn
 from trafficbotsv15_tpu_torch.ops.transform import pos2global, pos2local, rad2global, rad2local, rad2rot
 
 _NEG = -1e9
@@ -66,38 +78,49 @@ class NaviEncoder(nn.Module):
     """Per-agent feature of the navigation target, relative to the agent's pose where it has one."""
 
     def __init__(self, cfg: NaviEncoderCfg, hidden_dim: int, navi_mode: str, pose_rpe: PoseEmbConfig,
-                 navi_dim: Optional[int] = None, dtype=torch.float32):
+                 navi_dim: Optional[int] = None, pairwise_relative: bool = True,
+                 mp_pose_emb: Optional[PoseEmbConfig] = None, dtype=torch.float32):
+        """mp_pose_emb: the map encoder's node pose embedding, which embeds a scene-centric goal."""
         super().__init__()
         _check_mode(navi_mode)
         self.navi_mode, self.pose_rpe = navi_mode, pose_rpe
+        self.pairwise_relative = pairwise_relative
+        self.goal_pe = pose_rpe if pairwise_relative else mp_pose_emb
         self.dummy = navi_mode == "dummy"
-        d_pe = pose_emb_out_dim(pose_rpe)
         if navi_mode == "dest":
             self.detach_mp_feature = cfg.dest_detach_mp_feature
             self.mlp_mp = MLP(hidden_dim, [hidden_dim], end_layer_activation=False, dtype=dtype)
-            self.mlp_pe = MLP(d_pe, [hidden_dim], end_layer_activation=False, dtype=dtype)
+            if pairwise_relative:
+                self.mlp_pe = MLP(pose_emb_out_dim(pose_rpe), [hidden_dim], end_layer_activation=False, dtype=dtype)
         elif navi_mode == "goal":  # pose embedding ++ speed
-            self.mlp = MLP(d_pe + 1, [hidden_dim], end_layer_activation=False, dtype=dtype)
+            self.mlp = MLP(pose_emb_out_dim(self.goal_pe) + 1, [hidden_dim], end_layer_activation=False, dtype=dtype)
         elif navi_mode == "cmd":
             self.mlp = MLP(navi_dim, [hidden_dim], end_layer_activation=False, dtype=dtype)
         self.dtype = dtype
 
-    def forward(self, ag_navi, ag_pose, mp_tokens: MapTokens):
+    def forward(self, ag_navi, ag_pose, mp_tokens: MapTokens, mp_rep: int = 1):
         """ag_navi: dest [n_sc, n_ag] polyline index, goal [n_sc, n_ag, 4], cmd [n_sc, n_ag, n_ag_cmd] one-hot;
-        ag_pose [n_sc, n_ag, 3] -> [n_sc, n_ag, hidden], or None in dummy mode."""
+        ag_pose [n_sc, n_ag, 3] -> [n_sc, n_ag, hidden], or None in dummy mode. mp_rep > 1: mp_tokens hold the
+        unique scenarios [n_sc // mp_rep, ...] (see the module docstring)."""
         if self.dummy:
             return None
         if self.navi_mode == "cmd":
             return self.mlp(ag_navi.to(self.dtype))
         if self.navi_mode == "goal":
             xy, yaw, spd = ag_navi[..., :2].detach(), ag_navi[..., 2:3].detach(), ag_navi[..., 3:4]
-            xy = pos2local(xy[:, :, None], ag_pose[:, :, None, :2], rad2rot(ag_pose[..., 2]))[:, :, 0]
-            yaw = rad2local(yaw, ag_pose[..., 2], cast=False)
-            return self.mlp(torch.cat([apply_pose_emb(self.pose_rpe, xy, yaw), spd], -1))
+            if self.pairwise_relative:
+                xy = pos2local(xy[:, :, None], ag_pose[:, :, None, :2], rad2rot(ag_pose[..., 2]))[:, :, 0]
+                yaw = rad2local(yaw, ag_pose[..., 2], cast=False)
+            return self.mlp(torch.cat([apply_pose_emb(self.goal_pe, xy, yaw), spd], -1))
         mp_feat = mp_tokens.feature.detach() if self.detach_mp_feature else mp_tokens.feature
-        idx = torch.clamp(ag_navi, 0, mp_feat.shape[1] - 1).long()
-        feat = self.mlp_mp(torch.gather(mp_feat, 1, idx[..., None].expand(-1, -1, mp_feat.shape[-1])))
-        dest_pose = torch.gather(mp_tokens.pose, 1, idx[..., None].expand(-1, -1, 3))
+        n_sc, n_ag = ag_navi.shape
+        # the replicas fold into the agent axis of the gathers (mp_rep 1: the same gathers)
+        idx = torch.clamp(ag_navi, 0, mp_feat.shape[1] - 1).long().reshape(n_sc // mp_rep, mp_rep * n_ag)
+        feat = torch.gather(mp_feat, 1, idx[..., None].expand(-1, -1, mp_feat.shape[-1]))
+        feat = self.mlp_mp(feat.reshape(n_sc, n_ag, feat.shape[-1]))
+        if not self.pairwise_relative:
+            return feat
+        dest_pose = torch.gather(mp_tokens.pose, 1, idx[..., None].expand(-1, -1, 3)).reshape(n_sc, n_ag, 3)
         xy = pos2local(dest_pose[:, :, None, :2], ag_pose[:, :, None, :2], rad2rot(ag_pose[..., 2]))[:, :, 0]
         yaw = rad2local(dest_pose[..., 2:3], ag_pose[..., 2], cast=False)[..., 0]
         return feat + self.mlp_pe(apply_pose_emb(self.pose_rpe, xy, yaw[..., None]))
@@ -112,36 +135,39 @@ class NaviPredictor(nn.Module):
                  hidden_dim: int, navi_mode: str, temp_window_size: int, n_tgt_knn: int, dist_limit: float,
                  pose_rpe: PoseEmbConfig, attr_dim: int, navi_dim: Optional[int] = None,
                  temp_encoder_n_layer: int = 3, temp_encoder_pooling: str = "max_valid",
-                 temp_encoder_dropout_p: float = 0.1, dtype=torch.float32):
+                 temp_encoder_dropout_p: float = 0.1, pairwise_relative: bool = True, dtype=torch.float32):
         super().__init__()
         _check_mode(navi_mode)
         self.navi_mode = navi_mode
         if navi_mode == "dummy":
             return
         self.pose_rpe, self.temp_window_size, self.hidden_dim = pose_rpe, temp_window_size, hidden_dim
+        self.pairwise_relative = pairwise_relative
         self.detach_input = cfg.detach_input
         self.rnn = temp_window_size <= 0
         self.rnn_res_add, self.rnn_pool_mode = cfg.rnn_res_add, ag_encoder_cfg.rnn_latent_temp_pool_mode
         ie = ag_encoder_cfg.input_encoder
-        if self.rnn:  # relative RNN: no pose embedding, no window slot
-            self.input_encoder = InputEncoder(attr_dim + 3, hidden_dim, 0, ie.n_layer, ie.mode,
+        self.pe_cfg = None  # the track's pose embedding (none in the pairwise-relative RNN)
+        if not (self.rnn and pairwise_relative):
+            self.pe_cfg = PoseEmbConfig(mode=ag_encoder_cfg.pose_emb.mode,
+                                        pe_dim=hidden_dim if ie.mode == "add" else hidden_dim // 2,
+                                        theta_xy=ag_encoder_cfg.pose_emb.theta_xy,
+                                        theta_cs=ag_encoder_cfg.pose_emb.theta_cs)
+        pe_width = 0 if self.pe_cfg is None else pose_emb_out_dim(self.pe_cfg)
+        if self.rnn:  # no window slot
+            self.input_encoder = InputEncoder(attr_dim + 3, hidden_dim, pe_width, ie.n_layer, ie.mode,
                                               ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
             self.temp_encoder = MultiAgentGRU(hidden_dim, hidden_dim, temp_encoder_n_layer, temp_encoder_dropout_p,
                                               dtype=dtype)
         else:
-            pe_dim = hidden_dim if ie.mode == "add" else hidden_dim // 2
-            self.pe_cfg = PoseEmbConfig(mode=ag_encoder_cfg.pose_emb.mode, pe_dim=pe_dim,
-                                        theta_xy=ag_encoder_cfg.pose_emb.theta_xy,
-                                        theta_cs=ag_encoder_cfg.pose_emb.theta_cs)
-            self.input_encoder = InputEncoder(attr_dim + 3 + temp_window_size, hidden_dim,
-                                              pose_emb_out_dim(self.pe_cfg), ie.n_layer, ie.mode,
-                                              ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
+            self.input_encoder = InputEncoder(attr_dim + 3 + temp_window_size, hidden_dim, pe_width, ie.n_layer,
+                                              ie.mode, ie.mlp_use_layernorm, ie.mlp_dropout_p, dtype=dtype)
             self.temp_encoder = PolylineEncoder(hidden_dim, temp_encoder_n_layer, temp_encoder_pooling,
                                                 mlp_dropout_p=temp_encoder_dropout_p, dtype=dtype)
         dims = [hidden_dim] * (cfg.n_layer_mlp - 1)
-        d_rpe = pose_emb_out_dim(pose_rpe)
+        d_rpe = pose_emb_out_dim(pose_rpe) if pairwise_relative else -1
         if navi_mode == "dest":
-            self.mlp = MLP(2 * hidden_dim + d_rpe, dims + [1], end_layer_activation=False,
+            self.mlp = MLP(2 * hidden_dim + max(d_rpe, 0), dims + [1], end_layer_activation=False,
                            use_layernorm=cfg.mlp_use_layernorm, dtype=dtype)
         else:  # goal / cmd: cross-attention to the K nearest map polylines, then the MLP
             self.n_knn, self.limit = int(n_tgt_knn * cfg.k_tgt_knn), dist_limit * cfg.k_dist_limit
@@ -166,18 +192,25 @@ class NaviPredictor(nn.Module):
         if self.navi_mode == "dest":
             return self._dest(ag_token_feature, ag_token_pose, ag_token_valid, ag_type, mp_tokens)
 
-        rel_pose, rel_dist = get_rel_pose(ag_token_pose, ag_token_invalid, mp_tokens.pose, mp_tokens.invalid)
+        if self.pairwise_relative:
+            rel_pose, rel_dist = get_rel_pose(ag_token_pose, ag_token_invalid, mp_tokens.pose, mp_tokens.invalid)
+        else:
+            rel_pose = None
+            rel_dist = get_rel_dist(ag_token_pose[..., :2], ag_token_invalid, mp_tokens.pose[..., :2],
+                                    mp_tokens.invalid)
         idx, knn_invalid, rpe = get_tgt_knn(rel_pose, rel_dist, self.n_knn, self.limit)
+        if rpe is not None:
+            rpe = apply_pose_emb(self.pose_rpe, rpe[..., :2], rpe[..., 2:3])
         ag_token_feature = self.tf_ag2mp(ag_token_feature, src_padding_mask=ag_token_invalid,
-                                         tgt=gather_tgt(mp_tokens.feature, idx), tgt_padding_mask=knn_invalid,
-                                         rpe=apply_pose_emb(self.pose_rpe, rpe[..., :2], rpe[..., 2:3]))
+                                         tgt=gather_tgt(mp_tokens.feature, idx), tgt_padding_mask=knn_invalid, rpe=rpe)
         out = self.mlp(ag_token_feature)
         if self.navi_mode == "cmd":
             return DestCategorical(logits=torch.where(ag_token_invalid[..., None], 0.0, out), valid=ag_token_valid)
-        # goal: from the agent's frame back to the world's (float32, as JAX promotes the compute dtype)
-        ref_yaw = ag_token_pose[..., 2]
-        xy = pos2global(out[:, :, None, :2], ag_token_pose[:, :, None, :2], rad2rot(ref_yaw))[:, :, 0]
-        out = torch.cat([xy, rad2global(out[:, :, 2:3], ref_yaw), out[:, :, 3:4].float()], -1)
+        if self.pairwise_relative:
+            # goal: from the agent's frame back to the world's (float32, as JAX promotes the compute dtype)
+            ref_yaw = ag_token_pose[..., 2]
+            xy = pos2global(out[:, :, None, :2], ag_token_pose[:, :, None, :2], rad2rot(ref_yaw))[:, :, 0]
+            out = torch.cat([xy, rad2global(out[:, :, 2:3], ref_yaw), out[:, :, 3:4].float()], -1)
         out = torch.where(ag_token_invalid[..., None], 0.0, out)
         return DiagGaussian(out, torch.exp(self.log_std).expand(out.shape), valid=ag_token_valid)
 
@@ -186,14 +219,12 @@ class NaviPredictor(nn.Module):
         n_sc, n_ag, h = ag_token_feature.shape
         n_mp = mp_tokens.invalid.shape[1]
         ag_token_invalid = ~ag_token_valid
-        rpe_ag2mp, _ = get_rel_pose(ag_token_pose, ag_token_invalid, mp_tokens.pose, mp_tokens.invalid)
-        rpe_ag2mp = apply_pose_emb(self.pose_rpe, rpe_ag2mp[..., :2], rpe_ag2mp[..., 2:3])
-        pair = torch.cat([
-            ag_token_feature[:, :, None].expand(n_sc, n_ag, n_mp, h),
-            mp_tokens.feature[:, None].expand(n_sc, n_ag, n_mp, h),
-            rpe_ag2mp.to(self.dtype),
-        ], -1)
-        logits = self.mlp(pair)[..., 0]
+        pair = [ag_token_feature[:, :, None].expand(n_sc, n_ag, n_mp, h),
+                mp_tokens.feature[:, None].expand(n_sc, n_ag, n_mp, h)]
+        if self.pairwise_relative:
+            rpe_ag2mp, _ = get_rel_pose(ag_token_pose, ag_token_invalid, mp_tokens.pose, mp_tokens.invalid)
+            pair.append(apply_pose_emb(self.pose_rpe, rpe_ag2mp[..., :2], rpe_ag2mp[..., 2:3]).to(self.dtype))
+        logits = self.mlp(torch.cat(pair, -1))[..., 0]
 
         # agent-type / lane-type compatibility (WOMD lane types 0-4)
         mp_type = mp_tokens.type
@@ -212,7 +243,8 @@ class NaviPredictor(nn.Module):
         n_sc, n_ag, n_step = ag_invalid.shape
         attr = torch.cat([ag_attr[:, :, None, :].expand(n_sc, n_ag, n_step, ag_attr.shape[-1]).to(self.dtype),
                           ag_motion.to(self.dtype)], -1)
-        feat = self.input_encoder(attr, None)
+        pe = None if self.pe_cfg is None else apply_pose_emb(self.pe_cfg, ag_pose[..., :2], ag_pose[..., 2:3])
+        feat = self.input_encoder(attr, pe)
         out, _ = self.temp_encoder(feat, ag_invalid)
         if self.rnn_res_add:
             out = out + feat
@@ -225,8 +257,10 @@ class NaviPredictor(nn.Module):
         if n_step > w:
             ag_pose, ag_motion, ag_invalid = ag_pose[:, :, -w:], ag_motion[:, :, -w:], ag_invalid[:, :, -w:]
             n_step = w
-        ag_xy = pos2local(ag_pose[..., :2], ag_token_pose[:, :, None, :2], rad2rot(ag_token_pose[..., 2]))
-        ag_yaw = rad2local(ag_pose[..., 2], ag_token_pose[..., 2], cast=False)
+        ag_xy, ag_yaw = ag_pose[..., :2], ag_pose[..., 2]
+        if self.pairwise_relative:
+            ag_xy = pos2local(ag_xy, ag_token_pose[:, :, None, :2], rad2rot(ag_token_pose[..., 2]))
+            ag_yaw = rad2local(ag_yaw, ag_token_pose[..., 2], cast=False)
         pe = apply_pose_emb(self.pe_cfg, ag_xy, ag_yaw[..., None])
         ohe = torch.eye(w, dtype=self.dtype, device=ag_invalid.device)[w - n_step:]
         attr = torch.cat([

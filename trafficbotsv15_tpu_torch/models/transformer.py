@@ -27,10 +27,22 @@ the dense-KNN form, a kernel or a hoisted static K/V: it projects its
 targets and its RPE and attends on the plain path (`knn_attention` with
 rpe_q), whatever `use_pallas` says.
 
-Dropout (`TransformerCfg.dropout_p`) sits where the JAX package puts it with
-`attn_dropout_weights=False`: on the attention's output-projection input and
-on each sub-layer's output (`drop_src`, `drop1`, `drop_ffn`, `drop2`); it
-draws masks only inside a training `ops/dropout.py::dropout_scope`.
+Dropout (`TransformerCfg.dropout_p`) sits where the JAX package puts it: on
+each sub-layer's output (`drop_src`, `drop1`, `drop_ffn`, `drop2`), and on
+the attention's output-projection input, or with `attn_dropout_weights` on
+the softmax weights in every layout (the reference's placement). It draws
+masks only inside a training `ops/dropout.py::dropout_scope`, in call order,
+so the per-step recompute replays them. Dropout on the weights turns the
+kernels off, as the JAX package's gates do.
+
+The scene-centric model (`pairwise_relative=False`) builds every block with
+`d_rpe = -1`: no RPE projection, the same branches without it. Its call
+sites reach no kernel (B4 and B2 take an RPE). A decoder self-attention
+without KNN indices, dense cross targets [b, t, d] and targets of a
+self-attention raise: no model call site in either package reaches them.
+
+The FFN's activation is `relu`, `gelu` (flax's `nn.gelu`, the tanh
+approximation) or `elu`.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from trafficbotsv15_tpu_torch.config import TransformerCfg
@@ -57,9 +70,12 @@ def standardize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x32 - mu) * torch.rsqrt(var + eps)
 
 
+ACTIVATIONS = {"relu": torch.relu, "gelu": lambda x: F.gelu(x, approximate="tanh"), "elu": F.elu}
+
+
 def check_transformer_cfg(tf_cfg: TransformerCfg) -> None:
-    if tf_cfg.activation != "relu":
-        raise NotImplementedError(f"activation {tf_cfg.activation!r} is not on the joint-future path")
+    if tf_cfg.activation not in ACTIVATIONS:
+        raise ValueError(f"activation {tf_cfg.activation!r}: one of {sorted(ACTIVATIONS)}")
 
 
 class AttentionRPE(nn.Module):
@@ -73,7 +89,8 @@ class AttentionRPE(nn.Module):
         self.dropout_p, self.attn_dropout_weights = dropout_p, attn_dropout_weights
         self.d_model, self.n_head, self.d_rpe = d_model, n_head, d_rpe
         self.dense_knn_max = dense_knn_max
-        self.use_pallas = use_pallas  # the KNARPE attention kernels (B4, B2)
+        # the KNARPE attention kernels (B4, B2), off with dropout on the weights as in the JAX package
+        self.use_pallas = use_pallas and not attn_dropout_weights
         self.dtype = dtype
         self.q_proj = Dense(d_model, d_model, bias=bias, dtype=dtype)
         self.out_proj = Dense(d_model, d_model, bias=bias, dtype=dtype)
@@ -118,7 +135,7 @@ class AttentionRPE(nn.Module):
         b = self.rpe_proj_b if bk is None else bk + self.rpe_proj_b
         return (cat @ w + b.to(dt)).chunk(2, -1)
 
-    def _q_rpe_attention(self, q, kv, rpe, tgt_padding_mask):
+    def _q_rpe_attention(self, q, kv, rpe, tgt_padding_mask, attn_drop=None):
         """The apply_q_rpe attention over per-source K/V [b, s, K, 2D] and rpe [b, s, K, d_rpe] on the plain path:
         rpe_proj gives (rpe_q, rpe_k, rpe_v), and the logits are (q + rpe_q)·(k + rpe_k)."""
         n_b, n_src, n_knn = kv.shape[:3]
@@ -126,7 +143,7 @@ class AttentionRPE(nn.Module):
         k, v = (split(t) for t in kv.chunk(2, -1))
         rpe_q, rpe_k, rpe_v = (split(t) for t in self.rpe_proj(rpe).chunk(3, -1))
         qh = q.reshape(n_b, n_src, self.n_head, self.d_model // self.n_head)
-        return knn_attention(qh, k, v, tgt_padding_mask, rpe_k, rpe_v, rpe_q=rpe_q)
+        return knn_attention(qh, k, v, tgt_padding_mask, rpe_k, rpe_v, rpe_q=rpe_q, attn_drop=attn_drop)
 
     def static_kv(self, tgt: torch.Tensor, rpe: Optional[torch.Tensor], ln=None):
         """Scenario-static (k [+ rpe_k], v [+ rpe_v]) of per-source targets [b, s, K, d]."""
@@ -143,7 +160,7 @@ class AttentionRPE(nn.Module):
         return tuple(self._rpe_kv(rpe))
 
     # -- attention ---------------------------------------------------------
-    def _dense_knn_attention(self, q, kv, tgt_idx, tgt_padding_mask, rpe_k, rpe_v):
+    def _dense_knn_attention(self, q, kv, tgt_idx, tgt_padding_mask, rpe_k, rpe_v, attn_drop=None):
         """KNN self-attention as dense attention masked to the KNN slots.
 
         q [b, s, D], kv [b, t, 2D] (t == s), tgt_idx [b, s, K] (distinct per source),
@@ -172,6 +189,8 @@ class AttentionRPE(nn.Module):
             q_rpe = (q[:, :, None, :] * rpe_k).reshape(n_b, n_src, n_knn, n_head, d_head).sum(-1) * scale
             logits = logits.scatter_add(3, idx_h, q_rpe.transpose(2, 3).to(logits.dtype))
         attn, no_valid = _masked_softmax(logits, dense_invalid[:, :, None, :])
+        if attn_drop is not None:
+            attn = attn_drop(attn)
         out = torch.einsum("bsht,bthd->bshd", attn, v)
         if rpe_v is not None:
             attn_knn = torch.gather(attn, 3, idx_h).to(q.dtype)  # [b, s, h, K]
@@ -187,19 +206,23 @@ class AttentionRPE(nn.Module):
         n_b, n_src, _ = src.shape
         n_head, d_head = self.n_head, self.d_model // self.n_head
         q = self.q_proj(src)
+        wdrop = None
+        if self.attn_dropout_weights and self.dropout_p > 0:
+            wdrop = lambda a: drop.dropout(a, self.dropout_p)  # noqa: E731
 
         if kv_static is not None:
-            out = knn_attention_fullwidth(q, kv_static[0], kv_static[1], tgt_padding_mask, n_head)
+            out = knn_attention_fullwidth(q, kv_static[0], kv_static[1], tgt_padding_mask, n_head, wdrop)
         elif tgt_idx is not None and n_src <= self.dense_knn_max and not self.apply_q_rpe:
             rpe_k, rpe_v = rpe_kv_static if rpe_kv_static is not None else (
                 self._rpe_kv(rpe) if rpe is not None else (None, None))
-            out = self._dense_knn_attention(q, self._project_kv(src), tgt_idx, tgt_padding_mask, rpe_k, rpe_v)
+            out = self._dense_knn_attention(q, self._project_kv(src), tgt_idx, tgt_padding_mask, rpe_k, rpe_v,
+                                            wdrop)
         elif tgt_idx is not None:
             # project the n_src tokens once, then gather (row-wise ops commute with the gather)
             kv = gather_tgt(self._project_kv(src), tgt_idx)
             n_knn = tgt_idx.shape[-1]
             if rpe is not None and self.apply_q_rpe:
-                out = self._q_rpe_attention(q, kv, rpe, tgt_padding_mask)
+                out = self._q_rpe_attention(q, kv, rpe, tgt_padding_mask, wdrop)
             elif rpe is not None and self.use_pallas:
                 # kernel B4 fuses the rpe projection into the attention (JAX transformer.py:346-366)
                 dt = self.dtype
@@ -212,14 +235,15 @@ class AttentionRPE(nn.Module):
                     rk, rv = rpe_kv_static if rpe_kv_static is not None else self._rpe_kv(rpe)
                     rpe_k = rk.reshape(n_b, n_src, n_knn, n_head, d_head)
                     rpe_v = rv.reshape(n_b, n_src, n_knn, n_head, d_head)
-                out = knn_attention(q.reshape(n_b, n_src, n_head, d_head), k, v, tgt_padding_mask, rpe_k, rpe_v)
+                out = knn_attention(q.reshape(n_b, n_src, n_head, d_head), k, v, tgt_padding_mask, rpe_k, rpe_v,
+                                    attn_drop=wdrop)
         elif tgt is not None and tgt.ndim == 4:
             if rpe is None:
                 # no kernel takes a KNN cross-attention without RPE, in either package
                 kf, vf = self._project_kv(tgt, ln=tgt_ln).chunk(2, -1)
-                out = knn_attention_fullwidth(q, kf, vf, tgt_padding_mask, n_head)
+                out = knn_attention_fullwidth(q, kf, vf, tgt_padding_mask, n_head, wdrop)
             elif self.apply_q_rpe:
-                out = self._q_rpe_attention(q, self._project_kv(tgt, ln=tgt_ln), rpe, tgt_padding_mask)
+                out = self._q_rpe_attention(q, self._project_kv(tgt, ln=tgt_ln), rpe, tgt_padding_mask, wdrop)
             elif self.use_pallas:
                 # kernel B2 fuses both projections into the attention (JAX transformer.py:367-396);
                 # the target LayerNorm folds into W_kv and b in float32 before the cast
@@ -230,7 +254,7 @@ class AttentionRPE(nn.Module):
                                                     wk.to(dt), self.rpe_proj_w.to(dt), b_all.to(dt), n_head)
             else:
                 kf, vf = self._project_kv_plus_rpe(tgt, rpe, ln=tgt_ln)
-                out = knn_attention_fullwidth(q, kf, vf, tgt_padding_mask, n_head)
+                out = knn_attention_fullwidth(q, kf, vf, tgt_padding_mask, n_head, wdrop)
         else:
             n_tgt = n_src if tgt is None else tgt.shape[1]
             kv = self._project_kv(src if tgt is None else tgt, ln=tgt_ln if tgt is not None else None)
@@ -238,11 +262,9 @@ class AttentionRPE(nn.Module):
             invalid = tgt_padding_mask
             if invalid is not None and invalid.ndim == 2:
                 invalid = invalid[:, None, :].expand(n_b, n_src, n_tgt)
-            out = dense_attention(q.reshape(n_b, n_src, n_head, d_head), k, v, invalid)
+            out = dense_attention(q.reshape(n_b, n_src, n_head, d_head), k, v, invalid, wdrop)
 
-        if self.attn_dropout_weights and self.dropout_p > 0 and drop.active():
-            raise NotImplementedError("dropout on the attention weights (attn_dropout_weights=True) is not ported")
-        out = self.out_proj(drop.dropout(out, self.dropout_p))
+        out = self.out_proj(out if self.attn_dropout_weights else drop.dropout(out, self.dropout_p))
         if tgt_padding_mask is not None:
             no_valid = tgt_padding_mask.all(-1)
             if no_valid.ndim == 1:  # dense 2D padding mask: per batch
@@ -266,9 +288,9 @@ class TransformerLayer(nn.Module):
         d = tf_cfg.d_model
         self.mode = mode
         self.dropout_p = tf_cfg.dropout_p
+        self.act = ACTIVATIONS[tf_cfg.activation]
         attn_kw = dict(d_model=d, n_head=tf_cfg.n_head, d_rpe=d_rpe, bias=tf_cfg.bias,
-                       dense_knn_max=tf_cfg.dense_knn_max,
-                       use_pallas=tf_cfg.use_pallas and not tf_cfg.attn_dropout_weights,
+                       dense_knn_max=tf_cfg.dense_knn_max, use_pallas=tf_cfg.use_pallas,
                        dropout_p=tf_cfg.dropout_p, attn_dropout_weights=tf_cfg.attn_dropout_weights,
                        apply_q_rpe=tf_cfg.apply_q_rpe, dtype=dtype)
         if mode == "dec_cross_attn":
@@ -299,7 +321,7 @@ class TransformerLayer(nn.Module):
                 decoder_rpe_kv_static=None, tgt_idx=None, decoder_tgt_idx=None, tgt_standardized=False):
         if self.mode == "dec_cross_attn":
             if decoder_tgt_idx is None:
-                raise NotImplementedError("a decoder self-attention without KNN indices is not on the joint-future path")
+                raise ValueError("a decoder self-attention without KNN indices: no model call site reaches it")
             s = self.attn_src(self.norm_src(src), None, tgt_padding_mask=decoder_tgt_padding_mask,
                               rpe=decoder_rpe, rpe_kv_static=decoder_rpe_kv_static, tgt_idx=decoder_tgt_idx)
             src = src + drop.dropout(s, self.dropout_p)
@@ -312,14 +334,15 @@ class TransformerLayer(nn.Module):
             tgt_padding_mask = src_padding_mask if tgt_padding_mask is None else tgt_padding_mask
         elif t is not None:
             if self.mode == "enc_self_attn" or t.ndim != 4:
-                raise NotImplementedError("dense cross-attention targets are not on the joint-future path")
+                raise ValueError("dense cross-attention targets, or targets of a self-attention: no model call "
+                                 "site reaches them")
             if not tgt_standardized:
                 t = standardize(t)
             t_ln = (self.norm_tgt_scale, self.norm_tgt_bias)
         src2 = self.attn(src2, t, tgt_padding_mask=tgt_padding_mask, rpe=rpe, kv_static=cross_kv_static,
                          tgt_idx=tgt_idx, tgt_ln=t_ln)
         src = src + drop.dropout(src2, self.dropout_p)
-        ffn = drop.dropout(torch.relu(self.ffn1(self.norm2(src))), self.dropout_p)
+        ffn = drop.dropout(self.act(self.ffn1(self.norm2(src))), self.dropout_p)
         src = src + drop.dropout(self.ffn2(ffn), self.dropout_p)
         if src_padding_mask is not None:
             src = torch.where(src_padding_mask[..., None], 0.0, src)

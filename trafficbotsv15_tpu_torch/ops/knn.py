@@ -40,6 +40,15 @@ def knn_wanted(n_src: int, n_tgt: int, knn_kernel_on: bool) -> bool:
     return knn_kernel_on and n_tgt >= 512 and n_tgt % 128 == 0 and n_src % 8 == 0
 
 
+def sqrt_rn(sq: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 root of float32 `sq`, as the kernel's __fsqrt_rn and XLA's sqrt give it. On the
+    CPU it is taken in float64 and rounded once (torch's vectorised float32 sqrt there can be 1 ULP off); CUDA's
+    float32 sqrt is correctly rounded already. Every plain distance of the port takes its root here."""
+    if sq.is_cuda:
+        return torch.sqrt(sq)
+    return torch.sqrt(sq.double()).float()
+
+
 def knn_xy_reference(src_xy, src_invalid, tgt_xy, tgt_invalid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: masked distances + stable sort, first k.
 
@@ -50,10 +59,8 @@ def knn_xy_reference(src_xy, src_invalid, tgt_xy, tgt_invalid, k: int) -> Tuple[
     src_xy, tgt_xy = src_xy.float(), tgt_xy.float()
     dx = src_xy[:, :, None, 0] - tgt_xy[:, None, :, 0]
     dy = src_xy[:, :, None, 1] - tgt_xy[:, None, :, 1]
-    # the float32 sum is rounded per operation as in the kernel; the root is taken
-    # in float64 and rounded once, i.e. correctly rounded like the kernel's
-    # __fsqrt_rn (torch's vectorised float32 sqrt on the CPU can be 1 ULP off)
-    dist = torch.sqrt((dx * dx + dy * dy).double()).float()
+    # the float32 sum is rounded per operation as in the kernel, the root correctly
+    dist = sqrt_rn(dx * dx + dy * dy)
     dist = torch.where(src_invalid[:, :, None] | tgt_invalid[:, None, :], float("inf"), dist)
     d, i = torch.sort(dist, dim=-1, stable=True)
     return d[..., :k].contiguous(), i[..., :k].to(torch.int32).contiguous()

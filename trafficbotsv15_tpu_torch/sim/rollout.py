@@ -21,7 +21,14 @@ take JAX's optional player override: `player_valid` [n_sc, n_ag, n_step_roll]
 and `player_action` [n_sc, n_ag, n_step_roll, 2] (bounded acc, yaw_rate)
 script the marked agents step by step; the action is replaced after it is
 sampled and its log-prob taken, so the log-prob stays the policy's own.
-Token dedup raises where the config asks for it.
+
+K-futures token dedup (`rollout(token_rep=K)`, which `train/evaluation.py`
+asks for under `rollout_token_dedup`, as JAX's `joint_future_pred` does): the
+map and TL tokens and the pre-pass's TL feature stay the unique scenarios'
+[n_sc // K, ...], and each step's map and TL selections and gathers read them
+(`models/agent_encoder.py`); the TL state the rule checker reads, the
+TL-state NLL and its mask repeat to the rollout's batch. It needs the TL
+pre-pass and no navi re-prediction, and gives the replicated rollout's result.
 
 With `pred_navi_after_reached` (dest and goal modes, as in JAX) the navi
 predictor runs inside every step on the step's history window: its draw
@@ -126,7 +133,7 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
             tf_cfg=None, with_reward: bool = False,
             player_valid: Optional[torch.Tensor] = None, player_action: Optional[torch.Tensor] = None,
             navi_update_inputs: Optional[Dict[str, torch.Tensor]] = None,
-            navi_draw: Optional[NaviDraw] = None) -> RolloutBuffer:
+            navi_draw: Optional[NaviDraw] = None, token_rep: int = 1) -> RolloutBuffer:
     """Run the closed-loop simulation from step 1 to cfg.time_step_end inclusive.
 
     gt_* cover the first T steps ([n_sc, n_ag, T]); ag_forcing is the
@@ -139,11 +146,13 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
     player_valid / player_action, if given, script the agents they mark at each step.
     With re-prediction (`repredicts(cfg)`) navi_update_inputs holds the map arrays of the rollout's batch
     (`navi_map_arrays`) and navi_draw gives each step's draws (`navi_draws`).
+    token_rep > 1: mp_tokens and tl_tokens hold the unique scenarios (token dedup, see the module docstring).
     """
     tf_cfg = cfg.teacher_forcing_training if tf_cfg is None else tf_cfg
     n_step_roll = cfg.time_step_end
     n_sc, n_ag, t_gt = gt_valid.shape
     tl_rep = _check_rollout_cfg(cfg, tl_precomputed, tl_forcing, n_sc, n_step_roll)
+    _check_token_rep(cfg, token_rep, tl_rep, mp_tokens, n_sc)
     w = max(cfg.model.temp_window_size, 1)
 
     tf_valid = pad_steps(ag_forcing, n_step_roll, False)
@@ -174,14 +183,14 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
         hist_pose = torch.cat([hist_pose[:, :, 1:], pose[:, :, None]], 2)
         hist_motion = torch.cat([hist_motion[:, :, 1:], motion[:, :, None]], 2)
         hist_step_invalid = torch.cat([hist_step_invalid[1:], hist_step_invalid.new_zeros(1)])
-        tl_feature, tl_state_pre = _tl_pre_step(tl_precomputed, tl_rep, i)
+        tl_feature, tl_state_pre = _tl_pre_step(tl_precomputed, tl_rep, i, token_rep)
         if tl_in is not None:
             hist_tl = torch.cat([hist_tl[:, :, 1:], tl_state[:, :, None]], 2)
 
         action_dist, tl_logits, rnn_hidden, tl_rnn_hidden = model.step(
             valid, hist_valid, hist_pose, hist_motion, ag_attr, ag_type, ag_latent, ag_latent_valid, navi,
             navi_valid, tl_tokens, mp_tokens, tl_feature, hist_tl_state=hist_tl, hist_step_invalid=hist_step_invalid,
-            rnn_hidden=rnn_hidden, tl_rnn_hidden=tl_rnn_hidden)
+            rnn_hidden=rnn_hidden, tl_rnn_hidden=tl_rnn_hidden, token_rep=token_rep)
         if tl_in is None:
             tl_state = tl_state_pre
         else:
@@ -217,7 +226,7 @@ def rollout(model, cfg: ExperimentCfg, mp_tokens: MapTokens, tl_tokens: TlTokens
             outs[key].append(val)
 
     tl_outs = outs.pop("tl")
-    buf = (_tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll) if tl_in is None
+    buf = (_tl_outputs(tl_precomputed, tl_rep, gt_tl_state, tl_tokens, n_step_roll, token_rep) if tl_in is None
            else _stack_dicts(tl_outs))
     reward = outs.pop("diffbar_reward")
     navi_outs = outs.pop("navi")
@@ -328,13 +337,16 @@ def _tl_carry0(gt_tl_state, w: int, tl_in):
     return gt_tl_state[:, :, 0].float(), torch.zeros((n_sc, n_tl, w, 5), device=gt_tl_state.device)
 
 
-def _tl_pre_step(tl_precomputed, tl_rep: int, i: int):
-    """Step i's TL feature and state from the pre-pass, repeated to the rollout batch; (None, None) without it."""
+def _tl_pre_step(tl_precomputed, tl_rep: int, i: int, token_rep: int = 1):
+    """Step i's TL feature and state from the pre-pass, repeated to the rollout batch (the feature stays the unique
+    scenarios' under token dedup); (None, None) without it."""
     if tl_precomputed is None:
         return None, None
     feature, state = tl_precomputed["feature"][i], tl_precomputed["state"][i]
     if tl_rep > 1:
-        feature, state = torch.repeat_interleave(feature, tl_rep, 0), torch.repeat_interleave(state, tl_rep, 0)
+        state = torch.repeat_interleave(state, tl_rep, 0)
+        if token_rep == 1:
+            feature = torch.repeat_interleave(feature, tl_rep, 0)
     return feature, state
 
 
@@ -403,11 +415,23 @@ def _repredict_draw(cfg: ExperimentCfg, update_inputs, draw: Optional[NaviDraw])
     return draw
 
 
+def _check_token_rep(cfg: ExperimentCfg, token_rep: int, tl_rep: int, mp_tokens: MapTokens, n_sc: int) -> None:
+    """Raise where token dedup's inputs do not fit: it needs the pre-pass at the same replication and no navi
+    re-prediction (JAX's asserts), and map tokens of the unique scenarios."""
+    if token_rep == 1:
+        return
+    if token_rep != tl_rep:
+        raise ValueError(f"token dedup needs the TL pre-pass over the unique scenarios (token_rep {token_rep}, "
+                         f"pre-pass replication {tl_rep})")
+    if repredicts(cfg):
+        raise ValueError("token dedup does not run the in-rollout navi predictor: pred_navi_after_reached replicates")
+    if mp_tokens.feature.shape[0] * token_rep != n_sc:
+        raise ValueError(f"unique map batch {mp_tokens.feature.shape[0]} x {token_rep} != rollout batch {n_sc}")
+
+
 def _check_rollout_cfg(cfg: ExperimentCfg, tl_precomputed, tl_forcing, n_sc: int, n_step_roll: int) -> int:
-    """Raise for the options neither flavour ports and for TL inputs that do not fit; -> how often each pre-pass
-    scenario repeats (1 on the in-rollout TL path)."""
-    if cfg.rollout_token_dedup:
-        raise NotImplementedError("rollout_token_dedup is not ported")
+    """Raise for TL inputs that do not fit; -> how often each pre-pass scenario repeats (1 on the in-rollout TL
+    path)."""
     if tl_precomputed is None:
         if tl_forcing is None:
             raise ValueError("the in-rollout TL path needs tl_forcing")
@@ -420,8 +444,10 @@ def _check_rollout_cfg(cfg: ExperimentCfg, tl_precomputed, tl_forcing, n_sc: int
     return n_sc // n_sc_u
 
 
-def _tl_outputs(tl_precomputed, tl_rep: int, gt_tl_state, tl_tokens: TlTokens, n_step_roll: int):
-    """TL NLL and state trajectory from the pre-pass, over all steps at once (buffer layout)."""
+def _tl_outputs(tl_precomputed, tl_rep: int, gt_tl_state, tl_tokens: TlTokens, n_step_roll: int,
+                token_rep: int = 1):
+    """TL NLL and state trajectory from the pre-pass, over all steps at once (buffer layout); under token dedup
+    tl_tokens are the unique scenarios', their mask repeated to the rollout batch."""
     dev = gt_tl_state.device
     t_tl = gt_tl_state.shape[2]
     logits = torch.repeat_interleave(tl_precomputed["logits"], tl_rep, 1)
@@ -430,7 +456,7 @@ def _tl_outputs(tl_precomputed, tl_rep: int, gt_tl_state, tl_tokens: TlTokens, n
     tl_avail = torch.arange(1, n_step_roll + 1, device=dev) < t_tl
     nll = -torch.gather(torch.log_softmax(logits, -1), -1, gt_tl_idx[..., None])[..., 0]
     nll = torch.where(tl_avail[:, None, None], nll, 0.0)
-    nll_invalid = tl_tokens.invalid[None] | ~tl_avail[:, None, None]
+    nll_invalid = torch.repeat_interleave(tl_tokens.invalid, token_rep, 0)[None] | ~tl_avail[:, None, None]
     return dict(tl_state_nll=nll.movedim(0, 2), tl_state_nll_invalid=nll_invalid.movedim(0, 2),
                 tl_state=state_pre.movedim(0, 2))
 

@@ -7,6 +7,8 @@ in the rollout, as in the TrafficBots RNN family), replication of
 everything K times along the scenario axis, and the closed-loop rollout. Latent and navi draws, and the
 navi re-predicted in the rollout, come from an explicit `torch.Generator`. A command's draw enters the
 rollout as its one-hot (`models/navigation.py::navi_of_draw`); in dummy mode no navi is drawn.
+With `rollout_token_dedup` the rollout reads the unique scenarios' map and TL
+tokens instead of K replicas of them (`token_dedup_rep`: JAX's gate).
 
 `reactive_replay`, the validation's reconstruction rollout: the posterior
 latent's mode (a Gaussian's mean, a categorical's argmax one-hot), the
@@ -165,6 +167,15 @@ def sample_joint_futures(cfg: ExperimentCfg, scene: JointFutureScene, k: int, ge
     return out
 
 
+def token_dedup_rep(cfg: ExperimentCfg, scene: JointFutureScene, k: int) -> int:
+    """The rollout's token_rep, as JAX's joint_future_pred decides it: K under `rollout_token_dedup` where the TL
+    pre-pass ran and the config does not set `pred_navi_after_reached` (the in-rollout TL encoder and navi
+    predictor read the replicated batch); else 1, the replicated rollout."""
+    if cfg.rollout_token_dedup and scene.tl_pre is not None and not cfg.pred_navi_after_reached:
+        return k
+    return 1
+
+
 @torch.no_grad()
 def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, torch.Tensor],
                           scene: JointFutureScene, k: int, *, ag_latent, ag_latent_valid, ag_navi, ag_navi_valid,
@@ -174,7 +185,8 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
     `pred_navi_after_reached` its re-predicted navi drawn from navi_generator or given per step as navi_noise."""
     pp = scene.pp
     # TL in the rollout runs its encoder on the replicated batch: every token field repeats
-    tl_tokens = scene.tl_tokens.repeat(k) if scene.tl_pre is None else scene.tl_tokens.repeat_for_rollout(k)
+    tl_full = scene.tl_tokens.repeat(k) if scene.tl_pre is None else scene.tl_tokens.repeat_for_rollout(k)
+    token_rep = token_dedup_rep(cfg, scene, k)
 
     def rep(x):
         return _repeat(x, k)
@@ -188,7 +200,7 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
     statics, state0 = init_rule_checker(
         mp_boundary=rep(batch["map/boundary"]), mp_valid=rep(batch["map/valid"]),
         mp_type=rep(batch["map/type"]).bool(), mp_pos=rep(batch["map/pos"]), mp_dir=rep(batch["map/dir"]),
-        ag_type=rep(pp.ag_type), ag_size=rep(pp.ag_size), tl_valid=tl_tokens.valid, tl_pose=tl_tokens.pose,
+        ag_type=rep(pp.ag_type), ag_size=rep(pp.ag_size), tl_valid=tl_full.valid, tl_pose=tl_full.pose,
         ag_goal=ag_goal, ag_dest=ag_dest,
     )
     # joint future: GT = history only (spawn / warm start up to step 10)
@@ -197,7 +209,8 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
     ag_forcing, tl_forcing = build_forcing_masks(cfg.teacher_forcing_joint_future_pred, gt_valid, torch.ones(
         gt_tl_state.shape[:3], dtype=torch.bool, device=gt_valid.device))
     return rollout_lib.rollout(
-        model, cfg, scene.mp_tokens.repeat(k), tl_tokens,
+        model, cfg, scene.mp_tokens if token_rep > 1 else scene.mp_tokens.repeat(k),
+        scene.tl_tokens if token_rep > 1 else tl_full,
         ag_attr=rep(pp.ag_attr), ag_type=rep(pp.ag_type), ag_size=rep(pp.ag_size),
         ag_latent=ag_latent, ag_latent_valid=ag_latent_valid,
         ag_navi=ag_navi, ag_navi_valid=ag_navi_valid, ag_navi_log_prob=ag_navi_log_prob,
@@ -205,7 +218,7 @@ def rollout_joint_futures(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[st
         rule_statics=statics, rule_state0=state0, check_level=check_level,
         tl_precomputed=scene.tl_pre, tl_forcing=tl_forcing, tf_cfg=cfg.teacher_forcing_joint_future_pred,
         navi_update_inputs=rollout_lib.navi_map_arrays(cfg, batch, k),
-        navi_draw=rollout_lib.navi_draws(navi_generator, navi_noise),
+        navi_draw=rollout_lib.navi_draws(navi_generator, navi_noise), token_rep=token_rep,
     )
 
 
