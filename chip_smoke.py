@@ -319,7 +319,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      scene-centric joint_future_pred (K0 futures, TL states, rule flags) and
      training step (loss terms, gradients), and a training step with gelu FFNs,
      `mean_valid` polyline pooling and dropout on the attention weights at p =
-     0 (B2 and B4 off, as JAX's gates say), launches as the config implies.
+     0 (B2 and B4 off, as JAX's gates say), launches as the config implies;
+ 20. profiling, debugging and the validation videos: (a) `run.main` fit at
+     the phase-4 config with use_pallas, 6 steps, `profile_dir` set: the
+     trace file (`utils/profiling.py`, rank 0's gzip Chrome trace) parses,
+     holds the ranges of fit steps 3-5 and no other, and its kernel events
+     of the port's CUDA kernels, matched by kernel name, equal three steps'
+     worth of the launch counters (the fit's launches over its six steps, as
+     many per step as the config implies), each wrapper launch counted
+     kernel by kernel (`CUDA_KERNELS`: the backwards' two weight-gradient
+     passes, B4-bwd's drpe pass on its heads route); the device's idle
+     share over steps 3-5 from the trace; then one `debug_nans=true` fit
+     step, run under anomaly mode with NaN checks and the mode off after it;
+     (b) phase 6's flagship call (use_pallas) traced by `profiling.trace`
+     inside an `annotate` range, into a temporary directory deleted once
+     read: its launches phase 6's (B1 90, B4 8, B2 360), its kernel events
+     those launches' kernels, the device's busy and idle share of the range,
+     the events, bytes and seconds; (c) `validation_video_inputs` of a
+     reactive replay on the card at the phase-4 config: the documented keys
+     and shapes, finite poses; one scenario rendered where cv2 imports, else
+     "videos: not run: no cv2". Three full-width fit steps are not traced:
+     ~5,100 device ops per rollout step make a trace too large to read
+     within the run.
 Then it prints the `serve` JSON line (phase 14's steps/s, ms per step, peak memory
 and the card-vs-CPU errors of both arms, with the card's name and power limit), the
 `kernels` JSON line (forward launches from phase 6 and, as
@@ -340,7 +361,9 @@ timings, and `navi`, phase 17's seconds, peak memory, throughputs and re-predict
 per phase 18 (a) call and step, by route, B2's and B2-bwd's `variant_shapes` and B4's, B2's and their backwards'
 `rpe4_shapes` timings (d_rpe = 4, general route), and `variants`, phase 18's seconds, peak memory and throughputs;
 every row's `scene_centric_launches` per phase 19 (a) call and step and per (b) dedup call, and `scene_centric`, phase
-19's seconds, peak memory, throughputs and the dedup comparison), the card line, and last
+19's seconds, peak memory, throughputs and the dedup comparison; every row's `profiled_fit_launches` per phase
+20 (a) fit step, and `profiling`, phase 20's trace summaries: events, bytes, busy and idle shares, seconds), the card
+line, and last
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX.
 """
@@ -354,6 +377,7 @@ import datetime
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -384,6 +408,7 @@ from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model
 from trafficbotsv15_tpu_torch.utils import bench_knarpe
+from trafficbotsv15_tpu_torch.utils import profiling
 from trafficbotsv15_tpu_torch.utils.logging import MetricsLogger
 from trafficbotsv15_tpu_torch.utils.timing import card_line, cuda_ms, graph_ms
 
@@ -2041,8 +2066,8 @@ def run_submission(card: str) -> None:
 FIT_REL, FIT_ATOL, VAL_LOSS_REL = 1e-4, 1e-6, 1e-4
 
 
-def phase4_config():
-    return tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=31, hidden_dim=64)
+def phase4_config(n_step: int = 31):
+    return tiny_config(n_ag=16, n_mp=512, n_tl=16, n_step=n_step, hidden_dim=64)
 
 
 def horizon(cfg, time_step_end=None):
@@ -3910,6 +3935,299 @@ def run_scene_centric_phase(card: str) -> dict:
     return out
 
 
+# the CUDA kernels one wrapper launch runs, by wrapper and route (csrc/): every backward adds the two weight-gradient
+# passes of knarpe_bwd.cu, B4-bwd's heads route the drpe pass; the trace's kernel events are matched by these names
+WGRAD_PASSES = ("knarpe_wgrad_partial", "knarpe_wgrad_reduce")
+CUDA_KERNELS = {
+    "knn_xy": ("knn_xy_kernel",),
+    "knarpe_attention/general": ("knarpe_kernel",),
+    "knarpe_attention/staged": ("knarpe_attn_staged_kernel",),
+    "knarpe_attention/heads": ("knarpe_attn_heads_kernel",),
+    "knarpe_cross_attention/general": ("knarpe_kernel",),
+    "knarpe_cross_attention/staged": ("knarpe_x_staged_kernel",),
+    "knarpe_cross_attention/cluster": ("knarpe_x_cluster_kernel",),
+    "knarpe_cross_attention_v3/general": ("knarpe_kernel",),
+    "knarpe_cross_attention_v3/staged": ("knarpe_x_staged_kernel",),
+    "knarpe_cross_attention_v3/heads": ("knarpe_x3_heads_kernel",),
+    "knarpe_attention_bwd/general": ("knarpe_bwd_kernel", *WGRAD_PASSES),
+    "knarpe_attention_bwd/staged": ("knarpe_attn_bwd_staged_kernel", *WGRAD_PASSES),
+    "knarpe_attention_bwd/heads": ("knarpe_attn_bwd_heads_kernel", "knarpe_attn_bwd_heads_drpe", *WGRAD_PASSES),
+    "knarpe_cross_attention_bwd/general": ("knarpe_bwd_kernel", *WGRAD_PASSES),
+    "knarpe_cross_attention_bwd/staged": ("knarpe_x_bwd_staged_kernel", *WGRAD_PASSES),
+}
+PORT_KERNELS = {name for names in CUDA_KERNELS.values() for name in names}
+# a port kernel's name in a demangled event name ("void (anonymous namespace)::knn_xy_kernel<8>(float2 const*, ...)")
+PORT_KERNEL_NAME = re.compile(rf"(?<!\w)({'|'.join(sorted(PORT_KERNELS))})(?=\s*[<(])")
+# phase 20 (a)'s fit: run.py traces fit steps 3-5 of the 6, at the phase-4 config with 13 logged steps (a 12-step
+# rollout): at its 31 the trace of three steps held 2.3 M events, 2.2 of the phase's seconds per 100 k
+PROFILE_FIT_STEPS, PROFILE_TRACED, PROFILE_N_STEP = 6, 3, 13
+
+
+def route_counts() -> dict:
+    """The launches since the last reset by wrapper and route: B1's under "knn_xy", B4's and B2's as ROUTE_LAUNCHES."""
+    return {"knn_xy": knn.LAUNCHES, **{k: n for k, n in knarpe.ROUTE_LAUNCHES.items() if n}}
+
+
+def expected_kernel_events(routes: dict, scale: float = 1.0) -> dict:
+    """The port's CUDA kernel events that `routes` (route_counts) imply, scaled, by kernel name."""
+    want = collections.Counter()
+    for key, n in routes.items():
+        for name in CUDA_KERNELS[key]:
+            want[name] += n * scale
+    return {name: int(round(n)) for name, n in want.items() if n}
+
+
+def traced_port_kernels(events: list) -> dict:
+    """The trace's kernel events of the port's CUDA kernels, by kernel name (the demangled event name's function)."""
+    got = collections.Counter()
+    for e in profiling.kernel_events(events):
+        m = PORT_KERNEL_NAME.search(e["name"])
+        if m:
+            got[m.group(1)] += 1
+    return dict(got)
+
+
+def check_trace_kernels(where: str, events: list, want: dict) -> None:
+    got = traced_port_kernels(events)
+    if got != want:
+        raise AssertionError(f"{where}: the trace's kernel events {got}, the launch counters imply {want}")
+
+
+def trace_summary(path, events: list, t0: float, t1: float) -> dict:
+    """The trace's size and the device's busy and idle share of the window [t0, t1] µs."""
+    busy = profiling.busy_seconds(profiling.device_intervals(events), t0, t1)
+    window = (t1 - t0) / 1e6
+    return {"events": len(events), "bytes": Path(path).stat().st_size, "window_s": window, "busy_s": busy,
+            "busy_share": busy / window, "idle_share": 1.0 - busy / window}
+
+
+def profiled_fit(card: str, tmp: Path) -> dict:
+    """(a) `run.main` fit with profile_dir at the phase-4 config with use_pallas: the trace of steps 3-5 holds the
+    three steps' ranges, and as many kernel events of each port kernel as three of the fit's six steps launched;
+    the device's idle share over those steps. (Its debug_nans=true step is `DebugNansFit`.)"""
+    cfg = with_pallas(phase4_config(PROFILE_N_STEP), True)
+    prof_dir = tmp / "profile"
+    args = ["action=fit", "preset=tiny", "validate_every_epoch=false", "log_every=1000",
+            *config_overrides(tiny_config(), cfg)]
+    writes, real_stop = [], profiling.Tracer.stop
+
+    def timed_stop(tracer):
+        t = time.perf_counter()
+        out = real_stop(tracer)
+        writes.append(time.perf_counter() - t)
+        return out
+
+    reset_launches()
+    profiling.Tracer.stop = timed_stop
+    try:
+        t0 = time.perf_counter()
+        run_lib.main(args + [f"ckpt_dir={tmp / 'fit'}", f"max_steps={PROFILE_FIT_STEPS}", f"profile_dir={prof_dir}"])
+        t_fit = time.perf_counter() - t0
+    finally:
+        profiling.Tracer.stop = real_stop
+    counts, routes = launches(), route_counts()
+    want_step = expected_train_launches(cfg)
+    if any(counts[k] != PROFILE_FIT_STEPS * n for k, n in want_step.items()):
+        raise AssertionError(f"(a) profiled fit: launches {counts} over {PROFILE_FIT_STEPS} steps, expected "
+                             f"{want_step} per step")
+    path = profiling.trace_path(str(prof_dir))
+    t1 = time.perf_counter()
+    events = profiling.read_trace(path)
+    t_read = time.perf_counter() - t1
+    windows = [profiling.annotation_windows(events, f"fit step {i}") for i in range(PROFILE_FIT_STEPS)]
+    if [len(w) for w in windows] != [0, 0, 0, 1, 1, 1]:
+        raise AssertionError(f"(a) the trace's fit step ranges {[len(w) for w in windows]} of steps 0-5, expected "
+                             f"one each of steps 3-5")
+    check_trace_kernels("(a) trace of fit steps 3-5", events,
+                        expected_kernel_events(routes, PROFILE_TRACED / PROFILE_FIT_STEPS))
+    dev = profiling.device_intervals(events)
+    starts = [w[0][0] for w in windows[3:]]
+    end = max(windows[5][0][1], dev[-1][1] if dev else 0.0)
+    summary = trace_summary(path, events, starts[0], end)
+    per_step = [1.0 - profiling.busy_seconds(dev, a, b) / ((b - a) / 1e6)
+                for a, b in zip(starts, starts[1:] + [end])]
+    summary.update(fit_seconds=t_fit, write_seconds=writes[0], read_seconds=t_read, idle_share_per_step=per_step,
+                   launches_per_step={k: n // PROFILE_FIT_STEPS for k, n in counts.items()})
+    log(f"  (a) run.main fit at the phase-4 config with {PROFILE_N_STEP} logged steps, use_pallas, {PROFILE_FIT_STEPS} "
+        f"steps with profile_dir in {t_fit:.2f} s (the trace written in {writes[0]:.2f} s of them): {path.name} "
+        f"{summary['bytes']} bytes, {summary['events']} events (read in {t_read:.2f} s), "
+        f"fit step ranges 3-5 only; port kernel events {traced_port_kernels(events)} = 3 steps of the launch "
+        f"counters {routes} / {PROFILE_FIT_STEPS}; device idle share over steps 3-5 {summary['idle_share']:.4f} "
+        f"(busy {summary['busy_s']:.4f} of {summary['window_s']:.4f} s; per step "
+        f"{[round(x, 4) for x in per_step]}, profiler on) [{card}]")
+    del events
+    return summary
+
+
+# phase 20 (a)'s debug_nans=true fit step, in a process of its own: whether anomaly mode with NaN checks is on inside
+# run.fit and off after run.main
+DEBUG_NANS_DRIVER = """
+import json, sys, torch
+from trafficbotsv15_tpu_torch import run
+seen, real_fit = [], run.fit
+def spy(*args, **kwargs):
+    seen.append([torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()])
+    return real_fit(*args, **kwargs)
+run.fit = spy
+run.main(sys.argv[1:])
+print("DEBUG_NANS " + json.dumps({"seen": seen, "after": torch.is_anomaly_enabled()}))
+"""
+
+
+class DebugNansFit:
+    """(a)'s `run.main` fit step with debug_nans=true at the profiled fit's config, in a subprocess: `start()` once no
+    timing it could disturb is left, `finish()` waits for it and checks it."""
+
+    def __init__(self, tmp: Path):
+        self.tmp = tmp
+        cfg = with_pallas(phase4_config(PROFILE_N_STEP), True)
+        self.args = ["action=fit", "preset=tiny", "validate_every_epoch=false", "log_every=1000", "max_steps=1",
+                     "debug_nans=true", f"ckpt_dir={tmp / 'nans'}", *config_overrides(tiny_config(), cfg)]
+        self.proc = None
+
+    def start(self) -> None:
+        self.log = open(self.tmp / "debug_nans.log", "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", DEBUG_NANS_DRIVER, *self.args], stdout=self.log,
+                                     stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+
+    def finish(self, card: str) -> float:
+        try:
+            self.proc.wait(timeout=300)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.log.close()
+        sec = time.perf_counter() - self.t0
+        text = (self.tmp / "debug_nans.log").read_text()
+        found = [json.loads(line.split(" ", 1)[1]) for line in text.splitlines() if line.startswith("DEBUG_NANS ")]
+        loss = float("nan")
+        if (self.tmp / "nans" / "metrics.jsonl").exists():
+            loss = json.loads((self.tmp / "nans" / "metrics.jsonl").read_text().splitlines()[-1])["training/loss"]
+        if self.proc.returncode != 0 or found != [{"seen": [[True, True]], "after": False}] or not math.isfinite(loss):
+            raise AssertionError(f"(a) debug_nans=true fit step: exit {self.proc.returncode}, anomaly mode {found}, "
+                                 f"loss {loss}:\n{text[-3000:]}")
+        log(f"  (a) debug_nans=true: one run.main fit step in a process of its own (started after (b)'s traced call), "
+            f"under anomaly mode with NaN checks, the mode off after run.main; loss {loss:.6f}; {sec:.2f} s with the "
+            f"process's start [{card}]")
+        return sec
+
+
+def traced_eval_call(card: str, want: dict, after_call=lambda: None) -> dict:
+    """(b) one flagship joint_future_pred call (phase 6's config and batch, use_pallas) traced by profiling.trace
+    inside an annotate range: its launches are phase 6's, its kernel events the launches' kernels; the device's busy
+    and idle share of the range. after_call() runs once the call has ended, before the trace is written."""
+    import tempfile
+
+    cfg = with_pallas(leaderboard_config(), True)
+    batch = make_batch(cfg.data, n_sc=4, seed=0)
+    model = build_model(cfg, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as name:
+        t0 = time.perf_counter()
+        with profiling.trace(name) as path:
+            with profiling.annotate("joint_future_pred"):
+                _, buf = joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
+            t_call = time.perf_counter() - t0
+            after_call()
+        t_trace = time.perf_counter() - t0
+        counts, routes = launches(), route_counts()
+        if counts != want:
+            raise AssertionError(f"(b) traced eval call: launches {counts}, phase 6's {want}")
+        if not torch.isfinite(buf.pred_pose).all():
+            raise AssertionError("(b) traced eval call: non-finite poses")
+        t1 = time.perf_counter()
+        events = profiling.read_trace(path)
+        t_read = time.perf_counter() - t1
+        check_trace_kernels("(b) trace of the eval call", events, expected_kernel_events(routes))
+        (a, b), = profiling.annotation_windows(events, "joint_future_pred")
+        dev = profiling.device_intervals(events)
+        summary = trace_summary(path, events, a, max(b, dev[-1][1] if dev else 0.0))
+        summary.update(device_ops=sum(e.get("cat") in profiling.DEVICE_CATEGORIES for e in events),
+                       call_seconds=t_call, write_seconds=t_trace - t_call, read_seconds=t_read)
+        del events
+    log(f"  (b) leaderboard_config joint_future_pred, use_pallas, traced by profiling.trace: the call {t_call:.2f} s "
+        f"(profiler on), the file written in {t_trace - t_call:.2f} s: {summary['bytes']} bytes, {summary['events']} events, "
+        f"{summary['device_ops']} device ops (read in {t_read:.2f} s, then deleted); port kernel events = phase 6's "
+        f"launches {want} by route {routes}; device busy {summary['busy_s']:.4f} of {summary['window_s']:.4f} s, "
+        f"busy share {summary['busy_share']:.4f}, idle share {summary['idle_share']:.4f} [{card}]")
+    return summary
+
+
+VIDEO_KEYS = {"step_current", "step_gt", "step_end", "agent/valid", "agent/pos", "agent/yaw_bbox", "action", "act_P",
+              "tl_lane/state", "diffbar_reward"}
+
+
+def video_inputs_on_card(card: str, tmp: Path) -> dict:
+    """(c) validation_video_inputs of a reactive replay on the card at the phase-4 config with use_pallas: the
+    documented keys and shapes, finite poses; one scenario rendered where cv2 imports."""
+    from trafficbotsv15_tpu_torch.utils.visualization import require_cv2
+
+    cfg = with_pallas(phase4_config(), True)
+    batch = make_batch(cfg.data, n_sc=2, seed=3)
+    model = build_model(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        _, buf, *_ = eval_lib.reactive_replay(cfg, model, batch, device="cuda", generator=torch.Generator().manual_seed(0))
+    flat = buf.flatten_joint_future(1)
+    episode, prediction = eval_runner.validation_video_inputs(cfg, batch, flat, 0)
+    n_ag, n_fut = cfg.data.n_ag, cfg.time_step_end - cfg.time_step_current
+    shapes = {"agent/valid": (n_ag, n_fut), "agent/pos": (n_ag, n_fut, 2), "agent/yaw_bbox": (n_ag, n_fut, 1),
+              "action": (n_ag, n_fut, 2), "act_P": (n_ag, n_fut), "tl_lane/state": (cfg.data.n_tl_lane, n_fut, 5),
+              "diffbar_reward": (n_ag, n_fut), **{k: (n_ag, n_fut) for k in flat.violation}}
+    missing = (VIDEO_KEYS | set(flat.violation)) - set(prediction)
+    wrong = {k: prediction[k].shape for k, shape in shapes.items() if k in prediction and prediction[k].shape != shape}
+    if missing or wrong or not all(isinstance(v, np.ndarray) for k, v in prediction.items() if k in shapes):
+        raise AssertionError(f"(c) validation_video_inputs: missing {sorted(missing)}, shapes off {wrong}")
+    if not (np.isfinite(prediction["agent/pos"]).all() and np.isfinite(prediction["agent/yaw_bbox"]).all()):
+        raise AssertionError("(c) validation_video_inputs: non-finite poses")
+    if not {"map/valid", "agent/pos", "agent/role", "agent/size"} <= set(episode):
+        raise AssertionError(f"(c) validation_video_inputs: episode keys {sorted(episode)}")
+    import importlib.util
+
+    h5py = "h5py imports" if importlib.util.find_spec("h5py") else "no h5py (data=h5 and the packer's writer need it)"
+    try:
+        cv2 = require_cv2()
+    except ImportError as e:
+        log(f"  (c) validation_video_inputs of a reactive replay on the card: {len(prediction)} keys, shapes and "
+            f"finite poses checked; videos: not run: no cv2 ({e}); {h5py} [{card}]")
+        return {"videos": "not run: no cv2", "h5py": h5py}
+    t0 = time.perf_counter()
+    paths = eval_runner.save_validation_videos(cfg, batch, flat, out_dir=str(tmp / "videos"), n_vis=1)
+    empty = [p for p in paths if not Path(p).exists() or (Path(p).is_file() and Path(p).stat().st_size == 0)]
+    if not paths or empty:
+        raise AssertionError(f"(c) save_validation_videos wrote {paths}; missing or empty {empty}")
+    t_render = time.perf_counter() - t0
+    log(f"  (c) validation_video_inputs of a reactive replay on the card: {len(prediction)} keys, shapes and finite "
+        f"poses checked; cv2 {cv2.__version__}: one scenario rendered in {t_render:.2f} s: "
+        f"{[Path(p).name for p in paths]}; {h5py} [{card}]")
+    return {"videos": len(paths), "render_seconds": t_render, "cv2": cv2.__version__, "h5py": h5py}
+
+
+def run_profiling_phase(card: str, eval_launches: dict) -> dict:
+    """Phase 20: (a) the fit's profile_dir trace and debug_nans, (b) a traced flagship eval call, (c) the validation
+    videos' inputs on the card."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as name:
+        tmp = Path(name)
+        out = {"fit": profiled_fit(card, tmp)}
+        torch.cuda.empty_cache()
+        nans = DebugNansFit(tmp)
+        try:
+            out["eval"] = traced_eval_call(card, eval_launches, after_call=nans.start)
+            torch.cuda.empty_cache()
+            out.update(video_inputs_on_card(card, tmp))
+        finally:
+            if nans.proc is not None:
+                out["fit"]["debug_nans_seconds"] = nans.finish(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 # phase 18 (b)'s arms (`variant_of`), all with use_pallas: every variant of the input, TL, pose and latent options in
 # one of them; apply_q_rpe keeps its whole arm off B2 and B4, xy_dir's d_rpe = 4 takes them on the general route
 # (float32). Three arms, not one a variant: each arm's CPU runs cost ~5 s beside the build
@@ -3966,7 +4284,7 @@ def main() -> int:
     t_start = time.perf_counter()
     header = lambda text: log(f"{text} (at {time.perf_counter() - t_start:.1f} s)")  # noqa: E731
     card = card_line()
-    log(f"[1/19] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    log(f"[1/20] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 matmul="
@@ -3983,73 +4301,77 @@ def main() -> int:
         n_refs, t_refs = precompute_cpu_references()
         for fut in futures:
             fut.result()
-    header(f"[2/19] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {max(built):.2f} s; beside it the CPU "
+    header(f"[2/20] build: csrc/knn.cu, csrc/knarpe.cu and csrc/knarpe_bwd.cu in {max(built):.2f} s; beside it the CPU "
            f"runs of {n_refs} card-vs-CPU checks in {t_refs:.2f} s")
 
-    header("[3/19] kernels vs plain versions")
+    header("[3/20] kernels vs plain versions")
     rows = [check_knn_kernel(), *check_knarpe_kernels()]
     bwd_rows = check_knarpe_bwd_kernels()
     bench_routes = run_bench_knarpe()
 
-    header("[4/19] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[4/20] slice checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     run_card_vs_cpu(4)
 
-    header("[5/19] slice at full width, use_pallas=False")
+    header("[5/20] slice at full width, use_pallas=False")
     run_full_width(card, use_pallas=False)
 
-    header("[6/19] slice at full width, use_pallas=True (the KNARPE attention kernels)")
+    header("[6/20] slice at full width, use_pallas=True (the KNARPE attention kernels)")
     counts, routes = run_full_width(card, use_pallas=True, replay_rules=True, warm_up=False)
 
-    header("[7/19] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
+    header("[7/20] train step checked: reduced-depth fp32 config, 512 polylines, card vs CPU")
     run_card_vs_cpu(7)
 
-    header("[8/19] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
+    header("[8/20] training at full width, use_pallas=True (the KNARPE kernels and their backwards)")
     train_counts, train_routes, train_bwd_shapes = run_train_full_width(card)
 
-    header("[9/19] validation step: reduced-depth fp32 config card vs CPU, then full width")
+    header("[9/20] validation step: reduced-depth fp32 config card vs CPU, then full width")
     run_card_vs_cpu(9)
     validate_counts = run_validate_full_width(card)
     check_validate_official(card)
 
-    header("[10/19] submission: test_submission at full width, K=128")
+    header("[10/20] submission: test_submission at full width, K=128")
     run_submission(card)
 
-    header("[11/19] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
+    header("[11/20] the training entry point: run.fit card vs CPU, run.main fit / resume / SIGTERM / validate / test")
     fit_counts = run_fit_phase(card)
 
-    header("[12/19] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
+    header("[12/20] reference-torch goldens: through the kernels and the card's plain path; the flagship through the "
         "reference layout")
     layout_counts = run_golden_phase(card)
 
-    header("[13/19] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
+    header("[13/20] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
         "(B4 and B4-bwd heads, B2 cluster, B2-bwd general route); the TL pass past the log, card vs CPU")
     scaled_counts, first_errs, scaled_train = run_scaled_phase(card)
 
-    header("[14/19] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
+    header("[14/20] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
         "a scripted agent, history, card vs CPU")
     serve_summary, serve_counts = run_serve_phase(card)
 
-    header("[15/19] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
+    header("[15/20] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
         "vs one process on the union batch, and their validation")
     parallel = run_parallel_phase(card)
 
-    header("[16/19] the TrafficBots RNN family at full width: joint_future_pred and a training step through the "
+    header("[16/20] the TrafficBots RNN family at full width: joint_future_pred and a training step through the "
         "kernels; the phase-4 config card vs CPU")
     rnn = run_rnn_phase(card)
 
-    header("[17/19] the navigation family: goal, cmd and dest (re-predicting) card vs CPU at the phase-4 config; goal "
+    header("[17/20] the navigation family: goal, cmd and dest (re-predicting) card vs CPU at the phase-4 config; goal "
            "with re-prediction at full width, joint_future_pred through the kernels")
     navi = run_navi_phase(card)
 
-    header("[18/19] the variants: categorical latents with a learned prior, stop-line TL tokens and the stacked TL "
+    header("[18/20] the variants: categorical latents with a learned prior, stop-line TL tokens and the stacked TL "
            "input at full width, joint_future_pred and a training step through the kernels; every input, TL, pose "
            "and latent variant card vs CPU at the phase-4 config")
     variants = run_variant_phase(card)
 
-    header("[19/19] the scene-centric model at full width, joint_future_pred and a training step (no kernel); token "
+    header("[19/20] the scene-centric model at full width, joint_future_pred and a training step (no kernel); token "
            "dedup against the replicated rollout through the kernels; scene-centric and gelu + mean_valid + "
            "attn_dropout_weights card vs CPU at the phase-4 config")
     scene = run_scene_centric_phase(card)
+
+    header("[20/20] profiling: run.main fit with profile_dir at the phase-4 config (the trace's kernel events vs the "
+           "launch counters) and debug_nans; a traced flagship eval call; the validation videos' inputs on the card")
+    profiled = run_profiling_phase(card, counts)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -4106,6 +4428,7 @@ def main() -> int:
         row["scene_centric_launches"] = {"eval_call": scene["eval"][row["name"]],  # phase 19 (a) and (b)
                                          "train_step": scene["train"][row["name"]],
                                          "dedup_eval_call": scene["dedup"][row["name"]]}
+        row["profiled_fit_launches"] = profiled["fit"]["launches_per_step"][row["name"]]  # phase 20 (a)
     rows += bwd_rows
     for row in rows:
         for key, val in row.items():
@@ -4120,7 +4443,9 @@ def main() -> int:
                       "rnn": {k: v for k, v in rnn.items() if k not in ("eval", "train")},
                       "navi": {k: v for k, v in navi.items() if k != "eval"},
                       "variants": {k: v for k, v in variants.items() if k not in ("eval", "train")},
-                      "scene_centric": {k: v for k, v in scene.items() if k not in ("eval", "train", "dedup")}}))
+                      "scene_centric": {k: v for k, v in scene.items() if k not in ("eval", "train", "dedup")},
+                      "profiling": {"fit": {k: v for k, v in profiled["fit"].items() if k != "launches_per_step"},
+                                    **{k: v for k, v in profiled.items() if k != "fit"}}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

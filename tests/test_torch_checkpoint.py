@@ -9,21 +9,11 @@ package where it has the function, and the JAX package's checkpoints carried int
     relative + 1e-9 (float32; optax adds the update to the parameter once, AdamW decays and adds apart);
   - `CheckpointManager`: round trip (exact), the best score's ranking and its survival of a restart, the morph
     for submission, the crash windows of the asynchronous save, a failed write;
-  - the migration path: the JAX `run.main` fits one step, its Orbax "last" is restored to numpy with the JAX
-    package's manager, loaded into the port (`utils/jax_import.py`) with the port's `config_from_dict` of its
-    `last.json`, saved with the port's manager; `python -m trafficbotsv15_tpu_torch.run action=validate
-    device=cpu` then gives the JAX `validate`'s val/loss on those parameters within 1e-4 relative (float32
-    reactive replay over 20 steps, reduction order only). Every weight matrix of the fitted tree is scaled by 0.5
-    on both sides first: at the JAX initialiser's gain of 1 the random closed loop is chaotic
-    (`test_torch_slice.py::test_damped_random_policy_is_not_chaotic`), and the two packages' val/loss part by
-    4.3e-4 relative there (measured: 9.25266 against 9.25667).
+  - the migration path of a JAX checkpoint into the port is `test_torch_checkpoint_migration.py`.
 """
 
 import dataclasses
 import json
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,9 +22,8 @@ import optax
 import pytest
 import torch
 
-from test_torch_helpers import jax_sort_knn, set_threads
+from test_torch_helpers import set_threads
 from trafficbotsv15_tpu import config as jax_config
-from trafficbotsv15_tpu.data.synthetic import make_batch
 from trafficbotsv15_tpu.train import swa as jax_swa
 from trafficbotsv15_tpu.train.optimizer import make_optimizer as jax_make_optimizer
 from trafficbotsv15_tpu_torch import config as port_config
@@ -43,7 +32,6 @@ from trafficbotsv15_tpu_torch.train.checkpoint import CheckpointManager
 from trafficbotsv15_tpu_torch.train.optimizer import GradAccumulator, clip_by_global_norm, make_optimizer
 
 set_threads()
-REPO = Path(__file__).resolve().parent.parent
 
 
 def T(x):
@@ -250,42 +238,3 @@ def test_failed_write_raises_when_finalised(tmp_path, monkeypatch):
         mgr.wait()
     monkeypatch.undo()
     assert CheckpointManager(str(tmp_path)).restore("last")[2]["step"] == 1
-
-
-# -- the JAX package's checkpoints carried into the port ------------------------------------------------------------
-def test_jax_checkpoint_migrates_into_the_port(tmp_path, monkeypatch):
-    from trafficbotsv15_tpu import run as jax_run
-    from trafficbotsv15_tpu.eval import runner as jax_runner
-    from trafficbotsv15_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
-    from trafficbotsv15_tpu.utils.logging import MetricsLogger as JaxMetricsLogger
-    from trafficbotsv15_tpu_torch.train.pipeline import build_model
-    from trafficbotsv15_tpu_torch.utils.jax_import import load_jax_params
-
-    monkeypatch.chdir(tmp_path)  # the JAX fit logs metrics.jsonl into the working directory
-    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
-    common = ["preset=tiny", "data=synthetic", "batch_size_test=4"]
-    with jax_sort_knn():
-        jax_run.main(["action=fit", "max_steps=1", "batch_size_train=1", "validate_every_epoch=false",
-                      f"ckpt_dir={jax_dir}", *common])
-    state, _, meta = JaxCheckpointManager(str(jax_dir)).restore("last")
-    assert meta["step"] == 1
-    tree = jax.tree_util.tree_map(lambda x: np.asarray(x) * (0.5 if np.ndim(x) == 2 else 1.0), state["params"])
-    cfg = port_config.config_from_dict(json.loads((jax_dir / "last.json").read_text())["config"])
-    model = build_model(cfg, device="cpu")
-    load_jax_params(model, tree)
-    mgr = CheckpointManager(str(port_dir))
-    mgr.save_last({"model": model.state_dict()}, cfg, meta)
-    mgr.wait()
-
-    proc = subprocess.run([sys.executable, "-m", "trafficbotsv15_tpu_torch.run", "action=validate", "device=cpu",
-                           f"ckpt_dir={port_dir}", *common], cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    got = json.loads((port_dir / "metrics.jsonl").read_text().splitlines()[-1])["val/loss"]
-
-    # the port's validation batches on one device: 4 batches of 4 scenarios, batch i from seed 10000 + i
-    jcfg = jax_run.apply_overrides(jax_config.tiny_config(), {"batch_size_test": 4})
-    val_loader = [make_batch(jcfg.data, n_sc=4, seed=10_000 + i) for i in range(4)]
-    with jax_sort_knn():
-        want = jax_runner.validate(jcfg, val_loader, params=jax.tree_util.tree_map(jnp.asarray, tree),
-                                   logger=JaxMetricsLogger(None, echo=False))["val/loss"]
-    assert abs(got - want) <= 1e-4 * max(abs(want), 1.0), (got, want)

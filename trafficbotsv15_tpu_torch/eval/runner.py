@@ -6,7 +6,10 @@ post-processing (K -> 6 modes) and native motion metrics on both rollouts,
 the WOSAC future filter and the native WOSAC realism metametric. `validate`
 runs it over a loader and reduces the metrics under the JAX package's
 names; `test_submission` makes the WOMD and WOSAC submissions of the test
-split. Neither restores a checkpoint or renders videos.
+split. Neither restores a checkpoint. With `video_dir`, `validate` first
+renders `n_vis_batch` scenarios of a reactive replay of its first batch
+(`save_validation_videos`: the host-side inputs of `validation_video_inputs`,
+the frames of `utils/visualization.py`, which needs `cv2`).
 
 The official Waymo metrics are host-side and gated on their packages, as in
 the JAX package: where Waymo's WOMD op and TensorFlow are importable
@@ -29,7 +32,8 @@ and writes the submission.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,16 +123,80 @@ def make_validate_step(cfg: ExperimentCfg, model, device=None):
     return step
 
 
+def validation_video_inputs(cfg: ExperimentCfg, batch, buf, i: int) -> Tuple[dict, dict]:
+    """Scenario i's (episode, prediction) dicts of `utils/visualization.py::save_prediction_videos`, as numpy arrays
+    on the host (JAX `runner.py::save_validation_videos`).
+
+    batch: the h5-schema batch; buf: a reactive-replay RolloutBuffer flattened to one future
+    (`flatten_joint_future(1)`, [n_sc, 1, ...]). episode: the batch's map/, agent/, tl_lane/ and tl_stop/ arrays of
+    scenario i. prediction: from step time_step_current on, the predicted agent/valid, agent/pos, agent/yaw_bbox,
+    action, act_P, the predicted TL states under the key of cfg.model.tl_mode's tokens (tl_lane/state or
+    tl_stop/state), each violation and, where the replay filled it, diffbar_reward; score where the buffer has
+    joint-future scores; step_current, step_gt and step_end."""
+    episode = {k: to_host(v[i]) for k, v in batch.items()
+               if not isinstance(v, list) and k.startswith(("map/", "agent/", "tl_lane/", "tl_stop/"))}
+    cur = cfg.time_step_current
+    ahead = lambda x: to_host(x[i, 0, :, cur:])  # noqa: E731
+    pose = ahead(buf.pred_pose)
+    prediction = {"step_current": cur, "step_gt": cfg.time_step_gt, "step_end": cfg.time_step_end,
+                  "agent/valid": ahead(buf.pred_valid), "agent/pos": pose[..., :2], "agent/yaw_bbox": pose[..., 2:3],
+                  "action": ahead(buf.pred_action), "act_P": ahead(buf.action_log_prob)}
+    tl_key = "tl_lane/state" if cfg.model.tl_mode == "lane" else "tl_stop/state"  # rows follow the TL tokens
+    prediction[tl_key] = ahead(buf.tl_state)
+    if buf.log_prob is not None:
+        prediction["score"] = to_host(buf.log_prob[i, 0])
+    for k, v in buf.violation.items():
+        prediction[k] = ahead(v)
+    if buf.diffbar_reward is not None and "diffbar_reward" in buf.diffbar_reward:
+        prediction["diffbar_reward"] = ahead(buf.diffbar_reward["diffbar_reward"])
+    return episode, prediction
+
+
+def save_validation_videos(cfg: ExperimentCfg, batch, buf, out_dir: str = "videos", n_vis: int = 1) -> List[str]:
+    """Render reactive-replay rollout videos (waymo_motion.py:717-818) of the first n_vis scenarios: per scenario
+    the gt/pd/mix videos and the agent-centric views with the violation/action text sidebar
+    (`save_prediction_videos` of `validation_video_inputs`), and one overview video of the whole rollout with the
+    collided agents outlined; -> the written paths. buf as `validation_video_inputs`'s."""
+    from trafficbotsv15_tpu_torch.utils.visualization import save_prediction_videos, save_rollout_video
+
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    paths: List[str] = []
+    for i in range(min(n_vis, buf.pred_valid.shape[0])):
+        episode, prediction = validation_video_inputs(cfg, batch, buf, i)
+        paths += save_prediction_videos(f"{out_dir}/scenario_{i}", episode, prediction)
+        collided = buf.violation.get("collided")
+        paths.append(save_rollout_video(
+            f"{out_dir}/scenario_{i}.mp4", episode["map/valid"], episode["map/type"], episode["map/pos"],
+            episode["map/boundary"], pred_pose=to_host(buf.pred_pose[i, 0]), pred_valid=to_host(buf.pred_valid[i, 0]),
+            ag_size=episode["agent/size"], ag_role=episode["agent/role"],
+            violation=None if collided is None else to_host(collided[i, 0])))
+    return paths
+
+
+def render_validation_videos(cfg: ExperimentCfg, model, val_loader, video_dir: str, device=None) -> List[str]:
+    """`save_validation_videos` of cfg.n_vis_batch scenarios of a reactive replay of val_loader's first batch, its
+    draws from a generator seeded with 0 (JAX `runner.py:396-403`)."""
+    first = next(iter(val_loader))
+    batch = {k: v for k, v in first.items() if not isinstance(v, list)}
+    with torch.no_grad():
+        _, buf, _, _, _ = evaluation.reactive_replay(cfg, model, batch, device=device,
+                                                     generator=torch.Generator().manual_seed(0))
+    return save_validation_videos(cfg, batch, buf.flatten_joint_future(1), out_dir=video_dir, n_vis=cfg.n_vis_batch)
+
+
 def validate(cfg: ExperimentCfg, model, val_loader, max_batches: Optional[int] = None,
-             logger: Optional[MetricsLogger] = None, device=None) -> Dict[str, float]:
+             logger: Optional[MetricsLogger] = None, device=None, video_dir: Optional[str] = None) -> Dict[str, float]:
     """Validation over val_loader's batches on one device: the per-batch sums and means reduced under the
     JAX package's metric names (`val/loss`, `wosac/*`, `wosac_likelihood/*`, `joint_future_pred/womd/*`,
     `reactive_replay/*`, `joint_future_pred/traffic_rule/*`, `val/scenarios_per_sec`), and the official
     metrics where their packages are importable (`joint_future_pred/waymo_metrics/*`,
     `reactive_replay/waymo_metrics/*`, `wosac/wosac/*`, `wosac/wosac_likelihood/*`). Batch i draws its joint
     futures from a generator seeded with cfg.seed + i, as the JAX package keys it. Over several ranks every rank
-    evaluates its own loader's batches and returns the same metrics, the union's (`metrics_from_sums`)."""
+    evaluates its own loader's batches and returns the same metrics, the union's (`metrics_from_sums`). With
+    video_dir, rank 0 first renders the validation videos there (`render_validation_videos`)."""
     step = make_validate_step(cfg, model, device)
+    if video_dir and process_index() == 0:
+        render_validation_videos(cfg, model, val_loader, video_dir, device=device)
     logger = logger or MetricsLogger()
     try:
         from trafficbotsv15_tpu_torch.eval.wosac_metrics import WOSACMetrics

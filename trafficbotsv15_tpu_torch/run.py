@@ -8,11 +8,24 @@ Arguments are key=value, values parsed as JSON where they parse; dots nest
 (`optimizer.lr=1e-4`). Besides the config's own fields: `action`
 (fit | validate | test), `data` (synthetic | tbcache | h5, with `data_dir`
 holding training.* and validation.*), `preset` (leaderboard | tiny | scaled),
-`max_steps`, `log_every`, `ckpt_dir`, `resume` and `device` (the rank's card
-unless `device=cpu`). Keys the port has no counterpart for raise
-`NotImplementedError`: `profile_dir` and `video_dir` (ROADMAP A12),
-`parallel.strategy` fsdp or tp and a model axis over one device (A10b), and the
-JAX-only switches `rbg` and `debug_nans`.
+`max_steps`, `log_every`, `ckpt_dir`, `resume`, `device` (the rank's card
+unless `device=cpu`), `profile_dir`, `video_dir` and `debug_nans`. Keys the
+port has no counterpart for raise `NotImplementedError`: `parallel.strategy`
+fsdp or tp and a model axis over one device (ROADMAP A10b), and JAX's PRNG
+switch `rbg`.
+
+`profile_dir=DIR` traces fit steps 3-5 (`utils/profiling.py`: each rank writes
+`DIR/rank<r>.pt.trace.json.gz`, each step a range named "fit step N"), as
+JAX's fit does; a fit that ends inside those steps still writes its trace
+(JAX's leaves it open). `debug_nans=true` runs the action under anomaly mode
+with NaN checks and restores the previous mode after it (JAX's flag stays on
+for the process and checks forward outputs too). `video_dir=DIR` makes
+`validate` render `n_vis_batch` scenarios of a reactive replay of the first
+batch (`eval/runner.py::save_validation_videos`); it needs `cv2`, and without
+it `main` raises an ImportError before it builds a model or reads a batch
+(JAX's fails at its first frame). Each of the two belongs to one action:
+`profile_dir` to fit, `video_dir` to validate; with another action they raise
+a ValueError (JAX ignores them).
 
 One process runs on one device. Data parallel (`parallel.strategy=dp`, the
 default) runs N processes, one device each, launched by torchrun (or with
@@ -67,6 +80,7 @@ from trafficbotsv15_tpu_torch.train.pipeline import build_model, make_train_step
 from trafficbotsv15_tpu_torch.train.swa import ema_init, ema_update, swa_init, swa_params, swa_update
 from trafficbotsv15_tpu_torch.utils.device import resolve_device
 from trafficbotsv15_tpu_torch.utils.logging import MetricsLogger
+from trafficbotsv15_tpu_torch.utils.profiling import Tracer, annotate, nan_checks
 
 
 PRESETS = {"leaderboard": leaderboard_config, "tiny": tiny_config, "scaled": scaled_config}
@@ -174,9 +188,16 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]))
 
 
+# the fit steps `profile_dir` traces: from the step with this index up to, not including, the second (JAX run.py)
+TRACED_STEPS = (3, 6)
+
+
 def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", max_steps: Optional[int] = None,
-        log_every: int = 50, resume: bool = False, device=None):
+        log_every: int = 50, resume: bool = False, device=None, profile_dir: Optional[str] = None):
     """Train cfg's model on `device` (the card unless "cpu"); -> (model, logger, stopped by a signal).
+
+    With `profile_dir`, steps 3-5 (counted from 0, over the whole run: a fit resumed past step 3 traces none) are
+    traced into it (`utils/profiling.py::Tracer`); a fit that ends before step 6 writes what it traced.
 
     A step is one call of the train step on one batch (with gradient accumulation, every
     `accumulate_grad_batches`-th call updates); `max_steps` and `ckpt_every_steps` count calls. The EMA and
@@ -275,6 +296,13 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
     start_epoch = min(start_step // steps_per_epoch, max(cfg.max_epochs - 1, 0))
     last_saved_step = -1
     stopped = False
+    tracer = None
+
+    def end_trace():
+        """Stop and write a running trace of the fit's steps."""
+        if tracer is not None and tracer.active:
+            print(f"trace of fit steps {TRACED_STEPS[0]}-{step - 1} written to {tracer.stop()}", flush=True)
+
     t_start = time.time()
     try:
         for epoch in range(start_epoch, cfg.max_epochs):
@@ -290,12 +318,17 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
             for batch in epoch_iter:
                 if step >= steps_per_epoch * (epoch + 1):
                     break
-                metrics = train_step(batch, step_generator(cfg.seed + 1, step), epoch)
-                if ema is not None:
-                    ema_update(ema, params, cfg.ema_decay)
-                if swa_state is not None:
-                    swa_update(swa_state, params, step, swa_start)
+                if profile_dir and step == TRACED_STEPS[0]:
+                    tracer = Tracer(profile_dir, device).start()
+                with annotate(f"fit step {step}"):
+                    metrics = train_step(batch, step_generator(cfg.seed + 1, step), epoch)
+                    if ema is not None:
+                        ema_update(ema, params, cfg.ema_decay)
+                    if swa_state is not None:
+                        swa_update(swa_state, params, step, swa_start)
                 step += 1
+                if tracer is not None and step == TRACED_STEPS[1]:
+                    end_trace()
                 if step % log_every == 0 or step == 1:
                     m = {k: float(v) for k, v in metrics.items()}
                     m["steps_per_sec"] = (step - start_step) / (time.time() - t_start)
@@ -307,6 +340,8 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
                 stopped = stop_agreed()
                 if stopped or (max_steps and step >= max_steps):
                     break
+            if stopped or (max_steps and step >= max_steps) or epoch == cfg.max_epochs - 1:
+                end_trace()  # no step follows: the trace ends with the fit's steps, before the saves
             state = snapshot()
             if step != last_saved_step:  # not when the step's own save already wrote this step
                 ckpt.save_last(state, cfg, {"step": step, "epoch": epoch})
@@ -323,8 +358,10 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
                 break
     finally:
         # the handlers are restored even when the last write fails: a leaked handler would swallow every
-        # later SIGTERM of the process
+        # later SIGTERM of the process; a trace the fit ended inside is written (JAX leaves it open), on an
+        # error too
         try:
+            end_trace()
             ckpt.wait()
         finally:
             for sig, h in prev_handlers.items():
@@ -367,13 +404,18 @@ def main(argv=None):
     log_every = int(run_args.get("log_every", 50))
     ckpt_dir = run_args.get("ckpt_dir", "ckpt")
     resume = bool(run_args.get("resume", False))
+    profile_dir, video_dir = run_args.get("profile_dir"), run_args.get("video_dir")
+    debug_nans = bool(run_args.get("debug_nans", False))
+    for key, val, owner in (("profile_dir", profile_dir, "fit"), ("video_dir", video_dir, "validate")):
+        if val is not None and action != owner:
+            raise ValueError(f"{key} belongs to action={owner}, not action={action}")
+    if run_args.get("rbg"):
+        raise NotImplementedError("rbg selects JAX's PRNG implementation; the port has no counterpart")
+    if video_dir is not None:  # before any model or batch: JAX's fails at its first frame, after the replay
+        from trafficbotsv15_tpu_torch.utils.visualization import require_cv2
+
+        require_cv2(f"video_dir={video_dir}")
     device = resolve_device(run_args.get("device"))
-    for key in ("profile_dir", "video_dir"):
-        if run_args.get(key) is not None:
-            raise NotImplementedError(f"{key}: profiling and validation videos are not ported (ROADMAP A12)")
-    for key in ("rbg", "debug_nans"):
-        if run_args.get(key):
-            raise NotImplementedError(f"{key} is a switch of the JAX runtime; the port has no counterpart")
 
     cfg = preset_config(preset)
     last_json = Path(ckpt_dir) / "last.json"
@@ -394,24 +436,25 @@ def main(argv=None):
 
     train_loader, val_loader = make_dataloaders(cfg, data, data_dir, test_mode=action == "test")
     logger = MetricsLogger(str(Path(ckpt_dir) / "metrics.jsonl"))
-    if action == "fit":
-        out = fit(cfg, train_loader, val_loader, ckpt_dir=ckpt_dir, max_steps=max_steps, log_every=log_every,
-                  resume=resume, device=device)
-        if out[2]:  # a signal's stop is no clean finish: 128 + SIGTERM tells a restart wrapper to resume
-            raise SystemExit(143)
-        return out
-    if action == "validate":
-        from trafficbotsv15_tpu_torch.eval.runner import validate
+    with nan_checks(debug_nans):  # this action only: the tests and chip_smoke.py call main in one process
+        if action == "fit":
+            out = fit(cfg, train_loader, val_loader, ckpt_dir=ckpt_dir, max_steps=max_steps, log_every=log_every,
+                      resume=resume, device=device, profile_dir=profile_dir)
+            if out[2]:  # a signal's stop is no clean finish: 128 + SIGTERM tells a restart wrapper to resume
+                raise SystemExit(143)
+            return out
+        if action == "validate":
+            from trafficbotsv15_tpu_torch.eval.runner import validate
 
-        model, _ = restore_model(ckpt_dir, "last", device, cfg=cfg)
-        return validate(cfg, model, val_loader, logger=logger, device=device)
-    if action == "test":
-        from trafficbotsv15_tpu_torch.eval.runner import test_submission
+            model, _ = restore_model(ckpt_dir, "last", device, cfg=cfg)
+            return validate(cfg, model, val_loader, logger=logger, device=device, video_dir=video_dir)
+        if action == "test":
+            from trafficbotsv15_tpu_torch.eval.runner import test_submission
 
-        # the morph for submission: the checkpoint's config with K=128 futures unless K is given
-        sub_k = int(overrides.get("n_joint_future_wosac", 128))
-        model, cfg = restore_model(ckpt_dir, "best", device, config_overrides={"n_joint_future_wosac": sub_k})
-        return test_submission(cfg, model, val_loader, out_dir=ckpt_dir, device=device)
+            # the morph for submission: the checkpoint's config with K=128 futures unless K is given
+            sub_k = int(overrides.get("n_joint_future_wosac", 128))
+            model, cfg = restore_model(ckpt_dir, "best", device, config_overrides={"n_joint_future_wosac": sub_k})
+            return test_submission(cfg, model, val_loader, out_dir=ckpt_dir, device=device)
     raise SystemExit(f"unknown action {action}")
 
 
