@@ -7,9 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: needs CUDA; prints the card's name and power limit and turns
      TF32 off for matmuls and cuDNN;
   2. build: compiles every CUDA source of the path from csrc/ (nvcc, sm_90a),
-     one nvcc per source, all started together; meanwhile this process makes
-     the CPU runs of the card-vs-CPU checks of phases 4, 7, 9, 13 (e), 16 (b),
-     17 (a), 18 (b) and 19 (c) (`CARD_VS_CPU`), which keep them for their phase;
+     one nvcc per source, all started together; meanwhile four spawned
+     processes make the CPU runs of the card-vs-CPU checks of phases 4, 7, 9,
+     13 (e), 16 (b), 17 (a), 18 (b) and 19 (c) (`CARD_VS_CPU`), which this
+     process keeps for their phase;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and at edge cases; times kernel, plain version and
      the nearest PyTorch call or composition of calls (`library_ms`):
@@ -228,8 +229,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      the card, 10 steps with one scripted: poses, motion and actions within
      phase 4's tolerance, validity and TL states identical, launches as the
      config implies;
- 15. data parallel over processes (`parallel/mesh.py`), each process it
-     spawns under deterministic algorithms: (a) `run.main` fit at
+ 15. data parallel over processes (`parallel/mesh.py`): (a) under
+     deterministic algorithms, `run.main` fit at
      `leaderboard_config()` with use_pallas=True, batch 2, 1 step, on one
      NCCL rank (a torchrun environment of world 1) and without a process
      group, side by side: the parameters bit for bit; (b) two ranks sharing
@@ -241,8 +242,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      AdamW fed each rank's gradients, the ranks' parameters and metrics
      identical, each rank's launches the training step's at half the union's
      shapes (all on the general route in float32); then `validate` of one batch
-     per rank, the metrics identical on both; (c) (b) over NCCL on two cards
-     where there are two, else "not run: 1 card";
+     per rank, the metrics identical on both; (d) the same two ranks, one step
+     each under fsdp on a (2, 1) mesh (one scenario per rank) and under tp on
+     a (1, 2) mesh (the union on each rank), from the same weights and draws:
+     the loss to 1e-6 relative of (b)'s, the gathered gradients to phase 7's
+     tolerance of (b)'s, the gathered parameters after the update to 1e-6 of
+     their largest value against this process's AdamW fed the strategy's
+     gathered gradients (their gap to (b)'s logged), the JAX package's count
+     of sharded leaves (237, 352), the launches per rank (b)'s and their
+     shapes (b)'s (fsdp) or the union's (tp), the ranks' parameters identical
+     and losses to 1e-6 (tp's two ranks compute the same rows in the card's
+     own order), each arm's seconds and peak memory per rank beside (b)'s,
+     the dp step ((b) and (d) run off deterministic algorithms); then
+     `run.main` fit at the same config cut to 20 rollout steps on synthetic
+     scenes, one per rank, one step under fsdp and its checkpoint resumed
+     under tp for a second: each
+     call one step's launches, the ranks' parameters equal and finite, every
+     rank in the collectives again after each call, finite losses at steps 1
+     and 2, each call's seconds and peak memory; (c) (b) and (d) over NCCL on
+     two cards where there are two, else "not run: 1 card";
  16. the TrafficBots RNN family (`leaderboard_config()` with
      temp_window_size=-1: the GRU agent encoder with tf_ag2mp, tf_ag2tl and
      tf_ag2ag, TL encoded and predicted by a GRU inside each rollout step,
@@ -329,18 +347,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      many per step as the config implies), each wrapper launch counted
      kernel by kernel (`CUDA_KERNELS`: the backwards' two weight-gradient
      passes, B4-bwd's drpe pass on its heads route); the device's idle
-     share over steps 3-5 from the trace; then one `debug_nans=true` fit
-     step, run under anomaly mode with NaN checks and the mode off after it;
-     (b) phase 6's flagship call (use_pallas) traced by `profiling.trace`
-     inside an `annotate` range, into a temporary directory deleted once
-     read: its launches phase 6's (B1 90, B4 8, B2 360), its kernel events
-     those launches' kernels, the device's busy and idle share of the range,
-     the events, bytes and seconds; (c) `validation_video_inputs` of a
-     reactive replay on the card at the phase-4 config: the documented keys
-     and shapes, finite poses; one scenario rendered where cv2 imports, else
-     "videos: not run: no cv2". Three full-width fit steps are not traced:
-     ~5,100 device ops per rollout step make a trace too large to read
-     within the run.
+     share over steps 3-5 from the trace; (b) phase 6's flagship call
+     (use_pallas) cut to its first 30 rollout steps, traced by
+     `profiling.trace` inside an `annotate` range, into a temporary directory
+     deleted once read: its launches what 30 steps imply (B1 30, B4 8, B2
+     120), its kernel events those launches' kernels, the device's busy and
+     idle share of the range, the events, bytes and seconds; (c)
+     `validation_video_inputs` of a reactive replay on the card at the phase-4
+     config: the documented keys and shapes, finite poses; one scenario
+     rendered where cv2 imports, else "videos: not run: no cv2"; then (a)'s
+     config for one `debug_nans=true` fit step in this process, run under
+     anomaly mode with NaN checks and the mode off after it. Three full-width
+     fit steps are not traced: ~5,100 device ops per rollout step make a trace
+     too large to read within the run.
 Then it prints the `serve` JSON line (phase 14's steps/s, ms per step, peak memory
 and the card-vs-CPU errors of both arms, with the card's name and power limit), the
 `kernels` JSON line (forward launches from phase 6 and, as
@@ -398,6 +417,7 @@ from trafficbotsv15_tpu_torch.eval.wosac_post_processing import filter_futures
 from trafficbotsv15_tpu_torch.eval.wosac_metrics import FIELD_NAMES as WOSAC_FIELDS
 from trafficbotsv15_tpu_torch.ops import knarpe, knn
 from trafficbotsv15_tpu_torch.ops.distributions import DestCategorical, DiagGaussian
+from trafficbotsv15_tpu_torch.parallel import mesh as mesh_lib
 from trafficbotsv15_tpu_torch.serve import InteractiveSimulator
 from trafficbotsv15_tpu_torch.sim import rollout as rollout_lib
 from trafficbotsv15_tpu_torch.train import checkpoint as checkpoint_lib
@@ -1607,7 +1627,7 @@ def train_step_run(cfg, batch, noise, device: str, float64: bool = False, pertur
                 prm.mul_(1 + perturb * torch.randn(prm.shape, generator=g).to(prm.device))
     dtype = torch.float64 if float64 else torch.float32
     model.to(dtype)
-    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model), device=device)
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()), device=device)
     move = lambda t: t.to(device, dtype if t.is_floating_point() else t.dtype)  # noqa: E731
     dev_noise = {k: move(v) if isinstance(v, torch.Tensor) else [move(t) for t in v] if k == "navi_noise" else v
                  for k, v in noise.items()}
@@ -1714,7 +1734,7 @@ def run_train_full_width(card: str, n_timed: int = 1) -> dict:
     cfg = with_pallas(leaderboard_config(), True)
     n_sc = 8
     model = build_model(cfg, seed=0, device="cuda")
-    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
     batch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_sc, seed=0), torch.device("cuda"))
     gen = torch.Generator().manual_seed(0)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -2101,7 +2121,7 @@ def seed_checkpoint(cfg, ckpt_dir, steps_per_epoch: int) -> None:
     fresh optimizer and schedule: a fit with resume=true starts from it, on the card as on the CPU."""
     model = build_model(cfg, seed=0, device="cpu")
     damp_weights(model, 0.5)
-    opt, schedule = make_optimizer(cfg.optimizer, model, steps_per_epoch=steps_per_epoch)
+    opt, schedule = make_optimizer(cfg.optimizer, model.named_parameters(), steps_per_epoch=steps_per_epoch)
     ckpt = checkpoint_lib.CheckpointManager(str(ckpt_dir))
     ckpt.save_last({"model": model.state_dict(), "optimizer": opt.state_dict(), "schedule": schedule.state_dict()},
                    cfg, {"step": 0, "epoch": 0})
@@ -2218,7 +2238,7 @@ def replay_fit(cfg, seed_model: dict, updates: list, n_calls: int, steps_per_epo
     model = build_model(cfg, seed=0, device="cpu")
     model.load_state_dict(seed_model)
     names, params = zip(*model.named_parameters())
-    opt, schedule = make_optimizer(cfg.optimizer, model, steps_per_epoch=steps_per_epoch)
+    opt, schedule = make_optimizer(cfg.optimizer, model.named_parameters(), steps_per_epoch=steps_per_epoch)
     ema, swa_state = swa_lib.ema_init(params), swa_lib.swa_init(params)
     swa_start = int(cfg.swa_epoch_start * cfg.max_epochs) * steps_per_epoch
     pending = iter(updates)
@@ -2399,7 +2419,7 @@ def run_fit_full_width(card: str, tmp, before_resume=lambda: None) -> tuple:
     idx = np.arange(8)
     np.random.default_rng(cfg.seed).shuffle(idx)
     want_batch = tbcache.TBCacheDataset(str(data_dir / "training.tbcache")).get_batch(idx[4:6])
-    got_batch = rec2["steps"][0]["batch"]
+    got_batch = checkpoint_lib.to_host(rec2["steps"][0]["batch"])  # the fit's prefetch hands the step card tensors
     same_batch = all(np.array_equal(np.asarray(got_batch[k]), v) for k, v in want_batch.items())
     if not (len(rec2["steps"]) == 1 and meta2["step"] == 3 and same_model and same_opt and same_batch):
         raise AssertionError(f"fit resume: {len(rec2['steps'])} steps, last at {meta2}, starts from the saved model "
@@ -2836,9 +2856,9 @@ def run_scaled_phase(card: str) -> dict:
     # backward on its inputs
     n_train = cfg.batch_size_train
     tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
-    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
     tmodel = build_model(pcfg, seed=0, device="cuda")
-    tstep = train_lib.make_train_step(pcfg, tmodel, *make_optimizer(pcfg.optimizer, tmodel))
+    tstep = train_lib.make_train_step(pcfg, tmodel, *make_optimizer(pcfg.optimizer, tmodel.named_parameters()))
     tgen = torch.Generator().manual_seed(0)
     bf, knn_train = str(torch.bfloat16), ("knn_xy", n_train, KNN_SRC, KNN_TGT, KNN_K)
     n_map, n_tl, n_agl = (getattr(pcfg.model, enc).n_layer_tf for enc in ("mp_encoder", "tl_encoder", "ag_encoder"))
@@ -3136,8 +3156,8 @@ def run_serve_phase(card: str) -> tuple:
     log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s [{card}]")
     return summary, counts
 
-# phase 15, data parallel over processes (`parallel/mesh.py`), every process it spawns under deterministic
-# algorithms (`spawned`): (a) `run.main` fit on one NCCL rank (a torchrun environment of world 1) against the same
+# phase 15, data parallel over processes (`parallel/mesh.py`), (a)'s processes under deterministic algorithms
+# (`spawned`; (b)'s and (d)'s turn them off again): (a) `run.main` fit on one NCCL rank (a torchrun environment of world 1) against the same
 # fit without a process group, side by side, the parameters bit for bit; (b) two ranks sharing the card over gloo
 # with CUDA tensors, each `make_train_step` on one scenario of a union batch of 2 (float32, dropout 0, the union's
 # draws), against this process on the union beside them: the loss to PARALLEL_LOSS_REL relative, the gradients the
@@ -3147,8 +3167,22 @@ def run_serve_phase(card: str) -> tuple:
 # against the union's own update: AdamW's first step moves an element by ~lr * g / (|g| + 1e-8), so an element whose
 # gradient lies within the summation order's noise of 0 steps by up to lr either way, as large as a zero-initialised
 # bias's largest value after the step (logged as `union_param_gap`). The same two ranks validate one batch each:
-# the same metrics on both. (c) (b) over NCCL on two cards, where there are two.
+# the same metrics on both. (d) The same two ranks under fsdp and tp (`SHARDED_ARMS`), from the same weights and
+# draws, held as (b) is: the loss against (b)'s, the gathered gradients against (b)'s, the gathered parameters against
+# this process's optimizer fed the strategy's own gathered gradients (the gap to (b)'s logged as `dp_param_gap`: tp's
+# ranks each compute the union, as this process does, in another summation order than (b)'s sum of two halves).
+# (c) (b) and (d) over NCCL on two cards, where there are two.
 PARALLEL_LOSS_REL, PARALLEL_PARAM_REL = 1e-6, 1e-6
+# (d)'s arms, (strategy, model axis) on the two ranks, and the leaves each shards at leaderboard_config(): the JAX
+# package's fsdp_shard_params (min size 2**14, n_data 2) and tp_shard_params (n_model 2) shard 237 and 352 of its 720
+SHARDED_ARMS = (("fsdp", 1), ("tp", 2))
+SHARDED_LEAVES = {"fsdp": 237, "tp": 352}
+# (d)'s run.main arm in the same ranks: a fit of one step under fsdp at parallel_cfg() cut to SHARDED_FIT_STEPS rollout
+# steps (the arm checks the fit's wiring; the bare steps above hold the numbers at full depth), one scenario per rank,
+# resumed under tp on a (1, 2) mesh for a second step
+SHARDED_FIT_STEPS = 20
+SHARDED_FIT = (("fsdp", ["parallel.strategy=fsdp", "max_steps=1"]),
+               ("tp", ["parallel.strategy=tp", "parallel.model_axis=2", "max_steps=2", "resume=true"]))
 PARALLEL_TIMEOUT_S = 300  # a rank that outlives this is killed and fails the phase
 PARALLEL_THREADS = 2  # CPU threads of each spawned process: up to four run beside this one
 
@@ -3271,18 +3305,19 @@ def parallel_model(cfg, device):
     """The seed-0 weights damped to gain 0.5, and its optimizer and schedule."""
     model = build_model(cfg, seed=0, device=device)
     damp_weights(model, 0.5)
-    return (model, *make_optimizer(cfg.optimizer, model))
+    return (model, *make_optimizer(cfg.optimizer, model.named_parameters()))
 
 
 def parallel_process(rank: int, world: int, backend: str | None, device: str, store: str, batch, noise,
                      out: str) -> None:
     """(b)/(c)'s process: one train step on rank's share of the union batch and of the union's draws (with backend
-    None, one process on the whole union); then, in a group, validate of one batch of its shard. Writes metrics,
-    gradients, parameters, launches and validation metrics to out."""
-    import warnings
-
+    None, one process on the whole union); then, in a group, validate of one batch of its shard, and (d). Writes
+    metrics, gradients, parameters, launches, seconds, peak memory and validation metrics to out."""
     import torch.distributed as dist
 
+    # (b) and (d) hold no two processes bit for bit (the ranks' sums are all-reduced, each against this process's own
+    # replay): the card's own summation order, ~1/3 off each step's time, and (b) the dp baseline of (d)'s arms
+    torch.use_deterministic_algorithms(False)
     device = torch.device(device)
     torch.cuda.set_device(device)
     if backend is not None:
@@ -3296,17 +3331,18 @@ def parallel_process(rank: int, world: int, backend: str | None, device: str, st
     shard = {k: v.to(device) if isinstance(v, torch.Tensor) else v
              for k, v in train_lib.shard_noise(noise, rank, world).items()}
     reset_launches()
-    with warnings.catch_warnings(record=True) as caught, recorded_launch_shapes() as shapes:
-        warnings.simplefilter("always")
+    torch.cuda.reset_peak_memory_stats(device)
+    with recorded_launch_shapes() as shapes:
         t0 = time.perf_counter()
         metrics = step(mine, noise=shard)
         torch.cuda.synchronize(device)
         t_step = time.perf_counter() - t0
     counts, routes = launches(), {k: v for k, v in knarpe.ROUTE_LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated(device)
     if backend is not None:
         print(f"  rank {rank} of {world} ({backend}, {device}): launches {counts}, by route {routes}", flush=True)
     result = {"metrics": {k: float(v) for k, v in metrics.items()}, "launches": counts, "routes": routes,
-              "shapes": dict(shapes), "step_s": t_step, "warnings": nondeterministic(caught),
+              "shapes": dict(shapes), "step_s": t_step, "peak_bytes": peak,
               "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
               "params": checkpoint_lib.to_host(dict(model.named_parameters()))}
     if backend is not None:
@@ -3315,9 +3351,174 @@ def parallel_process(rank: int, world: int, backend: str | None, device: str, st
         result["validate"] = eval_runner.validate(cfg, model, loader, max_batches=1, device=device,
                                                   logger=MetricsLogger(None, echo=False))
         result["validate_s"] = time.perf_counter() - t0
+        del model, opt, schedule, step
+        result["sharded"] = {strategy: sharded_step(cfg, strategy, n_model, batch, noise, device)
+                             for strategy, n_model in SHARDED_ARMS}
+        result["sharded_fit_dir"] = str(Path(out).parent / f"sharded_fit_{backend}")
+        result["sharded_fit"] = sharded_fit(result["sharded_fit_dir"], device)
     torch.save(result, out)
     if backend is not None:
         dist.destroy_process_group()
+
+
+def sharded_step(cfg, strategy: str, n_model: int, batch, noise, device) -> dict:
+    """(d) in one rank: the mesh of `strategy` with n_model ranks in its model dim, parallel_model's weights placed by
+    the strategy, one train step on this rank's data index's share of the union batch and draws -> its metrics,
+    launches, shapes, seconds and peak memory, the gathered gradients it applied and the gathered parameters after it,
+    the number of sharded leaves."""
+    scfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, strategy=strategy, model_axis=n_model))
+    with mesh_lib.make_mesh(n_model=n_model) as mesh:
+        model = build_model(scfg, seed=0, device=device)
+        damp_weights(model, 0.5)
+        sharded = mesh_lib.ShardedParams(model, mesh_lib.strategy_placements(scfg.parallel, model, mesh), mesh)
+        opt, schedule = make_optimizer(scfg.optimizer, sharded.named_parameters())
+        step = train_lib.make_train_step(scfg, model, opt, schedule, device=device, sharded=sharded)
+        d, n = mesh_lib.data_index(mesh), mesh_lib.data_count(mesh)
+        rows = next(iter(batch.values())).shape[0] // n
+        mine = {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()}
+        shard = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                 for k, v in train_lib.shard_noise(noise, d, n).items()}
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        with recorded_launch_shapes() as shapes:
+            t0 = time.perf_counter()
+            metrics = step(mine, noise=shard)
+            torch.cuda.synchronize(device)
+            t_step = time.perf_counter() - t0
+        counts, peak = launches(), torch.cuda.max_memory_allocated(device)
+        grads = sharded.full({k: t.grad for k, t in sharded.named_parameters()})
+        sharded.gather()
+        return {"metrics": {k: float(v) for k, v in metrics.items()}, "launches": counts, "shapes": dict(shapes),
+                "step_s": t_step, "peak_bytes": peak, "mesh": tuple(mesh.mesh.shape),
+                "sharded_leaves": len(sharded.axes), "grads": {k: g.detach().cpu() for k, g in grads.items()},
+                "params": checkpoint_lib.to_host(dict(model.named_parameters()))}
+
+
+def sharded_fit_cfg():
+    return horizon(parallel_cfg(), SHARDED_FIT_STEPS)
+
+
+def sharded_fit(ckpt_dir: Path, device) -> dict:
+    """(d)'s run.main arm in one rank (SHARDED_FIT): `run.main` fit at sharded_fit_cfg() on synthetic scenes, one per
+    rank, for one step under fsdp, then its checkpoint resumed under tp for a second -> for each: seconds and peak
+    memory of the call, the launches, whether a signal stopped it, the rank count after it, the parameters after
+    it."""
+    base = ["action=fit", "preset=leaderboard", f"device={device}", f"ckpt_dir={ckpt_dir}", "batch_size_train=1",
+            "validate_every_epoch=false", "log_every=1", *config_overrides(leaderboard_config(), sharded_fit_cfg())]
+    out = {}
+    for strategy, args in SHARDED_FIT:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        model, _, stopped = run_lib.main(base + args)
+        torch.cuda.synchronize(device)
+        out[strategy] = {"seconds": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated(device),
+                         "launches": launches(), "stopped": stopped, "ranks_after": mesh_lib.process_count(),
+                         "params": checkpoint_lib.to_host(dict(model.named_parameters()))}
+        del model
+    return out
+
+
+def replayed_update(cfg, grads: dict, replay, start: dict) -> dict:
+    """parallel_model's weights (`replay` loaded with `start`) after a fresh optimizer's first update from `grads`, on
+    the card."""
+    replay.load_state_dict(start)
+    replay_opt = make_optimizer(cfg.optimizer, replay.named_parameters())[0]
+    for n, p in replay.named_parameters():
+        p.grad = grads[n].cuda()
+    replay_opt.step()
+    return checkpoint_lib.to_host(dict(replay.named_parameters()))
+
+
+def _max_rel(got: dict, want: dict, floor: float = 1e-30) -> float:
+    """The largest |got - want| of a tensor over max(its largest |want|, floor), over every tensor of want."""
+    return max(float((got[n] - w).abs().max()) / max(float(w.abs().max()), floor) for n, w in want.items())
+
+
+def gib(n_bytes) -> float:
+    return n_bytes / 2 ** 30
+
+
+def check_sharded_arms(card: str, backend: str, ranks: list, union: dict, want_counts: dict, want_shapes,
+                       floor: float, replay) -> dict:
+    """(d): each strategy's step on both ranks against (b)'s (see SHARDED_ARMS). The ranks of tp's model group compute
+    the same rows in the card's own order: their losses agree to PARALLEL_LOSS_REL, their parameters bit for bit (one
+    rank's gradients of what the model dim does not split are taken on both, `ShardedParams.scatter_grads`). Then
+    the run.main arm (`check_sharded_fit`)."""
+    cfg = parallel_cfg()
+    b0 = ranks[0]
+    out = {}
+    for strategy, n_model in SHARDED_ARMS:
+        arms = [res["sharded"][strategy] for res in ranks]
+        shapes = want_shapes if n_model == 1 else collections.Counter(union["shapes"])
+        checks = {}
+        for r, arm in enumerate(arms):
+            if arm["launches"] != want_counts or collections.Counter(arm["shapes"]) != shapes \
+                    or arm["sharded_leaves"] != SHARDED_LEAVES[strategy]:
+                raise AssertionError(f"(d) {strategy} rank {r}: launches {arm['launches']} (expected {want_counts}), "
+                                     f"shapes {arm['shapes']} (expected {dict(shapes)}), sharded leaves "
+                                     f"{arm['sharded_leaves']} (expected {SHARDED_LEAVES[strategy]})")
+            checks[r] = dict(
+                loss_rel=abs(arm["metrics"]["training/loss"] - b0["metrics"]["training/loss"])
+                / abs(b0["metrics"]["training/loss"]),
+                grad_rel=_max_rel(arm["grads"], b0["grads"], floor),
+                param_rel=_max_rel(arm["params"], replayed_update(cfg, arm["grads"], *replay)),
+                dp_param_gap=_max_rel(arm["params"], b0["params"]))
+            if not (checks[r]["loss_rel"] <= PARALLEL_LOSS_REL and checks[r]["grad_rel"] <= TRAIN_GRAD_REL
+                    and checks[r]["param_rel"] <= PARALLEL_PARAM_REL):
+                raise AssertionError(f"(d) {strategy} rank {r} over {backend}: {checks[r]} (tolerances: loss "
+                                     f"{PARALLEL_LOSS_REL}, gradients {TRAIN_GRAD_REL}, parameters "
+                                     f"{PARALLEL_PARAM_REL})")
+        a0, a1 = arms
+        loss_gap = abs(a0["metrics"]["training/loss"] - a1["metrics"]["training/loss"]) / \
+            abs(a0["metrics"]["training/loss"])
+        if loss_gap > PARALLEL_LOSS_REL or not all(torch.equal(a0["params"][n], a1["params"][n]) for n in a0["params"]):
+            raise AssertionError(f"(d) {strategy}: the two ranks' losses ({loss_gap} relative apart) or parameters "
+                                 "differ")
+        log(f"  (d) {strategy} on a {a0['mesh']} mesh over {backend}: loss {a0['metrics']['training/loss']:.7f} vs "
+            f"(b)'s {b0['metrics']['training/loss']:.7f}; per rank {checks}; {a0['sharded_leaves']} leaves sharded; "
+            f"launches per rank {a0['launches']} (b)'s, shapes {'(b)' if n_model == 1 else 'the union'}'s; steps "
+            f"{[round(a['step_s'], 3) for a in arms]} s against (b)'s dp {[round(res['step_s'], 3) for res in ranks]} s "
+            f"(each rank's first step), peak memory per rank {[round(gib(a['peak_bytes']), 4) for a in arms]} GiB "
+            f"against (b)'s {[round(gib(res['peak_bytes']), 4) for res in ranks]} GiB [{card}]")
+        out[strategy] = {"mesh": a0["mesh"], "checks": checks, "sharded_leaves": a0["sharded_leaves"],
+                         "launches_per_rank": a0["launches"], "step_seconds": [a["step_s"] for a in arms],
+                         "peak_gib": [gib(a["peak_bytes"]) for a in arms]}
+    out["run_main"] = check_sharded_fit(card, backend, ranks)
+    return out
+
+
+def check_sharded_fit(card: str, backend: str, ranks: list) -> dict:
+    """(d)'s run.main arm (SHARDED_FIT) on both ranks: each call one step's launches, no stop, both ranks' parameters
+    equal and finite, the collectives over both ranks again after each call; "last" at step 2 with finite losses
+    logged at steps 1 and 2."""
+    want_counts = expected_train_launches(sharded_fit_cfg())
+    fits = [res["sharded_fit"] for res in ranks]
+    ckpt_dir = Path(ranks[0]["sharded_fit_dir"])
+    out = {}
+    for strategy, _ in SHARDED_FIT:
+        arms = [fit[strategy] for fit in fits]
+        p0, p1 = arms[0]["params"], arms[1]["params"]
+        if any(a["launches"] != want_counts or a["stopped"] or a["ranks_after"] != 2 for a in arms) \
+                or not all(torch.equal(p0[n], p1[n]) and torch.isfinite(p0[n]).all() for n in p0):
+            raise AssertionError(f"(d) run.main {strategy}: launches {[a['launches'] for a in arms]} (one step: "
+                                 f"{want_counts}), stopped {[a['stopped'] for a in arms]}, ranks after "
+                                 f"{[a['ranks_after'] for a in arms]}, or the ranks' parameters differ or are not "
+                                 "finite")
+        out[strategy] = {"seconds": [a["seconds"] for a in arms], "peak_gib": [gib(a["peak_bytes"]) for a in arms]}
+    logged = [json.loads(line) for line in (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = {m["step"]: m["training/loss"] for m in logged if "training/loss" in m}
+    last_step = json.loads((ckpt_dir / "last.json").read_text())["meta"]["step"]
+    if sorted(losses) != [1, 2] or not all(math.isfinite(v) for v in losses.values()) or last_step != 2:
+        raise AssertionError(f"(d) run.main: logged losses {losses}, last at step {last_step} (expected steps 1, 2)")
+    log(f"  (d) run.main fit at parallel_cfg() cut to {SHARDED_FIT_STEPS} rollout steps, one synthetic scenario per "
+        f"rank, over {backend}: 1 step under fsdp on "
+        f"a (2, 1) mesh, its checkpoint resumed under tp on a (1, 2) mesh for step 2; losses {losses}; each call one "
+        f"step's launches per rank, the ranks' parameters equal; seconds per call and rank "
+        f"{ {k: [round(t, 2) for t in v['seconds']] for k, v in out.items()} }, peak memory "
+        f"{ {k: [round(g, 4) for g in v['peak_gib']] for k, v in out.items()} } GiB [{card}]")
+    out["losses"] = losses
+    return out
 
 
 def check_two_ranks(card: str, tmp, backend: str, devices: list) -> dict:
@@ -3347,7 +3548,7 @@ def check_two_ranks(card: str, tmp, backend: str, devices: list) -> dict:
                                        else (*key[:2], key[2] // 2, *key[3:]): n for key, n in union["shapes"].items()})
     floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in union["grads"].values())
     replay = parallel_model(cfg, "cuda")[0]
-    start = checkpoint_lib.to_host(replay.state_dict())
+    replay = (replay, checkpoint_lib.to_host(replay.state_dict()))
     checks = {}
     for r, res in enumerate(ranks):
         if res["launches"] != want_counts or union["launches"] != want_counts \
@@ -3357,24 +3558,15 @@ def check_two_ranks(card: str, tmp, backend: str, devices: list) -> dict:
         loss_rel = abs(res["metrics"]["training/loss"] - union["metrics"]["training/loss"]) / \
             abs(union["metrics"]["training/loss"])
         norm_rel = abs(res["metrics"]["grad_norm"] - union["metrics"]["grad_norm"]) / union["metrics"]["grad_norm"]
-        grad_rel = max(float((res["grads"][n] - g).abs().max()) / max(float(g.abs().max()), floor)
-                       for n, g in union["grads"].items())
-        union_gap = max(float((res["params"][n] - p).abs().max()) / max(float(p.abs().max()), 1e-30)
-                        for n, p in union["params"].items())
-        replay.load_state_dict(start)  # a fresh optimizer's first update, from this rank's gradients
-        replay_opt = make_optimizer(cfg.optimizer, replay)[0]
-        for n, p in replay.named_parameters():
-            p.grad = res["grads"][n].cuda()
-        replay_opt.step()
-        replayed = checkpoint_lib.to_host(dict(replay.named_parameters()))
-        param_rel = max(float((res["params"][n] - p).abs().max()) / max(float(p.abs().max()), 1e-30)
-                        for n, p in replayed.items())
+        grad_rel = _max_rel(res["grads"], union["grads"], floor)
+        union_gap = _max_rel(res["params"], union["params"])
+        param_rel = _max_rel(res["params"], replayed_update(cfg, res["grads"], *replay))  # its own update
         checks[r] = dict(loss_rel=loss_rel, grad_norm_rel=norm_rel, grad_rel=grad_rel, param_rel=param_rel,
                          union_param_gap=union_gap)
         if not (loss_rel <= PARALLEL_LOSS_REL and grad_rel <= TRAIN_GRAD_REL and param_rel <= PARALLEL_PARAM_REL):
             raise AssertionError(f"rank {r} over {backend}: {checks[r]} (tolerances: loss {PARALLEL_LOSS_REL}, "
-                                 f"gradients {TRAIN_GRAD_REL}, parameters {PARALLEL_PARAM_REL}); ops warned as "
-                                 f"nondeterministic {res['warnings']}")
+                                 f"gradients {TRAIN_GRAD_REL}, parameters {PARALLEL_PARAM_REL})")
+    sharded = check_sharded_arms(card, backend, ranks, union, want_counts, want_shapes, floor, replay)
     r0, r1 = ranks
     same_params = all(torch.equal(r0["params"][n], r1["params"][n]) for n in r0["params"])
     if r0["metrics"] != r1["metrics"] or not same_params:
@@ -3384,21 +3576,22 @@ def check_two_ranks(card: str, tmp, backend: str, devices: list) -> dict:
         diff = {k: (v, r1["validate"].get(k)) for k, v in r0["validate"].items() if r1["validate"].get(k) != v}
         raise AssertionError(f"validate over {backend}: the ranks' metrics differ or are not finite: {diff}")
     log(f"  ({'b' if backend == 'gloo' else 'c'}) two ranks over {backend} on {devices}, one scenario each, "
-        f"float32, deterministic algorithms, against one process on the union of 2 beside them: loss "
+        f"float32, against one process on the union of 2 beside them: loss "
         f"{r0['metrics']['training/loss']:.7f} vs {union['metrics']['training/loss']:.7f}; per rank {checks}; the "
         f"ranks' metrics and parameters identical; launches per rank {r0['launches']} by route {r0['routes']}, "
         f"shapes the union step's at half its scenarios; steps {[round(res['step_s'], 3) for res in ranks]} s "
         f"(union {union['step_s']:.3f} s); validate of one batch per rank "
         f"{[round(res['validate_s'], 3) for res in ranks]} s, {len(r0['validate'])} metrics identical on both "
-        f"(val/loss {r0['validate']['val/loss']:.6f}); ops warned as nondeterministic {r0['warnings']}; "
-        f"{t_ranks:.1f} s in all [{card}]")
-    return {"backend": backend, "devices": devices, "seconds": t_ranks, "checks": checks,
+        f"(val/loss {r0['validate']['val/loss']:.6f}); peak memory per rank "
+        f"{[round(gib(res['peak_bytes']), 4) for res in ranks]} GiB; {t_ranks:.1f} s in all [{card}]")
+    return {"backend": backend, "devices": devices, "seconds": t_ranks, "checks": checks, "sharded": sharded,
             "launches_per_rank": r0["launches"], "routes_per_rank": r0["routes"],
-            "validate_metrics_identical": len(r0["validate"]), "nondeterministic_ops": r0["warnings"]}
+            "validate_metrics_identical": len(r0["validate"]), "step_seconds": [res["step_s"] for res in ranks],
+            "peak_gib": [gib(res["peak_bytes"]) for res in ranks]}
 
 
 def run_parallel_phase(card: str) -> dict:
-    """Phase 15: (a)-(c); -> the `parallel` object of the kernels line."""
+    """Phase 15: (a)-(d); -> the `parallel` object of the kernels line."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -3410,7 +3603,7 @@ def run_parallel_phase(card: str) -> dict:
             out["two_ranks_nccl_two_cards"] = check_two_ranks(card, tmp, "nccl", ["cuda:0", "cuda:1"])
         else:
             out["two_ranks_nccl_two_cards"] = "not run: 1 card"
-            log("  (c) not run: 1 card")
+            log("  (c) (b) and (d) over NCCL on two cards: not run: 1 card")
     out["seconds"] = time.perf_counter() - t0
     out["card"] = card
     log(f"  phase 15 {out['seconds']:.1f} s [{card}]")
@@ -3520,7 +3713,7 @@ def run_rnn_phase(card: str) -> dict:
 
     n_train = 8
     model = build_model(cfg, seed=0, device="cuda")
-    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
     tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
     want, want_routes = rnn_full_shapes(cfg, n_train, n_train, train=True)
     torch.cuda.reset_peak_memory_stats()
@@ -3765,7 +3958,7 @@ def run_variant_phase(card: str) -> dict:
 
     n_train = 8
     model = build_model(cfg, seed=0, device="cuda")
-    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
     tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
     want, want_routes = variant_full_shapes(cfg, n_train, n_train, train=True)
     torch.cuda.reset_peak_memory_stats()
@@ -3842,7 +4035,7 @@ def run_scene_centric_phase(card: str) -> dict:
         f"{out['eval_peak_gib']:.2f} GiB; no kernel launched ({launches()}); agent-steps flagged {flags} [{card}]")
     del buf
     n_train = 8
-    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
     tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -4004,7 +4197,7 @@ def trace_summary(path, events: list, t0: float, t1: float) -> dict:
 def profiled_fit(card: str, tmp: Path) -> dict:
     """(a) `run.main` fit with profile_dir at the phase-4 config with use_pallas: the trace of steps 3-5 holds the
     three steps' ranges, and as many kernel events of each port kernel as three of the fit's six steps launched;
-    the device's idle share over those steps. (Its debug_nans=true step is `DebugNansFit`.)"""
+    the device's idle share over those steps. (Its debug_nans=true step is `debug_nans_fit`.)"""
     cfg = with_pallas(phase4_config(PROFILE_N_STEP), True)
     prof_dir = tmp / "profile"
     args = ["action=fit", "preset=tiny", "validate_every_epoch=false", "log_every=1000",
@@ -4059,68 +4252,47 @@ def profiled_fit(card: str, tmp: Path) -> dict:
     return summary
 
 
-# phase 20 (a)'s debug_nans=true fit step, in a process of its own: whether anomaly mode with NaN checks is on inside
-# run.fit and off after run.main
-DEBUG_NANS_DRIVER = """
-import json, sys, torch
-from trafficbotsv15_tpu_torch import run
-seen, real_fit = [], run.fit
-def spy(*args, **kwargs):
-    seen.append([torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()])
-    return real_fit(*args, **kwargs)
-run.fit = spy
-run.main(sys.argv[1:])
-print("DEBUG_NANS " + json.dumps({"seen": seen, "after": torch.is_anomaly_enabled()}))
-"""
+def debug_nans_fit(card: str, tmp: Path) -> float:
+    """(a)'s `run.main` fit step with debug_nans=true at the profiled fit's config, in this process: anomaly mode with
+    NaN checks on inside run.fit, off again after run.main, a finite loss. -> its seconds."""
+    cfg = with_pallas(phase4_config(PROFILE_N_STEP), True)
+    args = ["action=fit", "preset=tiny", "validate_every_epoch=false", "log_every=1000", "max_steps=1",
+            "debug_nans=true", f"ckpt_dir={tmp / 'nans'}", *config_overrides(tiny_config(), cfg)]
+    seen, real_fit = [], run_lib.fit
+
+    def spy(*fit_args, **kwargs):
+        seen.append((torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()))
+        return real_fit(*fit_args, **kwargs)
+
+    run_lib.fit = spy
+    try:
+        t0 = time.perf_counter()
+        run_lib.main(args)
+        sec = time.perf_counter() - t0
+    finally:
+        run_lib.fit = real_fit
+    loss = json.loads((tmp / "nans" / "metrics.jsonl").read_text().splitlines()[-1])["training/loss"]
+    if seen != [(True, True)] or torch.is_anomaly_enabled() or not math.isfinite(loss):
+        raise AssertionError(f"(a) debug_nans=true fit step: anomaly mode (on, NaN checks) in fit {seen}, on after "
+                             f"{torch.is_anomaly_enabled()}, loss {loss}")
+    log(f"  (a) debug_nans=true: one run.main fit step under anomaly mode with NaN checks, the mode off after run.main; "
+        f"loss {loss:.6f}; {sec:.2f} s [{card}]")
+    return sec
 
 
-class DebugNansFit:
-    """(a)'s `run.main` fit step with debug_nans=true at the profiled fit's config, in a subprocess: `start()` once no
-    timing it could disturb is left, `finish()` waits for it and checks it."""
-
-    def __init__(self, tmp: Path):
-        self.tmp = tmp
-        cfg = with_pallas(phase4_config(PROFILE_N_STEP), True)
-        self.args = ["action=fit", "preset=tiny", "validate_every_epoch=false", "log_every=1000", "max_steps=1",
-                     "debug_nans=true", f"ckpt_dir={tmp / 'nans'}", *config_overrides(tiny_config(), cfg)]
-        self.proc = None
-
-    def start(self) -> None:
-        self.log = open(self.tmp / "debug_nans.log", "w+")
-        self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen([sys.executable, "-c", DEBUG_NANS_DRIVER, *self.args], stdout=self.log,
-                                     stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
-
-    def finish(self, card: str) -> float:
-        try:
-            self.proc.wait(timeout=300)
-        finally:
-            if self.proc.poll() is None:
-                self.proc.kill()
-                self.proc.wait()
-            self.log.close()
-        sec = time.perf_counter() - self.t0
-        text = (self.tmp / "debug_nans.log").read_text()
-        found = [json.loads(line.split(" ", 1)[1]) for line in text.splitlines() if line.startswith("DEBUG_NANS ")]
-        loss = float("nan")
-        if (self.tmp / "nans" / "metrics.jsonl").exists():
-            loss = json.loads((self.tmp / "nans" / "metrics.jsonl").read_text().splitlines()[-1])["training/loss"]
-        if self.proc.returncode != 0 or found != [{"seen": [[True, True]], "after": False}] or not math.isfinite(loss):
-            raise AssertionError(f"(a) debug_nans=true fit step: exit {self.proc.returncode}, anomaly mode {found}, "
-                                 f"loss {loss}:\n{text[-3000:]}")
-        log(f"  (a) debug_nans=true: one run.main fit step in a process of its own (started after (b)'s traced call), "
-            f"under anomaly mode with NaN checks, the mode off after run.main; loss {loss:.6f}; {sec:.2f} s with the "
-            f"process's start [{card}]")
-        return sec
+# phase 20 (b) traces phase 6's flagship call cut to its first 30 rollout steps: the call's 90 held 1.33 M events,
+# whose file took ~21 s to write and ~9 s to read on an H100 host (NVIDIA H100 80GB HBM3, 700.00 W)
+TRACED_EVAL_STEPS = 30
 
 
-def traced_eval_call(card: str, want: dict, after_call=lambda: None) -> dict:
-    """(b) one flagship joint_future_pred call (phase 6's config and batch, use_pallas) traced by profiling.trace
-    inside an annotate range: its launches are phase 6's, its kernel events the launches' kernels; the device's busy
-    and idle share of the range. after_call() runs once the call has ended, before the trace is written."""
+def traced_eval_call(card: str) -> dict:
+    """(b) one flagship joint_future_pred call (phase 6's config and batch, use_pallas) cut to TRACED_EVAL_STEPS
+    rollout steps, traced by profiling.trace inside an annotate range: its launches are what those steps imply, its
+    kernel events the launches' kernels; the device's busy and idle share of the range."""
     import tempfile
 
-    cfg = with_pallas(leaderboard_config(), True)
+    cfg = horizon(with_pallas(leaderboard_config(), True), TRACED_EVAL_STEPS)
+    want = expected_launches(cfg, TRACED_EVAL_STEPS)
     batch = make_batch(cfg.data, n_sc=4, seed=0)
     model = build_model(cfg, seed=0, device="cuda")
     gen = torch.Generator().manual_seed(0)
@@ -4131,11 +4303,10 @@ def traced_eval_call(card: str, want: dict, after_call=lambda: None) -> dict:
             with profiling.annotate("joint_future_pred"):
                 _, buf = joint_future_pred(cfg, model, batch, generator=gen, check_level=1)
             t_call = time.perf_counter() - t0
-            after_call()
         t_trace = time.perf_counter() - t0
         counts, routes = launches(), route_counts()
         if counts != want:
-            raise AssertionError(f"(b) traced eval call: launches {counts}, phase 6's {want}")
+            raise AssertionError(f"(b) traced eval call: launches {counts}, {TRACED_EVAL_STEPS} steps imply {want}")
         if not torch.isfinite(buf.pred_pose).all():
             raise AssertionError("(b) traced eval call: non-finite poses")
         t1 = time.perf_counter()
@@ -4148,10 +4319,11 @@ def traced_eval_call(card: str, want: dict, after_call=lambda: None) -> dict:
         summary.update(device_ops=sum(e.get("cat") in profiling.DEVICE_CATEGORIES for e in events),
                        call_seconds=t_call, write_seconds=t_trace - t_call, read_seconds=t_read)
         del events
-    log(f"  (b) leaderboard_config joint_future_pred, use_pallas, traced by profiling.trace: the call {t_call:.2f} s "
-        f"(profiler on), the file written in {t_trace - t_call:.2f} s: {summary['bytes']} bytes, {summary['events']} events, "
-        f"{summary['device_ops']} device ops (read in {t_read:.2f} s, then deleted); port kernel events = phase 6's "
-        f"launches {want} by route {routes}; device busy {summary['busy_s']:.4f} of {summary['window_s']:.4f} s, "
+    log(f"  (b) leaderboard_config joint_future_pred, use_pallas, {TRACED_EVAL_STEPS} rollout steps, traced by "
+        f"profiling.trace: the call {t_call:.2f} s (profiler on), the file written in {t_trace - t_call:.2f} s: "
+        f"{summary['bytes']} bytes, {summary['events']} events, {summary['device_ops']} device ops (read in "
+        f"{t_read:.2f} s, then deleted); port kernel events = the launches {want} by route {routes}; device busy "
+        f"{summary['busy_s']:.4f} of {summary['window_s']:.4f} s, "
         f"busy share {summary['busy_share']:.4f}, idle share {summary['idle_share']:.4f} [{card}]")
     return summary
 
@@ -4205,9 +4377,9 @@ def video_inputs_on_card(card: str, tmp: Path) -> dict:
     return {"videos": len(paths), "render_seconds": t_render, "cv2": cv2.__version__, "h5py": h5py}
 
 
-def run_profiling_phase(card: str, eval_launches: dict) -> dict:
-    """Phase 20: (a) the fit's profile_dir trace and debug_nans, (b) a traced flagship eval call, (c) the validation
-    videos' inputs on the card."""
+def run_profiling_phase(card: str) -> dict:
+    """Phase 20: (a) the fit's profile_dir trace, (b) a traced flagship eval call, (c) the validation videos' inputs on
+    the card, then (a)'s debug_nans step."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -4215,14 +4387,10 @@ def run_profiling_phase(card: str, eval_launches: dict) -> dict:
         tmp = Path(name)
         out = {"fit": profiled_fit(card, tmp)}
         torch.cuda.empty_cache()
-        nans = DebugNansFit(tmp)
-        try:
-            out["eval"] = traced_eval_call(card, eval_launches, after_call=nans.start)
-            torch.cuda.empty_cache()
-            out.update(video_inputs_on_card(card, tmp))
-        finally:
-            if nans.proc is not None:
-                out["fit"]["debug_nans_seconds"] = nans.finish(card)
+        out["eval"] = traced_eval_call(card)
+        torch.cuda.empty_cache()
+        out.update(video_inputs_on_card(card, tmp))
+        out["fit"]["debug_nans_seconds"] = debug_nans_fit(card, tmp)
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 20 {out['seconds']:.1f} s [{card}]")
     return out
@@ -4260,19 +4428,41 @@ CARD_VS_CPU = {
 }
 
 
-def run_card_vs_cpu(phase: int, reference_only: bool = False) -> None:
+def run_card_vs_cpu(phase: int, reference_only: bool = False, which=None) -> None:
+    """CARD_VS_CPU[phase]'s checks (`which`: the indices of those to run, default all)."""
     checks = {"slice": check_slice_card_vs_cpu, "train": check_train_step_card_vs_cpu,
               "validate": check_validate_card_vs_cpu}
-    for kind, kwargs in CARD_VS_CPU[phase]:
-        checks[kind](**kwargs, reference_only=reference_only)
+    for i, (kind, kwargs) in enumerate(CARD_VS_CPU[phase]):
+        if which is None or i in which:
+            checks[kind](**kwargs, reference_only=reference_only)
+
+
+# processes that make the card-vs-CPU checks' CPU runs beside the build, each with this many torch threads: the
+# reduced configs' CPU runs are bound by one thread's op dispatch, so processes, not threads, spread them (one process
+# of 8 threads took 100-117 s of them against the build's 54-58 s on the NVIDIA H100 80GB HBM3 (700.00 W) machines)
+CPU_REFERENCE_WORKERS, CPU_REFERENCE_THREADS = 4, 2
+
+
+def cpu_references_of(checks: list) -> dict:
+    """In a process of its own: the CPU runs of `checks` ((phase, index) in CARD_VS_CPU) -> what each kept."""
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    for phase, i in checks:
+        run_card_vs_cpu(phase, reference_only=True, which={i})
+    return _CPU_REFERENCES
 
 
 def precompute_cpu_references() -> tuple:
     """Every CARD_VS_CPU check's CPU run, kept for its phase: the host's cores are idle while nvcc builds the
-    kernels. -> (how many, seconds)."""
+    kernels. The checks go round-robin to CPU_REFERENCE_WORKERS spawned processes. -> (how many, seconds)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
     t0 = time.perf_counter()
-    for phase in CARD_VS_CPU:
-        run_card_vs_cpu(phase, reference_only=True)
+    checks = [(phase, i) for phase in CARD_VS_CPU for i in range(len(CARD_VS_CPU[phase]))]
+    with ProcessPoolExecutor(CPU_REFERENCE_WORKERS, mp_context=mp.get_context("spawn")) as pool:
+        for refs in pool.map(cpu_references_of, [checks[w::CPU_REFERENCE_WORKERS]
+                                                 for w in range(CPU_REFERENCE_WORKERS)]):
+            _CPU_REFERENCES.update(refs)
     return len(_CPU_REFERENCES), time.perf_counter() - t0
 
 
@@ -4348,7 +4538,7 @@ def main() -> int:
     serve_summary, serve_counts = run_serve_phase(card)
 
     header("[15/20] data parallel: run.main fit on one NCCL rank vs no process group; two ranks on the card over gloo "
-        "vs one process on the union batch, and their validation")
+        "vs one process on the union batch, and their validation; fsdp and tp on the same two ranks")
     parallel = run_parallel_phase(card)
 
     header("[16/20] the TrafficBots RNN family at full width: joint_future_pred and a training step through the "
@@ -4371,7 +4561,7 @@ def main() -> int:
 
     header("[20/20] profiling: run.main fit with profile_dir at the phase-4 config (the trace's kernel events vs the "
            "launch counters) and debug_nans; a traced flagship eval call; the validation videos' inputs on the card")
-    profiled = run_profiling_phase(card, counts)
+    profiled = run_profiling_phase(card)
     by_route = lambda counts, kernel: {key.split("/")[1]: n for key, n in counts.items() if key.split("/")[0] == kernel}
     for row in rows:
         row["launches"] = counts[row["name"]]

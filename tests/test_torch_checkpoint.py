@@ -27,6 +27,7 @@ from trafficbotsv15_tpu import config as jax_config
 from trafficbotsv15_tpu.train import swa as jax_swa
 from trafficbotsv15_tpu.train.optimizer import make_optimizer as jax_make_optimizer
 from trafficbotsv15_tpu_torch import config as port_config
+from trafficbotsv15_tpu_torch.parallel.mesh import ShardedParams
 from trafficbotsv15_tpu_torch.train import swa
 from trafficbotsv15_tpu_torch.train.checkpoint import CheckpointManager
 from trafficbotsv15_tpu_torch.train.optimizer import GradAccumulator, clip_by_global_norm, make_optimizer
@@ -114,7 +115,8 @@ def test_accumulation_matches_optax_multisteps(k):
     model = torch.nn.ModuleDict({top: torch.nn.ParameterDict({n: torch.nn.Parameter(T(v)) for n, v in d.items()})
                                  for top, d in params.items()})
     pcfg = port_config.OptimizerCfg(**dataclasses.asdict(jcfg))
-    opt, schedule = make_optimizer(pcfg, model, steps_per_epoch=1)
+    opt, schedule = make_optimizer(pcfg, model.named_parameters(), steps_per_epoch=1)
+    placed = ShardedParams(model, {})  # every parameter replicated: the clip's squared norms
     acc = GradAccumulator(model.parameters(), k)
     updates = 0
     for call in range(6):
@@ -127,7 +129,7 @@ def test_accumulation_matches_optax_multisteps(k):
             for n, v in d.items():
                 model[top][n].grad = T(v)
         if acc.add():
-            clip_by_global_norm(opt.param_groups, pcfg.grad_clip_norm)
+            clip_by_global_norm(opt.param_groups, pcfg.grad_clip_norm, placed.group_squares(opt.param_groups))
             opt.step()
             schedule.step()
             updates += 1

@@ -6,7 +6,7 @@ gradient sum with a None gradient as zeros, a barrier that waits for the slower 
 shapes refused on every rank), and the rank-0-only writes of `MetricsLogger` and `CheckpointManager` (every rank
 restores rank 0's state; no `.tmp` or `.old` left behind). In one process: `resolve_device` under LOCAL_RANK,
 `SynthLoader`'s per-shard seeds against the JAX loader's by scenario id, `pad_batch_to_devices` against JAX's,
-and the strategies the port still refuses (ROADMAP A10b).
+and the parallel settings one process refuses (fsdp, tp, a model axis over one rank).
 """
 
 import json
@@ -175,6 +175,9 @@ def test_synth_loader_shards_match_jax(monkeypatch, shard, num_shards):
 
 @pytest.mark.parametrize("arg", ["parallel.strategy=fsdp", "parallel.strategy=tp", "parallel.model_axis=2"])
 def test_other_strategies_still_raise(tmp_path, arg):
-    with pytest.raises(NotImplementedError, match="A10b"):
+    """On one process (no process group) fsdp and tp, which place parameters over ranks, and a model axis of 2,
+    which does not divide the one rank, raise a ValueError before anything is built or written."""
+    match = "does not divide" if "model_axis" in arg else "process group"
+    with pytest.raises(ValueError, match=match):
         run.main(["action=fit", "device=cpu", "preset=tiny", f"ckpt_dir={tmp_path}", "max_steps=1", arg])
     assert not (Path(tmp_path) / "last").exists()

@@ -50,22 +50,13 @@ PER_RANK_MEAN_GAP = 1e-3
 VALIDATE_RTOL = 1e-6
 
 
-def _unequal(batch):
-    """batch with the second scenario's last half of agents invalid: the ranks' valid counts differ."""
-    out = dict(batch)
-    valid = batch["agent/valid"].copy()
-    valid[1, valid.shape[1] // 2:] = False
-    out["agent/valid"] = valid
-    return out
-
-
 @pytest.fixture(scope="module")
 def step_parity(tmp_path_factory):
     cfg = no_dropout(jax_tiny_config())
     jmodel, tree = jax_model_params(cfg, seed=0, gain=0.5)
     key = jax.random.PRNGKey(3)
     batch = make_batch(cfg.data, n_sc=2, seed=1)
-    cases = [batch, _unequal(batch)]
+    cases = [batch, ranks.unequal_counts(batch)]
     grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jax_pipeline.training_forward(cfg, jmodel, p, b, key, 0),
                                          has_aux=True))
     jax_runs = []

@@ -89,7 +89,7 @@ def test_a_fit_ending_inside_the_traced_steps_still_writes_its_trace(tmp_path, m
     past step 3 traces nothing, as JAX's."""
     calls = []
 
-    def cheap_train_step(cfg, model, opt, schedule, device=None):  # the loop's trace handling, not the model's work
+    def cheap_train_step(cfg, model, opt, schedule, device=None, sharded=None):  # the loop's trace handling only
         def step(batch, generator, epoch):
             calls.append(generator.initial_seed())
             return {"training/loss": torch.tensor(float(len(calls)))}

@@ -220,7 +220,7 @@ def test_accumulated_update_matches_jax_step():
     pcfg = port_cfg(cfg)
     model = port_model(cfg, tree)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
-    opt, schedule = make_optimizer(pcfg.optimizer, model, steps_per_epoch=4)
+    opt, schedule = make_optimizer(pcfg.optimizer, model.named_parameters(), steps_per_epoch=4)
     step = make_train_step(pcfg, model, opt, schedule, device="cpu")
     pgrads, real_add = [], step.accumulator.add
 
@@ -290,7 +290,7 @@ def test_fit_takes_the_steps_make_train_step_takes_by_hand(tmp_path):
     by_hand = build_model(cfg, device="cpu")
     names, params = zip(*by_hand.named_parameters())
     steps_per_epoch = max(int(len(train_loader) * cfg.limit_train_batches), 1)
-    opt, schedule = make_optimizer(cfg.optimizer, by_hand, steps_per_epoch=steps_per_epoch)
+    opt, schedule = make_optimizer(cfg.optimizer, by_hand.named_parameters(), steps_per_epoch=steps_per_epoch)
     step = make_train_step(cfg, by_hand, opt, schedule, device="cpu")
     ema, swa_state = swa.ema_init(params), swa.swa_init(params)
     for i, batch in zip(range(3), train_loader):
@@ -407,10 +407,12 @@ def test_test_action_runs_from_best_at_k128(fitted, monkeypatch):
                                    for p in paths), paths
 
 
-@pytest.mark.parametrize("arg,names", [("parallel.strategy=fsdp", "A10"), ("parallel.model_axis=2", "A10"),
-                                       ("rbg=true", "JAX")])
+@pytest.mark.parametrize("arg,names", [("parallel.strategy=zero", "unknown parallel.strategy"),
+                                       ("parallel.model_axis=0", "at least 1"), ("rbg=true", "JAX")])
 def test_keys_without_a_counterpart_raise(tmp_path, arg, names):
-    with pytest.raises(NotImplementedError, match=names):
+    """JAX's PRNG switch has no counterpart (NotImplementedError); a strategy neither package knows and a model axis
+    under 1 are refused (ValueError)."""
+    with pytest.raises(NotImplementedError if arg.startswith("rbg") else ValueError, match=names):
         run.main(["action=fit", "device=cpu", "preset=tiny", f"ckpt_dir={tmp_path}", "max_steps=1", arg])
     assert not (tmp_path / "last").exists()
 

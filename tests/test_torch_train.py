@@ -53,6 +53,7 @@ from trafficbotsv15_tpu_torch.data.preprocessing import pre_processing as port_p
 from trafficbotsv15_tpu_torch.ops import dropout as drop
 from trafficbotsv15_tpu_torch.ops import knarpe, knn
 from trafficbotsv15_tpu_torch.ops.distributions import DestCategorical, DiagGaussian
+from trafficbotsv15_tpu_torch.parallel.mesh import ShardedParams
 from trafficbotsv15_tpu_torch.sim import rewards as port_rewards
 from trafficbotsv15_tpu_torch.sim.rollout import RolloutBuffer
 from trafficbotsv15_tpu_torch.sim.teacher_forcing import build_forcing_masks as port_forcing
@@ -279,7 +280,9 @@ def test_optimizer_updates_match_optax(lr_navi):
     state = tx.init(jparams)
     model = torch.nn.ModuleDict({top: torch.nn.ParameterDict({k: torch.nn.Parameter(T(v)) for k, v in d.items()})
                                  for top, d in params.items()})
-    opt, schedule = make_optimizer(pc.OptimizerCfg(**dataclasses.asdict(jcfg)), model, steps_per_epoch=1)
+    opt, schedule = make_optimizer(pc.OptimizerCfg(**dataclasses.asdict(jcfg)), model.named_parameters(),
+                                   steps_per_epoch=1)
+    placed = ShardedParams(model, {})  # every parameter replicated: the clip's squared norms
     assert len(opt.param_groups) == (2 if lr_navi else 1)
     for step in range(3):
         scale = 4.0 if step == 0 else 0.5  # the first gradient's norm is clipped, the others are not
@@ -290,7 +293,7 @@ def test_optimizer_updates_match_optax(lr_navi):
         for top, d in grads.items():
             for k, v in d.items():
                 model[top][k].grad = T(v)
-        gnorm = clip_by_global_norm(opt.param_groups, jcfg.grad_clip_norm)
+        gnorm = clip_by_global_norm(opt.param_groups, jcfg.grad_clip_norm, placed.group_squares(opt.param_groups))
         opt.step()
         schedule.step()
         want_norm = np.sqrt(sum(float(np.sum(v.astype(np.float64) ** 2)) for d in grads.values() for v in d.values()))
@@ -306,8 +309,8 @@ def test_optimizer_refuses_accumulation():
     """Accumulation over fewer than one call is refused (k >= 2 accumulates: tests/test_torch_checkpoint.py)."""
     for k in (0, -1):
         with pytest.raises(ValueError, match="accumulate_grad_batches"):
-            make_optimizer(pc.OptimizerCfg(accumulate_grad_batches=k), torch.nn.Linear(2, 2))
-    make_optimizer(pc.OptimizerCfg(accumulate_grad_batches=2), torch.nn.Linear(2, 2))
+            make_optimizer(pc.OptimizerCfg(accumulate_grad_batches=k), torch.nn.Linear(2, 2).named_parameters())
+    make_optimizer(pc.OptimizerCfg(accumulate_grad_batches=2), torch.nn.Linear(2, 2).named_parameters())
 
 
 # -- dropout, recompute and launch counts -------------------------------------
@@ -386,7 +389,8 @@ def test_train_step_calls_each_kernel_path_as_the_config_implies(monkeypatch):
                         counted("bwd_cross", knarpe.knarpe_cross_attention_bwd_reference))
     monkeypatch.setattr(knn, "knn_xy", counted("knn", knn.knn_xy))
     model = port_pipeline.build_model(cfg, seed=0, device="cpu")
-    step = port_pipeline.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model), device="cpu")
+    step = port_pipeline.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()),
+                                         device="cpu")
     metrics = step(make_batch(cfg.data, n_sc=1, seed=0), torch.Generator().manual_seed(0))
     m, n = cfg.model, cfg.time_step_end
     post = m.tl_encoder.n_layer_tf + m.ag_encoder.n_layer_tf
@@ -402,4 +406,4 @@ def test_train_step_needs_a_card_or_the_cpu():
     cfg = port_cfg(tiny_config())
     model = port_pipeline.build_model(cfg, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        port_pipeline.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+        port_pipeline.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))

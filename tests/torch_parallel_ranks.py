@@ -147,6 +147,15 @@ def train_steps(rank: int, world: int, cfg, tree, cases) -> dict:
     return out
 
 
+def unequal_counts(batch):
+    """batch with the second scenario's last half of agents invalid: the data shards' valid counts differ."""
+    out = dict(batch)
+    valid = batch["agent/valid"].copy()
+    valid[1, valid.shape[1] // 2:] = False
+    out["agent/valid"] = valid
+    return out
+
+
 def share(batch, noise, rank: int, world: int):
     """(rank's rows of the union batch, its share of the union's draws)."""
     from trafficbotsv15_tpu_torch.train.pipeline import shard_noise
@@ -259,3 +268,148 @@ def validation_loader(cfg, rank: int, world: int):
     from trafficbotsv15_tpu_torch.run import SynthLoader
 
     return SynthLoader(cfg, 1, cfg.batch_size_test, 10_000, shard_index=rank, num_shards=world)
+
+
+# -- FSDP, tensor parallelism and the mesh -------------------------------------------------------------------------
+def with_parallel(cfg, strategy: str, model_axis: int):
+    import dataclasses
+
+    return dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, strategy=strategy,
+                                                                 model_axis=model_axis))
+
+
+def placed_step(cfg, tree, mesh, accumulate: int = 1):
+    """(model with the tree's weights on the CPU, its ShardedParams under cfg.parallel on mesh, a real AdamW over
+    them, the `make_train_step`)."""
+    import dataclasses
+
+    from trafficbotsv15_tpu_torch.parallel import mesh as mesh_lib
+    from trafficbotsv15_tpu_torch.train import pipeline
+    from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
+    from trafficbotsv15_tpu_torch.utils.jax_import import load_jax_params
+
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, accumulate_grad_batches=accumulate))
+    model = pipeline.build_model(cfg, device="cpu")
+    load_jax_params(model, tree)
+    sharded = mesh_lib.ShardedParams(model, mesh_lib.strategy_placements(cfg.parallel, model, mesh), mesh)
+    opt, schedule = make_optimizer(cfg.optimizer, sharded.named_parameters())
+    return model, sharded, opt, pipeline.make_train_step(cfg, model, opt, schedule, device="cpu", sharded=sharded)
+
+
+def sharded_steps(rank: int, world: int, cfg, tree, cases, settings) -> dict:
+    """For each (strategy, model_axis, accumulate) setting, on its mesh: each (union batch, union noise) case as one
+    update from the tree's weights (AdamW, the clip off in cfg), this rank taking its data index's share -> the
+    metrics, the update's gradients and the parameters after it (full, gathered), and each parameter's local shape
+    with its AdamW moments'; with accumulate, the cases as the calls of one accumulated update -> its gradients."""
+    from trafficbotsv15_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    for strategy, n_model, accumulate in settings:
+        with mesh_lib.make_mesh(n_model=n_model) as mesh:
+            out[(strategy, n_model)] = sharded_cases(with_parallel(cfg, strategy, n_model), tree, cases, mesh,
+                                                     accumulate)
+    return out
+
+
+def sharded_cases(cfg, tree, cases, mesh, accumulate: bool) -> dict:
+    """sharded_steps' results of one setting on its mesh."""
+    from trafficbotsv15_tpu_torch.parallel import mesh as mesh_lib
+
+    d, n_data = mesh_lib.data_index(mesh), mesh_lib.data_count(mesh)
+    res = {"coord": (d, mesh_lib.model_index(mesh)), "mesh": tuple(mesh.mesh.shape), "cases": []}
+    for batch, noise in cases:
+        model, sharded, opt, step = placed_step(cfg, tree, mesh)
+        mine, shard = share(batch, noise, d, n_data)
+        metrics = {k: float(v) for k, v in step(mine, noise=shard).items()}
+        grads = sharded.full({n: t.grad for n, t in sharded.named_parameters()})
+        sharded.gather()
+        res["cases"].append({
+            "metrics": metrics, "grads": grads,
+            "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+            "local": {n: (tuple(t.shape), tuple(opt.state[t]["exp_avg"].shape),
+                          tuple(opt.state[t]["exp_avg_sq"].shape)) for n, t in sharded.named_parameters()},
+            "axes": dict(sharded.axes)})
+    if accumulate:
+        model, sharded, opt, step = placed_step(cfg, tree, mesh, accumulate=len(cases))
+        for batch, noise in cases:
+            mine, shard = share(batch, noise, d, n_data)
+            step(mine, noise=shard)
+        res["accumulated"] = sharded.full({n: t.grad for n, t in sharded.named_parameters()})
+    return res
+
+
+def sharded_entry_points(rank: int, world: int, tmp: Path) -> dict:
+    """On 2 ranks, `run.main` fits of 2 steps (fsdp with min size 256, and tp on a model axis of 2), each resumed to
+    3 under its own strategy and from a copy of its checkpoint under another: fsdp's under dp (the same data split),
+    tp's under dp with the model axis of 2 (the same split) and under fsdp; then the tp fit's "last" restored and
+    validated data parallel on one batch. -> the parameters after each resume, the files, the metrics lines and the
+    validation."""
+    import shutil
+
+    from trafficbotsv15_tpu_torch import run
+    from trafficbotsv15_tpu_torch.eval import runner
+    from trafficbotsv15_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {"resumed": {}}
+    try:
+        run.main(["action=fit", "device=cpu", "preset=tiny", f"ckpt_dir={tmp / 'm3'}", "parallel.model_axis=3"])
+        out["model_axis_3"] = None
+    except ValueError as e:
+        out["model_axis_3"] = str(e)
+    common = ["action=fit", "device=cpu", "preset=tiny", "val_epoch_batches=1", "log_every=1",
+              "parallel.fsdp_min_size=256"]
+    settings = {"fsdp": ["parallel.strategy=fsdp"], "tp": ["parallel.strategy=tp", "parallel.model_axis=2"],
+                "dp": ["parallel.strategy=dp", "parallel.model_axis=1"],
+                "dp_m2": ["parallel.strategy=dp", "parallel.model_axis=2"]}
+    for first, others in (("fsdp", ("dp",)), ("tp", ("dp_m2", "fsdp"))):
+        ckpt = tmp / first
+        run.main(common + settings[first] + [f"ckpt_dir={ckpt}", "max_steps=2"])
+        copies = {}
+        for other in others:
+            copies[other] = tmp / f"{first}_as_{other}"
+            if rank == 0:
+                shutil.copytree(ckpt, copies[other])
+        mesh_lib.barrier()
+        for strategy, ckpt_dir in ((first, ckpt), *copies.items()):
+            model, _, _ = run.main(common + settings[strategy] + [f"ckpt_dir={ckpt_dir}", "max_steps=3",
+                                                                  "resume=true"])
+            out["resumed"][(first, strategy)] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        out[first] = {"files": sorted(os.listdir(ckpt)), "metrics_lines": (ckpt / "metrics.jsonl").read_text(),
+                      "last_step": json.loads((ckpt / "last.json").read_text())["meta"]["step"]}
+    # the tp fit's first validation ran at step 2 on the gathered parameters; "best" holds them
+    model, cfg = run.restore_model(str(tmp / "tp"), "best", "cpu")
+    out["validate_best"] = runner.validate(cfg, model, validation_loader(cfg, rank, world), max_batches=1, device="cpu")
+    return out
+
+
+def left_out_rank(rank: int, world: int, tmp: Path) -> dict:
+    """On 3 ranks over two hosts ([0, 0, 1] by GROUP_RANK): the mesh keeps a rank of each host, rank 1 leaves fit with
+    nothing trained after JAX's warning, and ranks 0 and 2 fit 1 step together (the rank count and index inside the
+    fit recorded); then, the mesh's block left, every rank sees the whole world again and validates "last" data
+    parallel over all three."""
+    import warnings
+
+    from trafficbotsv15_tpu_torch import run
+    from trafficbotsv15_tpu_torch.parallel import mesh as mesh_lib
+
+    os.environ["GROUP_RANK"] = str([0, 0, 1][rank])
+    seen, real_fit = [], run.fit
+
+    def spy(*args, **kwargs):
+        seen.append((mesh_lib.process_count(), mesh_lib.process_index()))
+        return real_fit(*args, **kwargs)
+
+    run.fit = spy
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model, logger, stopped = run.main(["action=fit", "device=cpu", "preset=tiny", f"ckpt_dir={tmp / 'fit'}",
+                                               "max_steps=1", "validate_every_epoch=false"])
+    finally:
+        run.fit = real_fit
+    after = (mesh_lib.process_count(), mesh_lib.process_index())
+    validated = run.main(["action=validate", "device=cpu", "preset=tiny", f"ckpt_dir={tmp / 'fit'}",
+                          "val_epoch_batches=1"])
+    return {"trained": model is not None, "stopped": stopped, "warnings": [str(w.message) for w in caught],
+            "in_fit": seen, "after": after, "validated": validated,
+            "params": None if model is None else {n: p.detach().clone() for n, p in model.named_parameters()}}

@@ -231,11 +231,13 @@ class TrainingMetricsCfg:
 @dataclasses.dataclass(frozen=True)
 class ParallelCfg:
     """Mesh layout + parameter-sharding strategy for fit() (mirrored field by
-    field). The port runs "dp" over processes (`parallel/mesh.py`); "fsdp",
-    "tp" and a model axis over one device raise (ROADMAP A10b).
+    field), over processes in the port (`parallel/mesh.py`): the mesh is
+    (ranks / model_axis, model_axis).
 
     "dp" is data parallel; "fsdp" splits large params over the data axis and
-    "tp" splits projections over the model axis."""
+    "tp" splits projections over the model axis. fsdp and tp need a process
+    group (torchrun); on one process they raise, as a model_axis that does not
+    divide the ranks does."""
 
     strategy: str = "dp"  # dp | fsdp | tp
     model_axis: int = 1  # mesh model-axis size (tp uses >1)

@@ -9,10 +9,8 @@ Arguments are key=value, values parsed as JSON where they parse; dots nest
 (fit | validate | test), `data` (synthetic | tbcache | h5, with `data_dir`
 holding training.* and validation.*), `preset` (leaderboard | tiny | scaled),
 `max_steps`, `log_every`, `ckpt_dir`, `resume`, `device` (the rank's card
-unless `device=cpu`), `profile_dir`, `video_dir` and `debug_nans`. Keys the
-port has no counterpart for raise `NotImplementedError`: `parallel.strategy`
-fsdp or tp and a model axis over one device (ROADMAP A10b), and JAX's PRNG
-switch `rbg`.
+unless `device=cpu`), `profile_dir`, `video_dir` and `debug_nans`. JAX's PRNG
+switch `rbg` has no counterpart and raises `NotImplementedError`.
 
 `profile_dir=DIR` traces fit steps 3-5 (`utils/profiling.py`: each rank writes
 `DIR/rank<r>.pt.trace.json.gz`, each step a range named "fit step N"), as
@@ -27,18 +25,29 @@ it `main` raises an ImportError before it builds a model or reads a batch
 `profile_dir` to fit, `video_dir` to validate; with another action they raise
 a ValueError (JAX ignores them).
 
-One process runs on one device. Data parallel (`parallel.strategy=dp`, the
-default) runs N processes, one device each, launched by torchrun (or with
-RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set):
+One process runs on one device. Over N processes, one device each, launched
+by torchrun (or with RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT
+set), fit runs on a (data, model) mesh of the ranks (`parallel/mesh.py`) with
+`parallel.model_axis` ranks in its model dim (it must divide N), and places
+the parameters by `parallel.strategy`: dp (the default) replicates them, fsdp
+splits the large ones over the data dim, tp splits the projections over the
+model dim, as the JAX package does:
 
     torchrun --nproc_per_node=4 -m trafficbotsv15_tpu_torch.run action=fit data=tbcache data_dir=DIR
-    torchrun --nproc_per_node=2 -m trafficbotsv15_tpu_torch.run action=fit device=cpu preset=tiny
+    torchrun --nproc_per_node=2 -m trafficbotsv15_tpu_torch.run action=fit device=cpu preset=tiny \
+        parallel.strategy=tp parallel.model_axis=2
 
-over NCCL on the cards (rank r on cuda:LOCAL_RANK) and gloo on the CPU. Each
-rank loads its own shard (`batch_size_*` is per process); a step computes what
-one process computes on the union batch (`train/pipeline.py`), validation's
-metrics are the union's on every rank, and rank 0 alone writes checkpoints,
-metrics and the submission (`parallel/mesh.py`).
+over NCCL on the cards (rank r on cuda:LOCAL_RANK) and gloo on the CPU. fsdp
+and tp need a process group; on one process they raise a ValueError, as an
+unknown strategy does. Each data shard of the training batch holds
+`batch_size_train` scenarios per rank of its model group, and every rank of
+that group loads it (JAX's global batch is `batch_size_train` per device); a
+step computes what one process computes on the union batch
+(`train/pipeline.py`). Validation and test run data parallel over every rank
+with the full parameters (`batch_size_test` per rank), as JAX evaluates on a
+data-only mesh: their metrics are the union's on every rank. Rank 0 alone
+writes checkpoints, metrics and the submission; a checkpoint holds full,
+placement-free tensors, so it restores under any strategy.
 
 `preset=scaled` is `config.scaled_config()` (hidden 256, 8 heads, 12/6/6
 map/TL/agent layers, a 120-step horizon past the data's 91 logged steps).
@@ -72,8 +81,10 @@ import torch
 from trafficbotsv15_tpu_torch.config import (ExperimentCfg, config_from_dict, config_to_dict, leaderboard_config,
                                              scaled_config, tiny_config)
 from trafficbotsv15_tpu_torch.ops.flags import check_supported
-from trafficbotsv15_tpu_torch.parallel.mesh import (barrier, broadcast_params, cross_process_max,
-                                                    maybe_init_distributed, process_count, process_index)
+from trafficbotsv15_tpu_torch.parallel.mesh import (STRATEGIES, ShardedParams, barrier, batch_sharding,
+                                                    broadcast_params, cross_process_max, data_count, device_prefetch,
+                                                    is_distributed, make_mesh, maybe_init_distributed, model_count,
+                                                    process_count, process_index, strategy_placements)
 from trafficbotsv15_tpu_torch.train.checkpoint import CheckpointManager, deep_update
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model, make_train_step
@@ -135,29 +146,32 @@ class SynthLoader:
 
 
 def make_dataloaders(cfg: ExperimentCfg, data: str, data_dir: Optional[str], n_synthetic: int = 64,
-                     test_mode: bool = False):
-    """(train loader, validation loader) of this process's shard: synthetic scenes, a tbcache or an h5 split pair.
-    `batch_size_*` is per process; the shards (`parallel/mesh.py::process_index` of `process_count`) are disjoint
-    and of equal length, so the ranks run the same number of batches of the same size."""
+                     test_mode: bool = False, mesh=None):
+    """(train loader, validation loader) of this process's shards: synthetic scenes, a tbcache or an h5 split pair.
+    The training shards are the data dim's of `mesh` (`parallel/mesh.py::batch_sharding`; without a mesh, every
+    rank's), of `batch_size_train` scenarios per rank of a model group; the validation shards every rank's, of
+    `batch_size_test`. Shards are disjoint and of equal length, so the ranks run the same number of batches of the
+    same size."""
     shard = dict(shard_index=process_index(), num_shards=process_count())
+    train_shard = shard if mesh is None else batch_sharding(mesh)
+    bs_train, bs_test = max(cfg.batch_size_train, 1) * model_count(mesh), max(cfg.batch_size_test, 1)
     if data == "synthetic":
-        bs_train, bs_test = max(cfg.batch_size_train, 1), max(cfg.batch_size_test, 1)
-        return (SynthLoader(cfg, n_synthetic // bs_train, bs_train, 0, **shard),
+        return (SynthLoader(cfg, n_synthetic // bs_train, bs_train, 0, **train_shard),
                 SynthLoader(cfg, max(n_synthetic // bs_test // 4, 1), bs_test, 10_000, test_mode=test_mode, **shard))
     if data_dir is None:
         raise ValueError(f"data={data} needs data_dir=<directory with training.* and validation.*>")
     if data == "tbcache":
         from trafficbotsv15_tpu_torch.data.tbcache import TBCacheDataset, TBCacheLoader
 
-        return (TBCacheLoader(TBCacheDataset(f"{data_dir}/training.tbcache"), cfg.batch_size_train, shuffle=True,
-                              seed=cfg.seed, **shard),
+        return (TBCacheLoader(TBCacheDataset(f"{data_dir}/training.tbcache"), bs_train, shuffle=True,
+                              seed=cfg.seed, **train_shard),
                 TBCacheLoader(TBCacheDataset(f"{data_dir}/validation.tbcache"), cfg.batch_size_test, **shard))
     if data == "h5":
         from trafficbotsv15_tpu_torch.data.h5_dataset import DataLoader, H5Dataset, tensor_size_train, tensor_size_val
 
         train_ds = H5Dataset(f"{data_dir}/training.h5", tensor_size_train(cfg.data))
         val_ds = H5Dataset(f"{data_dir}/validation.h5", tensor_size_val(cfg.data), with_attrs=True)
-        return (DataLoader(train_ds, cfg.batch_size_train, shuffle=True, seed=cfg.seed, **shard),
+        return (DataLoader(train_ds, bs_train, shuffle=True, seed=cfg.seed, **train_shard),
                 DataLoader(val_ds, cfg.batch_size_test, **shard))
     raise ValueError(f"unknown data {data!r}: synthetic | tbcache | h5")
 
@@ -192,8 +206,22 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 TRACED_STEPS = (3, 6)
 
 
+def training_mesh(cfg: ExperimentCfg):
+    """`parallel/mesh.py::make_mesh` of cfg.parallel: `with training_mesh(cfg) as mesh:` the (data, model) mesh over
+    the ranks for the block (entering and leaving are collectives), None on one process and on a rank the mesh leaves
+    out. Raises a ValueError for an unknown strategy, for fsdp or tp without a process group, and for a model_axis
+    that does not divide the ranks."""
+    strategy = cfg.parallel.strategy
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown parallel.strategy {strategy!r}: expected one of {', '.join(STRATEGIES)}")
+    if strategy != "dp" and not is_distributed():
+        raise ValueError(f"parallel.strategy={strategy} places the parameters over ranks, and this process has no "
+                         "process group: run it under torchrun")
+    return make_mesh(n_model=cfg.parallel.model_axis)
+
+
 def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", max_steps: Optional[int] = None,
-        log_every: int = 50, resume: bool = False, device=None, profile_dir: Optional[str] = None):
+        log_every: int = 50, resume: bool = False, device=None, profile_dir: Optional[str] = None, mesh=None):
     """Train cfg's model on `device` (the card unless "cpu"); -> (model, logger, stopped by a signal).
 
     With `profile_dir`, steps 3-5 (counted from 0, over the whole run: a fit resumed past step 3 traces none) are
@@ -204,22 +232,25 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
     the SWA average fold in the parameters after every call, as the JAX loop does. Metrics go to
     `<ckpt_dir>/metrics.jsonl`.
 
-    Over several ranks (a torchrun environment, `parallel/mesh.py`) every rank builds or resumes the model, takes
-    rank 0's parameters, and steps on its own shard; EMA and SWA stay replicated; a signal on any rank stops every
-    rank after the same step."""
+    Over several ranks (a torchrun environment, `parallel/mesh.py`) fit runs on `mesh`, made by `training_mesh(cfg)`
+    around the call (`main` does so); without one it runs data parallel over every rank, and another strategy or
+    model axis raises a ValueError. Every rank builds or resumes the model, takes rank 0's parameters, places them
+    by `parallel.strategy` (`ShardedParams`: the optimizer's moments, the accumulator, the EMA and the SWA average
+    live on the shards) and steps on its data shard; a checkpoint gathers the full tensors; a signal on any rank
+    stops every rank after the same step."""
     device = resolve_device(device)
     init_distributed(device)
+    if mesh is None and (cfg.parallel.strategy, cfg.parallel.model_axis) != ("dp", 1):
+        raise ValueError(f"parallel.strategy={cfg.parallel.strategy!r} with model_axis={cfg.parallel.model_axis} runs "
+                         "on a mesh: call fit inside `with training_mesh(cfg) as mesh` and pass it")
     logger = MetricsLogger(str(Path(ckpt_dir) / "metrics.jsonl"))
     model = build_model(cfg, device=device)
-    names, params = zip(*model.named_parameters())
-    print(f"model parameters: {sum(p.numel() for p in params) / 1e6:.2f}M, device: {device}")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model parameters: {n_params / 1e6:.2f}M, device: {device}, parallel: {cfg.parallel.strategy}, mesh "
+          f"(data, model) = ({data_count(mesh)}, {model_count(mesh)})")
 
     steps_per_epoch = max(int(len(train_loader) * cfg.limit_train_batches), 1)
-    opt, schedule = make_optimizer(cfg.optimizer, model, steps_per_epoch=steps_per_epoch)
-    train_step = make_train_step(cfg, model, opt, schedule, device=device)
-    accumulator = train_step.accumulator
     ckpt = CheckpointManager(ckpt_dir)
-
     start_step, restored = 0, {}
     if resume and not (ckpt.dir / "last.json").exists():
         # restart wrappers pass resume=true every time; the first launch has nothing to restore
@@ -227,28 +258,38 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
         resume = False
     if resume:
         keep = {"model", "optimizer", "schedule"}
-        keep |= {"accumulator"} if accumulator is not None else set()
+        keep |= {"accumulator"} if cfg.optimizer.accumulate_grad_batches > 1 else set()
         keep |= {"ema"} if cfg.ema_decay > 0 else set()
         keep |= {"swa_state"} if cfg.swa else set()
         restored, _, meta = ckpt.restore_resume(keep)
         model.load_state_dict(restored["model"])
-        opt.load_state_dict(restored["optimizer"])
-        schedule.load_state_dict(restored["schedule"])
-        if "accumulator" in restored:
-            accumulator.load_state_dict(restored["accumulator"])
         start_step = int(meta.get("step", 0))
         print(f"resumed from {ckpt_dir}/last at step {start_step}")
-    broadcast_params(model)
+    broadcast_params(model)  # before the placement: its flat buckets take whole parameters
+    sharded = ShardedParams(model, strategy_placements(cfg.parallel, model, mesh), mesh)
+    names, params = zip(*sharded.named_parameters())
+    opt, schedule = make_optimizer(cfg.optimizer, sharded.named_parameters(), steps_per_epoch=steps_per_epoch)
+    train_step = make_train_step(cfg, model, opt, schedule, device=device, sharded=sharded)
+    accumulator = train_step.accumulator
+    if resume:
+        sharded.load_optimizer_state(opt, restored["optimizer"])
+        schedule.load_state_dict(restored["schedule"])
+        if "accumulator" in restored:
+            acc = restored["accumulator"]
+            accumulator.load_state_dict({**acc, "acc": list(sharded.local_of(dict(zip(names, acc["acc"]))).values())})
 
     def by_name(tensors):
         return dict(zip(names, tensors))
+
+    def restored_local(entry):  # a restored placement-free {name: tensor} as this rank's parts, in names' order
+        return [t.to(device) for t in sharded.local_of({n: entry[n] for n in names}).values()]
 
     ema = None
     if cfg.ema_decay > 0:
         ema = ema_init(params)
         if "ema" in restored:
             with torch.no_grad():
-                torch._foreach_copy_(ema, [restored["ema"][n].to(device) for n in names])
+                torch._foreach_copy_(ema, restored_local(restored["ema"]))
     # SWA (the reference's StochasticWeightAveraging callback): the equal-weight average of the parameters
     # from swa_epoch_start * max_epochs on
     swa_state, swa_start = None, int(cfg.swa_epoch_start * cfg.max_epochs) * steps_per_epoch
@@ -256,18 +297,23 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
         swa_state = swa_init(params)
         if "swa_state" in restored:
             with torch.no_grad():
-                torch._foreach_copy_(swa_state[0], [restored["swa_state"]["avg"][n].to(device) for n in names])
+                torch._foreach_copy_(swa_state[0], restored_local(restored["swa_state"]["avg"]))
                 swa_state[1].copy_(restored["swa_state"]["count"])
 
     def snapshot():
-        state = {"model": model.state_dict(), "optimizer": opt.state_dict(), "schedule": schedule.state_dict()}
+        """The fit's state as full, placement-free tensors (collectives where parameters are sharded); the model's
+        parameters hold the full values after it."""
+        sharded.gather()
+        state = {"model": model.state_dict(), "optimizer": sharded.optimizer_state(opt),
+                 "schedule": schedule.state_dict()}
         if accumulator is not None:
-            state["accumulator"] = accumulator.state_dict()
+            acc = accumulator.state_dict()
+            state["accumulator"] = {**acc, "acc": list(sharded.full(by_name(acc["acc"])).values())}
         if ema is not None:
-            state["ema"] = by_name(ema)
+            state["ema"] = sharded.full(by_name(ema))
         if swa_state is not None:
-            state["swa"] = by_name(swa_params(swa_state, params))
-            state["swa_state"] = {"avg": by_name(swa_state[0]), "count": swa_state[1]}
+            state["swa"] = sharded.full(by_name(swa_params(swa_state, params)))
+            state["swa_state"] = {"avg": sharded.full(by_name(swa_state[0])), "count": swa_state[1]}
         return state
 
     # preemption: SIGTERM / SIGINT ask for a graceful stop: the current step finishes, "last" is saved and
@@ -315,7 +361,7 @@ def fit(cfg: ExperimentCfg, train_loader, val_loader, ckpt_dir: str = "ckpt", ma
                 epoch_iter = iter(train_loader)
                 for _ in range(skip):
                     next(epoch_iter, None)
-            for batch in epoch_iter:
+            for batch in device_prefetch(epoch_iter, device):
                 if step >= steps_per_epoch * (epoch + 1):
                     break
                 if profile_dir and step == TRACED_STEPS[0]:
@@ -390,7 +436,8 @@ def preset_config(preset: str) -> ExperimentCfg:
 def main(argv=None):
     """Run one action from key=value arguments; -> fit's (model, logger, stopped), validate's metrics or
     test_submission's result. A fit stopped by a signal exits 143. In a torchrun environment it joins the process
-    group first (after building the kernels) and runs data parallel."""
+    group first (after building the kernels); fit then runs inside the mesh of cfg.parallel (`training_mesh`), and a
+    rank the mesh leaves out returns (None, None, False)."""
     argv = sys.argv[1:] if argv is None else argv
     # the run's own keys apart from the config's, so that data=tbcache and data.n_ag=16 can stand side by side
     is_run_key = lambda arg: arg.split("=", 1)[0] in RUN_KEYS
@@ -422,27 +469,29 @@ def main(argv=None):
     if resume and last_json.exists():  # the checkpoint's own config, the command line's overrides on top
         cfg = config_from_dict(json.loads(last_json.read_text())["config"])
     cfg = apply_overrides(cfg, overrides)
-    if cfg.parallel.strategy != "dp" or cfg.parallel.model_axis != 1:
-        raise NotImplementedError(f"parallel.strategy={cfg.parallel.strategy!r}, model_axis={cfg.parallel.model_axis}:"
-                                  " the port runs data parallel only (dp); FSDP, tensor parallelism and a model axis "
-                                  "are ROADMAP A10b")
     check_supported(cfg.ops)
     if device.type == "cuda":
         build_kernels(cfg)
     init_distributed(device)
+    if action == "fit":  # on the mesh of cfg.parallel; validate and test run data parallel over every rank
+        with training_mesh(cfg) as mesh:
+            if mesh is None and is_distributed():
+                print(f"rank {process_index()}: left out of the mesh, trains nothing", flush=True)
+                return None, None, False
+            train_loader, val_loader = make_dataloaders(cfg, data, data_dir, mesh=mesh)
+            with nan_checks(debug_nans):  # this action only: the tests and chip_smoke.py call main in one process
+                out = fit(cfg, train_loader, val_loader, ckpt_dir=ckpt_dir, max_steps=max_steps, log_every=log_every,
+                          resume=resume, device=device, profile_dir=profile_dir, mesh=mesh)
+        if out[2]:  # a signal's stop is no clean finish: 128 + SIGTERM tells a restart wrapper to resume
+            raise SystemExit(143)
+        return out
     if action == "test" and "batch_size_test" not in overrides:
         # the submission's K=128 futures of one scenario share its map and KNN work: batch 1
         cfg = dataclasses.replace(cfg, batch_size_test=1)
 
-    train_loader, val_loader = make_dataloaders(cfg, data, data_dir, test_mode=action == "test")
+    _, val_loader = make_dataloaders(cfg, data, data_dir, test_mode=action == "test")
     logger = MetricsLogger(str(Path(ckpt_dir) / "metrics.jsonl"))
-    with nan_checks(debug_nans):  # this action only: the tests and chip_smoke.py call main in one process
-        if action == "fit":
-            out = fit(cfg, train_loader, val_loader, ckpt_dir=ckpt_dir, max_steps=max_steps, log_every=log_every,
-                      resume=resume, device=device, profile_dir=profile_dir)
-            if out[2]:  # a signal's stop is no clean finish: 128 + SIGTERM tells a restart wrapper to resume
-                raise SystemExit(143)
-            return out
+    with nan_checks(debug_nans):
         if action == "validate":
             from trafficbotsv15_tpu_torch.eval.runner import validate
 

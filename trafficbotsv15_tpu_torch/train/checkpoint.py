@@ -26,8 +26,11 @@ flax leaves of checkpoints older than the JAX package's current param tree,
 which the port's state dicts never had. The JAX package's Orbax checkpoints
 come across through numpy (`utils/jax_import.py`).
 
-Over several ranks (`parallel/mesh.py`) the state is replicated, so rank 0
-alone copies it to the host and writes it (JAX `_is_proc0`); every rank calls
+Over several ranks (`parallel/mesh.py`) the state a fit hands in is full and
+placement-free on every rank (the fit gathers what FSDP or tensor parallelism
+shards, `ShardedParams`, and cuts it again on restore, so a checkpoint restores
+under any strategy), so rank 0 alone copies it to the host and writes it (JAX
+`_is_proc0`); every rank calls
 each save, restore and `wait()` in the same order, and a finalisation ends
 with a barrier on every rank after rank 0's swap (for the async "last", after
 its thread has joined), so no rank restores a checkpoint before it is in

@@ -29,14 +29,15 @@ import torch
 from trafficbotsv15_tpu_torch.config import OptimizerCfg
 
 
-def make_optimizer(cfg: OptimizerCfg, model: torch.nn.Module, steps_per_epoch: int = 1000
+def make_optimizer(cfg: OptimizerCfg, named_params: Iterable[Tuple[str, torch.Tensor]], steps_per_epoch: int = 1000
                    ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
-    """(optimizer, schedule): step the schedule after each optimizer step."""
+    """(optimizer, schedule) over (name, tensor) pairs (a module's `named_parameters()`, or what
+    `parallel/mesh.py::ShardedParams` places): step the schedule after each optimizer step."""
     if cfg.accumulate_grad_batches < 1:
         raise ValueError(f"accumulate_grad_batches must be at least 1, not {cfg.accumulate_grad_batches}")
     split = cfg.lr_navi is not None and cfg.lr_navi != cfg.lr
     groups = {cfg.lr: [], cfg.lr_navi: []}
-    for name, p in model.named_parameters():
+    for name, p in named_params:
         groups[cfg.lr_navi if split and "navi_predictor" in name.split(".")[0] else cfg.lr].append(p)
     opt = torch.optim.AdamW([{"params": ps, "lr": lr} for lr, ps in groups.items() if ps],
                             betas=tuple(cfg.betas), eps=1e-8, weight_decay=cfg.weight_decay, foreach=True)
@@ -45,17 +46,15 @@ def make_optimizer(cfg: OptimizerCfg, model: torch.nn.Module, steps_per_epoch: i
 
 
 @torch.no_grad()
-def clip_by_global_norm(param_groups: Iterable[dict], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(param_groups: Iterable[dict], max_norm: float, squares: torch.Tensor) -> torch.Tensor:
     """Scale each group's gradients in place by max_norm / norm where the group's global norm is at
-    least max_norm, as optax clips each chain of its multi_transform. Returns the global norm of
-    all groups' gradients before clipping."""
-    squares = []
-    for group in param_groups:
-        grads = [p.grad for p in group["params"]]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0, max_norm / norm))
-        squares.append(norm.square())
-    return torch.sqrt(sum(squares))
+    least max_norm, as optax clips each chain of its multi_transform. squares: [n_groups], each group's
+    squared global norm (`parallel/mesh.py::ShardedParams.group_squares`, over the whole parameters where
+    the gradients are shards). Returns the global norm of all groups' gradients before clipping."""
+    norms = squares.sqrt()
+    for group, norm in zip(param_groups, norms.unbind()):
+        torch._foreach_mul_([p.grad for p in group["params"]], torch.where(norm < max_norm, 1.0, max_norm / norm))
+    return squares.sum().sqrt()
 
 
 class GradAccumulator:
@@ -96,7 +95,7 @@ class GradAccumulator:
             a.copy_(saved)
 
 
-def make_accumulator(cfg: OptimizerCfg, model: torch.nn.Module) -> Optional[GradAccumulator]:
-    """A GradAccumulator over the model's parameters when cfg accumulates over more than one call, else None
-    (`make_optimizer` refuses fewer than one)."""
-    return GradAccumulator(model.parameters(), cfg.accumulate_grad_batches) if cfg.accumulate_grad_batches > 1 else None
+def make_accumulator(cfg: OptimizerCfg, params: Iterable[torch.Tensor]) -> Optional[GradAccumulator]:
+    """A GradAccumulator over params (what the optimizer owns) when cfg accumulates over more than one call, else
+    None (`make_optimizer` refuses fewer than one)."""
+    return GradAccumulator(params, cfg.accumulate_grad_batches) if cfg.accumulate_grad_batches > 1 else None

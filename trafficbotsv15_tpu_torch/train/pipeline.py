@@ -17,15 +17,19 @@ and for the rollout, whose sampled actions and re-predicted navi a step's
 seed draws too. A test hands the JAX package's draws in instead (the
 re-predicted navi's per step as `navi_noise`).
 
-Over N ranks (`parallel/mesh.py`, one batch of the same size per rank) the
-step computes what one process computes on the union batch: every rank draws
-the union's per-row noise from the same generator and keeps its own rows
-(`shard_noise`), so the one prior-or-posterior draw is shared; each loss term
-is its sum over the global valid count (`train/losses.py`); the gradients are
-summed over the ranks before the clip. The rank is folded into the dropout
-seeds, so that the ranks' scenes get masks of their own. No
-`DistributedDataParallel`: its reducer hooks `forward`, and the step calls the
-model's submodules and methods directly.
+Over N ranks (`parallel/mesh.py`, one batch of the same size per index of the
+data dim) the step computes what one process computes on the union batch:
+every rank draws the union's per-row noise from the same generator and keeps
+its data index's rows (`shard_noise`), so the one prior-or-posterior draw is
+shared; each loss term is its sum over the global valid count
+(`train/losses.py`), the counts and the metrics summed over the data dim; the
+gradients are reduced onto what the optimizer owns before the clip
+(`ShardedParams.scatter_grads`: summed over the data dim, the shards of FSDP
+and tensor parallelism reduce-scattered or cut). The data index is folded into
+the dropout seeds, so that the data shards' scenes get masks of their own and
+the ranks of one model group the same. No `DistributedDataParallel` and no
+FSDP or DTensor hooks: they hook `forward`, and the step calls the model's
+submodules and methods directly, the fused kernels on whole weights.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from trafficbotsv15_tpu_torch.models.traffic_bots import TrafficBots
 from trafficbotsv15_tpu_torch.models.transformer import AttentionRPE
 from trafficbotsv15_tpu_torch.ops.distributions import gumbel_noise
 from trafficbotsv15_tpu_torch.ops.dropout import dropout_scope
-from trafficbotsv15_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum, process_count, process_index
+from trafficbotsv15_tpu_torch.parallel.mesh import (DATA_AXIS, ShardedParams, all_reduce_sum, data_count, data_index,
+                                                    dim_group, model_count)
 from trafficbotsv15_tpu_torch.sim import rollout as rollout_lib
 from trafficbotsv15_tpu_torch.sim import tl_prepass
 from trafficbotsv15_tpu_torch.sim.rule_checker import init_rule_checker
@@ -214,7 +219,8 @@ def training_forward(cfg: ExperimentCfg, model: TrafficBots, batch: Dict[str, to
 
 
 def make_train_step(cfg: ExperimentCfg, model: TrafficBots, optimizer: torch.optim.Optimizer,
-                    schedule: Optional[torch.optim.lr_scheduler.LRScheduler] = None, device=None):
+                    schedule: Optional[torch.optim.lr_scheduler.LRScheduler] = None, device=None,
+                    sharded: Optional[ShardedParams] = None):
     """The gradient step: train_step(batch, generator, epoch=0, noise=None) -> metrics.
 
     Runs on `device` (CUDA unless device="cpu"), where the model must be. With
@@ -225,22 +231,38 @@ def make_train_step(cfg: ExperimentCfg, model: TrafficBots, optimizer: torch.opt
     both). metrics holds each call's loss terms and, on an update, `grad_norm`, the global norm before
     clipping of the gradients the update applies (with k > 1, their mean over the k calls).
 
-    Over several ranks (the process group up when the step is made) each call takes this rank's batch and
-    `noise` its share of the union's draws; the metrics are the union batch's, the same on every rank. With
-    accumulation the gradients are summed over the ranks once, on the k-th call: the mean over the calls of the
-    ranks' sums is the sum of the ranks' means."""
+    Over several ranks (the process group up when the step is made) each call takes the batch of this rank's data
+    index and `noise` its share of the union's draws; the metrics are the union batch's, the same on every rank.
+    `sharded` places the parameters (`parallel/mesh.py::ShardedParams`, whose mesh the step runs on, and over whose
+    parameters `optimizer` must be made); without it every parameter is replicated over the ranks (data parallel,
+    `parallel.strategy=dp` with model_axis 1). The step gathers the sharded parameters' full values before the
+    forward. With accumulation the replicated gradients are summed over the ranks once, on the k-th call (the mean
+    over the calls of the ranks' sums is the sum of the ranks' means); sharded ones at every call, since the
+    accumulator holds only the shard."""
     device = resolve_device(device)
     model_dev = next(model.parameters()).device
     if model_dev.type != device.type:
         raise ValueError(f"model is on {model_dev}, the step on {device}: build the model on the same device")
-    accumulator = make_accumulator(cfg.optimizer, model)
-    rank, world = process_index(), process_count()
-    count_sum = all_reduce_sum if world > 1 else None
+    if sharded is None:
+        if (cfg.parallel.strategy, cfg.parallel.model_axis) != ("dp", 1):
+            raise ValueError(f"parallel.strategy={cfg.parallel.strategy!r} with model_axis={cfg.parallel.model_axis}"
+                             " places the parameters on a mesh: pass sharded= (parallel/mesh.py::ShardedParams)")
+        sharded = ShardedParams(model, {})
+    owned = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    if owned != {id(t) for t in sharded.parameters()}:
+        raise ValueError("the optimizer must be made over sharded.named_parameters()")
+    mesh = sharded.mesh
+    if model_count(mesh) != cfg.parallel.model_axis:
+        raise ValueError(f"the mesh's model dim is {model_count(mesh)}, parallel.model_axis {cfg.parallel.model_axis}")
+    accumulator = make_accumulator(cfg.optimizer, sharded.parameters())
+    rank, world, group = data_index(mesh), data_count(mesh), dim_group(mesh, DATA_AXIS)
+    count_sum = (lambda counts: all_reduce_sum(counts, group=group)) if world > 1 else None
 
     def train_step(batch, generator: Optional[torch.Generator] = None, epoch: int = 0, noise=None):
         batch = batch_to_device(batch, device)
         if noise is None:
             noise = draw_training_noise(cfg, batch, generator, device, rank=rank, world=world)
+        sharded.gather()
         model.zero_grad(set_to_none=True)
         loss, metrics = training_forward(cfg, model, batch, noise, epoch, count_sum=count_sum)
         loss.backward()
@@ -248,12 +270,18 @@ def make_train_step(cfg: ExperimentCfg, model: TrafficBots, optimizer: torch.opt
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        if world > 1:  # the ranks' terms add up to the union's
-            metrics = dict(zip(metrics, all_reduce_sum(torch.stack([v.float() for v in metrics.values()])).unbind()))
+        if world > 1:  # the data shards' terms add up to the union's
+            metrics = dict(zip(metrics, all_reduce_sum(torch.stack([v.float() for v in metrics.values()]),
+                                                       group=group).unbind()))
+        reduced = accumulator is None or sharded.sharded
+        if reduced:
+            sharded.scatter_grads()
         if accumulator is not None and not accumulator.add():
             return metrics
-        all_reduce_grads(model.parameters())
-        metrics["grad_norm"] = clip_by_global_norm(optimizer.param_groups, cfg.optimizer.grad_clip_norm)
+        if not reduced:
+            sharded.scatter_grads()
+        metrics["grad_norm"] = clip_by_global_norm(optimizer.param_groups, cfg.optimizer.grad_clip_norm,
+                                                   sharded.group_squares(optimizer.param_groups))
         optimizer.step()
         if schedule is not None:
             schedule.step()

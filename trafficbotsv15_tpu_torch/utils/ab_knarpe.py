@@ -288,7 +288,7 @@ def main() -> None:
     if args.steps:
         cfg = with_pallas(leaderboard_config(), True)
         model = train_lib.build_model(cfg, seed=0, device="cuda")
-        step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+        step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
         batch = batch_to_device(make_batch(cfg.data, n_sc=8, seed=0), torch.device("cuda"))
         gen = torch.Generator().manual_seed(0)
         results["steps"] = whole(libs, lambda: step(batch, gen), args.steps, "training step, use_pallas=True", card)

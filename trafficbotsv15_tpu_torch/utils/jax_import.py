@@ -27,7 +27,7 @@ The optimizer state does not come across: a fit from it starts Adam afresh.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +55,15 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             key = path
         state[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
     return state
+
+
+def jax_leaf(name: str, ndim: int) -> Tuple[str, bool]:
+    """(the flax path of the port parameter `name` of `ndim` axes, whether the port's tensor is the flax leaf
+    transposed): `params_from_jax`'s map, inverted. A 2-D `weight` is a Dense kernel, a 1-D one a LayerNorm scale."""
+    head, _, leaf = name.rpartition(".")
+    if leaf == "weight":
+        return (f"{head}.kernel", True) if ndim == 2 else (f"{head}.scale", False)
+    return name, False
 
 
 def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:

@@ -120,7 +120,7 @@ def profile_train(card: str, use_pallas: bool, out) -> None:
     cfg = with_pallas(leaderboard_config(), use_pallas)
     n_sc = 8
     model = build_model(cfg, seed=0, device="cuda")
-    step = tp.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model))
+    step = tp.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
     batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
     dev_batch = ev.batch_to_device(batch, torch.device("cuda"))
     gen = torch.Generator().manual_seed(0)
