@@ -70,11 +70,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      k and v the halves of one tensor and two tensors), on the general route
      (asserted, the heads backward's refusal code too) at K=48 and K=89
      there and at an eight-head shape of other widths; bf16 B2-bwd and B3's
-     backward at the scaled training path's [1, 64, 89, 256, 256, 8] and
-     [1, 128, 24, 256, 256, 8] on the general route (asserted); timed
-     (eager, and device time from a CUDA graph) against the plain backward
-     and the library composition's backward, B2-bwd at both training shapes
-     and the scaled preset's two (general route), B4-bwd at the training
+     backward at the scaled preset's D=R=256 with 8 heads on the heads kernel
+     of csrc/knarpe_bwd_heads.cuh (asserted; at the scaled training path's
+     [1, 64, 89, 256, 256, 8] and [1, 128, 24, 256, 256, 8] through B2's and
+     B3's Function, and through B2's at K=1, K=5, K=81 and K=128 (the
+     largest it takes) at 21 sources, a single source and 8 x 64 + 7
+     sources), on the general route (asserted, the heads backward's refusal
+     code too) at K=129 there and at an eight-head shape of other widths;
+     timed (eager, and device time from a CUDA graph) against the plain
+     backward and the library composition's backward, B2-bwd at both
+     training shapes and on the heads route at the scaled preset's two (the
+     general kernel's time at those two beside it), B4-bwd at the training
      shape and on the heads route at the scaled training shape;
      last, B3's path: the ported bench (`python -m
      trafficbotsv15_tpu_torch.utils.bench_knarpe --shape scaled`, 3
@@ -204,10 +210,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      captured, against the float32 plain versions on their own inputs at
      phase 3's bf16 tolerance; (f) `make_train_step` with use_pallas=True,
      built as (b)'s, in turns with (b)'s (b f): B1 241, B4 12 and B4-bwd 12 (all on the heads route), B2 1452 (all
-     on the cluster route), B2-bwd 732 (all on the general route) per step,
+     on the cluster route), B2-bwd 732 (all on the heads route, none on the general route) per step,
      every launch at a full shape phase 3 checked, the (b) checks of loss,
-     grad_norm and gradients; the first B4-bwd launch of its step,
-     captured, against the float32 plain backward on its own inputs at
+     grad_norm and gradients; the first B4-bwd and the first B2-bwd launch of its step
+     with a non-zero incoming gradient, captured, against the float32 plain backward on its own inputs at
      phase 3's bf16 tolerance;
      (e) the phase-4 config rolled out to 35 steps against its 31 logged:
      the training step's gradients (phase 7's check) and the validation step
@@ -346,7 +352,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      worth of the launch counters (the fit's launches over its six steps, as
      many per step as the config implies), each wrapper launch counted
      kernel by kernel (`CUDA_KERNELS`: the backwards' two weight-gradient
-     passes, B4-bwd's drpe pass on its heads route); the device's idle
+     passes, B4-bwd's drpe pass and B2-bwd's dx pass on their heads routes); the device's idle
      share over steps 3-5 from the trace; (b) phase 6's flagship call
      (use_pallas) cut to its first 30 rollout steps, traced by
      `profiling.trace` inside an `annotate` range, into a temporary directory
@@ -367,9 +373,10 @@ and the card-vs-CPU errors of both arms, with the card's name and power limit), 
 8, B4's and the backwards' by route; `fit_launches` per full-width fit step
 from phase 11; `reference_layout_launches` from phase 12 (b); `scaled_launches`
 per call or step of each path of phase 13, and the backwards' launches by route per
-(f) step; B3's, B4's and B4-bwd's `heads_route` and
-B2's `cluster_route` times at the scaled preset's shapes, B4's and B2's with
-their launches per phase 13 (d) call, B4-bwd's with its launches per (f) step,
+(f) step; B3's, B4's, B4-bwd's and B2-bwd's `heads_route` and
+B2's `cluster_route` times at the scaled preset's shapes (B2-bwd's beside the general
+kernel's there), B4's and B2's with
+their launches per phase 13 (d) call, B4-bwd's and B2-bwd's with their launches per (f) step,
 B3's with its launches in phase 3's bench run; the scaled training shapes'
 launches per (f) step; B1's, B4's and B2's times at the serving shapes, and every
 row's `serve_launches` per reset and per step of each phase 14 arm, by route; and
@@ -427,7 +434,7 @@ from trafficbotsv15_tpu_torch.train import swa as swa_lib
 from trafficbotsv15_tpu_torch.train.evaluation import joint_future_pred
 from trafficbotsv15_tpu_torch.train.optimizer import make_optimizer
 from trafficbotsv15_tpu_torch.train.pipeline import build_model
-from trafficbotsv15_tpu_torch.utils import bench_knarpe
+from trafficbotsv15_tpu_torch.utils import bench_knarpe, build
 from trafficbotsv15_tpu_torch.utils import profiling
 from trafficbotsv15_tpu_torch.utils.logging import MetricsLogger
 from trafficbotsv15_tpu_torch.utils.timing import card_line, cuda_ms, graph_ms
@@ -794,7 +801,7 @@ SCALED_X_PATH = (128, 64, 89, 256, 256, 8)
 # the grid); each has an all-invalid and a one-target source. Timed at the scaled preset's eval shape
 SCALED_TRAIN_X_PATH = (1, 64, 89, 256, 256, 8)
 # and the scaled training path's posterior TL encoder (batch 1 x 128 TL lanes over K=24 map targets), on the cluster
-# route forward and the general route backward
+# route forward and the heads route backward
 SCALED_POST_TL_X_PATH = (1, 128, 24, 256, 256, 8)
 CLUSTER_X = [SCALED_X_PATH, (2, 64, 89, 256, 256, 8), SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH,
              (1, 21, 5, 256, 256, 8), (1, 21, 24, 256, 256, 8), (1, 21, 104, 256, 256, 8), (1, 1, 89, 256, 256, 8),
@@ -811,6 +818,16 @@ V3_HEADS_X = [SCALED_X_PATH, SCALED_TRAIN_X_PATH, (1, 21, 5, 256, 256, 8), (1, 2
 # and the general route where the heads kernel refuses too, by its refusal code: K=90 and K=128 at D=R=128 (widths
 # it is not compiled for, code 2)
 GENERAL_B3_X = {(2, 64, 90, 128, 128, 4): 2, (2, 64, 128, 128, 128, 4): 2}
+# bf16 B2-bwd on the heads route (csrc/knarpe_bwd_heads.cuh) at D=R=256, 8 heads: the scaled training path's two
+# shapes (B2's and B3's Function), and through B2's K=1, K=5 and K=81 (no multiple of 16) and K=128 (the largest it
+# takes) at 21 sources (fewer than the grid's slots), a single source and 8 x 64 + 7 sources (no multiple of the
+# slots); each has an all-invalid and a one-target source
+SCALED_TRAIN_X_BWD = [SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH]
+HEADS_X_BWD = SCALED_TRAIN_X_BWD + [(1, 21, 1, 256, 256, 8), (1, 21, 5, 256, 256, 8), (1, 21, 81, 256, 256, 8),
+                                    (1, 21, 128, 256, 256, 8), (1, 1, 89, 256, 256, 8), (1, 519, 89, 256, 256, 8)]
+# and the general route where the heads backward refuses too, by its refusal code: K=129 at D=R=256, 8 heads (over its
+# softmax's 128, code 1), and X_BWD_GENERAL's eight heads at other widths (widths it is not compiled for, code 2)
+GENERAL_B2_BWD = {(1, 9, 129, 256, 256, 8): 1, X_BWD_GENERAL[0]: 2}
 
 
 def check_knarpe_kernels() -> list:
@@ -946,17 +963,21 @@ CHECKED_X_BWD = {s[2:] for s in (TRAIN_X_PATH, POST_TL_X_PATH, *X_BWD_EDGE, *RNN
 @contextlib.contextmanager
 def recorded_bwd_launches(capture: bool = False):
     """The full shape of every B4 and B2 backward launch inside the block, counted: (kernel + "_bwd", dtype, n_b, n_s,
-    K, D, R, H); with capture, also the operands (q, k, v, rpe, invalid, w_rpe, b), g, n_head and gradients (dq, dk,
-    dv, drpe, dw_rpe, db) of the first B4 backward launch, cloned: {"args": [...], "g": g, "n_head": H, "grads":
-    [...]}, empty if none launched."""
+    K, D, R, H); with capture, also the operands (B4: q, k, v, rpe, invalid, w_rpe, b; B2: q, tgt, rpe, invalid, w_kv,
+    w_rpe, b), g, n_head and gradients (B4: dq, dk, dv, drpe, dw_rpe, db; B2: dq, dtgt, drpe, dw_kv, dw_rpe, db) of
+    the first B4 and the first B2 backward launch whose incoming gradient g is not all zero (the last rollout step's
+    B2 gets none), cloned: {kernel: {"args": [...], "g": g, "n_head": H, "grads": [...]}}, without the kernels that
+    did not launch so."""
     real, shapes, first = knarpe._launch_bwd, collections.Counter(), {}
 
     def record(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head):
         shapes[(f"{kernel}_bwd", str(q.dtype), *q.shape[:2], rpe.shape[2], q.shape[2], rpe.shape[3], n_head)] += 1
         out = real(kernel, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_head)
-        if capture and kernel == "knarpe_attention" and not first:
-            first.update(args=[t.clone() for t in (q, k, v, rpe, invalid, w_rpe, b)], g=g.clone(), n_head=n_head,
-                         grads=[out[i].clone() for i in (0, 1, 2, 4, 6, 7)])
+        if capture and kernel not in first and bool(g.any()):
+            attn = kernel == "knarpe_attention"
+            ops = (q, k, v, rpe, invalid, w_rpe, b) if attn else (q, tgt, rpe, invalid, w_kv, w_rpe, b)
+            first[kernel] = {"args": [t.clone() for t in ops], "g": g.clone(), "n_head": n_head,
+                             "grads": [out[i].clone() for i in ((0, 1, 2, 4, 6, 7) if attn else (0, 3, 4, 5, 6, 7))]}
         return out
 
     knarpe._launch_bwd = record
@@ -1109,6 +1130,26 @@ def time_knarpe_bwd(name: str, shape) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
+def time_general_bwd(name: str, shape) -> dict:
+    """The general backward kernel's time (eager and device, `knarpe_bwd_general_launch`) at a shape whose route is
+    another: the yardstick of the kernel that replaced it there, timed as `time_knarpe_bwd` times that one."""
+    n_head = shape[-1]
+    args = knarpe_inputs(shape, name != "knarpe_attention", seed=11, dtype=torch.bfloat16)
+    g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(3)).to("cuda", torch.bfloat16)
+    q, tgt, rpe, inv, w_kv, w_rpe, b = args
+    kernel = lambda: knarpe._launch_bwd(name, q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, n_head)
+    general = knarpe.bind_bwd_launch(build.load("knarpe_bwd", "knarpe_bwd.cu"), "knarpe_bwd_general_launch")
+    real = knarpe.load_bwd_library()
+    knarpe._BWD_FN = general
+    try:
+        ms, device_ms = cuda_ms(kernel, 20), graph_ms(kernel)
+    finally:
+        knarpe._BWD_FN = real
+    log(f"  {name} backward at {list(shape)} bf16 on the general kernel (knarpe_bwd_general_launch): {ms:.4f} ms "
+        f"({device_ms:.4f} ms of device time, launched from a CUDA graph)")
+    return {"general_ms": ms, "general_device_ms": device_ms}
+
+
 def timed_on(name: str, shape, want_route: str) -> dict:
     """`time_knarpe_bwd` at shape, which must take want_route."""
     row = {"shape": list(shape), **time_knarpe_bwd(name, shape)}
@@ -1120,10 +1161,10 @@ def timed_on(name: str, shape, want_route: str) -> dict:
 def check_knarpe_bwd_kernels() -> list:
     """B4-bwd, B2-bwd and B3's backward (B2-bwd through B3's Function) vs autograd of the plain
     versions at the training path's and edge shapes, bf16 on the staged route where it takes the shape,
-    bf16 B4-bwd at the scaled preset's widths on the heads route, and on the general route at the shapes
-    they refuse (B2-bwd at the scaled preset's two training shapes among them); B4-bwd timed at the training
-    path's shape and on the heads route at the scaled training shape, B2-bwd at both of its training shapes
-    and at the scaled preset's two (bf16)."""
+    bf16 B4-bwd and B2-bwd at the scaled preset's widths on the heads routes, and on the general route at the
+    shapes they refuse; B4-bwd timed at the training path's shape and on the heads route at the scaled training
+    shape, B2-bwd at both of its training shapes and on the heads route at the scaled preset's two, the general
+    kernel beside it there (bf16)."""
     rows = []
     for name, path, edges, replaces in (
             ("knarpe_attention", TRAIN_ATTN_PATH, ATTN_EDGE + ATTN_STAGED_EDGE,
@@ -1148,12 +1189,20 @@ def check_knarpe_bwd_kernels() -> list:
                 check_one_knarpe_bwd(name, shape, seed=17 + i, want_route="general")
             for i, shape in enumerate([path, POST_TL_X_PATH, *X_BWD_EDGE]):
                 check_one_knarpe_bwd("knarpe_cross_attention_v3", shape, seed=20 + i, want_route="staged")
-            # the scaled training path's two shapes (D=R=256, 8 heads), which the staged backward refuses (more
-            # than 4 heads): the general route, where the layout of csrc/knarpe_bwd.cu fits (the weights through
-            # L1/L2), B2's and B3's Function
-            for i, shape in enumerate((SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH)):
-                for kernel in (name, "knarpe_cross_attention_v3"):
-                    check_one_knarpe_bwd(kernel, shape, seed=50 + i, want_route="general")
+            # D=R=256 with 8 heads, which the staged backward refuses (more than 4 heads): the heads route
+            # (csrc/knarpe_bwd_heads.cuh) at the scaled training path's two shapes through B2's and B3's Function, at
+            # the edge shapes through B2's; the general route where the heads backward refuses too, by its code
+            heads_errs = [check_one_knarpe_bwd(kernel, shape, seed=50 + i, want_route="heads")[1]
+                          for i, shape in enumerate(HEADS_X_BWD)
+                          for kernel in (name, "knarpe_cross_attention_v3")[:2 if shape in SCALED_TRAIN_X_BWD else 1]]
+            for i, (shape, code) in enumerate(GENERAL_B2_BWD.items()):
+                got = knarpe.x_bwd_heads_refusal(*shape[2:], torch.cuda.current_device())
+                if got != code:
+                    raise AssertionError(f"{name} backward {shape}: the heads kernel's refusal code {got}, expected "
+                                         f"{code}")
+                log(f"  {name} backward {list(shape)}: the heads kernel refuses it with code {got} "
+                    f"({knarpe.X_BWD_HEADS_REFUSALS[got]}), so it takes the general route")
+                check_one_knarpe_bwd(name, shape, seed=65 + i, want_route="general")
         rpe4 = RPE4_X_BWD if cross else RPE4_ATTN_BWD  # d_rpe = 4 (pose_rpe "xy_dir") on the general route
         rpe4_errs = [check_one_knarpe_bwd(name, shape, seed=110 + i, want_route="general", halves=not cross)
                      for i, shape in enumerate(rpe4)]
@@ -1166,8 +1215,14 @@ def check_knarpe_bwd_kernels() -> list:
                                     **timed_on(name, shape, "general")} for shape, err in zip(rpe4, rpe4_errs)]
         if cross:
             rows[-1]["post_tl_shape"] = {"shape": list(POST_TL_X_PATH), **time_knarpe_bwd(name, POST_TL_X_PATH)}
-            rows[-1]["scaled_training_shape"] = timed_on(name, SCALED_TRAIN_X_PATH, "general")
-            rows[-1]["scaled_post_tl_shape"] = timed_on(name, SCALED_POST_TL_X_PATH, "general")
+            # the heads route at the scaled training path's two shapes, the general kernel's time there beside it
+            train_row, post_tl_row = ({**timed_on(name, shape, "heads"), **time_general_bwd(name, shape)}
+                                      for shape in SCALED_TRAIN_X_BWD)
+            rows[-1].update(scaled_training_shape=train_row, scaled_post_tl_shape=post_tl_row)
+            rows[-1]["heads_route"] = {"name": f"{name}_bwd", "route": "cuda",
+                                       "source": "trafficbotsv15_tpu_torch/csrc/knarpe_bwd_heads.cuh",
+                                       "replaces": replaces, "launches": None, "max_abs_err": max(heads_errs),
+                                       **train_row, "scaled_post_tl_shape": post_tl_row}
             rows[-1]["rnn_shapes"] = [timed_on(name, shape, "staged") for shape in RNN_TRAIN_X]
             rows[-1]["navi_shapes"] = [timed_on(name, shape, "staged") for shape in NAVI_TRAIN_X]
             rows[-1]["variant_shapes"] = [timed_on(name, shape, "staged") for shape in VARIANT_TRAIN_X]
@@ -2681,13 +2736,13 @@ SCALED_N_SC, SCALED_CHECK_END = 4, 35
 def check_scaled_shapes(where: str, shapes, want: dict) -> None:
     """The launches of a scaled-preset call or step, by full shape, are exactly `want`, and each shape is one phase 3
     checked: B1 against its plain version, bf16 B4 against its own on the heads route and bf16 B2 on the cluster
-    route, bf16 B4-bwd against autograd of the plain version on the heads route and bf16 B2-bwd on the general route."""
+    route, bf16 B4-bwd and B2-bwd against autograd of the plain version on the heads routes."""
     bf = str(torch.bfloat16)
     checked = {("knn_xy", *case[:4]) for case in KNN_CASES.values()}
     checked |= {("knarpe_attention", bf, *s) for s in HEADS_ATTN}
     checked |= {("knarpe_cross_attention", bf, *s) for s in CLUSTER_X}
     checked |= {("knarpe_attention_bwd", bf, *s) for s in HEADS_ATTN_BWD}
-    checked |= {("knarpe_cross_attention_bwd", bf, *s) for s in (SCALED_TRAIN_X_PATH, SCALED_POST_TL_X_PATH)}
+    checked |= {("knarpe_cross_attention_bwd", bf, *s) for s in HEADS_X_BWD}
     check_full_shapes(where, shapes, want, checked)
 
 
@@ -2739,24 +2794,30 @@ def check_path_launch(where: str, kernel: str, got: dict) -> float:
     return err
 
 
-def check_path_bwd_launch(where: str, got: dict) -> float:
-    """A captured bf16 B4 backward launch of a path against the float32 plain backward on its own (bf16-valued)
-    operands and g, at phase 3's bf16 tolerance (2^-8 of each value plus 1e-4 of each gradient's largest); returns
-    the max |err|."""
+def check_path_bwd_launch(where: str, kernel: str, got: dict) -> float:
+    """A captured bf16 B4 or B2 backward launch of a path (`recorded_bwd_launches`) against the float32 plain backward
+    on its own (bf16-valued) operands and g, at phase 3's bf16 tolerance (2^-8 of each value plus 1e-4 of each
+    gradient's largest), its gradients not all zero; returns the max |err|."""
+    attn = kernel == "knarpe_attention"
+    what = "B4" if attn else "B2"
     if not got:
-        raise AssertionError(f"{where}: no B4 backward launch to check")
-    want = knarpe.knarpe_attention_bwd_reference(*[a if a.dtype == torch.bool else a.float() for a in got["args"]],
-                                                 got["g"].float(), got["n_head"])
+        raise AssertionError(f"{where}: no {what} backward launch to check")
+    want = _plain_bwd(kernel, [a if a.dtype == torch.bool else a.float() for a in got["args"]], got["g"].float(),
+                      got["n_head"])
+    names = ("dq", "dk", "dv", "drpe", "dw_rpe", "db") if attn else ("dq", "dtgt", "drpe", "dw_kv", "dw_rpe", "db")
     err = 0.0
-    for name, a, b in zip(("dq", "dk", "dv", "drpe", "dw_rpe", "db"), got["grads"], want):
+    for name, a, b in zip(names, got["grads"], want):
         tol = BF16_HALF_ULP * b.abs() + KNARPE_BWD_F32_REL * float(b.abs().max())
         if not (a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()) and bool(((a.float() - b).abs() <= tol)
                                                                                    .all())):
-            raise AssertionError(f"{where}: the first B4 backward launch's {name} exceeds 2^-8 relative + 1e-4 of the "
-                                 f"largest against the plain backward on its inputs")
+            raise AssertionError(f"{where}: the first {what} backward launch's {name} exceeds 2^-8 relative + 1e-4 of "
+                                 f"the largest against the plain backward on its inputs")
         err = max(err, float((a.float() - b).abs().max()))
-    log(f"  {where}: the first B4 backward launch {list(got['args'][1].shape)} against the float32 plain backward on "
-        f"its own inputs: max |err| {err:.3e} over its six gradients, each within 2^-8 relative + 1e-4 of the largest")
+    if not any(bool(a.any()) for a in got["grads"]):
+        raise AssertionError(f"{where}: the first {what} backward launch with a gradient gave all-zero gradients")
+    log(f"  {where}: the first {what} backward launch with a non-zero incoming gradient "
+        f"{list(got['args'][1].shape)} against the float32 plain backward on its own inputs: max |err| {err:.3e} over "
+        f"its six gradients, each within 2^-8 relative + 1e-4 of the largest")
     return err
 
 
@@ -2849,11 +2910,11 @@ def run_scaled_phase(card: str) -> dict:
     del pmodel, arms
     torch.cuda.empty_cache()
 
-    # (b) the training step at the preset's batch_size_train with use_pallas=False, and (f) with use_pallas=True, B4 and
-    # B4-bwd on the heads route, B2 on the cluster route and B2-bwd on the general route: (f)'s model and optimizer
-    # built as (b)'s (seed 0), the same batch; one step each, checked and timed, in turns (b f), with no warm-up step
-    # (each time is a first step's); the first B4 backward launch of (f)'s step is captured and held against the plain
-    # backward on its inputs
+    # (b) the training step at the preset's batch_size_train with use_pallas=False, and (f) with use_pallas=True, B4,
+    # B4-bwd and B2-bwd on the heads routes, B2 on the cluster route: (f)'s model and optimizer built as (b)'s (seed 0),
+    # the same batch; one step each, checked and timed, in turns (b f), with no warm-up step (each time is a first
+    # step's); the first B4 and the first B2 backward launch of (f)'s step are captured and held against the plain
+    # backward on their inputs
     n_train = cfg.batch_size_train
     tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
     step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
@@ -2873,7 +2934,7 @@ def run_scaled_phase(card: str) -> dict:
                    ("knarpe_cross_attention_bwd", bf, *SCALED_TRAIN_X_PATH): n_x_bwd,
                    ("knarpe_cross_attention_bwd", bf, *SCALED_POST_TL_X_PATH): n_tl},
                   {"knarpe_attention/heads": n_map, "knarpe_attention_bwd/heads": n_map,
-                   "knarpe_cross_attention/cluster": n_x + n_tl, "knarpe_cross_attention_bwd/general": n_x_bwd + n_tl})}
+                   "knarpe_cross_attention/cluster": n_x + n_tl, "knarpe_cross_attention_bwd/heads": n_x_bwd + n_tl})}
     times, peaks, metrics, counts, routes, step_shapes = {}, {}, {}, {}, {}, {}
     for arm in "bf":
         acfg, amodel, astep, agen, want_shapes, want_routes = arms[arm]
@@ -2886,7 +2947,8 @@ def run_scaled_phase(card: str) -> dict:
         torch.cuda.synchronize()
         times.setdefault(arm, []).append(time.perf_counter() - t1)
         if arm == "f":
-            first_errs["knarpe_attention_bwd"] = check_path_bwd_launch(f"(f) {where}", first_bwd)
+            for kernel in ("knarpe_attention", "knarpe_cross_attention"):
+                first_errs[f"{kernel}_bwd"] = check_path_bwd_launch(f"(f) {where}", kernel, first_bwd.get(kernel, {}))
         del first_bwd
         peaks[arm] = max(peaks.get(arm, 0.0), peak_gib())
         metrics.setdefault(arm, []).append({key: float(v) for key, v in m.items()})
@@ -4129,7 +4191,8 @@ def run_scene_centric_phase(card: str) -> dict:
 
 
 # the CUDA kernels one wrapper launch runs, by wrapper and route (csrc/): every backward adds the two weight-gradient
-# passes of knarpe_bwd.cu, B4-bwd's heads route the drpe pass; the trace's kernel events are matched by these names
+# passes of knarpe_bwd.cu, B4-bwd's heads route the drpe pass and B2-bwd's the dx pass; the trace's kernel events are
+# matched by these names
 WGRAD_PASSES = ("knarpe_wgrad_partial", "knarpe_wgrad_reduce")
 CUDA_KERNELS = {
     "knn_xy": ("knn_xy_kernel",),
@@ -4146,6 +4209,7 @@ CUDA_KERNELS = {
     "knarpe_attention_bwd/staged": ("knarpe_attn_bwd_staged_kernel", *WGRAD_PASSES),
     "knarpe_attention_bwd/heads": ("knarpe_attn_bwd_heads_kernel", "knarpe_attn_bwd_heads_drpe", *WGRAD_PASSES),
     "knarpe_cross_attention_bwd/general": ("knarpe_bwd_kernel", *WGRAD_PASSES),
+    "knarpe_cross_attention_bwd/heads": ("knarpe_x_bwd_heads_kernel", "knarpe_x_bwd_heads_dx", *WGRAD_PASSES),
     "knarpe_cross_attention_bwd/staged": ("knarpe_x_bwd_staged_kernel", *WGRAD_PASSES),
 }
 PORT_KERNELS = {name for names in CUDA_KERNELS.values() for name in names}
@@ -4530,7 +4594,7 @@ def main() -> int:
     layout_counts = run_golden_phase(card)
 
     header("[13/20] the scaled preset at full width: eval, training, validation, eval and training through the kernels "
-        "(B4 and B4-bwd heads, B2 cluster, B2-bwd general route); the TL pass past the log, card vs CPU")
+        "(B4, B4-bwd and B2-bwd heads, B2 cluster route); the TL pass past the log, card vs CPU")
     scaled_counts, first_errs, scaled_train = run_scaled_phase(card)
 
     header("[14/20] the serving entry point (InteractiveSimulator) at full width: use_pallas False and True in turns, "
@@ -4606,8 +4670,9 @@ def main() -> int:
             (bwd_rows[1]["scaled_training_shape"], "knarpe_cross_attention_bwd", SCALED_TRAIN_X_PATH),
             (bwd_rows[1]["scaled_post_tl_shape"], "knarpe_cross_attention_bwd", SCALED_POST_TL_X_PATH)):
         part["launches"] = by_shape[(kernel, bf, *shape)]
-    bwd_rows[0]["heads_route"].update(launches=scaled_counts["train_use_pallas"]["knarpe_attention_bwd"],
-                                      path_launch_max_abs_err=first_errs["knarpe_attention_bwd"])
+    for row in bwd_rows:  # launches per (f) step, all on the heads route, and (f)'s first launch's error
+        row["heads_route"].update(launches=scaled_counts["train_use_pallas"][row["name"]],
+                                  path_launch_max_abs_err=first_errs[row["name"]])
     for row in rows + bwd_rows:  # per phase 16 (a) call and (c) step, per phase 17 (b) call, per phase 18 (a) call
         row["rnn_launches"] = {"eval_call": rnn["eval"][row["name"]], "train_step": rnn["train"][row["name"]]}
         row["navi_launches"] = {"eval_call": navi["eval"][row["name"]]}

@@ -445,13 +445,13 @@ def test_validate_raises_for_misaligned_bf16_attention_operands(misalign, match,
 
 
 def test_route_launches_count_attention_by_route_and_cpu_calls_count_none():
-    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's, B2's cluster route and B4's, B3's and
-    B4-bwd's heads routes; a CPU call, forward and backward, counts no launch on any route."""
+    """`ROUTE_LAUNCHES` has B4's and B4-bwd's routes beside B2's and B3's, B2's cluster route and B4's, B3's,
+    B4-bwd's and B2-bwd's heads routes; a CPU call, forward and backward, counts no launch on any route."""
     kernels = ("knarpe_attention", "knarpe_cross_attention", "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                "knarpe_cross_attention_bwd")
     assert set(knarpe.ROUTE_LAUNCHES) == {f"{k}/{r}" for k in kernels for r in ("staged", "general")} | {
         "knarpe_cross_attention/cluster", "knarpe_attention/heads", "knarpe_cross_attention_v3/heads",
-        "knarpe_attention_bwd/heads"}
+        "knarpe_attention_bwd/heads", "knarpe_cross_attention_bwd/heads"}
     before, launches = dict(knarpe.ROUTE_LAUNCHES), dict(knarpe.LAUNCHES)
     for dtype in (torch.float32, torch.bfloat16):
         t = {k: v if v.dtype == torch.bool else v.to(dtype).requires_grad_(True) for k, v in _bf16_attn().items()}

@@ -71,7 +71,14 @@ and v the halves of one tensor and two tensors, against autograd of the plain
 version at the bf16 tolerance above, the route named and counted, two launches
 bit-identical; K=48 (its shared memory), K=89 (over its softmax's 64) and eight
 heads at other widths take the general backward, by its code, and an operand off
-a 16-byte boundary or k/v rows 8 bytes off a multiple of 16 apart raise.
+a 16-byte boundary or k/v rows 8 bytes off a multiple of 16 apart raise. The bf16
+B2 backward (B3's too) at the scaled preset's D=R=256 with H=8 takes the heads
+backward (csrc/knarpe_bwd_heads.cuh) at the scaled training shapes [1·64, K=89] and
+[1·128, K=24], K=1, K=5, K=81 and K=128 (the largest it takes) at 21 sources, a
+single source and 8 x 64 + 7 sources, at the bf16 tolerance above, the route named
+and counted, two launches bit-identical; K=129 (over its softmax's 128) and eight
+heads at other widths take the general backward, by its code, and an operand off
+a 16-byte boundary raises.
 """
 
 import threading
@@ -455,16 +462,16 @@ def test_two_launches_give_the_same_bits(name, shape):
 BWD_STAGED_SHAPES = [(8, 64, 89, 128, 128, 4), (8, 128, 24, 128, 128, 4), (1, 97, 11, 64, 64, 2),
                      (1, 131, 89, 128, 128, 4), (2, 100, 40, 128, 128, 4), (2, 5, 89, 32, 32, 1),
                      (1, 1, 3, 128, 128, 4), (2, 16, 128, 128, 128, 4)]
-# bf16 B2 backward shapes the staged kernel refuses, with the code: K=200 (over the softmax's 128), eight
-# heads (the scaled preset's D=R=256, and D=32, R=16), and D=R=256 with four heads, whose weights alone
-# overflow the shared memory
-BWD_GENERAL_SHAPES = [((1, 9, 200, 128, 128, 4), 1), ((2, 16, 89, 256, 256, 8), 3), ((1, 33, 89, 32, 16, 8), 3),
+# bf16 B2 backward shapes the staged kernel refuses, with the code, that take the general route: K=200 (over
+# the softmax's 128), eight heads (the scaled preset's D=R=256 at K=129, over the heads backward's 128 too, and
+# D=32, R=16), and D=R=256 with four heads, whose weights alone overflow the shared memory
+BWD_GENERAL_SHAPES = [((1, 9, 200, 128, 128, 4), 1), ((1, 9, 129, 256, 256, 8), 1), ((1, 33, 89, 32, 16, 8), 3),
                       ((1, 9, 16, 256, 256, 4), 4)]
+BWD_ROUTES = ("staged", "heads", "general")
 
 
 def _bwd_route_counts():
-    return (knarpe.ROUTE_LAUNCHES["knarpe_cross_attention_bwd/staged"],
-            knarpe.ROUTE_LAUNCHES["knarpe_cross_attention_bwd/general"])
+    return tuple(knarpe.ROUTE_LAUNCHES[f"knarpe_cross_attention_bwd/{way}"] for way in BWD_ROUTES)
 
 
 def _check_bf16_grads(name, shape, want_route):
@@ -472,9 +479,9 @@ def _check_bf16_grads(name, shape, want_route):
     the same bf16-valued inputs: 2^-8 of each value plus 1e-4 of each gradient's largest magnitude."""
     n_head = shape[-1]
     a16, g16 = _grad_case(name, shape, torch.bfloat16)
-    staged, general = _bwd_route_counts()
+    before = _bwd_route_counts()
     got16 = _kernel_grads(name, a16, g16, n_head)
-    assert _bwd_route_counts() == ((staged + 1, general) if want_route == "staged" else (staged, general + 1))
+    assert _bwd_route_counts() == tuple(n + (way == want_route) for n, way in zip(before, BWD_ROUTES))
     want32 = _plain_grads(name, _cast(a16, torch.float32), g16.float(), n_head)
     for a, b in zip(got16, want32):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
@@ -497,15 +504,15 @@ def test_staged_backward_matches_plain_autograd_on_card(name, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,code", BWD_GENERAL_SHAPES)
 def test_bf16_backward_shapes_the_staged_kernel_refuses_take_the_general_route(shape, code):
-    """Among them `WIDE_BWD_CASES`' D=R=256 with 8 heads; its K=128 at D=R=128 fits one stage and
-    takes the staged route (`BWD_STAGED_SHAPES`)."""
+    """`WIDE_BWD_CASES`' D=R=256 with 8 heads, which the staged kernel refuses (code 3), takes the heads
+    route; its K=128 at D=R=128 fits one stage and takes the staged route (`BWD_STAGED_SHAPES`)."""
     _need_card()
     dev = torch.cuda.current_device()
     assert knarpe.bwd_staged_refusal(*shape[2:], dev) == code
     assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, *shape[2:], dev) == "general"
     _check_bf16_grads("knarpe_cross_attention", shape, "general")
     assert [knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, *s[2:], dev) for _, s in WIDE_BWD_CASES] == [
-        "general", "staged"]
+        "heads", "staged"]
 
 
 @pytest.mark.cuda
@@ -517,6 +524,66 @@ def test_staged_backward_raises_for_misaligned_operands():
     buf = torch.empty(tgt.numel() + 1, dtype=torch.bfloat16, device="cuda")
     buf[1:] = tgt.reshape(-1)
     tgt = buf[1:].view(tgt.shape)
+    counts = _bwd_route_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        knarpe._launch_bwd("knarpe_cross_attention", q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, shape[-1])
+    assert _bwd_route_counts() == counts
+
+
+# the heads bf16 B2 backward (csrc/knarpe_bwd_heads.cuh; B3's backward is B2's): the scaled preset's training shapes
+# (the agent decoder's [1·64, K=89], the posterior TL encoder's [1·128, K=24]); K=1, K=5, K=81 (no multiple of 16) and
+# K=128 (the largest it takes) at 21 sources; a single source; 8 x 64 + 7 sources (no multiple of the grid's slots)
+X_HEADS_BWD_SHAPES = [(1, 64, 89, 256, 256, 8), (1, 128, 24, 256, 256, 8), (1, 21, 1, 256, 256, 8),
+                      (1, 21, 5, 256, 256, 8), (1, 21, 81, 256, 256, 8), (1, 21, 128, 256, 256, 8),
+                      (1, 1, 89, 256, 256, 8), (1, 519, 89, 256, 256, 8)]
+# bf16 B2 backward shapes at eight heads the heads backward refuses too, with its code: K=129 at D=R=256 (over its
+# softmax's 128) and D=32, R=16 (widths it is not compiled for)
+X_HEADS_BWD_GENERAL_SHAPES = [((1, 9, 129, 256, 256, 8), 1), ((1, 33, 89, 32, 16, 8), 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
+@pytest.mark.parametrize("shape", X_HEADS_BWD_SHAPES)
+def test_heads_cross_backward_matches_plain_autograd_on_card(name, shape):
+    """bf16 B2-bwd (through B2's and B3's Function) where the staged backward refuses the shape (more than 4 heads,
+    code 3) and the heads backward takes it: the heads route, named and counted, within the bf16 tolerance of autograd
+    of the float32 plain version, the all-invalid source zero, two launches bit-identical; float32 takes the general
+    backward."""
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert knarpe.bwd_staged_refusal(*shape[2:], dev) == 3
+    assert knarpe.x_bwd_heads_refusal(*shape[2:], dev) == 0
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, *shape[2:], dev) == "heads"
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.float32, *shape[2:], dev) == "general"
+    _check_bf16_grads(name, shape, "heads")
+    a16, g16 = _grad_case(name, shape, torch.bfloat16)
+    grads = [_kernel_grads(name, a16, g16, shape[-1]) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,code", X_HEADS_BWD_GENERAL_SHAPES)
+def test_bf16_cross_backward_shapes_the_heads_kernel_refuses_take_the_general_route(shape, code):
+    """bf16 B2-bwd where the staged and heads backwards both refuse: the general route, by the heads backward's code,
+    within the bf16 tolerance."""
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert knarpe.bwd_staged_refusal(*shape[2:], dev) != 0
+    assert knarpe.x_bwd_heads_refusal(*shape[2:], dev) == code
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, *shape[2:], dev) == "general"
+    _check_bf16_grads("knarpe_cross_attention", shape, "general")
+
+
+@pytest.mark.cuda
+def test_heads_cross_backward_raises_for_misaligned_operands():
+    """At a shape the heads B2 backward takes, an operand off a 16-byte boundary raises before any launch; it does not
+    slide onto the general kernel."""
+    _need_card()
+    shape = X_HEADS_BWD_SHAPES[3]
+    (q, tgt, rpe, inv, w_kv, w_rpe, b), g = _grad_case("knarpe_cross_attention", shape, torch.bfloat16)
+    buf = torch.empty(rpe.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    buf[1:] = rpe.reshape(-1)
+    rpe = buf[1:].view(rpe.shape)
     counts = _bwd_route_counts()
     with pytest.raises(ValueError, match="16-byte aligned"):
         knarpe._launch_bwd("knarpe_cross_attention", q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, shape[-1])

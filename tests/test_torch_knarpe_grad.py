@@ -267,6 +267,89 @@ def test_launch_bwd_raises_for_misaligned_bf16_attention_operands_on_the_staged_
             call()
 
 
+def _fake_x_bwd_heads_route(monkeypatch, code):
+    """Fake the built library's answers for B2-bwd at the scaled preset's widths: the staged backward refuses (more
+    than 4 heads, code 3), the heads backward answers `code` (`x_bwd_heads_refusal`); -> its calls, in order."""
+    _fake_bwd_route(monkeypatch, [3])
+    asked = []
+
+    def answer(n_knn, d_model, d_rpe, n_head, device_index):
+        asked.append((n_knn, d_model, d_rpe, n_head, device_index))
+        return code
+
+    monkeypatch.setattr(knarpe, "x_bwd_heads_refusal", answer)
+    return asked
+
+
+@pytest.mark.parametrize("n_knn", [24, 89])
+def test_bwd_route_sends_bf16_b2_at_the_scaled_widths_to_the_heads_kernel(n_knn, monkeypatch):
+    """bf16 B2-bwd (B3's backward too) at D=R=256 with 8 heads, which the staged backward refuses, takes the heads
+    kernel where the built library's answer is 0, asked from the shape alone, at both scaled training shapes' K;
+    float32 takes the general kernel without asking."""
+    asked = _fake_x_bwd_heads_route(monkeypatch, 0)
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, n_knn, 256, 256, 8, 0) == "heads"
+    assert asked == [(n_knn, 256, 256, 8, 0)]
+    asked.clear()
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.float32, n_knn, 256, 256, 8, 0) == "general"
+    assert asked == []
+
+
+@pytest.mark.parametrize("code", sorted(knarpe.X_BWD_HEADS_REFUSALS))
+def test_bwd_route_sends_each_x_heads_refusal_to_the_general_kernel(code, monkeypatch):
+    """Every refusal code of the heads B2 backward sends bf16 B2-bwd to the general kernel; eight heads at other
+    widths and the flagship's four heads take their routes without asking it (it is compiled for D=R=256 with 8 heads
+    only); B4's backward at the scaled widths asks its own heads backward, never this one."""
+    asked = _fake_x_bwd_heads_route(monkeypatch, code)
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 129, 256, 256, 8, 0) == "general"
+    assert asked == [(129, 256, 256, 8, 0)]
+    asked.clear()
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 89, 32, 16, 8, 0) == "general"
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 89, 128, 128, 4, 0) == "general"
+    asked_b4 = _fake_attn_bwd_heads_route(monkeypatch, 0)
+    assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 32, 256, 256, 8, 0) == "heads"
+    assert asked == [] and asked_b4 == [(32, 256, 256, 8, 0)]
+
+
+def test_x_bwd_heads_refusals_name_each_code():
+    """One text per refusal code of `heads_x_bwd::refusal` (1-3) and the plan's no-fit (4), each its own, and the
+    route counted under its own key."""
+    texts = knarpe.X_BWD_HEADS_REFUSALS
+    assert sorted(texts) == [1, 2, 3, 4]
+    assert len(set(texts.values())) == len(texts) and all(texts.values())
+    assert "128" in texts[1] and "256" in texts[2] and "shared memory" in texts[3] and "multiprocessor" in texts[4]
+    assert knarpe.ROUTE_LAUNCHES["knarpe_cross_attention_bwd/heads"] >= 0
+
+
+@pytest.mark.parametrize("route_code", [0, 1])
+@pytest.mark.parametrize("operand", ["tgt", "rpe", "g"])
+def test_launch_bwd_raises_for_misaligned_bf16_operands_on_the_x_heads_route(operand, route_code, monkeypatch):
+    """At a shape the heads B2 backward takes (D=R=256, 8 heads), an operand off a 16-byte boundary raises before any
+    launch, naming the route; where it refuses the shape, the general route has no such check, and the launch itself
+    needs the card."""
+    _fake_x_bwd_heads_route(monkeypatch, route_code)
+    d, r, n_head = 256, 256, 8
+    rng = np.random.default_rng(10)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+    t = dict(q=f(1, 3, d), tgt=f(1, 3, 5, d), rpe=f(1, 3, 5, r), w_kv=f(d, 2 * d), w_rpe=f(r, 2 * d), b=f(2 * d),
+             g=f(1, 3, d))
+    buf = torch.zeros(t[operand].numel() + 1, dtype=torch.bfloat16)  # contiguous, 2 bytes off a 16-byte boundary
+    buf[1:] = t[operand].reshape(-1)
+    t[operand] = buf[1:].view(t[operand].shape)
+    inv = torch.zeros(1, 3, 5, dtype=torch.bool)
+    call = lambda: knarpe._launch_bwd("knarpe_cross_attention", t["q"], None, None, t["tgt"], t["rpe"], inv, t["w_kv"],
+                                      t["w_rpe"], t["b"], t["g"], n_head)
+    if route_code == 0:
+        with pytest.raises(ValueError, match="the heads bf16 kernel .*16-byte aligned"):
+            call()
+    else:
+        def no_card():
+            raise RuntimeError("no card")
+
+        monkeypatch.setattr(knarpe, "load_bwd_library", no_card)
+        with pytest.raises(RuntimeError, match="no card"):
+            call()
+
+
 def _fake_attn_bwd_heads_route(monkeypatch, code):
     """Fake the built library's answers for B4-bwd at the scaled preset's widths: the staged backward refuses (more
     than 4 heads, code 3), the heads backward answers `code` (`attn_bwd_heads_refusal`); -> its calls, in order."""
@@ -296,15 +379,15 @@ def test_bwd_route_sends_bf16_attention_at_the_scaled_widths_to_the_heads_kernel
 def test_bwd_route_sends_each_heads_refusal_to_the_general_kernel(code, monkeypatch):
     """Every refusal code of the heads backward sends bf16 B4-bwd to the general kernel; eight heads at other widths
     take the general kernel without asking the heads backward (it is compiled for D=R=256 with 8 heads only); B2's
-    backward at the scaled widths never asks it."""
+    backward at the scaled widths never asks it (it asks its own heads backward, here refusing)."""
     asked = _fake_attn_bwd_heads_route(monkeypatch, code)
     assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 48, 256, 256, 8, 0) == "general"
     assert asked == [(48, 256, 256, 8, 0)]
     asked.clear()
     assert knarpe.bwd_route("knarpe_attention", torch.bfloat16, 89, 32, 16, 8, 0) == "general"
-    _fake_bwd_route(monkeypatch, [3])
-    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 89, 256, 256, 8, 0) == "general"
-    assert asked == []
+    asked_x = _fake_x_bwd_heads_route(monkeypatch, 1)
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 129, 256, 256, 8, 0) == "general"
+    assert asked == [] and asked_x == [(129, 256, 256, 8, 0)]
 
 
 def test_attention_bwd_heads_refusals_name_each_code():

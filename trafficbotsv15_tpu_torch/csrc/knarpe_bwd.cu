@@ -51,7 +51,11 @@
 // copies and read from device memory once, every product on the tensor cores;
 // its header says how) wherever that kernel takes the shape
 // (knarpe_bwd_staged_route's code 0: up to 4 heads, D and R multiples of 16,
-// one stage within the block's shared memory). The per-source kernel below
+// one stage within the block's shared memory); at the scaled preset's
+// D = R = 256 with 8 heads (K <= 128), which it refuses, on the heads kernel
+// of knarpe_bwd_heads.cuh (eight blocks a source, one on each head with its
+// columns of [W_kv; W_rpe], and a second pass that sums dtgt | drpe over the
+// eight; knarpe_x_bwd_heads_route's code 0). The per-source kernel below
 // serves float32 B4-bwd and B2-bwd and the bf16 shapes the staged kernels refuse
 // (the general route): it reads x_j twice per source (the second time through
 // L2) and does its multiply-adds on the CUDA cores in float32, one persistent
@@ -71,6 +75,7 @@
 #include "knarpe_attn_bwd_staged.cuh"
 #include "knarpe_attn_bwd_heads.cuh"
 #include "knarpe_bwd_staged.cuh"
+#include "knarpe_bwd_heads.cuh"
 
 namespace {
 
@@ -738,12 +743,122 @@ int staged_launch(const Params& g, void* dw_kv, void* dw_rpe, void* db, float* p
   return wgrad_launch<bf16>(g, H, dw_kv, dw_rpe, db, partial, n_chunks, stream);
 }
 
-// bf16 B2-bwd: the staged kernel where it takes the shape, else the general kernel above.
+// The heads B2 backward's plan per (device, K): its refusal code (heads_x_bwd::refusal; 0 = taken, 4 = no block fits an
+// SM), layout, the slots of eight blocks (one per head) resident on the device, and the SMs.
+struct XHeadsPlan {
+  int dev, n_knn, refused, n_sm;
+  heads_x_bwd::Layout L;
+  long long slots;
+};
+
+int make_x_heads_plan(XHeadsPlan& pl) {
+  int max_smem = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&pl.n_sm, cudaDevAttrMultiProcessorCount, pl.dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int W = heads_x_bwd::kWidth;
+  pl.refused = heads_x_bwd::refusal(pl.n_knn, W, W, heads_x_bwd::kHeads, static_cast<size_t>(max_smem));
+  if (pl.refused) return 0;
+  auto kern = heads_x_bwd::knarpe_x_bwd_heads_kernel;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.L = heads_x_bwd::make_layout(pl.n_knn);
+  int per_sm = 0;  // two where two blocks fit an SM (K <= 32 on an H100), else one
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, heads_x_bwd::kThreads, pl.L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pl.slots = static_cast<long long>(per_sm) * pl.n_sm / heads_x_bwd::kHeads;
+  if (pl.slots < 1) pl.refused = 4;
+  return 0;
+}
+
+int x_heads_plan(int dev, int K, XHeadsPlan* out) {
+  static std::mutex mu;
+  static std::vector<XHeadsPlan> plans;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const XHeadsPlan& c : plans) {
+    if (c.dev == dev && c.n_knn == K) {
+      *out = c;
+      return 0;
+    }
+  }
+  XHeadsPlan pl{};
+  pl.dev = dev; pl.n_knn = K;
+  const int rc = make_x_heads_plan(pl);
+  if (rc != 0) return rc;
+  plans.push_back(pl);
+  *out = pl;
+  return 0;
+}
+
+// The heads B2 backward's code for a bf16 B2 backward shape: 0 if it takes the shape, else heads_x_bwd::refusal's code
+// (2 for widths it is not compiled for, without asking the device; 4: no block fits an SM), or minus a CUDA error.
+int x_heads_code(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  const int code = heads_x_bwd::refusal(n_knn, d_model, d_rpe, n_head, SIZE_MAX);
+  if (code != 0) return code;
+  XHeadsPlan pl{};
+  const int rc = x_heads_plan(dev, n_knn, &pl);
+  return rc != 0 ? -rc : pl.refused;
+}
+
+// Launches the heads B2 backward, its dx pass, then the weight-gradient passes, at a shape x_heads_code takes; an
+// operand or output that is not 16-byte aligned (the tensor copies and the 16-byte loads need it) is
+// cudaErrorInvalidValue. dx's factors go into pbuf past its [n_src, 2, H, X + 1] rows: the caller gives pbuf
+// heads_x_bwd::fac_floats(K) more floats a source.
+int x_heads_launch(const Params& g, void* dw_kv, void* dw_rpe, void* db, float* partial, int n_chunks, int dev,
+                   cudaStream_t stream) {
+  XHeadsPlan pl{};
+  const int rc = x_heads_plan(dev, g.n_knn, &pl);
+  if (rc != 0) return rc;
+  if (pl.refused || !(aligned16(g.q) && aligned16(g.g) && aligned16(g.tgt) && aligned16(g.rpe) && aligned16(g.w_kv) &&
+                      aligned16(g.w_rpe) && aligned16(g.bias) && aligned16(g.dtgt) && aligned16(g.drpe)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  constexpr int D = heads_x_bwd::kWidth;
+  heads_x_bwd::Params p{};
+  p.q = static_cast<const bf16*>(g.q);
+  p.g = static_cast<const bf16*>(g.g);
+  p.tgt = static_cast<const bf16*>(g.tgt);
+  p.rpe = static_cast<const bf16*>(g.rpe);
+  p.w_kv = static_cast<const bf16*>(g.w_kv);
+  p.w_rpe = static_cast<const bf16*>(g.w_rpe);
+  p.bias = static_cast<const bf16*>(g.bias);
+  p.invalid = g.invalid;
+  p.dq = static_cast<bf16*>(g.dq);
+  p.pbuf = g.pbuf;
+  p.fac = g.pbuf + static_cast<size_t>(g.n_src) * 2 * heads_x_bwd::kHeads * heads_x_bwd::kX1;
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.scale = g.scale;
+  p.L = pl.L;
+  const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
+  int enc = staged::encode_rows(&p.tm_t, g.tgt, n_rows, D, D, g.n_knn);
+  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, D, D, g.n_knn);
+  if (enc != 0) return enc;
+  const long long n_slots = g.n_src < pl.slots ? g.n_src : pl.slots;
+  const int grid = static_cast<int>(heads_x_bwd::kHeads * n_slots);
+  heads_x_bwd::knarpe_x_bwd_heads_kernel<<<grid, heads_x_bwd::kThreads, p.L.total, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = static_cast<long long>(g.n_src) * ((g.n_knn + heads_x_bwd::kDxRows - 1) / heads_x_bwd::kDxRows);
+  const int dx_grid = static_cast<int>(items < 8LL * pl.n_sm ? items : 8LL * pl.n_sm);
+  heads_x_bwd::knarpe_x_bwd_heads_dx<<<dx_grid, heads_x_bwd::kDxThreads, 0, stream>>>(
+      p.fac, static_cast<bf16*>(g.dtgt), static_cast<bf16*>(g.drpe), g.n_src, g.n_knn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return wgrad_launch<bf16>(g, heads_x_bwd::kHeads, dw_kv, dw_rpe, db, partial, n_chunks, stream);
+}
+
+// bf16 B2-bwd: the staged kernel where it takes the shape; else the heads kernel where it takes the shape; else the
+// general kernel above.
 int bf16_cross(const Params& p, int n_head, void* dw_kv, void* dw_rpe, void* db, float* partial, int n_chunks,
                int dev, cudaStream_t stream) {
   const int code = staged_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
   if (code < 0) return code == -1 ? static_cast<int>(cudaErrorInvalidValue) : -code;
-  if (code != 0) return by_heads<__nv_bfloat16, kCross>(p, n_head, dw_kv, dw_rpe, db, partial, n_chunks, dev, stream);
+  if (code != 0) {
+    const int heads = x_heads_code(p.n_knn, p.d_model, p.d_rpe, n_head, dev);
+    if (heads < 0) return -heads;
+    if (heads == 0) return x_heads_launch(p, dw_kv, dw_rpe, db, partial, n_chunks, dev, stream);
+    return by_heads<__nv_bfloat16, kCross>(p, n_head, dw_kv, dw_rpe, db, partial, n_chunks, dev, stream);
+  }
   switch (n_head) {
     case 1: return staged_launch<1>(p, dw_kv, dw_rpe, db, partial, n_chunks, dev, stream);
     case 2: return staged_launch<2>(p, dw_kv, dw_rpe, db, partial, n_chunks, dev, stream);
@@ -982,28 +1097,12 @@ int bf16_attn(const Params& p, int n_head, void* dw_rpe, void* db, float* partia
   }
 }
 
-}  // namespace
-
-// Device pointers of tensors laid out as in ops/knarpe.py; dtype 0 = float32, 1 = bf16
-// for every operand and gradient. B4 (mode 0) reads k/v rows of D elements at stride
-// ld_kv, writes dk/dv [n_src * K, D] and no dtgt / dw_kv (d_tgt = 0); B2 (mode 1) reads
-// tgt and w_kv and writes dtgt and dw_kv. pbuf is float32 scratch [n_src, 2, H, X + 1],
-// partial float32 scratch [n_chunks, X + 1, 2D] (X = d_tgt + d_rpe); a bf16 B4 launch at a shape
-// knarpe_attn_bwd_heads_route takes needs pbuf n_src * (K * 16 + 16 * R) floats longer (the
-// drpe factors of knarpe_attn_bwd_heads.cuh); n_chunks >= 1 and
-// n_src >= 1. n_head in {1, 2, 4, 8}, d_model even and divisible by n_head (checked by
-// the Python wrapper). dev is the current device, which owns the tensors and the
-// stream. bf16 B2 and B4 at a shape the staged or heads kernel takes need 16-byte aligned
-// operands and outputs (checked by the Python wrapper, which also names the
-// route: knarpe_bwd_staged_route, then knarpe_attn_bwd_heads_route). Three kernels are queued on
-// the stream (four on the heads route: its drpe pass);
-// returns cudaGetLastError(), or cudaErrorInvalidValue for a launch no kernel takes.
-extern "C" int knarpe_bwd_launch(int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
-                                 const void* tgt, const void* rpe, const void* invalid, const void* w_kv,
-                                 const void* w_rpe, const void* bias, const void* g, void* dq, void* dk, void* dv,
-                                 void* dtgt, void* drpe, void* dw_kv, void* dw_rpe, void* db, void* pbuf,
-                                 void* partial, int n_src, int n_knn, int d_model, int d_tgt, int d_rpe,
-                                 int n_head, float scale, int n_chunks, int dev, void* stream) {
+// The body of knarpe_bwd_launch; with general, bf16 takes the general kernel too (knarpe_bwd_general_launch).
+int launch_bwd(bool general, int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
+               const void* tgt, const void* rpe, const void* invalid, const void* w_kv, const void* w_rpe,
+               const void* bias, const void* g, void* dq, void* dk, void* dv, void* dtgt, void* drpe, void* dw_kv,
+               void* dw_rpe, void* db, void* pbuf, void* partial, int n_src, int n_knn, int d_model, int d_tgt,
+               int d_rpe, int n_head, float scale, int n_chunks, int dev, void* stream) {
   // a calling thread with no current context yet (an autograd worker that has issued no CUDA call) gets the
   // device's: cuTensorMapEncodeTiled, which encodes the tensor maps, refuses to run without one
   const cudaError_t set = cudaSetDevice(dev);
@@ -1019,10 +1118,52 @@ extern "C" int knarpe_bwd_launch(int mode, int dtype, const void* q, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
   if (dtype == 0) return by_mode<float>(p, mode, n_head, dw_kv, dw_rpe, db, part, n_chunks, dev, st);
-  if (dtype == 1 && mode == kCross) return bf16_cross(p, n_head, dw_kv, dw_rpe, db, part, n_chunks, dev, st);
-  if (dtype == 1 && mode == kAttn) return bf16_attn(p, n_head, dw_rpe, db, part, n_chunks, dev, st);
-  if (dtype == 1) return by_mode<__nv_bfloat16>(p, mode, n_head, dw_kv, dw_rpe, db, part, n_chunks, dev, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!general && mode == kCross) return bf16_cross(p, n_head, dw_kv, dw_rpe, db, part, n_chunks, dev, st);
+  if (!general && mode == kAttn) return bf16_attn(p, n_head, dw_rpe, db, part, n_chunks, dev, st);
+  return by_mode<__nv_bfloat16>(p, mode, n_head, dw_kv, dw_rpe, db, part, n_chunks, dev, st);
+}
+
+}  // namespace
+
+// Device pointers of tensors laid out as in ops/knarpe.py; dtype 0 = float32, 1 = bf16
+// for every operand and gradient. B4 (mode 0) reads k/v rows of D elements at stride
+// ld_kv, writes dk/dv [n_src * K, D] and no dtgt / dw_kv (d_tgt = 0); B2 (mode 1) reads
+// tgt and w_kv and writes dtgt and dw_kv. pbuf is float32 scratch [n_src, 2, H, X + 1],
+// partial float32 scratch [n_chunks, X + 1, 2D] (X = d_tgt + d_rpe); a bf16 B4 launch at a shape
+// knarpe_attn_bwd_heads_route takes needs pbuf n_src * (K * 16 + 16 * R) floats longer (the
+// drpe factors of knarpe_attn_bwd_heads.cuh), a bf16 B2 launch at a shape knarpe_x_bwd_heads_route
+// takes n_src * (K * 16 + 16 * X) (the dx factors of knarpe_bwd_heads.cuh); n_chunks >= 1 and
+// n_src >= 1. n_head in {1, 2, 4, 8}, d_model even and divisible by n_head (checked by
+// the Python wrapper). dev is the current device, which owns the tensors and the
+// stream. bf16 B2 and B4 at a shape the staged or heads kernel takes need 16-byte aligned
+// operands and outputs (checked by the Python wrapper, which also names the
+// route: knarpe_bwd_staged_route, then knarpe_attn_bwd_heads_route or knarpe_x_bwd_heads_route).
+// Three kernels are queued on the stream (four on the heads routes: the drpe or dx pass);
+// returns cudaGetLastError(), or cudaErrorInvalidValue for a launch no kernel takes.
+extern "C" int knarpe_bwd_launch(int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
+                                 const void* tgt, const void* rpe, const void* invalid, const void* w_kv,
+                                 const void* w_rpe, const void* bias, const void* g, void* dq, void* dk, void* dv,
+                                 void* dtgt, void* drpe, void* dw_kv, void* dw_rpe, void* db, void* pbuf,
+                                 void* partial, int n_src, int n_knn, int d_model, int d_tgt, int d_rpe,
+                                 int n_head, float scale, int n_chunks, int dev, void* stream) {
+  return launch_bwd(false, mode, dtype, q, k, v, ld_kv, tgt, rpe, invalid, w_kv, w_rpe, bias, g, dq, dk, dv, dtgt,
+                    drpe, dw_kv, dw_rpe, db, pbuf, partial, n_src, n_knn, d_model, d_tgt, d_rpe, n_head, scale,
+                    n_chunks, dev, stream);
+}
+
+// knarpe_bwd_launch on the general kernel whatever route the shape takes, so that a measurement can time it beside
+// the staged or heads kernel at the same shape (chip_smoke.py phase 3); the port never calls it.
+extern "C" int knarpe_bwd_general_launch(int mode, int dtype, const void* q, const void* k, const void* v,
+                                         long long ld_kv, const void* tgt, const void* rpe, const void* invalid,
+                                         const void* w_kv, const void* w_rpe, const void* bias, const void* g,
+                                         void* dq, void* dk, void* dv, void* dtgt, void* drpe, void* dw_kv,
+                                         void* dw_rpe, void* db, void* pbuf, void* partial, int n_src, int n_knn,
+                                         int d_model, int d_tgt, int d_rpe, int n_head, float scale, int n_chunks,
+                                         int dev, void* stream) {
+  return launch_bwd(true, mode, dtype, q, k, v, ld_kv, tgt, rpe, invalid, w_kv, w_rpe, bias, g, dq, dk, dv, dtgt,
+                    drpe, dw_kv, dw_rpe, db, pbuf, partial, n_src, n_knn, d_model, d_tgt, d_rpe, n_head, scale,
+                    n_chunks, dev, stream);
 }
 
 // Whether a staged backward takes a bf16 launch at this shape on device dev, given 16-byte aligned
@@ -1046,4 +1187,13 @@ extern "C" int knarpe_bwd_staged_route(int mode, int dtype, int n_knn, int d_mod
 // kernel otherwise.
 extern "C" int knarpe_attn_bwd_heads_route(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
   return attn_heads_code(n_knn, d_model, d_rpe, n_head, dev);
+}
+
+// Whether the heads kernel of knarpe_bwd_heads.cuh takes a bf16 B2 (or B3) backward at this shape on device dev, given
+// 16-byte aligned operands and outputs: 0 if it does, else heads_x_bwd::refusal's code (2: widths other than d_model =
+// d_rpe = 256 with 8 heads; 1: K outside [1, 128]; 3: one source stage exceeds the shared memory; 4: no block fits an
+// SM), or minus a CUDA error. knarpe_bwd_launch runs a bf16 B2 backward that knarpe_bwd_staged_route refuses on the
+// heads kernel where this is 0, and on the general kernel otherwise.
+extern "C" int knarpe_x_bwd_heads_route(int n_knn, int d_model, int d_rpe, int n_head, int dev) {
+  return x_heads_code(n_knn, d_model, d_rpe, n_head, dev);
 }

@@ -53,12 +53,15 @@ backward is B2's, as `pallas_knarpe.py:778-783` has it). The backward also
 takes one of three routes, named by `bwd_route` from the shape alone: "staged"
 for bf16 wherever a staged backward takes the shape
 (`csrc/knarpe_attn_bwd_staged.cuh` for B4, `csrc/knarpe_bwd_staged.cuh` for
-B2 and B3); "heads" for bf16 B4 at the scaled preset's D = R = 256 with 8
-heads (K <= 40), which the staged backward refuses, on
-`csrc/knarpe_attn_bwd_heads.cuh`: four blocks per source, each on two of the
+B2 and B3); "heads" for bf16 at the scaled preset's D = R = 256 with 8 heads,
+which the staged backwards refuse: B4 (K <= 40) on
+`csrc/knarpe_attn_bwd_heads.cuh`, four blocks per source, each on two of the
 eight heads with their quarter of W_rpe, and a second pass that sums drpe
-over the four; and "general" (the kernel of `csrc/knarpe_bwd.cu`) for float32
-and the bf16 shapes they refuse (B2 and B3 with more than 4 heads, B4 with
+over the four; B2 and B3 (K <= 128) on `csrc/knarpe_bwd_heads.cuh`, eight
+blocks per source, each on one head with its columns of [W_kv; W_rpe], and a
+second pass that sums dtgt | drpe over the eight; and "general" (the kernel
+of `csrc/knarpe_bwd.cu`) for float32 and the bf16 shapes they refuse (B2 and
+B3 with more than 4 heads at other widths or K > 128 at D = R = 256, B4 with
 more than 4 heads at other widths or K > 40 at D = R = 256, K > 128, or a
 layout beyond the block's shared memory), with the same alignment checks. For
 tensors on the CPU both directions take the plain versions (the
@@ -87,13 +90,14 @@ _MODES = {"knarpe_attention": 0, "knarpe_cross_attention": 1, "knarpe_cross_atte
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # forward and backward launches by route since the last reset (read by chip_smoke.py); B3's backward
-# counts as B2's; only B2 has the cluster route, only B4, B3 and B4's backward the heads route
+# counts as B2's; only B2 has the cluster route, every kernel but B2's forward the heads route
 ROUTE_LAUNCHES = {**{f"{kernel}/{route}": 0 for kernel in ("knarpe_attention", "knarpe_cross_attention",
                                                            "knarpe_cross_attention_v3", "knarpe_attention_bwd",
                                                            "knarpe_cross_attention_bwd")
                      for route in ("staged", "general")},
                   "knarpe_cross_attention/cluster": 0, "knarpe_attention/heads": 0,
-                  "knarpe_cross_attention_v3/heads": 0, "knarpe_attention_bwd/heads": 0}
+                  "knarpe_cross_attention_v3/heads": 0, "knarpe_attention_bwd/heads": 0,
+                  "knarpe_cross_attention_bwd/heads": 0}
 
 _LAUNCH_FN = None  # the bound C entry points, set once by load_library / load_bwd_library
 _BWD_FN = None
@@ -146,10 +150,18 @@ ATTN_BWD_HEADS_REFUSALS = {
        "device's shared memory per block (K > 40 on an H100)",
     4: "no block of the four a source takes fits a multiprocessor",
 }
+# why the heads bf16 B2 backward (csrc/knarpe_bwd_heads.cuh; B3's backward too) refuses a shape, by the code of
+# `knarpe_x_bwd_heads_route` (`heads_x_bwd::refusal`); such a shape takes the general kernel
+X_BWD_HEADS_REFUSALS = {
+    1: "K must be in [1, 128]: the softmax keeps each head's K / 32 targets per lane in registers",
+    2: "d_model = d_rpe = 256 with 8 heads are the only widths the kernel is compiled for",
+    3: "a head's columns of the weights and one source stage exceed the device's shared memory per block",
+    4: "no block of the eight a source takes fits a multiprocessor",
+}
 # the widths the heads kernels are compiled for: d_model, d_rpe, n_head
 HEADS_WIDTHS = (256, 256, 8)
-# floats of drpe's factors per target and per source of the heads B4 backward (`heads_attn_bwd::fac_floats`): F's
-# [scale dl | attn] and G's [u | w] of two heads in each of the four blocks
+# floats of the factors of the cross-block sum per target and per input column of a source, on both heads backwards
+# (`heads_attn_bwd::fac_floats`, `heads_x_bwd::fac_floats`): F's [scale dl | attn] and G's [u | w] of all eight heads
 HEADS_BWD_FACTORS = 16
 # why the cluster bf16 B2 kernel (csrc/knarpe_cluster.cuh) refuses a shape, by the code of
 # `knarpe_cluster_route` (`cluster_x::refusal`); such a shape takes the general kernel
@@ -371,15 +383,18 @@ def load_bwd_library():
         lib = build.load("knarpe_bwd", "knarpe_bwd.cu")
         lib.knarpe_bwd_staged_route.argtypes = [ctypes.c_int] * 7
         lib.knarpe_bwd_staged_route.restype = ctypes.c_int
-        lib.knarpe_attn_bwd_heads_route.argtypes = [ctypes.c_int] * 5
-        lib.knarpe_attn_bwd_heads_route.restype = ctypes.c_int
+        for fn in (lib.knarpe_attn_bwd_heads_route, lib.knarpe_x_bwd_heads_route):
+            fn.argtypes = [ctypes.c_int] * 5
+            fn.restype = ctypes.c_int
         _BWD_FN = bind_bwd_launch(lib)
     return _BWD_FN
 
 
-def bind_bwd_launch(lib: ctypes.CDLL):
-    """The `knarpe_bwd_launch` C entry point of a built csrc/knarpe_bwd.cu, with its argument types."""
-    fn = lib.knarpe_bwd_launch
+def bind_bwd_launch(lib: ctypes.CDLL, entry: str = "knarpe_bwd_launch"):
+    """The `knarpe_bwd_launch` C entry point of a built csrc/knarpe_bwd.cu (or another of its signature:
+    `knarpe_bwd_general_launch`, the general kernel at any shape, which only measurements bind), with its argument
+    types."""
+    fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -411,31 +426,45 @@ def attn_bwd_staged_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, d
     return _bwd_route_code("knarpe_attention", n_knn, d_model, d_rpe, n_head, device_index)
 
 
+def _bwd_heads_code(entry: str, kernel: str, n_knn: int, d_model: int, d_rpe: int, n_head: int,
+                    device_index: int) -> int:
+    """The built library's answer (`knarpe_attn_bwd_heads_route` or `knarpe_x_bwd_heads_route`) for a bf16 backward
+    launch at the widths the heads backward behind it is compiled for."""
+    load_bwd_library()
+    code = getattr(build.load("knarpe_bwd", "knarpe_bwd.cu"), entry)(n_knn, d_model, d_rpe, n_head, device_index)
+    if code < 0:
+        raise RuntimeError(f"{kernel} backward: planning a launch ({entry}) failed: code {code}")
+    return code
+
+
 @functools.lru_cache(maxsize=None)
 def attn_bwd_heads_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
     """0 if the heads B4 backward takes a bf16 B4 backward at this shape on the card, else the built library's
     refusal code (`ATTN_BWD_HEADS_REFUSALS` says why)."""
-    load_bwd_library()
-    code = build.load("knarpe_bwd", "knarpe_bwd.cu").knarpe_attn_bwd_heads_route(n_knn, d_model, d_rpe, n_head,
-                                                                                device_index)
-    if code < 0:
-        raise RuntimeError(f"knarpe_attention backward: planning a launch (knarpe_attn_bwd_heads_route) failed: "
-                           f"code {code}")
-    return code
+    return _bwd_heads_code("knarpe_attn_bwd_heads_route", "knarpe_attention", n_knn, d_model, d_rpe, n_head,
+                           device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def x_bwd_heads_refusal(n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> int:
+    """0 if the heads B2 backward takes a bf16 B2 (or B3) backward at this shape on the card, else the built library's
+    refusal code (`X_BWD_HEADS_REFUSALS` says why)."""
+    return _bwd_heads_code("knarpe_x_bwd_heads_route", "knarpe_cross_attention", n_knn, d_model, d_rpe, n_head,
+                           device_index)
 
 
 def bwd_route(kernel: str, dtype, n_knn: int, d_model: int, d_rpe: int, n_head: int, device_index: int) -> str:
     """The kernel a backward launch takes, from its shape alone: "staged" in bf16 where the staged backward
-    (of B4, or of B2 and B3) takes the shape; then for bf16 B4 at `HEADS_WIDTHS` "heads" where the heads
-    backward takes it; else "general" (float32, and the bf16 shapes they refuse)."""
+    (of B4, or of B2 and B3) takes the shape; then at `HEADS_WIDTHS` "heads" where the heads backward (of B4, or
+    of B2 and B3) takes it; else "general" (float32, and the bf16 shapes they refuse)."""
     if dtype != torch.bfloat16:
         return "general"
-    if kernel != "knarpe_attention":
-        return "staged" if bwd_staged_refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0 else "general"
-    if attn_bwd_staged_refusal(n_knn, d_model, d_rpe, n_head, device_index) == 0:
+    attn = kernel == "knarpe_attention"
+    staged = attn_bwd_staged_refusal if attn else bwd_staged_refusal
+    if staged(n_knn, d_model, d_rpe, n_head, device_index) == 0:
         return "staged"
-    if (d_model, d_rpe, n_head) == HEADS_WIDTHS and attn_bwd_heads_refusal(n_knn, d_model, d_rpe, n_head,
-                                                                           device_index) == 0:
+    heads = attn_bwd_heads_refusal if attn else x_bwd_heads_refusal
+    if (d_model, d_rpe, n_head) == HEADS_WIDTHS and heads(n_knn, d_model, d_rpe, n_head, device_index) == 0:
         return "heads"
     return "general"
 
@@ -565,8 +594,8 @@ def _launch_bwd(kernel: str, q, k, v, tgt, rpe, invalid, w_kv, w_rpe, b, g, n_he
         return (dq, dk, dv, dtgt, drpe) + tuple(None if t is None else t.zero_() for t in (dw_kv, dw_rpe, db))
     x1 = d_tgt + d_rpe + 1
     n_chunks = bwd_chunks(n_src, x1, d_model, n_head)
-    # the heads route also keeps drpe's factors in pbuf, past its rows
-    factors = n_src * HEADS_BWD_FACTORS * (n_knn + d_rpe) if way == "heads" else 0
+    # the heads routes also keep the cross-block sum's factors in pbuf, past its rows (B4: drpe's; B2: dtgt | drpe's)
+    factors = n_src * HEADS_BWD_FACTORS * (n_knn + d_tgt + d_rpe) if way == "heads" else 0
     pbuf = empty(n_src * 2 * n_head * x1 + factors, dt=torch.float32)
     partial = empty(n_chunks * x1 * 2 * d_model, dt=torch.float32)
     launch = load_bwd_library()

@@ -37,8 +37,10 @@ autograd Function at the same shapes (only the backward library differs between
 the sides), and the B4 backward at the training path's [8·1024, K=32]; then the
 scaled preset's training shapes, the B4 backward at [1·1024, K=32, D=R=256,
 H=8] (this tree's heads route against, say, the parent's general kernel) and
-the B2 backward (and B3's) at [1·64, K=89, D=R=256, H=8] (numpy seed 1, 30 % of
-targets invalid, one source with none); each side's gradients
+the B2 backward (and B3's) at the agent decoder's [1·64, K=89, D=R=256, H=8] and
+the posterior TL encoder's [1·128, K=24] (this tree's heads route against, say,
+the parent's general kernel) (numpy seed 1, 30 % of targets invalid, one source
+with none); each side's gradients
 against the float32 plain backward (`*_bwd_reference`), as the largest |error|
 over all six gradients relative to that gradient's largest magnitude. With `--split`, each backward case is also traced by `torch.profiler`
 through each side's library: its device time per kernel, averaged over 20
@@ -93,7 +95,8 @@ BWD_CASES = [("knarpe_cross_attention", "train", (8, 64, 89, 128, 128, 4)),
              ("knarpe_cross_attention", "post_tl", (8, 128, 24, 128, 128, 4)),
              ("knarpe_attention", "train", (8, 1024, 32, 128, 128, 4)),
              ("knarpe_attention", "scaled_train", (1, 1024, 32, 256, 256, 8)),
-             ("knarpe_cross_attention", "scaled_train", (1, 64, 89, 256, 256, 8))]
+             ("knarpe_cross_attention", "scaled_train", (1, 64, 89, 256, 256, 8)),
+             ("knarpe_cross_attention", "scaled_post_tl", (1, 128, 24, 256, 256, 8))]
 ORDER = ("other", "this", "this", "other")
 
 
