@@ -93,13 +93,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      new B4 shape: the RNN agent self-attention is dense at 64 agents);
      the variants' (phase 18): bf16 B2 on the staged route at the stop lines'
      [4·50, K=24] and [8·50, K=24] and B2-bwd at [8·50, K=24], each timed;
-     and the 4-wide RPE of pose_rpe "xy_dir" (d_rpe = 4, which the staged,
-     cluster and heads kernels refuse): B4 at [1·512, K=4, D=64, H=2] and
-     [4·1024, K=32, D=128, H=4], B2 at [2·16, K=11], [1·16, K=3] (D=64, H=2),
-     [128·64, K=89] and [8·64, K=89] (D=128, H=4), B4-bwd at [1·512, K=4] and
-     [8·1024, K=32], B2-bwd at [1·16, K=11], [1·16, K=3] and [8·64, K=89],
-     float32 and bf16 against the plain versions, the route asserted general,
-     each timed;
+     and the 4-wide RPE of pose_rpe "xy_dir" (d_rpe = 4): B4 at [1·512, K=4,
+     D=64, H=2], [4·1024, K=32, D=128, H=4] and [8·1024, K=32] and B4-bwd
+     at [1·512, K=4] and [8·1024, K=32] on the general route (their staged
+     kernels refuse d_rpe % 16, the heads kernels take D=R=256 only); B2 at
+     [2·16, K=11], [1·16, K=3] (D=64, H=2), [128·64, K=89], [8·64, K=89]
+     and [8·128, K=24] (D=128, H=4) and B2-bwd at [1·16, K=11], [1·16, K=3], [8·64, K=89] and [8·128, K=24]
+     on the staged route (rpe zero-padded to 16 columns in shared memory),
+     with the edge shapes [3·7, K=5, D=16, H=1], [1·1, K=1] and [1·8199,
+     K=89] forward and backward, B3 at the forward's shapes and B3's Function
+     at [8·64, K=89] on it too, and eight heads [1·33, K=89, D=64] (one group
+     of warps a block forward, the general backward); float32 and bf16
+     against the plain versions, the route asserted, B4, B2 and their
+     backwards timed at their shapes, B2 and B2-bwd with the general kernel's
+     time beside them (`knarpe_general_launch`, `knarpe_bwd_general_launch`);
   4. slice checked: a reduced-depth float32 config whose map has 512
      polylines runs `joint_future_pred` (check_level=1) on the card and on
      the CPU with the same weights, once with use_pallas=False and once with
@@ -322,7 +329,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      (`VARIANT_ARMS`), all with use_pallas: cat + stop + stacked (the learned
      prior's B2), std_cat + InputEncoder "input" + pose_rpe "pe_xy_dir" +
      apply_q_rpe (no B2 or B4 launched), and pose_rpe "xy_dir" (B4 and B2 at
-     d_rpe = 4, all on the general route);
+     d_rpe = 4, float32, so on the general route); (c) `leaderboard_config()`
+     with pose_rpe "xy_dir" (a 4-wide RPE) and use_pallas, nothing else cut,
+     random seed-0 weights: joint_future_pred 4 scenarios x K=32 at level 1
+     (one call, checked and timed, a first call: B1 90, B4 8 at [4·1024,
+     K=32, R=4] general, B2 360 at [128·64, K=89, R=4] staged) and one
+     training step at batch 8 (a first step: B1 181, B4 and B4-bwd 8
+     general, B2 728 (720 at [8·64, K=89], 8 posterior: 4 there and 4 at
+     [8·128, K=24]) and B2-bwd 368 (364 and 4) staged), by full shape and
+     route, none of B2's or B2-bwd's on the general route; seconds, peak
+     memory and throughputs;
  19. the scene-centric model, token dedup and the last options: (a)
      `leaderboard_config()` with pairwise_relative=False and use_pallas,
      nothing else cut, random seed-0 weights: joint_future_pred 4 scenarios x
@@ -384,8 +400,10 @@ row's `serve_launches` per reset and per step of each phase 14 arm, by route; an
 and (c) step, B1's and B2's and B2-bwd's `rnn_shapes` timings, and `rnn`, phase 16's seconds, peak memory and
 throughputs; every row's `navi_launches` per phase 17 (b) call, B2's and B2-bwd's `navi_shapes`
 timings, and `navi`, phase 17's seconds, peak memory, throughputs and re-predictions; every row's `variant_launches`
-per phase 18 (a) call and step, by route, B2's and B2-bwd's `variant_shapes` and B4's, B2's and their backwards'
-`rpe4_shapes` timings (d_rpe = 4, general route), and `variants`, phase 18's seconds, peak memory and throughputs;
+per phase 18 (a) call and step, by route, and per (c) call and step (`xy_dir_*`), B2's and B2-bwd's `variant_shapes`
+and B4's, B2's and their backwards' `rpe4_shapes` timings (d_rpe = 4: B2 and B2-bwd on the staged route with the
+general kernel's time beside them, B4 and B4-bwd general), each with its launches per (c) call and step, and
+`variants`, phase 18's seconds, peak memory and throughputs, (c)'s as `xy_dir`;
 every row's `scene_centric_launches` per phase 19 (a) call and step and per (b) dedup call, and `scene_centric`, phase
 19's seconds, peak memory, throughputs and the dedup comparison; every row's `profiled_fit_launches` per phase
 20 (a) fit step, and `profiling`, phase 20's trace summaries: events, bytes, busy and idle shares, seconds), the card
@@ -493,15 +511,24 @@ NAVI_TRAIN_X = [(8, 64, 32, 128, 128, 4)]
 # a training step at batch 8 launches B2 and B2-bwd at [8·50, K=24] in the posterior's and the prior's TL encoders
 VARIANT_X = [(4, 50, 24, 128, 128, 4), (8, 50, 24, 128, 128, 4)]
 VARIANT_TRAIN_X = [(8, 50, 24, 128, 128, 4)]
-# the 4-wide RPE of pose_rpe "xy_dir" (phase 18 (b)): the staged kernels refuse d_rpe % 16 (code 2), the cluster and
-# heads kernels take only D=R=256, so every such launch takes the general route of csrc/knarpe.cu and
-# csrc/knarpe_bwd.cu. The phase-4 config's shapes (hidden 64, 2 heads, n_tgt_knn 4: B4 over 512 polylines at K=4, B2
-# over 2 futures x 16 agents at K=11 and the posterior TL's 16 lanes at K=3; a training step's at batch 1) and the
-# flagship's widths (D=128, H=4) at its eval and training shapes
-RPE4_ATTN = [(1, 512, 4, 64, 4, 2), (4, 1024, 32, 128, 4, 4)]
-RPE4_X = [(2, 16, 11, 64, 4, 2), (1, 16, 3, 64, 4, 2), (128, 64, 89, 128, 4, 4), (8, 64, 89, 128, 4, 4)]
+# the 4-wide RPE of pose_rpe "xy_dir" (phase 18 (b) at the phase-4 config in float32, (c) at the flagship's widths in
+# bf16): bf16 B2 and B2-bwd (B3's too) take the staged route of csrc/knarpe_staged.cuh and csrc/knarpe_bwd_staged.cuh,
+# rpe zero-padded there to 16 columns; B4 and B4-bwd the general route of csrc/knarpe.cu and csrc/knarpe_bwd.cu (their
+# staged kernels refuse d_rpe % 16, code 2, the heads kernels take only D=R=256). The phase-4 config's shapes (hidden
+# 64, 2 heads, n_tgt_knn 4: B4 over 512 polylines at K=4, B2 over 2 futures x 16 agents at K=11 and the posterior TL's
+# 16 lanes at K=3; a training step's at batch 1) and the flagship's widths (D=128, H=4) at its eval and training shapes
+# and the posterior TL encoder's [8·128, K=24]
+RPE4_ATTN = [(1, 512, 4, 64, 4, 2), (4, 1024, 32, 128, 4, 4), (8, 1024, 32, 128, 4, 4)]
+RPE4_X = [(2, 16, 11, 64, 4, 2), (1, 16, 3, 64, 4, 2), (128, 64, 89, 128, 4, 4), (8, 64, 89, 128, 4, 4),
+          (8, 128, 24, 128, 4, 4)]
 RPE4_ATTN_BWD = [(1, 512, 4, 64, 4, 2), (8, 1024, 32, 128, 4, 4)]
-RPE4_X_BWD = [(1, 16, 11, 64, 4, 2), (1, 16, 3, 64, 4, 2), (8, 64, 89, 128, 4, 4)]
+RPE4_X_BWD = [(1, 16, 11, 64, 4, 2), (1, 16, 3, 64, 4, 2), (8, 64, 89, 128, 4, 4), (8, 128, 24, 128, 4, 4)]
+# and the staged route's edge shapes at d_rpe = 4, forward and backward: one head at D=16, K=5; K=1 at a single
+# source (all invalid); 8192 + 7 sources at the flagship's widths (no multiple of the grid). Each takes two groups of
+# warps a block in the forward; eight heads take one (staged::group_count), and the general backward (the staged
+# backward takes up to 4 heads)
+RPE4_X_EDGE = [(3, 7, 5, 16, 4, 1), (1, 1, 1, 64, 4, 2), (1, 8199, 89, 128, 4, 4)]
+RPE4_X_EIGHT_HEADS = (1, 33, 89, 64, 4, 8)
 # edge cases: an all-invalid and a one-target source in each; source counts that are
 # no multiple of any tile; odd K; one and eight heads
 X_EDGE = [(3, 7, 5, 16, 16, 2), (1, 33, 89, 32, 16, 8)]
@@ -913,11 +940,19 @@ def check_knarpe_kernels() -> list:
                 log(f"  {name} {list(shape)}: the heads kernel refuses it with code {got} "
                     f"({knarpe.V3_HEADS_REFUSALS[got]}), so it takes the general route")
                 check_one_knarpe(name, shape, seed=40 + i, want_route="general")
-        if name != "knarpe_cross_attention_v3":  # d_rpe = 4 (pose_rpe "xy_dir") on the general route, each timed
-            rpe4 = RPE4_ATTN if name == "knarpe_attention" else RPE4_X
-            errs = [check_one_knarpe(name, shape, seed=100 + i, want_route="general") for i, shape in enumerate(rpe4)]
-            row["rpe4_shapes"] = [{"shape": list(shape), "max_abs_err": err[0], "bf16_max_abs_err": err[1],
-                                   **time_knarpe(name, shape)} for shape, err in zip(rpe4, errs)]
+        # d_rpe = 4 (pose_rpe "xy_dir"): B4 on the general route, B2 and B3 on the staged route (its edge shapes
+        # too); B4 and B2 timed at their shapes, B2 with the general kernel's time beside it (B3 is on no model path)
+        attn = name == "knarpe_attention"
+        way, rpe4 = ("general", RPE4_ATTN) if attn else ("staged", RPE4_X)
+        errs = [check_one_knarpe(name, shape, seed=100 + i, want_route=way)
+                for i, shape in enumerate(rpe4 + ([] if attn else RPE4_X_EDGE + [RPE4_X_EIGHT_HEADS]))]
+        if name == "knarpe_cross_attention_v3":
+            row["rpe4_bf16_max_abs_err"] = max(err[1] for err in errs)
+        else:
+            row["rpe4_shapes"] = [{"shape": list(shape), "route": way, "max_abs_err": err[0],
+                                   "bf16_max_abs_err": err[1], **time_knarpe(name, shape),
+                                   **({} if attn else time_general_fwd(name, shape))}
+                                  for shape, err in zip(rpe4, errs)]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, **row})
     return rows
@@ -1130,6 +1165,24 @@ def time_knarpe_bwd(name: str, shape) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
+def time_general_fwd(name: str, shape) -> dict:
+    """The general forward kernel's time (eager and device, `knarpe_general_launch`) at a B2 shape whose route is
+    another: the yardstick of the kernel that replaced it there, timed as `time_knarpe` times that one."""
+    n_head = shape[-1]
+    args = knarpe_inputs(shape, True, seed=1, dtype=torch.bfloat16)
+    kernel = lambda: getattr(knarpe, name)(*args, n_head)
+    general = knarpe.bind_launch(build.load("knarpe", "knarpe.cu"), "knarpe_general_launch")
+    real = knarpe.load_library()
+    knarpe._LAUNCH_FN = general
+    try:
+        ms, device_ms = cuda_ms(kernel, 50), graph_ms(kernel)
+    finally:
+        knarpe._LAUNCH_FN = real
+    log(f"  {name} at {list(shape)} bf16 on the general kernel (knarpe_general_launch): {ms:.4f} ms "
+        f"({device_ms:.4f} ms of device time, launched from a CUDA graph)")
+    return {"general_ms": ms, "general_device_ms": device_ms}
+
+
 def time_general_bwd(name: str, shape) -> dict:
     """The general backward kernel's time (eager and device, `knarpe_bwd_general_launch`) at a shape whose route is
     another: the yardstick of the kernel that replaced it there, timed as `time_knarpe_bwd` times that one."""
@@ -1203,16 +1256,22 @@ def check_knarpe_bwd_kernels() -> list:
                 log(f"  {name} backward {list(shape)}: the heads kernel refuses it with code {got} "
                     f"({knarpe.X_BWD_HEADS_REFUSALS[got]}), so it takes the general route")
                 check_one_knarpe_bwd(name, shape, seed=65 + i, want_route="general")
-        rpe4 = RPE4_X_BWD if cross else RPE4_ATTN_BWD  # d_rpe = 4 (pose_rpe "xy_dir") on the general route
-        rpe4_errs = [check_one_knarpe_bwd(name, shape, seed=110 + i, want_route="general", halves=not cross)
-                     for i, shape in enumerate(rpe4)]
+        # d_rpe = 4 (pose_rpe "xy_dir"): B2-bwd on the staged route (its edge shapes too, and B3's Function at the
+        # flagship's training shape), B4-bwd on the general route
+        way, rpe4 = ("staged", RPE4_X_BWD) if cross else ("general", RPE4_ATTN_BWD)
+        rpe4_errs = [check_one_knarpe_bwd(name, shape, seed=110 + i, want_route=way, halves=not cross)
+                     for i, shape in enumerate(rpe4 + (RPE4_X_EDGE if cross else []))]
+        if cross:
+            check_one_knarpe_bwd("knarpe_cross_attention_v3", RPE4_X_BWD[2], seed=120, want_route="staged")
+            check_one_knarpe_bwd(name, RPE4_X_EIGHT_HEADS, seed=121, want_route="general")
         row = time_knarpe_bwd(name, path)
         source = "trafficbotsv15_tpu_torch/csrc/knarpe_bwd_staged.cuh" if cross else \
             "trafficbotsv15_tpu_torch/csrc/knarpe_attn_bwd_staged.cuh"
         rows.append({"name": f"{name}_bwd", "route": "cuda", "source": source, "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, **row})
-        rows[-1]["rpe4_shapes"] = [{"max_abs_err": err[0], "bf16_max_abs_err": err[1],
-                                    **timed_on(name, shape, "general")} for shape, err in zip(rpe4, rpe4_errs)]
+        rows[-1]["rpe4_shapes"] = [{"route": way, "max_abs_err": err[0], "bf16_max_abs_err": err[1],
+                                    **timed_on(name, shape, way), **(time_general_bwd(name, shape) if cross else {})}
+                                   for shape, err in zip(rpe4, rpe4_errs)]
         if cross:
             rows[-1]["post_tl_shape"] = {"shape": list(POST_TL_X_PATH), **time_knarpe_bwd(name, POST_TL_X_PATH)}
             # the heads route at the scaled training path's two shapes, the general kernel's time there beside it
@@ -3892,9 +3951,11 @@ def variant_full_shapes(cfg, n_sc: int, rows: int, train: bool) -> tuple:
     layer; each learned latent head (the prior at eval; the posterior and the prior in training) runs its encoders
     once: one KNN, B2 per TL layer over the TL tokens' K nearest map polylines and per agent layer at K=89. The main
     TL encoder attends over its static K/V, and the TL and agent self-attentions are dense (at most dense_knn_max
-    tokens): no kernel. Each forward outside a recompute has one backward."""
+    tokens): no kernel. Each forward outside a recompute has one backward. pose_rpe "xy_dir"'s RPE is 4 wide: its B4
+    and B4-bwd take the general route, its B2 and B2-bwd the staged route."""
     m, n, bf = cfg.model, cfg.time_step_end, str(torch.bfloat16)
     n_ag, n_mp, d, h = cfg.data.n_ag, cfg.data.n_mp, m.hidden_dim, m.tf_cfg.n_head
+    r = 4 if m.pose_rpe.mode == "xy_dir" else d
     n_tl = cfg.data.n_tl_stop if m.tl_mode == "stop" else cfg.data.n_tl_lane
     if max(n_ag, n_tl) > m.tf_cfg.dense_knn_max:
         raise AssertionError("the variant configs keep the TL and agent self-attentions dense")
@@ -3902,7 +3963,7 @@ def variant_full_shapes(cfg, n_sc: int, rows: int, train: bool) -> tuple:
     k_dec = k_mp + int(m.n_tgt_knn * m.ag_encoder.k_tgt_knn_ag2tl)
     k_tl = int(m.n_tgt_knn * m.tl_encoder.k_tgt_knn_tl2mp)
     lay_ag, lay_tl, lay_mp = m.ag_encoder.n_layer_tf, m.tl_encoder.n_layer_tf, m.mp_encoder.n_layer_tf
-    x = lambda kernel, b, s_, k: (kernel, bf, b, s_, k, d, d, h)  # noqa: E731
+    x = lambda kernel, b, s_, k: (kernel, bf, b, s_, k, d, r, h)  # noqa: E731
     rep, latents = (2 if train else 1), _learned_latents(cfg, train)
     want = collections.Counter({("knn_xy", rows, n_ag, n_mp, k_mp): rep * n,
                                 x("knarpe_cross_attention", rows, n_ag, k_dec): rep * lay_ag * n,
@@ -3917,8 +3978,8 @@ def variant_full_shapes(cfg, n_sc: int, rows: int, train: bool) -> tuple:
     routes = collections.Counter()
     for key, v in want.items():
         if key[0] != "knn_xy":
-            routes[f"{key[0]}/staged"] += v
-    return dict(want), dict(routes)
+            routes[f"{key[0]}/{'general' if r == 4 and key[0].startswith('knarpe_attention') else 'staged'}"] += v
+    return {key: v for key, v in want.items() if v}, {key: v for key, v in routes.items() if v}
 
 
 @contextlib.contextmanager
@@ -3960,8 +4021,9 @@ def run_variant_phase(card: str) -> dict:
     use_pallas, seed-0 weights: joint_future_pred 4 scenarios x K=32 at level 1 (one call, checked and timed, a first
     call) and one training step at batch 8 (a first step), their launches by full shape and route, each at a shape
     phase 3 checked; the K0 latent the prior's argmax one-hot, and the std_cat tie's first class on the card; (b) the
-    phase-4 config card vs CPU in float32 (`CARD_VS_CPU[18]`). -> {"eval": launches per (a) call, "train": per (a)
-    step, by kernel, and by route; seconds, peak memory, throughputs}."""
+    phase-4 config card vs CPU in float32 (`CARD_VS_CPU[18]`); (c) pose_rpe "xy_dir" at the flagship's widths
+    (`run_xy_dir_arm`). -> {"eval": launches per (a) call, "train": per (a) step, by kernel, and by route; seconds,
+    peak memory, throughputs; "xy_dir": (c)'s}."""
     from trafficbotsv15_tpu_torch.ops.distributions import MultiCategorical
 
     t0 = time.perf_counter()
@@ -4038,12 +4100,96 @@ def run_variant_phase(card: str) -> dict:
     if not all(math.isfinite(v) and v != 0 for v in (loss, kl, gnorm)):
         raise AssertionError(f"(a) variant training step: loss {loss}, KL {kl}, grad_norm {gnorm}")
     out.update(train_seconds=train_sec, train_peak_gib=peak_gib(), train=launches(), train_by_route=routes,
-               train_samples_per_s=n_train / train_sec, seconds=time.perf_counter() - t0, card=card)
+               train_samples_per_s=n_train / train_sec)
     log(f"  (a) the same config's training step: {n_train} scenarios, a first step {train_sec:.4f} s "
         f"({n_train / train_sec:.3f} train samples/s), peak memory {out['train_peak_gib']:.2f} GiB, loss {loss:.6f}, "
         f"KL {kl:.6f}, grad_norm {gnorm:.6f}; launches {out['train']} by full shape {dict(shapes + bwd_shapes)}, by "
         f"route {routes}, every shape checked in phase 3 [{card}]")
+    del step, model, tbatch
+    torch.cuda.empty_cache()
+    out["xy_dir"] = run_xy_dir_arm(card)
+    out.update(seconds=time.perf_counter() - t0, card=card)
     log(f"  phase 18 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def check_rpe4_shapes(where: str, shapes, want: dict) -> None:
+    """A phase 18 (c) call's or step's launches by full shape are exactly `want`, each at a shape phase 3 checked on
+    the route `variant_full_shapes` names (B2 and B2-bwd at d_rpe = 4 staged, B4 and B4-bwd general)."""
+    bf = str(torch.bfloat16)
+    checked = {("knn_xy", *case[:4]) for case in KNN_CASES.values()}
+    for kernel, shapes_ in (("knarpe_attention", RPE4_ATTN), ("knarpe_attention_bwd", RPE4_ATTN_BWD),
+                            ("knarpe_cross_attention", RPE4_X), ("knarpe_cross_attention_bwd", RPE4_X_BWD)):
+        checked |= {(kernel, bf, *s_) for s_ in shapes_}
+    check_full_shapes(where, shapes, want, checked)
+
+
+def run_xy_dir_arm(card: str) -> dict:
+    """Phase 18 (c): `leaderboard_config()` with pose_rpe "xy_dir" (a 4-wide RPE) and use_pallas, nothing else cut,
+    seed-0 weights: joint_future_pred 4 scenarios x K=32 at level 1 (one call, checked and timed, a first call) and one
+    training step at batch 8 (a first step), their launches by full shape and route (`variant_full_shapes`: every B2
+    and B2-bwd at d_rpe = 4 on the staged route, none general; B4 and B4-bwd general), each at a shape phase 3
+    checked. -> {"eval": launches per call, "train": per step, by kernel, and by route; seconds, peak memory,
+    throughputs}."""
+    t0 = time.perf_counter()
+    cfg = variant_of(with_pallas(leaderboard_config(), True), "xy_dir")
+    n_sc, k = 4, cfg.n_joint_future_wosac
+    n_ag, n_step = cfg.data.n_ag, cfg.time_step_end
+    batch = make_batch(cfg.data, n_sc=n_sc, seed=0)
+    model = build_model(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    want, want_routes = variant_full_shapes(cfg, n_sc, n_sc * k, train=False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes:
+        _, buf = joint_future_pred(cfg, model, batch, generator=torch.Generator().manual_seed(0), check_level=1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    check_rpe4_shapes("(c) xy_dir eval call", shapes, want)
+    routes = {key: v for key, v in knarpe.ROUTE_LAUNCHES.items() if v}
+    if routes != want_routes or routes.get("knarpe_cross_attention/general"):
+        raise AssertionError(f"(c) xy_dir eval call: launches by route {routes}, expected {want_routes}")
+    out = {"eval": launches(), "eval_by_route": routes, "eval_by_shape": dict(shapes)}
+    finite = torch.isfinite(buf.pred_pose).all() and torch.isfinite(buf.log_prob).all()
+    if tuple(buf.pred_pose.shape) != (n_sc, k, n_ag, n_step, 3) or not finite:
+        raise AssertionError(f"(c) xy_dir eval call: pred_pose {tuple(buf.pred_pose.shape)} or not finite")
+    agent_steps = n_sc * k * n_ag * (n_step - cfg.time_step_current)
+    out.update(eval_seconds=sec, eval_peak_gib=peak_gib(), eval_agent_steps_per_s=agent_steps / sec)
+    log(f"  (c) leaderboard_config pose_rpe=xy_dir (d_rpe = 4), use_pallas=True, check_level=1 joint_future_pred: "
+        f"{n_sc} scenarios x K={k}, {n_ag} agents, {cfg.data.n_mp} polylines, {n_step} steps, {n_params} parameters, "
+        f"bf16: one call, checked and timed (a first call) {sec:.4f} s, {agent_steps / sec:.1f} agent-steps/s, peak "
+        f"memory {out['eval_peak_gib']:.2f} GiB; launches {out['eval']} by full shape {dict(shapes)}, by route "
+        f"{routes}, every shape checked in phase 3 [{card}]")
+    del buf
+    n_train = 8
+    step = train_lib.make_train_step(cfg, model, *make_optimizer(cfg.optimizer, model.named_parameters()))
+    tbatch = train_lib.batch_to_device(make_batch(cfg.data, n_sc=n_train, seed=0), torch.device("cuda"))
+    want, want_routes = variant_full_shapes(cfg, n_train, n_train, train=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    with recorded_launch_shapes() as shapes, recorded_bwd_launches() as (bwd_shapes, _):
+        metrics = {key: float(v) for key, v in step(tbatch, torch.Generator().manual_seed(0)).items()}
+    torch.cuda.synchronize()
+    train_sec = time.perf_counter() - t1
+    check_rpe4_shapes("(c) xy_dir training step", shapes + bwd_shapes, want)
+    routes = {key: v for key, v in knarpe.ROUTE_LAUNCHES.items() if v}
+    if (routes != want_routes or routes.get("knarpe_cross_attention/general")
+            or routes.get("knarpe_cross_attention_bwd/general")):
+        raise AssertionError(f"(c) xy_dir training step: launches by route {routes}, expected {want_routes}")
+    loss, gnorm = metrics["training/loss"], metrics["grad_norm"]
+    if not all(math.isfinite(v) and v != 0 for v in (loss, gnorm)):
+        raise AssertionError(f"(c) xy_dir training step: loss {loss}, grad_norm {gnorm}")
+    out.update(train=launches(), train_by_route=routes, train_by_shape=dict(shapes + bwd_shapes), train_seconds=train_sec,
+               train_peak_gib=peak_gib(), train_samples_per_s=n_train / train_sec,
+               seconds=time.perf_counter() - t0)
+    log(f"  (c) the same config's training step: {n_train} scenarios, a first step {train_sec:.4f} s "
+        f"({n_train / train_sec:.3f} train samples/s), peak memory {out['train_peak_gib']:.2f} GiB, loss {loss:.6f}, "
+        f"grad_norm {gnorm:.6f}; launches {out['train']} by full shape {dict(shapes + bwd_shapes)}, by route {routes}, "
+        f"every shape checked in phase 3; (c) {out['seconds']:.1f} s [{card}]")
+    del step, model, tbatch
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4615,7 +4761,7 @@ def main() -> int:
 
     header("[18/20] the variants: categorical latents with a learned prior, stop-line TL tokens and the stacked TL "
            "input at full width, joint_future_pred and a training step through the kernels; every input, TL, pose "
-           "and latent variant card vs CPU at the phase-4 config")
+           "and latent variant card vs CPU at the phase-4 config; pose_rpe xy_dir (d_rpe = 4) at full width")
     variants = run_variant_phase(card)
 
     header("[19/20] the scene-centric model at full width, joint_future_pred and a training step (no kernel); token "
@@ -4676,10 +4822,19 @@ def main() -> int:
     for row in rows + bwd_rows:  # per phase 16 (a) call and (c) step, per phase 17 (b) call, per phase 18 (a) call
         row["rnn_launches"] = {"eval_call": rnn["eval"][row["name"]], "train_step": rnn["train"][row["name"]]}
         row["navi_launches"] = {"eval_call": navi["eval"][row["name"]]}
+        xy_dir = variants["xy_dir"]  # and per phase 18 (c) call and step (pose_rpe "xy_dir", d_rpe = 4)
         row["variant_launches"] = {"eval_call": variants["eval"][row["name"]],  # and step, by route
                                    "train_step": variants["train"][row["name"]],
                                    "eval_call_by_route": by_route(variants["eval_by_route"], row["name"]),
-                                   "train_step_by_route": by_route(variants["train_by_route"], row["name"])}
+                                   "train_step_by_route": by_route(variants["train_by_route"], row["name"]),
+                                   "xy_dir_eval_call": xy_dir["eval"][row["name"]],
+                                   "xy_dir_train_step": xy_dir["train"][row["name"]],
+                                   "xy_dir_eval_call_by_route": by_route(xy_dir["eval_by_route"], row["name"]),
+                                   "xy_dir_train_step_by_route": by_route(xy_dir["train_by_route"], row["name"])}
+        for part in row.get("rpe4_shapes", []):  # each d_rpe = 4 shape's launches per (c) call and step
+            key = (row["name"], str(torch.bfloat16), *part["shape"])
+            part["launches"] = {"xy_dir_eval_call": xy_dir["eval_by_shape"].get(key, 0),
+                                "xy_dir_train_step": xy_dir["train_by_shape"].get(key, 0)}
         row["scene_centric_launches"] = {"eval_call": scene["eval"][row["name"]],  # phase 19 (a) and (b)
                                          "train_step": scene["train"][row["name"]],
                                          "dedup_eval_call": scene["dedup"][row["name"]]}
@@ -4697,7 +4852,9 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "parallel": parallel,
                       "rnn": {k: v for k, v in rnn.items() if k not in ("eval", "train")},
                       "navi": {k: v for k, v in navi.items() if k != "eval"},
-                      "variants": {k: v for k, v in variants.items() if k not in ("eval", "train")},
+                      "variants": {**{k: v for k, v in variants.items() if k not in ("eval", "train", "xy_dir")},
+                                   "xy_dir": {k: v for k, v in variants["xy_dir"].items()
+                                              if k not in ("eval", "train", "eval_by_shape", "train_by_shape")}},
                       "scene_centric": {k: v for k, v in scene.items() if k not in ("eval", "train", "dedup")},
                       "profiling": {"fit": {k: v for k, v in profiled["fit"].items() if k != "launches_per_step"},
                                     **{k: v for k, v in profiled.items() if k != "fit"}}}))

@@ -432,3 +432,93 @@ def test_launch_bwd_raises_for_misaligned_bf16_attention_operands_on_the_heads_r
         monkeypatch.setattr(knarpe, "load_bwd_library", no_card)
         with pytest.raises(RuntimeError, match="no card"):
             call()
+
+
+# pose_rpe "xy_dir"'s 4-wide RPE at the flagship's widths (K=89, D=128, H=4) and the phase-4 config's (K=11, D=64, H=2)
+RPE4_SHAPES = [(89, 128, 4, 4), (11, 64, 4, 2)]
+R_NARROW = 4
+
+
+def _fake_fwd_routes(monkeypatch, staged, cluster=2, general=0):
+    """Fake the built library's answers for a bf16 B2/B3 forward (`staged_refusal`, `cluster_refusal`,
+    `v3_heads_refusal`, `general_refusal`); -> the calls, in order."""
+    asked = []
+
+    def answer(which, code):
+        def fn(*shape):
+            asked.append((which, *shape))
+            return code
+        return fn
+
+    monkeypatch.setattr(knarpe, "staged_refusal", answer("staged", staged))
+    monkeypatch.setattr(knarpe, "cluster_refusal", answer("cluster", cluster))
+    monkeypatch.setattr(knarpe, "v3_heads_refusal", answer("heads", cluster))
+    monkeypatch.setattr(knarpe, "general_refusal", answer("general", general))
+    return asked
+
+
+@pytest.mark.parametrize("name", ["knarpe_cross_attention", "knarpe_cross_attention_v3"])
+@pytest.mark.parametrize("shape", RPE4_SHAPES)
+def test_route_sends_bf16_b2_at_rpe4_to_the_staged_kernel(name, shape, monkeypatch):
+    """bf16 B2 (and B3) at d_rpe = 4 takes the staged kernel where the library's answer is 0, asked from the shape
+    alone with the 4-wide rpe; neither the cluster nor the general kernel is asked."""
+    asked = _fake_fwd_routes(monkeypatch, staged=0)
+    assert knarpe.route(name, torch.bfloat16, *shape, 0) == "staged"
+    assert asked == [("staged", name, *shape, 0)]
+
+
+@pytest.mark.parametrize("shape", RPE4_SHAPES)
+def test_bwd_route_sends_bf16_b2_at_rpe4_to_the_staged_kernel(shape, monkeypatch):
+    """bf16 B2-bwd (B3's backward too) at d_rpe = 4 takes the staged backward where the library's answer is 0."""
+    asked = _fake_bwd_route(monkeypatch, [0])
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, *shape, 0) == "staged"
+    assert knarpe.bwd_route("knarpe_cross_attention_v3", torch.bfloat16, *shape, 0) == "staged"
+    assert asked == [(*shape, 0)] * 2
+
+
+@pytest.mark.parametrize("shape", RPE4_SHAPES)
+def test_float32_at_rpe4_takes_the_general_kernels(shape, monkeypatch):
+    """float32 B2, B3 and their backward at d_rpe = 4 take the general kernels without asking the library."""
+    asked = _fake_fwd_routes(monkeypatch, staged=0)
+    asked_bwd = _fake_bwd_route(monkeypatch, [0])
+    for name in ("knarpe_cross_attention", "knarpe_cross_attention_v3"):
+        assert knarpe.route(name, torch.float32, *shape, 0) == "general"
+        assert knarpe.bwd_route(name, torch.float32, *shape, 0) == "general"
+    assert asked == [] and asked_bwd == []
+
+
+@pytest.mark.parametrize("d_rpe", [8, 12, 20])
+def test_a_narrow_width_the_staged_route_refuses_says_why(d_rpe, monkeypatch):
+    """A d_rpe that is neither 4 nor a multiple of 16 is the staged kernels' refusal code 2, whose words name the widths
+    they take: such a bf16 B2 takes the general kernel where it takes the shape and raises, saying why, where it does
+    not; its backward takes the general backward."""
+    words = knarpe.STAGED_REFUSALS[2]
+    assert "d_rpe a multiple of 16 or 4" in words and words == knarpe.BWD_STAGED_REFUSALS[2]
+    _fake_fwd_routes(monkeypatch, staged=2)
+    assert knarpe.route("knarpe_cross_attention", torch.bfloat16, 89, 128, d_rpe, 4, 0) == "general"
+    _fake_fwd_routes(monkeypatch, staged=2, general=1)
+    with pytest.raises(ValueError, match=r"d_rpe a multiple of 16 or 4"):
+        knarpe.route("knarpe_cross_attention", torch.bfloat16, 89, 128, d_rpe, 4, 0)
+    _fake_bwd_route(monkeypatch, [2])
+    assert knarpe.bwd_route("knarpe_cross_attention", torch.bfloat16, 89, 128, d_rpe, 4, 0) == "general"
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_rpe4_operands_off_16_bytes_raise_on_the_staged_route(backward, monkeypatch):
+    """At d_rpe = 4 on the staged route the 8-byte rpe rows are copied from a 16-byte aligned base: an rpe 2 bytes off
+    a 16-byte boundary raises before any launch, forward and backward."""
+    _fake_fwd_routes(monkeypatch, staged=0)
+    _fake_bwd_route(monkeypatch, [0])
+    rng = np.random.default_rng(5)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+    d, n_head = 64, 2
+    q, tgt, w_kv, w_rpe, b, g = f(1, 3, d), f(1, 3, 11, d), f(d, 2 * d), f(R_NARROW, 2 * d), f(2 * d), f(1, 3, d)
+    buf = torch.zeros(3 * 11 * R_NARROW + 1, dtype=torch.bfloat16)
+    rpe = buf[1:].view(1, 3, 11, R_NARROW)
+    assert rpe.is_contiguous() and rpe.data_ptr() % 16
+    inv = torch.zeros(1, 3, 11, dtype=torch.bool)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if backward:
+            knarpe._launch_bwd("knarpe_cross_attention", q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, g, n_head)
+        else:
+            knarpe._launch("knarpe_cross_attention", q, None, None, tgt, rpe, inv, w_kv, w_rpe, b, n_head)

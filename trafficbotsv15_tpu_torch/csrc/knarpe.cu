@@ -48,7 +48,9 @@
 // 0); and on the kernel below otherwise. bf16 B2 and B3 run on the staged kernel of knarpe_staged.cuh (each
 // source's targets copied into shared memory while the previous one is
 // computed; every product on the tensor cores), whose header says how, for
-// every shape it takes (knarpe_staged_route's code 0). It keeps the whole bf16
+// every shape it takes (knarpe_staged_route's code 0), the 4-wide RPE of
+// pose_rpe "xy_dir" (d_rpe = 4) among them, zero-padded to 16 columns in
+// shared memory. It keeps the whole bf16
 // [W_kv; W_rpe] resident, so it refuses D = R = 256 (the scaled preset) and, at
 // D = R = 128, K >= 90. bf16 B2 at D = R = 256 with 8 heads (K <= 104) runs on
 // the cluster kernel of knarpe_cluster.cuh (four blocks a source, each with a
@@ -523,12 +525,22 @@ int by_heads(const Params& p, int n_head, int dev, cudaStream_t stream) {
 }
 
 // The staged kernel's plan per (device, K, D, R) and instantiation: its refusal code
-// (staged::refusal; 0 = taken), layout and resident blocks on the device.
+// (staged::refusal; 0 = taken), groups of warps a block (staged::group_count), layout and resident blocks on the
+// device.
 struct StagedPlan {
-  int dev, n_knn, d_model, d_rpe, refused;
+  int dev, n_knn, d_model, d_rpe, refused, groups;
   staged::Layout L;
   long long slots;
 };
+
+// The staged kernel for a narrow rpe or not, with G groups of warps a block (two only narrow, up to 4 heads).
+template <int MODE, int H>
+auto staged_kernel(bool narrow, int groups) {
+  if constexpr (H <= 4) {
+    if (narrow && groups == 2) return staged::knarpe_x_staged_kernel<MODE, H, 2, true>;
+  }
+  return narrow ? staged::knarpe_x_staged_kernel<MODE, H, 1, true> : staged::knarpe_x_staged_kernel<MODE, H, 1, false>;
+}
 
 template <int MODE, int H>
 int make_staged_plan(StagedPlan& pl) {
@@ -539,8 +551,9 @@ int make_staged_plan(StagedPlan& pl) {
   if (err != cudaSuccess) return static_cast<int>(err);
   pl.refused = staged::refusal(MODE, pl.n_knn, pl.d_model, pl.d_rpe, H, static_cast<size_t>(max_smem));
   if (pl.refused) return 0;
-  pl.L = staged::make_layout(pl.n_knn, pl.d_model, pl.d_rpe, H);
-  auto kern = staged::knarpe_x_staged_kernel<MODE, H>;
+  pl.groups = staged::group_count(pl.n_knn, pl.d_model, pl.d_rpe, H, static_cast<size_t>(max_smem));
+  pl.L = staged::make_layout(pl.n_knn, pl.d_model, pl.d_rpe, H, pl.groups);
+  auto kern = staged_kernel<MODE, H>(pl.d_rpe != staged::rpe_cols(pl.d_rpe), pl.groups);
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);  // as make_plan
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
@@ -592,13 +605,24 @@ int staged_launch(const Params& g, int dev, cudaStream_t stream) {
   p.bias = static_cast<const __nv_bfloat16*>(g.bias);
   p.invalid = g.invalid;
   p.out = static_cast<__nv_bfloat16*>(g.out);
-  p.n_src = g.n_src; p.n_knn = g.n_knn; p.d_model = g.d_model; p.d_rpe = g.d_rpe; p.scale = g.scale;
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.d_model = g.d_model; p.scale = g.scale;
+  p.d_rpe = staged::rpe_cols(g.d_rpe);
+  p.r_in = g.d_rpe;
   p.mt = staged::swizzle_mask(g.d_model / 8);
-  p.mr = staged::swizzle_mask(g.d_rpe / 8);
+  p.mr = staged::swizzle_mask(p.d_rpe / 8);
   p.mw = staged::swizzle_mask(g.d_model / 4);
   p.L = pl.L;
-  const int grid = static_cast<int>(g.n_src < pl.slots ? g.n_src : pl.slots);
-  staged::knarpe_x_staged_kernel<MODE, H><<<grid, staged::kThreads, p.L.total, stream>>>(p);
+  const bool narrow = p.r_in != p.d_rpe;
+  CUtensorMap tm{};  // narrow: tgt by 2-D tensor copies, boxes of 64 columns by K rows
+  if (narrow) {
+    const int enc = staged::encode_rows(&tm, g.tgt, static_cast<long long>(g.n_src) * g.n_knn, g.d_model, g.d_model,
+                                        g.n_knn);
+    if (enc != 0) return enc;
+  }
+  const long long blocks = (g.n_src + pl.groups - 1) / pl.groups;  // each group on its own sources
+  const int grid = static_cast<int>(blocks < pl.slots ? blocks : pl.slots);
+  auto kern = staged_kernel<MODE, H>(narrow, pl.groups);
+  kern<<<grid, staged::kThreads, p.L.total, stream>>>(p, tm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1028,25 +1052,46 @@ int bf16_attn(const Params& p, int n_head, int dev, cudaStream_t stream) {
   }
 }
 
-// float32 runs every mode on the general kernel; bf16 runs B4 by bf16_attn, and B2 and B3 by bf16_cross.
-int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStream_t stream) {
-  if (dtype == 0) {
-    switch (mode) {
-      case kAttn: return by_heads<float, kAttn>(p, n_head, dev, stream);
-      case kCross: return by_heads<float, kCross>(p, n_head, dev, stream);
-      case kCrossV3: return by_heads<float, kCrossV3>(p, n_head, dev, stream);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+// Every mode on the general kernel in T.
+template <typename T>
+int general_by_mode(const Params& p, int mode, int n_head, int dev, cudaStream_t stream) {
+  switch (mode) {
+    case kAttn: return by_heads<T, kAttn>(p, n_head, dev, stream);
+    case kCross: return by_heads<T, kCross>(p, n_head, dev, stream);
+    case kCrossV3: return by_heads<T, kCrossV3>(p, n_head, dev, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    switch (mode) {
-      case kAttn: return bf16_attn(p, n_head, dev, stream);
-      case kCross: return bf16_cross<kCross>(p, n_head, dev, stream);
-      case kCrossV3: return bf16_cross<kCrossV3>(p, n_head, dev, stream);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+}
+
+// float32 runs every mode on the general kernel; bf16 runs B4 by bf16_attn, and B2 and B3 by bf16_cross, or with
+// general on the general kernel too (knarpe_general_launch).
+int by_mode(const Params& p, int mode, int dtype, int n_head, int dev, cudaStream_t stream, bool general) {
+  if (dtype == 0) return general_by_mode<float>(p, mode, n_head, dev, stream);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (general) return general_by_mode<__nv_bfloat16>(p, mode, n_head, dev, stream);
+  switch (mode) {
+    case kAttn: return bf16_attn(p, n_head, dev, stream);
+    case kCross: return bf16_cross<kCross>(p, n_head, dev, stream);
+    case kCrossV3: return bf16_cross<kCrossV3>(p, n_head, dev, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The body of knarpe_launch; with general, bf16 takes the general kernel too (knarpe_general_launch).
+int launch_fwd(bool general, int mode, int dtype, const void* q, const void* k, const void* v, long long ld_kv,
+               const void* tgt, const void* rpe, const void* invalid, const void* w_kv, const void* w_rpe,
+               const void* bias, void* out, int n_src, int n_knn, int d_model, int d_tgt, int d_rpe, int n_head,
+               float scale, int dev, void* stream) {
+  // a calling thread with no current context yet (an autograd worker that has issued no CUDA call) gets the
+  // device's: cuTensorMapEncodeTiled, which encodes the tensor maps, refuses to run without one
+  const cudaError_t set = cudaSetDevice(dev);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  Params p{};
+  p.q = q; p.k = k; p.v = v; p.ld_kv = ld_kv; p.tgt = tgt; p.rpe = rpe;
+  p.invalid = static_cast<const uint8_t*>(invalid);
+  p.w_kv = w_kv; p.w_rpe = w_rpe; p.bias = bias; p.out = out;
+  p.n_src = n_src; p.n_knn = n_knn; p.d_model = d_model; p.d_tgt = d_tgt; p.d_rpe = d_rpe; p.scale = scale;
+  return by_mode(p, mode, dtype, n_head, dev, static_cast<cudaStream_t>(stream), general);
 }
 
 }  // namespace
@@ -1065,16 +1110,19 @@ extern "C" int knarpe_launch(int mode, int dtype, const void* q, const void* k, 
                              const void* tgt, const void* rpe, const void* invalid, const void* w_kv,
                              const void* w_rpe, const void* bias, void* out, int n_src, int n_knn, int d_model,
                              int d_tgt, int d_rpe, int n_head, float scale, int dev, void* stream) {
-  // a calling thread with no current context yet (an autograd worker that has issued no CUDA call) gets the
-  // device's: cuTensorMapEncodeTiled, which encodes the tensor maps, refuses to run without one
-  const cudaError_t set = cudaSetDevice(dev);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  Params p{};
-  p.q = q; p.k = k; p.v = v; p.ld_kv = ld_kv; p.tgt = tgt; p.rpe = rpe;
-  p.invalid = static_cast<const uint8_t*>(invalid);
-  p.w_kv = w_kv; p.w_rpe = w_rpe; p.bias = bias; p.out = out;
-  p.n_src = n_src; p.n_knn = n_knn; p.d_model = d_model; p.d_tgt = d_tgt; p.d_rpe = d_rpe; p.scale = scale;
-  return by_mode(p, mode, dtype, n_head, dev, static_cast<cudaStream_t>(stream));
+  return launch_fwd(false, mode, dtype, q, k, v, ld_kv, tgt, rpe, invalid, w_kv, w_rpe, bias, out, n_src, n_knn,
+                    d_model, d_tgt, d_rpe, n_head, scale, dev, stream);
+}
+
+// knarpe_launch on the general kernel whatever route the shape takes, so that a measurement can time it beside the
+// staged kernel at the same shape (chip_smoke.py phase 3); the port never calls it.
+extern "C" int knarpe_general_launch(int mode, int dtype, const void* q, const void* k, const void* v,
+                                     long long ld_kv, const void* tgt, const void* rpe, const void* invalid,
+                                     const void* w_kv, const void* w_rpe, const void* bias, void* out, int n_src,
+                                     int n_knn, int d_model, int d_tgt, int d_rpe, int n_head, float scale, int dev,
+                                     void* stream) {
+  return launch_fwd(true, mode, dtype, q, k, v, ld_kv, tgt, rpe, invalid, w_kv, w_rpe, bias, out, n_src, n_knn,
+                    d_model, d_tgt, d_rpe, n_head, scale, dev, stream);
 }
 
 // Whether a staged kernel takes a bf16 launch at this shape on device dev, given 16-byte aligned

@@ -50,8 +50,9 @@
 // kernel of knarpe_bwd_staged.cuh (each source staged in shared memory by bulk
 // copies and read from device memory once, every product on the tensor cores;
 // its header says how) wherever that kernel takes the shape
-// (knarpe_bwd_staged_route's code 0: up to 4 heads, D and R multiples of 16,
-// one stage within the block's shared memory); at the scaled preset's
+// (knarpe_bwd_staged_route's code 0: up to 4 heads, D a multiple of 16, R a
+// multiple of 16 or 4 (the 4-wide RPE of pose_rpe "xy_dir", zero-padded to 16 columns in
+// shared memory), one stage within the block's shared memory); at the scaled preset's
 // D = R = 256 with 8 heads (K <= 128), which it refuses, on the heads kernel
 // of knarpe_bwd_heads.cuh (eight blocks a source, one on each head with its
 // columns of [W_kv; W_rpe], and a second pass that sums dtgt | drpe over the
@@ -729,12 +730,15 @@ int staged_launch(const Params& g, void* dw_kv, void* dw_rpe, void* db, float* p
   p.dtgt = static_cast<bf16*>(g.dtgt);
   p.drpe = static_cast<bf16*>(g.drpe);
   p.pbuf = g.pbuf;
-  p.n_src = g.n_src; p.n_knn = g.n_knn; p.d_model = g.d_model; p.d_rpe = g.d_rpe; p.scale = g.scale;
+  p.n_src = g.n_src; p.n_knn = g.n_knn; p.d_model = g.d_model; p.scale = g.scale;
+  p.d_rpe = staged::rpe_cols(g.d_rpe);
+  p.r_in = g.d_rpe;
   p.mw = staged::swizzle_mask(g.d_model / 4);
   p.L = pl.L;
   const long long n_rows = static_cast<long long>(g.n_src) * g.n_knn;
   int enc = staged::encode_rows(&p.tm_t, g.tgt, n_rows, g.d_model, g.d_model, g.n_knn);
-  if (enc == 0) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, g.d_rpe, g.d_rpe, g.n_knn);
+  // narrow rpe rows (8 bytes, no tensor map's row stride) come in by cp.async instead
+  if (enc == 0 && p.r_in == p.d_rpe) enc = staged::encode_rows(&p.tm_r, g.rpe, n_rows, g.d_rpe, g.d_rpe, g.n_knn);
   if (enc != 0) return enc;
   const int grid = static_cast<int>(g.n_src < pl.slots ? g.n_src : pl.slots);
   staged_bwd::knarpe_x_bwd_staged_kernel<H><<<grid, staged_bwd::kThreads, p.L.total, stream>>>(p);

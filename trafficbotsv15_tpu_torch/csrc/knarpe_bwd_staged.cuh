@@ -66,6 +66,16 @@
 //     (16 rows of K padded to 96, + 8 so that rows fall on distinct banks),
 //     logits and dattn 2 x 1,424 B, per-head scalars 64 B, the warps' dx
 //     tiles 8,192 B, the mbarrier 16 B.
+// The 4-wide RPE of pose_rpe "xy_dir" (d_rpe = 4) takes the same kernel, its
+// rpe zero-padded to one k step as in knarpe_staged.cuh (X = D + 16 staged
+// columns): an 8-byte row is no tensor map's row stride (a multiple of 16
+// bytes), so thread j copies rpe row j by an 8-byte cp.async into the first
+// half of chunk 0 of its 128-byte swizzled row, the rest of the row's 16
+// columns zero, waited for at the source's last block barrier; W_rpe's rows
+// 4-15 are zero in shared memory. pbuf keeps the D + 4 real inputs (the
+// weight-gradient passes of knarpe_bwd.cu are those of any route), and the dx
+// step writes each drpe row as one 8-byte store. At K=89, D=128, H=4 the bound
+// is ~24.8 MB, 0.0074 ms at [8·64, K=89].
 // Five block barriers per source. No atomics: every sum has a fixed order,
 // so two launches on the same inputs give the same bits. A source with no
 // valid target gets attn = dl = 0 and so zero gradients.
@@ -101,11 +111,12 @@ struct Layout {
 
 inline Layout make_layout(int K, int D, int R, int H) {
   Layout L{};
-  const size_t X = static_cast<size_t>(D) + R;
+  const int Rs = staged::rpe_cols(R);
+  const size_t X = static_cast<size_t>(D) + Rs;
   L.box = box_bytes(K);
   L.xt = 0;
   L.xr = n_boxes(D) * L.box;
-  L.q = L.xr + n_boxes(R) * L.box;
+  L.q = L.xr + n_boxes(Rs) * L.box;
   L.g = L.q + a16(static_cast<size_t>(D) * 2);
   L.inv = L.g + a16(static_cast<size_t>(D) * 2);
   L.slot_bytes = L.inv + a16(static_cast<size_t>(K));
@@ -130,7 +141,7 @@ constexpr int kMaxK = 128;  // the softmax keeps K / 32 targets per lane in regi
 // Why the kernel cannot take a shape (0 = it can); ops/knarpe.py::BWD_STAGED_REFUSALS words each code.
 inline int refusal(int K, int D, int R, int H, size_t max_smem) {
   if (K < 1 || K > kMaxK) return 1;
-  if (D % 16 || R % 16) return 2;
+  if (D % 16 || (R % 16 && R != 4)) return 2;
   if (H > 4) return 3;
   if (make_layout(K, D, R, H).total > max_smem) return 4;
   return 0;
@@ -141,8 +152,9 @@ struct Params {
   const __nv_bfloat16 *q, *g, *tgt, *rpe, *w_kv, *w_rpe, *bias;
   const uint8_t* invalid;
   __nv_bfloat16 *dq, *dtgt, *drpe;
-  float* pbuf;  // [n_src, 2, H, X + 1]
-  int n_src, n_knn, d_model, d_rpe;
+  float* pbuf;  // [n_src, 2, H, D + r_in + 1]
+  int n_src, n_knn, d_model, d_rpe;  // d_rpe: staged::rpe_cols(R), the staged width
+  int r_in;  // R, the rpe columns in device memory (rpe, drpe, W_rpe): d_rpe, or 4 below its 16 staged ones
   int mw;  // swizzle mask of the weight rows
   float scale;
   Layout L;
@@ -176,9 +188,10 @@ __device__ __forceinline__ __nv_bfloat16* uw_at(__nv_bfloat16* uw, int i, int c)
 // Source s into the stage, issued by the lanes of one warp: lane b < n_boxes(D) copies tgt's box b (a
 // tensor copy of K rows by 64 columns; columns past D are filled with zeros and never read), the next
 // n_boxes(R) lanes rpe's, and the two after them q and g (bulk copies). Lane 0 also arrives on the
-// mbarrier, expecting all of the boxes' bytes and q's and g's.
+// mbarrier, expecting all of the boxes' bytes and q's and g's. Narrow rpe rows (r_in < d_rpe: 8 bytes, not a
+// tensor map's row stride) are no tensor copies: stage_narrow_rpe copies them.
 __device__ __forceinline__ void stage_source(const Params& p, uint32_t slot, uint32_t bar, int s, int lane) {
-  const int K = p.n_knn, D = p.d_model, nt = n_boxes(D), nr = n_boxes(p.d_rpe);
+  const int K = p.n_knn, D = p.d_model, nt = n_boxes(D), nr = p.r_in == p.d_rpe ? n_boxes(p.d_rpe) : 0;
   if (lane == 0) staged::mbar_expect(bar, static_cast<uint32_t>((nt + nr) * K * 128 + 2 * D * 2));
   if (lane < nt) {
     staged::tma_load_2d(slot + static_cast<uint32_t>(p.L.xt + lane * p.L.box), &p.tm_t, 64 * lane, s * K, bar);
@@ -191,6 +204,18 @@ __device__ __forceinline__ void stage_source(const Params& p, uint32_t slot, uin
   }
 }
 
+// The narrow rpe rows of source s (r_in = 4 bf16, 8 bytes) into the stage's rpe box by 8-byte cp.async from thread
+// j < K: the first 8 bytes of row j's 16-byte chunk 0 (at chunk j & 7 under the swizzle); its other 8 bytes and chunk
+// 1, the rest of the 16 staged columns, stay zero (set once). The issuing threads wait (cp_wait_all) before the block
+// barrier after which the stage is read.
+__device__ __forceinline__ void stage_narrow_rpe(const Params& p, uint32_t slot, int s, int tid) {
+  if (tid < p.n_knn) {
+    const size_t row = static_cast<size_t>(s) * p.n_knn + tid;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(x_addr(p, slot, tid, p.d_model >> 3)),
+                 "l"(p.rpe + row * 4) : "memory");
+  }
+}
+
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const __grid_constant__ Params p) {
   static_assert(H == 1 || H == 2 || H == 4, "[U | W] hi and lo share one 16-column tile: 2H <= 8");
@@ -199,7 +224,9 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;  // an mma fragment's row group and column pair
-  const int K = p.n_knn, D = p.d_model, R = p.d_rpe, X = D + R, X1 = X + 1, dh = D / H;
+  // X: the staged columns; Xr = D + r_in, of which pbuf's rows hold X1 = Xr + 1 (the last the bias's)
+  const int K = p.n_knn, D = p.d_model, R = p.d_rpe, X = D + R, Xr = D + p.r_in, X1 = Xr + 1, dh = D / H;
+  const bool narrow = p.r_in != R;
   const int kp = pad16(K), lda = kp + 8;
   const float scale = p.scale;
   __nv_bfloat16* uw = reinterpret_cast<__nv_bfloat16*>(smem + p.L.uw);  // [X][16]: [U_hi W_hi | U_lo W_lo]
@@ -224,8 +251,16 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
   }
   __syncthreads();
   int s = blockIdx.x;
+  if (narrow) {  // bytes 8-15 of chunk 0 and all of chunk 1 of every narrow rpe row stay zero
+    for (int j = tid; j < K; j += kThreads) {
+      unsigned char* c0 = slot + p.L.xr + j * 128 + ((j & 7) << 4);
+      *reinterpret_cast<uint2*>(c0 + 8) = make_uint2(0u, 0u);
+      *reinterpret_cast<uint4*>(slot + p.L.xr + j * 128 + ((1 ^ (j & 7)) << 4)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
   if (s < p.n_src) {  // the first source streams in with the weights
     if (warp == 0) stage_source(p, slot_s, bar, s, lane);
+    if (narrow) stage_narrow_rpe(p, slot_s, s, tid);
     if (tid < K) slot[p.L.inv + tid] = p.invalid[static_cast<size_t>(s) * K + tid];
   }
   staged::load_weights(p, smem, tid);
@@ -242,7 +277,11 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
     if (sn < p.n_src) {  // the block's next source, into L2 while this one is computed
       if (tid == 0) {
         bulk_prefetch_l2(p.tgt + static_cast<size_t>(sn) * K * D, static_cast<uint32_t>(K * D * 2));
-        bulk_prefetch_l2(p.rpe + static_cast<size_t>(sn) * K * R, static_cast<uint32_t>(K * R * 2));
+        // the source's rpe rows, widened to 16-byte bounds (narrow rows: K * 8 bytes from an 8-byte boundary)
+        const uintptr_t r0 = reinterpret_cast<uintptr_t>(p.rpe + static_cast<size_t>(sn) * K * p.r_in);
+        const uintptr_t lo = r0 & ~static_cast<uintptr_t>(15);
+        const uintptr_t hi = (r0 + static_cast<size_t>(K) * p.r_in * 2 + 15) & ~static_cast<uintptr_t>(15);
+        bulk_prefetch_l2(reinterpret_cast<const void*>(lo), static_cast<uint32_t>(hi - lo));
       }
       if (tid < K) inv_next = p.invalid[static_cast<size_t>(sn) * K + tid];
     }
@@ -250,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
     const uint8_t* inv = slot + p.L.inv;
     const uint32_t* q2 = reinterpret_cast<const uint32_t*>(slot + p.L.q);
     const uint32_t* g2 = reinterpret_cast<const uint32_t*>(slot + p.L.g);
-    float* prow = p.pbuf + static_cast<size_t>(s) * 2 * H * X1;
+    float* prow = p.pbuf + static_cast<size_t>(s) * 2 * H * X1;  // [2, H, X1]
 
     // 1. [u | w][i][c] = W_k[i, head c] . q_c (c < H), W_v[i, head c - H] . g_{c-H} (H <= c < 2H): a warp per
     //    16 rows; B = the head-masked q (for W_k) and g (for W_v) in registers, in columns that do not
@@ -376,8 +415,8 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
       if (lane == 0) {
         asum[warp] = as;
         sdl[warp] = sds;
-        prow[static_cast<size_t>(warp) * X1 + X] = sds;     // row X: the constant input of the bias
-        prow[static_cast<size_t>(H + warp) * X1 + X] = as;
+        prow[static_cast<size_t>(warp) * X1 + Xr] = sds;     // column Xr: the constant input of the bias
+        prow[static_cast<size_t>(H + warp) * X1 + Xr] = as;
       }
     }
     __syncthreads();
@@ -397,7 +436,7 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
       for (int t = 0; t < 2; ++t) {
         const float v0 = acc[t][0] + acc[t][2], v1 = acc[t][1] + acc[t][3];
         const int i = 16 * np + 8 * t + 2 * tq;
-        if (g < 2 * H) {  // pbuf's [2, H] rows: k half (z') for c < H, v half (y) after
+        if (g < 2 * H && i < Xr) {  // pbuf's [2, H] rows: k half (z') for c < H, v half (y) after; no padding
           prow[static_cast<size_t>(g) * X1 + i] = v0;
           prow[static_cast<size_t>(g) * X1 + i + 1] = v1;
         }
@@ -415,6 +454,7 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
     // 5. The stage is read: the next source's copies go out now and land during dx and dq.
     if (sn < p.n_src) {
       if (warp == 0) stage_source(p, slot_s, bar, sn, lane);
+      if (narrow) stage_narrow_rpe(p, slot_s, sn, tid);
       if (tid < K) slot[p.L.inv + tid] = inv_next;
     }
     // dx_j = sum_h scale dl_hj u_h + attn_hj w_h: a warp per 16 inputs (fixed B) and, in turn, each 16
@@ -428,8 +468,10 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
       const int col = 16 * cp + 8 * (lane & 1);
       const int rr = lane >> 1;
       __nv_bfloat16* dst_base = col < D ? p.dtgt + static_cast<size_t>(s) * K * D + col
-                                        : p.drpe + static_cast<size_t>(s) * K * R + (col - D);
-      const int ld = col < D ? D : R;
+                                        : p.drpe + static_cast<size_t>(s) * K * p.r_in + (col - D);
+      const int ld = col < D ? D : p.r_in;
+      // this lane's 8 columns: all of them, or of a narrow drpe row its 4 (8 bytes) or none (padding)
+      const int n_cols = col < D ? 8 : min(8, p.r_in - (col - D));
       for (int mt = 0; mt < kp / 16; ++mt) {
         uint32_t a[4];
         ldsm_x4_t(a, smem_u32(pb + (r8 + 8 * (mi >> 1)) * lda + 16 * mt + 8 * (mi & 1)));
@@ -444,9 +486,11 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
                 pack_bf16(acc[0][2], acc[0][3]), pack_bf16(acc[1][0], acc[1][1]), pack_bf16(acc[1][2], acc[1][3]));
         __syncwarp();
         const int j = 16 * mt + rr;
-        if (j < K)
-          *reinterpret_cast<uint4*>(dst_base + static_cast<size_t>(j) * ld) =
-              *reinterpret_cast<const uint4*>(dxb + rr * 16 + 8 * ((lane & 1) ^ ((rr >> 2) & 1)));
+        const __nv_bfloat16* piece = dxb + rr * 16 + 8 * ((lane & 1) ^ ((rr >> 2) & 1));
+        if (j < K && n_cols == 8)
+          *reinterpret_cast<uint4*>(dst_base + static_cast<size_t>(j) * ld) = *reinterpret_cast<const uint4*>(piece);
+        else if (j < K && n_cols == 4)
+          *reinterpret_cast<uint2*>(dst_base + static_cast<size_t>(j) * ld) = *reinterpret_cast<const uint2*>(piece);
         __syncwarp();
       }
     }
@@ -474,6 +518,7 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_bwd_staged_kernel(const 
           p.dq[static_cast<size_t>(s) * D + d] = __float2bfloat16_rn(v + __bfloat162float(bias[d]) * sdl[h]);
       }
     }
+    if (narrow) staged::cp_wait_all();
     __syncthreads();
   }
 }

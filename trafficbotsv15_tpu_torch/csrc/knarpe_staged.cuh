@@ -52,9 +52,30 @@
 //     three per-head scalars 48 B, two mbarriers 16 B: 232,336 B. Padded
 //     stage rows would cost 5.7 KB more, so rows are rotated instead (below);
 //     nothing keeps partial sums.
+// The 4-wide RPE of pose_rpe "xy_dir" (d_rpe = 4) takes the same kernel in
+// a variant of its own (NARROW). Its 8-byte rpe rows are below a bulk copy's
+// 16 bytes and, at odd sources, off 16-byte alignment (K=89), so they come in
+// by 8-byte cp.async, one thread a row, waited for at the source's last
+// barrier; in the stage each lands at the start of a 32-byte row whose other
+// 24 bytes stay zero, and W_rpe's rows 4-15 are zero in shared memory, so X =
+// D + 16 and every product takes one k step more than over tgt alone (eight
+// at R = 128), the padding adding exact zeros. At the flagship's widths (K=89,
+// D=128, H=4) the bound is ~197 MB, 0.059 ms at [128·64, K=89]. There the
+// wide kernel's scheme, one source a block of 16 warps and ~180 bulk copies a
+// source (two a rotated tgt row), held 5.5 µs a source (0.342 ms on an H100).
+// NARROW changes two things, each worth little alone and ~1.5x together
+// (two groups with bulk copies 0.320 ms, one group with tensor copies 0.301
+// ms, both 0.229 ms; the last two in turns): tgt comes in by 2-D tensor copies,
+// one a box of 64 columns by K rows landing with the 128-byte swizzle (as
+// knarpe_bwd_staged.cuh's), q by one bulk copy, three copies a source issued
+// by one thread as the source before it starts; and where they fit (up to 4
+// heads, K <= 256) two groups of 8 warps a block each run their own sources
+// with their own ring of two stages and scratch, the weights shared, each
+// group's steps separated by its own named barrier (`group_count`): 204,704 B
+// at the flagship's widths (slots on 1,024-byte bounds, 28,672 B each).
 // No atomics: every sum has a fixed order, so two launches on the same inputs
-// give the same bits. Only bf16 comes here, and every bf16 B2 and B3 does: a
-// shape refused below has no other kernel, and the wrapper raises for it.
+// give the same bits. Only bf16 comes here, and every bf16 B2 and B3 that the
+// staged kernel takes does.
 
 #pragma once
 
@@ -75,35 +96,12 @@ constexpr float kMask = -1e9f;
 
 __host__ __device__ inline size_t a16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 __host__ __device__ inline int pad16(int k) { return (k + 15) & ~15; }
+// rpe columns a staged row holds: R, or 16 for the 4-wide RPE of pose_rpe "xy_dir" (its 8-byte rows, below the
+// bulk copies' 16 bytes, come in by 8-byte cp.async and are zero-padded to one k step of the tensor cores, as
+// W_rpe's rows are: the padding adds exact zeros to every product)
+__host__ __device__ inline int rpe_cols(int R) { return R == 4 ? 16 : R; }
 // columns of [U_hi | U_lo] and rows of [Y_hi; Y_lo]: 2H padded to 8
 __host__ __device__ inline int u_cols(int H) { return H <= 4 ? 8 : 16; }
-
-// Byte offsets into the dynamic shared memory of one block; the stage slots'
-// fields are offsets inside a slot.
-struct Layout {
-  size_t w, bias, slot, slot_bytes, xt, xr, q, inv, u, lg, a, hv, bar, total;
-};
-
-inline Layout make_layout(int K, int D, int R, int H) {
-  Layout L{};
-  const size_t X = static_cast<size_t>(D) + R;
-  size_t off = 0;
-  L.w = off;    off += X * 2 * D * 2;
-  L.bias = off; off += a16(static_cast<size_t>(D) * 2 * 2);
-  L.xt = 0;
-  L.xr = a16(static_cast<size_t>(K) * D * 2);
-  L.q = L.xr + a16(static_cast<size_t>(K) * R * 2);
-  L.inv = L.q + a16(static_cast<size_t>(D) * 2);
-  L.slot_bytes = L.inv + a16(static_cast<size_t>(K));
-  L.slot = off; off += 2 * L.slot_bytes;
-  L.u = off;    off += a16(X * u_cols(H) * 2);
-  L.lg = off;   off += a16(static_cast<size_t>(H) * K * 4);
-  L.a = off;    off += static_cast<size_t>(16) * (pad16(K) + 8) * 2;
-  L.hv = off;   off += a16(static_cast<size_t>(3) * H * 4);
-  L.bar = off;  off += 2 * 8;  // one mbarrier per stage
-  L.total = off;
-  return L;
-}
 
 // A 2-D tensor copy (encode_rows) lands rows of bf16 as boxes of 64 columns (128 bytes) by K rows with the
 // 128-byte swizzle: 16-byte chunk c of row j at chunk c ^ (j & 7), rows 128 bytes apart, so the eight rows
@@ -111,6 +109,53 @@ inline Layout make_layout(int K, int D, int R, int H) {
 __host__ __device__ inline int n_boxes(int width) { return (width + 63) >> 6; }
 __host__ __device__ inline size_t box_bytes(int K) { return (static_cast<size_t>(K) * 128 + 1023) & ~static_cast<size_t>(1023); }
 __host__ __device__ inline size_t a1024(size_t x) { return (x + 1023) & ~static_cast<size_t>(1023); }
+
+// Byte offsets into the dynamic shared memory of one block; the stage slots'
+// fields are offsets inside a slot. With G groups of warps a block (each on
+// its own sources), group g's two slots start at slot + 2 g slot_bytes and
+// its scratch (u, lg, a, hv, bar) grp bytes after group 0's.
+struct Layout {
+  size_t w, bias, slot, slot_bytes, xt, xr, q, inv, u, lg, a, hv, bar, grp, box, total;
+};
+
+inline Layout make_layout(int K, int D, int R, int H, int groups = 1) {
+  Layout L{};
+  const int Rs = rpe_cols(R);
+  const bool narrow = Rs != R;  // tgt in 2-D tensor copies' swizzled boxes, slots on 1024-byte bounds
+  const size_t X = static_cast<size_t>(D) + Rs;
+  size_t off = 0;
+  L.w = off;    off += X * 2 * D * 2;
+  L.bias = off; off += a16(static_cast<size_t>(D) * 2 * 2);
+  L.xt = 0;
+  L.box = box_bytes(K);  // narrow: one tgt box of 64 columns
+  L.xr = narrow ? n_boxes(D) * L.box : a16(static_cast<size_t>(K) * D * 2);
+  L.q = L.xr + a16(static_cast<size_t>(K) * Rs * 2);
+  L.inv = L.q + a16(static_cast<size_t>(D) * 2);
+  L.slot_bytes = L.inv + a16(static_cast<size_t>(K));
+  if (narrow) {
+    L.slot_bytes = a1024(L.slot_bytes);
+    off = a1024(off);
+  }
+  L.slot = off; off += 2 * groups * L.slot_bytes;
+  L.u = off;    off += a16(X * u_cols(H) * 2);
+  L.lg = off;   off += a16(static_cast<size_t>(H) * K * 4);
+  L.a = off;    off += static_cast<size_t>(16) * (pad16(K) + 8) * 2;
+  L.hv = off;   off += a16(static_cast<size_t>(3) * H * 4);
+  L.bar = off;  off += 2 * 8;  // one mbarrier per stage
+  L.grp = off - L.u;
+  off += (groups - 1) * L.grp;
+  L.total = off + (narrow ? 1024 : 0);  // narrow: the slack to put the base on a 1024-byte bound
+  return L;
+}
+
+// Groups of warps a block: two (8 warps each, each on its own sources with its own two stages, the resident
+// weights shared) for the 4-wide rpe (K <= 256, refusal 7: a thread of the group a target) wherever they fit, with
+// up to 4 heads (the softmax takes H warps of the group); else one (all 16 warps on one source). At the flagship's
+// D = 128, R = 4, H = 4, K = 89 two groups take 204,704 B; at R = 128 the weights and four stages would need ~315 KB.
+inline int group_count(int K, int D, int R, int H, size_t max_smem) {
+  const bool two = R != rpe_cols(R) && H <= 4 && make_layout(K, D, R, H, 2).total <= max_smem;
+  return two ? 2 : 1;
+}
 
 // XOR mask of a region with n_c 16-byte chunks per row: the largest power of two
 // dividing n_c, at most 8, minus one, so that a swizzled chunk stays in its row
@@ -123,7 +168,8 @@ __host__ __device__ inline int swizzle_mask(int n_c) {
 inline int refusal(int mode, int K, int D, int R, int H, size_t max_smem) {
   const int dh = D / H;
   if (K < 1 || K > kThreads) return 1;
-  if (D % 16 || R % 16) return 2;
+  if (D % 16 || (R % 16 && R != 4)) return 2;
+  if (R == 4 && K > 256) return 7;  // a tensor copy's box has at most 256 rows
   if (mode == 2) {  // B3's k projection: a warp on up to four 8-column tiles of whole heads
     const int nb = D / 8 < 4 ? D / 8 : 4;
     if (D % (8 * nb)) return 3;
@@ -137,7 +183,8 @@ struct Params {
   const __nv_bfloat16 *q, *tgt, *rpe, *w_kv, *w_rpe, *bias;
   const uint8_t* invalid;
   __nv_bfloat16* out;
-  int n_src, n_knn, d_model, d_rpe;
+  int n_src, n_knn, d_model, d_rpe;  // d_rpe: rpe_cols(R), the staged width
+  int r_in;  // R, the rpe columns in device memory: d_rpe, or 4 below its 16 staged ones
   int mt, mr, mw;  // rotation masks of the tgt and rpe rows, swizzle mask of the weight rows
   float scale;
   Layout L;
@@ -268,14 +315,18 @@ __device__ __forceinline__ const uint4* w_chunk(const P& p, const unsigned char*
   return reinterpret_cast<const uint4*>(smem + p.L.w) + i * cw + (c ^ (i & p.mw));
 }
 
-// cp.async of the resident [W_kv; W_rpe] (rows XOR-swizzled by p.mw) and the bias into shared memory;
-// the caller waits (cp_wait_all) and synchronises
+// cp.async of the resident [W_kv; W_rpe] (rows XOR-swizzled by p.mw) and the bias into shared memory, W_rpe's
+// rows past r_in zero; the caller waits (cp_wait_all) and synchronises
 template <class P>
 __device__ __forceinline__ void load_weights(const P& p, unsigned char* smem, int tid) {
   const int D = p.d_model, X = D + p.d_rpe, cw = D >> 2;
   const uint32_t ws = smem_u32(smem + p.L.w);
   for (int e = tid; e < X * cw; e += kThreads) {
     const int i = e / cw, c = e - i * cw;
+    if (i >= D + p.r_in) {
+      *reinterpret_cast<uint4*>(smem + p.L.w + (static_cast<size_t>(i) * cw + c) * 16) = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
     const __nv_bfloat16* row = i < D ? p.w_kv + static_cast<size_t>(i) * 2 * D : p.w_rpe + static_cast<size_t>(i - D) * 2 * D;
     cp_async16(ws + (i * cw + (c ^ (i & p.mw))) * 16, row + c * 8);
   }
@@ -308,6 +359,29 @@ __device__ __forceinline__ void stage_pieces(const Params& p, unsigned char* slo
   }
 }
 
+// Narrow rpe (r_in = 4): source s's tgt into a stage slot by one 2-D tensor copy a box of 64 columns by K rows (tm:
+// tgt [n_src K, D], boxes of 64 x K, 128-byte swizzle), and q by a bulk copy, issued by one thread, which also arrives
+// on the stage's mbarrier expecting their bytes.
+__device__ __forceinline__ void stage_tensor(const Params& p, const CUtensorMap* tm, unsigned char* slot, uint32_t bar,
+                                             int s) {
+  const int K = p.n_knn, D = p.d_model;
+  mbar_expect(bar, static_cast<uint32_t>(n_boxes(D) * K * 128 + D * 2));
+  for (int b = 0; b < n_boxes(D); ++b)
+    tma_load_2d(smem_u32(slot + p.L.xt + b * p.L.box), tm, 64 * b, s * K, bar);
+  bulk_copy(smem_u32(slot + p.L.q), p.q + static_cast<size_t>(s) * D, D * 2, bar);
+}
+
+// The narrow rpe rows of source s (r_in = 4 bf16, 8 bytes) into the first 8 bytes of their 32-byte rows of a stage
+// slot, by 8-byte cp.async from thread j < K (the rows' other 24 bytes stay zero, set once); the issuing threads wait
+// (cp_wait_all) before the barrier after which the slot is read.
+__device__ __forceinline__ void stage_narrow_rpe(const Params& p, unsigned char* slot, int s, int tid) {
+  if (tid < p.n_knn) {
+    const size_t row = static_cast<size_t>(s) * p.n_knn + tid;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(slot + p.L.xr + tid * 32)),
+                 "l"(p.rpe + row * 4) : "memory");
+  }
+}
+
 // Sums the hi and lo halves of an mma result whose rows (COLS = false) or columns (COLS = true)
 // hold [hi of heads 0..H-1 | lo of heads 0..H-1]: v is this lane's value at (row g | column 2tq + e),
 // v8 its value 8 rows / one n-tile further. Returns hi + lo in the lanes that hold a hi entry.
@@ -318,53 +392,98 @@ __device__ __forceinline__ float hi_plus_lo(float v, float v8) {
   else return v + __shfl_xor_sync(0xffffffffu, v, COLS ? H / 2 : 4 * H);
 }
 
-template <int MODE, int H>
-__global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// The barrier of one group of warps: the whole block's for one group, else named barrier 1 + grp over its threads.
+template <int GROUPS>
+__device__ __forceinline__ void group_sync(int grp) {
+  if constexpr (GROUPS == 1) __syncthreads();
+  else asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(kThreads / GROUPS) : "memory");
+}
+
+// NARROW: the 4-wide rpe (r_in = 4, d_rpe = 16), tgt staged by tensor copies of tm_t, rpe by cp.async (see the
+// header); else tm_t is not read.
+template <int MODE, int H, int GROUPS, bool NARROW>
+__global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Params p,
+                                                                      const __grid_constant__ CUtensorMap tm_t) {
+  static_assert(GROUPS == 1 || (NARROW && H <= 4), "two groups of 8 warps: the 4-wide rpe, up to 4 heads");
+  constexpr int kGT = kThreads / GROUPS, kGW = kGT / 32;  // a group's threads and warps
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the tensor copies' 128-byte swizzle is a function of the shared address: narrow slots start on 1024 bytes
+  unsigned char* smem = NARROW ? smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023) : smem_raw;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int grp = GROUPS == 1 ? 0 : tid / kGT, gtid = tid - grp * kGT, warp = gtid >> 5;  // group, its thread, warp
   const int g = lane >> 2, tq = lane & 3;  // an mma fragment's row group and column pair
   const int K = p.n_knn, D = p.d_model, R = p.d_rpe, X = D + R, dh = D / H;
   const int kp = pad16(K), lda = kp + 8, NU = u_cols(H);
-  __nv_bfloat16* ub = reinterpret_cast<__nv_bfloat16*>(smem + p.L.u);  // [U_hi | U_lo] [X][NU]
+  unsigned char* scratch = smem + grp * p.L.grp;  // this group's u, lg, a, hv and bar
+  __nv_bfloat16* ub = reinterpret_cast<__nv_bfloat16*>(scratch + p.L.u);  // [U_hi | U_lo] [X][NU]
   __nv_bfloat16* yb = ub;  // later [Y_hi; Y_lo] [max(8, 2H)][X], chunks swizzled with the row
   const int my = swizzle_mask(X >> 3);
-  float* lg = reinterpret_cast<float*>(smem + p.L.lg);  // logits, then attn [h][j]
-  __nv_bfloat16* ab = reinterpret_cast<__nv_bfloat16*>(smem + p.L.a);  // [A_hi; A_lo; 0] [16][lda]
-  float* cvec = reinterpret_cast<float*>(smem + p.L.hv);
+  float* lg = reinterpret_cast<float*>(scratch + p.L.lg);  // logits, then attn [h][j]
+  __nv_bfloat16* ab = reinterpret_cast<__nv_bfloat16*>(scratch + p.L.a);  // [A_hi; A_lo; 0] [16][lda]
+  float* cvec = reinterpret_cast<float*>(scratch + p.L.hv);
   float* asum = cvec + H;
   float* nvh = cvec + 2 * H;
   const __nv_bfloat16* bias = reinterpret_cast<const __nv_bfloat16*>(smem + p.L.bias);  // [b_k | b_v]
-  unsigned char* slot0 = smem + p.L.slot;
-  const uint32_t bar0 = smem_u32(smem + p.L.bar);
+  unsigned char* slot0 = smem + p.L.slot + grp * 2 * p.L.slot_bytes;  // this group's two slots
+  const uint32_t bar0 = smem_u32(scratch + p.L.bar);
 
   load_weights(p, smem, tid);  // resident [W_kv; W_rpe] (swizzled) and bias
   // rows 2H.. of [A_hi; A_lo] and its columns K.. stay zero: the softmax writes only the rest
-  for (int e = tid; e < 16 * lda; e += kThreads) ab[e] = __float2bfloat16_rn(0.f);
-  if (tid == 0) {
+  for (int e = gtid; e < 16 * lda; e += kGT) ab[e] = __float2bfloat16_rn(0.f);
+  int s = blockIdx.x * GROUPS + grp;
+  // this source's 16-byte chunk c (of X / 8) of target row j in a slot, as a shared address
+  auto x_at = [&](const unsigned char* slot, int j, int c) -> uint32_t {
+    if constexpr (NARROW) {  // tgt in its swizzled boxes, rpe in 32-byte rows
+      const int ct = D >> 3;
+      return c < ct ? smem_u32(slot + p.L.xt + (c >> 3) * p.L.box + j * 128 + (((c & 7) ^ (j & 7)) << 4))
+                    : smem_u32(slot + p.L.xr + j * 32 + (c - ct) * 16);
+    } else {
+      return smem_u32(x_chunk(p, slot, j, c));
+    }
+  };
+  if constexpr (NARROW) {  // bytes 8-31 of every narrow rpe row of both slots stay zero; the first source's come in
+    for (int e = gtid; e < 2 * K; e += kGT) {
+      unsigned char* row = slot0 + (e / K) * p.L.slot_bytes + p.L.xr + (e % K) * 32;
+      *reinterpret_cast<uint2*>(row + 8) = make_uint2(0u, 0u);
+      *reinterpret_cast<uint4*>(row + 16) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (s < p.n_src) stage_narrow_rpe(p, slot0, s, gtid);
+  }
+  if (gtid == 0) {
     mbar_init(bar0);
     mbar_init(bar0 + 8);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cp_wait_all();
   __syncthreads();
-  int s = blockIdx.x;
   if (s < p.n_src) {
-    stage_pieces(p, slot0, bar0, s, 0, 4 * K + 1, tid, kThreads, true);
-    if (tid < K) slot0[p.L.inv + tid] = p.invalid[static_cast<size_t>(s) * K + tid];
+    if constexpr (NARROW) {
+      if (gtid == 0) stage_tensor(p, &tm_t, slot0, bar0, s);
+    } else {
+      stage_pieces(p, slot0, bar0, s, 0, 4 * K + 1, gtid, kGT, true);
+    }
+    if (gtid < K) slot0[p.L.inv + gtid] = p.invalid[static_cast<size_t>(s) * K + gtid];
   }
 
-  for (int it = 0; s < p.n_src; s += gridDim.x, ++it) {
+  for (int it = 0; s < p.n_src; s += gridDim.x * GROUPS, ++it) {
     const int b = it & 1;
     const unsigned char* cur = slot0 + b * p.L.slot_bytes;
     unsigned char* nxt = slot0 + (b ^ 1) * p.L.slot_bytes;
-    const int sn = s + gridDim.x;
+    const int sn = s + gridDim.x * GROUPS;
     const uint32_t bar_next = bar0 + 8 * (b ^ 1);
     // the next source streams in while this one is computed, its copies issued by warps that have
     // no item in the logits step (tgt rows) and in the softmax (the rest)
-    const int busy = MODE == 1 ? min(kp / 16, kWarps) : kWarps;
-    const int rest = busy < kWarps ? 2 * K : 0;
+    const int busy = MODE == 1 ? min(kp / 16, kGW) : kGW;
+    const int rest = busy < kGW ? 2 * K : 0;
     uint8_t inv_next = 0;
-    if (sn < p.n_src && tid < K) inv_next = p.invalid[static_cast<size_t>(sn) * K + tid];
+    if (sn < p.n_src && gtid < K) inv_next = p.invalid[static_cast<size_t>(sn) * K + gtid];
+    if (NARROW && sn < p.n_src) {  // the next source's copies go out at once: its slot was read last source
+      if (gtid == 0) {
+        fence_proxy_async();
+        stage_tensor(p, &tm_t, nxt, bar_next, sn);
+      }
+      stage_narrow_rpe(p, nxt, sn, gtid);  // waited for at the source's last barrier
+    }
     mbar_wait(bar0 + 8 * b, (it >> 1) & 1);  // this stage's (it / 2)-th fill has landed
     const uint8_t* inv = cur + p.L.inv;
     const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(cur + p.L.q);
@@ -374,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
       // u[i][h] = W_k[i, h-block] . q_h: a warp per 16 rows of W_k; B = Q, Q[d][h] = q[d] if d is in
       // head h, built in registers; u split into [U_hi | U_lo]. c[h] = b_k[h-block] . q_h
       const int g0 = g * dh;  // head g's first column
-      for (int mt = warp; mt < X / 16; mt += kWarps) {
+      for (int mt = warp; mt < X / 16; mt += kGW) {
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
         for (int ks = 0; ks < D / 16; ++ks) {
           uint32_t a[4];
@@ -406,17 +525,17 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
         acc = warp_sum(acc);
         if (lane == 0) cvec[warp] = acc;
       }
-      __syncthreads();
-      if (sn < p.n_src && warp >= busy)
-        stage_pieces(p, nxt, bar_next, sn, 0, rest, tid - 32 * busy, kThreads - 32 * busy, true);
+      group_sync<GROUPS>(grp);
+      if (!NARROW && sn < p.n_src && warp >= busy)
+        stage_pieces(p, nxt, bar_next, sn, 0, rest, gtid - 32 * busy, kGT - 32 * busy, true);
       // logits[j][h] = x_j . u_h + c_h: a warp per 16 targets, A = the staged rows, B = [U_hi | U_lo]
-      for (int mt = warp; mt < kp / 16; mt += kWarps) {
+      for (int mt = warp; mt < kp / 16; mt += kGW) {
         float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
         const int arow = min(16 * mt + (lane & 15), K - 1);
         // H <= 4: two chains of sums, even and odd k steps, to keep two mma in flight
         auto k_step = [&](int ks, float (&c0)[4], float (&c1)[4]) {
           uint32_t a[4];
-          ldsm_x4(a, smem_u32(x_chunk(p, cur, arow, 2 * ks + (lane >> 4))));
+          ldsm_x4(a, x_at(cur, arow, 2 * ks + (lane >> 4)));
           const uint32_t baddr = smem_u32(ub + (16 * ks + (lane & 15)) * NU + 8 * (lane >> 4));
           if (NU == 16) {
             uint32_t b[4];
@@ -457,7 +576,7 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
     } else {
       // B3: kk = x @ W_k on the tensor cores; a warp per (16 targets, nb x 8 columns) item
       const int nb = D / 8 < 4 ? D / 8 : 4, nblk = D / (8 * nb), n_items = nblk * (kp / 16);
-      for (int item = warp; item < n_items; item += kWarps) {
+      for (int item = warp; item < n_items; item += kGW) {
         const int m0 = (item / nblk) * 16, n0 = (item % nblk) * 8 * nb;
         float acc[4][4];
 #pragma unroll
@@ -467,7 +586,7 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
         const int arow = min(m0 + (lane & 15), K - 1);
         for (int ks = 0; ks < X / 16; ++ks) {
           uint32_t a[4];
-          ldsm_x4(a, smem_u32(x_chunk(p, cur, arow, 2 * ks + (lane >> 4))));
+          ldsm_x4(a, x_at(cur, arow, 2 * ks + (lane >> 4)));
           const int brow = 16 * ks + (lane & 15);
 #pragma unroll
           for (int t = 0; t < 4; t += 2) {
@@ -521,12 +640,12 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
         }
       }
     }
-    __syncthreads();
+    group_sync<GROUPS>(grp);
 
     // masked softmax over K, one warp per head (as pallas_knarpe.py:_fwd_core); attn also as
     // rows h (hi) and H + h (lo) of A
-    if (sn < p.n_src && warp >= H)
-      stage_pieces(p, nxt, bar_next, sn, rest, 4 * K + 1, tid - 32 * H, kThreads - 32 * H, rest == 0);
+    if (!NARROW && sn < p.n_src && warp >= H)
+      stage_pieces(p, nxt, bar_next, sn, rest, 4 * K + 1, gtid - 32 * H, kGT - 32 * H, rest == 0);
     if (warp < H) {
       float* lh = lg + warp * K;
       float m = -INFINITY;
@@ -556,15 +675,15 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
         nvh[warp] = no_valid ? 1.f : 0.f;
       }
     }
-    __syncthreads();
+    group_sync<GROUPS>(grp);
 
     // y[h][i] = sum_j attn[h][j] x_j[i]: a warp per 16 inputs, A = [A_hi; A_lo], B = the staged rows
-    for (int np = warp; np < X / 16; np += kWarps) {
+    for (int np = warp; np < X / 16; np += kGW) {
       float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       for (int ks = 0; ks < kp / 16; ++ks) {
         uint32_t a[4], b[4];
         ldsm_x4(a, smem_u32(ab + (lane & 15) * lda + 16 * ks + 8 * (lane >> 4)));
-        ldsm_x4_t(b, smem_u32(x_chunk(p, cur, min(16 * ks + (lane & 15), K - 1), 2 * np + (lane >> 4))));
+        ldsm_x4_t(b, x_at(cur, min(16 * ks + (lane & 15), K - 1), 2 * np + (lane >> 4)));
         mma_bf16(acc[0], a, b[0], b[1]);
         mma_bf16(acc[1], a, b[2], b[3]);
       }
@@ -582,11 +701,11 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
         }
       }
     }
-    __syncthreads();
+    group_sync<GROUPS>(grp);
 
     // out[d] = y_h(d) . W_v[:, d] + b_v[d] sum_j attn_hj: a warp per 8 columns, A = [Y_hi; Y_lo],
     // B = W_v; of the result, the rows of head h(d) are kept
-    for (int nt = warp; nt < D / 8; nt += kWarps) {
+    for (int nt = warp; nt < D / 8; nt += kGW) {
       float acc2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // even and odd k steps
       auto k_step = [&](int ks, float (&sum)[4]) {
         uint32_t a[4];
@@ -620,8 +739,9 @@ __global__ void __launch_bounds__(kThreads, 1) knarpe_x_staged_kernel(const Para
         }
       }
     }
-    if (sn < p.n_src && tid < K) nxt[p.L.inv + tid] = inv_next;
-    __syncthreads();
+    if (sn < p.n_src && gtid < K) nxt[p.L.inv + gtid] = inv_next;
+    if (NARROW) cp_wait_all();
+    group_sync<GROUPS>(grp);
   }
 }
 

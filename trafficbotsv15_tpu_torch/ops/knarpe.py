@@ -26,7 +26,9 @@ launch takes one of three routes, named by `route` from the shape alone:
 tensor cores: B4 on `csrc/knarpe_attn_staged.cuh` (a ring of source stages
 filled by tensor copies, four groups of warps each on its own source), B2
 and B3 on `csrc/knarpe_staged.cuh` (each source's targets staged in shared
-memory while the previous source computes); "cluster", for bf16 B2 at the
+memory while the previous source computes; the 4-wide rpe of pose_rpe
+"xy_dir", d_rpe = 4, zero-padded there to 16 columns, one k step of the
+tensor cores); "cluster", for bf16 B2 at the
 scaled preset's D = R = 256 with 8 heads (K <= 104), which the staged kernel
 refuses, on `csrc/knarpe_cluster.cuh`: a cluster of four blocks per source,
 each holding a quarter of the weights and taking a quarter of the source's
@@ -38,8 +40,8 @@ and for bf16 B3 at the same widths (any K) on `csrc/knarpe_v3_heads.cuh`: four
 blocks per source, each on two heads with their quarter of the weights, the
 targets streamed in tiles of 32 and the softmax taken online over them; and
 "general", the kernel of `csrc/knarpe.cu`, for float32 and the remaining bf16
-shapes (B4 where the heads kernel refuses too, such as K > 40 at D = R = 256 or
-more than 4 heads at other widths; B3 where its heads kernel refuses too, such
+shapes (B4 where the heads kernel refuses too, such as K > 40 at D = R = 256,
+more than 4 heads at other widths or d_rpe = 4; B3 where its heads kernel refuses too, such
 as K >= 90 at D = R = 128; B2 where the cluster kernel refuses too, such as
 K >= 90 at D = R = 128).
 A bf16 B2 or B3 shape that every bf16 kernel refuses raises; so does an
@@ -53,7 +55,7 @@ backward is B2's, as `pallas_knarpe.py:778-783` has it). The backward also
 takes one of three routes, named by `bwd_route` from the shape alone: "staged"
 for bf16 wherever a staged backward takes the shape
 (`csrc/knarpe_attn_bwd_staged.cuh` for B4, `csrc/knarpe_bwd_staged.cuh` for
-B2 and B3); "heads" for bf16 at the scaled preset's D = R = 256 with 8 heads,
+B2 and B3, d_rpe = 4 among them as in the forward); "heads" for bf16 at the scaled preset's D = R = 256 with 8 heads,
 which the staged backwards refuse: B4 (K <= 40) on
 `csrc/knarpe_attn_bwd_heads.cuh`, four blocks per source, each on two of the
 eight heads with their quarter of W_rpe, and a second pass that sums drpe
@@ -62,7 +64,7 @@ blocks per source, each on one head with its columns of [W_kv; W_rpe], and a
 second pass that sums dtgt | drpe over the eight; and "general" (the kernel
 of `csrc/knarpe_bwd.cu`) for float32 and the bf16 shapes they refuse (B2 and
 B3 with more than 4 heads at other widths or K > 128 at D = R = 256, B4 with
-more than 4 heads at other widths or K > 40 at D = R = 256, K > 128, or a
+more than 4 heads at other widths, d_rpe = 4 or K > 40 at D = R = 256, K > 128, or a
 layout beyond the block's shared memory), with the same alignment checks. For
 tensors on the CPU both directions take the plain versions (the
 `*_reference` forwards and autograd through them, `*_bwd_reference`); for
@@ -106,17 +108,20 @@ _BWD_FN = None
 # `knarpe_staged_route` (`staged::refusal`)
 STAGED_REFUSALS = {
     1: "K must be in [1, 512], one thread per target",
-    2: "d_model and d_rpe must be multiples of 16 (the tensor cores' k steps)",
+    2: "d_model must be a multiple of 16 and d_rpe a multiple of 16 or 4 (the tensor cores' k steps; a 4-wide rpe "
+       "is zero-padded to one in shared memory)",
     3: "d_model must be a multiple of the 8-column tiles a warp takes",
     4: "d_head must be 4, or a multiple of 8 that divides the warp's column block",
     5: "the weights and two source stages exceed the device's shared memory per block",
     6: "no block fits a multiprocessor",
+    7: "at d_rpe = 4, K must be at most 256: tgt comes in by tensor copies of K-row boxes, 256 rows at most",
 }
 # why the staged bf16 B2 backward (csrc/knarpe_bwd_staged.cuh) refuses a shape, by the code of
 # `knarpe_bwd_staged_route` (`staged_bwd::refusal`); such a shape takes the general backward kernel
 BWD_STAGED_REFUSALS = {
     1: "K must be in [1, 128]: the softmax keeps each head's K / 32 targets per lane in registers",
-    2: "d_model and d_rpe must be multiples of 16 (the tensor cores' k steps)",
+    2: "d_model must be a multiple of 16 and d_rpe a multiple of 16 or 4 (the tensor cores' k steps; a 4-wide rpe "
+       "is zero-padded to one in shared memory)",
     3: "n_head must be at most 4: [U | W] hi and lo share one 16-column tile",
     4: "the weights and one source stage exceed the device's shared memory per block",
     5: "no block fits a multiprocessor",
@@ -135,7 +140,8 @@ ATTN_STAGED_REFUSALS = {
 # `knarpe_bwd_staged_route` in mode 0 (`staged_attn_bwd::refusal`); such a shape takes the general kernel
 ATTN_BWD_STAGED_REFUSALS = {
     1: "K must be in [1, 128]: the softmax keeps each head's K / 32 targets per lane in registers",
-    2: "d_model and d_rpe must be multiples of 16 (the tensor cores' k steps)",
+    2: "d_model must be a multiple of 16 and d_rpe a multiple of 16 or 4 (the tensor cores' k steps; a 4-wide rpe "
+       "is zero-padded to one in shared memory)",
     3: "n_head must be at most 4: [U | W] hi and lo share one 16-column tile",
     4: "the weights, four source stages (one per group of warps) and the groups' scratch exceed the device's "
        "shared memory per block",
@@ -281,9 +287,11 @@ def load_library():
     return _LAUNCH_FN
 
 
-def bind_launch(lib: ctypes.CDLL):
-    """The `knarpe_launch` C entry point of a built csrc/knarpe.cu, with its argument types."""
-    fn = lib.knarpe_launch
+def bind_launch(lib: ctypes.CDLL, entry: str = "knarpe_launch"):
+    """The `knarpe_launch` C entry point of a built csrc/knarpe.cu (or another of its signature:
+    `knarpe_general_launch`, the general kernel at any shape, which only measurements bind), with its argument
+    types."""
+    fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])

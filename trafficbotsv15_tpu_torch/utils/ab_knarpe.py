@@ -2,7 +2,7 @@
 
     python -m trafficbotsv15_tpu_torch.utils.ab_knarpe [--other PATH/TO/csrc/knarpe.cu]
         [--other-knn PATH/TO/csrc/knn.cu] [--other-bwd PATH/TO/csrc/knarpe_bwd.cu] [--split]
-        [--rounds 3] [--calls ROUNDS] [--steps ROUNDS]
+        [--rounds 3] [--only TEXT] [--calls ROUNDS] [--steps ROUNDS]
 
 Builds the other sources with the nvcc flags of `utils/build.py` (and
 `ops/knn.py::NVCC_FLAGS` for knn.cu) into `build/` and binds their
@@ -15,7 +15,9 @@ path's shape [128·64 sources, K=89, D=R=128, H=4] and the training path's
 [8·64, K=89], both also at the scaled preset's eval shape [128·64, K=89,
 D=R=256, H=8] (this tree's cluster route for B2 and heads route for B3 against,
 say, the parent's general kernel: the route is named by this tree, the launch
-goes through the side's library), and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32]
+goes through the side's library), B2 at pose_rpe "xy_dir"'s 4-wide RPE at the
+eval and training shapes [128·64, K=89, D=128, R=4, H=4] and [8·64, K=89] and
+B3 at the former, and B4 (`knarpe_attention`) at the eval path's [4·1024, K=32]
 and the training path's [8·1024, K=32], and at the scaled preset's eval
 [4·1024, K=32, D=R=256, H=8] and training [1·1024] shapes (this tree's heads
 route against, say, the parent's general kernel) (k and v the halves of one
@@ -39,10 +41,13 @@ scaled preset's training shapes, the B4 backward at [1·1024, K=32, D=R=256,
 H=8] (this tree's heads route against, say, the parent's general kernel) and
 the B2 backward (and B3's) at the agent decoder's [1·64, K=89, D=R=256, H=8] and
 the posterior TL encoder's [1·128, K=24] (this tree's heads route against, say,
-the parent's general kernel) (numpy seed 1, 30 % of targets invalid, one source
-with none); each side's gradients
+the parent's general kernel), and the B2 backward at d_rpe = 4 at the training
+shapes [8·64, K=89, D=128, R=4, H=4] and [8·128, K=24] (numpy seed 1, 30 % of
+targets invalid, one source with none); each side's gradients
 against the float32 plain backward (`*_bwd_reference`), as the largest |error|
-over all six gradients relative to that gradient's largest magnitude. With `--split`, each backward case is also traced by `torch.profiler`
+over all six gradients relative to that gradient's largest magnitude. `--only
+TEXT` keeps the kernel cases whose label holds TEXT (`--only rpe4`: the d_rpe = 4
+ones). With `--split`, each backward case is also traced by `torch.profiler`
 through each side's library: its device time per kernel, averaged over 20
 launches. With `--calls`, it also times the full-width `joint_future_pred`
 (`leaderboard_config()`, `use_pallas=True`, 4 scenarios x K=32,
@@ -86,7 +91,12 @@ CASES = [("knarpe_cross_attention", "eval", (128, 64, 89, 128, 128, 4)),
          ("knarpe_attention", "eval", (4, 1024, 32, 128, 128, 4)),
          ("knarpe_attention", "train", (8, 1024, 32, 128, 128, 4)),
          ("knarpe_attention", "scaled_eval", (4, 1024, 32, 256, 256, 8)),
-         ("knarpe_attention", "scaled_train", (1, 1024, 32, 256, 256, 8))]
+         ("knarpe_attention", "scaled_train", (1, 1024, 32, 256, 256, 8)),
+         # pose_rpe "xy_dir"'s 4-wide RPE at the flagship's widths (this tree's staged route against, say, the
+         # parent's general kernel)
+         ("knarpe_cross_attention", "rpe4_eval", (128, 64, 89, 128, 4, 4)),
+         ("knarpe_cross_attention", "rpe4_train", (8, 64, 89, 128, 4, 4)),
+         ("knarpe_cross_attention_v3", "rpe4_eval", (128, 64, 89, 128, 4, 4))]
 # (label, (n_rows, n_src, n_tgt, k))
 KNN_CASES = [("eval", (128, 64, 1024, 64)), ("train", (8, 64, 1024, 64))]
 # (kernel, label, (n_b, n_s, K, D, R, H)) of the training path's bf16 B2 and B4 backward launches, and of the scaled
@@ -96,7 +106,9 @@ BWD_CASES = [("knarpe_cross_attention", "train", (8, 64, 89, 128, 128, 4)),
              ("knarpe_attention", "train", (8, 1024, 32, 128, 128, 4)),
              ("knarpe_attention", "scaled_train", (1, 1024, 32, 256, 256, 8)),
              ("knarpe_cross_attention", "scaled_train", (1, 64, 89, 256, 256, 8)),
-             ("knarpe_cross_attention", "scaled_post_tl", (1, 128, 24, 256, 256, 8))]
+             ("knarpe_cross_attention", "scaled_post_tl", (1, 128, 24, 256, 256, 8)),
+             ("knarpe_cross_attention", "rpe4_train", (8, 64, 89, 128, 4, 4)),
+             ("knarpe_cross_attention", "rpe4_post_tl", (8, 128, 24, 128, 4, 4))]
 ORDER = ("other", "this", "this", "other")
 
 
@@ -231,6 +243,8 @@ def main() -> None:
     ap.add_argument("--other-bwd", type=Path, help="the other tree's csrc/knarpe_bwd.cu (B2/B3-bwd, B4-bwd)")
     ap.add_argument("--split", action="store_true", help="each backward case's device time per kernel, per side")
     ap.add_argument("--rounds", type=int, default=3, help="rounds of other, this, this, other per kernel case")
+    ap.add_argument("--only", default="", help="time only the kernel cases whose label contains this text "
+                                               "(e.g. rpe4)")
     ap.add_argument("--calls", type=int, default=0, help="rounds of full-width joint_future_pred calls")
     ap.add_argument("--steps", type=int, default=0, help="rounds of full-width training steps")
     args = ap.parse_args()
@@ -253,6 +267,8 @@ def main() -> None:
                                                                               "knarpe_bwd"))
     results = {"card": card, "kernels": [], "backward": [], "calls": None, "steps": None}
     for kernel, label, shape in CASES if args.other is not None else []:
+        if args.only not in label:
+            continue
         ops = inputs(kernel, shape)
         n_head = shape[-1]
         call = getattr(knarpe, kernel)
@@ -267,6 +283,8 @@ def main() -> None:
               f"{row['this_max_err_vs_f32_plain']:.3e}", flush=True)
         results["kernels"].append(row)
     for label, shape in KNN_CASES if args.other_knn is not None else []:
+        if args.only not in label:
+            continue
         ops, k = knn_inputs(shape), shape[-1]
         row = {"kernel": "knn_xy", "shape": label, "dims": list(shape),
                **time_case(libs, lambda: knn.knn_xy(*ops, k), args.rounds, f"knn_xy {label} {list(shape)}", card)}
@@ -279,6 +297,8 @@ def main() -> None:
               f"this {row['this_equals_plain']}", flush=True)
         results["kernels"].append(row)
     for kernel, label, shape in BWD_CASES if args.other_bwd is not None else []:
+        if args.only not in label:
+            continue
         results["backward"] += time_bwd(libs, kernel, label, shape, args.rounds, args.split, card)
 
     if args.calls:
